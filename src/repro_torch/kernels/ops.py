@@ -1,0 +1,31 @@
+"""Public entry points of the port's kernels, named as in the JAX package's
+``repro/kernels/ops.py``.
+
+Each runs the hand-written CUDA kernel on a CUDA tensor and the kernel's
+plain PyTorch version on a CPU tensor. ``merge_buffer``, ``flash_attention``
+and ``decode_attention`` come with their kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.cscatter import cscatter
+
+
+def commutative_scatter(table: torch.Tensor, ids: torch.Tensor,
+                        vals: torch.Tensor, *, kind: str = "add",
+                        sat_min: float = 0.0,
+                        sat_max: float = 0.0) -> torch.Tensor:
+    """CCache scatter: ``table[ids] ⊕= vals`` through a privatized copy,
+    in place (see :func:`repro_torch.kernels.cscatter.cscatter`)."""
+    return cscatter(table, ids, vals, kind=kind, sat_min=sat_min,
+                    sat_max=sat_max)
+
+
+def embedding_grad_scatter(table_grad: torch.Tensor, token_ids: torch.Tensor,
+                           out_grads: torch.Tensor) -> torch.Tensor:
+    """Embedding-table gradient accumulation as a CCache scatter, in place:
+    ``dL/dE[v] += Σ_{n: id_n=v} g_n`` for token_ids ``[N]`` (flattened
+    batch*seq) and out_grads ``[N, D]``."""
+    return commutative_scatter(table_grad, token_ids, out_grads, kind="add")

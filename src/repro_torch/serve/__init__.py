@@ -1,0 +1,7 @@
+"""The sharded commutative KV serving tier on the stacked layout."""
+
+from repro_torch.serve.frontend import BatchedFrontend, DrainBacklog
+from repro_torch.serve.kv import KVConfig, ShardedKV, serving_plan
+
+__all__ = ["BatchedFrontend", "DrainBacklog", "KVConfig", "ShardedKV",
+           "serving_plan"]

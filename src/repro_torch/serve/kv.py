@@ -1,0 +1,798 @@
+"""A sharded commutative KV store: the paper's headline app as a serving tier.
+
+The PyTorch counterpart of the JAX package's ``repro/serve/kv.py`` with its
+kernel engine. All ``S`` shards live on one device, stacked along dim 0 of
+every state tensor (``repro_torch.core.stacked``); the collectives of the
+merge cascade are tensor ops over that dim.
+
+By default the table lives replicated per shard (every shard answers any
+read from its *settled* copy); the **update stream** is what shards — each
+shard privatizes the updates it receives and cross-shard agreement is an
+explicit, batched merge through the MergePlan engine.
+
+* A tick's updates scatter into a table through the ``cscatter`` kernel
+  (``apps.common.scatter``; one launch covers every shard). On a fully
+  deferred plan they scatter straight into the resident pending, in place
+  — the merge-on-evict hot path.
+* Cross-shard reconciliation is ``ccache.defer_cascade`` over a (by default
+  fully) deferred plan on a :class:`DeferSchedule`: non-commit ticks run no
+  collectives, commit ticks settle the pending cascade.
+* ``consistency="read_your_writes"`` routes reads through the shard's own
+  unmerged pendings on top of the settled table.
+* ``KVConfig(partitioned=True)`` home-shards the settled table (global key
+  ``k`` -> shard ``k % S``, local row ``k // S``) and buffers a cycle's raw
+  updates in a bounded ring; a commit scatters the ring into a transient
+  dense delta (one kernel launch) and settles the full cascade.
+  ``DeferSchedule(overlap=True)`` splits that commit into launch/land
+  halves (``ccache.launch_inflight`` / ``settle_inflight``) one tick apart.
+
+State tensors are updated in place where the reference donates their
+buffers (the ``donate=`` of :meth:`ShardedKV._run`); ``stacked_spmd``
+refuses an in-place write to anything not donated. The blocked engine, the
+journal, ``solve_defer_schedule`` and ``AdaptiveDeferSchedule`` are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.apps.common import default_plan, scatter
+from repro_torch.core import ccache
+from repro_torch.core.defer_schedule import DeferSchedule
+from repro_torch.core.merge_functions import ADD, MergeFn
+from repro_torch.core.merge_plan import MergePlan, compile_plan
+from repro_torch.core.stacked import StackedAxis, stacked_spmd
+
+_CONSISTENCY = ("eventual", "read_your_writes")
+_ENGINES = ("kernel", "blocked")
+# a MergeFn's fixed reduce op doubles as the scatter kernel's kind for these
+_KERNEL_KINDS = ("add", "max", "min", "or")
+# elements of the [S, reads, ring, cols] match tensor a partitioned
+# read-your-writes overlay materializes at once
+_OVERLAY_ELEMS = 1 << 26
+
+DEFAULT_COMMIT_EVERY = 8
+
+
+def resolve_device(device) -> torch.device:
+    """The device to run on: raises if the card is asked for and absent."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run on the CPU")
+    return device
+
+
+def serving_plan(n_shards: int, defer: str = "all",
+                 lane_parallel: bool = True) -> MergePlan:
+    """The serving tier's merge plan: ``default_plan`` geometry, with the
+    commit policy as a knob.
+
+    ``defer="all"`` (the serving default) marks *every* level ``:defer`` —
+    a non-commit tick runs no collectives at all.  ``"top"`` defers only
+    the outermost level.  ``"none"`` is the fully-synchronized reference —
+    every level exchanges every tick.
+    """
+    if defer not in ("all", "top", "none"):
+        raise ValueError(f"defer must be all|top|none, got {defer!r}")
+    base = default_plan(n_shards, lane_parallel=lane_parallel)
+    exec_ix = [i for i, lv in enumerate(base.levels) if lv.size > 1]
+    if defer == "none" or not exec_ix:
+        return base
+    start = exec_ix[0] if defer == "all" else exec_ix[-1]
+    levels = tuple(
+        dataclasses.replace(lv, defer=True) if i >= start else lv
+        for i, lv in enumerate(base.levels))
+    return dataclasses.replace(base, levels=levels)
+
+
+@dataclasses.dataclass(frozen=True)
+class KVConfig:
+    """Shape/policy of one :class:`ShardedKV` table."""
+
+    n_keys: int
+    cols: int = 1
+    dtype: torch.dtype = torch.int32
+    merge: MergeFn = ADD
+    consistency: str = "eventual"
+    engine: str = "kernel"
+    # partitioned settled table: every global row on exactly one home shard
+    # (key % n_shards); pendings become a bounded ring (module doc).
+    partitioned: bool = False
+
+    def __post_init__(self):
+        if self.consistency not in _CONSISTENCY:
+            raise ValueError(f"consistency must be one of {_CONSISTENCY}, "
+                             f"got {self.consistency!r}")
+        if self.engine not in _ENGINES:
+            raise ValueError(f"engine must be one of {_ENGINES}, "
+                             f"got {self.engine!r}")
+        if self.engine == "blocked":
+            raise NotImplementedError("engine='blocked' is not ported yet")
+        if self.merge.xla_reduce not in _KERNEL_KINDS:
+            raise ValueError(
+                f"engine='kernel' scatters through the cscatter kernel, "
+                f"which has no kind for merge {self.merge.name!r} "
+                f"(xla_reduce={self.merge.xla_reduce!r})")
+        if not 0 < self.n_keys < 2**31:
+            raise ValueError(f"n_keys must be in [1, 2**31), got "
+                             f"{self.n_keys}")
+
+
+class ShardedKV:
+    """The store: a host-side driver around per-tick programs on stacked
+    state (leading shard dim, one device)."""
+
+    def __init__(self, config: KVConfig, n_shards: int, *,
+                 device="cuda", plan: Optional[MergePlan] = None,
+                 schedule: Optional[DeferSchedule] = None,
+                 commit_every: Optional[int] = None):
+        if n_shards < 2:
+            raise ValueError("ShardedKV needs n_shards >= 2 (a single shard "
+                             "has nothing to reconcile)")
+        self.config = config
+        self.n_shards = n_shards
+        self.device = resolve_device(device)
+        self.axis = StackedAxis(n_shards, self.device)
+        self.plan = plan if plan is not None else serving_plan(n_shards)
+        merge = config.merge
+
+        all_stages = compile_plan(self.plan, n_shards, merge_fn=merge)
+        stages = [s for s in all_stages if s.defer]
+        self._deferred_names = tuple(s.name for s in stages)
+        self.n_deferred = len(stages)
+        self.synchronized = self.n_deferred == 0
+        # fully deferred (no eager stages): a non-commit tick has no
+        # exchange at all, so updates coalesce straight into the resident
+        # pending — the merge-on-evict hot path, one table pass per tick
+        self._fully_deferred = len(all_stages) == self.n_deferred > 0
+        if self.synchronized:
+            if schedule is not None or commit_every is not None:
+                raise ValueError("plan has no deferred levels; a commit "
+                                 "schedule is meaningless — drop it or use "
+                                 "a :defer plan")
+        else:
+            if schedule is None:
+                if commit_every is None:
+                    commit_every = DEFAULT_COMMIT_EVERY
+                if commit_every < 1:
+                    raise ValueError(
+                        f"commit_every must be >= 1 (got {commit_every}); "
+                        f"a zero/negative interval has no commit ticks — "
+                        f"use plan=serving_plan(n, 'none') for a "
+                        f"synchronized store")
+                schedule = DeferSchedule.fixed(commit_every,
+                                               self._deferred_names)
+            elif commit_every is not None:
+                raise ValueError("pass schedule= or commit_every=, not both")
+            if not isinstance(schedule, DeferSchedule):
+                raise NotImplementedError(
+                    f"{type(schedule).__name__} is not ported yet; pass a "
+                    f"DeferSchedule")
+            if tuple(schedule.level_names) != self._deferred_names:
+                raise ValueError(
+                    f"schedule levels {schedule.level_names} do not match "
+                    f"the plan's deferred stages {self._deferred_names}")
+        self.schedule = schedule
+
+        self.partitioned = config.partitioned
+        self._overlap = bool(schedule is not None and schedule.overlap)
+        if self._overlap and not config.partitioned:
+            raise ValueError(
+                "schedule.overlap=True: the overlapped (launch/land) commit "
+                "is the partitioned store's pipeline — set "
+                "KVConfig(partitioned=True) or drop overlap")
+        if config.partitioned:
+            if self.synchronized:
+                raise ValueError(
+                    "partitioned=True needs deferred commits (the "
+                    "partitioned table only settles at commit ticks); "
+                    "use a :defer plan")
+            if not self._fully_deferred:
+                raise ValueError(
+                    "partitioned=True needs a fully deferred plan: the "
+                    "partitioned ring only drains at commits, so an eager "
+                    "level would never settle; use serving_plan(n, 'all')")
+            if config.n_keys % n_shards != 0:
+                raise ValueError(
+                    f"partitioned=True: n_keys={config.n_keys} must be a "
+                    f"multiple of n_shards={n_shards} (each shard homes "
+                    f"n_keys/n_shards rows)")
+            if len(set(schedule.intervals)) > 1:
+                raise ValueError(
+                    f"partitioned=True commits all-or-nothing (one commit "
+                    f"tick settles the whole cascade), so the schedule "
+                    f"must be uniform; got nested intervals "
+                    f"{schedule.intervals}")
+            if self._overlap:
+                merge.check_overlap("ShardedKV(partitioned, overlap)")
+
+        # -- device state (leading shard dim). Real [S, ...] tensors, never
+        # broadcast views: the kernel writes the pendings in place.
+        S, R, D = n_shards, config.n_keys, config.cols
+        if config.partitioned:
+            self.settled = self._identity((S, R // S, D))
+            self.pendings = ()
+        else:
+            self.settled = self._identity((S, R, D))
+            self.pendings = tuple(self._identity((S, R, D))
+                                  for _ in range(self.n_deferred))
+        # partitioned pendings: a ring (keys [S, C], vals [S, C, D], cursor)
+        # sized max_period * batch at the first tick, when the fixed batch
+        # shape is first seen. Every shard appends the same B per tick, so
+        # one cursor serves all shards.
+        self.ring = None
+        self._ring_batch = None
+        self.inflight = None
+        self._land_pending = False
+        self._t = 0
+
+        # -- per-tick programs, created once -------------------------------
+        self._tick_fns: dict[Any, Callable] = {}
+        if self.synchronized:
+            self._tick_fns["sync"] = self._make_sync_tick()
+            self._read_fn = self._make_read()
+        elif config.partitioned:
+            for land in ((False, True) if self._overlap else (False,)):
+                for full in (False, True):
+                    self._tick_fns[("p", full, land)] = \
+                        self._make_part_tick(full, land)
+            self._flush_fn = self._make_part_flush(land=False)
+            if self._overlap:
+                self._flush_land_fn = self._make_part_flush(land=True)
+            self._read_fns = {"plain": self._make_part_read("plain")}
+            if config.consistency == "read_your_writes":
+                self._read_fns["ryw"] = self._make_part_read("ryw")
+                if self._overlap:
+                    self._read_fns["ryw_inflight"] = \
+                        self._make_part_read("ryw_inflight")
+        else:
+            for due in range(self.n_deferred + 1):
+                self._tick_fns[due] = self._make_deferred_tick(due)
+            self._flush_fn = self._make_flush()
+            self._read_fn = self._make_read()
+
+    # ------------------------------------------------------------------
+    # per-tick program builders (closures created once)
+    # ------------------------------------------------------------------
+
+    def _identity(self, shape) -> torch.Tensor:
+        return self.config.merge.identity(shape, self.config.dtype,
+                                          device=self.device)
+
+    def _identity_table(self) -> torch.Tensor:
+        cfg = self.config
+        return self._identity((self.n_shards, cfg.n_keys, cfg.cols))
+
+    def _scatter_into(self, table: torch.Tensor, keys: torch.Tensor,
+                      vals: torch.Tensor) -> torch.Tensor:
+        """Every shard's scatter phase, one kernel launch: fold this tick's
+        updates into ``table`` in place (a fresh identity table for a delta,
+        or the resident pending itself on the fully-deferred hot path — for
+        the kernel kinds ``apply == combine``, so ``scatter(pending, ...)``
+        equals ``combine(pending, scatter(identity, ...))``)."""
+        return scatter(table, keys, vals, kind=self.config.merge.xla_reduce)
+
+    def _scatter_delta(self, keys, vals) -> torch.Tensor:
+        """This tick's updates as a privatized delta table."""
+        return self._scatter_into(self._identity_table(), keys, vals)
+
+    def _make_sync_tick(self):
+        merge, axis, plan = self.config.merge, self.axis, self.plan
+
+        def sync_tick(settled, keys, vals):
+            delta = self._scatter_delta(keys, vals)
+            full = ccache.hierarchical_merge(delta, axis, merge, plan)
+            return merge.apply(settled, full)
+
+        return sync_tick
+
+    def _make_deferred_tick(self, due: int):
+        merge, axis, plan = self.config.merge, self.axis, self.plan
+        full = due == self.n_deferred
+
+        if self._fully_deferred:
+            def tick(settled, pendings, keys, vals):
+                # hot path: coalesce straight into the resident pending
+                p0 = self._scatter_into(pendings[0], keys, vals)
+                if due == 0:
+                    return settled, (p0,) + tuple(pendings[1:])
+                new_p, agg = ccache.defer_cascade(
+                    self._identity_table(), [p0] + list(pendings[1:]),
+                    due, axis, merge, plan)
+                if full:
+                    settled = merge.apply(settled, agg)
+                return settled, tuple(new_p)
+        else:
+            def tick(settled, pendings, keys, vals):
+                delta = self._scatter_delta(keys, vals)
+                new_p, agg = ccache.defer_cascade(delta, list(pendings),
+                                                  due, axis, merge, plan)
+                if full:
+                    settled = merge.apply(settled, agg)
+                return settled, tuple(new_p)
+
+        return tick
+
+    def _make_flush(self):
+        merge, axis, plan = self.config.merge, self.axis, self.plan
+        due = self.n_deferred
+
+        def flush_fn(settled, pendings):
+            new_p, agg = ccache.defer_cascade(
+                self._identity_table(), list(pendings), due, axis, merge,
+                plan)
+            return merge.apply(settled, agg), tuple(new_p)
+
+        return flush_fn
+
+    # -- partitioned-mode builders ---------------------------------------
+
+    def _home_rows(self, agg: torch.Tensor) -> torch.Tensor:
+        """Each shard's home rows of a stacked ``[S, n_keys, cols]``
+        aggregate: global row ``r`` lives on shard ``r % S`` at local index
+        ``r // S`` — a diagonal gather ``agg[s, :, s, :]`` of the
+        ``[S, R/S, S, D]`` view."""
+        S = self.n_shards
+        ranks = self.axis.index()
+        return agg.reshape(S, self.config.n_keys // S, S,
+                           self.config.cols)[ranks, :, ranks]
+
+    def _ring_append(self, ring, keys, vals):
+        rk, rv, cur = ring
+        b = keys.shape[1]
+        if cur + b > rk.shape[1]:
+            raise RuntimeError(f"pending ring overflow: {cur} + {b} > "
+                               f"{rk.shape[1]} slots")
+        rk[:, cur:cur + b] = keys
+        rv[:, cur:cur + b] = vals
+        return rk, rv, cur + b
+
+    def _ring_reset(self, ring):
+        rk, rv, _ = ring
+        rk.fill_(-1)
+        rv.copy_(self._identity(rv.shape))
+        return rk, rv, 0
+
+    def _part_delta(self, ring) -> torch.Tensor:
+        """The ring's buffered updates as a transient dense global delta
+        (unwritten slots hold key ``-1`` — scatter's ignore convention)."""
+        rk, rv, _ = ring
+        return self._scatter_into(self._identity_table(), rk, rv)
+
+    def _make_part_tick(self, full: bool, land: bool):
+        merge, axis, plan = self.config.merge, self.axis, self.plan
+        overlap = self._overlap
+
+        if not land:
+            def tick(settled, ring, keys, vals):
+                ring = self._ring_append(ring, keys, vals)
+                if not full:
+                    return settled, ring
+                delta = self._part_delta(ring)
+                ring = self._ring_reset(ring)
+                if overlap:
+                    return settled, ring, ccache.launch_inflight(
+                        delta, axis, merge, plan)
+                agg = ccache.settle_deferred(delta, axis, merge, plan)
+                return merge.apply(settled, self._home_rows(agg)), ring
+        else:
+            def tick(settled, ring, inflight, keys, vals):
+                ring = self._ring_append(ring, keys, vals)
+                # land the previous commit's launched aggregate
+                agg = ccache.settle_inflight(inflight, axis, merge, plan)
+                settled = merge.apply(settled, self._home_rows(agg))
+                if not full:
+                    return settled, ring
+                delta = self._part_delta(ring)
+                ring = self._ring_reset(ring)
+                return settled, ring, ccache.launch_inflight(
+                    delta, axis, merge, plan)
+
+        return tick
+
+    def _make_part_flush(self, land: bool):
+        merge, axis, plan = self.config.merge, self.axis, self.plan
+
+        def settle_home(settled, delta):
+            agg = ccache.settle_deferred(delta, axis, merge, plan)
+            return merge.apply(settled, self._home_rows(agg))
+
+        if not land:
+            def flush_fn(settled, ring):
+                settled = settle_home(settled, self._part_delta(ring))
+                return settled, self._ring_reset(ring)
+        else:
+            def flush_fn(settled, ring, inflight):
+                agg = ccache.settle_inflight(inflight, axis, merge, plan)
+                settled = merge.apply(settled, self._home_rows(agg))
+                settled = settle_home(settled, self._part_delta(ring))
+                return settled, self._ring_reset(ring)
+
+        return flush_fn
+
+    def _reduce(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Fold ``x`` along ``dim`` with the merge's combine (a monoid):
+        pairwise halving, the identity padding odd lengths."""
+        merge = self.config.merge
+        while x.shape[dim] > 1:
+            if x.shape[dim] % 2:
+                pad = list(x.shape)
+                pad[dim] = 1
+                x = torch.cat([x, merge.identity(pad, x.dtype,
+                                                 device=x.device)], dim)
+            a, b = x.chunk(2, dim)
+            x = merge.combine(a, b)
+        return x.squeeze(dim)
+
+    def _make_part_read(self, kind: str):
+        cfg = self.config
+        merge = cfg.merge
+        S, R, D = self.n_shards, cfg.n_keys, cfg.cols
+        ranks = self.axis.index()
+
+        def base_gather(settled, keys):
+            # routed reads: only keys homed on a shard answer there; off-home
+            # or invalid keys return the merge identity (route with
+            # BatchedFrontend, which shards traffic by key % n_shards)
+            ok = (keys >= 0) & (keys < R) & (keys % S == ranks[:, None])
+            local = torch.where(ok, keys // S, 0).long()
+            rows = settled[ranks[:, None], local]
+            return torch.where(ok[..., None], rows,
+                               self._identity((D,))), ok
+
+        if kind == "plain":
+            def read(settled, keys):
+                return base_gather(settled, keys)[0]
+            return read
+
+        def ring_overlay(ring, keys, ok):
+            # each shard's own buffered updates for each key, folded with
+            # the merge's combine; chunked over the reads to bound the
+            # [S, reads, C, D] match tensor
+            rk, rv, _ = ring
+            out = self._identity(tuple(keys.shape) + (D,))
+            step = max(1, _OVERLAY_ELEMS // (S * rk.shape[1] * D))
+            for lo in range(0, keys.shape[1], step):
+                k, o = keys[:, lo:lo + step], ok[:, lo:lo + step]
+                match = ((rk[:, None, :] == k[:, :, None]) & o[:, :, None]
+                         & (rk >= 0)[:, None, :])
+                masked = torch.where(match[..., None], rv[:, None],
+                                     self._identity(()))
+                out[:, lo:lo + step] = self._reduce(masked, 2)
+            return out
+
+        def inflight_overlay(base, inflight, keys, ok):
+            # launched-but-unlanded mass: includes this shard's own writes
+            # (plus inner-group peers' — fresher, still monotone)
+            safe = torch.where(ok, keys, 0).long()
+            rows = inflight[ranks[:, None], safe]
+            return merge.apply(base, torch.where(ok[..., None], rows,
+                                                 self._identity((D,))))
+
+        if kind == "ryw":
+            def read(settled, ring, keys):
+                base, ok = base_gather(settled, keys)
+                return merge.apply(base, ring_overlay(ring, keys, ok))
+            return read
+
+        if kind != "ryw_inflight":
+            raise ValueError(f"unknown partitioned read kind {kind!r}")
+
+        def read(settled, ring, inflight, keys):
+            base, ok = base_gather(settled, keys)
+            base = inflight_overlay(base, inflight, keys, ok)
+            return merge.apply(base, ring_overlay(ring, keys, ok))
+        return read
+
+    def _make_read(self):
+        cfg = self.config
+        merge = cfg.merge
+        ryw = cfg.consistency == "read_your_writes" and not self.synchronized
+        ranks = self.axis.index()
+
+        def rows_of(table, keys, ok):
+            return table[ranks[:, None], torch.where(ok, keys, 0).long()]
+
+        def masked(rows, ok):
+            return torch.where(ok[..., None], rows,
+                               self._identity((cfg.cols,)))
+
+        if not ryw:
+            def read(settled, keys):
+                ok = (keys >= 0) & (keys < cfg.n_keys)
+                return masked(rows_of(settled, keys, ok), ok)
+            return read
+
+        def read(settled, pendings, keys):
+            # apply is elementwise, so gathering the rows first and then
+            # overlaying each pending equals the reference's whole-table
+            # apply followed by the gather
+            ok = (keys >= 0) & (keys < cfg.n_keys)
+            view = rows_of(settled, keys, ok)
+            for p in pendings:
+                view = merge.apply(view, rows_of(p, keys, ok))
+            return masked(view, ok)
+        return read
+
+    # ------------------------------------------------------------------
+    # host-side driver API
+    # ------------------------------------------------------------------
+
+    def _run(self, fn, *args, donate=()):
+        return stacked_spmd(fn, *args, donate=donate)
+
+    def _keys(self, keys) -> torch.Tensor:
+        keys = torch.as_tensor(keys, dtype=torch.int32, device=self.device)
+        if keys.dim() != 2 or keys.shape[0] != self.n_shards:
+            raise ValueError(f"keys must be [n_shards={self.n_shards}, B], "
+                             f"got {tuple(keys.shape)}")
+        return keys.contiguous()
+
+    def tick(self, keys, vals) -> None:
+        """Ingest one fixed-shape batch of updates: ``keys`` [S, B] int32
+        (< 0 = padding), ``vals`` [S, B, cols] (numpy arrays or tensors).
+        Commit policy rides the schedule; non-commit ticks of a fully
+        deferred plan run zero collectives."""
+        keys = self._keys(keys)
+        vals = torch.as_tensor(vals, dtype=self.config.dtype,
+                               device=self.device).contiguous()
+        if vals.shape != tuple(keys.shape) + (self.config.cols,):
+            raise ValueError(f"vals must be {tuple(keys.shape)} + "
+                             f"({self.config.cols},), got {tuple(vals.shape)}")
+        if self.synchronized:
+            self.settled = self._run(self._tick_fns["sync"], self.settled,
+                                     keys, vals, donate=(0,))
+            self._t += 1
+            return
+        if self.partitioned:
+            return self._tick_partitioned(keys, vals)
+        self._t += 1
+        due = self.schedule.due_count(self._t)
+        self.settled, self.pendings = self._run(
+            self._tick_fns[due], self.settled, self.pendings, keys, vals,
+            donate=(0, 1))
+
+    def _ensure_ring(self, shape) -> None:
+        S, B = shape
+        if self.ring is None:
+            C = self.schedule.max_period * B
+            self.ring = (torch.full((S, C), -1, dtype=torch.int32,
+                                    device=self.device),
+                         self._identity((S, C, self.config.cols)), 0)
+            self._ring_batch = B
+        elif B != self._ring_batch:
+            raise ValueError(
+                f"partitioned store takes one fixed tick shape: the pending "
+                f"ring was sized for batch {self._ring_batch}, got {B}")
+
+    def _tick_partitioned(self, keys, vals) -> None:
+        self._ensure_ring(keys.shape)
+        self._t += 1
+        due = self.schedule.due_count(self._t)
+        if due not in (0, self.n_deferred):  # guarded at init (uniform)
+            raise RuntimeError(f"partitioned commit must be all-or-nothing, "
+                               f"got due={due}")
+        full = due == self.n_deferred
+        land = self._land_pending
+        fn = self._tick_fns[("p", full, land)]
+        extra = (self.inflight,) if land else ()
+        out = self._run(fn, self.settled, self.ring, *extra, keys, vals,
+                        donate=tuple(range(2 + len(extra))))
+        if full and self._overlap:
+            self.settled, self.ring, self.inflight = out
+            self._land_pending = True
+        else:
+            self.settled, self.ring = out
+            if land:
+                self.inflight = None
+                self._land_pending = False
+
+    def read(self, keys) -> torch.Tensor:
+        """Serve one fixed-shape batch of gets: ``keys`` [S, B] -> [S, B,
+        cols] on the store's device.  Zero collectives either way:
+        ``eventual`` reads the last settled table; ``read_your_writes``
+        overlays the shard's own unmerged pendings."""
+        keys = self._keys(keys)
+        if self.partitioned:
+            return self._read_partitioned(keys)
+        if self.synchronized or self.config.consistency == "eventual":
+            return self._run(self._read_fn, self.settled, keys)
+        return self._run(self._read_fn, self.settled, self.pendings, keys)
+
+    def _read_partitioned(self, keys) -> torch.Tensor:
+        ryw = self.config.consistency == "read_your_writes"
+        if not ryw or self.ring is None:
+            # before the first tick there is nothing pending anywhere —
+            # the settled-only read IS read-your-writes
+            return self._run(self._read_fns["plain"], self.settled, keys)
+        if self._land_pending:
+            return self._run(self._read_fns["ryw_inflight"], self.settled,
+                             self.ring, self.inflight, keys)
+        return self._run(self._read_fns["ryw"], self.settled, self.ring,
+                         keys)
+
+    def flush(self) -> None:
+        """Commit everything outstanding (pendings, ring, an in-flight
+        launch). After a flush the settled table equals the fully-
+        synchronized reference over the same update stream — bitwise, for
+        integer ADD. Resets the schedule phase."""
+        if self.synchronized:
+            return
+        if self.partitioned:
+            self._flush_partitioned()
+        else:
+            self.settled, self.pendings = self._run(
+                self._flush_fn, self.settled, self.pendings, donate=(0, 1))
+        self._t = 0
+
+    def _flush_partitioned(self) -> None:
+        land = self._land_pending
+        if self.ring is None:
+            return  # nothing ever ingested (land implies a prior tick)
+        fn = self._flush_land_fn if land else self._flush_fn
+        extra = (self.inflight,) if land else ()
+        self.settled, self.ring = self._run(
+            fn, self.settled, self.ring, *extra,
+            donate=tuple(range(2 + len(extra))))
+        self.inflight = None
+        self._land_pending = False
+
+    def table(self) -> np.ndarray:
+        """The settled table on the host.  Replicated mode returns shard 0's
+        copy; partitioned mode reassembles the home-sharded rows
+        (``out[s::S] = shard s``)."""
+        if not self.partitioned:
+            return self.settled[0].cpu().numpy()
+        parts = self.settled.cpu().numpy()            # (S, R // S, D)
+        out = np.empty((self.config.n_keys, self.config.cols), parts.dtype)
+        for s in range(self.n_shards):
+            out[s::self.n_shards] = parts[s]
+        return out
+
+    # ------------------------------------------------------------------
+    # state transfer (the reference store's arrays, host-side)
+    # ------------------------------------------------------------------
+
+    def state_arrays(self) -> dict[str, np.ndarray]:
+        """The store's state as numpy arrays, with the JAX store's shapes:
+        ``settled``, ``pending_{i}``, ``ring_keys``/``ring_vals``/
+        ``ring_cursor`` once the ring exists, ``inflight`` while a launch is
+        in flight, ``t`` and ``land_pending``."""
+        out = {"settled": self.settled.cpu().numpy()}
+        for i, p in enumerate(self.pendings):
+            out[f"pending_{i}"] = p.cpu().numpy()
+        if self.ring is not None:
+            rk, rv, cur = self.ring
+            out["ring_keys"] = rk.cpu().numpy()
+            out["ring_vals"] = rv.cpu().numpy()
+            out["ring_cursor"] = np.full((self.n_shards,), cur, np.int32)
+        if self.inflight is not None:
+            out["inflight"] = self.inflight.cpu().numpy()
+        out["t"] = np.asarray(self._t, np.int64)
+        out["land_pending"] = np.asarray(self._land_pending)
+        return out
+
+    def load_state(self, arrays: dict[str, np.ndarray]) -> None:
+        """Install state read off a store of the same configuration (this
+        port's :meth:`state_arrays`, or the JAX store's arrays under the
+        same keys). Shapes are checked against this store's."""
+        def put(name, like: torch.Tensor) -> torch.Tensor:
+            a = np.array(arrays[name])    # a private, writable copy
+            if a.shape != tuple(like.shape):
+                raise ValueError(f"load_state: {name} has shape {a.shape}, "
+                                 f"this store needs {tuple(like.shape)}")
+            return torch.as_tensor(a, device=self.device).to(like.dtype)
+
+        self.settled = put("settled", self.settled)
+        self.pendings = tuple(put(f"pending_{i}", p)
+                              for i, p in enumerate(self.pendings))
+        if self.partitioned and "ring_keys" in arrays:
+            S = self.n_shards
+            rk = np.asarray(arrays["ring_keys"])
+            C = rk.shape[1] if rk.ndim == 2 else -1
+            if C % self.schedule.max_period:
+                raise ValueError(f"load_state: ring of {C} slots is not a "
+                                 f"multiple of the period "
+                                 f"{self.schedule.max_period}")
+            self._ring_batch = None
+            self.ring = None
+            self._ensure_ring((S, C // self.schedule.max_period))
+            cursor = np.asarray(arrays["ring_cursor"]).reshape(-1)
+            if len(set(cursor.tolist())) != 1:
+                raise ValueError(f"load_state: shards disagree on the ring "
+                                 f"cursor {cursor.tolist()}")
+            self.ring = (put("ring_keys", self.ring[0]),
+                         put("ring_vals", self.ring[1]), int(cursor[0]))
+        self._land_pending = bool(np.asarray(arrays.get("land_pending",
+                                                        False)))
+        self.inflight = None
+        if self._land_pending:
+            cfg = self.config
+            self.inflight = put("inflight", self._identity(
+                (self.n_shards, cfg.n_keys, cfg.cols)))
+        self._t = int(np.asarray(arrays.get("t", 0)))
+
+    def attach_journal(self, root: str, sync: bool = False) -> None:
+        raise NotImplementedError("the write-ahead journal (snapshot / "
+                                  "recover) is not ported yet")
+
+    # ------------------------------------------------------------------
+    # introspection
+    # ------------------------------------------------------------------
+
+    def resident_state_bytes(self) -> int:
+        """Per-shard bytes of long-lived store state: the settled shard plus
+        the pending machinery (dense pendings, ring, an in-flight launched
+        aggregate). Excludes the transient dense delta a commit tick
+        materializes and frees within the tick. The ring cursor counts as
+        one int32 per shard, as in the reference."""
+        tensors = [self.settled, *self.pendings]
+        if self.ring is not None:
+            tensors += list(self.ring[:2])
+        if self.inflight is not None:
+            tensors.append(self.inflight)
+        nbytes = sum(t.numel() * t.element_size() for t in tensors)
+        if self.ring is not None:
+            nbytes += 4 * self.n_shards
+        return nbytes // self.n_shards
+
+    def counters(self) -> dict:
+        out = {"ticks": self._t, "engine": self.config.engine,
+               "consistency": self.config.consistency,
+               "synchronized": self.synchronized,
+               "partitioned": self.partitioned}
+        if not self.synchronized:
+            out["schedule"] = self.schedule.as_dict()
+        if self.partitioned:
+            out["resident_state_bytes"] = self.resident_state_bytes()
+            if self._overlap:
+                out["overlap"] = True
+                out["land_pending"] = self._land_pending
+        return out
+
+    @property
+    def supported_dues(self) -> tuple:
+        """The due counts the store has tick programs for: one sync
+        program, all-or-nothing for a partitioned store, every prefix
+        otherwise."""
+        if self.synchronized:
+            return ("sync",)
+        if self.partitioned:
+            return (0, self.n_deferred)
+        return tuple(range(self.n_deferred + 1))
+
+    def scheduled_manifest(self, due: Optional[int] = None,
+                           land: bool = False) -> list:
+        """The collective schedule a tick runs (``ccache.program_manifest``);
+        ``due=None`` = full commit. For an overlapped partitioned store the
+        halves split per ``ccache.overlap_program_manifest``: a full-commit
+        tick runs the launch half, the landing tick the withheld top
+        exchange (a landing tick that is itself a full commit runs both,
+        land first)."""
+        if land and not (self.partitioned and self._overlap):
+            raise ValueError("land=True is the overlapped partitioned "
+                             "store's landing tick — needs "
+                             "partitioned=True and schedule.overlap")
+        merge = self.config.merge
+        if self.synchronized:
+            return ccache.collective_manifest(self.plan, self.n_shards,
+                                              merge_fn=merge)
+        if due is None:
+            due = self.n_deferred
+        if self.partitioned and self._overlap:
+            out = []
+            if land:
+                out += ccache.overlap_program_manifest(
+                    self.plan, self.n_shards, "land", merge_fn=merge)
+            if due == self.n_deferred:
+                out += ccache.overlap_program_manifest(
+                    self.plan, self.n_shards, "launch", merge_fn=merge)
+            return out
+        return ccache.program_manifest(self.plan, self.n_shards, due,
+                                       merge_fn=merge)
