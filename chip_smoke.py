@@ -3,21 +3,29 @@
 
     python3 chip_smoke.py            # from the root of a checkout, one card
 
-Drives the port's main path — the sharded commutative KV store of
-``src/repro_torch`` — on the card at the serving geometry (S = 8 shards,
-R = 2**22 keys, D = 4 int32 columns, B = 1024 updates per shard per tick,
-K = 8 over ``serving_plan(8, "all")``), and:
+Drives the port's main paths — the sharded commutative KV store of
+``src/repro_torch`` with its kernel engine and with its blocked engine — on
+the card at the serving geometry (S = 8 shards, R = 2**22 keys, D = 4 int32
+columns, B = 1024 updates per shard per tick, K = 8 over
+``serving_plan(8, "all")``; the blocked engine with W = 8 ways of BR = 8
+rows), and:
 
 1. prints the card (``nvidia-smi`` name and power limit, torch's name);
-2. builds every CUDA kernel of the path from ``src/repro_torch/csrc``;
-3. holds each kernel against its plain PyTorch version at the main path's
+2. builds every CUDA kernel of the paths from ``src/repro_torch/csrc``, all
+   ``nvcc`` processes at once;
+3. holds each kernel against its plain PyTorch version at the main paths'
    shapes (integers bitwise, floats to the JAX package's ``TOL``) and times
-   kernel, plain version and one library call with CUDA events;
+   with CUDA events the kernel (its device time from a CUDA graph of 100
+   launches, and the time of a call through its wrapper), the plain
+   version (in place, as the kernel) and one library call;
 4. runs the privatized K = 8, sync, partitioned and partitioned+overlap
-   stores over 3 commit cycles plus a partial one: each flushed table must
-   equal a numpy int64 oracle bitwise, and the kernel's launch count must be
-   what the schedule predicts (counts are zeroed just before each store is
-   driven and read just after);
+   stores over 3 commit cycles plus a partial one, and the blocked
+   replicated and blocked partitioned stores over 2 cycles plus a tick: each
+   flushed table must equal a numpy int64 oracle bitwise, each kernel's
+   launch count must be what the schedule predicts (counts are zeroed just
+   before each store is driven and read just after), and the blocked
+   stores' eviction counters must equal a pure-Python LRU model of the
+   same stream;
 5. pushes a few thousand add/get requests through a read-your-writes store
    behind ``BatchedFrontend`` against a sequential numpy oracle;
 6. prints one ``{"kernels": [...]}`` line;
@@ -42,12 +50,16 @@ ROOT = Path(__file__).resolve().parent
 S, R, D, B, K = 8, 1 << 22, 4, 1024, 8
 RING_N = K * B                      # a partitioned commit scatters the ring
 TICKS = 3 * K + 3                   # three commit cycles plus a partial one
+WAYS, BR = 8, 8                     # blocked engine: benchmarks/kv_gups.py
+BLOCKED_TICKS = 2 * K + 1           # two commit cycles plus a tick
+SPILL = K * B                       # spill slots: a cycle's distinct blocks
 USERS = 1 << 20
 SEED = 0
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # tests/test_kernels.py TOL
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 F32_OPS_PER_S = 67e12               # non-tensor-core f32 peak, H100 SXM
 REPLACES = "src/repro/kernels/cscatter.py:133 (cscatter -> _kernel :64)"
+REPLACES_CMERGE = "src/repro/kernels/cmerge.py:56 (cmerge -> _kernel :30)"
 
 
 def require(cond: bool, msg: str) -> None:
@@ -72,6 +84,37 @@ def time_ms(fn, samples: int = 21, inner: int = 5) -> float:
         b.record()
         b.synchronize()
         out.append(a.elapsed_time(b) / inner)
+    return statistics.median(out)
+
+
+def graph_ms(fn, launches: int = 100, samples: int = 11) -> float:
+    """The device time of one call: ``launches`` calls captured once in a
+    CUDA graph, the graph replayed and timed with CUDA events, the median
+    over ``samples`` replays divided by ``launches``. No host work runs
+    between the kernels, so this is the kernel's own time (with the graph's
+    gap between two launches), not the wrapper's launch rate."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(samples):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / launches)
+    del graph
     return statistics.median(out)
 
 
@@ -108,7 +151,7 @@ def phase_card() -> str:
 def phase_build() -> None:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    secs = _build.build("cscatter")
+    secs = _build.build("cscatter", "cmerge")
     print(f"build: {secs} ({time.perf_counter() - t0:.3f} s in all)")
 
 
@@ -192,7 +235,7 @@ def phase_kernel_times(stream_keys: np.ndarray) -> list[dict]:
     """Kernel, plain version and library call at the main path's shapes
     (one tick, one ring flush), on main-path ids from the key stream."""
     import torch
-    from repro_torch.kernels.cscatter import cscatter, cscatter_plain
+    from repro_torch.kernels.cscatter import cscatter, cscatter_plain_
     out = []
     table = torch.zeros((S, R, D), dtype=torch.int32, device="cuda")
     flat = table.view(S * R, D)
@@ -211,17 +254,133 @@ def phase_kernel_times(stream_keys: np.ndarray) -> list[dict]:
                           ("min", lambda: flat.scatter_reduce_(
                               0, gid[:, None].expand(-1, D), flat_vals,
                               "amin"))):
+            def kernel():
+                cscatter(table, ids, vals, kind=kind)
             row = {"kind": kind, "shape": [S, R, D], "n": n,
-                   "ms": time_ms(lambda: cscatter(table, ids, vals,
-                                                  kind=kind)),
-                   "plain_ms": time_ms(lambda: cscatter_plain(
+                   "ms": graph_ms(kernel), "call_ms": time_ms(kernel),
+                   "plain_ms": time_ms(lambda: cscatter_plain_(
                        table, ids, vals, kind=kind)),
                    "library_ms": time_ms(lib),
                    "bound_ms": bound, "bound_by": bound_by}
             print(f"time cscatter {kind} [{S},{R},{D}] N={n}: kernel "
-                  f"{row['ms']:.6f} ms, plain {row['plain_ms']:.6f} ms, "
-                  f"library {row['library_ms']:.6f} ms, bound "
-                  f"{bound:.6f} ms")
+                  f"{row['ms']:.6f} ms (a call {row['call_ms']:.6f} ms), "
+                  f"plain {row['plain_ms']:.6f} ms, library "
+                  f"{row['library_ms']:.6f} ms, bound {bound:.6f} ms")
+            out.append(row)
+    return out
+
+
+def _ways(g, s: int, n_blocks: int, w: int):
+    """``w`` distinct block ids of ``n_blocks`` for each of ``s`` shards,
+    int32 ``[s, w]`` on the card."""
+    import torch
+    order = torch.rand((s, n_blocks), device="cuda", generator=g).argsort(1)
+    return order[:, :w].to(torch.int32).contiguous()
+
+
+def phase_cmerge_checks() -> dict:
+    """Every kind and dtype against the plain version, at W in {1, 8, 8192}
+    ways of BR = 8 rows and D in {4, 128}, with invalid, clean and dirty
+    ways; returns the worst errors. Launches here are comparisons and are
+    not counted."""
+    import torch
+    from repro_torch.kernels.cmerge import cmerge, cmerge_plain
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    worst = {"int": 0.0, "float": 0.0}
+    checks = 0
+    for dtype in (torch.int32, torch.uint32, torch.float32, torch.bfloat16):
+        kinds = ("add", "sat_add", "max", "min") + (
+            () if dtype.is_floating_point else ("or",))
+        for d in (D, 128):
+            rows = R if d == D else 1 << 16
+            table = _rand_table(g, (S, rows, d), dtype, 0, 1 << 32)
+            for w in (1, 8, 8192):
+                ids = _ways(g, S, rows // BR, w)
+                ids[torch.rand((S, w), device="cuda", generator=g)
+                    < 0.2] = -1                               # invalid
+                dirty = torch.rand((S, w), device="cuda", generator=g) < 0.7
+                src = _rand_table(g, (S, w, BR, d), dtype, 0, 1 << 32)
+                upd = _rand_table(g, (S, w, BR, d), dtype, 0, 1 << 32)
+                if not dtype.is_floating_point:
+                    upd.view(torch.int32).bitwise_or_(src.view(torch.int32))
+                for kind in kinds:
+                    sat = (-2.0, 2.0) if dtype.is_floating_point else (
+                        0.0, float(1 << 30))
+                    want = cmerge_plain(table, ids, dirty, src, upd,
+                                        kind=kind, sat_min=sat[0],
+                                        sat_max=sat[1])
+                    got = cmerge(table.clone(), ids, dirty, src, upd,
+                                 kind=kind, sat_min=sat[0], sat_max=sat[1])
+                    torch.cuda.synchronize()
+                    err = _compare(got, want)
+                    key = "float" if dtype.is_floating_point else "int"
+                    worst[key] = max(worst[key], err)
+                    checks += 1
+            print(f"check cmerge {str(dtype)[6:]} [{S},{rows},{d}] W=1,8,8192"
+                  f" BR={BR} {','.join(kinds)}: ok (max abs err "
+                  f"{worst['float' if dtype.is_floating_point else 'int']})")
+    print(f"check cmerge: {checks} cases ok")
+    return worst
+
+
+def cmerge_bound_ms(ids, dirty, d: int, itemsize: int,
+                    kind: str) -> tuple[float, str]:
+    """The least time the card needs for one merge of these inputs: every
+    way's id and dirty bit read once, and for each way that merges its
+    memory block read and written once and the copies its kind reads read
+    once — src and upd for add and sat_add, upd alone for max, min and or —
+    (bytes), or the kind's operations per merged element, two for add
+    (upd − src, then + mem) and one otherwise (operations)."""
+    s, w = ids.shape
+    merged = int(((ids >= 0) & dirty).sum())
+    reads_src = kind in ("add", "sat_add")
+    nbytes = s * w * 5 + (4 if reads_src else 3) * merged * BR * d * itemsize
+    ops = (2 if reads_src else 1) * merged * BR * d
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return (1e3 * max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def phase_cmerge_times() -> list[dict]:
+    """Kernel, plain version and library call at the blocked stores'
+    shapes, int32 ``[8, 2^22, 4]``, every way valid and dirty: an
+    evict-merge (W = 1, launched once per access), a cache flush (W = 8) and
+    a spill drain (W = 8192 slots)."""
+    import torch
+    from repro_torch.kernels.cmerge import cmerge, cmerge_plain_
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    table = torch.zeros((S, R, D), dtype=torch.int32, device="cuda")
+    blocks = table.view(S * (R // BR), BR * D)
+    out = []
+    for what, w in (("evict", 1), ("flush", WAYS), ("drain", SPILL)):
+        ids = _ways(g, S, R // BR, w)
+        dirty = torch.ones((S, w), dtype=torch.bool, device="cuda")
+        src = _rand_table(g, (S, w, BR, D), torch.int32, 0, 100)
+        upd = src + _rand_table(g, (S, w, BR, D), torch.int32, 0, 100)
+        gidx = (ids.long() + (R // BR) * torch.arange(
+            S, device="cuda")[:, None]).reshape(-1)
+        delta = (upd - src).reshape(-1, BR * D)
+        upd_rows = upd.reshape(-1, BR * D)
+        for kind, lib in (
+                ("add", lambda: blocks.index_add_(0, gidx, delta)),
+                ("max", lambda: blocks.index_reduce_(0, gidx, upd_rows,
+                                                     "amax")),
+                ("min", lambda: blocks.index_reduce_(0, gidx, upd_rows,
+                                                     "amin"))):
+            def kernel():
+                cmerge(table, ids, dirty, src, upd, kind=kind)
+            bound, bound_by = cmerge_bound_ms(ids, dirty, D, 4, kind)
+            row = {"kind": kind, "what": what, "shape": [S, R, D], "w": w,
+                   "br": BR, "ms": graph_ms(kernel),
+                   "call_ms": time_ms(kernel),
+                   "plain_ms": time_ms(lambda: cmerge_plain_(
+                       table, ids, dirty, src, upd, kind=kind)),
+                   "library_ms": time_ms(lib),
+                   "bound_ms": bound, "bound_by": bound_by}
+            print(f"time cmerge {kind} {what} [{S},{R},{D}] W={w} BR={BR}: "
+                  f"kernel {row['ms']:.6f} ms (a call {row['call_ms']:.6f} "
+                  f"ms), plain {row['plain_ms']:.6f} ms, library "
+                  f"{row['library_ms']:.6f} ms, bound {bound:.6f} ms")
             out.append(row)
     return out
 
@@ -301,6 +460,135 @@ def phase_stores(keys: np.ndarray, vals: np.ndarray) -> dict:
     return {"launches": launches}
 
 
+def lru_model(keys: np.ndarray, slots: int | None = None) -> dict:
+    """The blocked engine's counters from a pure-Python model of each
+    shard's cache over ``keys [ticks, S, B]``: the hit way, else the first
+    free way, else the first way of least clock, the clock running on
+    across ticks; every way invalidated by the flush at each commit tick and
+    at the end. With ``slots``, dirty evictions spill into a buffer of that
+    many distinct blocks, emptied at each commit."""
+    out = {"evict_merges": 0, "silent_evicts": 0, "flush_merges": 0}
+    if slots is not None:
+        out.update(spills=0, spill_overflow=0)
+    ticks, shards, _ = keys.shape
+    for s in range(shards):
+        ids, clock, dirty = [-1] * WAYS, [0] * WAYS, [False] * WAYS
+        spilled: set = set()
+        now = 0
+
+        def flush():
+            for w in range(WAYS):
+                if ids[w] >= 0:
+                    out["flush_merges" if dirty[w] else "silent_evicts"] += 1
+                ids[w], dirty[w] = -1, False
+            spilled.clear()
+
+        for t in range(ticks):
+            for key in keys[t, s].tolist():
+                b = max(key, 0) // BR     # padding touches row 0
+                if b in ids:
+                    w = ids.index(b)
+                else:
+                    free = [i for i, x in enumerate(ids) if x < 0]
+                    if free:
+                        w = free[0]
+                    else:
+                        w = min(range(WAYS), key=clock.__getitem__)
+                        if not dirty[w]:
+                            out["silent_evicts"] += 1
+                        elif slots is None:
+                            out["evict_merges"] += 1
+                        else:
+                            out["evict_merges"] += 1
+                            if ids[w] in spilled or len(spilled) < slots:
+                                spilled.add(ids[w])
+                                out["spills"] += 1
+                            else:
+                                out["spill_overflow"] += 1
+                    ids[w] = b
+                dirty[w], clock[w] = True, now
+                now += 1
+            if (t + 1) % K == 0:
+                flush()
+        flush()
+    out["total_merges"] = out["evict_merges"] + out["flush_merges"]
+    return out
+
+
+def phase_blocked_stores(keys: np.ndarray, vals: np.ndarray) -> dict:
+    """The blocked engine end to end: the replicated and the partitioned
+    store over the first ``BLOCKED_TICKS`` ticks of the stream. Flushed
+    tables vs the oracle, ``cmerge`` launches vs the schedule (one per
+    access, plus one per cache flush and one per spill drain), counters vs
+    :func:`lru_model`. Returns the summed launch counts."""
+    import torch
+    from repro_torch.kernels.cmerge import cmerge
+    from repro_torch.kernels.cscatter import cscatter
+    from repro_torch.serve import KVConfig, ShardedKV
+
+    keys, vals = keys[:BLOCKED_TICKS], vals[:BLOCKED_TICKS]
+    want = _oracle(keys, vals)
+    flushes = BLOCKED_TICKS // K + 1              # commits + the final flush
+    stores = {
+        "blocked_k8": (KVConfig(n_keys=R, cols=D, engine="blocked",
+                                ways=WAYS, block_rows=BR),
+                       BLOCKED_TICKS * B + flushes, None),
+        "blocked_partitioned_k8": (
+            KVConfig(n_keys=R, cols=D, engine="blocked", ways=WAYS,
+                     block_rows=BR, partitioned=True, spill_blocks=SPILL),
+            BLOCKED_TICKS * B + 2 * flushes, SPILL),
+    }
+    keys_dev = torch.as_tensor(keys, device="cuda")
+    vals_dev = torch.as_tensor(vals, device="cuda")
+    launches = {"cmerge": 0, "cscatter": 0}
+    for name, (cfg, predicted, slots) in stores.items():
+        kv = ShardedKV(cfg, S, commit_every=K)
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(BLOCKED_TICKS + 1)]
+        torch.cuda.synchronize()
+        cmerge.launches = cscatter.launches = 0
+        t0 = time.perf_counter()
+        marks[0].record()
+        for t in range(BLOCKED_TICKS):
+            kv.tick(keys_dev[t], vals_dev[t])
+            marks[t + 1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tick_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+        commit = [t for t in range(BLOCKED_TICKS) if (t + 1) % K == 0]
+        kv.flush()
+        torch.cuda.synchronize()
+        n, n_scatter = cmerge.launches, cscatter.launches
+        launches["cmerge"] += n
+        launches["cscatter"] += n_scatter
+        require(n == predicted, f"{name}: cmerge launched {n} times, the "
+                                f"schedule predicts {predicted}")
+        require(n_scatter == 0, f"{name}: cscatter launched {n_scatter} "
+                                f"times, the blocked path predicts 0")
+        got = kv.table().astype(np.int64)
+        require(np.array_equal(got, want),
+                f"{name}: flushed table differs from the numpy oracle")
+        model = lru_model(keys, slots)
+        counters = {k: v for k, v in kv.counters().items() if k in model}
+        require(counters == model, f"{name}: counters {counters} != the LRU "
+                                   f"model's {model}")
+        ups = S * B * BLOCKED_TICKS / wall
+        print(f"store {name}: table == oracle bitwise; counters == LRU model "
+              f"{counters}; cmerge launches {n} (predicted {predicted}); "
+              f"{ups:.1f} updates/s over {BLOCKED_TICKS} ticks "
+              f"({wall:.6f} s); resident_state_bytes "
+              f"{kv.resident_state_bytes()} per shard")
+        print(f"store {name} ticks: commit ticks {commit} take "
+              f"{sum(tick_ms[t] for t in commit):.6f} ms, the other "
+              f"{BLOCKED_TICKS - len(commit)} take "
+              f"{sum(tick_ms) - sum(tick_ms[t] for t in commit):.6f} ms "
+              f"(median {statistics.median(tick_ms):.6f} ms, max "
+              f"{max(tick_ms):.6f} ms at tick {tick_ms.index(max(tick_ms))})")
+        del kv
+        torch.cuda.empty_cache()
+    return launches
+
+
 def phase_frontend(stream_keys: np.ndarray) -> None:
     from repro_torch.serve import BatchedFrontend, KVConfig, ShardedKV
     rng = np.random.default_rng(SEED + 1)
@@ -336,15 +624,20 @@ def main() -> None:
 
     phase_build()
     worst = phase_kernel_checks()
+    worst_merge = phase_cmerge_checks()
     stream = key_stream(TICKS * S * B, R, "pareto", n_users=USERS, seed=SEED)
     times = phase_kernel_times(stream)
+    merge_times = phase_cmerge_times()
     keys = stream.reshape(TICKS, S, B)
     vals = np.random.default_rng(SEED).integers(
         1, 9, (TICKS, S, B, D)).astype(np.int32)
     main_path = phase_stores(keys, vals)
+    blocked_path = phase_blocked_stores(keys, vals)
     phase_frontend(stream)
 
     tick_add = next(t for t in times if t["kind"] == "add" and t["n"] == B)
+    evict_add = next(t for t in merge_times
+                     if t["kind"] == "add" and t["what"] == "evict")
     print(json.dumps({"kernels": [{
         "name": "cscatter", "route": "cuda",
         "source": "src/repro_torch/csrc/cscatter.cu",
@@ -354,12 +647,28 @@ def main() -> None:
         "max_abs_err_float": worst["float"],
         "matched": True,
         "ms": tick_add["ms"], "kernel_ms": tick_add["ms"],
+        "call_ms": tick_add["call_ms"],
         "plain_ms": tick_add["plain_ms"],
         "bound_ms": tick_add["bound_ms"],
         "bound_us": 1e3 * tick_add["bound_ms"],
         "bound_by": tick_add["bound_by"],
         "library_ms": tick_add["library_ms"],
-        "variants": times}]}))
+        "variants": times}, {
+        "name": "cmerge", "route": "cuda",
+        "source": "src/repro_torch/csrc/cmerge.cu",
+        "replaces": REPLACES_CMERGE,
+        "launches": blocked_path["cmerge"],
+        "max_abs_err": worst_merge["int"],
+        "max_abs_err_float": worst_merge["float"],
+        "matched": True,
+        "ms": evict_add["ms"], "kernel_ms": evict_add["ms"],
+        "call_ms": evict_add["call_ms"],
+        "plain_ms": evict_add["plain_ms"],
+        "bound_ms": evict_add["bound_ms"],
+        "bound_us": 1e3 * evict_add["bound_ms"],
+        "bound_by": evict_add["bound_by"],
+        "library_ms": evict_add["library_ms"],
+        "variants": merge_times}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -31,10 +31,11 @@ PyTree = Any
 
 @dataclasses.dataclass(frozen=True)
 class StackedAxis:
-    """A merge axis of ``size`` ranks stacked along dim 0 on ``device``."""
+    """A merge axis of ``size`` ranks stacked along dim 0 on ``device``
+    (named by the caller: the axis has no default device)."""
 
     size: int
-    device: torch.device = torch.device("cpu")
+    device: torch.device
 
     def __post_init__(self):
         if self.size < 1:

@@ -14,9 +14,10 @@ id touches stay bit-exact; ids ``< 0`` or ``>= R`` are ignored (padding).
 * On a CUDA tensor, :func:`cscatter` launches the hand-written Hopper kernel
   of ``csrc/cscatter.cu`` (its header says what bounds it and why) or
   raises; it never falls back. ``cscatter.launches`` counts its launches.
-* On a CPU tensor it runs :func:`cscatter_plain`'s arithmetic, the plain
-  PyTorch version that the tests hold against the JAX kernel and that
-  ``chip_smoke.py`` holds the CUDA kernel against.
+* On a CPU tensor it runs :func:`cscatter_plain_`, the plain PyTorch
+  version (in place; :func:`cscatter_plain` on a copy) that the tests hold
+  against the JAX kernel and that ``chip_smoke.py`` holds the CUDA kernel
+  against.
 
 :func:`cscatter` updates ``table`` **in place** (where the reference returns
 a new table and lets XLA alias the donated buffer) and returns it.
@@ -165,17 +166,25 @@ def _write_rows(table: torch.Tensor, rows: torch.Tensor,
     dst.view(s * r, d)[rows] = new
 
 
+def cscatter_plain_(table: torch.Tensor, ids: torch.Tensor,
+                    vals: torch.Tensor, *, kind: str = "add",
+                    sat_min: float = 0.0, sat_max: float = 0.0
+                    ) -> torch.Tensor:
+    """The plain PyTorch version of the kernel, in place on any device:
+    updates ``table`` and returns it, as the kernel does."""
+    t, i, v = _check(table, ids, vals, kind)
+    _write_rows(t, *_merged_rows(t, i, v, kind, sat_min, sat_max))
+    return table
+
+
 def cscatter_plain(table: torch.Tensor, ids: torch.Tensor,
                    vals: torch.Tensor, *, kind: str = "add",
                    sat_min: float = 0.0, sat_max: float = 0.0
                    ) -> torch.Tensor:
-    """The plain PyTorch version of the kernel: the same function, on any
-    device, returning a new table (the argument is left untouched)."""
-    squeeze = table.dim() == 2
-    t, i, v = _check(table, ids, vals, kind)
-    out = t.clone()
-    _write_rows(out, *_merged_rows(t, i, v, kind, sat_min, sat_max))
-    return out[0] if squeeze else out
+    """:func:`cscatter_plain_` on a copy: returns a new table and leaves
+    the argument untouched."""
+    return cscatter_plain_(table.clone(), ids, vals, kind=kind,
+                           sat_min=sat_min, sat_max=sat_max)
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2,
@@ -200,10 +209,10 @@ def cscatter(table: torch.Tensor, ids: torch.Tensor, vals: torch.Tensor, *,
     ``[S,N,D] | [N,D]`` in the table's dtype. Updates ``table`` in place
     and returns it: the CUDA kernel on a CUDA tensor, the plain version's
     arithmetic on a CPU tensor."""
+    if table.device.type == "cpu":
+        return cscatter_plain_(table, ids, vals, kind=kind, sat_min=sat_min,
+                               sat_max=sat_max)
     t, i, v = _check(table, ids, vals, kind)
-    if t.device.type == "cpu":
-        _write_rows(t, *_merged_rows(t, i, v, kind, sat_min, sat_max))
-        return table
     if t.device.type != "cuda":
         raise ValueError(f"cscatter: no kernel for device {t.device}")
     s, r, d = t.shape

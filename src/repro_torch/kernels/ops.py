@@ -2,14 +2,15 @@
 ``repro/kernels/ops.py``.
 
 Each runs the hand-written CUDA kernel on a CUDA tensor and the kernel's
-plain PyTorch version on a CPU tensor. ``merge_buffer``, ``flash_attention``
-and ``decode_attention`` come with their kernels.
+plain PyTorch version on a CPU tensor. ``flash_attention`` and
+``decode_attention`` come with their kernels.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.cmerge import cmerge
 from repro_torch.kernels.cscatter import cscatter
 
 
@@ -21,6 +22,16 @@ def commutative_scatter(table: torch.Tensor, ids: torch.Tensor,
     in place (see :func:`repro_torch.kernels.cscatter.cscatter`)."""
     return cscatter(table, ids, vals, kind=kind, sat_min=sat_min,
                     sat_max=sat_max)
+
+
+def merge_buffer(table: torch.Tensor, block_ids: torch.Tensor,
+                 dirty: torch.Tensor, src: torch.Tensor, upd: torch.Tensor, *,
+                 kind: str = "add", sat_min: float = 0.0,
+                 sat_max: float = 0.0) -> torch.Tensor:
+    """The explicit merge instruction over a W-way source buffer, in place
+    (see :func:`repro_torch.kernels.cmerge.cmerge`)."""
+    return cmerge(table, block_ids, dirty, src, upd, kind=kind,
+                  sat_min=sat_min, sat_max=sat_max)
 
 
 def embedding_grad_scatter(table_grad: torch.Tensor, token_ids: torch.Tensor,

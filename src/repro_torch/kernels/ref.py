@@ -1,14 +1,15 @@
-"""PyTorch oracles for the cscatter kernel.
+"""PyTorch oracles for the cscatter and cmerge kernels.
 
-The counterparts of the JAX package's ``repro/kernels/ref.py`` ``ref_cscatter``
-and ``ref_cscatter_serial``, with the same definitions — including integer
-``sat_add``, which these oracles add and clip in float32 (the kernel adds in
-the integer dtype first; see ``kernels/cscatter.py``). ``ref_cscatter_serial``
-is the gold standard: a literal serialization of the COp stream.
+The counterparts of the JAX package's ``repro/kernels/ref.py``
+``ref_cscatter``, ``ref_cscatter_serial`` and ``ref_cmerge``, with the same
+definitions — including integer ``sat_add``, which the cscatter oracles add
+and clip in float32 (the kernel adds in the integer dtype first; see
+``kernels/cscatter.py``). ``ref_cscatter_serial`` is the gold standard: a
+literal serialization of the COp stream.
 
 torch's ``uint32`` supports few ops, so integer tables are computed in int64
 and wrapped back to the table's dtype (exact for add, max, min and or).
-The cmerge and attention oracles come with their kernels.
+The attention oracles come with their kernels.
 """
 
 from __future__ import annotations
@@ -131,3 +132,61 @@ def ref_cscatter_serial(table: torch.Tensor, ids: torch.Tensor,
             touched[i] = True
     merged = _apply(kind, table, u, _f32(sat_min), _f32(sat_max))
     return torch.where(touched[:, None], merged, table)
+
+
+# ------------------------------------------------------------------ cmerge
+
+
+def _cmerge_block(kind: str, mem: torch.Tensor, src: torch.Tensor,
+                  upd: torch.Tensor, sat_min: float,
+                  sat_max: float) -> torch.Tensor:
+    """One way's merged block, in the table's dtype: ``apply(mem,
+    delta(src, upd))`` for the cmerge kinds."""
+    dtype = mem.dtype
+    if kind == "sat_add":
+        s = mem.to(torch.float32) + (upd.to(torch.float32)
+                                     - src.to(torch.float32))
+        s = torch.clamp(s, sat_min, sat_max)
+        if dtype.is_floating_point:
+            return s.to(dtype)
+        return _wrap(s.to(torch.int64), dtype).to(dtype)
+    if dtype.is_floating_point:
+        if kind == "add":
+            return mem + (upd - src)
+        if kind == "max":
+            return torch.maximum(mem, upd)
+        if kind == "min":
+            return torch.minimum(mem, upd)
+        raise ValueError(f"kind {kind!r} needs an integer table")
+    m, s, u = (x.to(torch.int64) for x in (mem, src, upd))
+    if kind == "add":
+        out = m + (u - s)
+    elif kind == "max":
+        out = torch.maximum(m, u)
+    elif kind == "min":
+        out = torch.minimum(m, u)
+    elif kind == "or":
+        out = m | u
+    else:
+        raise ValueError(kind)
+    return _wrap(out, dtype).to(dtype)
+
+
+def ref_cmerge(table: torch.Tensor, block_ids: torch.Tensor,
+               dirty: torch.Tensor, src: torch.Tensor, upd: torch.Tensor,
+               kind: str = "add", sat_min: float = 0.0,
+               sat_max: float = 0.0) -> torch.Tensor:
+    """Serial oracle of the merge instruction: for each valid dirty way
+    ``w`` in order, ``table[block_ids[w]] = apply(mem, delta(src[w],
+    upd[w]))``. ``table [R, D]``, ``block_ids [W]``, ``dirty [W]``,
+    ``src, upd [W, BR, D]``; returns a new table."""
+    w, br, _ = src.shape
+    out = table.clone()
+    lo, hi = _f32(sat_min), _f32(sat_max)
+    for i, (b, ok) in enumerate(zip(block_ids.tolist(), dirty.tolist())):
+        if b < 0 or not ok:
+            continue
+        mem = out[b * br:(b + 1) * br]
+        out[b * br:(b + 1) * br] = _cmerge_block(kind, mem, src[i], upd[i],
+                                                 lo, hi)
+    return out

@@ -12,8 +12,13 @@ table's mass against the stream.
 reference, merge every tick) or an integer ``K`` (fixed commit interval
 over a fully deferred plan). ``--partitioned`` home-shards the settled
 table (each row on exactly one shard; reads route by ``key % shards``) and
-bounds pending state with a ring; ``--overlap`` additionally pipelines the
-commit's launch/land halves (requires ``--partitioned``).
+bounds pending state with a ring (or, with ``--engine blocked``, a spill
+buffer of ``--spill-blocks`` blocks); ``--overlap`` additionally pipelines
+the commit's launch/land halves (requires ``--partitioned``).
+
+``--engine blocked`` privatizes through the W-way source buffer
+(``--ways`` ways of 8 rows, merge-on-evict through the ``cmerge`` kernel)
+instead of the ``cscatter`` kernel, and prints its eviction counters.
 """
 
 from __future__ import annotations
@@ -43,13 +48,19 @@ def _parse_args(argv=None):
     p.add_argument("--overlap", action="store_true",
                    help="overlap the commit's launch/land halves "
                         "(requires --partitioned)")
+    p.add_argument("--spill-blocks", type=int, default=64,
+                   help="blocked engine, partitioned: spill buffer slots")
     p.add_argument("--consistency", default="eventual",
                    choices=["eventual", "read_your_writes"])
+    p.add_argument("--engine", default="kernel",
+                   choices=["kernel", "blocked"])
     p.add_argument("--dist", default="pareto", choices=["uniform", "pareto"],
                    help="simulated user key distribution")
     p.add_argument("--users", type=int, default=1 << 20,
                    help="simulated user population")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--ways", type=int, default=8,
+                   help="blocked engine: cache ways")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default) or cpu")
     return p.parse_args(argv)
@@ -94,8 +105,9 @@ def build_store(args):
         raise SystemExit(f"--partitioned needs --keys divisible by "
                          f"--shards (got {R} % {S} = {R % S})")
     cfg = KVConfig(n_keys=R, cols=args.cols, dtype=torch.int32,
-                   consistency=args.consistency,
-                   partitioned=args.partitioned)
+                   consistency=args.consistency, engine=args.engine,
+                   ways=args.ways, partitioned=args.partitioned,
+                   spill_blocks=args.spill_blocks)
     plan = serving_plan(S, "none" if sync_mode else "all")
     schedule = commit_every = None
     if not sync_mode:
@@ -143,7 +155,8 @@ def main(argv=None) -> None:
     name = (torch.cuda.get_device_name(kv.device) if kv.device.type == "cuda"
             else "cpu")
     print(f"{args.dist} stream: {args.ticks} ticks x {S} shards x {B} "
-          f"updates, defer={args.defer}, device={name}")
+          f"updates, engine={args.engine}, defer={args.defer}, "
+          f"device={name}")
     print(f"ingest: {wall:.6f}s  ({ups:,.0f} updates/s, "
           f"{ups / 1e9:.6f} GUPS)")
     print(f"settled mass col0: {total} "

@@ -1,19 +1,29 @@
 """A sharded commutative KV store: the paper's headline app as a serving tier.
 
-The PyTorch counterpart of the JAX package's ``repro/serve/kv.py`` with its
-kernel engine. All ``S`` shards live on one device, stacked along dim 0 of
-every state tensor (``repro_torch.core.stacked``); the collectives of the
-merge cascade are tensor ops over that dim.
+The PyTorch counterpart of the JAX package's ``repro/serve/kv.py``. All
+``S`` shards live on one device, stacked along dim 0 of every state tensor
+(``repro_torch.core.stacked``); the collectives of the merge cascade are
+tensor ops over that dim.
 
 By default the table lives replicated per shard (every shard answers any
 read from its *settled* copy); the **update stream** is what shards — each
 shard privatizes the updates it receives and cross-shard agreement is an
 explicit, batched merge through the MergePlan engine.
 
-* A tick's updates scatter into a table through the ``cscatter`` kernel
-  (``apps.common.scatter``; one launch covers every shard). On a fully
-  deferred plan they scatter straight into the resident pending, in place
-  — the merge-on-evict hot path.
+Two privatization engines, same algebra:
+
+* ``engine="kernel"``: a tick's updates scatter into a table through the
+  ``cscatter`` kernel (``apps.common.scatter``; one launch covers every
+  shard). On a fully deferred plan they scatter straight into the resident
+  pending, in place — the merge-on-evict hot path.
+* ``engine="blocked"``: a resident ``core.blocked.BlockedCache`` (W ways of
+  ``block_rows`` rows, LRU, merge-on-evict, dirty-merge skip) carries
+  privatized blocks **across ticks**, one access at a time; only evicted
+  mass enters the merge cascade each tick, and the cache's ``flush`` drains
+  the rest at commits. Evict and flush merges run through the ``cmerge``
+  kernel. It takes the merges ``cscatter`` has no kind for (MUL,
+  BITWISE_AND, ...) and its Fig. 9 counters come out of ``counters()``.
+
 * Cross-shard reconciliation is ``ccache.defer_cascade`` over a (by default
   fully) deferred plan on a :class:`DeferSchedule`: non-commit ticks run no
   collectives, commit ticks settle the pending cascade.
@@ -21,16 +31,18 @@ explicit, batched merge through the MergePlan engine.
   unmerged pendings on top of the settled table.
 * ``KVConfig(partitioned=True)`` home-shards the settled table (global key
   ``k`` -> shard ``k % S``, local row ``k // S``) and buffers a cycle's raw
-  updates in a bounded ring; a commit scatters the ring into a transient
-  dense delta (one kernel launch) and settles the full cascade.
+  updates in a bounded ring (kernel engine; a commit scatters the ring into
+  a transient dense delta, one kernel launch) or lets the blocked cache
+  spill evicted blocks into a bounded ``SpillBuffer``
+  (spill-through-eviction; a commit drains cache and buffer into the
+  delta), and settles the full cascade.
   ``DeferSchedule(overlap=True)`` splits that commit into launch/land
   halves (``ccache.launch_inflight`` / ``settle_inflight``) one tick apart.
 
 State tensors are updated in place where the reference donates their
 buffers (the ``donate=`` of :meth:`ShardedKV._run`); ``stacked_spmd``
-refuses an in-place write to anything not donated. The blocked engine, the
-journal, ``solve_defer_schedule`` and ``AdaptiveDeferSchedule`` are not
-ported yet.
+refuses an in-place write to anything not donated. The journal,
+``solve_defer_schedule`` and ``AdaptiveDeferSchedule`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -42,7 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.apps.common import default_plan, scatter
-from repro_torch.core import ccache
+from repro_torch.core import blocked, ccache
 from repro_torch.core.defer_schedule import DeferSchedule
 from repro_torch.core.merge_functions import ADD, MergeFn
 from repro_torch.core.merge_plan import MergePlan, compile_plan
@@ -101,9 +113,14 @@ class KVConfig:
     merge: MergeFn = ADD
     consistency: str = "eventual"
     engine: str = "kernel"
+    # blocked engine: the paper's W-way source buffer geometry.
+    ways: int = 8
+    block_rows: int = 8
     # partitioned settled table: every global row on exactly one home shard
-    # (key % n_shards); pendings become a bounded ring (module doc).
+    # (key % n_shards); pendings become a bounded ring (kernel engine) or the
+    # blocked cache's spill-through-eviction buffer (module doc).
     partitioned: bool = False
+    spill_blocks: int = 64
 
     def __post_init__(self):
         if self.consistency not in _CONSISTENCY:
@@ -112,13 +129,25 @@ class KVConfig:
         if self.engine not in _ENGINES:
             raise ValueError(f"engine must be one of {_ENGINES}, "
                              f"got {self.engine!r}")
-        if self.engine == "blocked":
-            raise NotImplementedError("engine='blocked' is not ported yet")
-        if self.merge.xla_reduce not in _KERNEL_KINDS:
+        if self.engine == "kernel" and \
+                self.merge.xla_reduce not in _KERNEL_KINDS:
             raise ValueError(
                 f"engine='kernel' scatters through the cscatter kernel, "
                 f"which has no kind for merge {self.merge.name!r} "
-                f"(xla_reduce={self.merge.xla_reduce!r})")
+                f"(xla_reduce={self.merge.xla_reduce!r}); use "
+                f"engine='blocked' for flexible-path merges")
+        if self.engine == "blocked" and self.n_keys % self.block_rows != 0:
+            raise ValueError(
+                f"blocked engine: n_keys={self.n_keys} must be a multiple "
+                f"of block_rows={self.block_rows}")
+        if self.engine == "blocked" and self.dtype == torch.uint32:
+            raise ValueError(
+                "blocked engine: uint32 tables are not supported — torch "
+                "has no uint32 add/max/min and no CUDA uint32 indexing; "
+                "hold the bits in int32 (ADD, OR and AND wrap the same)")
+        if self.spill_blocks < 1:
+            raise ValueError(f"spill_blocks must be >= 1, "
+                             f"got {self.spill_blocks}")
         if not 0 < self.n_keys < 2**31:
             raise ValueError(f"n_keys must be in [1, 2**31), got "
                              f"{self.n_keys}")
@@ -179,6 +208,15 @@ class ShardedKV:
                     f"schedule levels {schedule.level_names} do not match "
                     f"the plan's deferred stages {self._deferred_names}")
         self.schedule = schedule
+        if config.engine == "blocked" and not self.synchronized:
+            eager = [lv.name for lv in self.plan.levels
+                     if lv.size > 1 and not lv.defer]
+            if eager:
+                raise ValueError(
+                    f"engine='blocked' needs a fully deferred plan: eager "
+                    f"levels {eager} would settle per tick while the "
+                    f"resident cache withholds unmerged mass from them; "
+                    f"use serving_plan(n, 'all') or engine='kernel'")
 
         self.partitioned = config.partitioned
         self._overlap = bool(schedule is not None and schedule.overlap)
@@ -196,8 +234,9 @@ class ShardedKV:
             if not self._fully_deferred:
                 raise ValueError(
                     "partitioned=True needs a fully deferred plan: the "
-                    "partitioned ring only drains at commits, so an eager "
-                    "level would never settle; use serving_plan(n, 'all')")
+                    "partitioned pendings (ring/spill) only drain at "
+                    "commits, so an eager level would never settle; use "
+                    "serving_plan(n, 'all')")
             if config.n_keys % n_shards != 0:
                 raise ValueError(
                     f"partitioned=True: n_keys={config.n_keys} must be a "
@@ -222,6 +261,15 @@ class ShardedKV:
             self.settled = self._identity((S, R, D))
             self.pendings = tuple(self._identity((S, R, D))
                                   for _ in range(self.n_deferred))
+        self.cache = None
+        self.spill = None
+        if config.engine == "blocked":
+            self.cache = blocked.init_cache(S, config.ways, config.block_rows,
+                                            D, config.dtype, self.device)
+            if config.partitioned:
+                self.spill = blocked.init_spill(
+                    S, config.spill_blocks, config.block_rows, D,
+                    config.dtype, merge, self.device)
         # partitioned pendings: a ring (keys [S, C], vals [S, C, D], cursor)
         # sized max_period * batch at the first tick, when the fixed batch
         # shape is first seen. Every shard appends the same B per tick, so
@@ -282,6 +330,22 @@ class ShardedKV:
         """This tick's updates as a privatized delta table."""
         return self._scatter_into(self._identity_table(), keys, vals)
 
+    def _padded(self, keys, vals):
+        """Padding keys become identity updates on row 0 — a combine no-op
+        that still touches block 0 and moves the LRU clock, as in the
+        reference (its scan model has no skip lane)."""
+        cfg = self.config
+        ok = (keys >= 0) & (keys < cfg.n_keys)
+        vals = torch.where(ok[..., None], vals, self._identity((cfg.cols,)))
+        return torch.where(ok, keys, 0), vals
+
+    def _blocked_delta(self, cache, keys, vals):
+        """Run the tick's updates through the resident BlockedCache; the
+        returned table holds only the mass *evicted* this tick."""
+        return blocked.cop_scatter(cache, self._identity_table(),
+                                   *self._padded(keys, vals),
+                                   self.config.merge)
+
     def _make_sync_tick(self):
         merge, axis, plan = self.config.merge, self.axis, self.plan
 
@@ -296,7 +360,19 @@ class ShardedKV:
         merge, axis, plan = self.config.merge, self.axis, self.plan
         full = due == self.n_deferred
 
-        if self._fully_deferred:
+        if self.config.engine == "blocked":
+            def tick(settled, pendings, cache, keys, vals):
+                cache, delta = self._blocked_delta(cache, keys, vals)
+                if due > 0:
+                    # commit tick: the resident (unevicted) mass must
+                    # enter the cascade too — the explicit merge instr.
+                    cache, delta = blocked.flush(cache, delta, merge)
+                new_p, agg = ccache.defer_cascade(delta, list(pendings),
+                                                  due, axis, merge, plan)
+                if full:
+                    settled = merge.apply(settled, agg)
+                return settled, tuple(new_p), cache
+        elif self._fully_deferred:
             def tick(settled, pendings, keys, vals):
                 # hot path: coalesce straight into the resident pending
                 p0 = self._scatter_into(pendings[0], keys, vals)
@@ -323,11 +399,19 @@ class ShardedKV:
         merge, axis, plan = self.config.merge, self.axis, self.plan
         due = self.n_deferred
 
-        def flush_fn(settled, pendings):
-            new_p, agg = ccache.defer_cascade(
-                self._identity_table(), list(pendings), due, axis, merge,
-                plan)
-            return merge.apply(settled, agg), tuple(new_p)
+        if self.config.engine == "kernel":
+            def flush_fn(settled, pendings):
+                new_p, agg = ccache.defer_cascade(
+                    self._identity_table(), list(pendings), due, axis, merge,
+                    plan)
+                return merge.apply(settled, agg), tuple(new_p)
+        else:
+            def flush_fn(settled, pendings, cache):
+                cache, delta = blocked.flush(cache, self._identity_table(),
+                                             merge)
+                new_p, agg = ccache.defer_cascade(delta, list(pendings),
+                                                  due, axis, merge, plan)
+                return merge.apply(settled, agg), tuple(new_p), cache
 
         return flush_fn
 
@@ -365,54 +449,65 @@ class ShardedKV:
         rk, rv, _ = ring
         return self._scatter_into(self._identity_table(), rk, rv)
 
+    def _part_ingest(self, pending: tuple, keys, vals) -> tuple:
+        """One tick into the partitioned pending state: a ring append
+        (kernel engine), or the resident cache with evictions spilling into
+        the bounded buffer (blocked engine; padding as in :meth:`_padded`)."""
+        if self.config.engine == "kernel":
+            return (self._ring_append(*pending, keys, vals),)
+        return blocked.spill_scatter(*pending, *self._padded(keys, vals),
+                                     self.config.merge)
+
+    def _part_drain(self, pending: tuple):
+        """Commit side: the pending state as a transient dense global delta,
+        and the state emptied — the ring scattered (one kernel launch), or
+        the cache's dirty ways and the spilled blocks merged."""
+        if self.config.engine == "kernel":
+            (ring,) = pending
+            delta = self._part_delta(ring)
+            return (self._ring_reset(ring),), delta
+        merge = self.config.merge
+        cache, spill = pending
+        cache, delta = blocked.flush(cache, self._identity_table(), merge)
+        spill, delta = blocked.spill_drain(spill, delta, merge)
+        return (cache, spill), delta
+
     def _make_part_tick(self, full: bool, land: bool):
         merge, axis, plan = self.config.merge, self.axis, self.plan
         overlap = self._overlap
+        n = 1 if self.config.engine == "kernel" else 2   # pending tensors
 
-        if not land:
-            def tick(settled, ring, keys, vals):
-                ring = self._ring_append(ring, keys, vals)
-                if not full:
-                    return settled, ring
-                delta = self._part_delta(ring)
-                ring = self._ring_reset(ring)
-                if overlap:
-                    return settled, ring, ccache.launch_inflight(
-                        delta, axis, merge, plan)
-                agg = ccache.settle_deferred(delta, axis, merge, plan)
-                return merge.apply(settled, self._home_rows(agg)), ring
-        else:
-            def tick(settled, ring, inflight, keys, vals):
-                ring = self._ring_append(ring, keys, vals)
+        def tick(settled, *args):
+            # args: the pending state, the in-flight launch when landing,
+            # keys, vals
+            pending = self._part_ingest(args[:n], *args[-2:])
+            if land:
                 # land the previous commit's launched aggregate
-                agg = ccache.settle_inflight(inflight, axis, merge, plan)
+                agg = ccache.settle_inflight(args[n], axis, merge, plan)
                 settled = merge.apply(settled, self._home_rows(agg))
-                if not full:
-                    return settled, ring
-                delta = self._part_delta(ring)
-                ring = self._ring_reset(ring)
-                return settled, ring, ccache.launch_inflight(
-                    delta, axis, merge, plan)
+            if not full:
+                return (settled, *pending)
+            pending, delta = self._part_drain(pending)
+            if overlap:
+                return (settled, *pending,
+                        ccache.launch_inflight(delta, axis, merge, plan))
+            agg = ccache.settle_deferred(delta, axis, merge, plan)
+            return (merge.apply(settled, self._home_rows(agg)), *pending)
 
         return tick
 
     def _make_part_flush(self, land: bool):
         merge, axis, plan = self.config.merge, self.axis, self.plan
+        n = 1 if self.config.engine == "kernel" else 2
 
-        def settle_home(settled, delta):
-            agg = ccache.settle_deferred(delta, axis, merge, plan)
-            return merge.apply(settled, self._home_rows(agg))
-
-        if not land:
-            def flush_fn(settled, ring):
-                settled = settle_home(settled, self._part_delta(ring))
-                return settled, self._ring_reset(ring)
-        else:
-            def flush_fn(settled, ring, inflight):
-                agg = ccache.settle_inflight(inflight, axis, merge, plan)
+        def flush_fn(settled, *args):
+            # args: the pending state, then the in-flight launch if landing
+            if land:
+                agg = ccache.settle_inflight(args[n], axis, merge, plan)
                 settled = merge.apply(settled, self._home_rows(agg))
-                settled = settle_home(settled, self._part_delta(ring))
-                return settled, self._ring_reset(ring)
+            pending, delta = self._part_drain(args[:n])
+            agg = ccache.settle_deferred(delta, axis, merge, plan)
+            return (merge.apply(settled, self._home_rows(agg)), *pending)
 
         return flush_fn
 
@@ -467,6 +562,12 @@ class ShardedKV:
                 out[:, lo:lo + step] = self._reduce(masked, 2)
             return out
 
+        def cache_overlay(cache, spill, keys, ok):
+            # the resident way's delta(src, upd) plus any spilled mass
+            return torch.where(ok[..., None], blocked.spill_read_row(
+                cache, spill, torch.where(ok, keys, 0), merge),
+                self._identity((D,)))
+
         def inflight_overlay(base, inflight, keys, ok):
             # launched-but-unlanded mass: includes this shard's own writes
             # (plus inner-group peers' — fresher, still monotone)
@@ -475,19 +576,28 @@ class ShardedKV:
             return merge.apply(base, torch.where(ok[..., None], rows,
                                                  self._identity((D,))))
 
+        if cfg.engine == "blocked":
+            def overlay(base, pending, keys, ok):
+                return merge.apply(base, cache_overlay(*pending, keys, ok))
+        else:
+            def overlay(base, pending, keys, ok):
+                return merge.apply(base, ring_overlay(*pending, keys, ok))
+
         if kind == "ryw":
-            def read(settled, ring, keys):
+            def read(settled, *args):
+                *pending, keys = args
                 base, ok = base_gather(settled, keys)
-                return merge.apply(base, ring_overlay(ring, keys, ok))
+                return overlay(base, pending, keys, ok)
             return read
 
         if kind != "ryw_inflight":
             raise ValueError(f"unknown partitioned read kind {kind!r}")
 
-        def read(settled, ring, inflight, keys):
+        def read(settled, *args):
+            *pending, inflight, keys = args
             base, ok = base_gather(settled, keys)
             base = inflight_overlay(base, inflight, keys, ok)
-            return merge.apply(base, ring_overlay(ring, keys, ok))
+            return overlay(base, pending, keys, ok)
         return read
 
     def _make_read(self):
@@ -509,15 +619,29 @@ class ShardedKV:
                 return masked(rows_of(settled, keys, ok), ok)
             return read
 
-        def read(settled, pendings, keys):
+        def pending_view(settled, pendings, keys, ok):
             # apply is elementwise, so gathering the rows first and then
             # overlaying each pending equals the reference's whole-table
             # apply followed by the gather
-            ok = (keys >= 0) & (keys < cfg.n_keys)
             view = rows_of(settled, keys, ok)
             for p in pendings:
                 view = merge.apply(view, rows_of(p, keys, ok))
             return masked(view, ok)
+
+        if cfg.engine == "kernel":
+            def read(settled, pendings, keys):
+                ok = (keys >= 0) & (keys < cfg.n_keys)
+                return pending_view(settled, pendings, keys, ok)
+            return read
+
+        def read(settled, pendings, cache, keys):
+            # a resident way's unmerged contribution overlays the settled +
+            # pending view
+            ok = (keys >= 0) & (keys < cfg.n_keys)
+            res = blocked.resident_delta(cache, torch.where(ok, keys, 0),
+                                         merge)
+            return merge.apply(pending_view(settled, pendings, keys, ok),
+                               masked(res, ok))
         return read
 
     # ------------------------------------------------------------------
@@ -554,9 +678,14 @@ class ShardedKV:
             return self._tick_partitioned(keys, vals)
         self._t += 1
         due = self.schedule.due_count(self._t)
-        self.settled, self.pendings = self._run(
-            self._tick_fns[due], self.settled, self.pendings, keys, vals,
-            donate=(0, 1))
+        if self.config.engine == "kernel":
+            self.settled, self.pendings = self._run(
+                self._tick_fns[due], self.settled, self.pendings, keys, vals,
+                donate=(0, 1))
+        else:
+            self.settled, self.pendings, self.cache = self._run(
+                self._tick_fns[due], self.settled, self.pendings, self.cache,
+                keys, vals, donate=(0, 1, 2))
 
     def _ensure_ring(self, shape) -> None:
         S, B = shape
@@ -571,8 +700,31 @@ class ShardedKV:
                 f"partitioned store takes one fixed tick shape: the pending "
                 f"ring was sized for batch {self._ring_batch}, got {B}")
 
+    def _check_spill_overflow(self) -> None:
+        n = int(self.spill.n_overflow.sum())
+        if n:
+            raise RuntimeError(
+                f"spill buffer overflowed {n} eviction(s) — pending mass "
+                f"was dropped; raise KVConfig.spill_blocks (currently "
+                f"{self.config.spill_blocks}) above the distinct blocks a "
+                f"commit cycle can evict")
+
+    def _pending_state(self) -> tuple:
+        """The partitioned store's pending state: the ring, or the blocked
+        engine's cache and spill buffer."""
+        if self.config.engine == "kernel":
+            return (self.ring,)
+        return (self.cache, self.spill)
+
+    def _set_pending_state(self, state) -> None:
+        if self.config.engine == "kernel":
+            (self.ring,) = state
+        else:
+            self.cache, self.spill = state
+
     def _tick_partitioned(self, keys, vals) -> None:
-        self._ensure_ring(keys.shape)
+        if self.config.engine == "kernel":
+            self._ensure_ring(keys.shape)
         self._t += 1
         due = self.schedule.due_count(self._t)
         if due not in (0, self.n_deferred):  # guarded at init (uniform)
@@ -581,67 +733,84 @@ class ShardedKV:
         full = due == self.n_deferred
         land = self._land_pending
         fn = self._tick_fns[("p", full, land)]
+        pending = self._pending_state()
         extra = (self.inflight,) if land else ()
-        out = self._run(fn, self.settled, self.ring, *extra, keys, vals,
-                        donate=tuple(range(2 + len(extra))))
+        out = self._run(fn, self.settled, *pending, *extra, keys, vals,
+                        donate=tuple(range(1 + len(pending) + len(extra))))
+        self.settled = out[0]
+        self._set_pending_state(out[1:1 + len(pending)])
         if full and self._overlap:
-            self.settled, self.ring, self.inflight = out
+            self.inflight = out[-1]
             self._land_pending = True
-        else:
-            self.settled, self.ring = out
-            if land:
-                self.inflight = None
-                self._land_pending = False
+        elif land:
+            self.inflight = None
+            self._land_pending = False
+        if full and self.spill is not None:
+            self._check_spill_overflow()
 
     def read(self, keys) -> torch.Tensor:
         """Serve one fixed-shape batch of gets: ``keys`` [S, B] -> [S, B,
         cols] on the store's device.  Zero collectives either way:
         ``eventual`` reads the last settled table; ``read_your_writes``
-        overlays the shard's own unmerged pendings."""
+        overlays the shard's own unmerged pendings (+ resident cache and
+        spill, blocked engine)."""
         keys = self._keys(keys)
         if self.partitioned:
             return self._read_partitioned(keys)
         if self.synchronized or self.config.consistency == "eventual":
             return self._run(self._read_fn, self.settled, keys)
-        return self._run(self._read_fn, self.settled, self.pendings, keys)
+        if self.config.engine == "kernel":
+            return self._run(self._read_fn, self.settled, self.pendings,
+                             keys)
+        return self._run(self._read_fn, self.settled, self.pendings,
+                         self.cache, keys)
 
     def _read_partitioned(self, keys) -> torch.Tensor:
         ryw = self.config.consistency == "read_your_writes"
-        if not ryw or self.ring is None:
+        if not ryw or (self.config.engine == "kernel" and self.ring is None):
             # before the first tick there is nothing pending anywhere —
             # the settled-only read IS read-your-writes
             return self._run(self._read_fns["plain"], self.settled, keys)
+        pending = self._pending_state()
         if self._land_pending:
             return self._run(self._read_fns["ryw_inflight"], self.settled,
-                             self.ring, self.inflight, keys)
-        return self._run(self._read_fns["ryw"], self.settled, self.ring,
+                             *pending, self.inflight, keys)
+        return self._run(self._read_fns["ryw"], self.settled, *pending,
                          keys)
 
     def flush(self) -> None:
-        """Commit everything outstanding (pendings, ring, an in-flight
-        launch). After a flush the settled table equals the fully-
-        synchronized reference over the same update stream — bitwise, for
-        integer ADD. Resets the schedule phase."""
+        """Commit everything outstanding (pendings, ring, resident cache and
+        spill, an in-flight launch). After a flush the settled table equals
+        the fully-synchronized reference over the same update stream —
+        bitwise, for integer ADD. Resets the schedule phase."""
         if self.synchronized:
             return
         if self.partitioned:
             self._flush_partitioned()
-        else:
+        elif self.config.engine == "kernel":
             self.settled, self.pendings = self._run(
                 self._flush_fn, self.settled, self.pendings, donate=(0, 1))
+        else:
+            self.settled, self.pendings, self.cache = self._run(
+                self._flush_fn, self.settled, self.pendings, self.cache,
+                donate=(0, 1, 2))
         self._t = 0
 
     def _flush_partitioned(self) -> None:
         land = self._land_pending
-        if self.ring is None:
+        if self.config.engine == "kernel" and self.ring is None:
             return  # nothing ever ingested (land implies a prior tick)
         fn = self._flush_land_fn if land else self._flush_fn
+        pending = self._pending_state()
         extra = (self.inflight,) if land else ()
-        self.settled, self.ring = self._run(
-            fn, self.settled, self.ring, *extra,
-            donate=tuple(range(2 + len(extra))))
+        out = self._run(fn, self.settled, *pending, *extra,
+                        donate=tuple(range(1 + len(pending) + len(extra))))
+        self.settled = out[0]
+        self._set_pending_state(out[1:])
         self.inflight = None
         self._land_pending = False
+        if self.spill is not None:
+            self._check_spill_overflow()
 
     def table(self) -> np.ndarray:
         """The settled table on the host.  Replicated mode returns shard 0's
@@ -662,11 +831,15 @@ class ShardedKV:
     def state_arrays(self) -> dict[str, np.ndarray]:
         """The store's state as numpy arrays, with the JAX store's shapes:
         ``settled``, ``pending_{i}``, ``ring_keys``/``ring_vals``/
-        ``ring_cursor`` once the ring exists, ``inflight`` while a launch is
-        in flight, ``t`` and ``land_pending``."""
+        ``ring_cursor`` once the ring exists, the blocked engine's
+        ``cache_<field>`` and ``spill_<field>`` leaves (the fields of
+        ``BlockedCache`` and ``SpillBuffer``), ``inflight`` while a launch
+        is in flight, ``t`` and ``land_pending``."""
         out = {"settled": self.settled.cpu().numpy()}
         for i, p in enumerate(self.pendings):
             out[f"pending_{i}"] = p.cpu().numpy()
+        for name, leaf in self._blocked_leaves():
+            out[name] = leaf.cpu().numpy()
         if self.ring is not None:
             rk, rv, cur = self.ring
             out["ring_keys"] = rk.cpu().numpy()
@@ -692,6 +865,12 @@ class ShardedKV:
         self.settled = put("settled", self.settled)
         self.pendings = tuple(put(f"pending_{i}", p)
                               for i, p in enumerate(self.pendings))
+        for prefix in ("cache", "spill"):
+            state = getattr(self, prefix)
+            if state is not None:
+                setattr(self, prefix, type(state)(**{
+                    f.name: put(f"{prefix}_{f.name}", getattr(state, f.name))
+                    for f in dataclasses.fields(state)}))
         if self.partitioned and "ring_keys" in arrays:
             S = self.n_shards
             rk = np.asarray(arrays["ring_keys"])
@@ -722,17 +901,28 @@ class ShardedKV:
         raise NotImplementedError("the write-ahead journal (snapshot / "
                                   "recover) is not ported yet")
 
+    def _blocked_leaves(self) -> list[tuple[str, torch.Tensor]]:
+        """The blocked engine's cache and spill tensors, by state name."""
+        out = []
+        for prefix in ("cache", "spill"):
+            state = getattr(self, prefix)
+            if state is not None:
+                out += [(f"{prefix}_{f.name}", getattr(state, f.name))
+                        for f in dataclasses.fields(state)]
+        return out
+
     # ------------------------------------------------------------------
     # introspection
     # ------------------------------------------------------------------
 
     def resident_state_bytes(self) -> int:
         """Per-shard bytes of long-lived store state: the settled shard plus
-        the pending machinery (dense pendings, ring, an in-flight launched
-        aggregate). Excludes the transient dense delta a commit tick
-        materializes and frees within the tick. The ring cursor counts as
-        one int32 per shard, as in the reference."""
+        the pending machinery (dense pendings, ring, cache, spill, an
+        in-flight launched aggregate). Excludes the transient dense delta a
+        commit tick materializes and frees within the tick. The ring cursor
+        counts as one int32 per shard, as in the reference."""
         tensors = [self.settled, *self.pendings]
+        tensors += [leaf for _, leaf in self._blocked_leaves()]
         if self.ring is not None:
             tensors += list(self.ring[:2])
         if self.inflight is not None:
@@ -754,6 +944,11 @@ class ShardedKV:
             if self._overlap:
                 out["overlap"] = True
                 out["land_pending"] = self._land_pending
+        if self.spill is not None:
+            out["spills"] = int(self.spill.n_spills.sum())
+            out["spill_overflow"] = int(self.spill.n_overflow.sum())
+        if self.cache is not None:
+            out.update(blocked.stats(self.cache))
         return out
 
     @property

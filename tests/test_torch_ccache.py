@@ -72,7 +72,7 @@ def test_hierarchical_merge_matches_vmap(size, seed, kind):
     plan, jplan = _random_plan(rng, size)
     port, ref = MERGES[kind]
     x = _payload(rng, size, kind)
-    axis = StackedAxis(size)
+    axis = StackedAxis(size, "cpu")
     for force_tree in (False, True):
         got = ccache.hierarchical_merge(torch.from_numpy(x), axis, port, plan,
                                         force_tree=force_tree)
@@ -93,7 +93,7 @@ def test_defer_cascade_every_due_matches_vmap(size, seed, kind):
     n_def = plan.num_deferred
     delta = _payload(rng, size, kind)
     pend = [_payload(rng, size, kind) for _ in range(n_def)]
-    axis = StackedAxis(size)
+    axis = StackedAxis(size, "cpu")
     for due in range(n_def + 1):
         got_p, got_s = ccache.defer_cascade(
             torch.from_numpy(delta), [torch.from_numpy(p) for p in pend],
@@ -115,7 +115,7 @@ def test_launch_then_settle_inflight_matches_vmap(size, seed, kind):
     plan, jplan = _random_plan(rng, size)
     port, ref = MERGES[kind]
     x = _payload(rng, size, kind)
-    axis = StackedAxis(size)
+    axis = StackedAxis(size, "cpu")
     launched = ccache.launch_inflight(torch.from_numpy(x), axis, port, plan)
     jlaunched = _vmap(lambda v: jcc.launch_inflight(v, AX, ref, jplan), x)
     _eq(launched, jlaunched)
@@ -156,20 +156,21 @@ def test_ppermute_zero_fills_ranks_that_receive_nothing():
     """JAX's documented ``lax.ppermute`` semantics (vmap itself only takes
     full permutations): a rank that is no pair's destination gets zeros."""
     x = np.arange(1, 13, dtype=np.int32).reshape(4, 3)
-    got = StackedAxis(4).ppermute(torch.from_numpy(x), [(0, 1), (2, 3)])
+    axis = StackedAxis(4, "cpu")
+    got = axis.ppermute(torch.from_numpy(x), [(0, 1), (2, 3)])
     assert got.tolist() == [[0, 0, 0], x[0].tolist(), [0, 0, 0],
                             x[2].tolist()]
     # a full bijection moves every row and fills nothing
     cyc = [(i, (i + 1) % 4) for i in range(4)]
-    _eq(StackedAxis(4).ppermute(torch.from_numpy(x), cyc),
+    _eq(axis.ppermute(torch.from_numpy(x), cyc),
         _vmap(lambda v: jax.lax.ppermute(v, AX, cyc), x))
     with pytest.raises(ValueError):
-        StackedAxis(4).ppermute(torch.from_numpy(x), [(0, 1), (2, 1)])
+        axis.ppermute(torch.from_numpy(x), [(0, 1), (2, 1)])
 
 
 def test_grouped_reductions_and_axis_index():
     x = np.random.default_rng(0).integers(-9, 9, (8, 3)).astype(np.int32)
-    axis = StackedAxis(8)
+    axis = StackedAxis(8, "cpu")
     t = torch.from_numpy(x)
     for group in (2, 4, 8):
         g = x.reshape(8 // group, group, 3)

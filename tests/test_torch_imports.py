@@ -31,8 +31,10 @@ def _imported_roots(path: Path) -> set[str]:
 
 def test_the_port_has_files_to_scan():
     names = {p.name for p in PORT_FILES}
-    assert {"cscatter.py", "ccache.py", "kv.py", "chip_smoke.py"} <= names
-    assert (ROOT / "src" / "repro_torch" / "csrc" / "cscatter.cu").is_file()
+    assert {"cscatter.py", "cmerge.py", "ccache.py", "blocked.py", "kv.py",
+            "chip_smoke.py"} <= names
+    for kernel in ("cscatter.cu", "cmerge.cu"):
+        assert (ROOT / "src" / "repro_torch" / "csrc" / kernel).is_file()
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -1,5 +1,6 @@
-"""The port's cscatter (plain version and CPU wrapper) and its oracles
-against the JAX package's Pallas kernel (``interpret=True``) and oracles.
+"""The port's cscatter and cmerge (plain versions and CPU wrappers) and
+their oracles against the JAX package's Pallas kernels (``interpret=True``)
+and oracles.
 
 The same numpy inputs, made from a seed, go through both. Integer tables
 must agree bitwise; float tables to the JAX kernel tests' ``TOL``
@@ -13,9 +14,12 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.kernels.cmerge import cmerge as jax_cmerge
 from repro.kernels.cscatter import cscatter as jax_cscatter
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.cscatter import cscatter, cscatter_plain
+from repro_torch.kernels.cmerge import cmerge, cmerge_plain, cmerge_plain_
+from repro_torch.kernels.cscatter import (cscatter, cscatter_plain,
+                                          cscatter_plain_)
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # tests/test_kernels.py TOL
 DTYPES = ("float32", "bfloat16", "int32", "uint32")
@@ -263,3 +267,172 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
         ids = ids[None]
     with pytest.raises((TypeError, ValueError)):
         cscatter(table, ids, vals, kind=kind)
+
+
+# ---------------------------------------------------------------- cmerge
+
+W, BRM = 4, 8                          # ways, rows per block (R = 64)
+BLOCK_IDS = np.asarray([5, -1, 0, 2], np.int32)
+DIRTY = np.asarray([1, 1, 0, 1], np.int32)
+
+
+def _cmerge_inputs(dtype, seed=0, shards=None):
+    """numpy table/src/upd for the merge instruction; upd is what a way's
+    update copy holds after COps on top of src (an or-superset for
+    integers, so every kind's delta rule holds)."""
+    rng = np.random.default_rng(seed)
+    lead = () if shards is None else (shards,)
+    shape = lead + (W, BRM, D)
+    if dtype in TOL:
+        table, _, _ = _inputs(dtype, seed, r=R, n=1, d=D, shards=shards)
+        src = rng.standard_normal(shape).astype(np.float32)
+        upd = src + rng.standard_normal(shape).astype(np.float32)
+        if dtype == "bfloat16":
+            src = np.asarray(jnp.asarray(src, jnp.bfloat16), np.float32)
+            upd = np.asarray(jnp.asarray(upd, jnp.bfloat16), np.float32)
+        return table, src, upd
+    table = rng.integers(0, 1 << 20, lead + (R, D)).astype(dtype)
+    src = rng.integers(0, 1 << 20, shape).astype(dtype)
+    upd = src | rng.integers(0, 1 << 16, shape).astype(dtype)
+    return table, src, upd
+
+
+def _ids(shards=None):
+    if shards is None:
+        return BLOCK_IDS, DIRTY
+    return np.tile(BLOCK_IDS, (shards, 1)), np.tile(DIRTY, (shards, 1))
+
+
+@pytest.mark.parametrize("dtype,kind", [(dt, k) for dt in DTYPES
+                                        for k in _kinds(dt)])
+def test_cmerge_plain_matches_pallas_kernel_and_oracle(dtype, kind):
+    from repro.kernels import ops as jops
+    table, src, upd = _cmerge_inputs(dtype)
+    lo, hi = _sat(dtype)
+    jargs = (_jax(table, dtype), jnp.asarray(BLOCK_IDS), jnp.asarray(DIRTY),
+             _jax(src, dtype), _jax(upd, dtype))
+    targs = (_torch(table, dtype), torch.from_numpy(BLOCK_IDS),
+             torch.from_numpy(DIRTY), _torch(src, dtype), _torch(upd, dtype))
+    want = jops.merge_buffer(*jargs, kind=kind, sat_min=lo, sat_max=hi)
+    gold = jref.ref_cmerge(*jargs, kind, lo, hi)
+    _assert_match(cmerge_plain(*targs, kind=kind, sat_min=lo, sat_max=hi),
+                  want, dtype)
+    _assert_match(ops.merge_buffer(*(x.clone() for x in targs), kind=kind,
+                                   sat_min=lo, sat_max=hi), want, dtype)
+    _assert_match(ref.ref_cmerge(*targs, kind, lo, hi), gold, dtype)
+    _assert_match(ref.ref_cmerge(*targs, kind, lo, hi), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cmerge_clean_and_invalid_ways_leave_memory_alone(dtype):
+    """Only valid dirty ways merge: every other row stays bit-exact, and a
+    buffer of clean ways (whose update copies would corrupt memory if
+    merged) changes nothing."""
+    table, src, upd = _cmerge_inputs(dtype, seed=1)
+    t = _torch(table, dtype)
+    ids = torch.from_numpy(BLOCK_IDS)
+    for kind in _kinds(dtype):
+        got = cmerge_plain(t, ids, torch.from_numpy(DIRTY),
+                           _torch(src, dtype), _torch(upd, dtype), kind=kind,
+                           sat_min=_sat(dtype)[0], sat_max=_sat(dtype)[1])
+        merged = {5, 2}               # valid and dirty
+        rest = [r for r in range(R) if r // BRM not in merged]
+        assert torch.equal(got[rest], t[rest]), kind
+        clean = cmerge_plain(t, ids, torch.zeros(W, dtype=torch.int32),
+                             _torch(src, dtype), _torch(upd, dtype),
+                             kind=kind)
+        assert torch.equal(clean, t), kind
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cmerge_leading_shard_form_is_one_merge_per_shard(dtype):
+    S = 3
+    table, src, upd = _cmerge_inputs(dtype, seed=2, shards=S)
+    ids, dirty = _ids(S)
+    dirty = dirty.copy()
+    dirty[1, 0] = 0                   # shards differ in what they merge
+    lo, hi = _sat(dtype)
+    for kind in _kinds(dtype):
+        got = cmerge_plain(_torch(table, dtype), torch.from_numpy(ids),
+                           torch.from_numpy(dirty), _torch(src, dtype),
+                           _torch(upd, dtype), kind=kind, sat_min=lo,
+                           sat_max=hi)
+        for s in range(S):
+            want = jax_cmerge(_jax(table[s], dtype), jnp.asarray(ids[s]),
+                              jnp.asarray(dirty[s]), _jax(src[s], dtype),
+                              _jax(upd[s], dtype), kind=kind, sat_min=lo,
+                              sat_max=hi, interpret=True)
+            _assert_match(got[s], want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cmerge_cpu_wrapper_updates_in_place_as_the_plain_version(dtype):
+    table, src, upd = _cmerge_inputs(dtype, seed=3, shards=2)
+    ids, dirty = _ids(2)
+    for kind in _kinds(dtype):
+        t = _torch(table, dtype)
+        args = (torch.from_numpy(ids), torch.from_numpy(dirty) != 0,
+                _torch(src, dtype), _torch(upd, dtype))
+        want = cmerge_plain(t, *args, kind=kind, sat_min=-1.0, sat_max=1.0)
+        out = cmerge(t, *args, kind=kind, sat_min=-1.0, sat_max=1.0)
+        assert out is t
+        assert torch.equal(t, want), kind
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", ["cscatter", "cmerge"])
+@pytest.mark.parametrize("shards", [None, 2])
+def test_in_place_plain_versions_match_the_copying_ones(kernel, dtype,
+                                                        shards):
+    """``*_plain_`` writes into its argument what ``*_plain`` returns on a
+    copy, with and without the leading shard dim."""
+    if kernel == "cscatter":
+        table, ids, vals = _inputs(dtype, seed=9, shards=shards)
+        args = (torch.from_numpy(ids), _torch(vals, dtype))
+        copying, in_place = cscatter_plain, cscatter_plain_
+    else:
+        table, src, upd = _cmerge_inputs(dtype, seed=9, shards=shards)
+        ids, dirty = _ids(shards)
+        args = (torch.from_numpy(ids), torch.from_numpy(dirty) != 0,
+                _torch(src, dtype), _torch(upd, dtype))
+        copying, in_place = cmerge_plain, cmerge_plain_
+    for kind in _kinds(dtype):
+        t = _torch(table, dtype)
+        before = t.clone()
+        want = copying(t, *args, kind=kind, sat_min=-1.0, sat_max=1.0)
+        assert torch.equal(t, before), kind
+        assert in_place(t, *args, kind=kind, sat_min=-1.0,
+                        sat_max=1.0) is t
+        assert torch.equal(t, want), kind
+
+
+@pytest.mark.parametrize("bad", ["kind", "or_float", "ids_dtype",
+                                 "dirty_dtype", "upd_dtype", "rows", "shape",
+                                 "contiguous", "rank"])
+def test_cmerge_wrapper_refuses_what_the_kernel_does_not_take(bad):
+    table = torch.zeros((2, 16, 4), dtype=torch.float32)
+    ids = torch.zeros((2, 3), dtype=torch.int32)
+    dirty = torch.ones((2, 3), dtype=torch.bool)
+    src = torch.zeros((2, 3, 4, 4), dtype=torch.float32)
+    upd = torch.ones((2, 3, 4, 4), dtype=torch.float32)
+    kind = "add"
+    if bad == "kind":
+        kind = "xor"
+    elif bad == "or_float":
+        kind = "or"
+    elif bad == "ids_dtype":
+        ids = ids.long()
+    elif bad == "dirty_dtype":
+        dirty = dirty.float()
+    elif bad == "upd_dtype":
+        upd = upd.double()
+    elif bad == "rows":               # 18 rows are no whole number of blocks
+        table = torch.zeros((2, 18, 4))
+    elif bad == "shape":
+        upd = upd[:, :2]
+    elif bad == "contiguous":
+        src = torch.zeros((2, 3, 4, 4)).transpose(2, 3)
+    else:
+        ids = ids[None]
+    with pytest.raises((TypeError, ValueError)):
+        cmerge(table, ids, dirty, src, upd, kind=kind)

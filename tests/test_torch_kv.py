@@ -235,11 +235,12 @@ def test_store_without_a_device_needs_the_card():
 
 
 def test_unported_engine_and_journal_raise():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        KVConfig(n_keys=R, engine="blocked")
-    t = ShardedKV(KVConfig(n_keys=R, cols=D), S, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        t.attach_journal("journal")
+    """The journal is not ported yet; both engines are."""
+    for engine in ("kernel", "blocked"):
+        t = ShardedKV(KVConfig(n_keys=R, cols=D, engine=engine), S,
+                      device="cpu")
+        with pytest.raises(NotImplementedError, match="not ported"):
+            t.attach_journal("journal")
 
 
 @pytest.mark.parametrize("dist", ["uniform", "pareto"])
@@ -252,7 +253,11 @@ def test_key_stream_is_the_benchmark_stream(dist):
 @pytest.mark.parametrize("flags", [
     ["--defer", "sync"], ["--defer", "4"], ["--defer", "4", "--partitioned"],
     ["--defer", "4", "--partitioned", "--overlap",
-     "--consistency", "read_your_writes"]])
+     "--consistency", "read_your_writes"],
+    ["--defer", "4", "--engine", "blocked", "--ways", "4"],
+    ["--defer", "sync", "--engine", "blocked"],
+    ["--defer", "4", "--engine", "blocked", "--partitioned", "--overlap",
+     "--spill-blocks", "32", "--consistency", "read_your_writes"]])
 def test_cli_runs_on_the_cpu(flags):
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -261,6 +266,10 @@ def test_cli_runs_on_the_cpu(flags):
     text = out.getvalue()
     assert "updates/s" in text
     assert f"settled mass col0: {9 * 8 * 16}" in text
+    if "blocked" in flags:
+        assert "engine=blocked" in text and "evict_merges:" in text
+    if "--spill-blocks" in flags:
+        assert "spill_overflow: 0" in text
 
 
 @pytest.mark.parametrize("flags", [["--defer", "auto"],
