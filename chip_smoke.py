@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py            # from the root of a checkout, one card
 
-Drives the port's main paths — the sharded commutative KV store of
-``src/repro_torch`` with its kernel engine and with its blocked engine — on
-the card at the serving geometry (S = 8 shards, R = 2**22 keys, D = 4 int32
+Drives the port's main paths on the card — the sharded commutative KV
+store of ``src/repro_torch`` with its kernel engine and with its blocked
+engine at the serving geometry (S = 8 shards, R = 2**22 keys, D = 4 int32
 columns, B = 1024 updates per shard per tick, K = 8 over
 ``serving_plan(8, "all")``; the blocked engine with W = 8 ways of BR = 8
-rows), and:
+rows), and LM serving (prefill + greedy decode) of qwen1.5-0.5b — and:
 
 1. prints the card (``nvidia-smi`` name and power limit, torch's name);
 2. builds every CUDA kernel of the paths from ``src/repro_torch/csrc``, all
@@ -28,8 +28,19 @@ rows), and:
    same stream;
 5. pushes a few thousand add/get requests through a read-your-writes store
    behind ``BatchedFrontend`` against a sequential numpy oracle;
-6. prints one ``{"kernels": [...]}`` line;
-7. ends with ``{"ok": true, "device": {...}}``.
+6. holds ``flash_attention`` and ``decode_attention`` against their plain
+   versions in f32 and bf16 at qwen1.5-0.5b's and internlm2-1.8b's
+   attention shapes, and times them beside their bounds and one
+   ``scaled_dot_product_attention`` call;
+7. serves qwen1.5-0.5b at full width (bf16, random weights from the seed,
+   batch 8, prompts of 512 ids, 64 greedy tokens) through
+   ``launch/serve.generate``: the attention kernels' launches must be one a
+   layer at prefill and one a layer a decode step, and the logits of every
+   step must match the same tokens teacher-forced through the plain
+   attention;
+8. prints one ``{"kernels": [...]}`` line and the card's name and power
+   limit;
+9. ends with ``{"ok": true, "device": {...}}``.
 
 Nothing is caught: any failure exits non-zero before the last line. Without
 a card, or without the repository beside it, it exits non-zero at once.
@@ -37,6 +48,7 @@ a card, or without the repository beside it, it exits non-zero at once.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -60,6 +72,15 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 F32_OPS_PER_S = 67e12               # non-tensor-core f32 peak, H100 SXM
 REPLACES = "src/repro/kernels/cscatter.py:133 (cscatter -> _kernel :64)"
 REPLACES_CMERGE = "src/repro/kernels/cmerge.py:56 (cmerge -> _kernel :30)"
+REPLACES_FLASH = ("src/repro/kernels/flash_attention.py:66 "
+                  "(flash_attention -> _kernel :25)")
+REPLACES_DECODE = ("src/repro/kernels/decode_attention.py:58 "
+                   "(decode_attention -> _kernel :22)")
+BF16_OPS_PER_S = 989e12             # dense bf16 tensor-core peak, H100 SXM
+# LM serving: qwen1.5-0.5b at full width, as the JAX serve CLI would run it
+ARCH, SERVE_BATCH, PROMPT, GEN = "qwen1-5-0-5b", 8, 512, 64
+# kernel-path vs plain-attention logits (teacher-forced, same weights)
+LOGIT_TOL = 0.1
 
 
 def require(cond: bool, msg: str) -> None:
@@ -135,7 +156,7 @@ def scatter_bound_ms(ids, d: int, itemsize: int) -> tuple[float, str]:
             "bytes" if by_bytes >= by_ops else "operations")
 
 
-def phase_card() -> str:
+def phase_card() -> tuple[str, str]:
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -145,13 +166,19 @@ def phase_card() -> str:
     print(smi)
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}: {name}")
-    return name
+    # f32 products of the attention checks and their plain versions in
+    # full f32, not TF32 (also PyTorch's default)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("torch.backends.cuda.matmul.allow_tf32 = False")
+    return name, smi
 
 
 def phase_build() -> None:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    secs = _build.build("cscatter", "cmerge")
+    secs = _build.build("cscatter", "cmerge", "flash_attention",
+                        "decode_attention")
     print(f"build: {secs} ({time.perf_counter() - t0:.3f} s in all)")
 
 
@@ -589,6 +616,243 @@ def phase_blocked_stores(keys: np.ndarray, vals: np.ndarray) -> dict:
     return launches
 
 
+def _attn_rand(g, dtype, *shapes):
+    import torch
+    return [torch.randn(s, device="cuda", generator=g).to(dtype)
+            for s in shapes]
+
+
+def _attn_compare(got, want) -> float:
+    import torch
+    tol = TOL[str(got.dtype).split(".")[1]]
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max())
+    require(bool(torch.all((g - w).abs() <= tol * 4 + tol * w.abs())),
+            f"attention kernel disagrees beyond TOL={tol} (max abs err "
+            f"{err})")
+    return err
+
+
+def phase_attention_checks() -> dict:
+    """flash_attention and decode_attention against their plain versions in
+    f32 and bf16, to ``TOL`` (absolute 4 * TOL, as tests/test_kernels.py):
+    flash at qwen1.5-0.5b prefill, at internlm2-1.8b shapes (causal and
+    bidirectional) and ragged S = T = 100; decode at both models' cache
+    shapes at positions 0, 1, mid and T - 1. Returns the worst errors."""
+    import torch
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    flash_cases = [((8, 16, 512, 64), 16, True), ((2, 16, 1024, 128), 8, True),
+                   ((2, 16, 1024, 128), 8, False), ((2, 8, 100, 64), 4, True)]
+    decode_cases = [((8, 16, 64), 576, 16), ((8, 16, 128), 4096, 8)]
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype)[6:]
+        for (b, h, s, d), kv, causal in flash_cases:
+            q, k, v = _attn_rand(g, dtype, (b, h, s, d), (b, kv, s, d),
+                                 (b, kv, s, d))
+            want = flash_attention_plain(q, k, v, causal=causal)
+            got = flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err = _attn_compare(got, want)
+            worst[key] = max(worst[key], err)
+            print(f"check flash_attention {key} q [{b},{h},{s},{d}] KV={kv} "
+                  f"causal={causal}: ok (max abs err {err})")
+        for (b, h, d), t, kv in decode_cases:
+            q, k, v = _attn_rand(g, dtype, (b, h, d), (b, t, kv, d),
+                                 (b, t, kv, d))
+            for pos in (0, 1, t // 2, t - 1):
+                want = decode_attention_plain(q, k, v, pos)
+                got = decode_attention(q, k, v, pos)
+                torch.cuda.synchronize()
+                err = _attn_compare(got, want)
+                worst[key] = max(worst[key], err)
+            print(f"check decode_attention {key} q [{b},{h},{d}] T={t} "
+                  f"KV={kv} positions 0,1,{t // 2},{t - 1}: ok (max abs "
+                  f"err {worst[key]})")
+    return worst
+
+
+def flash_bound_ms(b, h, kv, s, t, d, causal, itemsize) -> tuple[float, str]:
+    """q, k, v read once and o written once (bytes), or the two products
+    over the visible (query, key) pairs (operations) at the bf16 tensor
+    rate (f32 inputs: the f32 rate), whichever is larger."""
+    pairs = sum(min(i + 1, t) for i in range(s)) if causal else s * t
+    nbytes = (2 * b * h * s * d + 2 * b * kv * t * d) * itemsize
+    ops = 4 * b * h * pairs * d
+    rate = BF16_OPS_PER_S if itemsize == 2 else F32_OPS_PER_S
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / rate
+    return (1e3 * max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def decode_bound_ms(b, h, kv, d, position, itemsize) -> tuple[float, str]:
+    """q read and o written once and the K and V of slots [0, position]
+    read once (bytes), or the two products over those slots (operations),
+    whichever is larger."""
+    n = position + 1
+    nbytes = (2 * b * h * d + 2 * b * kv * n * d) * itemsize
+    ops = 4 * b * h * n * d
+    rate = BF16_OPS_PER_S if itemsize == 2 else F32_OPS_PER_S
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / rate
+    return (1e3 * max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def phase_attention_times() -> dict:
+    """Kernel (CUDA graph of 100 launches), a call through the wrapper, the
+    plain version and one scaled_dot_product_attention call (the yardstick;
+    the port never calls it) at the serve path's shapes: qwen1.5-0.5b
+    prefill (B 8, H = KV = 16, S = T = 512, d 64, causal) and its last
+    decode step (cache T = 576, position 575), in bf16; and the same at
+    internlm2-1.8b's attention shapes (H 16, KV 8, d 128)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    bf16 = torch.bfloat16
+    out = {"flash": [], "decode": []}
+    for model, (b, h, kv, s, d) in (("qwen1.5-0.5b", (8, 16, 16, 512, 64)),
+                                    ("internlm2-1.8b", (2, 16, 8, 1024, 128))):
+        q, k, v = _attn_rand(g, bf16, (b, h, s, d), (b, kv, s, d),
+                             (b, kv, s, d))
+        bound, bound_by = flash_bound_ms(b, h, kv, s, s, d, True, 2)
+        row = {"model": model, "q": [b, h, s, d], "kv_heads": kv,
+               "causal": True,
+               "ms": graph_ms(lambda: flash_attention(q, k, v)),
+               "call_ms": time_ms(lambda: flash_attention(q, k, v)),
+               "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v)),
+               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=True, enable_gqa=kv != h)),
+               "bound_ms": bound, "bound_by": bound_by}
+        out["flash"].append(row)
+        print(f"time flash_attention {model} bf16 q [{b},{h},{s},{d}] "
+              f"KV={kv} causal: kernel {row['ms']:.6f} ms (a call "
+              f"{row['call_ms']:.6f} ms), plain {row['plain_ms']:.6f} ms, "
+              f"sdpa {row['library_ms']:.6f} ms, bound {bound:.6f} ms "
+              f"({bound_by})")
+    for model, (b, h, kv, t, d) in (("qwen1.5-0.5b", (8, 16, 16, 576, 64)),
+                                    ("internlm2-1.8b", (8, 16, 8, 4096, 128))):
+        q, k, v = _attn_rand(g, bf16, (b, h, d), (b, t, kv, d),
+                             (b, t, kv, d))
+        pos = t - 1
+        ks, vs = (x[:, :pos + 1].transpose(1, 2) for x in (k, v))
+        bound, bound_by = decode_bound_ms(b, h, kv, d, pos, 2)
+        row = {"model": model, "q": [b, h, d], "cache": [b, t, kv, d],
+               "position": pos,
+               "ms": graph_ms(lambda: decode_attention(q, k, v, pos)),
+               "call_ms": time_ms(lambda: decode_attention(q, k, v, pos)),
+               "plain_ms": time_ms(lambda: decode_attention_plain(
+                   q, k, v, pos)),
+               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                   q[:, :, None], ks, vs, enable_gqa=kv != h)),
+               "bound_ms": bound, "bound_by": bound_by}
+        out["decode"].append(row)
+        print(f"time decode_attention {model} bf16 q [{b},{h},{d}] cache "
+              f"[{b},{t},{kv},{d}] position {pos}: kernel {row['ms']:.6f} "
+              f"ms (a call {row['call_ms']:.6f} ms), plain "
+              f"{row['plain_ms']:.6f} ms, sdpa {row['library_ms']:.6f} ms, "
+              f"bound {bound:.6f} ms ({bound_by})")
+    return out
+
+
+def phase_serve(card: str) -> dict:
+    """The LM serving path at full width: qwen1.5-0.5b in bf16 with random
+    weights from a seeded generator, a batch of SERVE_BATCH prompts of
+    PROMPT random ids, GEN greedy tokens (cache PROMPT + GEN), through the
+    port's serve entry point (``launch/serve.generate``). The attention
+    kernels' counts are zeroed just before and read just after: one
+    flash_attention a layer, one decode_attention a layer a decode step.
+    Then the same tokens go teacher-forced through the same weights with
+    the plain attention versions, and every step's logits must agree to
+    ``LOGIT_TOL`` (absolute): the two paths differ only in the attention's
+    f32 summation order, whose bf16 outputs may round one way or the other
+    (the kernel checks above), and that moves tied-embedding logits of
+    magnitude about 1 by far less. Where the plain path's top-2 margin
+    exceeds 2 * LOGIT_TOL the greedy tokens must be equal."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import generate, prompts
+    from repro_torch.models.registry import build_model
+    cfg = get_config(ARCH)
+    gc.collect()                 # what earlier phases left unreferenced
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    model = build_model(cfg, device="cuda", seed=SEED)
+    ids = prompts(cfg, SERVE_BATCH, PROMPT, SEED)
+    generate(model, ids[:, :16], 2)                 # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = decode_attention.launches = 0
+    res = generate(model, ids, GEN, keep_logits=True)
+    launches = {"flash_attention": flash_attention.launches,
+                "decode_attention": decode_attention.launches}
+    # the serve path's own peak: weights, cache, activations, kept logits
+    peak = torch.cuda.max_memory_allocated() - base
+    want = {"flash_attention": cfg.n_layers,
+            "decode_attention": cfg.n_layers * (GEN - 1)}
+    require(launches == want, f"serve: launches {launches}, the path "
+                              f"predicts {want}")
+    require(tuple(res.tokens.shape) == (SERVE_BATCH, GEN),
+            f"serve: generated {tuple(res.tokens.shape)}")
+    steps = GEN - 1
+    out = {"prefill_ms": 1e3 * res.prefill_s,
+           "prefill_tok_s": SERVE_BATCH * PROMPT / res.prefill_s,
+           "decode_ms_per_step": 1e3 * res.decode_s / steps,
+           "decode_tok_s": SERVE_BATCH * steps / res.decode_s,
+           "peak_bytes": peak, "allocated_before_bytes": base,
+           "launches": launches}
+    print(f"serve {cfg.name} bf16 batch {SERVE_BATCH} prompt {PROMPT} gen "
+          f"{GEN} on {card}: prefill {out['prefill_ms']:.3f} ms "
+          f"({out['prefill_tok_s']:.1f} tok/s), decode "
+          f"{out['decode_ms_per_step']:.6f} ms a step "
+          f"({out['decode_tok_s']:.1f} tok/s), peak memory {peak} bytes; "
+          f"launches {launches} (predicted {want})")
+    # teacher-forced through the plain attention, same weights and tokens
+    model.attention = "plain"
+    tokens = torch.as_tensor(ids, device="cuda")
+    logits, caches = model.prefill(tokens, PROMPT + GEN)
+    worst, checked, argmax_ok = 0.0, 0, 0
+    for i, got in enumerate(res.logits):
+        if i:
+            logits, caches = model.decode_step(res.tokens[:, i - 1], caches,
+                                               PROMPT + i - 1)
+        require(bool(torch.isfinite(got).all()), f"serve step {i}: "
+                                                 f"non-finite logits")
+        err = float((got - logits).abs().max())
+        worst = max(worst, err)
+        require(err <= LOGIT_TOL, f"serve step {i}: kernel logits differ "
+                                  f"from the plain path's by {err}")
+        top2 = logits.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * LOGIT_TOL
+        same = got.argmax(-1) == logits.argmax(-1)
+        require(bool(same[sure].all()), f"serve step {i}: greedy token "
+                                        f"differs where the margin is sure")
+        checked += int(sure.sum())
+        argmax_ok += int(same.sum())
+    require(launches == {"flash_attention": flash_attention.launches,
+                         "decode_attention": decode_attention.launches},
+            "the plain path launched an attention kernel")
+    out.update(max_logit_err=worst, sure_tokens=checked,
+               same_tokens=argmax_ok)
+    print(f"serve vs plain attention, teacher-forced over {GEN} steps: max "
+          f"|logit diff| {worst} <= {LOGIT_TOL}; greedy tokens equal at "
+          f"{argmax_ok} of {SERVE_BATCH * GEN} positions, required at the "
+          f"{checked} with a top-2 margin above {2 * LOGIT_TOL}")
+    model.attention = "kernel"
+    del model, caches, res
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_frontend(stream_keys: np.ndarray) -> None:
     from repro_torch.serve import BatchedFrontend, KVConfig, ShardedKV
     rng = np.random.default_rng(SEED + 1)
@@ -617,7 +881,7 @@ def phase_frontend(stream_keys: np.ndarray) -> None:
 
 
 def main() -> None:
-    kind = phase_card()
+    kind, smi = phase_card()
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     from repro_torch.launch.kv_serve import key_stream
@@ -634,6 +898,9 @@ def main() -> None:
     main_path = phase_stores(keys, vals)
     blocked_path = phase_blocked_stores(keys, vals)
     phase_frontend(stream)
+    worst_attn = phase_attention_checks()
+    attn_times = phase_attention_times()
+    serve = phase_serve(smi)
 
     tick_add = next(t for t in times if t["kind"] == "add" and t["n"] == B)
     evict_add = next(t for t in merge_times
@@ -668,7 +935,27 @@ def main() -> None:
         "bound_us": 1e3 * evict_add["bound_ms"],
         "bound_by": evict_add["bound_by"],
         "library_ms": evict_add["library_ms"],
-        "variants": merge_times}]}))
+        "variants": merge_times}] + [{
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": serve["launches"][name],
+        "max_abs_err": worst_attn["bfloat16"],
+        "max_abs_err_f32": worst_attn["float32"],
+        "matched": True,
+        "ms": row["ms"], "kernel_ms": row["ms"],
+        "call_ms": row["call_ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_us": 1e3 * row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+        "variants": attn_times[key]}
+        for name, replaces, key in (
+            ("flash_attention", REPLACES_FLASH, "flash"),
+            ("decode_attention", REPLACES_DECODE, "decode"))
+        for row in attn_times[key][:1]], "serve": serve}))
+    print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -2,14 +2,15 @@
 ``repro/kernels/ops.py``.
 
 Each runs the hand-written CUDA kernel on a CUDA tensor and the kernel's
-plain PyTorch version on a CPU tensor. ``flash_attention`` and
-``decode_attention`` come with their kernels.
+plain PyTorch version on a CPU tensor.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import decode_attention as _decode
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels.cmerge import cmerge
 from repro_torch.kernels.cscatter import cscatter
 
@@ -32,6 +33,20 @@ def merge_buffer(table: torch.Tensor, block_ids: torch.Tensor,
     (see :func:`repro_torch.kernels.cmerge.cmerge`)."""
     return cmerge(table, block_ids, dirty, src, upd, kind=kind,
                   sat_min=sat_min, sat_max=sat_max)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q [B,H,S,d]; k,v [B,KV,T,d] -> [B,H,S,d] (see
+    :func:`repro_torch.kernels.flash_attention.flash_attention`)."""
+    return _flash.flash_attention(q, k, v, causal=causal)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     position: int) -> torch.Tensor:
+    """q [B,H,d]; k,v [B,T,KV,d]; attends to slots [0, position] -> [B,H,d]
+    (see :func:`repro_torch.kernels.decode_attention.decode_attention`)."""
+    return _decode.decode_attention(q, k, v, position)
 
 
 def embedding_grad_scatter(table_grad: torch.Tensor, token_ids: torch.Tensor,

@@ -9,7 +9,9 @@ literal serialization of the COp stream.
 
 torch's ``uint32`` supports few ops, so integer tables are computed in int64
 and wrapped back to the table's dtype (exact for add, max, min and or).
-The attention oracles come with their kernels.
+
+``ref_attention`` and ``ref_decode_attention`` are the attention oracles
+of ``ref.py``: an f32 softmax over scores masked with ``-inf``.
 """
 
 from __future__ import annotations
@@ -179,14 +181,53 @@ def ref_cmerge(table: torch.Tensor, block_ids: torch.Tensor,
     """Serial oracle of the merge instruction: for each valid dirty way
     ``w`` in order, ``table[block_ids[w]] = apply(mem, delta(src[w],
     upd[w]))``. ``table [R, D]``, ``block_ids [W]``, ``dirty [W]``,
-    ``src, upd [W, BR, D]``; returns a new table."""
+    ``src, upd [W, BR, D]``; returns a new table. A block id past the
+    table's end is skipped, as the Pallas kernel leaves it (the JAX oracle
+    clamps it onto the last block instead)."""
     w, br, _ = src.shape
     out = table.clone()
     lo, hi = _f32(sat_min), _f32(sat_max)
     for i, (b, ok) in enumerate(zip(block_ids.tolist(), dirty.tolist())):
-        if b < 0 or not ok:
+        if b < 0 or not ok or (b + 1) * br > table.shape[0]:
             continue
         mem = out[b * br:(b + 1) * br]
         out[b * br:(b + 1) * br] = _cmerge_block(kind, mem, src[i], upd[i],
                                                  lo, hi)
     return out
+
+
+# --------------------------------------------------------------- attention
+
+
+def ref_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True) -> torch.Tensor:
+    """q [B,H,S,d]; k,v [B,KV,T,d] -> [B,H,S,d] (f32 softmax)."""
+    b, h, s, d = q.shape
+    n_kv, t = k.shape[1], k.shape[2]
+    g = h // n_kv
+    qg = q.reshape(b, n_kv, g, s, d).float()
+    scores = torch.einsum("bkgsd,bktd->bkgst", qg, k.float()) / d ** 0.5
+    if causal:
+        mask = (torch.arange(t, device=q.device)[None, :]
+                <= torch.arange(s, device=q.device)[:, None])
+        scores = torch.where(mask, scores, -torch.inf)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,bktd->bkgsd", p, v.float())
+    return out.reshape(b, h, s, d).to(q.dtype)
+
+
+def ref_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         position: int) -> torch.Tensor:
+    """q [B,H,d]; k,v [B,T,KV,d]; attends to slots [0, position]."""
+    b, h, d = q.shape
+    t, n_kv = k.shape[1], k.shape[2]
+    g = h // n_kv
+    qg = q.reshape(b, n_kv, g, d).float()
+    kf = k.transpose(1, 2).float()                   # [B,KV,T,d]
+    vf = v.transpose(1, 2).float()
+    scores = torch.einsum("bkgd,bktd->bkgt", qg, kf) / d ** 0.5
+    mask = torch.arange(t, device=q.device) <= position
+    scores = torch.where(mask, scores, -torch.inf)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgt,bktd->bkgd", p, vf)
+    return out.reshape(b, h, d).to(q.dtype)

@@ -39,6 +39,14 @@ Two privatization engines, same algebra:
   ``DeferSchedule(overlap=True)`` splits that commit into launch/land
   halves (``ccache.launch_inflight`` / ``settle_inflight``) one tick apart.
 
+uint32 tables are held as int32 bit patterns, because torch has no uint32
+add, max, min or ``index_put`` (nor CUDA uint32 indexing): ADD, OR and AND
+give the same bits on them, and MAX and MIN hold each value XOR
+``0x80000000``, whose signed order is the value's unsigned order. Every
+merge, kernel and cascade then runs unchanged on int32; values are
+converted where they enter (``tick``, ``load_state``) and leave (``read``,
+``table``, ``state_arrays``).
+
 State tensors are updated in place where the reference donates their
 buffers (the ``donate=`` of :meth:`ShardedKV._run`); ``stacked_spmd``
 refuses an in-place write to anything not donated. The journal,
@@ -67,6 +75,12 @@ _KERNEL_KINDS = ("add", "max", "min", "or")
 # elements of the [S, reads, ring, cols] match tensor a partitioned
 # read-your-writes overlay materializes at once
 _OVERLAY_ELEMS = 1 << 26
+# the merges a uint32 table takes (module doc), and the bit that biases
+# MAX/MIN values into signed order
+_U32_MERGES = ("add", "max", "min", "or", "and")
+_SIGN_BIT = -(1 << 31)
+# the blocked state's leaves that hold table values
+_VALUE_LEAVES = ("cache_src_vals", "cache_upd_vals", "spill_vals")
 
 DEFAULT_COMMIT_EVERY = 8
 
@@ -140,11 +154,11 @@ class KVConfig:
             raise ValueError(
                 f"blocked engine: n_keys={self.n_keys} must be a multiple "
                 f"of block_rows={self.block_rows}")
-        if self.engine == "blocked" and self.dtype == torch.uint32:
+        if self.dtype == torch.uint32 and \
+                self.merge.name not in _U32_MERGES:
             raise ValueError(
-                "blocked engine: uint32 tables are not supported — torch "
-                "has no uint32 add/max/min and no CUDA uint32 indexing; "
-                "hold the bits in int32 (ADD, OR and AND wrap the same)")
+                f"uint32 tables take the merges {_U32_MERGES}, held as "
+                f"int32 bit patterns; got {self.merge.name!r}")
         if self.spill_blocks < 1:
             raise ValueError(f"spill_blocks must be >= 1, "
                              f"got {self.spill_blocks}")
@@ -168,6 +182,11 @@ class ShardedKV:
         self.n_shards = n_shards
         self.device = resolve_device(device)
         self.axis = StackedAxis(n_shards, self.device)
+        # uint32 values live as int32 bits (module doc)
+        self._u32 = config.dtype == torch.uint32
+        self._dtype = torch.int32 if self._u32 else config.dtype
+        self._bias = _SIGN_BIT if self._u32 and config.merge.name in (
+            "max", "min") else 0
         self.plan = plan if plan is not None else serving_plan(n_shards)
         merge = config.merge
 
@@ -265,11 +284,11 @@ class ShardedKV:
         self.spill = None
         if config.engine == "blocked":
             self.cache = blocked.init_cache(S, config.ways, config.block_rows,
-                                            D, config.dtype, self.device)
+                                            D, self._dtype, self.device)
             if config.partitioned:
                 self.spill = blocked.init_spill(
                     S, config.spill_blocks, config.block_rows, D,
-                    config.dtype, merge, self.device)
+                    self._dtype, merge, self.device)
         # partitioned pendings: a ring (keys [S, C], vals [S, C, D], cursor)
         # sized max_period * batch at the first tick, when the fixed batch
         # shape is first seen. Every shard appends the same B per tick, so
@@ -310,8 +329,16 @@ class ShardedKV:
     # ------------------------------------------------------------------
 
     def _identity(self, shape) -> torch.Tensor:
-        return self.config.merge.identity(shape, self.config.dtype,
+        return self.config.merge.identity(shape, self._dtype,
                                           device=self.device)
+
+    def _encode(self, x: torch.Tensor) -> torch.Tensor:
+        """Values of the table's dtype as the state holds them."""
+        return x.view(torch.int32) ^ self._bias if self._u32 else x
+
+    def _decode(self, x: torch.Tensor) -> torch.Tensor:
+        """State values as values of the table's dtype."""
+        return (x ^ self._bias).view(torch.uint32) if self._u32 else x
 
     def _identity_table(self) -> torch.Tensor:
         cfg = self.config
@@ -664,8 +691,8 @@ class ShardedKV:
         Commit policy rides the schedule; non-commit ticks of a fully
         deferred plan run zero collectives."""
         keys = self._keys(keys)
-        vals = torch.as_tensor(vals, dtype=self.config.dtype,
-                               device=self.device).contiguous()
+        vals = self._encode(torch.as_tensor(
+            vals, dtype=self.config.dtype, device=self.device)).contiguous()
         if vals.shape != tuple(keys.shape) + (self.config.cols,):
             raise ValueError(f"vals must be {tuple(keys.shape)} + "
                              f"({self.config.cols},), got {tuple(vals.shape)}")
@@ -756,14 +783,15 @@ class ShardedKV:
         spill, blocked engine)."""
         keys = self._keys(keys)
         if self.partitioned:
-            return self._read_partitioned(keys)
-        if self.synchronized or self.config.consistency == "eventual":
-            return self._run(self._read_fn, self.settled, keys)
-        if self.config.engine == "kernel":
-            return self._run(self._read_fn, self.settled, self.pendings,
-                             keys)
-        return self._run(self._read_fn, self.settled, self.pendings,
-                         self.cache, keys)
+            out = self._read_partitioned(keys)
+        elif self.synchronized or self.config.consistency == "eventual":
+            out = self._run(self._read_fn, self.settled, keys)
+        elif self.config.engine == "kernel":
+            out = self._run(self._read_fn, self.settled, self.pendings, keys)
+        else:
+            out = self._run(self._read_fn, self.settled, self.pendings,
+                            self.cache, keys)
+        return self._decode(out)
 
     def _read_partitioned(self, keys) -> torch.Tensor:
         ryw = self.config.consistency == "read_your_writes"
@@ -817,8 +845,8 @@ class ShardedKV:
         copy; partitioned mode reassembles the home-sharded rows
         (``out[s::S] = shard s``)."""
         if not self.partitioned:
-            return self.settled[0].cpu().numpy()
-        parts = self.settled.cpu().numpy()            # (S, R // S, D)
+            return self._decode(self.settled[0]).cpu().numpy()
+        parts = self._decode(self.settled).cpu().numpy()  # (S, R // S, D)
         out = np.empty((self.config.n_keys, self.config.cols), parts.dtype)
         for s in range(self.n_shards):
             out[s::self.n_shards] = parts[s]
@@ -835,18 +863,22 @@ class ShardedKV:
         ``cache_<field>`` and ``spill_<field>`` leaves (the fields of
         ``BlockedCache`` and ``SpillBuffer``), ``inflight`` while a launch
         is in flight, ``t`` and ``land_pending``."""
-        out = {"settled": self.settled.cpu().numpy()}
+        def values(x):
+            return self._decode(x).cpu().numpy()
+
+        out = {"settled": values(self.settled)}
         for i, p in enumerate(self.pendings):
-            out[f"pending_{i}"] = p.cpu().numpy()
+            out[f"pending_{i}"] = values(p)
         for name, leaf in self._blocked_leaves():
-            out[name] = leaf.cpu().numpy()
+            out[name] = (values(leaf) if name in _VALUE_LEAVES
+                         else leaf.cpu().numpy())
         if self.ring is not None:
             rk, rv, cur = self.ring
             out["ring_keys"] = rk.cpu().numpy()
-            out["ring_vals"] = rv.cpu().numpy()
+            out["ring_vals"] = values(rv)
             out["ring_cursor"] = np.full((self.n_shards,), cur, np.int32)
         if self.inflight is not None:
-            out["inflight"] = self.inflight.cpu().numpy()
+            out["inflight"] = values(self.inflight)
         out["t"] = np.asarray(self._t, np.int64)
         out["land_pending"] = np.asarray(self._land_pending)
         return out
@@ -855,22 +887,27 @@ class ShardedKV:
         """Install state read off a store of the same configuration (this
         port's :meth:`state_arrays`, or the JAX store's arrays under the
         same keys). Shapes are checked against this store's."""
-        def put(name, like: torch.Tensor) -> torch.Tensor:
+        def put(name, like: torch.Tensor, values: bool = False
+                ) -> torch.Tensor:
             a = np.array(arrays[name])    # a private, writable copy
             if a.shape != tuple(like.shape):
                 raise ValueError(f"load_state: {name} has shape {a.shape}, "
                                  f"this store needs {tuple(like.shape)}")
+            if values and self._u32:
+                a = a.astype(np.uint32).view(np.int32) ^ np.int32(self._bias)
             return torch.as_tensor(a, device=self.device).to(like.dtype)
 
-        self.settled = put("settled", self.settled)
-        self.pendings = tuple(put(f"pending_{i}", p)
+        self.settled = put("settled", self.settled, True)
+        self.pendings = tuple(put(f"pending_{i}", p, True)
                               for i, p in enumerate(self.pendings))
         for prefix in ("cache", "spill"):
             state = getattr(self, prefix)
             if state is not None:
                 setattr(self, prefix, type(state)(**{
-                    f.name: put(f"{prefix}_{f.name}", getattr(state, f.name))
-                    for f in dataclasses.fields(state)}))
+                    f.name: put(name, getattr(state, f.name),
+                                name in _VALUE_LEAVES)
+                    for f in dataclasses.fields(state)
+                    for name in [f"{prefix}_{f.name}"]}))
         if self.partitioned and "ring_keys" in arrays:
             S = self.n_shards
             rk = np.asarray(arrays["ring_keys"])
@@ -887,14 +924,15 @@ class ShardedKV:
                 raise ValueError(f"load_state: shards disagree on the ring "
                                  f"cursor {cursor.tolist()}")
             self.ring = (put("ring_keys", self.ring[0]),
-                         put("ring_vals", self.ring[1]), int(cursor[0]))
+                         put("ring_vals", self.ring[1], True),
+                         int(cursor[0]))
         self._land_pending = bool(np.asarray(arrays.get("land_pending",
                                                         False)))
         self.inflight = None
         if self._land_pending:
             cfg = self.config
             self.inflight = put("inflight", self._identity(
-                (self.n_shards, cfg.n_keys, cfg.cols)))
+                (self.n_shards, cfg.n_keys, cfg.cols)), True)
         self._t = int(np.asarray(arrays.get("t", 0)))
 
     def attach_journal(self, root: str, sync: bool = False) -> None:

@@ -300,7 +300,7 @@ class _JitSpmd:
         return self._fns[fn](*args)
 
 
-def _pair(name, consistency="eventual", merge="add"):
+def _pair(name, consistency="eventual", merge="add", dtype="int32"):
     kw, ckw = STORES[name]
     ckw = {**GEOMETRY, **ckw}
     jk, tk = {}, {}
@@ -313,10 +313,12 @@ def _pair(name, consistency="eventual", merge="add"):
                                              overlap=True)
     jm, tm = MERGES[merge]
     j = JShardedKV(JKVConfig(n_keys=R, cols=D, consistency=consistency,
-                             engine="blocked", merge=jm, **ckw),
+                             engine="blocked", merge=jm,
+                             dtype=getattr(jnp, dtype), **ckw),
                    S, _JitSpmd(), **jk)
     t = ShardedKV(KVConfig(n_keys=R, cols=D, consistency=consistency,
-                           engine="blocked", merge=tm, **ckw),
+                           engine="blocked", merge=tm,
+                           dtype=getattr(torch, dtype), **ckw),
                   S, device="cpu", **tk)
     return j, t
 
@@ -381,6 +383,45 @@ def test_blocked_store_lattice_and_flexible_merges_match_jax(merge):
         for k, v in zip(keys[keys >= 0], vals[keys >= 0]):
             want[k] &= v
         np.testing.assert_array_equal(t.table(), want)
+
+
+@pytest.mark.parametrize("merge", ["add", "max", "or"])
+@pytest.mark.parametrize("name", ["blocked_k3", "blocked_partitioned_k3"])
+def test_blocked_store_uint32_matches_jax_bitwise_every_tick(name, merge):
+    """uint32 tables over the whole 32-bit range: ADD wraps, MAX compares
+    unsigned (values above 2**31 must win), OR sets the top bit. The port
+    holds them as int32 bits; table, reads, counters and the state arrays
+    equal the JAX store's after every tick, bitwise."""
+    rng = np.random.default_rng(8)
+    keys = rng.integers(0, R, (T, S, B)).astype(np.int32)
+    keys[:, :, -1] = -1
+    vals = rng.integers(0, 1 << 32, (T, S, B, D)).astype(np.uint32)
+    j, t = _pair(name, "read_your_writes", merge, "uint32")
+    rk = _read_keys(9)
+    for i in range(T):
+        j.tick(keys[i], vals[i])
+        t.tick(keys[i], vals[i])
+        _assert_in_step(j, t, rk)
+        state = t.state_arrays()
+        for k, v in _jax_state(j).items():
+            np.testing.assert_array_equal(state[k], v, err_msg=k)
+    j.flush()
+    t.flush()
+    _assert_in_step(j, t, rk)
+    assert t.table().dtype == np.uint32
+    ok = keys >= 0
+    if merge == "max":
+        want = np.zeros((R, D), np.uint32)
+        np.maximum.at(want, keys[ok], vals[ok])
+        assert want.max() >= 1 << 31
+    else:
+        want = np.zeros((R, D), np.uint64)
+        if merge == "add":
+            np.add.at(want, keys[ok], vals[ok].astype(np.uint64))
+        else:
+            np.bitwise_or.at(want, keys[ok], vals[ok].astype(np.uint64))
+        want = (want & 0xFFFFFFFF).astype(np.uint32)
+    np.testing.assert_array_equal(t.table(), want)
 
 
 def _jax_state(j) -> dict:
@@ -458,7 +499,7 @@ def test_blocked_config_and_plan_validation():
         KVConfig(n_keys=32, spill_blocks=0)
     with pytest.raises(ValueError, match="uint32"):
         KVConfig(n_keys=32, engine="blocked", dtype=torch.uint32,
-                 merge=tmf.BITWISE_OR)
+                 merge=tmf.saturating_add(100.0))
     with pytest.raises(ValueError, match="fully deferred"):
         ShardedKV(KVConfig(n_keys=8, engine="blocked", block_rows=8), 8,
                   device="cpu", plan=serving_plan(8, "top"))

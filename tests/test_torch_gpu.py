@@ -1,5 +1,6 @@
-"""Tests of the port that need an NVIDIA GPU: the CUDA cscatter and cmerge
-kernels against their plain versions, and the stores on the card.
+"""Tests of the port that need an NVIDIA GPU: the CUDA cscatter, cmerge,
+flash_attention and decode_attention kernels against their plain versions,
+the stores and the LM on the card.
 
 Marked ``gpu``; each skips with its reason where there is no card. This
 file imports only PyTorch and the port, so that it runs where JAX is not
@@ -154,3 +155,120 @@ def test_blocked_reads_on_the_card_match_the_cpu(cuda, partitioned,
     for kv in stores:
         kv.flush()
     np.testing.assert_array_equal(stores[0].table(), stores[1].table())
+
+
+@pytest.mark.parametrize("merge", ["add", "max", "or"])
+def test_uint32_blocked_store_on_the_card_matches_the_cpu(cuda, merge):
+    """uint32 tables over the whole 32-bit range (held as int32 bits, MAX
+    and MIN biased into signed order): reads, counters and the flushed
+    table on the card equal the same store's on the CPU, bitwise."""
+    from repro_torch.core import merge_functions as mf
+    from repro_torch.serve import KVConfig, ShardedKV
+    S, R, D, B, T = 8, 4096, 4, 64, 9
+    rng = np.random.default_rng(3)
+    keys = rng.integers(-1, R, (T, S, B)).astype(np.int32)
+    vals = rng.integers(0, 1 << 32, (T, S, B, D)).astype(np.uint32)
+    fn = {"add": mf.ADD, "max": mf.MAX, "or": mf.BITWISE_OR}[merge]
+    for partitioned in (False, True):
+        cfg = KVConfig(n_keys=R, cols=D, dtype=torch.uint32, merge=fn,
+                       engine="blocked", partitioned=partitioned,
+                       spill_blocks=512, consistency="read_your_writes")
+        stores = [ShardedKV(cfg, S, device=dev, commit_every=4)
+                  for dev in ("cuda", "cpu")]
+        for t in range(T):
+            for kv in stores:
+                kv.tick(keys[t], vals[t])
+            card, host = (kv.read(keys[t]).cpu() for kv in stores)
+            assert torch.equal(card, host), t
+            assert stores[0].counters() == stores[1].counters(), t
+        for kv in stores:
+            kv.flush()
+        np.testing.assert_array_equal(stores[0].table(), stores[1].table())
+
+
+def _attn_inputs(dtype, *shapes, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(s, device="cuda", generator=g).to(dtype)
+            for s in shapes]
+
+
+def _assert_attn_close(got, want, dtype):
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype] * 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,s,t,d", [(2, 8, 8, 128, 128, 64),
+                                          (2, 8, 2, 100, 100, 128),
+                                          (1, 4, 1, 37, 130, 72),
+                                          (1, 2, 2, 65, 65, 256)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_plain_and_counts_its_launches(
+        cuda, dtype, b, h, kv, s, t, d, causal):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ops import flash_attention
+    q, k, v = _attn_inputs(dtype, (b, h, s, d), (b, kv, t, d),
+                           (b, kv, t, d))
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    before = fa.flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.shape == want.shape and got.dtype == dtype
+    _assert_attn_close(got, want, dtype)
+    # strided [B, S, H, d] views, as the model passes them
+    qs, ks, vs = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                  for x in (q, k, v))
+    _assert_attn_close(flash_attention(qs, ks, vs, causal=causal), want,
+                       dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,t,d", [(2, 8, 8, 300, 64),
+                                        (2, 16, 8, 257, 128),
+                                        (1, 16, 1, 40, 256),
+                                        (2, 4, 4, 50, 24)])
+def test_decode_attention_matches_plain_and_counts_its_launches(
+        cuda, dtype, b, h, kv, t, d):
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.ops import decode_attention
+    q, k, v = _attn_inputs(dtype, (b, h, d), (b, t, kv, d), (b, t, kv, d))
+    for pos in (0, 1, t // 2, t - 1):
+        want = da.decode_attention_plain(q, k, v, pos)
+        before = da.decode_attention.launches
+        got = decode_attention(q, k, v, pos)
+        torch.cuda.synchronize()
+        assert da.decode_attention.launches == before + 1
+        _assert_attn_close(got, want, dtype)
+    # slots past the position are never read
+    k[:, t // 2 + 1:] = float("nan")
+    got = decode_attention(q, k, v, t // 2)
+    assert torch.isfinite(got.float()).all()
+
+
+@pytest.mark.parametrize("arch", ["qwen1-5-0-5b", "internlm2-1-8b"])
+def test_lm_serves_through_the_kernels_on_the_card(cuda, arch):
+    """The smoke LM on the card launches flash_attention once a layer at
+    prefill and decode_attention once a layer a step, and its logits equal
+    the same weights' with the plain attention to the bf16 tolerance."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import generate, prompts
+    from repro_torch.models.registry import build_model
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg, device=cuda, seed=1)
+    p = prompts(cfg, 2, 24, 1)
+    fa.flash_attention.launches = da.decode_attention.launches = 0
+    res = generate(model, p, 5, keep_logits=True)
+    assert fa.flash_attention.launches == cfg.n_layers
+    assert da.decode_attention.launches == cfg.n_layers * 4
+    model.attention = "plain"
+    logits, caches = model.prefill(torch.as_tensor(p, device=cuda), 29)
+    steps = [logits]
+    for i in range(4):
+        logits, caches = model.decode_step(res.tokens[:, i], caches, 24 + i)
+        steps.append(logits)
+    assert fa.flash_attention.launches == cfg.n_layers
+    for got, want in zip(res.logits, steps):
+        torch.testing.assert_close(got, want, rtol=5e-2, atol=5e-2)

@@ -32,8 +32,11 @@ def _imported_roots(path: Path) -> set[str]:
 def test_the_port_has_files_to_scan():
     names = {p.name for p in PORT_FILES}
     assert {"cscatter.py", "cmerge.py", "ccache.py", "blocked.py", "kv.py",
-            "chip_smoke.py"} <= names
-    for kernel in ("cscatter.cu", "cmerge.cu"):
+            "flash_attention.py", "decode_attention.py", "attention.py",
+            "transformer.py", "registry.py", "serve.py", "base.py",
+            "qwen1_5_0_5b.py", "internlm2_1_8b.py", "chip_smoke.py"} <= names
+    for kernel in ("cscatter.cu", "cmerge.cu", "flash_attention.cu",
+                   "decode_attention.cu"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / kernel).is_file()
 
 

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.cmerge import cmerge as jax_cmerge
 from repro.kernels.cscatter import cscatter as jax_cscatter
@@ -342,6 +343,34 @@ def test_cmerge_clean_and_invalid_ways_leave_memory_alone(dtype):
                              _torch(src, dtype), _torch(upd, dtype),
                              kind=kind)
         assert torch.equal(clean, t), kind
+
+
+@pytest.mark.parametrize("kind", ["add", "max", "or"])
+def test_cmerge_block_id_past_the_table_follows_the_kernel_not_the_oracle(
+        kind):
+    """A dirty way whose block id lies past the table's end: the Pallas
+    kernel (``ops.merge_buffer``, interpret mode) leaves every row alone,
+    and so do the port's plain version and oracle; the JAX oracle
+    ``ref_cmerge`` clamps the id and writes the last block instead."""
+    rng = np.random.default_rng(11)
+    table = rng.integers(0, 1 << 20, (32, 4)).astype(np.int32)
+    src = rng.integers(0, 1 << 20, (1, 8, 4)).astype(np.int32)
+    upd = src | rng.integers(1, 1 << 16, (1, 8, 4)).astype(np.int32)
+    ids, dirty = np.asarray([5], np.int32), np.asarray([1], np.int32)
+    jargs = (jnp.asarray(table), jnp.asarray(ids), jnp.asarray(dirty),
+             jnp.asarray(src), jnp.asarray(upd))
+    targs = (torch.from_numpy(table), torch.from_numpy(ids),
+             torch.from_numpy(dirty), torch.from_numpy(src),
+             torch.from_numpy(upd))
+    kernel = np.asarray(jops.merge_buffer(*jargs, kind=kind))
+    np.testing.assert_array_equal(kernel, table)
+    np.testing.assert_array_equal(cmerge_plain(*targs, kind=kind).numpy(),
+                                  kernel)
+    np.testing.assert_array_equal(ref.ref_cmerge(*targs, kind=kind).numpy(),
+                                  kernel)
+    oracle = np.asarray(jref.ref_cmerge(*jargs, kind=kind))
+    np.testing.assert_array_equal(oracle[:24], table[:24])
+    assert not np.array_equal(oracle[24:], table[24:])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

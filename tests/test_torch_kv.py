@@ -11,19 +11,22 @@ import dataclasses
 import io
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from benchmarks.traces import key_stream as jax_key_stream
 from repro.core.defer_schedule import DeferSchedule as JDeferSchedule
+from repro.core.merge_functions import ADD as JADD
+from repro.core.merge_functions import BITWISE_OR as JOR
 from repro.core.merge_functions import MAX as JMAX
 from repro.serve import BatchedFrontend as JFrontend
 from repro.serve import KVConfig as JKVConfig
 from repro.serve import ShardedKV as JShardedKV
 from repro.serve import serving_plan as jserving_plan
 from repro_torch.core.defer_schedule import DeferSchedule
-from repro_torch.core.merge_functions import MAX
+from repro_torch.core.merge_functions import ADD, BITWISE_OR, MAX
 from repro_torch.launch import kv_serve
 from repro_torch.serve import BatchedFrontend, KVConfig, ShardedKV, \
     serving_plan
@@ -280,3 +283,36 @@ def test_cli_refuses_what_is_not_ported_or_inconsistent(flags):
     with pytest.raises(SystemExit):
         kv_serve.main(["--device", "cpu", "--keys", "256", "--ticks", "2",
                        *flags])
+
+
+@pytest.mark.parametrize("merge", ["add", "max", "or"])
+@pytest.mark.parametrize("name", ["sync", "deferred_k3", "partitioned_k3"])
+def test_uint32_store_matches_jax_bitwise_every_tick(name, merge):
+    """The kernel engine on uint32 tables over the whole 32-bit range,
+    held as int32 bits (MAX biased into signed order): table and reads
+    equal the JAX store's after every tick."""
+    kw, ckw = STORES[name]
+    jk = {k: jserving_plan(S, v) if k == "plan" else v for k, v in kw.items()}
+    tk = {k: serving_plan(S, v) if k == "plan" else v for k, v in kw.items()}
+    jm, tm = {"add": (JADD, ADD), "max": (JMAX, MAX),
+              "or": (JOR, BITWISE_OR)}[merge]
+    j = JShardedKV(JKVConfig(n_keys=R, cols=D, merge=jm, dtype=jnp.uint32,
+                             consistency="read_your_writes", **ckw),
+                   S, _spmd, **jk)
+    t = ShardedKV(KVConfig(n_keys=R, cols=D, merge=tm, dtype=torch.uint32,
+                           consistency="read_your_writes", **ckw),
+                  S, device="cpu", **tk)
+    keys, _ = _stream(12)
+    vals = np.random.default_rng(13).integers(
+        0, 1 << 32, (T, S, B, D)).astype(np.uint32)
+    rk = _read_keys(14)
+    for i in range(T):
+        j.tick(keys[i], vals[i])
+        t.tick(keys[i], vals[i])
+        np.testing.assert_array_equal(t.table(), j.table())
+        np.testing.assert_array_equal(t.read(rk).numpy(),
+                                      np.asarray(j.read(rk)))
+    j.flush()
+    t.flush()
+    np.testing.assert_array_equal(t.table(), j.table())
+    assert t.table().dtype == np.uint32
