@@ -5,7 +5,9 @@ a shared library with a plain C interface, at first use, under
 ``build/kernels/`` at the checkout's root, and loaded with ``ctypes``. The
 library's file name carries a hash of its source and flags, so an edited
 source rebuilds and a stale library is never loaded. Nothing is built when a
-module is imported: :func:`load` runs on the first launch.
+module is imported: :func:`load` runs on the first launch. ``ptxas -v``
+reports each kernel's registers, shared memory and spills; :data:`LOGS`
+keeps the compiler's output of every build this process ran.
 """
 
 from __future__ import annotations
@@ -21,9 +23,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+LOGS: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -63,6 +66,7 @@ def build(*names: str) -> dict[str, float]:
     failed = []
     for name, (proc, tmp, out, t0) in started.items():
         log, _ = proc.communicate()
+        LOGS[name] = log
         seconds[name] = time.perf_counter() - t0
         if proc.returncode != 0:
             failed.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")

@@ -11,9 +11,13 @@ combined into a private delta first and merged into memory once, so
 ``apply`` observes memory (what makes saturating merges correct). Rows no
 id touches stay bit-exact; ids ``< 0`` or ``>= R`` are ignored (padding).
 
-* On a CUDA tensor, :func:`cscatter` launches the hand-written Hopper kernel
-  of ``csrc/cscatter.cu`` (its header says what bounds it and why) or
-  raises; it never falls back. ``cscatter.launches`` counts its launches.
+* On a CUDA tensor, :func:`cscatter` launches the hand-written Hopper kernels
+  of ``csrc/cscatter.cu`` (its header says what bounds them and why) or
+  raises; it never falls back. A call is two launches, a bucket pass that
+  sorts each shard's ids by row block and a fold pass that merges each
+  touched row once; :func:`plan` sizes both on the host.
+  ``cscatter.launches`` counts the kernel launches, ``LAUNCHES_PER_CALL``
+  a call.
 * On a CPU tensor it runs :func:`cscatter_plain_`, the plain PyTorch
   version (in place; :func:`cscatter_plain` on a copy) that the tests hold
   against the JAX kernel and that ``chip_smoke.py`` holds the CUDA kernel
@@ -33,6 +37,8 @@ oracle's add-in-f32 (``ref.py:43``); the two differ above 2**24.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -190,15 +196,101 @@ def cscatter_plain(table: torch.Tensor, ids: torch.Tensor,
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2,
                torch.uint32: 3}
 
+# The kernels' geometry (csrc/cscatter.cu): 4-byte accumulators, column
+# tiles of at most 32, a fold CTA of 4 warps with one [br, dc] accumulator
+# tile (for buckets of more than 32 ids; a warp folds smaller ones in
+# registers), and one bucket-pass histogram of at most HIST_CAP blocks in
+# shared memory.
+ACC_ITEM = 4
+MAX_COLS = 32
+FOLD_WARPS = 4
+ACC_BYTES = 16 * 1024              # a fold CTA's tile when the blocks fit
+MAX_ACC_BYTES = 128 * 1024         # grown up to this when they do not
+HIST_CAP = 32 * 1024               # 128 KiB of counters
+FOLD_CTAS_PER_SM = 8
+BUCKET_SMEM = 226 * 1024           # the bucket pass's dynamic shared memory
+LAUNCHES_PER_CALL = 2              # the bucket pass, then the fold pass
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """What the two launches of one call need, computed on the host.
+
+    ``br`` rows x ``dc`` columns per accumulator tile; ``n_blocks`` row
+    blocks of ``br`` rows (the buckets); the bucket pass counts ``hist_cap``
+    blocks at a time in ``chunks`` rounds (each round reads the ids twice);
+    ``list_cap`` bounds a shard's work units (a unit is consecutive
+    buckets of at most 32 ids, or one larger bucket); the fold grid is
+    ``fold_ctas`` x ``col_tiles`` x S; with ``stage`` (one round, and
+    room for ``2N`` ints) the bucket pass sorts in shared memory and writes
+    perm and rowid out coalesced; ``scratch`` is the int32 element
+    count of perm, rowid ``[S, N]``, ustart ``[S, L + 1]``, big ``[S, L]``
+    and counts ``[S, 2]``."""
+
+    br: int
+    dc: int
+    col_tiles: int
+    n_blocks: int
+    hist_cap: int
+    chunks: int
+    list_cap: int
+    fold_ctas: int
+    stage: bool
+    scratch: int
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(s: int, r: int, n: int, d: int, n_sm: int) -> Plan:
+    """The sizing of one call on a card with ``n_sm`` SMs, for a table
+    ``[s, r, d]`` and ``n`` ids per shard. The tile starts at ``ACC_BYTES``
+    and doubles, up to ``MAX_ACC_BYTES``, while the row blocks outnumber
+    one histogram; past that the bucket pass runs in chunks. The fold runs
+    about ``FOLD_CTAS_PER_SM`` CTAs per SM in all, split over the shards,
+    and no more than a shard's buckets can keep busy."""
+    if min(s, r, d, n_sm) < 1 or n < 0:
+        raise ValueError(f"cscatter.plan: bad sizes s={s} r={r} n={n} d={d} "
+                         f"n_sm={n_sm}")
+    dc = min(d, MAX_COLS)
+    r32 = -(-r // 32) * 32
+    acc = ACC_BYTES
+    while True:
+        br = min(max(32, acc // (dc * ACC_ITEM) // 32 * 32), r32)
+        n_blocks = -(-r // br)
+        if n_blocks <= HIST_CAP or acc >= MAX_ACC_BYTES:
+            break
+        acc = min(2 * acc, MAX_ACC_BYTES)
+    hist_cap = min(n_blocks, HIST_CAP)
+    counters = -(-hist_cap // 4) * 4       # read 4 at a time
+    stage = n_blocks <= hist_cap and 4 * (counters + 2 * n) <= BUCKET_SMEM
+    list_cap = max(1, min(n_blocks, n))
+    per_shard = -(-FOLD_CTAS_PER_SM * n_sm // s)
+    return Plan(br=br, dc=dc, col_tiles=-(-d // dc), n_blocks=n_blocks,
+                hist_cap=hist_cap, chunks=-(-n_blocks // hist_cap),
+                list_cap=list_cap,
+                fold_ctas=max(1, min(per_shard, -(-list_cap // FOLD_WARPS))),
+                stage=stage, scratch=s * (2 * n + 2 * list_cap + 3))
+
+
+_SMS: dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
 
 def _kernel_fn():
     from repro_torch.kernels import _build
     fn = _build.load("cscatter").cscatter_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                          ctypes.c_float, ctypes.c_void_p])
+                          ctypes.c_float] + [ctypes.c_int64] * 6
+                       + [ctypes.c_int, ctypes.c_void_p])
     return fn
 
 
@@ -207,7 +299,7 @@ def cscatter(table: torch.Tensor, ids: torch.Tensor, vals: torch.Tensor, *,
              sat_max: float = 0.0) -> torch.Tensor:
     """``table [S,R,D] | [R,D]``; ``ids`` int32 ``[S,N] | [N]``; ``vals``
     ``[S,N,D] | [N,D]`` in the table's dtype. Updates ``table`` in place
-    and returns it: the CUDA kernel on a CUDA tensor, the plain version's
+    and returns it: the CUDA kernels on a CUDA tensor, the plain version's
     arithmetic on a CPU tensor."""
     if table.device.type == "cpu":
         return cscatter_plain_(table, ids, vals, kind=kind, sat_min=sat_min,
@@ -217,18 +309,31 @@ def cscatter(table: torch.Tensor, ids: torch.Tensor, vals: torch.Tensor, *,
         raise ValueError(f"cscatter: no kernel for device {t.device}")
     s, r, d = t.shape
     n = i.shape[1]
-    if n == 0:
-        return table
+    if n > 0:
+        launch(t, i, v, kind, sat_min, sat_max,
+               plan(s, r, n, d, _sm_count(t.device)))
+    return table
+
+
+def launch(t: torch.Tensor, i: torch.Tensor, v: torch.Tensor, kind: str,
+           sat_min: float, sat_max: float, p: Plan) -> None:
+    """The two launches of one call, on checked stacked CUDA arguments
+    with ``N >= 1``, sized by ``p``. :func:`cscatter` passes ``plan``'s
+    choice; a test may pass another valid plan (``stage`` off, a smaller
+    ``hist_cap``) to reach each branch of the bucket pass."""
+    s, r, d = t.shape
+    n = i.shape[1]
+    scratch = torch.empty(p.scratch, dtype=torch.int32, device=t.device)
     fn = _kernel_fn()
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream(t.device).cuda_stream
-        err = fn(t.data_ptr(), i.data_ptr(), v.data_ptr(), s, r, n, d,
-                 _DTYPE_CODE[t.dtype], MERGE_KINDS.index(kind),
-                 sat_min, sat_max, stream)
+        err = fn(t.data_ptr(), i.data_ptr(), v.data_ptr(), scratch.data_ptr(),
+                 s, r, n, d, _DTYPE_CODE[t.dtype], MERGE_KINDS.index(kind),
+                 sat_min, sat_max, p.br, p.dc, p.n_blocks, p.hist_cap,
+                 p.list_cap, p.fold_ctas, int(p.stage), stream)
     if err != 0:
         raise RuntimeError(f"cscatter kernel launch failed: cudaError {err}")
-    cscatter.launches += 1
-    return table
+    cscatter.launches += LAUNCHES_PER_CALL
 
 
 cscatter.launches = 0

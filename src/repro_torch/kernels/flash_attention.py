@@ -4,21 +4,30 @@ The port of the JAX package's TPU kernel ``repro/kernels/flash_attention.py``
 ``flash_attention`` (Pallas). For ``q [B, H, S, d]`` and ``k, v [B, KV, T,
 d]`` (KV divides H; head ``h`` reads kv head ``h // (H / KV)``) it computes
 ``softmax(q k^T / sqrt(d)) v`` per head, causal (key ``j`` visible to query
-``i`` iff ``j <= i``, both counted from 0) or bidirectional. q, k and v are
-widened to f32 before both products, masked scores are ``-1e30``, and the
-normaliser is clamped at ``1e-30``; the output has q's dtype.
+``i`` iff ``j <= i``, both counted from 0) or bidirectional. Scores and the
+softmax are f32, masked scores are ``-1e30``, and the normaliser is clamped
+at ``1e-30``; the output has q's dtype.
 
-* On a CUDA tensor, :func:`flash_attention` launches the hand-written Hopper
-  kernel of ``csrc/flash_attention.cu`` (its header says what bounds it) or
-  raises; it never falls back. ``flash_attention.launches`` counts its
-  launches.
+* On a CUDA tensor, :func:`flash_attention` launches one of the two
+  hand-written Hopper kernels of ``csrc/flash_attention.cu`` (its header
+  says what bounds them), chosen by dtype (:data:`VARIANTS`): bf16 inputs
+  go to ``bf16_mma``, products on the tensor cores (``mma.sync``, K/V
+  copies in flight with ``cp.async``); f32 inputs to ``f32_fma``, products
+  on the f32 cores. It raises on what they do not take; it never falls
+  back. ``flash_attention.launches`` counts every launch and
+  ``flash_attention.launches_by_variant`` each variant's.
 * On a CPU tensor it runs :func:`flash_attention_plain`, the plain PyTorch
   version of the same arithmetic, which the tests hold against the JAX
-  kernel and ``chip_smoke.py`` holds the CUDA kernel against.
+  kernel and ``chip_smoke.py`` holds the CUDA kernels against.
 
-The kernel reads q, k and v through their strides (unit stride in ``d``),
+For bf16 inputs the probabilities are rounded to bf16 before the P.V
+product, as the tensor-core kernel feeds them to it and as the JAX model
+does (``softmax(...).astype(v.dtype)``); the TPU kernel keeps them in f32.
+f32 inputs keep everything in f32.
+
+The kernels read q, k and v through their strides (unit stride in ``d``),
 so ``[B, S, H, d]`` activations transposed to ``[B, H, S, d]`` need no copy.
-Its result has the shape ``[B, H, S, d]`` and the memory layout ``[B, S, H,
+The result has the shape ``[B, H, S, d]`` and the memory layout ``[B, S, H,
 d]``, so that merging the heads back is a view. Any S, T >= 1 and any d that
 is a multiple of 8 up to 256 are taken.
 """
@@ -30,6 +39,10 @@ import ctypes
 import torch
 
 DTYPES = (torch.float32, torch.bfloat16)
+# the kernel each input dtype launches, and its C entry point
+VARIANTS = {torch.float32: "f32_fma", torch.bfloat16: "bf16_mma"}
+_ENTRY = {"f32_fma": "flash_attention_f32_launch",
+          "bf16_mma": "flash_attention_bf16_launch"}
 NEG_INF = -1e30
 
 
@@ -56,9 +69,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True) -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch, on any device: f32 scores,
-    the ``-1e30`` mask, ``exp(s - max)`` normalised by the sum clamped at
-    ``1e-30``. Returns a contiguous ``[B, H, S, d]`` in q's dtype."""
+    """The kernels' arithmetic in plain PyTorch, on any device: f32 scores,
+    the ``-1e30`` mask, ``p = exp(s - max)``, for bf16 inputs rounded to
+    bf16 before the P.V product, normalised by the f32 sum of the unrounded
+    ``p`` clamped at ``1e-30``. Returns a contiguous ``[B, H, S, d]`` in
+    q's dtype."""
     _check(q, k, v)
     b, h, s, d = q.shape
     n_kv, t = k.shape[1], k.shape[2]
@@ -70,18 +85,20 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = torch.where(mask, scores, NEG_INF)
     p = torch.exp(scores - scores.amax(-1, keepdim=True))
     l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    if q.dtype == torch.bfloat16:
+        p = p.to(torch.bfloat16).float()
     out = torch.einsum("bkgst,bktd->bkgsd", p, v.float()) / l
     return out.reshape(b, h, s, d).to(q.dtype)
 
 
-def _kernel_fn():
+def _kernel_fn(variant: str):
     from repro_torch.kernels import _build
-    fn = _build.load("flash_attention").flash_attention_launch
+    fn = getattr(_build.load("flash_attention"), _ENTRY[variant])
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 6
                        + [ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
-                          ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+                          ctypes.c_float, ctypes.c_void_p])
     return fn
 
 
@@ -100,7 +117,8 @@ def _strides(x: torch.Tensor, name: str) -> list[int]:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """``q [B,H,S,d]``, ``k, v [B,KV,T,d]`` -> ``[B,H,S,d]``: the CUDA
-    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    kernel of q's dtype on a CUDA tensor, the plain version on a CPU
+    tensor."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
     _check(q, k, v)
@@ -115,17 +133,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       device=q.device).transpose(1, 2)
     strides = (_strides(q, "q") + _strides(k, "k") + _strides(v, "v")
                + _strides(out, "out"))
-    fn = _kernel_fn()
+    variant = VARIANTS[q.dtype]
+    fn = _kernel_fn(variant)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  b, h, n_kv, s, t, d, (ctypes.c_int64 * 12)(*strides),
-                 DTYPES.index(q.dtype), int(causal), 1.0 / d ** 0.5, stream)
+                 int(causal), 1.0 / d ** 0.5, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
+        raise RuntimeError(f"flash_attention {variant} kernel launch failed: "
                            f"cudaError {err}")
     flash_attention.launches += 1
+    flash_attention.launches_by_variant[variant] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_variant = dict.fromkeys(VARIANTS.values(), 0)

@@ -28,6 +28,7 @@ from torch import nn as tnn
 from repro_torch.models import attention as attn
 from repro_torch.models import module as nn
 from repro_torch.models.mlp import swiglu, swiglu_init
+from repro_torch.serve.kv import resolve_device
 
 Tensor = torch.Tensor
 ATTENTION = ("kernel", "plain")
@@ -70,15 +71,15 @@ def _matmul_f32(x: Tensor, w: Tensor) -> Tensor:
 
 
 class DecoderLM(tnn.Module):
-    def __init__(self, cfg, *, device="cpu", seed: int = 0,
+    def __init__(self, cfg, *, device="cuda", seed: int = 0,
                  attention: str = "kernel"):
         super().__init__()
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"DecoderLM: family {cfg.family!r} is not ported yet")
+        device = resolve_device(device)
         self.cfg = cfg
         self.attention = attention
-        device = torch.device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
         dt = cfg.param_dtype
         hd = cfg.resolved_head_dim
@@ -242,9 +243,10 @@ def load_jax_params(model: DecoderLM, tree: Mapping) -> DecoderLM:
     return model
 
 
-def from_jax_params(cfg, tree: Mapping, *, device="cpu",
+def from_jax_params(cfg, tree: Mapping, *, device="cuda",
                     attention: str = "kernel") -> DecoderLM:
-    """A :class:`DecoderLM` of ``cfg`` holding the JAX parameter tree's
-    weights, so that both packages compute the same function."""
+    """A :class:`DecoderLM` of ``cfg`` on ``device`` (the card unless the
+    caller asks for the CPU) holding the JAX parameter tree's weights, so
+    that both packages compute the same function."""
     model = DecoderLM(cfg, device=device, attention=attention)
     return load_jax_params(model, tree)

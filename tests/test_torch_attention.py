@@ -91,6 +91,32 @@ def test_flash_plain_at_shapes_the_pallas_kernel_cannot_tile(dtype, causal):
                                        causal=causal), dtype)
 
 
+@pytest.mark.parametrize("h,kv", [(8, 8), (8, 2)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_plain_rounds_p_as_the_jax_model_does(h, kv, causal):
+    """For bf16 inputs the plain version (and the tensor-core kernel it
+    stands for) rounds p to bf16 before the P.V product, as the JAX model's
+    attention does (``softmax(...).astype(v.dtype)`` in ``_attend`` and
+    ``_attend_grouped``) and the Pallas kernel does not (it keeps p in f32).
+    It agrees with both at the bf16 TOL."""
+    from repro.models import attention as jattn
+    s, d = 48, 32
+    q, k, v = _arrays(5, (2, h, s, d), (2, kv, s, d), (2, kv, s, d),
+                      dtype="bfloat16")
+    got = flash_attention_plain(*(_t(x, "bfloat16") for x in (q, k, v)),
+                                causal=causal)
+    jq, jk, jv = (_j(x.transpose(0, 2, 1, 3), "bfloat16") for x in (q, k, v))
+    mask = jnp.asarray(np.tril(np.ones((s, s), bool)) if causal
+                       else np.ones((s, s), bool))[None]
+    for attend in (jattn._attend, jattn._attend_grouped):
+        model = np.asarray(attend(jq, jk, jv, mask), np.float32).reshape(
+            2, s, h, d).transpose(0, 2, 1, 3)
+        _close(got, model, "bfloat16")
+    pallas = jops.flash_attention(*(_j(x, "bfloat16") for x in (q, k, v)),
+                                  causal=causal, bq=16, bk=16)
+    _close(got, pallas, "bfloat16")
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("pos", [0, 1, 37, 127])
 def test_decode_plain_matches_pallas_kernel_and_oracles(dtype, pos):

@@ -1,6 +1,8 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA cscatter, cmerge,
-flash_attention and decode_attention kernels against their plain versions,
-the stores and the LM on the card.
+flash_attention and decode_attention kernels against their plain versions
+(the bucketed cscatter at its edges, the bf16 tensor-core flash kernel at
+its tiling's edges), the stores and the LM on the card, and the card
+against the CPU.
 
 Marked ``gpu``; each skips with its reason where there is no card. This
 file imports only PyTorch and the port, so that it runs where JAX is not
@@ -8,6 +10,8 @@ installed:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -62,12 +66,146 @@ def test_kernel_matches_plain_and_counts_its_launches(cuda, dtype, s, r, d, n):
         got = commutative_scatter(table.clone(), ids, vals, kind=kind,
                                   sat_min=-2.0, sat_max=float(1 << 30))
         torch.cuda.synchronize()
-        assert cs.cscatter.launches == before + 1
+        assert cs.cscatter.launches == before + cs.LAUNCHES_PER_CALL
         if dtype.is_floating_point:
             torch.testing.assert_close(got.float(), want.float(),
                                        rtol=TOL[dtype], atol=TOL[dtype] * 8)
         else:
             assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _pareto_ids(s, n, r, seed):
+    from repro_torch.launch.kv_serve import key_stream
+    return key_stream(s * n, r, "pareto", n_users=1 << 20,
+                      seed=seed).reshape(s, n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32,
+                                   torch.uint32])
+@pytest.mark.parametrize("case", ["hot_row", "pareto", "n_above_r", "d33",
+                                  "d128"])
+def test_bucketed_cscatter_matches_plain_at_its_edges(cuda, dtype, case):
+    """A hot row (every id on one row: one bucket of 8192), the key
+    stream's Pareto ids, N > R (a dense table of 1000 rows), and D = 33 and
+    128 (two and four column tiles). Integers bitwise, floats to TOL. For
+    the hot row, float values are small integers, so that every order of
+    summing 8192 of them gives the same f32 sum: the case checks that each
+    contribution lands once, not the rounding of a long f32 sum."""
+    s, r, d, n = {"hot_row": (4, 1 << 20, 4, 8192),
+                  "pareto": (8, 1 << 22, 4, 8192),
+                  "n_above_r": (8, 1000, 4, 8192),
+                  "d33": (2, 5000, 33, 700),
+                  "d128": (2, 1 << 16, 128, 1024)}[case]
+    table, ids, vals = _case(dtype, s, r, d, n, 5, cuda)
+    if case == "hot_row":
+        ids = torch.full_like(ids, r // 3)
+        if dtype.is_floating_point:
+            vals = torch.randint(-8, 9, vals.shape, device=cuda,
+                                 generator=torch.Generator(device=cuda)
+                                 .manual_seed(5)).to(dtype)
+    elif case == "pareto":
+        ids = torch.as_tensor(_pareto_ids(s, n, r, 5), device=cuda)
+    kinds = ("add", "sat_add", "max", "min") + (
+        () if dtype.is_floating_point else ("or",))
+    for kind in kinds:
+        want = cs.cscatter_plain(table, ids, vals, kind=kind, sat_min=-2.0,
+                                 sat_max=float(1 << 30))
+        got = cs.cscatter(table.clone(), ids, vals, kind=kind, sat_min=-2.0,
+                          sat_max=float(1 << 30))
+        torch.cuda.synchronize()
+        if dtype.is_floating_point:
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=TOL[dtype], atol=TOL[dtype] * 8)
+        else:
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _check_launch(table, ids, vals, p, kinds):
+    """``cs.launch`` with plan ``p`` against the plain version, per kind:
+    integers bitwise, floats to TOL."""
+    for kind in kinds:
+        want = cs.cscatter_plain(table, ids, vals, kind=kind, sat_min=-2.0,
+                                 sat_max=float(1 << 30))
+        got = table.clone()
+        cs.launch(got, ids, vals, kind, -2.0, float(1 << 30), p)
+        torch.cuda.synchronize()
+        if table.dtype.is_floating_point:
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=TOL[table.dtype],
+                                       atol=TOL[table.dtype] * 8)
+        else:
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.uint32])
+@pytest.mark.parametrize("branch", ["direct", "rounds_3", "rounds_64"])
+def test_bucket_pass_branches_on_a_forced_plan(cuda, dtype, branch):
+    """Each branch of the bucket pass on a small table, by a plan that
+    forces it: positions written straight to device memory (``stage``
+    off), and the histogram counted in rounds of 3 or 64 of the table's 98
+    row blocks. A quarter of the ids sit on one row, so big units (hot
+    rows) and small ones both span the rounds."""
+    s, r, d, n = 2, 100_000, 4, 3000
+    table, ids, vals = _case(dtype, s, r, d, n, 8, cuda)
+    ids[:, ::4] = r // 3
+    p = cs.plan(s, r, n, d, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    assert (p.n_blocks, p.chunks, p.stage) == (98, 1, True)
+    if branch != "direct":
+        cap = int(branch.split("_")[1])
+        p = dataclasses.replace(p, hist_cap=cap, chunks=-(-p.n_blocks // cap))
+    p = dataclasses.replace(p, stage=False)
+    kinds = ("add", "sat_add", "max", "min") + (
+        () if dtype.is_floating_point else ("or",))
+    _check_launch(table, ids, vals, p, kinds)
+
+
+@pytest.mark.parametrize("case", ["direct", "rounds"])
+def test_bucket_pass_branches_that_plan_picks(cuda, case):
+    """The branches where ``plan`` itself takes them, int32 bitwise: 40000
+    ids a shard at R = 2^22 (a ring flush of a longer commit cycle) no
+    longer fit in the bucket pass's shared memory, so positions go straight
+    to device memory; a table of 2^30 + 1 rows (4.3 GB) has more row blocks
+    than one histogram holds, so it is counted in two rounds. Ids reach the
+    first and the last row."""
+    s, r, d, n = {"direct": (2, 1 << 22, 4, 40_000),
+                  "rounds": (1, (1 << 30) + 1, 1, 5000)}[case]
+    p = cs.plan(s, r, n, d, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    assert (p.stage, p.chunks) == ((False, 1) if case == "direct"
+                                   else (False, 2))
+    g = torch.Generator(device=cuda).manual_seed(9)
+    table = torch.randint(-(1 << 31), 1 << 31, (s, r, d), generator=g,
+                          device=cuda, dtype=torch.int32)
+    ids = torch.randint(-3, r + 3, (s, n), generator=g, device=cuda,
+                        dtype=torch.int32)
+    ids[:, :3] = torch.tensor([0, r - 1, r - 1], dtype=torch.int32)
+    ids[:, 3::7] = r // 3                                   # a hot row
+    vals = torch.randint(-(1 << 31), 1 << 31, (s, n, d), generator=g,
+                         device=cuda, dtype=torch.int32)
+    _check_launch(table, ids, vals, p, ("add", "sat_add", "max", "min", "or"))
+    before = cs.cscatter.launches
+    got = cs.cscatter(table.clone(), ids, vals, kind="add")
+    want = cs.cscatter_plain(table, ids, vals, kind="add")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert cs.cscatter.launches == before + cs.LAUNCHES_PER_CALL
+
+
+def test_bucketed_cscatter_leaves_the_table_alone_without_updates(cuda):
+    """All padding, and N = 0: the table stays bit-exact; N = 0 launches
+    nothing."""
+    table, _, _ = _case(torch.int32, 4, 1000, 4, 1, 6, cuda)
+    before = table.clone()
+    cs.cscatter(table, torch.full((4, 300), -1, dtype=torch.int32,
+                                  device=cuda),
+                torch.ones((4, 300, 4), dtype=torch.int32, device=cuda))
+    launches = cs.cscatter.launches
+    cs.cscatter(table, torch.zeros((4, 0), dtype=torch.int32, device=cuda),
+                torch.zeros((4, 0, 4), dtype=torch.int32, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(table, before)
+    assert cs.cscatter.launches == launches
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32,
@@ -192,9 +330,24 @@ def _attn_inputs(dtype, *shapes, seed=0):
             for s in shapes]
 
 
+# A kernel against its plain version in bf16: both round an f32 result to
+# bf16, so they differ by about one bf16 ulp (2**-8 of the value); the worst
+# seen on an NVIDIA H100 80GB HBM3 (700 W) is 0.0039. TOL's absolute 4 * 2e-2
+# is the size of a typical output element, so bf16 is held to 1e-2 + 1e-2 *
+# |want| per element and to 1e-2 of each output row's RMS per row.
+ATTN_BF16_TOL, ATTN_BF16_ROW = 1e-2, 1e-2
+
+
 def _assert_attn_close(got, want, dtype):
-    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
-                               atol=TOL[dtype] * 4)
+    if dtype != torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                                   atol=TOL[dtype] * 4)
+        return
+    g, w = got.float(), want.float()
+    torch.testing.assert_close(g, w, rtol=ATTN_BF16_TOL, atol=ATTN_BF16_TOL)
+    row = ((g - w).square().mean(-1).sqrt()
+           / w.square().mean(-1).sqrt().clamp_min(1e-6))
+    assert float(row.max()) <= ATTN_BF16_ROW
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -221,6 +374,47 @@ def test_flash_attention_matches_plain_and_counts_its_launches(
                   for x in (q, k, v))
     _assert_attn_close(flash_attention(qs, ks, vs, causal=causal), want,
                        dtype)
+
+
+@pytest.mark.parametrize("d", [8, 64, 72, 128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,kv,s,t", [(1, 8, 4, 100, 37), (1, 8, 1, 37, 100),
+                                        (2, 16, 8, 129, 129)])
+def test_bf16_flash_attention_runs_on_the_tensor_cores(cuda, d, causal, b, h,
+                                                       kv, s, t):
+    """bf16 inputs launch the tensor-core variant (and only it), which
+    agrees with the plain version (p rounded to bf16 before P.V) to
+    ATTN_BF16_TOL at
+    every head dim the wrapper takes a tile of, ragged S != T, GQA groups
+    of 2 and 8, contiguous and through strided [B, S, H, d] views."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _attn_inputs(torch.bfloat16, (b, h, s, d), (b, kv, t, d),
+                           (b, kv, t, d), seed=d)
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    views = [(q, k, v), tuple(x.transpose(1, 2).contiguous().transpose(1, 2)
+                              for x in (q, k, v))]
+    for args in views:
+        before = dict(fa.flash_attention.launches_by_variant)
+        got = fa.flash_attention(*args, causal=causal)
+        torch.cuda.synchronize()
+        after = fa.flash_attention.launches_by_variant
+        assert after["bf16_mma"] == before["bf16_mma"] + 1
+        assert after["f32_fma"] == before["f32_fma"]
+        _assert_attn_close(got, want, torch.bfloat16)
+
+
+def test_f32_flash_attention_keeps_the_f32_core_kernel(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _attn_inputs(torch.float32, (2, 8, 100, 64), (2, 2, 100, 64),
+                           (2, 2, 100, 64), seed=3)
+    before = dict(fa.flash_attention.launches_by_variant)
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches_by_variant["f32_fma"] == \
+        before["f32_fma"] + 1
+    assert fa.flash_attention.launches_by_variant["bf16_mma"] == \
+        before["bf16_mma"]
+    _assert_attn_close(got, fa.flash_attention_plain(q, k, v), torch.float32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -272,3 +466,52 @@ def test_lm_serves_through_the_kernels_on_the_card(cuda, arch):
     assert fa.flash_attention.launches == cfg.n_layers
     for got, want in zip(res.logits, steps):
         torch.testing.assert_close(got, want, rtol=5e-2, atol=5e-2)
+
+
+def test_store_on_the_card_equals_the_same_store_on_the_cpu(cuda):
+    """The partitioned kernel-engine store (its commits scatter the ring
+    through the bucketed cscatter) on Pareto keys: the card's table equals
+    the CPU's, bitwise, after every commit and after the flush."""
+    from repro_torch.serve import KVConfig, ShardedKV
+    S, R, D, B, T = 8, 1 << 16, 4, 256, 9
+    keys = _pareto_ids(T * S, B, R, 7).reshape(T, S, B)
+    vals = np.random.default_rng(7).integers(1, 9, (T, S, B, D)).astype(
+        np.int32)
+    stores = [ShardedKV(KVConfig(n_keys=R, cols=D, partitioned=True), S,
+                        commit_every=4, device=dev) for dev in ("cuda", "cpu")]
+    for t in range(T):
+        for kv in stores:
+            kv.tick(keys[t], vals[t])
+        if (t + 1) % 4 == 0:
+            np.testing.assert_array_equal(stores[0].table(),
+                                          stores[1].table())
+    for kv in stores:
+        kv.flush()
+    np.testing.assert_array_equal(stores[0].table(), stores[1].table())
+
+
+def test_lm_serve_on_the_card_matches_the_cpu(cuda):
+    """The same weights (built on the CPU, copied to the card) serve the
+    same prompts on both: the card through the kernels (prefill through the
+    bf16 tensor-core flash kernel), the CPU through the plain versions;
+    every step's logits agree to the bf16 tolerance of the kernel tests of
+    the LM (5e-2)."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import generate, prompts
+    from repro_torch.models.registry import build_model
+    cfg = get_smoke_config("qwen1-5-0-5b")
+    host = build_model(cfg, device="cpu", seed=2)
+    card = build_model(cfg, device="cpu", seed=2).to(cuda)
+    p = prompts(cfg, 2, 24, 2)
+    before = fa.flash_attention.launches_by_variant["bf16_mma"]
+    got = generate(card, p, 4, keep_logits=True)
+    assert fa.flash_attention.launches_by_variant["bf16_mma"] == \
+        before + cfg.n_layers
+    # teacher-forced on the CPU over the card's tokens
+    logits, caches = host.prefill(torch.as_tensor(p), 28)
+    for i, step in enumerate(got.logits):
+        if i:
+            logits, caches = host.decode_step(got.tokens[:, i - 1].cpu(),
+                                              caches, 24 + i - 1)
+        torch.testing.assert_close(step.cpu(), logits, rtol=5e-2, atol=5e-2)

@@ -19,6 +19,7 @@ from repro.kernels.cmerge import cmerge as jax_cmerge
 from repro.kernels.cscatter import cscatter as jax_cscatter
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.cmerge import cmerge, cmerge_plain, cmerge_plain_
+from repro_torch.kernels import cscatter as cs
 from repro_torch.kernels.cscatter import (cscatter, cscatter_plain,
                                           cscatter_plain_)
 
@@ -268,6 +269,53 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
         ids = ids[None]
     with pytest.raises((TypeError, ValueError)):
         cscatter(table, ids, vals, kind=kind)
+
+
+@pytest.mark.parametrize("r", [1, 1000, 1 << 22, 1 << 30])
+@pytest.mark.parametrize("n", [1, 8192, 1 << 20])
+def test_bucketed_cscatter_host_sizing(r, n):
+    """The two launches' geometry, computed on the host for every D up to
+    256: tiles cover the table, the shared memory fits a block, the
+    histogram rounds cover every block, the scratch holds perm, rowid,
+    unit starts, big units and counts, and the fold grid is bounded by the
+    card and by the shard's units."""
+    s, n_sm = 8, 132
+    for d in range(1, 257):
+        p = cs.plan(s, r, n, d, n_sm)
+        assert p.dc == min(d, cs.MAX_COLS)
+        assert (p.col_tiles - 1) * p.dc < d <= p.col_tiles * p.dc
+        assert p.br % 32 == 0 and 32 <= p.br <= max(32, -(-r // 32) * 32)
+        assert (p.n_blocks - 1) * p.br < r <= p.n_blocks * p.br
+        assert p.br * p.dc * 4 + p.br // 8 <= 227 * 1024  # the fold's tile
+        assert p.br * p.dc * 4 <= cs.MAX_ACC_BYTES
+        counters = -(-p.hist_cap // 4) * 4
+        assert 4 * counters <= cs.BUCKET_SMEM
+        assert p.stage == (p.chunks == 1 and 4 * (counters + 2 * n)
+                           <= cs.BUCKET_SMEM)
+        assert (p.chunks - 1) * p.hist_cap < p.n_blocks <= \
+            p.chunks * p.hist_cap
+        assert p.list_cap == max(1, min(p.n_blocks, n))
+        assert p.scratch == s * (2 * n + 2 * p.list_cap + 3) < 2**31
+        assert 1 <= p.fold_ctas <= -(-cs.FOLD_CTAS_PER_SM * n_sm // s)
+        assert p.fold_ctas <= max(1, -(-p.list_cap // cs.FOLD_WARPS))
+        if r <= 1 << 22:    # one histogram: the ids are read twice a call
+            assert p.chunks == 1
+
+
+def test_bucketed_cscatter_sizing_at_the_main_path():
+    """[8, 2^22, 4] int32: 1024-row blocks, one histogram of 4096, a fold
+    grid of 132 CTAs per shard; a tick's 1024 ids per shard make at most
+    1024 units, a ring flush's 8192 at most 4096."""
+    tick, flush = (cs.plan(8, 1 << 22, n, 4, 132) for n in (1024, 8192))
+    for p in (tick, flush):
+        assert (p.br, p.dc, p.col_tiles, p.n_blocks, p.hist_cap, p.chunks,
+                p.fold_ctas) == (1024, 4, 1, 4096, 4096, 1, 132)
+        assert p.stage
+    assert (tick.list_cap, flush.list_cap) == (1024, 4096)
+    assert (tick.scratch, flush.scratch) == (8 * (2048 + 2048 + 3),
+                                             8 * (16384 + 8192 + 3))
+    with pytest.raises(ValueError):
+        cs.plan(8, 0, 1, 4, 132)
 
 
 # ---------------------------------------------------------------- cmerge

@@ -39,7 +39,8 @@ from repro.models.registry import build_model as jbuild_model
 from repro_torch.configs import base as tbase
 from repro_torch.models import mlp, module, rope
 from repro_torch.models.registry import build_model
-from repro_torch.models.transformer import from_jax_params, load_jax_params
+from repro_torch.models.transformer import (DecoderLM, from_jax_params,
+                                           load_jax_params)
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["qwen1-5-0-5b", "internlm2-1-8b"]
@@ -131,7 +132,8 @@ def _jax_model(arch, dtype):
 def test_decoder_lm_prefill_and_decode_match_jax(arch, dtype):
     jcfg, jmodel, params = _jax_model(arch, dtype)
     tcfg = dataclasses.replace(tbase.get_smoke_config(arch), dtype=dtype)
-    tmodel = from_jax_params(tcfg, jax.tree.map(np.asarray, params))
+    tmodel = from_jax_params(tcfg, jax.tree.map(np.asarray, params),
+                             device="cpu")
     b, s, steps = 2, 12, 4
     cache_len = s + steps
     tokens = np.random.default_rng(1).integers(
@@ -162,6 +164,22 @@ def test_decoder_lm_prefill_and_decode_match_jax(arch, dtype):
                                     jnp.asarray(s + i, jnp.int32))
         tl, tc = tmodel.decode_step(torch.from_numpy(tok), tc, s + i)
         check(f"decode step {i}")
+
+
+def test_models_run_on_the_card_unless_the_caller_asks_for_the_cpu():
+    """``DecoderLM`` and ``from_jax_params`` default to the card: without
+    one, a caller that names no device gets an error, not a model quietly
+    built on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default builds there")
+    cfg = tbase.get_smoke_config("qwen1-5-0-5b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DecoderLM(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        from_jax_params(cfg, {})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(cfg)
+    assert DecoderLM(cfg, device="cpu").embed.table.device.type == "cpu"
 
 
 def test_kernel_and_plain_attention_agree_on_the_cpu():
