@@ -22,7 +22,10 @@ rows), and LM serving (prefill + greedy decode) of qwen1.5-0.5b — and:
    wrapper), the plain version (in place, as the kernel) and one library
    call (its device time from a CUDA graph, ``library_ms``, and an eager
    call, ``library_call_ms``); ``cscatter`` add also with its bucket pass
-   unstaged (``unstaged_ms``);
+   unstaged (``unstaged_ms``); ``cmerge`` (several ways a CTA, 16-byte
+   accesses) at W in {1, 8, 8192} and D in {4, 128}, every kind, against
+   its plain version, and timed for add, max and min at the evict, flush
+   and drain shapes against ``index_add_`` / ``index_reduce_``;
 4. runs the privatized K = 8, sync, partitioned and partitioned+overlap
    stores over 3 commit cycles plus a partial one, and the blocked
    replicated and blocked partitioned stores over 2 cycles plus a tick: each
@@ -38,16 +41,20 @@ rows), and LM serving (prefill + greedy decode) of qwen1.5-0.5b — and:
    and ``ATTN_BF16_ROW`` per output row) at qwen1.5-0.5b's and
    internlm2-1.8b's attention shapes, and the bf16 tensor-core flash kernel at the edges of
    its tiling (d of 8 to 256, ragged S != T, GQA groups of 2 and 8,
-   strided views), printing the variant each shape ran; times them beside
-   their bounds and one ``scaled_dot_product_attention`` call;
+   strided views), printing the variant each shape ran; holds each pass of
+   ``decode_attention`` (a split pass over ``plan_splits``'s split count,
+   then a combine pass) against its plain version at both cache shapes;
+   times them beside their bounds and one ``scaled_dot_product_attention``
+   call, printing the split count each decode shape ran;
 7. serves qwen1.5-0.5b at full width (bf16, random weights from the seed,
    batch 8, prompts of 512 ids, 64 greedy tokens) through
    ``launch/serve.generate``: the attention kernels' launches must be one a
    layer at prefill, all of them through the bf16 tensor-core variant, and
-   one a layer a decode step, and the logits of every
+   two a layer a decode step (``decode_attention``'s split and combine
+   passes), and the logits of every
    step must match the same tokens teacher-forced through the plain
    attention;
-8. prints each attention kernel's registers and spills (``ptxas -v``),
+8. prints every kernel's registers and spills (``ptxas -v``),
    one ``{"kernels": [...]}`` line and the card's name and power limit;
 9. ends with ``{"ok": true, "device": {...}}``.
 
@@ -79,6 +86,7 @@ USERS = 1 << 20
 SEED = 0
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # tests/test_kernels.py TOL
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
+COLD_BYTES = 150e6                  # inputs rotated through: 3x the L2
 F32_OPS_PER_S = 67e12               # non-tensor-core f32 peak, H100 SXM
 REPLACES = "src/repro/kernels/cscatter.py:133 (cscatter -> _kernel :64)"
 REPLACES_CMERGE = "src/repro/kernels/cmerge.py:56 (cmerge -> _kernel :30)"
@@ -157,6 +165,19 @@ def graph_ms(fn, launches: int = 100, samples: int = 11) -> float:
     return statistics.median(out)
 
 
+def rotating(fn, sets: list):
+    """``fn`` over ``sets`` of arguments in turn, one set a call: timed by
+    ``graph_ms``, each launch of the graph reads inputs that the launches
+    before it have pushed out of the 50 MB L2 (``COLD_BYTES`` in all), as
+    a caller finds them that touched other data in between."""
+    turn = [0]
+
+    def call():
+        turn[0] = (turn[0] + 1) % len(sets)
+        return fn(*sets[turn[0]])
+    return call
+
+
 def scatter_bound_ms(ids, d: int, itemsize: int) -> tuple[float, str]:
     """The least time the card needs for one scatter of these inputs: ids
     and vals read once, each touched row read and written once (bytes), or
@@ -214,7 +235,8 @@ def phase_build() -> None:
     secs = _build.build("cscatter", "cmerge", "flash_attention",
                         "decode_attention")
     print(f"build: {secs} ({time.perf_counter() - t0:.3f} s in all)")
-    for name in ("flash_attention", "cscatter"):
+    for name in ("flash_attention", "cscatter", "decode_attention",
+                 "cmerge"):
         for line in ptxas_report(_build.LOGS.get(name, "")):
             print(f"ptxas {name}: {line}")
 
@@ -481,7 +503,8 @@ def phase_cmerge_times() -> list[dict]:
     """Kernel, plain version and library call at the blocked stores'
     shapes, int32 ``[8, 2^22, 4]``, every way valid and dirty: an
     evict-merge (W = 1, launched once per access), a cache flush (W = 8) and
-    a spill drain (W = 8192 slots)."""
+    a spill drain (W = 8192 slots). The drain is also timed from inputs
+    that are not in the L2 (``cold_ms``, ``library_cold_ms``)."""
     import torch
     from repro_torch.kernels.cmerge import cmerge, cmerge_plain_
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
@@ -497,6 +520,17 @@ def phase_cmerge_times() -> list[dict]:
             S, device="cuda")[:, None]).reshape(-1)
         delta = (upd - src).reshape(-1, BR * D)
         upd_rows = upd.reshape(-1, BR * D)
+        if what == "drain":     # other ways and copies, COLD_BYTES in all
+            n_sets = int(COLD_BYTES // (2 * src.numel() * 4)) + 1
+            drain_sets, lib_sets = [], []
+            for _ in range(n_sets):
+                i = _ways(g, S, R // BR, w)
+                s_ = _rand_table(g, (S, w, BR, D), torch.int32, 0, 100)
+                u_ = s_ + _rand_table(g, (S, w, BR, D), torch.int32, 0, 100)
+                drain_sets.append((i, s_, u_))
+                lib_sets.append(((i.long() + (R // BR) * torch.arange(
+                    S, device="cuda")[:, None]).reshape(-1),
+                    (u_ - s_).reshape(-1, BR * D), u_.reshape(-1, BR * D)))
         for kind, lib in (
                 ("add", lambda: blocks.index_add_(0, gidx, delta)),
                 ("max", lambda: blocks.index_reduce_(0, gidx, upd_rows,
@@ -514,11 +548,25 @@ def phase_cmerge_times() -> list[dict]:
                    "library_ms": graph_ms(lib),
                    "library_call_ms": time_ms(lib),
                    "bound_ms": bound, "bound_by": bound_by}
+            cold = ""
+            if what == "drain":
+                # the drain's 34 MB fit the L2: also from cold inputs
+                row["cold_ms"] = graph_ms(rotating(
+                    lambda i, s_, u_: cmerge(table, i, dirty, s_, u_,
+                                             kind=kind), drain_sets))
+                row["library_cold_ms"] = graph_ms(rotating(
+                    lambda gi, dl, ur: blocks.index_add_(0, gi, dl)
+                    if kind == "add" else blocks.index_reduce_(
+                        0, gi, ur, "amax" if kind == "max" else "amin"),
+                    lib_sets))
+                cold = (f"; from cold inputs kernel {row['cold_ms']:.6f} ms,"
+                        f" library {row['library_cold_ms']:.6f} ms")
             print(f"time cmerge {kind} {what} [{S},{R},{D}] W={w} BR={BR}: "
                   f"kernel {row['ms']:.6f} ms (a call {row['call_ms']:.6f} "
                   f"ms), plain {row['plain_ms']:.6f} ms, library "
                   f"{row['library_ms']:.6f} ms (a call "
-                  f"{row['library_call_ms']:.6f} ms), bound {bound:.6f} ms")
+                  f"{row['library_call_ms']:.6f} ms), bound {bound:.6f} ms"
+                  f"{cold}")
             out.append(row)
     return out
 
@@ -770,13 +818,17 @@ def phase_attention_checks() -> dict:
     at d in {8, 64, 72, 128, 256}, causal and not, with ragged S != T (S =
     100 against T = 37, and 37 against 100), GQA groups of 2 and 8, and
     through strided [B, S, H, d] views; decode at both models' cache shapes
-    at positions 0, 1, mid and T - 1. Prints the variant each flash shape
-    ran. Returns the worst errors."""
+    at positions 0, 1, mid and T - 1, and each of its two passes against
+    the plain split and combine passes there. Prints the variant each
+    flash shape ran and the split count of each decode shape. Returns the
+    worst errors."""
     import torch
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels.decode_attention import (
         decode_attention, decode_attention_plain)
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_plain)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
     worst = {"float32": 0.0, "bfloat16": 0.0, "row_float32": 0.0,
              "row_bfloat16": 0.0}
@@ -815,6 +867,7 @@ def phase_attention_checks() -> dict:
         for (b, h, d), t, kv in decode_cases:
             q, k, v = _attn_rand(g, dtype, (b, h, d), (b, t, kv, d),
                                  (b, t, kv, d))
+            splits = da.plan_splits(b, kv, t, d, n_sm)
             for pos in (0, 1, t // 2, t - 1):
                 want = decode_attention_plain(q, k, v, pos)
                 got = decode_attention(q, k, v, pos)
@@ -822,9 +875,29 @@ def phase_attention_checks() -> dict:
                 err, row = _attn_compare(got, want)
                 worst[key] = max(worst[key], err)
                 worst["row_" + key] = max(worst["row_" + key], row)
+                # each pass: the split pass's f32 partials against the
+                # plain split pass (f32 sums in another order: the f32
+                # TOL), the combine against the plain combine of them
+                _, m, l, acc = da.launch(q, k, v, pos, splits)
+                torch.cuda.synchronize()
+                pm, pl, pa = da.decode_attention_partials_plain(
+                    q, k, v, pos, splits)
+                require(bool(torch.equal(m == da.NEG_INF, pm == da.NEG_INF)),
+                        "decode_attention: the split pass's empty splits "
+                        "differ from the plain split pass's")
+                tol = TOL["float32"]
+                for name, x, y in (("m", m, pm), ("l", l, pl),
+                                   ("acc", acc, pa)):
+                    require(bool(torch.all((x - y).abs()
+                                           <= tol * 4 + tol * y.abs())),
+                            f"decode_attention split pass: {name} differs "
+                            f"from the plain split pass beyond TOL={tol}")
+                _attn_compare(got, da.decode_attention_combine_plain(
+                    m, l, acc, dtype))
             print(f"check decode_attention {key} q [{b},{h},{d}] T={t} "
-                  f"KV={kv} positions 0,1,{t // 2},{t - 1}: ok (max abs "
-                  f"err {worst[key]}, worst row {worst['row_' + key]})")
+                  f"KV={kv} positions 0,1,{t // 2},{t - 1}, {splits} "
+                  f"splits: ok, each pass too (max abs err {worst[key]}, "
+                  f"worst row {worst['row_' + key]})")
     return worst
 
 
@@ -860,11 +933,15 @@ def phase_attention_times() -> dict:
     the port never calls it) at the serve path's shapes: qwen1.5-0.5b
     prefill (B 8, H = KV = 16, S = T = 512, d 64, causal) and its last
     decode step (cache T = 576, position 575), in bf16; and the same at
-    internlm2-1.8b's attention shapes (H 16, KV 8, d 128)."""
+    internlm2-1.8b's attention shapes (H 16, KV 8, d 128). A decode row's
+    times cover both of its launches; it is also timed, with SDPA, from a
+    cache that is not in the L2 (``cold_ms``, ``library_cold_ms``), and at
+    split counts around the plan's (``ms_by_splits``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (
-        decode_attention, decode_attention_plain)
+        MAX_SPLITS, decode_attention, decode_attention_plain, launch,
+        plan_splits)
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_plain)
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
@@ -905,22 +982,44 @@ def phase_attention_times() -> dict:
         def sdpa():
             return F.scaled_dot_product_attention(q[:, :, None], ks, vs,
                                                   enable_gqa=kv != h)
+        splits = plan_splits(b, kv, t, d, torch.cuda.get_device_properties(
+            0).multi_processor_count)
+        # copies of the cache, COLD_BYTES in all: each launch of a graph
+        # reads a cache that is not in the L2, as a decode step does
+        caches = [(k.clone(), v.clone()) for _ in range(
+            max(2, int(COLD_BYTES // (2 * k.numel() * 2)) + 1))]
         row = {"model": model, "q": [b, h, d], "cache": [b, t, kv, d],
-               "position": pos,
+               "position": pos, "splits": splits,
                "ms": graph_ms(lambda: decode_attention(q, k, v, pos)),
                "call_ms": time_ms(lambda: decode_attention(q, k, v, pos)),
                "plain_ms": time_ms(lambda: decode_attention_plain(
                    q, k, v, pos)),
                "library_ms": graph_ms(sdpa),
                "library_call_ms": time_ms(sdpa),
+               "cold_ms": graph_ms(rotating(
+                   lambda kc, vc: decode_attention(q, kc, vc, pos), caches)),
+               "library_cold_ms": graph_ms(rotating(
+                   lambda kc, vc: F.scaled_dot_product_attention(
+                       q[:, :, None], kc[:, :pos + 1].transpose(1, 2),
+                       vc[:, :pos + 1].transpose(1, 2), enable_gqa=kv != h),
+                   caches)),
                "bound_ms": bound, "bound_by": bound_by}
+        del caches
+        # the plan's split count beside its neighbours (device ms)
+        row["ms_by_splits"] = {
+            n: graph_ms(lambda: launch(q, k, v, pos, n))
+            for n in sorted({1, splits // 2, splits - 1, splits, splits + 1,
+                             2 * splits} & set(range(1, MAX_SPLITS + 1)))}
         out["decode"].append(row)
         print(f"time decode_attention {model} bf16 q [{b},{h},{d}] cache "
-              f"[{b},{t},{kv},{d}] position {pos}: kernel {row['ms']:.6f} "
+              f"[{b},{t},{kv},{d}] position {pos}, {splits} splits "
+              f"({splits * kv * b} CTAs): kernel {row['ms']:.6f} "
               f"ms (a call {row['call_ms']:.6f} ms), plain "
               f"{row['plain_ms']:.6f} ms, sdpa {row['library_ms']:.6f} ms "
               f"(a call {row['library_call_ms']:.6f} ms), bound "
-              f"{bound:.6f} ms ({bound_by})")
+              f"{bound:.6f} ms ({bound_by}); from a cold cache kernel "
+              f"{row['cold_ms']:.6f} ms, sdpa {row['library_cold_ms']:.6f} "
+              f"ms; kernel ms by split count {row['ms_by_splits']}")
     return out
 
 
@@ -930,7 +1029,8 @@ def phase_serve(card: str) -> dict:
     PROMPT random ids, GEN greedy tokens (cache PROMPT + GEN), through the
     port's serve entry point (``launch/serve.generate``). The attention
     kernels' counts are zeroed just before and read just after: one
-    flash_attention a layer, one decode_attention a layer a decode step.
+    flash_attention a layer, and one decode_attention call a layer a decode
+    step, of ``LAUNCHES_PER_CALL`` (2) launches.
     Then the same tokens go teacher-forced through the same weights with
     the plain attention versions, and every step's logits must agree to
     ``LOGIT_TOL`` (absolute): the two paths differ only in the attention's
@@ -940,7 +1040,8 @@ def phase_serve(card: str) -> dict:
     exceeds 2 * LOGIT_TOL the greedy tokens must be equal."""
     import torch
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention import (LAUNCHES_PER_CALL,
+                                                      decode_attention)
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.serve import generate, prompts
     from repro_torch.models.registry import build_model
@@ -963,7 +1064,8 @@ def phase_serve(card: str) -> dict:
     # the serve path's own peak: weights, cache, activations, kept logits
     peak = torch.cuda.max_memory_allocated() - base
     want = {"flash_attention": cfg.n_layers,
-            "decode_attention": cfg.n_layers * (GEN - 1)}
+            "decode_attention": cfg.n_layers * (GEN - 1)
+            * LAUNCHES_PER_CALL}
     require(launches == want, f"serve: launches {launches}, the path "
                               f"predicts {want}")
     require(by_variant["bf16_mma"] == cfg.n_layers,

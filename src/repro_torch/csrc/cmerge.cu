@@ -17,25 +17,31 @@
 // dirty ways of a shard, as they are in a source buffer (a block occupies at
 // most one way) and in the spill buffer (one slot per block).
 //
-// Design. One CTA per (way, shard): it reads its way's id and dirty bit,
-// returns at once if there is nothing to merge, else gathers the BR x D memory
-// block, merges it element by element with the way's src and upd copies in
-// registers and stores it back. The TPU kernel parks clean ways on an extra
-// block because its BlockSpec index maps must always name one; a CTA simply
-// returns, so there is no parking block and no copy of the table.
-//
 // What bounds it on an H100. The function moves each way's id and dirty bit,
 // and for each merged way its memory block read once and written once and
 // the copies its kind reads: src and upd for add and sat_add, upd alone for
 // max, min and or. For the store's evict-merge (S = 8 shards, W = 1, BR = 8,
 // D = 4 int32) that is about 3 KB, nanoseconds at 3.35 TB/s, so the launch
 // itself is the floor. For a spill drain (W = 8192 slots, all in use) it is
-// about 34 MB (add) or 25 MB (max, min), 10 or 7.6 us.
-// Each CTA's block is one contiguous run of BR * D elements, read by
-// neighbouring threads, so the accesses coalesce. At BR * D = 32 a CTA is
-// one warp that moves 128 B per copy, so a drain launches 65536 tiny CTAs
-// and runs at about 4x its byte bound. Giving each CTA several ways would
-// close that gap.
+// about 34 MB (add) or 25 MB (max, min), 10 or 7.6 us: bytes. One CTA per
+// (way, shard) made the drain 65536 CTAs of one warp of 4-byte accesses, each
+// waiting for its id before its block: about 4x the byte bound.
+//
+// Design. A CTA of up to 256 threads takes several consecutive ways of one
+// shard: a group of LPW lanes (the block's accesses rounded up to a power of
+// two, at most 32) per way, 32 ways a CTA at BR x D = 8 x 4 int32. The grid
+// is (ceil(W / ways a CTA), S), so W = 1 (one evict), W = 8 (a flush) and
+// W = 8192 (a drain) all launch one grid; a small W gets a CTA of fewer
+// threads. A group's lanes read their way's id and dirty bit (neighbouring
+// groups, neighbouring ways: coalesced), return at once if there is nothing
+// to merge, then issue every load of their share of the block — mem, upd
+// and, for add and sat_add only, src — before any merge or store, and merge
+// in registers. Where the block's byte length is a multiple of 16 and the
+// table, src and upd are 16-byte aligned, every access is 16 bytes (8 lanes a
+// 128-byte block); other shapes take the same code with one element an
+// access. The TPU kernel parks clean ways on an extra block because its
+// BlockSpec index maps must always name one; a group simply returns, so there
+// is no parking block and no copy of the table.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,47 +102,117 @@ __device__ __forceinline__ unsigned merge(unsigned mem, unsigned src, unsigned u
   return mem | upd;
 }
 
-template <typename T, int KIND>
-__global__ void __launch_bounds__(256)
-cmerge_kernel(T* __restrict__ table, const int* __restrict__ block_ids,
-              const unsigned char* __restrict__ dirty, const T* __restrict__ src,
-              const T* __restrict__ upd, long long R, int W, int BR, int D, float lo, float hi) {
-  const long long way = (long long)blockIdx.y * W + blockIdx.x;
-  const int b = block_ids[way];
-  if (b < 0 || !dirty[way] || ((long long)b + 1) * BR > R) return;  // nothing to merge
-  const int n = BR * D;
-  T* mem = table + ((long long)blockIdx.y * R + (long long)b * BR) * D;
-  const T* s = src + way * n;
-  const T* u = upd + way * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) mem[i] = merge<KIND>(mem[i], s[i], u[i], lo, hi);
+// bf16 elements as their bits, so that an element type can sit in a union
+// with the 16-byte access type.
+struct Bf16Bits {
+  unsigned short x;
+};
+
+template <int KIND>
+__device__ __forceinline__ Bf16Bits merge(Bf16Bits mem, Bf16Bits src, Bf16Bits upd, float lo,
+                                          float hi) {
+  return {__bfloat16_as_ushort(merge<KIND>(__ushort_as_bfloat16(mem.x),
+                                           __ushort_as_bfloat16(src.x),
+                                           __ushort_as_bfloat16(upd.x), lo, hi))};
 }
 
-template <typename T, int KIND>
-cudaError_t launch(void* table, const void* block_ids, const void* dirty, const void* src,
-                   const void* upd, int S, long long R, int W, int BR, int D, float lo, float hi,
-                   cudaStream_t stream) {
-  const int n = BR * D;
-  const int threads = n >= 256 ? 256 : (n + 31) / 32 * 32;
-  const dim3 grid(W, S);
-  cmerge_kernel<T, KIND><<<grid, threads, 0, stream>>>(
-      static_cast<T*>(table), static_cast<const int*>(block_ids),
-      static_cast<const unsigned char*>(dirty), static_cast<const T*>(src),
-      static_cast<const T*>(upd), R, W, BR, D, lo, hi);
+// One access P (uint4, or the element itself) seen as its elements E.
+template <typename E, typename P>
+union Pack {
+  P p;
+  E e[sizeof(P) / sizeof(E)];
+};
+
+constexpr int kThreads = 256, kUnroll = 4;
+
+template <typename E, typename P, int KIND>
+__global__ void __launch_bounds__(kThreads)
+cmerge_kernel(E* __restrict__ table, const int* __restrict__ block_ids,
+              const unsigned char* __restrict__ dirty, const E* __restrict__ src,
+              const E* __restrict__ upd, long long R, int W, int BR, int D, int lpw, float lo,
+              float hi) {
+  constexpr int kPer = sizeof(P) / sizeof(E);
+  constexpr bool kReadsSrc = KIND == kAdd || KIND == kSatAdd;
+  const int w = blockIdx.x * (blockDim.x / lpw) + threadIdx.x / lpw;
+  if (w >= W) return;
+  const int lane = threadIdx.x % lpw;
+  const long long way = (long long)blockIdx.y * W + w;
+  const int b = block_ids[way];
+  const bool is_dirty = dirty[way];
+  if (b < 0 || !is_dirty || ((long long)b + 1) * BR > R) return;  // nothing to merge
+  const int n = BR * D / kPer;  // accesses a block
+  P* mem = reinterpret_cast<P*>(table + ((long long)blockIdx.y * R + (long long)b * BR) * D);
+  const P* s = reinterpret_cast<const P*>(src + way * BR * D);
+  const P* u = reinterpret_cast<const P*>(upd + way * BR * D);
+  for (int i0 = lane; i0 < n; i0 += kUnroll * lpw) {
+    Pack<E, P> pm[kUnroll], ps[kUnroll], pu[kUnroll];
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      const int i = i0 + j * lpw;
+      if (i < n) {
+        pm[j].p = mem[i];
+        pu[j].p = u[i];
+        if constexpr (kReadsSrc) ps[j].p = s[i];
+        else ps[j].p = pu[j].p;  // unread by max, min, or
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      const int i = i0 + j * lpw;
+      if (i < n) {
+#pragma unroll
+        for (int e = 0; e < kPer; ++e)
+          pm[j].e[e] = merge<KIND>(pm[j].e[e], ps[j].e[e], pu[j].e[e], lo, hi);
+        mem[i] = pm[j].p;
+      }
+    }
+  }
+}
+
+template <typename E, typename P, int KIND>
+cudaError_t launch_pack(void* table, const void* block_ids, const void* dirty, const void* src,
+                        const void* upd, int S, long long R, int W, int BR, int D, float lo,
+                        float hi, cudaStream_t stream) {
+  const int n = BR * D / (int)(sizeof(P) / sizeof(E));
+  int lpw = 1;
+  while (lpw < n && lpw < 32) lpw *= 2;
+  const long long want = (long long)W * lpw;
+  const int threads = want >= kThreads ? kThreads : (int)((want + 31) / 32 * 32);
+  const int ways = threads / lpw;  // ways a CTA
+  const dim3 grid((unsigned)(((long long)W + ways - 1) / ways), S);
+  cmerge_kernel<E, P, KIND><<<grid, threads, 0, stream>>>(
+      static_cast<E*>(table), static_cast<const int*>(block_ids),
+      static_cast<const unsigned char*>(dirty), static_cast<const E*>(src),
+      static_cast<const E*>(upd), R, W, BR, D, lpw, lo, hi);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename E, int KIND>
+cudaError_t launch(void* table, const void* block_ids, const void* dirty, const void* src,
+                   const void* upd, int S, long long R, int W, int BR, int D, float lo, float hi,
+                   cudaStream_t stream) {
+  const bool wide = (long long)BR * D * sizeof(E) % 16 == 0 &&
+                    (reinterpret_cast<uintptr_t>(table) | reinterpret_cast<uintptr_t>(src) |
+                     reinterpret_cast<uintptr_t>(upd)) % 16 == 0;
+  if (wide)
+    return launch_pack<E, uint4, KIND>(table, block_ids, dirty, src, upd, S, R, W, BR, D, lo, hi,
+                                       stream);
+  return launch_pack<E, E, KIND>(table, block_ids, dirty, src, upd, S, R, W, BR, D, lo, hi,
+                                 stream);
+}
+
+template <typename E>
 cudaError_t launch_kind(int kind, void* table, const void* block_ids, const void* dirty,
                         const void* src, const void* upd, int S, long long R, int W, int BR, int D,
                         float lo, float hi, cudaStream_t stream) {
   switch (kind) {
-    case kAdd: return launch<T, kAdd>(table, block_ids, dirty, src, upd, S, R, W, BR, D, lo, hi, stream);
-    case kSatAdd: return launch<T, kSatAdd>(table, block_ids, dirty, src, upd, S, R, W, BR, D, lo, hi, stream);
-    case kMax: return launch<T, kMax>(table, block_ids, dirty, src, upd, S, R, W, BR, D, lo, hi, stream);
-    case kMin: return launch<T, kMin>(table, block_ids, dirty, src, upd, S, R, W, BR, D, lo, hi, stream);
+    case kAdd: return launch<E, kAdd>(table, block_ids, dirty, src, upd, S, R, W, BR, D, lo, hi, stream);
+    case kSatAdd: return launch<E, kSatAdd>(table, block_ids, dirty, src, upd, S, R, W, BR, D, lo, hi, stream);
+    case kMax: return launch<E, kMax>(table, block_ids, dirty, src, upd, S, R, W, BR, D, lo, hi, stream);
+    case kMin: return launch<E, kMin>(table, block_ids, dirty, src, upd, S, R, W, BR, D, lo, hi, stream);
     case kOr:
-      if constexpr (std::is_integral<T>::value)
-        return launch<T, kOr>(table, block_ids, dirty, src, upd, S, R, W, BR, D, lo, hi, stream);
+      if constexpr (std::is_integral<E>::value)
+        return launch<E, kOr>(table, block_ids, dirty, src, upd, S, R, W, BR, D, lo, hi, stream);
       return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
@@ -160,7 +236,7 @@ extern "C" int cmerge_launch(void* table, const void* block_ids, const void* dir
   const int s = (int)S, w = (int)W, br = (int)BR, d = (int)D;
   switch (dtype) {
     case kF32: return launch_kind<float>(kind, table, block_ids, dirty, src, upd, s, R, w, br, d, sat_min, sat_max, st);
-    case kBF16: return launch_kind<__nv_bfloat16>(kind, table, block_ids, dirty, src, upd, s, R, w, br, d, sat_min, sat_max, st);
+    case kBF16: return launch_kind<Bf16Bits>(kind, table, block_ids, dirty, src, upd, s, R, w, br, d, sat_min, sat_max, st);
     case kI32: return launch_kind<int>(kind, table, block_ids, dirty, src, upd, s, R, w, br, d, sat_min, sat_max, st);
     case kU32: return launch_kind<unsigned>(kind, table, block_ids, dirty, src, upd, s, R, w, br, d, sat_min, sat_max, st);
     default: return cudaErrorInvalidValue;

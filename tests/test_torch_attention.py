@@ -9,6 +9,8 @@ packages see the same bits. The CUDA kernels themselves run only on the
 card: see ``tests/test_torch_gpu.py``.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,8 +19,9 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.decode_attention import (decode_attention,
-                                                  decode_attention_plain)
+from repro_torch.kernels.decode_attention import (
+    MAX_SPLITS, NEG_INF, decode_attention, decode_attention_combine_plain,
+    decode_attention_partials_plain, decode_attention_plain, plan_splits)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 
@@ -133,6 +136,58 @@ def test_decode_plain_matches_pallas_kernel_and_oracles(dtype, pos):
     _close(ref.ref_decode_attention(*targs, pos), gold, dtype)
     assert torch.equal(decode_attention(*targs, pos), got)
     assert torch.equal(ops.decode_attention(*targs, pos), got)
+
+
+@functools.lru_cache(maxsize=None)
+def _split_case(dtype, g):
+    """A cache of T = 128 slots, H = 8 heads in groups of ``g``, d = 32,
+    and the JAX Pallas kernel's output at each position the test takes."""
+    q, k, v = _arrays(7 + g, (2, 8, 32), (2, 128, 8 // g, 32),
+                      (2, 128, 8 // g, 32), dtype=dtype)
+    jargs = [_j(x, dtype) for x in (q, k, v)]
+    pallas = {pos: np.asarray(jops.decode_attention(
+        *jargs, jnp.asarray(pos), bk=32), np.float32)
+        for pos in (0, 1, 64, 127)}
+    return (q, k, v), pallas
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g", [1, 2, 8])
+@pytest.mark.parametrize("pos", [0, 1, 64, 127])
+@pytest.mark.parametrize("splits", [1, 2, 7, 133])
+def test_decode_split_and_combine_compose_to_the_pallas_kernel(dtype, g, pos,
+                                                               splits):
+    """The CUDA kernel's two passes in plain PyTorch: the per-split f32
+    partials, merged, equal the JAX Pallas kernel and the one-pass plain
+    version, at 1, 2, 7 and more splits (133) than the cache has slots
+    (128); a split that starts past ``position`` is empty (m = NEG_INF,
+    l = 0, acc = 0)."""
+    arrays, pallas = _split_case(dtype, g)
+    targs = [_t(x, dtype) for x in arrays]
+    m, l, acc = decode_attention_partials_plain(*targs, pos, splits)
+    assert m.shape == l.shape == (splits, 2, 8)
+    assert acc.shape == (splits, 2, 8, 32) and acc.dtype == torch.float32
+    chunk = -(-128 // splits)
+    empty = torch.arange(splits) * chunk > pos
+    assert bool((m[empty] == NEG_INF).all() and (l[empty] == 0).all()
+                and (acc[empty] == 0).all())
+    assert bool((l[~empty] >= 1).all())       # exp(0) at each split's max
+    got = decode_attention_combine_plain(m, l, acc, targs[0].dtype)
+    assert got.dtype == targs[0].dtype and got.shape == (2, 8, 32)
+    _close(got, pallas[pos], dtype)
+    _close(got, decode_attention_plain(*targs, pos), dtype)
+
+
+def test_decode_split_plan_fills_the_card_and_ignores_the_position():
+    """``plan_splits`` takes no position, so every decode step over one
+    cache launches the same grid: three splits (384 CTAs) at
+    qwen1.5-0.5b's cache and eight (512) at internlm2-1.8b's on 132 SMs; a
+    short cache gets one split, and no count leaves [1, MAX_SPLITS]."""
+    assert plan_splits(8, 16, 576, 64, 132) == 3
+    assert plan_splits(8, 8, 4096, 128, 132) == 8
+    assert plan_splits(1, 1, 40, 256, 132) == 1
+    for b, kv, t, d in ((1, 1, 1, 8), (1, 1, 1 << 20, 8), (64, 64, 8, 256)):
+        assert 1 <= plan_splits(b, kv, t, d, 132) <= MAX_SPLITS
 
 
 def test_decode_never_reads_past_position():

@@ -211,9 +211,14 @@ def test_bucketed_cscatter_leaves_the_table_alone_without_updates(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32,
                                    torch.uint32])
 @pytest.mark.parametrize("s,w,br,d", [(2, 1, 8, 4), (3, 8, 8, 4),
-                                      (2, 300, 4, 130)])
+                                      (2, 300, 4, 130), (8, 8192, 8, 4),
+                                      (3, 33, 8, 4), (2, 37, 3, 5)])
 def test_cmerge_matches_plain_and_counts_its_launches(cuda, dtype, s, w, br,
                                                       d):
+    """The evict (W = 1), flush (W = 8) and drain (W = 8192) shapes of the
+    blocked store, a W that is not a multiple of the ways a CTA takes (33),
+    and blocks whose byte length is no multiple of 16 (D = 130, and BR 3 x
+    D 5), which take one element an access."""
     rng = np.random.default_rng(2)
     r = 2 * w * br                      # room for w distinct blocks
     table, _, src = _case(dtype, s, r, d, w * br, 3, cuda)
@@ -239,6 +244,32 @@ def test_cmerge_matches_plain_and_counts_its_launches(cuda, dtype, s, w, br,
                                        rtol=TOL[dtype], atol=TOL[dtype] * 8)
         else:
             assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.bfloat16])
+def test_cmerge_leaves_the_table_alone_without_dirty_valid_ways(cuda, dtype):
+    """A W = 8192 drain whose ways are all clean, all invalid, or past the
+    table's end: one launch, and the table stays bit-exact."""
+    s, w, br, d = 8, 8192, 8, 4
+    r = 2 * w * br
+    table, _, src = _case(dtype, s, r, d, w * br, 10, cuda)
+    _, _, upd = _case(dtype, s, r, d, w * br, 11, cuda)
+    src, upd = src.view(s, w, br, d), upd.view(s, w, br, d)
+    before = table.clone()
+    ids = torch.arange(w, dtype=torch.int32, device=cuda).repeat(s, 1)
+    ids[:, w // 2:] = -1
+    ids[:, w // 4:w // 2] += r // br           # past the table's end
+    dirty = torch.zeros((s, w), dtype=torch.bool, device=cuda)
+    dirty[:, w // 4:] = True
+    launches = cm.cmerge.launches
+    for kind in ("add", "max"):
+        cm.cmerge(table, ids, dirty, src, upd, kind=kind)
+    torch.cuda.synchronize()
+    assert cm.cmerge.launches == launches + 2
+    assert torch.equal(table.view(torch.int16 if dtype == torch.bfloat16
+                                  else torch.int32),
+                       before.view(torch.int16 if dtype == torch.bfloat16
+                                   else torch.int32))
 
 
 @pytest.mark.parametrize("engine", ["kernel", "blocked"])
@@ -421,9 +452,12 @@ def test_f32_flash_attention_keeps_the_f32_core_kernel(cuda):
 @pytest.mark.parametrize("b,h,kv,t,d", [(2, 8, 8, 300, 64),
                                         (2, 16, 8, 257, 128),
                                         (1, 16, 1, 40, 256),
-                                        (2, 4, 4, 50, 24)])
+                                        (2, 4, 4, 50, 24),
+                                        (8, 16, 8, 4096, 128)])
 def test_decode_attention_matches_plain_and_counts_its_launches(
         cuda, dtype, b, h, kv, t, d):
+    """At internlm2-1.8b's cache (T = 4096) position 0 fills one slot of
+    the plan's several splits: the others are empty partials."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels.ops import decode_attention
     q, k, v = _attn_inputs(dtype, (b, h, d), (b, t, kv, d), (b, t, kv, d))
@@ -432,7 +466,7 @@ def test_decode_attention_matches_plain_and_counts_its_launches(
         before = da.decode_attention.launches
         got = decode_attention(q, k, v, pos)
         torch.cuda.synchronize()
-        assert da.decode_attention.launches == before + 1
+        assert da.decode_attention.launches == before + da.LAUNCHES_PER_CALL
         _assert_attn_close(got, want, dtype)
     # slots past the position are never read
     k[:, t // 2 + 1:] = float("nan")
@@ -440,10 +474,40 @@ def test_decode_attention_matches_plain_and_counts_its_launches(
     assert torch.isfinite(got.float()).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits", [1, 2, 7, 45])
+def test_decode_attention_passes_on_forced_split_counts(cuda, dtype, splits):
+    """Each pass on a forced split count, through ``launch`` as a test may
+    call it: the split pass's f32 partials against the plain split pass
+    (both f32 sums over the same slots in another order: the f32 TOL), the
+    output against the plain version and against the plain combine of the
+    kernel's own partials. 45 splits of a 40-slot cache leave empty ones at
+    every position."""
+    from repro_torch.kernels import decode_attention as da
+    b, h, kv, t, d = 2, 16, 8, 40, 128
+    q, k, v = _attn_inputs(dtype, (b, h, d), (b, t, kv, d), (b, t, kv, d),
+                           seed=splits)
+    for pos in (0, 17, t - 1):
+        before = da.decode_attention.launches
+        out, m, l, acc = da.launch(q, k, v, pos, splits)
+        torch.cuda.synchronize()
+        assert da.decode_attention.launches == before + da.LAUNCHES_PER_CALL
+        pm, pl, pa = da.decode_attention_partials_plain(q, k, v, pos, splits)
+        assert torch.equal(m == da.NEG_INF, pm == da.NEG_INF)
+        for got, want in ((m, pm), (l, pl), (acc, pa)):
+            torch.testing.assert_close(got, want, rtol=TOL[torch.float32],
+                                       atol=TOL[torch.float32] * 4)
+        _assert_attn_close(out, da.decode_attention_plain(q, k, v, pos),
+                           dtype)
+        _assert_attn_close(out, da.decode_attention_combine_plain(
+            m, l, acc, dtype), dtype)
+
+
 @pytest.mark.parametrize("arch", ["qwen1-5-0-5b", "internlm2-1-8b"])
 def test_lm_serves_through_the_kernels_on_the_card(cuda, arch):
     """The smoke LM on the card launches flash_attention once a layer at
-    prefill and decode_attention once a layer a step, and its logits equal
+    prefill and calls decode_attention (two launches) once a layer a step,
+    and its logits equal
     the same weights' with the plain attention to the bf16 tolerance."""
     from repro_torch.configs.base import get_smoke_config
     from repro_torch.kernels import decode_attention as da
@@ -456,7 +520,8 @@ def test_lm_serves_through_the_kernels_on_the_card(cuda, arch):
     fa.flash_attention.launches = da.decode_attention.launches = 0
     res = generate(model, p, 5, keep_logits=True)
     assert fa.flash_attention.launches == cfg.n_layers
-    assert da.decode_attention.launches == cfg.n_layers * 4
+    assert da.decode_attention.launches == (cfg.n_layers * 4
+                                            * da.LAUNCHES_PER_CALL)
     model.attention = "plain"
     logits, caches = model.prefill(torch.as_tensor(p, device=cuda), 29)
     steps = [logits]
