@@ -8,7 +8,8 @@ store of ``src/repro_torch`` with its kernel engine and with its blocked
 engine at the serving geometry (S = 8 shards, R = 2**22 keys, D = 4 int32
 columns, B = 1024 updates per shard per tick, K = 8 over
 ``serving_plan(8, "all")``; the blocked engine with W = 8 ways of BR = 8
-rows), and LM serving (prefill + greedy decode) of qwen1.5-0.5b — and:
+rows), LM serving (prefill + greedy decode) of qwen1.5-0.5b, and the paper's
+BFS, PageRank and k-means — and:
 
 1. prints the card (``nvidia-smi`` name and power limit, torch's name);
 2. builds every CUDA kernel of the paths from ``src/repro_torch/csrc``, all
@@ -54,9 +55,19 @@ rows), and LM serving (prefill + greedy decode) of qwen1.5-0.5b — and:
    passes), and the logits of every
    step must match the same tokens teacher-forced through the plain
    attention;
-8. prints every kernel's registers and spills (``ptxas -v``),
+8. runs the paper's apps through ``repro_torch.apps``: BFS and PageRank on
+   a Graph500 Kronecker graph (SCALE 20, edgefactor 16, 33.5M directed
+   edges over 8 shards), eager and with a deferred pod level, and k-means
+   on a 491,520 x 34 stream with deferred and overlapped commits, against
+   numpy oracles (BFS bitwise on every shard, PageRank against float64
+   iterations, k-means against the schedule mirror), each run's
+   ``cscatter`` launches held to the schedule, ``run_app`` at its defaults;
+   then times ``cscatter`` at each app's shapes against its plain version,
+   one library call and the bound, with its two passes split by a
+   ``torch.profiler`` trace;
+9. prints every kernel's registers and spills (``ptxas -v``),
    one ``{"kernels": [...]}`` line and the card's name and power limit;
-9. ends with ``{"ok": true, "device": {...}}``.
+10. ends with ``{"ok": true, "device": {...}}``.
 
 Nothing is caught: any failure exits non-zero before the last line. Without
 a card, or without the repository beside it, it exits non-zero at once.
@@ -71,6 +82,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -107,6 +119,27 @@ ATTN_BF16_TOL = (1e-2, 1e-2)
 ATTN_BF16_ROW = 1e-2
 # kernel-path vs plain-attention logits (teacher-forced, same weights)
 LOGIT_TOL = 0.1
+# The paper's apps. BFS and PageRank run on Graph500's Kronecker graph
+# (initiator A, B, C = 0.57, 0.19, 0.19; edgefactor 16), cut from Graph500's
+# smallest class, SCALE 26, to SCALE 20 to keep the run short: 2^20 vertices,
+# 16.8M undirected edges, 33.5M directed, over S = 8 shards.
+GRAPH_SCALE, EDGEFACTOR, KRONECKER = 20, 16, (0.57, 0.19, 0.19)
+APP_K = 4                           # deferred commits every 4 supersteps
+PR_ALPHA, PR_EAGER, PR_DEFER = 0.85, 50, 192
+# PageRank against a float64 power iteration at the same count: eager per
+# vertex, and the deferred run to the JAX test's bound. The deferred loop
+# contracts more slowly: a vertex whose in-mass all comes from the other pod
+# (a self-loop stored there is enough) sees it only at commits, so its
+# error shrinks by alpha once per K supersteps, about alpha^(T / K): 4.9e-3
+# at 128 supersteps on this graph (NVIDIA H100 80GB HBM3, 700 W), 3.5e-4 at
+# 192 in the float64 mirror on the same generator at SCALE 14 and 16. The
+# deferred run is also held per vertex, to the eager bound, to a float64
+# mirror of its own schedule.
+PR_RTOL_EAGER, PR_RTOL_DEFER = 1e-4, 2e-3
+# k-means: the shape of Rodinia kmeans's kdd_cup input (34 features) with
+# its default 5 clusters; S x T x B = 8 x 8 x 7680 points
+KM_D, KM_K, KM_T, KM_B = 34, 5, 8, 7680
+KM_TOL = 1e-3                       # atol = rtol against the numpy mirror
 
 
 def require(cond: bool, msg: str) -> None:
@@ -178,13 +211,14 @@ def rotating(fn, sets: list):
     return call
 
 
-def scatter_bound_ms(ids, d: int, itemsize: int) -> tuple[float, str]:
-    """The least time the card needs for one scatter of these inputs: ids
-    and vals read once, each touched row read and written once (bytes), or
-    one combine per update element (operations), whichever is larger."""
+def scatter_bound_ms(ids, d: int, itemsize: int,
+                     r: int = R) -> tuple[float, str]:
+    """The least time the card needs for one scatter of these inputs into
+    ``r`` rows: ids and vals read once, each touched row read and written
+    once (bytes), or one combine per update element (operations), whichever
+    is larger. Padding ids (< 0) touch nothing but are read."""
     import torch
     s, n = ids.shape
-    r = R
     ok = (ids >= 0) & (ids < r)
     gid = (ids.long() + r * torch.arange(s, device=ids.device)[:, None])[ok]
     touched = int(torch.unique(gid).numel())
@@ -1151,6 +1185,424 @@ def phase_frontend(stream_keys: np.ndarray) -> None:
           f"match the sequential oracle")
 
 
+def kronecker_edges(scale: int, edgefactor: int, seed: int,
+                    device: str = "cuda"):
+    """Graph500's Kronecker generator: ``edgefactor * 2^scale`` undirected
+    edges, vertex labels and edge order permuted; returned in both
+    directions as int32 ``(src, dst)`` tensors on ``device``. The draws are
+    numpy's, from the seed; each bit's compare (``u > ab`` in float32, the
+    second against a float64 threshold) and the edges' assembly run on
+    ``device``."""
+    import torch
+    a, b, c = KRONECKER
+    n, m = 1 << scale, edgefactor << scale
+    rng = np.random.default_rng(seed)
+    ab = float(np.float32(a + b))
+    # float64 thresholds: [a_norm, c_norm], picked by the first bit
+    thr = torch.tensor([a / (a + b), c / (1.0 - (a + b))],
+                       dtype=torch.float64, device=device)
+    i = torch.zeros(m, dtype=torch.int32, device=device)
+    j = torch.zeros(m, dtype=torch.int32, device=device)
+    for bit in range(scale):
+        u = torch.from_numpy(rng.random(m, dtype=np.float32)).to(device)
+        ii = u > ab
+        u = torch.from_numpy(rng.random(m, dtype=np.float32)).to(device)
+        jj = u.double() > thr[ii.long()]
+        i |= ii.int() << bit
+        j |= jj.int() << bit
+    perm = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(device)
+    order = torch.from_numpy(rng.permutation(m)).to(device)
+    i, j = perm[i[order].long()], perm[j[order].long()]
+    return torch.cat([i, j]), torch.cat([j, i])
+
+
+def in_edges_csr(src, dst, n: int):
+    """The float64 CSR whose row v lists the sources of the edges into v
+    (duplicates summed): a ``torch`` sparse matrix, on the edges' device."""
+    import torch
+    ok = (src >= 0) & (dst >= 0)
+    idx = torch.stack([dst[ok].long(), src[ok].long()])
+    ones = torch.ones(idx.shape[1], dtype=torch.float64, device=src.device)
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_coo_tensor(idx, ones, (n, n),
+                                       check_invariants=False) \
+            .coalesce().to_sparse_csr()
+
+
+def bfs_oracle(at, root: int):
+    """Level-synchronous BFS over the CSR ``at`` (row v lists the sources of
+    the edges into v), a sparse matvec a level: int32 distances,
+    INT32_MAX where unreachable."""
+    import torch
+    inf = np.iinfo(np.int32).max
+    n = at.shape[0]
+    dist = torch.full((n,), inf, dtype=torch.int32, device=at.device)
+    dist[root] = 0
+    frontier = torch.zeros(n, dtype=torch.float64, device=at.device)
+    frontier[root] = 1.0
+    level = 0
+    while bool(frontier.any()):
+        level += 1
+        new = ((at @ frontier) > 0) & (dist == inf)
+        dist[new] = level
+        frontier = new.double()
+    return dist
+
+
+def pagerank_oracles(at, pod_at, deg, counts, defer: int, k: int):
+    """Float64 PageRank on the card, by sparse matvecs independent of the
+    port's apps: the synchronous power iteration's ranks after each of
+    ``counts`` iterations, and a mirror of the deferred schedule — each pod
+    (``pod_at``, the edges of the eager scope) iterates on its own edges
+    plus the remote term it took at the last commit, every ``k``
+    supersteps, as ``run_pagerank`` does — after ``defer``."""
+    import torch
+    n = at.shape[0]
+    inv_deg = 1.0 / torch.clamp(deg, min=1).double()
+    base = (1.0 - PR_ALPHA) / n
+    r = torch.full((n,), 1.0 / n, dtype=torch.float64, device=at.device)
+    refs = {}
+    for it in range(1, max(counts) + 1):
+        r = base + PR_ALPHA * (at @ (r * inv_deg))
+        if it in counts:
+            refs[it] = r.clone()
+    pods = len(pod_at)
+    views = [torch.full_like(r, 1.0 / n) for _ in range(pods)]
+    remote = [torch.zeros_like(r) for _ in range(pods)]
+    for it in range(1, defer + 1):
+        own = [PR_ALPHA * (a @ (v * inv_deg)) for a, v in zip(pod_at, views)]
+        if it % k == 0:
+            full = sum(own)
+            views = [base + full for _ in range(pods)]
+            remote = [full - o for o in own]
+        else:
+            views = [base + o + m for o, m in zip(own, remote)]
+    return refs, views
+
+
+def app_kernel_row(name: str, table, ids, vals, kind: str, lib) -> dict:
+    """``cscatter`` at one app's shapes against its plain version (integers
+    bitwise, floats to TOL) and timed beside the plain version, one
+    library call and the bound. Launches here are comparisons and are not
+    counted. These inputs (ids and vals of 8 x 4.2M at the graph apps)
+    exceed the L2, so warm and cold times agree there."""
+    import torch
+    from repro_torch.kernels.cscatter import cscatter, cscatter_plain_
+    want = cscatter_plain_(table.clone(), ids, vals, kind=kind)
+    got = cscatter(table.clone(), ids, vals, kind=kind)
+    torch.cuda.synchronize()
+    err = _compare(got, want)
+    big = ids.numel() > 1 << 20
+    work = table.clone()
+    s, r, d = table.shape
+    bound, bound_by = scatter_bound_ms(ids, d, table.element_size(), r)
+    row = {"app": name, "kind": kind, "dtype": str(table.dtype)[6:],
+           "shape": [s, r, d], "n": ids.shape[1], "max_abs_err": err,
+           "ms": graph_ms(lambda: cscatter(work, ids, vals, kind=kind),
+                          launches=5 if big else 100,
+                          samples=5 if big else 11),
+           "call_ms": time_ms(lambda: cscatter(work, ids, vals, kind=kind),
+                              samples=5 if big else 21,
+                              inner=1 if big else 5),
+           "plain_ms": time_ms(lambda: cscatter_plain_(work, ids, vals,
+                                                       kind=kind),
+                               samples=3 if big else 11, inner=1),
+           "library_ms": graph_ms(lambda: lib(work),
+                                  launches=5 if big else 100,
+                                  samples=5 if big else 11),
+           "bound_ms": bound, "bound_by": bound_by}
+    row.update(pass_ms(lambda: cscatter(work, ids, vals, kind=kind)))
+    print(f"time cscatter {name}: {kind} {row['dtype']} [{s},{r},{d}] "
+          f"N={ids.shape[1]}: kernel {row['ms']:.6f} ms (a call "
+          f"{row['call_ms']:.6f} ms; traced: bucket pass "
+          f"{row['bucket_ms']} ms, fold pass {row['fold_ms']} ms), plain "
+          f"{row['plain_ms']:.6f} ms, library {row['library_ms']:.6f} ms, "
+          f"bound {bound:.6f} ms ({bound_by}); max abs err {err}")
+    return row
+
+
+def pass_ms(fn, calls: int = 3) -> dict:
+    """Device ms a call of ``cscatter``'s two passes, from a
+    ``torch.profiler`` trace of ``calls`` calls (None where the trace has
+    no device time for a pass)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name in ("bucket", "fold"):
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and f"{name}_kernel" in e.key)
+        out[f"{name}_ms"] = us / 1e3 / calls if us else None
+    return out
+
+
+def _library(ids, vals, kind: str, r: int):
+    """One PyTorch call of the same scatter into a ``[S, r, D]`` table, on
+    flat inputs filtered once here: ``scatter_reduce_(..., "amin")`` for
+    MIN, ``index_add_`` for ADD."""
+    import torch
+    s, d = ids.shape[0], vals.shape[-1]
+    ok = (ids >= 0) & (ids < r)
+    gid = (ids.long() + r * torch.arange(s, device=ids.device)[:, None])[ok]
+    v = vals[ok].reshape(-1, d)
+
+    def call(table):
+        if kind == "min":
+            table.view(-1, d).scatter_reduce_(0, gid[:, None].expand(-1, d),
+                                              v, "amin")
+        else:
+            table.view(-1, d).index_add_(0, gid, v)
+    return call
+
+
+def phase_apps(card: str) -> dict:
+    """The paper's BFS, PageRank and k-means on the card through the
+    port's app drivers (``repro_torch.apps``), each run's ``cscatter``
+    count zeroed just before and read just after and held to the schedule
+    (2 launches a BFS superstep, 2 for the degrees plus 2 a PageRank
+    superstep, 4 a k-means step); BFS bitwise on every shard against a
+    level-synchronous BFS by sparse matvecs, PageRank against a float64
+    power iteration (both on the card, independent of the apps), k-means
+    against the numpy schedule mirror; ``run_app`` at its own defaults; and the
+    kernel at each app's shapes against its plain version, timed."""
+    import torch
+    from repro_torch.apps import (bfs_superstep, kmeans_reference, run_bfs,
+                                  run_kmeans, run_pagerank)
+    from repro_torch.apps.bfs import INF
+    from repro_torch.apps.common import default_plan, shard_edges
+    from repro_torch.apps.kmeans import _assign
+    from repro_torch.apps.sharded import run_app
+    from repro_torch.kernels.cscatter import LAUNCHES_PER_CALL, cscatter
+    gc.collect()
+    torch.cuda.empty_cache()
+    plan, plan_d = default_plan(S), default_plan(S, defer_top=True)
+    n = 1 << GRAPH_SCALE
+    t0 = time.perf_counter()
+    src, dst = kronecker_edges(GRAPH_SCALE, EDGEFACTOR, SEED)
+    at = in_edges_csr(src, dst, n)
+    deg = torch.bincount(src, minlength=n)
+    root = int(np.random.default_rng(SEED).choice(
+        np.flatnonzero(deg.cpu().numpy())))
+    want_dist = bfs_oracle(at, root)
+    reached = want_dist < INF
+    depth = int(want_dist[reached].max())
+    src_np, dst_np = shard_edges(src.cpu().numpy(), dst.cpu().numpy(), S)
+    src_sh = torch.as_tensor(src_np, device="cuda")
+    dst_sh = torch.as_tensor(dst_np, device="cuda")
+    # Graph500 TEPS counts the input (undirected) edges of the component
+    edges_in_component = int(reached[src[:len(src) // 2].long()].sum())
+    print(f"apps graph: Kronecker SCALE {GRAPH_SCALE} edgefactor "
+          f"{EDGEFACTOR}: {n} vertices, {len(src) // 2} undirected edges "
+          f"({len(src)} directed, {src_np.shape[1]} a shard), root {root}, "
+          f"{int(reached.sum())} reached, depth {depth}, "
+          f"{edges_in_component} edges in the component; generated and "
+          f"oracle BFS in {time.perf_counter() - t0:.3f} s")
+    out: dict = {"graph": {"vertices": n, "directed_edges": len(src),
+                           "depth": depth, "root": root}}
+    want = want_dist.expand(S, n)
+    dist0 = torch.full((S, n), INF, dtype=torch.int32, device="cuda")
+    dist0[:, root] = 0
+
+    # one superstep of each graph app first, not counted or timed: the
+    # first use of these shapes allocates the scatter's scratch
+    run_bfs(dist0, src_sh, dst_sh, plan, supersteps=1)
+    run_pagerank(n, src_sh, dst_sh, plan, alpha=PR_ALPHA, supersteps=1)
+
+    def run(label, fn, predicted):
+        torch.cuda.synchronize()
+        cscatter.launches = 0
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        got = cscatter.launches
+        require(got == predicted, f"{label}: cscatter launched {got} times, "
+                                  f"the schedule predicts {predicted}")
+        return res, secs, got
+
+    for label, p, steps, k in (("bfs eager", plan, depth + 1, None),
+                               ("bfs deferred", plan_d, 4 * (depth + 1),
+                                APP_K)):
+        dist, secs, launches = run(label, lambda: run_bfs(
+            dist0, src_sh, dst_sh, p, supersteps=steps, defer_k=k),
+            LAUNCHES_PER_CALL * steps)
+        require(torch.equal(dist, want),
+                f"{label}: distances differ from the oracle BFS on "
+                f"{int((dist != want).any(1).sum())} of {S} shards")
+        row = {"supersteps": steps, "s": secs, "launches": launches,
+               "supersteps_per_s": steps / secs,
+               "teps": edges_in_component / secs,
+               "superstep_ms": 1e3 * secs / steps}
+        out[label] = row
+        print(f"app {label}: {steps} supersteps, every shard == oracle BFS "
+              f"bitwise; cscatter launches {launches} (predicted "
+              f"{LAUNCHES_PER_CALL * steps}); {secs:.6f} s, "
+              f"{row['supersteps_per_s']:.3f} supersteps/s, "
+              f"{row['teps']:.1f} TEPS")
+
+    # PageRank: float64 power iteration over the same CSR, at both counts,
+    # and a float64 mirror of the deferred schedule over the pods (the eager
+    # scope, 4 shards each)
+    t0 = time.perf_counter()
+    pods = plan_d.levels[-1].size
+    per_pod = S // pods
+    pod_at = [in_edges_csr(src_sh[q * per_pod:(q + 1) * per_pod].reshape(-1),
+                           dst_sh[q * per_pod:(q + 1) * per_pod].reshape(-1),
+                           n) for q in range(pods)]
+    refs, views = pagerank_oracles(at, pod_at, deg, (PR_EAGER, PR_DEFER),
+                                   PR_DEFER, APP_K)
+    del pod_at
+    mirror = torch.stack(views).repeat_interleave(S // pods, dim=0)
+    torch.cuda.synchronize()
+    print(f"apps pagerank oracles: {max(PR_EAGER, PR_DEFER)} float64 "
+          f"iterations, and the deferred schedule's mirror over {pods} pods, "
+          f"on the card in {time.perf_counter() - t0:.3f} s; the mirror's "
+          f"worst relative gap to the synchronous ranks "
+          f"{((views[0] - refs[PR_DEFER]).abs() / refs[PR_DEFER]).max().item()}")
+    for label, p, steps, k, rtol in (
+            ("pagerank eager", plan, PR_EAGER, None, PR_RTOL_EAGER),
+            ("pagerank deferred", plan_d, PR_DEFER, APP_K, PR_RTOL_DEFER)):
+        ranks, secs, launches = run(label, lambda: run_pagerank(
+            n, src_sh, dst_sh, p, alpha=PR_ALPHA, supersteps=steps,
+            defer_k=k), LAUNCHES_PER_CALL * (1 + steps))
+        ref = refs[steps]
+        rel = ((ranks.double() - ref).abs() / ref).max().item()
+        require(bool(torch.isfinite(ranks).all()) and rel <= rtol,
+                f"{label}: worst relative error {rel} > {rtol}")
+        row = {"supersteps": steps, "s": secs, "launches": launches,
+               "supersteps_per_s": steps / secs, "max_rel_err": rel,
+               "superstep_ms": 1e3 * secs / steps}
+        if k is not None:
+            row["max_rel_err_mirror"] = (
+                (ranks.double() - mirror).abs() / mirror).max().item()
+            require(row["max_rel_err_mirror"] <= PR_RTOL_EAGER,
+                    f"{label}: worst relative error "
+                    f"{row['max_rel_err_mirror']} from the float64 mirror "
+                    f"of its schedule > {PR_RTOL_EAGER}")
+        out[label] = row
+        print(f"app {label}: {steps} supersteps, every shard within rtol "
+              f"{rtol} of the float64 iteration (worst {rel})"
+              + (f" and within {PR_RTOL_EAGER} of the mirror of its "
+                 f"schedule (worst {row['max_rel_err_mirror']})"
+                 if k is not None else "")
+              + f"; cscatter launches {launches} (predicted "
+              f"{LAUNCHES_PER_CALL * (1 + steps)}); {secs:.6f} s, "
+              f"{row['supersteps_per_s']:.3f} supersteps/s")
+
+    # k-means: 5 Gaussian clusters in 34 dimensions; Rodinia's init, the
+    # first k points of the stream
+    rng = np.random.default_rng(SEED + 2)
+    centers = rng.normal(size=(KM_K, KM_D)).astype(np.float32) * 4
+    label_of = rng.integers(0, KM_K, (S, KM_T, KM_B))
+    pts = (centers[label_of] + rng.normal(size=(S, KM_T, KM_B, KM_D))
+           ).astype(np.float32)
+    c0 = pts[0, 0, :KM_K].copy()
+    pts_ref = pts.transpose(1, 0, 2, 3).reshape(KM_T, S * KM_B, KM_D)
+    pts_dev = torch.as_tensor(pts, device="cuda")
+    c0_dev = torch.as_tensor(c0, device="cuda")
+    for commit_k, overlap in ((4, False), (4, True), (2, True)):
+        label = f"kmeans k{commit_k} {'overlap' if overlap else 'defer'}"
+        ref = torch.as_tensor(kmeans_reference(
+            pts_ref, c0, commit_k=commit_k, overlap=overlap), device="cuda")
+        got, secs, launches = run(label, lambda: run_kmeans(
+            pts_dev, c0_dev, plan_d, commit_k=commit_k, overlap=overlap),
+            2 * LAUNCHES_PER_CALL * KM_T)
+        diff = (got - ref).abs()
+        worst = diff.max().item()
+        require(bool((diff <= KM_TOL + KM_TOL * ref.abs()).all()),
+                f"{label}: centroids differ from the mirror by {worst}")
+        out[label] = {"steps": KM_T, "s": secs, "launches": launches,
+                      "steps_per_s": KM_T / secs, "max_abs_err": worst,
+                      "step_ms": 1e3 * secs / KM_T}
+        print(f"app {label}: {KM_T} steps of {S} x {KM_B} points, every "
+              f"shard within atol = rtol = {KM_TOL} of the numpy mirror "
+              f"(worst {worst}); cscatter launches {launches} (predicted "
+              f"{2 * LAUNCHES_PER_CALL * KM_T}); {secs:.6f} s")
+
+    # the entry point at its own small defaults, on the card
+    apps = {a: run_app(a, S) for a in ("bfs", "pagerank", "kmeans")}
+    require(apps["bfs"]["eager_max_err"] == 0.0
+            and apps["bfs"]["defer_max_err"] == 0.0, f"run_app bfs {apps}")
+    require(apps["pagerank"]["eager_max_err"] < 1e-4
+            and apps["pagerank"]["defer_max_err"] < 1e-4,
+            f"run_app pagerank {apps['pagerank']}")
+    require(apps["kmeans"]["defer_max_err"] < 1e-3
+            and apps["kmeans"]["overlap_max_err"] < 1e-3,
+            f"run_app kmeans {apps['kmeans']}")
+    print(f"run_app on the card: {json.dumps(apps)}")
+    out["run_app"] = apps
+
+    # the kernel at each app's shapes: the last BFS superstep (every edge of
+    # the component active), a PageRank superstep at the final ranks, and a
+    # k-means step's two scatters
+    d_src = dist.gather(1, torch.where(src_sh >= 0, src_sh, 0).long())
+    ok = (src_sh >= 0) & (d_src < INF)
+    bfs_ids = torch.where(ok, dst_sh, -1)
+    bfs_vals = torch.where(ok, d_src + 1, INF).to(torch.int32)[..., None]
+    del d_src, ok
+    degs = deg.float().expand(S, n)
+    okp = src_sh >= 0
+    safe = torch.where(okp, src_sh, 0).long()
+    w = PR_ALPHA * ranks.gather(1, safe) / torch.clamp(degs.gather(1, safe),
+                                                       min=1.0)
+    pr_ids = torch.where(okp, dst_sh, -1)
+    pr_vals = torch.where(okp, w, 0.0).to(torch.float32)[..., None]
+    del safe, w, okp
+    km_pts = pts_dev[:, 0].contiguous()
+    km_ids = _assign(km_pts, c0_dev.expand(S, KM_K, KM_D))
+    rows = [
+        app_kernel_row("bfs", torch.full((S, n, 1), INF, dtype=torch.int32,
+                                         device="cuda"),
+                       bfs_ids, bfs_vals, "min",
+                       _library(bfs_ids, bfs_vals, "min", n)),
+        app_kernel_row("pagerank", torch.zeros((S, n, 1), device="cuda"),
+                       pr_ids, pr_vals, "add",
+                       _library(pr_ids, pr_vals, "add", n)),
+        app_kernel_row("kmeans sums", torch.zeros((S, KM_K, KM_D),
+                                                  device="cuda"),
+                       km_ids, km_pts, "add",
+                       _library(km_ids, km_pts, "add", KM_K)),
+        app_kernel_row("kmeans counts", torch.zeros((S, KM_K, 1),
+                                                    device="cuda"),
+                       km_ids, torch.ones((S, KM_B, 1), device="cuda"), "add",
+                       _library(km_ids, torch.ones((S, KM_B, 1),
+                                                   device="cuda"), "add",
+                                KM_K))]
+    # the same functions the apps call, at these inputs (bitwise for MIN)
+    require(torch.equal(bfs_superstep(dist, src_sh, dst_sh)[..., None],
+                        cscatter(torch.full((S, n, 1), INF, dtype=torch.int32,
+                                            device="cuda"), bfs_ids, bfs_vals,
+                                 kind="min")),
+            "bfs_superstep differs from one cscatter of its inputs")
+    # a superstep beside its cscatter call: PageRank's are all alike (the
+    # run's mean); BFS's early ones scatter mostly padding, so time one at
+    # the final state, every edge of the component active (the kernel
+    # row's inputs)
+    out["bfs eager"]["full_superstep_ms"] = time_ms(lambda: run_bfs(
+        dist, src_sh, dst_sh, plan, supersteps=1), samples=5, inner=1)
+    out["pagerank eager"]["full_superstep_ms"] = \
+        out["pagerank eager"]["superstep_ms"]
+    for key, row in (("bfs eager", rows[0]), ("pagerank eager", rows[1])):
+        step_ms = out[key]["full_superstep_ms"]
+        out[key]["cscatter_share"] = row["call_ms"] / step_ms
+        print(f"app {key}: a superstep with every edge active {step_ms:.6f} "
+              f"ms, of which a cscatter call {row['call_ms']:.6f} ms "
+              f"({100 * out[key]['cscatter_share']:.1f} %)")
+    out["kernel_rows"] = rows
+    del src_sh, dst_sh, at
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     kind, smi = phase_card()
     sys.path.insert(0, str(ROOT / "src"))
@@ -1172,6 +1624,7 @@ def main() -> None:
     worst_attn = phase_attention_checks()
     attn_times = phase_attention_times()
     serve = phase_serve(smi)
+    apps = phase_apps(smi)
 
     tick_add = next(t for t in times if t["kind"] == "add" and t["n"] == B)
     evict_add = next(t for t in merge_times
@@ -1192,7 +1645,9 @@ def main() -> None:
         "bound_by": tick_add["bound_by"],
         "library_ms": tick_add["library_ms"],
         "library_call_ms": tick_add["library_call_ms"],
-        "variants": times}, {
+        "launches_apps": {k: v["launches"] for k, v in apps.items()
+                          if isinstance(v, dict) and "launches" in v},
+        "variants": times, "apps": apps["kernel_rows"]}, {
         "name": "cmerge", "route": "cuda",
         "source": "src/repro_torch/csrc/cmerge.cu",
         "replaces": REPLACES_CMERGE,
@@ -1229,7 +1684,8 @@ def main() -> None:
         for name, replaces, key in (
             ("flash_attention", REPLACES_FLASH, "flash"),
             ("decode_attention", REPLACES_DECODE, "decode"))
-        for row in attn_times[key][:1]], "serve": serve}))
+        for row in attn_times[key][:1]], "serve": serve,
+        "apps": {k: v for k, v in apps.items() if k != "kernel_rows"}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,5 +1,5 @@
-"""Shared plumbing of the sharded apps: the per-shard scatter phase and the
-default merge-plan geometry.
+"""Shared plumbing of the sharded apps: the per-shard scatter phase, the
+default merge-plan geometry and the edge partition.
 
 Every app runs a *scatter phase* (privatize-and-merge into a local table —
 the ``cscatter`` kernel) and a *cross-shard merge phase* (the hierarchical
@@ -10,6 +10,7 @@ stacked layout one scatter call covers every shard: ``table [S, R, D]``,
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.merge_plan import MergePlan
@@ -44,3 +45,20 @@ def default_plan(n_shards: int, defer_top: bool = False,
     if defer_top and pod > 1:
         spec += ":defer"
     return MergePlan.parse(spec, lane_parallel=lane_parallel)
+
+
+def shard_edges(src, dst, n_shards: int) -> tuple[np.ndarray, np.ndarray]:
+    """Partition an edge list across shards, padding with id -1.
+
+    Returns ``(src_sh, dst_sh)``, int32 numpy arrays of shape
+    ``[n_shards, ceil(E / n_shards)]``; padded entries carry -1 and are
+    dropped by the scatter phase.
+    """
+    src = np.asarray(src, np.int32)
+    dst = np.asarray(dst, np.int32)
+    e = src.shape[0]
+    per = -(-e // n_shards)
+    pad = per * n_shards - e
+    src_p = np.concatenate([src, np.full((pad,), -1, np.int32)])
+    dst_p = np.concatenate([dst, np.full((pad,), -1, np.int32)])
+    return src_p.reshape(n_shards, per), dst_p.reshape(n_shards, per)

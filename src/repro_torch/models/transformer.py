@@ -77,6 +77,10 @@ class DecoderLM(tnn.Module):
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"DecoderLM: family {cfg.family!r} is not ported yet")
+        if cfg.mlp != "swiglu":
+            raise NotImplementedError(
+                f"DecoderLM: mlp {cfg.mlp!r} is not ported yet (only "
+                f"'swiglu' is)")
         device = resolve_device(device)
         self.cfg = cfg
         self.attention = attention

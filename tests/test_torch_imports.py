@@ -32,6 +32,7 @@ def _imported_roots(path: Path) -> set[str]:
 def test_the_port_has_files_to_scan():
     names = {p.name for p in PORT_FILES}
     assert {"cscatter.py", "cmerge.py", "ccache.py", "blocked.py", "kv.py",
+            "bfs.py", "pagerank.py", "kmeans.py", "sharded.py", "common.py",
             "flash_attention.py", "decode_attention.py", "attention.py",
             "transformer.py", "registry.py", "serve.py", "base.py",
             "qwen1_5_0_5b.py", "internlm2_1_8b.py", "chip_smoke.py"} <= names

@@ -182,6 +182,18 @@ def test_models_run_on_the_card_unless_the_caller_asks_for_the_cpu():
     assert DecoderLM(cfg, device="cpu").embed.table.device.type == "cpu"
 
 
+def test_decoder_lm_refuses_a_gelu_mlp():
+    """The JAX model builds ``gelu_mlp`` for ``mlp="gelu"``; the port has
+    only SwiGLU, so such a config raises instead of serving another
+    function."""
+    cfg = dataclasses.replace(
+        tbase.get_smoke_config("qwen1-5-0-5b"), name="gelu-1l", mlp="gelu",
+        n_layers=1, d_model=32, n_heads=2, n_kv_heads=2, d_ff=64, vocab=64)
+    assert cfg.family == "dense"
+    with pytest.raises(NotImplementedError, match="gelu"):
+        DecoderLM(cfg, device="cpu")
+
+
 def test_kernel_and_plain_attention_agree_on_the_cpu():
     """On the CPU the kernel path runs the plain versions: the switch
     changes nothing there, and an unknown choice is refused."""

@@ -37,6 +37,8 @@ MERGES = {
     "sat_add": (mf.saturating_add(8.0, min_value=-8.0),
                 jmf.saturating_add(8.0, min_value=-8.0)),
     "sat_add_hi": (mf.saturating_add(100.0), jmf.saturating_add(100.0)),
+    "int8_add": (mf.int8_compressed_add(), jmf.int8_compressed_add()),
+    "drop_add": (mf.dropping_add(0.25), jmf.dropping_add(0.25)),
 }
 # the dtypes each merge is defined on
 MERGE_DTYPES = {
@@ -44,6 +46,7 @@ MERGE_DTYPES = {
     "complex_mul": ("float32",), "max": ("float32", "int32"),
     "min": ("float32", "int32"), "or": ("int32",), "and": ("int32",),
     "sat_add": ("float32", "int32"), "sat_add_hi": ("float32", "int32"),
+    "int8_add": ("float32",),
 }
 TRAITS = ("name", "xla_reduce", "needs_key", "wire_atom", "idempotent",
           "scalable", "invertible", "deferrable", "stale_tolerant")
@@ -225,3 +228,101 @@ def test_defer_schedule_rejects_what_jax_rejects():
             JDeferSchedule(names, intervals)
         with pytest.raises(ValueError):
             DeferSchedule(names, intervals)
+
+
+def _codec_inputs():
+    rng = np.random.default_rng(11)
+    out = [rng.standard_normal((6, 5)).astype(np.float32) * 3,
+           rng.standard_normal((128,)).astype(np.float32) * 1e-3,
+           rng.integers(-300, 300, (4, 4, 2)).astype(np.float32),
+           np.zeros((3, 2), np.float32),
+           np.asarray(2.5, np.float32)]
+    # amax 127 makes the scale exactly 1, so these sit on rounding ties
+    # (half to even: 0.5 -> 0, 1.5 -> 2, -2.5 -> -2)
+    out.append(np.asarray([127, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5],
+                          np.float32))
+    return out
+
+
+@pytest.mark.parametrize("i", range(6))
+def test_int8_codec_encode_decode_bitwise_against_jax(i):
+    u = _codec_inputs()[i]
+    port, ref = mf.int8_compressed_add(), jmf.int8_compressed_add()
+    wire = port.encode(torch.from_numpy(u))
+    jwire = ref.encode(jnp.asarray(u))
+    assert wire["q"].dtype == torch.int8 and wire["scale"].dtype == \
+        torch.float32 and wire["scale"].dim() == 0
+    np.testing.assert_array_equal(wire["q"].numpy(), np.asarray(jwire["q"]))
+    assert wire["scale"].numpy().tobytes() == \
+        np.asarray(jwire["scale"]).tobytes()
+    got = port.decode(wire)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref.decode(jwire)))
+    # the round trip is within half a quantization step
+    assert np.all(np.abs(got.numpy() - u) <= wire["scale"].item() / 2 + 1e-6)
+    if i == 5:
+        assert wire["q"].tolist() == [127, 0, 2, 2, 0, -2, -2, 126]
+
+
+def test_registry_names_ids_and_standard_merges_equal_jax():
+    reg, jreg = mf.default_registry(), jmf.default_registry()
+    assert [fn.name for fn in reg] == [fn.name for fn in jreg]
+    assert len(reg) == len(jreg) == 6
+    for fn in jreg:
+        assert reg.id_of(fn.name) == jreg.id_of(fn.name)
+        assert reg[fn.name].name == fn.name and fn.name in reg
+        assert reg[reg.id_of(fn.name)] is reg[fn.name]
+    assert reg.merge_init(mf.MAX) == jreg.merge_init(jmf.MAX) == 1
+    assert reg.merge_init(mf.saturating_add(8.0)) == \
+        jreg.merge_init(jmf.saturating_add(8.0)) == 6
+    std, jstd = mf.standard_merges(), jmf.standard_merges()
+    assert [fn.name for fn in std] == [fn.name for fn in jstd]
+    for fn, jfn in zip(std, jstd):
+        for trait in TRAITS:
+            assert getattr(fn, trait) == getattr(jfn, trait), (fn.name, trait)
+    small = mf.MergeFunctionRegistry(capacity=2)
+    small.merge_init(mf.ADD)
+    small.merge_init(mf.MAX)
+    with pytest.raises(ValueError, match="full"):
+        small.merge_init(mf.MIN)
+
+
+def _drop(p, u, mem, seed):
+    g = torch.Generator().manual_seed(seed)
+    return mf.dropping_add(p).tree_apply({"m": mem}, {"m": u}, key=g)["m"]
+
+
+def test_dropping_add_by_its_laws():
+    """The Bernoulli draw cannot match JAX's bits, so the merge is held to
+    its laws: drop_prob 0 and 1 are exact, the kept fraction lies within a
+    binomial bound, and one generator seed gives one result."""
+    rng = np.random.default_rng(0)
+    n = 20000
+    u = torch.from_numpy(rng.integers(1, 9, n).astype(np.float32))
+    mem = torch.from_numpy(rng.integers(-50, 50, n).astype(np.float32))
+    assert torch.equal(_drop(0.0, u, mem, 1), mem + u)
+    assert torch.equal(_drop(1.0, u, mem, 1), mem)
+    for p in (0.1, 0.5, 0.9):
+        out = _drop(p, u, mem, 7)
+        kept = out != mem
+        # every element is either dropped or kept whole
+        assert torch.equal(out[kept], (mem + u)[kept])
+        frac = kept.double().mean().item()
+        sigma = (p * (1 - p) / n) ** 0.5
+        assert abs(frac - (1 - p)) < 5 * sigma, (p, frac)
+        assert torch.equal(_drop(p, u, mem, 7), out)
+        assert not torch.equal(_drop(p, u, mem, 8), out)
+    with pytest.raises(ValueError, match="key"):
+        mf.dropping_add(0.5).tree_apply(mem, u)
+    with pytest.raises(ValueError, match="cannot defer"):
+        mf.dropping_add(0.5).check_deferrable("ctx")
+
+
+def test_tree_apply_draws_each_leaf_from_the_generator_in_turn():
+    u = torch.ones(4096)
+    g = torch.Generator().manual_seed(3)
+    out = mf.dropping_add(0.5).tree_apply([torch.zeros(4096)] * 2, [u, u],
+                                          key=g)
+    assert not torch.equal(out[0], out[1])      # not one mask for both
+    g2 = torch.Generator().manual_seed(3)
+    first = mf.dropping_add(0.5).apply(torch.zeros(4096), u, key=g2)
+    assert torch.equal(out[0], first)
