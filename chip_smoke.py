@@ -8,8 +8,9 @@ store of ``src/repro_torch`` with its kernel engine and with its blocked
 engine at the serving geometry (S = 8 shards, R = 2**22 keys, D = 4 int32
 columns, B = 1024 updates per shard per tick, K = 8 over
 ``serving_plan(8, "all")``; the blocked engine with W = 8 ways of BR = 8
-rows), LM serving (prefill + greedy decode) of qwen1.5-0.5b, and the paper's
-BFS, PageRank and k-means — and:
+rows), its solved and adaptive commit schedules, its write-ahead journal,
+snapshots and crash recovery, LM serving (prefill + greedy decode) of
+qwen1.5-0.5b, and the paper's BFS, PageRank and k-means — and:
 
 1. prints the card (``nvidia-smi`` name and power limit, torch's name);
 2. builds every CUDA kernel of the paths from ``src/repro_torch/csrc``, all
@@ -35,9 +36,26 @@ BFS, PageRank and k-means — and:
    before each store is driven and read just after), and the blocked
    stores' eviction counters must equal a pure-Python LRU model of the
    same stream;
-5. pushes a few thousand add/get requests through a read-your-writes store
+5. solves the commit schedule as ``kv_serve --defer auto|adaptive`` does
+   (the wire vector of ``launch/wire_cost.py``, each level's merge timed on
+   the card, a never-committing probe tick), runs ``auto`` on the
+   privatized store for max(27, 2 period + 1) ticks and ``adaptive`` on the
+   partitioned overlapped store for 2 k_max + 1 ticks (the stream's second
+   half at a quarter load): tables bitwise against the oracle, ``cscatter``
+   launches against the due ticks (the adaptive store's from a host twin of
+   its schedule);
+6. crashes a journaled store for real: a child process (this script with
+   ``--crash-child``) journals ticks 0-19, snapshots after tick 12 and
+   SIGKILLs itself after its 20th ack; with a torn record appended, an S =
+   16 partitioned overlapped store recovers (7 ticks replayed, re-chunked to
+   [16, 512]), serves ticks 20-26 and must equal the oracle of all 27 ticks,
+   and an S = 8 privatized store recovers the same journal to the oracle of
+   ticks 0-19; then times the journal (updates/s without it, with it and
+   fsynced; an append's ms and bytes), the snapshot (flush, copy, write)
+   and the recoveries (load, install, replay);
+7. pushes a few thousand add/get requests through a read-your-writes store
    behind ``BatchedFrontend`` against a sequential numpy oracle;
-6. holds ``flash_attention`` and ``decode_attention`` against their plain
+8. holds ``flash_attention`` and ``decode_attention`` against their plain
    versions in f32 (to ``TOL``) and bf16 (to ``ATTN_BF16_TOL`` per element
    and ``ATTN_BF16_ROW`` per output row) at qwen1.5-0.5b's and
    internlm2-1.8b's attention shapes, and the bf16 tensor-core flash kernel at the edges of
@@ -47,7 +65,7 @@ BFS, PageRank and k-means — and:
    then a combine pass) against its plain version at both cache shapes;
    times them beside their bounds and one ``scaled_dot_product_attention``
    call, printing the split count each decode shape ran;
-7. serves qwen1.5-0.5b at full width (bf16, random weights from the seed,
+9. serves qwen1.5-0.5b at full width (bf16, random weights from the seed,
    batch 8, prompts of 512 ids, 64 greedy tokens) through
    ``launch/serve.generate``: the attention kernels' launches must be one a
    layer at prefill, all of them through the bf16 tensor-core variant, and
@@ -55,7 +73,7 @@ BFS, PageRank and k-means — and:
    passes), and the logits of every
    step must match the same tokens teacher-forced through the plain
    attention;
-8. runs the paper's apps through ``repro_torch.apps``: BFS and PageRank on
+10. runs the paper's apps through ``repro_torch.apps``: BFS and PageRank on
    a Graph500 Kronecker graph (SCALE 20, edgefactor 16, 33.5M directed
    edges over 8 shards), eager and with a deferred pod level, and k-means
    on a 491,520 x 34 stream with deferred and overlapped commits, against
@@ -65,12 +83,13 @@ BFS, PageRank and k-means — and:
    then times ``cscatter`` at each app's shapes against its plain version,
    one library call and the bound, with its two passes split by a
    ``torch.profiler`` trace;
-9. prints every kernel's registers and spills (``ptxas -v``),
+11. prints every kernel's registers and spills (``ptxas -v``),
    one ``{"kernels": [...]}`` line and the card's name and power limit;
-10. ends with ``{"ok": true, "device": {...}}``.
+12. ends with ``{"ok": true, "device": {...}}``.
 
-Nothing is caught: any failure exits non-zero before the last line. Without
-a card, or without the repository beside it, it exits non-zero at once.
+Each phase prints its seconds. Nothing is caught: any failure exits
+non-zero before the last line. Without a card, or without the repository
+beside it, it exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -78,9 +97,14 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
+import shutil
+import signal
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -96,6 +120,9 @@ BLOCKED_TICKS = 2 * K + 1           # two commit cycles plus a tick
 SPILL = K * B                       # spill slots: a cycle's distinct blocks
 USERS = 1 << 20
 SEED = 0
+# durability: the crashing store snapshots after this tick and is killed
+# after acknowledging CRASH_AT ticks
+SNAPSHOT_AT, CRASH_AT = 12, 20
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # tests/test_kernels.py TOL
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 COLD_BYTES = 150e6                  # inputs rotated through: 3x the L2
@@ -606,8 +633,10 @@ def phase_cmerge_times() -> list[dict]:
 
 
 def _oracle(keys: np.ndarray, vals: np.ndarray) -> np.ndarray:
+    """The serial replay of a stream in int64; padding keys (< 0) drop."""
     ref = np.zeros((R, D), np.int64)
-    np.add.at(ref, keys.reshape(-1), vals.reshape(-1, D))
+    ok = keys >= 0
+    np.add.at(ref, keys[ok], vals[ok])
     return ref
 
 
@@ -680,6 +709,278 @@ def phase_stores(keys: np.ndarray, vals: np.ndarray) -> dict:
         del kv
         torch.cuda.empty_cache()
     return {"launches": launches}
+
+
+def _drive(kv, keys, vals) -> float:
+    """Every tick of ``keys``/``vals`` (on the card) through ``kv``; the
+    host-clock seconds, synchronized at both ends."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(keys.shape[0]):
+        kv.tick(keys[t], vals[t])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_schedules() -> dict:
+    """The solved and adaptive commit schedules at the serving geometry,
+    through ``launch/kv_serve.py``'s own functions: the wire vector, each
+    level's rate measured on the card and the probe tick, then ``auto`` on
+    the privatized store for max(27, 2 period + 1) ticks and ``adaptive``
+    on the partitioned store with the overlapped commit for ``2 k_max + 1``
+    ticks. The Pareto stream's second half carries a quarter of the load
+    (the rest of each batch is padding), so the adaptive K moves. Flushed
+    tables vs the oracle, bitwise; ``cscatter`` launches vs the schedule
+    (the adaptive store's due ticks from a host twin of its schedule fed
+    the same ``observe`` counts)."""
+    import torch
+    from repro_torch.kernels.cscatter import LAUNCHES_PER_CALL, cscatter
+    from repro_torch.launch.kv_serve import (describe_inputs, key_stream,
+                                             measure_schedule_inputs,
+                                             schedule_from)
+    from repro_torch.serve import KVConfig, ShardedKV, serving_plan
+
+    plan = serving_plan(S, "all")
+    cfg = KVConfig(n_keys=R, cols=D)
+    inputs = measure_schedule_inputs(cfg, S, B, plan, "cuda")
+    for line in describe_inputs(inputs):
+        print(f"schedules: {line}")
+    auto = schedule_from("auto", plan, inputs, cfg.merge, S, B)
+    print(f"schedules: solved auto schedule: {auto.describe()}")
+
+    def adaptive():
+        return schedule_from("adaptive", plan, inputs, cfg.merge, S, B,
+                             overlap=True, partitioned=True)
+
+    out = {"wire": inputs["wire"], "level_ms": [1e3 * t for t in
+                                                 inputs["level_s"]],
+           "rates": inputs["rates"], "tick_ms": 1e3 * inputs["tick_s"],
+           "auto": auto.as_dict(), "launches": 0}
+    twin = adaptive()     # the host twin of the adaptive store's schedule
+    n_adapt = 2 * twin.max_period + 1
+    n_auto = max(27, 2 * auto.period + 1)
+    n_all = max(n_adapt, n_auto)
+    keys_all = key_stream(n_all * S * B, R, "pareto", n_users=USERS,
+                          seed=SEED).reshape(n_all, S, B)
+    keys_all[n_all // 2:, :, B // 4:] = -1
+    vals_all = np.random.default_rng(SEED).integers(
+        1, 9, (n_all, S, B, D)).astype(np.int32)
+    n_valid = [int((keys_all[t] >= 0).sum()) for t in range(n_all)]
+    commits, ks = 0, [twin.period]
+    for t in range(n_adapt):
+        twin.observe(n_valid[t])
+        if twin.due_count(t + 1):
+            commits += 1
+            ks.append(twin.period)
+    runs = {
+        "auto_privatized": (lambda: ShardedKV(cfg, S, plan=plan,
+                                              schedule=auto),
+                            n_auto, None),
+        "adaptive_partitioned_overlap": (lambda: ShardedKV(
+            KVConfig(n_keys=R, cols=D, partitioned=True), S, plan=plan,
+            schedule=adaptive()), n_adapt, commits + 1),
+    }
+    for name, (make, n, calls) in runs.items():
+        keys_dev = torch.as_tensor(keys_all[:n], device="cuda")
+        vals_dev = torch.as_tensor(vals_all[:n], device="cuda")
+        want = _oracle(keys_all[:n], vals_all[:n])
+        kv = make()
+        # the privatized store scatters every tick into its pending; the
+        # partitioned one scatters its ring at each commit and at the flush
+        predicted = (n if calls is None else calls) * LAUNCHES_PER_CALL
+        cscatter.launches = 0
+        wall = _drive(kv, keys_dev, vals_dev)
+        sched = kv.schedule.as_dict()       # before the flush resets it
+        kv.flush()
+        torch.cuda.synchronize()
+        got_launches = cscatter.launches
+        out["launches"] += got_launches
+        require(got_launches == predicted,
+                f"{name}: cscatter launched {got_launches} times, the "
+                f"schedule predicts {predicted}")
+        require(np.array_equal(kv.table().astype(np.int64), want),
+                f"{name}: flushed table differs from the numpy oracle")
+        ups = sum(n_valid[:n]) / wall
+        line = (f"store {name}: table == oracle bitwise over {n} ticks; "
+                f"cscatter launches {got_launches} (predicted {predicted}); "
+                f"{ups:.1f} updates/s ({wall:.6f} s)")
+        if calls is not None:
+            sched = sched["adaptive"]
+            require(sched["n_resolves"] == twin.as_dict()["adaptive"][
+                "n_resolves"], f"{name}: n_resolves differs from the twin")
+            line += (f"; K by cycle {ks} ({commits} commits), n_resolves "
+                     f"{sched['n_resolves']}")
+            out["adaptive"] = {"ks": ks, "commits": commits,
+                               "n_resolves": sched["n_resolves"],
+                               "updates_per_s": ups}
+        else:
+            out["auto_updates_per_s"] = ups
+        print(line)
+        del kv, keys_dev, vals_dev
+        torch.cuda.empty_cache()
+    return out
+
+
+def _segment(root: str, n: int) -> str:
+    return os.path.join(root, "segments", f"seg_{n:08d}.log")
+
+
+def crash_child(root: str) -> None:
+    """The crashing store of :func:`phase_durability`, in its own process:
+    the privatized K = 8 store with its journal under ``root`` serves ticks
+    0-19 of the stream, snapshots after tick 12, prints an ack after each
+    tick, and kills itself right after the last ack."""
+    import torch
+    from repro_torch.serve import KVConfig, ShardedKV
+
+    stream, vals = main_stream()
+    keys_dev = torch.as_tensor(stream.reshape(TICKS, S, B), device="cuda")
+    vals_dev = torch.as_tensor(vals, device="cuda")
+    kv = ShardedKV(KVConfig(n_keys=R, cols=D), S, commit_every=K)
+    kv.attach_journal(root)
+    for t in range(CRASH_AT):
+        kv.tick(keys_dev[t], vals_dev[t])
+        print(f"ack {t}", flush=True)
+        if t == SNAPSHOT_AT:
+            kv.snapshot()
+            print(f"snapshot {json.dumps(kv.last_snapshot_seconds)}",
+                  flush=True)
+    os.kill(os.getpid(), signal.SIGKILL)
+
+
+def phase_durability(keys: np.ndarray, vals: np.ndarray) -> dict:
+    """A real crash, then recovery onto another layout and onto the same.
+
+    A child process (:func:`crash_child`) journals ticks 0-19, snapshots
+    after tick 12 and dies by SIGKILL with no flush; a torn record is then
+    appended to its last segment. A fresh S = 16 partitioned store with the
+    overlapped commit recovers (the 7 journaled ticks re-chunked to [16,
+    512]), serves ticks 20-26 and must equal the oracle of all 27 ticks; a
+    fresh S = 8 privatized store recovers a copy of the same root (records
+    passed through) and must equal the oracle of ticks 0-19. Then the
+    journal's cost: updates/s of the privatized store over the 27 ticks
+    without the journal, with it, and with it fsynced; an append's ms and
+    bytes."""
+    import torch
+    from repro_torch.core.defer_schedule import DeferSchedule
+    from repro_torch.kernels.cscatter import LAUNCHES_PER_CALL, cscatter
+    from repro_torch.serve import KVConfig, ShardedKV, UpdateJournal
+    from repro_torch.serve.journal import list_segments
+
+    work = tempfile.mkdtemp(prefix="kv-durability-")
+    root = os.path.join(work, "crashed")
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                            "--crash-child", root], capture_output=True,
+                           text=True, timeout=300)
+    child_s = time.perf_counter() - t0
+    lines = child.stdout.splitlines()
+    acks = [ln for ln in lines if ln.startswith("ack ")]
+    require(child.returncode == -signal.SIGKILL,
+            f"crash child: return code {child.returncode}, want "
+            f"{-signal.SIGKILL}: {child.stderr[-2000:]}")
+    require(acks == [f"ack {t}" for t in range(CRASH_AT)],
+            f"crash child: {len(acks)} acks, want {CRASH_AT}")
+    snap = json.loads(next(ln for ln in lines
+                           if ln.startswith("snapshot "))[len("snapshot "):])
+    with open(_segment(root, list_segments(root)[-1]), "ab") as f:
+        f.write(b"KVJ1" + struct.pack("<I", 64) + b"torn")
+    same = os.path.join(work, "same_layout")
+    shutil.copytree(root, same)
+    print(f"durability: child killed (return code {child.returncode}) "
+          f"after {len(acks)} acks in {child_s:.6f} s; snapshot after tick "
+          f"{SNAPSHOT_AT}: flush {1e3 * snap['flush']:.6f} ms, copy "
+          f"{1e3 * snap['copy']:.6f} ms, write {1e3 * snap['write']:.6f} "
+          f"ms; a torn record appended")
+
+    keys_dev = torch.as_tensor(keys, device="cuda")
+    vals_dev = torch.as_tensor(vals, device="cuda")
+    s2, b2 = 2 * S, B // 2
+    names = ("chip", "host", "pod")
+    recoveries = {
+        "partitioned_overlap_s16": (
+            lambda: ShardedKV(KVConfig(n_keys=R, cols=D, partitioned=True),
+                              s2, schedule=DeferSchedule.fixed(
+                                  K, names, overlap=True)),
+            root, TICKS,
+            # the ring scatters at the commit (tick 8 after recovery) and
+            # at the flush
+            2),
+        "privatized_k8": (lambda: ShardedKV(KVConfig(n_keys=R, cols=D), S,
+                                            commit_every=K),
+                          same, CRASH_AT, CRASH_AT - SNAPSHOT_AT - 1),
+    }
+    out = {"child_s": child_s, "acks": len(acks), "snapshot_s": snap,
+           "launches": 0}
+    for name, (make, where, upto, calls) in recoveries.items():
+        kv = make()
+        cscatter.launches = 0
+        report = kv.recover(where)
+        for t in range(CRASH_AT, upto):
+            kv.tick(keys_dev[t].reshape(s2, b2),
+                    vals_dev[t].reshape(s2, b2, D))
+        kv.flush()
+        torch.cuda.synchronize()
+        n = cscatter.launches
+        out["launches"] += n
+        require(report["snapshot_step"] is not None
+                and report["replayed_ticks"] == CRASH_AT - SNAPSHOT_AT - 1,
+                f"recover {name}: {report}")
+        require(n == calls * LAUNCHES_PER_CALL,
+                f"recover {name}: cscatter launched {n} times, the schedule "
+                f"predicts {calls * LAUNCHES_PER_CALL}")
+        require(np.array_equal(kv.table().astype(np.int64),
+                               _oracle(keys[:upto], vals[:upto])),
+                f"recover {name}: flushed table differs from the oracle of "
+                f"ticks 0-{upto - 1}")
+        sec = report["seconds"]
+        print(f"durability: recover onto {name}: snapshot step "
+              f"{report['snapshot_step']}, {report['replayed_ticks']} ticks "
+              f"replayed; load {1e3 * sec['load']:.6f} ms, install "
+              f"{1e3 * sec['install']:.6f} ms, replay "
+              f"{1e3 * sec['replay']:.6f} ms; table == oracle of ticks "
+              f"0-{upto - 1} bitwise; cscatter launches {n}")
+        out[name] = {"report": report, "launches": n}
+        del kv
+        torch.cuda.empty_cache()
+
+    want = _oracle(keys, vals)
+    rates = {}
+    for label, sync in (("no journal", None), ("journal", False),
+                        ("journal fsync", True), ("no journal again", None)):
+        kv = ShardedKV(KVConfig(n_keys=R, cols=D), S, commit_every=K)
+        if sync is not None:
+            kv.attach_journal(os.path.join(work, label.replace(" ", "_")),
+                              sync=sync)
+        wall = _drive(kv, keys_dev, vals_dev)
+        kv.flush()
+        require(np.array_equal(kv.table().astype(np.int64), want),
+                f"journal cost run ({label}): table differs from the oracle")
+        rates[label] = S * B * TICKS / wall
+        del kv
+        torch.cuda.empty_cache()
+    appends = {}
+    for sync in (False, True):
+        jroot = os.path.join(work, f"appends_{sync}")
+        journal = UpdateJournal(jroot, sync=sync)
+        t0 = time.perf_counter()
+        for t in range(TICKS):
+            journal.append(keys_dev[t].cpu().numpy(),
+                           vals_dev[t].cpu().numpy())
+        ms = 1e3 * (time.perf_counter() - t0) / TICKS
+        journal.close()
+        appends[sync] = (ms, os.path.getsize(_segment(jroot, 0)) / TICKS)
+    print("durability: privatized store over 27 ticks: " + ", ".join(
+        f"{k} {v:.1f} updates/s" for k, v in rates.items()))
+    print(f"durability: a journal append from the card: "
+          f"{appends[False][0]:.6f} ms ({appends[True][0]:.6f} ms fsynced), "
+          f"{appends[False][1]:.1f} bytes a tick")
+    out.update(updates_per_s=rates, append_ms=appends[False][0],
+               append_fsync_ms=appends[True][0],
+               journal_bytes_per_tick=appends[False][1])
+    shutil.rmtree(work)
+    return out
 
 
 def lru_model(keys: np.ndarray, slots: int | None = None) -> dict:
@@ -1603,28 +1904,48 @@ def phase_apps(card: str) -> dict:
     return out
 
 
+def main_stream() -> tuple[np.ndarray, np.ndarray]:
+    """The main path's stream from the seed: ``TICKS * S * B`` Pareto keys
+    (flat) and their values ``[TICKS, S, B, D]``."""
+    from repro_torch.launch.kv_serve import key_stream
+    stream = key_stream(TICKS * S * B, R, "pareto", n_users=USERS, seed=SEED)
+    vals = np.random.default_rng(SEED).integers(
+        1, 9, (TICKS, S, B, D)).astype(np.int32)
+    return stream, vals
+
+
+def timed(name: str, fn, *args):
+    """``fn(*args)``, printing the phase's host-clock seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.3f} s")
+    return out
+
+
 def main() -> None:
+    if sys.argv[1:2] == ["--crash-child"]:      # phase_durability's child
+        sys.path.insert(0, str(ROOT / "src"))
+        crash_child(sys.argv[2])
     kind, smi = phase_card()
     sys.path.insert(0, str(ROOT / "src"))
     import torch
-    from repro_torch.launch.kv_serve import key_stream
 
-    phase_build()
-    stream = key_stream(TICKS * S * B, R, "pareto", n_users=USERS, seed=SEED)
-    worst = phase_kernel_checks(stream)
-    worst_merge = phase_cmerge_checks()
-    times = phase_kernel_times(stream)
-    merge_times = phase_cmerge_times()
+    timed("build", phase_build)
+    stream, vals = main_stream()
+    worst = timed("kernel_checks", phase_kernel_checks, stream)
+    worst_merge = timed("cmerge_checks", phase_cmerge_checks)
+    times = timed("kernel_times", phase_kernel_times, stream)
+    merge_times = timed("cmerge_times", phase_cmerge_times)
     keys = stream.reshape(TICKS, S, B)
-    vals = np.random.default_rng(SEED).integers(
-        1, 9, (TICKS, S, B, D)).astype(np.int32)
-    main_path = phase_stores(keys, vals)
-    blocked_path = phase_blocked_stores(keys, vals)
-    phase_frontend(stream)
-    worst_attn = phase_attention_checks()
-    attn_times = phase_attention_times()
-    serve = phase_serve(smi)
-    apps = phase_apps(smi)
+    main_path = timed("stores", phase_stores, keys, vals)
+    schedules = timed("schedules", phase_schedules)
+    durability = timed("durability", phase_durability, keys, vals)
+    blocked_path = timed("blocked_stores", phase_blocked_stores, keys, vals)
+    timed("frontend", phase_frontend, stream)
+    worst_attn = timed("attention_checks", phase_attention_checks)
+    attn_times = timed("attention_times", phase_attention_times)
+    serve = timed("serve", phase_serve, smi)
+    apps = timed("apps", phase_apps, smi)
 
     tick_add = next(t for t in times if t["kind"] == "add" and t["n"] == B)
     evict_add = next(t for t in merge_times
@@ -1647,6 +1968,8 @@ def main() -> None:
         "library_call_ms": tick_add["library_call_ms"],
         "launches_apps": {k: v["launches"] for k, v in apps.items()
                           if isinstance(v, dict) and "launches" in v},
+        "launches_schedules": schedules["launches"],
+        "launches_durability": durability["launches"],
         "variants": times, "apps": apps["kernel_rows"]}, {
         "name": "cmerge", "route": "cuda",
         "source": "src/repro_torch/csrc/cmerge.cu",
@@ -1685,7 +2008,8 @@ def main() -> None:
             ("flash_attention", REPLACES_FLASH, "flash"),
             ("decode_attention", REPLACES_DECODE, "decode"))
         for row in attn_times[key][:1]], "serve": serve,
-        "apps": {k: v for k, v in apps.items() if k != "kernel_rows"}}))
+        "apps": {k: v for k, v in apps.items() if k != "kernel_rows"},
+        "schedules": schedules, "durability": durability}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,0 +1,74 @@
+"""Durable identity of deferred-commit state: plan and schedule fingerprints.
+
+A store's volatile state is only meaningful relative to the compiled
+:class:`~repro_torch.core.merge_plan.MergePlan` and the commit schedule
+that produced it, so snapshots record content fingerprints of both. The
+digests are the JAX package's (``repro/checkpoint/defer_state.py``): the
+same plan and schedule give the same fingerprint in either package.
+Everything here is host-side metadata.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+from typing import Optional
+
+from repro_torch.core.defer_schedule import AdaptiveDeferSchedule
+
+
+def _digest(obj: dict) -> str:
+    return hashlib.sha256(
+        json.dumps(obj, sort_keys=True).encode()).hexdigest()[:16]
+
+
+def plan_fingerprint(plan, axis_size: int, merge_name: Optional[str] = None
+                     ) -> str:
+    """Content fingerprint of a MergePlan *as compiled* for ``axis_size``
+    ranks. Two plans with the same fingerprint produce pendings with
+    identical replication geometry, so their defer state is exchangeable."""
+    desc = {
+        "axis_size": int(axis_size),
+        "axis_name": str(getattr(plan, "axis_name", "")),
+        "lane_parallel": bool(getattr(plan, "lane_parallel", False)),
+        "merge": merge_name,
+        "levels": [
+            [lv.name, int(lv.size), str(lv.transport),
+             str(getattr(lv, "combine_mode", "")), bool(lv.compress),
+             bool(lv.defer)]
+            for lv in plan.levels
+        ],
+    }
+    return _digest(desc)
+
+
+def schedule_fingerprint(schedule) -> str:
+    """Content fingerprint of a commit schedule.
+
+    A fixed ``DeferSchedule`` hashes its intervals; an
+    :class:`AdaptiveDeferSchedule` hashes its *envelope* (level names,
+    overlap, K bounds) because its solved intervals drift with load — two
+    adaptive schedules with the same envelope produce interchangeable state.
+    """
+    desc = {
+        "level_names": list(schedule.level_names),
+        "overlap": bool(schedule.overlap),
+    }
+    if isinstance(schedule, AdaptiveDeferSchedule):
+        desc["adaptive"] = [int(schedule.k_min), int(schedule.k_max)]
+        desc["max_period"] = int(schedule.max_period)
+    else:
+        desc["intervals"] = [int(k) for k in schedule.intervals]
+    return _digest(desc)
+
+
+def manifests_compatible(saved: Optional[dict], current: Optional[dict]
+                         ) -> bool:
+    """Whether defer state checkpointed under ``saved`` can be restored
+    verbatim into a run described by ``current``: the compiled plan, the
+    schedule and the rank count must all be the same."""
+    if saved is None or current is None:
+        return False
+    return (saved.get("plan") == current.get("plan")
+            and saved.get("schedule") == current.get("schedule")
+            and saved.get("dp") == current.get("dp"))

@@ -453,6 +453,13 @@ def _run_stages(update: PyTree, axis: StackedAxis, merge: MergeFn,
     return u
 
 
+def merge_stage(update: PyTree, axis: StackedAxis, merge: MergeFn,
+                stage: LevelStage) -> PyTree:
+    """One compiled stage's exchange alone: a level's merge, as
+    ``launch/kv_serve.py`` times it to measure the level's rate."""
+    return _run_stages(update, axis, merge, [stage], force_tree=False)
+
+
 def hierarchical_merge(update: PyTree, axis: StackedAxis, merge: MergeFn,
                        topology: Topology, compress: bool = False,
                        force_tree: bool = False) -> PyTree:

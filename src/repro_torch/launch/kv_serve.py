@@ -8,9 +8,19 @@ device (``--device``, default ``cuda``; ``--device cpu`` runs the kernels'
 plain versions on the CPU). Prints the ingest rate and checks the flushed
 table's mass against the stream.
 
-``--defer`` picks the commit policy: ``sync`` (the fully-synchronized
-reference, merge every tick) or an integer ``K`` (fixed commit interval
-over a fully deferred plan). ``--partitioned`` home-shards the settled
+``--defer`` picks the commit policy:
+
+* ``sync`` — the fully-synchronized reference (merge every tick);
+* an integer ``K`` — fixed commit interval over a fully deferred plan;
+* ``auto`` — derive the per-level wire vector of the synchronized tick
+  (``launch/wire_cost.py``), measure each level's rate on the device (the
+  time of that level's merge alone over the ``[S, R, D]`` payload, median
+  of 5 runs) and the time of a never-committing deferred tick, and serve
+  with ``solve_defer_schedule``'s schedule (printed before the run);
+* ``adaptive`` — the same inputs, with the commit interval re-solved
+  online from the measured ingest rate (``AdaptiveDeferSchedule``).
+
+``--partitioned`` home-shards the settled
 table (each row on exactly one shard; reads route by ``key % shards``) and
 bounds pending state with a ring (or, with ``--engine blocked``, a spill
 buffer of ``--spill-blocks`` blocks); ``--overlap`` additionally pipelines
@@ -24,10 +34,14 @@ instead of the ``cscatter`` kernel, and prints its eviction counters.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import statistics
 import time
 
 import numpy as np
 import torch
+
+from repro_torch.serve.kv import resolve_device, sync_device
 
 
 def _parse_args(argv=None):
@@ -41,7 +55,8 @@ def _parse_args(argv=None):
     p.add_argument("--batch", type=int, default=512,
                    help="updates per shard per tick")
     p.add_argument("--defer", default="8",
-                   help="sync | K (fixed commit interval)")
+                   help="sync | auto | adaptive | K (fixed commit "
+                        "interval)")
     p.add_argument("--partitioned", action="store_true",
                    help="home-shard the settled table (routed reads, ring "
                         "pendings)")
@@ -85,19 +100,147 @@ def key_stream(n: int, n_keys: int, dist: str = "uniform",
     return ((users * 2654435761) % n_keys).astype(np.int32)
 
 
+def device_name(device: torch.device) -> str:
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+
+
+def _median_seconds(fn, device: torch.device, runs: int) -> float:
+    """The median over ``runs`` calls of ``fn``'s time, after a warm-up:
+    CUDA events on the card, the host clock on the CPU."""
+    fn()
+    sync_device(device)
+    out = []
+    for _ in range(runs):
+        if device.type == "cuda":
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            out.append(a.elapsed_time(b) / 1e3)
+        else:
+            t0 = time.perf_counter()
+            fn()
+            out.append(time.perf_counter() - t0)
+    return statistics.median(out)
+
+
+def measure_schedule_inputs(cfg, n_shards: int, batch: int, plan,
+                            device, runs: int = 5) -> dict:
+    """What ``--defer auto|adaptive`` solves from, measured on ``device``.
+
+    * ``wire``: machine-wide bytes each level of ``plan`` moves in one
+      synchronized tick (``wire_cost.wire_bytes_by_level`` of the
+      ``[R, D]`` payload), by level ``names``;
+    * ``level_s``: the time of each level's merge alone over the ``[S, R,
+      D]`` payload (``ccache.merge_stage``), median of ``runs``; ``rates``
+      is ``wire / level_s`` (a level that moves nothing gets ``inf``);
+    * ``tick_s``: a deferred tick that never commits, on the replicated
+      store (a partitioned probe that never commits would overflow its
+      ring), the mean of 4 ticks synchronized at both ends.
+    """
+    from repro_torch.core import ccache
+    from repro_torch.core.merge_plan import compile_plan
+    from repro_torch.core.stacked import StackedAxis
+    from repro_torch.launch.wire_cost import wire_bytes_by_level
+    from repro_torch.serve import ShardedKV
+
+    device = torch.device(device)
+    S, R, D = n_shards, cfg.n_keys, cfg.cols
+    itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+    names = tuple(lv.name for lv in plan.levels)
+    wire = wire_bytes_by_level(plan, S, (R, D), itemsize, cfg.merge)
+
+    axis = StackedAxis(S, device)
+    state_dtype = torch.int32 if cfg.dtype == torch.uint32 else cfg.dtype
+    payload = torch.ones((S, R, D), dtype=state_dtype, device=device)
+    level_s = [0.0] * len(names)
+    for st in compile_plan(plan, S, merge_fn=cfg.merge):
+        level_s[st.index] = _median_seconds(
+            lambda: ccache.merge_stage(payload, axis, cfg.merge, st),
+            device, runs)
+    del payload
+    rates = [b / t if b > 0 else float("inf")
+             for b, t in zip(wire, level_s)]
+
+    probe_cfg = dataclasses.replace(cfg, partitioned=False)
+    timer = ShardedKV(probe_cfg, S, device=device, plan=plan,
+                      commit_every=1 << 20)       # never commits
+    k0 = torch.zeros((S, batch), dtype=torch.int32, device=device)
+    v0 = torch.ones((S, batch, D), dtype=cfg.dtype, device=device)
+    timer.tick(k0, v0)                            # warm-up
+    sync_device(device)
+    t0 = time.perf_counter()
+    for _ in range(4):
+        timer.tick(k0, v0)
+    sync_device(device)
+    tick_s = (time.perf_counter() - t0) / 4
+    del timer, k0, v0
+    if device.type == "cuda":
+        torch.cuda.empty_cache()   # the probe held S replicated tables
+    return {"names": names, "wire": wire, "level_s": level_s,
+            "rates": rates, "tick_s": tick_s,
+            "device": device_name(device)}
+
+
+def schedule_from(mode: str, plan, inputs: dict, merge, n_shards: int,
+                  batch: int, overlap: bool = False,
+                  partitioned: bool = False):
+    """The ``auto`` or ``adaptive`` schedule of ``plan`` from
+    :func:`measure_schedule_inputs`. ``adaptive`` charges the measured
+    tick to ``per_update_s = tick_s / (S * B)``, so a full batch
+    reproduces the probe's compute bound; a partitioned ``auto`` collapses
+    the nested solution to its period (the partitioned store commits every
+    level at once)."""
+    from repro_torch.core.defer_schedule import (AdaptiveDeferSchedule,
+                                                 DeferSchedule,
+                                                 solve_defer_schedule)
+    wire, names = inputs["wire"], inputs["names"]
+    if mode == "adaptive":
+        return AdaptiveDeferSchedule(
+            plan, wire, names,
+            per_update_s=inputs["tick_s"] / (n_shards * batch),
+            overlap=overlap, merge_fn=merge, bandwidths=inputs["rates"])
+    if mode != "auto":
+        raise ValueError(f"mode must be auto|adaptive, got {mode!r}")
+    schedule = solve_defer_schedule(
+        plan, wire, names, compute_s=inputs["tick_s"], overlap=overlap,
+        merge_fn=merge, bandwidths=inputs["rates"])
+    if partitioned:
+        schedule = DeferSchedule(
+            level_names=schedule.level_names,
+            intervals=(schedule.period,) * len(schedule.level_names),
+            predicted=schedule.predicted, overlap=overlap)
+    return schedule
+
+
+def describe_inputs(inputs: dict) -> list[str]:
+    """The measured inputs of a solved schedule, as printed lines."""
+    names = inputs["names"]
+    return [
+        "wire vector (bytes a synchronized tick, machine-wide): "
+        + ", ".join(f"{n} {b:.0f}" for n, b in zip(names, inputs["wire"])),
+        f"level merges on {inputs['device']} (median of 5): "
+        + ", ".join(f"{n} {1e3 * t:.6f} ms ({r:.6g} B/s)" for n, t, r in
+                    zip(names, inputs["level_s"], inputs["rates"])),
+        f"deferred tick on {inputs['device']}: "
+        f"{1e3 * inputs['tick_s']:.6f} ms"]
+
+
 def build_store(args):
-    """The store the flags describe."""
+    """The store the flags describe; ``auto`` and ``adaptive`` print the
+    measured inputs and the solved schedule."""
     from repro_torch.core.defer_schedule import DeferSchedule
     from repro_torch.serve import KVConfig, ShardedKV, serving_plan
 
     S, R = args.shards, args.keys
-    if args.defer in ("auto", "adaptive"):
-        raise SystemExit(f"--defer {args.defer}: solved and adaptive commit "
-                         f"schedules are not ported yet; pick sync or K")
+    device = resolve_device(args.device)
     sync_mode = args.defer == "sync"
     if args.partitioned and sync_mode:
         raise SystemExit("--partitioned needs deferred commits; pick "
-                         "--defer K")
+                         "--defer K|auto|adaptive")
     if args.overlap and not args.partitioned:
         raise SystemExit("--overlap pipelines the partitioned store's "
                          "commit; add --partitioned")
@@ -110,11 +253,21 @@ def build_store(args):
                    spill_blocks=args.spill_blocks)
     plan = serving_plan(S, "none" if sync_mode else "all")
     schedule = commit_every = None
-    if not sync_mode:
+    if args.defer in ("auto", "adaptive"):
+        inputs = measure_schedule_inputs(cfg, S, args.batch, plan, device)
+        schedule = schedule_from(args.defer, plan, inputs, cfg.merge, S,
+                                 args.batch, overlap=args.overlap,
+                                 partitioned=args.partitioned)
+        for line in describe_inputs(inputs):
+            print(line)
+        print("solved schedule:")
+        print(schedule.describe())
+    elif not sync_mode:
         try:
             commit_every = int(args.defer)
         except ValueError:
-            raise SystemExit(f"--defer must be sync|K, got {args.defer!r}")
+            raise SystemExit(f"--defer must be sync|auto|adaptive|K, got "
+                             f"{args.defer!r}")
         if args.overlap:
             from repro_torch.core.merge_plan import compile_plan
             deferred = tuple(s.name for s in compile_plan(
@@ -122,13 +275,8 @@ def build_store(args):
             schedule = DeferSchedule.fixed(commit_every, deferred,
                                            overlap=True)
             commit_every = None
-    return ShardedKV(cfg, S, device=args.device, plan=plan,
+    return ShardedKV(cfg, S, device=device, plan=plan,
                      schedule=schedule, commit_every=commit_every)
-
-
-def sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def main(argv=None) -> None:
@@ -141,19 +289,18 @@ def main(argv=None) -> None:
     keys_dev = torch.as_tensor(keys, device=kv.device)
 
     kv.tick(keys_dev[0], vals)  # warm-up: builds the kernel on the card
-    sync(kv.device)
+    sync_device(kv.device)
     t0 = time.perf_counter()
     for t in range(1, args.ticks):
         kv.tick(keys_dev[t], vals)
-    sync(kv.device)
+    sync_device(kv.device)
     wall = time.perf_counter() - t0
     ups = S * B * (args.ticks - 1) / max(wall, 1e-12)
 
     kv.flush()
     tbl = kv.table()
     total = int(tbl[:, 0].astype(np.int64).sum())
-    name = (torch.cuda.get_device_name(kv.device) if kv.device.type == "cuda"
-            else "cpu")
+    name = device_name(kv.device)
     print(f"{args.dist} stream: {args.ticks} ticks x {S} shards x {B} "
           f"updates, engine={args.engine}, defer={args.defer}, "
           f"device={name}")

@@ -1,7 +1,9 @@
-"""The sharded commutative KV serving tier on the stacked layout."""
+"""The sharded commutative KV serving tier on the stacked layout, with its
+write-ahead journal."""
 
 from repro_torch.serve.frontend import BatchedFrontend, DrainBacklog
+from repro_torch.serve.journal import UpdateJournal
 from repro_torch.serve.kv import KVConfig, ShardedKV, serving_plan
 
 __all__ = ["BatchedFrontend", "DrainBacklog", "KVConfig", "ShardedKV",
-           "serving_plan"]
+           "UpdateJournal", "serving_plan"]

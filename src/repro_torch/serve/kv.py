@@ -25,8 +25,11 @@ Two privatization engines, same algebra:
   BITWISE_AND, ...) and its Fig. 9 counters come out of ``counters()``.
 
 * Cross-shard reconciliation is ``ccache.defer_cascade`` over a (by default
-  fully) deferred plan on a :class:`DeferSchedule`: non-commit ticks run no
-  collectives, commit ticks settle the pending cascade.
+  fully) deferred plan on a :class:`DeferSchedule` (solve one with
+  ``solve_defer_schedule`` from the wire vector and rates measured on the
+  card, or re-solve K online with an :class:`AdaptiveDeferSchedule`):
+  non-commit ticks run no collectives, commit ticks settle the pending
+  cascade.
 * ``consistency="read_your_writes"`` routes reads through the shard's own
   unmerged pendings on top of the settled table.
 * ``KVConfig(partitioned=True)`` home-shards the settled table (global key
@@ -49,24 +52,37 @@ converted where they enter (``tick``, ``load_state``) and leave (``read``,
 
 State tensors are updated in place where the reference donates their
 buffers (the ``donate=`` of :meth:`ShardedKV._run`); ``stacked_spmd``
-refuses an in-place write to anything not donated. The journal,
-``solve_defer_schedule`` and ``AdaptiveDeferSchedule`` are not ported yet.
+refuses an in-place write to anything not donated.
+
+Durability: :meth:`ShardedKV.attach_journal` writes every acknowledged
+batch ahead of the tick's device work (``serve.journal``), as the caller
+gave it (int32 keys, values in the table's dtype — never the int32 bits
+the state holds); :meth:`ShardedKV.snapshot` saves a flush-consistent
+global table (``checkpoint.save``) and truncates the journal;
+:meth:`ShardedKV.recover` reloads it into any shard count, engine and
+layout and replays the journal since. Journals and snapshots are the JAX
+package's formats, so either package recovers the other's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import checkpoint
 from repro_torch.apps.common import default_plan, scatter
 from repro_torch.core import blocked, ccache
-from repro_torch.core.defer_schedule import DeferSchedule
+from repro_torch.core.defer_schedule import (AdaptiveDeferSchedule,
+                                             DeferSchedule)
 from repro_torch.core.merge_functions import ADD, MergeFn
 from repro_torch.core.merge_plan import MergePlan, compile_plan
 from repro_torch.core.stacked import StackedAxis, stacked_spmd
+from repro_torch.serve.journal import UpdateJournal
 
 _CONSISTENCY = ("eventual", "read_your_writes")
 _ENGINES = ("kernel", "blocked")
@@ -83,6 +99,12 @@ _SIGN_BIT = -(1 << 31)
 _VALUE_LEAVES = ("cache_src_vals", "cache_upd_vals", "spill_vals")
 
 DEFAULT_COMMIT_EVERY = 8
+
+
+def sync_device(device: torch.device) -> None:
+    """Wait for ``device``'s queued work (nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def resolve_device(device) -> torch.device:
@@ -167,6 +189,40 @@ class KVConfig:
                              f"{self.n_keys}")
 
 
+def _rechunk_records(records, S: int, batch: Optional[int] = None):
+    """Re-chunk journaled ``(keys, vals)`` tick batches for replay into a
+    store with ``S`` shards. When every record already has leading dim
+    ``S`` and one common width (same-shaped store), records pass through
+    untouched — bitwise-identical replay. Otherwise valid entries (key >=
+    0) are flattened, re-padded, and regrouped into uniform ``[S, batch]``
+    ticks (one record may become several); commutativity makes any
+    regrouping settle to the same table."""
+    records = [(np.asarray(k), np.asarray(v)) for k, v in records]
+    if not records:
+        return
+    if (batch is None
+            and all(k.shape[0] == S for k, _ in records)
+            and len({k.shape[1] for k, _ in records}) == 1):
+        yield from records
+        return
+    if batch is None:
+        batch = max([1] + [int(np.ceil((k >= 0).sum() / S))
+                           for k, _ in records])
+    per = S * batch
+    for k, v in records:
+        kf = k.reshape(-1)
+        vf = v.reshape(-1, v.shape[-1])
+        ok = kf >= 0
+        kf, vf = kf[ok], vf[ok]
+        for lo in range(0, max(len(kf), 1), per):
+            ck, cv = kf[lo:lo + per], vf[lo:lo + per]
+            pk = np.full((per,), -1, np.int32)
+            pv = np.zeros((per, v.shape[-1]), v.dtype)
+            pk[:len(ck)] = ck
+            pv[:len(ck)] = cv
+            yield (pk.reshape(S, batch), pv.reshape(S, batch, v.shape[-1]))
+
+
 class ShardedKV:
     """The store: a host-side driver around per-tick programs on stacked
     state (leading shard dim, one device)."""
@@ -218,10 +274,11 @@ class ShardedKV:
                                                self._deferred_names)
             elif commit_every is not None:
                 raise ValueError("pass schedule= or commit_every=, not both")
-            if not isinstance(schedule, DeferSchedule):
-                raise NotImplementedError(
-                    f"{type(schedule).__name__} is not ported yet; pass a "
-                    f"DeferSchedule")
+            if not isinstance(schedule, (DeferSchedule,
+                                         AdaptiveDeferSchedule)):
+                raise TypeError(
+                    f"schedule must be a DeferSchedule or an "
+                    f"AdaptiveDeferSchedule, got {type(schedule).__name__}")
             if tuple(schedule.level_names) != self._deferred_names:
                 raise ValueError(
                     f"schedule levels {schedule.level_names} do not match "
@@ -298,6 +355,11 @@ class ShardedKV:
         self.inflight = None
         self._land_pending = False
         self._t = 0
+        # durability (attach_journal / snapshot / recover)
+        self._journal: Optional[UpdateJournal] = None
+        self._dur_root: Optional[str] = None
+        self._replaying = False
+        self.last_snapshot_seconds: Optional[dict] = None
 
         # -- per-tick programs, created once -------------------------------
         self._tick_fns: dict[Any, Callable] = {}
@@ -678,24 +740,40 @@ class ShardedKV:
     def _run(self, fn, *args, donate=()):
         return stacked_spmd(fn, *args, donate=donate)
 
-    def _keys(self, keys) -> torch.Tensor:
-        keys = torch.as_tensor(keys, dtype=torch.int32, device=self.device)
+    def _checked_keys(self, keys) -> torch.Tensor:
+        """``keys`` as an int32 tensor where the caller holds it."""
+        keys = torch.as_tensor(keys, dtype=torch.int32)
         if keys.dim() != 2 or keys.shape[0] != self.n_shards:
             raise ValueError(f"keys must be [n_shards={self.n_shards}, B], "
                              f"got {tuple(keys.shape)}")
-        return keys.contiguous()
+        return keys
+
+    def _keys(self, keys) -> torch.Tensor:
+        return self._checked_keys(keys).to(self.device).contiguous()
 
     def tick(self, keys, vals) -> None:
         """Ingest one fixed-shape batch of updates: ``keys`` [S, B] int32
         (< 0 = padding), ``vals`` [S, B, cols] (numpy arrays or tensors).
         Commit policy rides the schedule; non-commit ticks of a fully
         deferred plan run zero collectives."""
-        keys = self._keys(keys)
-        vals = self._encode(torch.as_tensor(
-            vals, dtype=self.config.dtype, device=self.device)).contiguous()
+        # the batch as acknowledged, where the caller holds it (host arrays
+        # stay on the host until the journal has them)
+        keys = self._checked_keys(keys)
+        vals = torch.as_tensor(vals, dtype=self.config.dtype)
         if vals.shape != tuple(keys.shape) + (self.config.cols,):
             raise ValueError(f"vals must be {tuple(keys.shape)} + "
                              f"({self.config.cols},), got {tuple(vals.shape)}")
+        if isinstance(self.schedule, AdaptiveDeferSchedule):
+            # feed the real (non-padding) ingest count into the EMA before
+            # the boundary re-solve can fire
+            self.schedule.observe(int((keys >= 0).sum()))
+        if self._journal is not None and not self._replaying:
+            # write-ahead: the batch is on disk before any device work, so
+            # a crash at any later point in this tick is recoverable —
+            # tick() returning is the acknowledgement point
+            self._journal.append(keys.cpu().numpy(), vals.cpu().numpy())
+        keys = keys.to(self.device).contiguous()
+        vals = self._encode(vals.to(self.device)).contiguous()
         if self.synchronized:
             self.settled = self._run(self._tick_fns["sync"], self.settled,
                                      keys, vals, donate=(0,))
@@ -823,6 +901,8 @@ class ShardedKV:
                 self._flush_fn, self.settled, self.pendings, self.cache,
                 donate=(0, 1, 2))
         self._t = 0
+        if isinstance(self.schedule, AdaptiveDeferSchedule):
+            self.schedule.reset()
 
     def _flush_partitioned(self) -> None:
         land = self._land_pending
@@ -935,9 +1015,147 @@ class ShardedKV:
                 (self.n_shards, cfg.n_keys, cfg.cols)), True)
         self._t = int(np.asarray(arrays.get("t", 0)))
 
+    # ------------------------------------------------------------------
+    # durability: write-ahead journal + flush-consistent snapshots
+    # ------------------------------------------------------------------
+
     def attach_journal(self, root: str, sync: bool = False) -> None:
-        raise NotImplementedError("the write-ahead journal (snapshot / "
-                                  "recover) is not ported yet")
+        """Journal every subsequent acknowledged tick under ``root``
+        (write-ahead, see ``serve.journal``; ``sync=True`` also fsyncs each
+        record). Call before serving traffic; :meth:`snapshot` and
+        :meth:`recover` then lose no acknowledged mass to a crash. A tick
+        handed tensors on the card pays a device-to-host copy of its batch
+        for the journal."""
+        self._dur_root = root
+        self._journal = UpdateJournal(root, sync=sync)
+
+    def durable_manifest(self) -> dict:
+        """Identity of the durable state (the snapshot's extras), as the JAX
+        store writes it. :meth:`recover` requires the table geometry and
+        merge to match; shard count, engine and layout may differ (the
+        saved table is global, the journal re-chunks to any shard count)."""
+        cfg = self.config
+        return {
+            "n_keys": int(cfg.n_keys), "cols": int(cfg.cols),
+            # numpy's name of the dtype, as the JAX store records it
+            "dtype": str(cfg.dtype).removeprefix("torch."),
+            "merge": cfg.merge.name,
+            "engine": cfg.engine, "n_shards": int(self.n_shards),
+            "partitioned": bool(self.partitioned),
+            "plan": checkpoint.plan_fingerprint(self.plan, self.n_shards,
+                                                merge_name=cfg.merge.name),
+            "schedule": (checkpoint.schedule_fingerprint(self.schedule)
+                         if self.schedule is not None else None),
+        }
+
+    def _check_durable_compat(self, saved: dict) -> None:
+        mine = self.durable_manifest()
+        for k in ("n_keys", "cols", "dtype", "merge"):
+            if saved.get(k) != mine[k]:
+                raise ValueError(
+                    f"recover: snapshot {k}={saved.get(k)!r} does not match "
+                    f"this store's {k}={mine[k]!r} — the settled table is "
+                    f"not interpretable under a different {k}")
+
+    def _install_table(self, table: np.ndarray) -> None:
+        """Land a global ``(n_keys, cols)`` settled table, values of the
+        table's dtype, into this store's layout (the inverse of
+        :meth:`table`), encoded as the state holds them."""
+        cfg, S = self.config, self.n_shards
+        if table.shape != (cfg.n_keys, cfg.cols):
+            raise ValueError(f"snapshot table shape {table.shape} != "
+                             f"({cfg.n_keys}, {cfg.cols})")
+        t = self._encode(torch.as_tensor(np.ascontiguousarray(table),
+                                         dtype=cfg.dtype).to(self.device))
+        if self.partitioned:
+            # global row r lives on shard r % S at local row r // S
+            t = t.reshape(cfg.n_keys // S, S, cfg.cols).transpose(0, 1)
+        else:
+            t = t.unsqueeze(0).expand(S, cfg.n_keys, cfg.cols)
+        self.settled = t.contiguous()
+
+    def snapshot(self) -> str:
+        """Persist a flush-consistent snapshot and truncate the journal.
+
+        Flushes (all volatile mass settles into the table), saves the
+        *global* table with the two-phase-commit checkpoint writer, rotates
+        the journal so replay after this snapshot starts at a fresh
+        segment, and deletes the segments the snapshot made redundant.
+        Crash-safe at every point: until the snapshot commits, the old
+        snapshot and the full journal still reconstruct everything.
+        ``last_snapshot_seconds`` keeps the host-clock seconds of its
+        flush, of the table's copy to the host and of the write."""
+        if self._journal is None:
+            raise ValueError("snapshot() needs attach_journal(root) first — "
+                             "without the journal, ticks after the snapshot "
+                             "would be unrecoverable")
+        t0 = time.perf_counter()
+        self.flush()
+        sync_device(self.device)
+        t1 = time.perf_counter()
+        table = self.table()
+        t2 = time.perf_counter()
+        seq = self._journal.segment
+        next_seg = self._journal.rotate()
+        path = checkpoint.save(os.path.join(self._dur_root, "snaps"), seq,
+                               {"settled_global": table},
+                               extras={"kv": self.durable_manifest(),
+                                       "segment": next_seg,
+                                       "ticks": int(self._t)})
+        self._journal.gc(next_seg)
+        self.last_snapshot_seconds = {"flush": t1 - t0, "copy": t2 - t1,
+                                      "write": time.perf_counter() - t2}
+        return path
+
+    def recover(self, root: str, batch: Optional[int] = None,
+                sync: bool = False) -> dict:
+        """Rebuild a crashed store's state from ``root`` and re-attach.
+
+        Loads the latest committed snapshot (if any) into this store's
+        layout, then replays every intact journaled tick since through
+        :meth:`tick`. Call on a fresh store; the table geometry and merge
+        must match the snapshot's, but ``n_shards``, engine and layout may
+        all differ: records re-chunk to this store's shard count
+        (``batch`` sets the replayed tick width; a partitioned kernel
+        engine store fixes its batch at its first tick). After recovery the
+        *flushed* table equals the crashed store's acknowledged history,
+        bitwise, and the journal is attached again. The report names the
+        snapshot step, the replayed ticks and the host-clock seconds of
+        the load, the install and the replay."""
+        if self._t:
+            raise ValueError("recover() must run on a fresh store (this "
+                             "one has already ticked)")
+        t0 = time.perf_counter()
+        start_seg = 0
+        report = {"snapshot_step": None, "replayed_ticks": 0}
+        snaps = os.path.join(root, "snaps")
+        step = checkpoint.latest_step(snaps) if os.path.isdir(snaps) else None
+        raw = None
+        if step is not None:
+            raw, manifest = checkpoint.load_raw(snaps, step=step)
+            extras = manifest.get("extras", {})
+            self._check_durable_compat(extras.get("kv", {}))
+            start_seg = int(extras.get("segment", 0))
+            report["snapshot_step"] = step
+        records = list(UpdateJournal.replay(root, start_segment=start_seg))
+        t1 = time.perf_counter()
+        if raw is not None:
+            self._install_table(raw["settled_global"])
+            sync_device(self.device)
+        t2 = time.perf_counter()
+        self._replaying = True
+        try:
+            for keys, vals in _rechunk_records(records, self.n_shards,
+                                               batch):
+                self.tick(keys, vals)
+                report["replayed_ticks"] += 1
+        finally:
+            self._replaying = False
+        sync_device(self.device)
+        report["seconds"] = {"load": t1 - t0, "install": t2 - t1,
+                             "replay": time.perf_counter() - t2}
+        self.attach_journal(root, sync=sync)
+        return report
 
     def _blocked_leaves(self) -> list[tuple[str, torch.Tensor]]:
         """The blocked engine's cache and spill tensors, by state name."""

@@ -555,6 +555,38 @@ def test_store_on_the_card_equals_the_same_store_on_the_cpu(cuda):
     np.testing.assert_array_equal(stores[0].table(), stores[1].table())
 
 
+def test_recover_on_the_card_onto_another_layout(cuda, tmp_path):
+    """An S = 8 privatized store journals from the card, snapshots, ticks
+    on and is dropped; a fresh S = 4 partitioned store recovers (the
+    snapshot's table installed, the journal re-chunked to 4 shards through
+    the ring and cscatter) and its flushed table equals the numpy replay
+    of every acknowledged tick, bitwise."""
+    from repro_torch.serve import KVConfig, ShardedKV, serving_plan
+    S, R, D, B, T = 8, 1 << 12, 4, 64, 10
+    rng = np.random.default_rng(3)
+    keys = rng.integers(-1, R, (T, S, B)).astype(np.int32)
+    vals = rng.integers(1, 9, (T, S, B, D)).astype(np.int32)
+    want = np.zeros((R, D), np.int64)
+    np.add.at(want, keys[keys >= 0], vals[keys >= 0])
+    root = str(tmp_path)
+    kv = ShardedKV(KVConfig(n_keys=R, cols=D), S, commit_every=3,
+                   device=cuda)
+    kv.attach_journal(root)
+    for t in range(T):
+        kv.tick(torch.as_tensor(keys[t], device=cuda),
+                torch.as_tensor(vals[t], device=cuda))
+        if t == 4:
+            kv.snapshot()
+    del kv
+    kv4 = ShardedKV(KVConfig(n_keys=R, cols=D, partitioned=True), 4,
+                    plan=serving_plan(4, "all"), commit_every=2, device=cuda)
+    report = kv4.recover(root)
+    kv4.flush()
+    assert report["snapshot_step"] is not None
+    assert report["replayed_ticks"] == T - 5
+    np.testing.assert_array_equal(kv4.table().astype(np.int64), want)
+
+
 def test_lm_serve_on_the_card_matches_the_cpu(cuda):
     """The same weights (built on the CPU, copied to the card) serve the
     same prompts on both: the card through the kernels (prefill through the

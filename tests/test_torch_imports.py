@@ -1,5 +1,6 @@
 """Import hygiene of the PyTorch port: nothing under ``src/repro_torch/``,
-nor ``chip_smoke.py``, imports ``jax`` or the JAX package ``repro``."""
+nor ``chip_smoke.py``, imports ``jax``, the JAX package ``repro`` or
+``ml_dtypes`` (absent where the card is)."""
 
 import ast
 import os
@@ -12,7 +13,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -35,7 +36,9 @@ def test_the_port_has_files_to_scan():
             "bfs.py", "pagerank.py", "kmeans.py", "sharded.py", "common.py",
             "flash_attention.py", "decode_attention.py", "attention.py",
             "transformer.py", "registry.py", "serve.py", "base.py",
-            "qwen1_5_0_5b.py", "internlm2_1_8b.py", "chip_smoke.py"} <= names
+            "qwen1_5_0_5b.py", "internlm2_1_8b.py", "chip_smoke.py",
+            "defer_schedule.py", "wire_cost.py", "kv_serve.py", "journal.py",
+            "checkpoint.py", "defer_state.py"} <= names
     for kernel in ("cscatter.cu", "cmerge.cu", "flash_attention.cu",
                    "decode_attention.cu"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / kernel).is_file()
@@ -56,7 +59,7 @@ def test_importing_every_port_module_loads_no_jax():
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
-            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,

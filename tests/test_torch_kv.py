@@ -237,13 +237,24 @@ def test_store_without_a_device_needs_the_card():
         kv_serve.main(["--keys", "64", "--ticks", "2", "--batch", "4"])
 
 
-def test_unported_engine_and_journal_raise():
-    """The journal is not ported yet; both engines are."""
+def test_unported_engine_and_journal_raise(tmp_path):
+    """Both engines and the journal are ported: each engine journals and
+    snapshots, and what still raises is misuse — a snapshot without a
+    journal, a recovery onto a store that has ticked."""
+    keys, vals = _stream(15, ticks=3)
     for engine in ("kernel", "blocked"):
         t = ShardedKV(KVConfig(n_keys=R, cols=D, engine=engine), S,
                       device="cpu")
-        with pytest.raises(NotImplementedError, match="not ported"):
-            t.attach_journal("journal")
+        with pytest.raises(ValueError, match="attach_journal"):
+            t.snapshot()
+        root = str(tmp_path / engine)
+        t.attach_journal(root)
+        for i in range(3):
+            t.tick(keys[i], vals[i])
+        assert t.snapshot().endswith("step_00000000")
+        t.tick(keys[0], vals[0])
+        with pytest.raises(ValueError, match="fresh"):
+            t.recover(root)
 
 
 @pytest.mark.parametrize("dist", ["uniform", "pareto"])
@@ -275,11 +286,12 @@ def test_cli_runs_on_the_cpu(flags):
         assert "spill_overflow: 0" in text
 
 
-@pytest.mark.parametrize("flags", [["--defer", "auto"],
-                                   ["--defer", "adaptive"],
+@pytest.mark.parametrize("flags", [["--defer", "auto", "--overlap"],
+                                   ["--defer", "sometimes"],
                                    ["--overlap"],
                                    ["--defer", "sync", "--partitioned"]])
 def test_cli_refuses_what_is_not_ported_or_inconsistent(flags):
+    """Every --defer mode is ported; inconsistent flags still exit."""
     with pytest.raises(SystemExit):
         kv_serve.main(["--device", "cpu", "--keys", "256", "--ticks", "2",
                        *flags])
