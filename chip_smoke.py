@@ -10,7 +10,8 @@ columns, B = 1024 updates per shard per tick, K = 8 over
 ``serving_plan(8, "all")``; the blocked engine with W = 8 ways of BR = 8
 rows), its solved and adaptive commit schedules, its write-ahead journal,
 snapshots and crash recovery, LM serving (prefill + greedy decode) of
-qwen1.5-0.5b, and the paper's BFS, PageRank and k-means — and:
+qwen1.5-0.5b, the paper's BFS, PageRank and k-means, and training of
+qwen1.5-0.5b with gradient accumulation as a CCache merge — and:
 
 1. prints the card (``nvidia-smi`` name and power limit, torch's name);
 2. builds every CUDA kernel of the paths from ``src/repro_torch/csrc``, all
@@ -83,9 +84,24 @@ qwen1.5-0.5b, and the paper's BFS, PageRank and k-means — and:
    then times ``cscatter`` at each app's shapes against its plain version,
    one library call and the bound, with its two passes split by a
    ``torch.profiler`` trace;
-11. prints every kernel's registers and spills (``ptxas -v``),
+11. trains qwen1.5-0.5b at full width and depth (bf16, remat "dots",
+   random weights from the seed) through ``launch/train.py`` on the data
+   pipeline's Zipf stream, batch 16 x 512 over 8 stacked ranks: 4 eager
+   steps over chip:2,host:2,pod:2, then 9 deferred steps (K = 4 on two
+   deferred levels, a partial cycle that the flush settles) and the same
+   overlapped; every loss finite, the first deferred cycle equal to AdamW
+   on the mean of its batches' eager merges, the overlapped run's first
+   landing equal to the deferred commit a step earlier, the embedding
+   backward through the CUDA ``cscatter`` equal to it through the plain
+   version, ``cscatter`` launches equal to 2 x ranks x steps; prints ms a
+   step by kind (eager, accumulate, commit, launch, land, flush),
+   tokens/s, peak memory, a ``torch.profiler`` split of one eager step
+   and the device's idle share; ``cscatter`` is also checked and timed at
+   the embedding backward's shape ([151936, 1024], N = 1024, bf16 and
+   f32) beside ``index_add_``;
+12. prints every kernel's registers and spills (``ptxas -v``),
    one ``{"kernels": [...]}`` line and the card's name and power limit;
-12. ends with ``{"ok": true, "device": {...}}``.
+13. ends with ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds. Nothing is caught: any failure exits
 non-zero before the last line. Without a card, or without the repository
@@ -167,6 +183,14 @@ PR_RTOL_EAGER, PR_RTOL_DEFER = 1e-4, 2e-3
 # its default 5 clusters; S x T x B = 8 x 8 x 7680 points
 KM_D, KM_K, KM_T, KM_B = 34, 5, 8, 7680
 KM_TOL = 1e-3                       # atol = rtol against the numpy mirror
+# Training: qwen1.5-0.5b at full width and depth, batch 16 x 512 over 8
+# stacked data-parallel ranks (2 rows a rank); eager over TRAIN_PLAN,
+# deferred over TRAIN_DEFER_PLAN with K = TRAIN_K on both deferred levels
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_DP = 16, 512, 8
+TRAIN_PLAN = "chip:2,host:2,pod:2"
+TRAIN_DEFER_PLAN = "chip:2,host:2:defer,pod:2:defer"
+TRAIN_K, TRAIN_LR, TRAIN_WARMUP = 4, 3e-4, 2
+TRAIN_V, TRAIN_D = 151936, 1024     # the embedding table, [vocab, d_model]
 
 
 def require(cond: bool, msg: str) -> None:
@@ -432,6 +456,7 @@ def phase_kernel_checks(stream_keys: np.ndarray) -> dict:
     torch.cuda.synchronize()
     require(torch.equal(table, before), "an empty batch changed the table")
     print("check cscatter N=0: ok")
+    worst["float"] = max(worst["float"], embedding_kernel_checks())
     return worst
 
 
@@ -486,7 +511,7 @@ def phase_kernel_times(stream_keys: np.ndarray) -> list[dict]:
                   f"{row['library_ms']:.6f} ms (a call "
                   f"{row['library_call_ms']:.6f} ms), bound {bound:.6f} ms")
             out.append(row)
-    return out
+    return out + embedding_kernel_times()
 
 
 def _ways(g, s: int, n_blocks: int, w: int):
@@ -736,9 +761,10 @@ def phase_schedules() -> dict:
     the same ``observe`` counts)."""
     import torch
     from repro_torch.kernels.cscatter import LAUNCHES_PER_CALL, cscatter
-    from repro_torch.launch.kv_serve import (describe_inputs, key_stream,
+    from repro_torch.launch.kv_serve import (key_stream,
                                              measure_schedule_inputs,
                                              schedule_from)
+    from repro_torch.launch.schedule_inputs import describe_inputs
     from repro_torch.serve import KVConfig, ShardedKV, serving_plan
 
     plan = serving_plan(S, "all")
@@ -1904,6 +1930,489 @@ def phase_apps(card: str) -> dict:
     return out
 
 
+def _embedding_ids():
+    """One rank's ids of the train phase's first batch: TRAIN_ROWS rows of
+    TRAIN_SEQ Zipf tokens, flattened (N = 1024)."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.data.pipeline import batch_at, data_config_for
+    dcfg = data_config_for(get_config(ARCH), ShapeConfig(
+        "train", TRAIN_SEQ, TRAIN_BATCH, "train"), seed=SEED)
+    tokens = batch_at(dcfg, 0)["tokens"][:TRAIN_BATCH // TRAIN_DP]
+    return torch.as_tensor(tokens.reshape(-1), device="cuda")
+
+
+def embedding_kernel_checks() -> float:
+    """``cscatter`` at the embedding backward's shape, [V, D] = [151936,
+    1024] with one rank's N = 1024 Zipf ids, bf16 (the table's dtype) and
+    f32 (what the train path launches), against its plain version."""
+    import torch
+    from repro_torch.kernels.cscatter import cscatter, cscatter_plain
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    ids = _embedding_ids()
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        table = torch.randn((TRAIN_V, TRAIN_D), device="cuda",
+                            generator=g).to(dtype)
+        vals = torch.randn((ids.numel(), TRAIN_D), device="cuda",
+                           generator=g).to(dtype)
+        want = cscatter_plain(table, ids, vals)
+        got = cscatter(table.clone(), ids, vals)
+        torch.cuda.synchronize()
+        err = _compare(got, want)
+        worst = max(worst, err)
+        print(f"check cscatter {str(dtype)[6:]} [{TRAIN_V},{TRAIN_D}] "
+              f"N={ids.numel()} add embedding-backward ids: ok (max abs err "
+              f"{err})")
+        del table, vals, want, got
+    return worst
+
+
+def embedding_kernel_times() -> list[dict]:
+    """The embedding backward's ``cscatter`` timed as the other rows: the
+    kernel (CUDA graph), a call, the plain version, ``index_add_`` (device
+    time from a CUDA graph, and a call) and the bound in bytes."""
+    import torch
+    from repro_torch.kernels.cscatter import cscatter, cscatter_plain_
+    ids = _embedding_ids()
+    n = ids.numel()
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        table = torch.zeros((TRAIN_V, TRAIN_D), dtype=dtype, device="cuda")
+        vals = torch.ones((n, TRAIN_D), dtype=dtype, device="cuda")
+        lids = ids.long()
+        bound, bound_by = scatter_bound_ms(ids[None], TRAIN_D,
+                                           table.element_size(), r=TRAIN_V)
+
+        def kernel():
+            cscatter(table, ids, vals)
+
+        def lib():
+            table.index_add_(0, lids, vals)
+        row = {"kind": "add", "what": "embedding_backward",
+               "dtype": str(dtype)[6:], "shape": [TRAIN_V, TRAIN_D], "n": n,
+               "ms": graph_ms(kernel), "call_ms": time_ms(kernel),
+               "plain_ms": time_ms(lambda: cscatter_plain_(table, ids, vals)),
+               "library_ms": graph_ms(lib), "library_call_ms": time_ms(lib),
+               "bound_ms": bound, "bound_by": bound_by}
+        print(f"time cscatter add {row['dtype']} [{TRAIN_V},{TRAIN_D}] N={n} "
+              f"(embedding backward): kernel {row['ms']:.6f} ms (a call "
+              f"{row['call_ms']:.6f} ms), plain {row['plain_ms']:.6f} ms, "
+              f"index_add_ {row['library_ms']:.6f} ms (a call "
+              f"{row['library_call_ms']:.6f} ms), bound {bound:.6f} ms "
+              f"({bound_by})")
+        rows.append(row)
+        del table, vals
+    return rows
+
+
+def _train_argv(variant: str, n: int, ckpt_dir: str) -> list[str]:
+    argv = ["--arch", ARCH, "--steps", str(n), "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR), "--warmup",
+            str(TRAIN_WARMUP), "--seed", str(SEED), "--ckpt-dir", ckpt_dir,
+            "--ckpt-every", str(1 << 30), "--device", "cuda"]
+    if variant == "eager":
+        return argv + ["--merge-topology", TRAIN_PLAN]
+    argv += ["--merge-topology", TRAIN_DEFER_PLAN, "--merge-defer",
+             str(TRAIN_K)]
+    return argv + (["--merge-overlap"] if variant == "overlapped" else [])
+
+
+def _step_kind(trainer, state) -> str:
+    step = trainer.deferred
+    if step is None:
+        return "eager"
+    due, land = step.due(state), step.land_due(state)
+    if due == step.schedule.num_levels:
+        return "launch" if step.overlap else "commit"
+    if land:
+        return "land"
+    return "accumulate" if due == 0 else f"commit{due}"
+
+
+def _param_errs(got: dict, want: dict, lr_sum: float) -> dict:
+    """The largest |got - want| over the parameter tree, and whether every
+    element is within 2^-7 |want| (a bf16 rounding either way) plus
+    2 * lr_sum (an AdamW step moves an element by about lr * sign(g), and
+    a gradient element at rounding-noise level may take the other sign)."""
+    import torch
+    from torch.utils import _pytree as pytree
+    worst, beyond_ulp, total, ok = 0.0, 0, 0, True
+    for g, w in zip(pytree.tree_leaves(got), pytree.tree_leaves(want)):
+        d = (g.float() - w.float()).abs()
+        worst = max(worst, float(d.max()))
+        ok = ok and bool((d <= 2 ** -7 * w.float().abs() + 2 * lr_sum).all())
+        beyond_ulp += int((d > 2 ** -8 * w.float().abs()).sum())
+        total += d.numel()
+    return {"max_abs_err": worst, "ok": ok,
+            "beyond_one_ulp_share": beyond_ulp / total,
+            "bound": f"2^-7 |p| + {2 * lr_sum:.3g}"}
+
+
+def _mu_err(got, want) -> dict:
+    """AdamW's first moment after one step is 0.1 * the gradient, in f32:
+    the largest error over each leaf's largest magnitude, held to 2^-5
+    (the deferred pendings sum four bf16 gradients in bf16)."""
+    from torch.utils import _pytree as pytree
+    worst = 0.0
+    for g, w in zip(pytree.tree_leaves(got), pytree.tree_leaves(want)):
+        scale = float(w.abs().max()) or 1.0
+        worst = max(worst, float((g - w).abs().max()) / scale)
+    return {"max_rel_err": worst, "ok": worst <= 2 ** -5, "bound": 2 ** -5}
+
+
+def _landing_check(state, snaps) -> dict:
+    """Check 3: the overlapped run's state just after its first landing
+    (step K + 1) against the deferred run's just after its first commit
+    (step K): the largest |difference| of the parameters and of AdamW's
+    moments, its step count, and whether all of it is equal bit for bit.
+    The deferred snapshot's moments are freed: nothing later reads them."""
+    import torch
+    from torch.utils import _pytree as pytree
+    got, want = state["opt"], snaps["opt"]
+
+    def worst(a, b):
+        return max(float((x.float() - y.float()).abs().max())
+                   for x, y in zip(pytree.tree_leaves(a),
+                                   pytree.tree_leaves(b)))
+
+    def equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(pytree.tree_leaves(a),
+                                                     pytree.tree_leaves(b)))
+    out = {"params": worst(state["params"], snaps[("deferred", TRAIN_K)]),
+           "mu": worst(got.mu, want.mu), "nu": worst(got.nu, want.nu),
+           "count": [int(got.step), int(want.step)],
+           "equal": (equal(state["params"], snaps[("deferred", TRAIN_K)])
+                     and equal(got.mu, want.mu) and equal(got.nu, want.nu)
+                     and int(got.step) == int(want.step) == 1)}
+    snaps["opt"] = snaps["opt"]._replace(nu=None)
+    return out
+
+
+def profile_train_step(step_fn, state, batch) -> tuple[dict, dict]:
+    """One step under ``torch.profiler``: kernel time by operator, and by
+    the step's ranges: ``train.merge`` with its levels ``merge.<level>``
+    and ``train.optimizer`` (the kernels of the operators inside each), and
+    ``train.ranks``, the per-rank forward and backward loop, as the rest
+    of the step's kernel time (the backward's operators run on autograd's
+    thread, outside the range's tree of operators)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    avg = prof.key_averages()
+    device_us = sum(e.self_device_time_total for e in avg
+                    if e.device_type == DeviceType.CPU)
+    by_range = {e.key: e.device_time_total / 1e3 for e in avg
+                if e.key.startswith(("train.merge", "train.optimizer",
+                                     "merge."))}
+    by_range["train.ranks"] = (device_us / 1e3 - by_range["train.merge"]
+                               - by_range["train.optimizer"])
+    launches = sum(e.count for e in avg if e.key in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx"))
+    ops = sorted(((e.key, e.self_device_time_total / 1e3) for e in avg
+                  if e.device_type == DeviceType.CPU
+                  and e.self_device_time_total > 0), key=lambda x: -x[1])
+    out = {"host_ms_traced": host_ms, "device_ms": device_us / 1e3,
+           "launches": launches,
+           "by_range_ms": by_range,
+           "top_ops_ms": dict(ops[:12])}
+    print(avg.table(sort_by="self_device_time_total", row_limit=15,
+                    max_name_column_width=50))
+    return out, state
+
+
+def _embedding_backward_check(grads_of, params, batch) -> dict:
+    """One rank's gradient of the embedding table (its rows of ``batch``)
+    with the backward through the CUDA ``cscatter`` and through the plain
+    version: each row to 1e-2 of its RMS (the kernel sums the row's ids in
+    another order before the one bf16 rounding; the tied logits term is
+    the same product in both)."""
+    import torch
+    from repro_torch.kernels.cscatter import cscatter_plain_
+    from repro_torch.models import embedding
+    shard = {k: v[:TRAIN_BATCH // TRAIN_DP] for k, v in batch.items()}
+    _, got = grads_of(params, shard)
+    got = got["embed"]["table"].float()
+
+    class _Plain:
+        embedding_grad_scatter = staticmethod(cscatter_plain_)
+    kernel_ops, embedding.ops = embedding.ops, _Plain
+    try:
+        _, want = grads_of(params, shard)
+    finally:
+        embedding.ops = kernel_ops
+    want = want["embed"]["table"].float()
+    rms = want.pow(2).mean(1).sqrt()
+    err = (got - want).pow(2).mean(1).sqrt()
+    worst_row = float((err / rms.clamp(min=1e-30)).max())
+    out = {"max_abs_err": float((got - want).abs().max()),
+           "worst_row_rel_rms_err": worst_row, "row_tol": 1e-2}
+    print(f"train embedding backward, CUDA cscatter vs plain, one rank's "
+          f"{shard['tokens'].numel()} ids into [{TRAIN_V},{TRAIN_D}] (tied):"
+          f" max |err| {out['max_abs_err']}, worst row error RMS "
+          f"{worst_row:.3e} of the row's RMS (tol 1e-2)")
+    require(bool((err <= 1e-2 * rms + 1e-30).all()),
+            f"train: the embedding backward kernel disagrees with its plain "
+            f"version: {out}")
+    return out
+
+
+def _logits_backward_check(table, labels: np.ndarray) -> dict:
+    """The tied logits product ``h @ table.T`` with f32 output
+    (``transformer._MatmulF32``) at one rank's shape, ``h`` ``[B/dp x
+    seq, D]`` bf16 of unit RMS (a final rmsnorm's output): its backward
+    rounds the f32 logits gradient to bf16 before both products, where the
+    JAX package takes them in f32. The gradient is the cross entropy's,
+    ``(softmax(logits) - onehot(labels)) / N``. Against the products of
+    the f32 gradient with ``h`` and the table upcast (f32 on the CUDA
+    cores, no TF32), each row of ``dh`` and of ``dtable`` to 1e-2 of its
+    RMS, as the other bf16 checks; printed beside the floor, the f32
+    products rounded once to bf16."""
+    import torch
+    from repro_torch.models.transformer import _matmul_f32
+    n = TRAIN_BATCH // TRAIN_DP * TRAIN_SEQ
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    h = torch.randn((n, TRAIN_D), generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_(True)
+    w = table.detach().clone().requires_grad_(True)
+    logits = _matmul_f32(h, w.t())
+    lab = torch.as_tensor(labels[:TRAIN_BATCH // TRAIN_DP].reshape(-1),
+                          device="cuda").long()
+    g = torch.softmax(logits.detach(), -1)
+    g[torch.arange(n, device="cuda"), lab] -= 1.0
+    g /= n
+    gh, gw = torch.autograd.grad(logits, (h, w), g)
+    prec = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        want_h = g @ w.detach().float()
+        want_w = g.t() @ h.detach().float()
+    finally:
+        torch.set_float32_matmul_precision(prec)
+    out = {"row_tol": 1e-2}
+    for name, got, want in (("dh", gh, want_h), ("dtable", gw, want_w)):
+        rms = want.pow(2).mean(1).sqrt().clamp(min=1e-30)
+
+        def worst_row(x):
+            return float(((x.float() - want).pow(2).mean(1).sqrt()
+                          / rms).max())
+        out[name] = {"max_abs_err": float((got.float() - want).abs().max()),
+                     "worst_row_rel_rms_err": worst_row(got),
+                     "floor_bf16_rounding": worst_row(want.to(got.dtype))}
+        print(f"train logits backward {name} {tuple(got.shape)} {got.dtype}"
+              f" (bf16 gradient) vs the f32 products: max |err| "
+              f"{out[name]['max_abs_err']:.3e}, worst row error RMS "
+              f"{out[name]['worst_row_rel_rms_err']:.3e} of the row's RMS "
+              f"(tol 1e-2; the f32 products rounded to bf16: "
+              f"{out[name]['floor_bf16_rounding']:.3e})")
+        require(out[name]["worst_row_rel_rms_err"] <= 1e-2,
+                f"train: the logits backward {name} strays from the f32 "
+                f"products: {out[name]}")
+    return out
+
+
+def phase_train(card: str) -> dict:
+    """Training of qwen1.5-0.5b at full width and depth (bf16, tied,
+    remat "dots", random weights from the seed) on the pipeline's Zipf
+    stream, batch TRAIN_BATCH x TRAIN_SEQ over TRAIN_DP stacked ranks,
+    AdamW under warmup_cosine(TRAIN_LR, TRAIN_WARMUP, steps), through
+    ``launch/train.py``'s ``build`` (the CLI's flags): an eager run
+    (TRAIN_PLAN, 4 steps), a deferred one (TRAIN_DEFER_PLAN, K =
+    TRAIN_K, 9 steps: two cycles and a partial one that the flush
+    settles) and the same overlapped. Checks: every loss finite; the first
+    deferred cycle equals one AdamW step on the mean of its four batches'
+    eagerly merged gradients (computed here from the same starting
+    parameters); the overlapped run's parameters and AdamW moments after
+    its first landing equal the deferred run's after its first commit, a
+    step earlier, bit for bit (later cycles are printed: their first
+    step's gradient is one step stale); the embedding backward through the
+    CUDA ``cscatter`` equals it through the plain version; ``cscatter``
+    launches equal 2 x ranks x steps (the flushes launch none). Also holds
+    the f32 logits product's backward, which takes its two products in
+    bf16, against the same products in f32 (``_logits_backward_check``)."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.core.grad_merge import merge_gradients
+    from repro_torch.core.merge_plan import MergePlan
+    from repro_torch.core.stacked import StackedAxis
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.kernels.cscatter import LAUNCHES_PER_CALL, cscatter
+    from repro_torch.launch import steps, train
+    from repro_torch.optim import warmup_cosine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs, snaps = {}, {}
+    out = {"config": {"arch": ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                      "ranks": TRAIN_DP, "eager_plan": TRAIN_PLAN,
+                      "deferred_plan": TRAIN_DEFER_PLAN, "k": TRAIN_K,
+                      "lr": TRAIN_LR, "warmup": TRAIN_WARMUP}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    lr = warmup_cosine(TRAIN_LR, TRAIN_WARMUP, 2 * TRAIN_K + 1)
+    try:
+        for variant, n in (("eager", 4), ("deferred", 9),
+                           ("overlapped", 9)):
+            t = train.build(train.parse_args(_train_argv(variant, n, tmp)))
+            require(t.dp == TRAIN_DP and t.cfg.remat == "dots",
+                    f"train {variant}: {t.dp} ranks, remat {t.cfg.remat}")
+            state, t.state = t.state, None      # the run's own reference
+            batches = [batch_at(t.dcfg, i) for i in range(n)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cscatter.launches = 0
+            rec = []
+            for i, batch in enumerate(batches):
+                kind = _step_kind(t, state)
+                t0 = time.perf_counter()
+                state, m = t.step_fn(state, batch)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                loss = float(m["loss"])
+                require(np.isfinite(loss), f"train {variant} step {i}: "
+                                           f"loss {loss}")
+                rec.append({"kind": kind, "ms": 1e3 * dt, "loss": loss})
+                print(f"train {variant} step {i}: {kind} loss {loss:.6f} "
+                      f"{1e3 * dt:.3f} ms")
+                if variant == "deferred" and i + 1 in (TRAIN_K, 2 * TRAIN_K):
+                    snaps[(variant, i + 1)] = pytree.tree_map(
+                        torch.clone, state["params"])
+                if variant == "deferred" and i + 1 == TRAIN_K:
+                    snaps["opt"] = pytree.tree_map(torch.clone, state["opt"])
+                if variant == "overlapped" and i == TRAIN_K:
+                    landing = _landing_check(state, snaps)  # check 3
+                if variant == "overlapped" and i == 2 * TRAIN_K:
+                    snaps[(variant, i + 1)] = pytree.tree_map(
+                        torch.clone, state["params"])
+            flush_ms = None
+            if t.deferred is not None:
+                t0 = time.perf_counter()
+                state, fm = t.deferred.flush(state)
+                torch.cuda.synchronize()
+                flush_ms = 1e3 * (time.perf_counter() - t0)
+                require(fm is not None and fm.get("flushed_steps") == n % TRAIN_K,
+                        f"train {variant}: flush {fm}")
+                snaps[(variant, "final")] = state["params"]
+            launches = cscatter.launches
+            peak = torch.cuda.max_memory_allocated()
+            want = LAUNCHES_PER_CALL * TRAIN_DP * t.microbatches * n
+            require(launches == want, f"train {variant}: cscatter launched "
+                                      f"{launches} times, the path predicts "
+                                      f"{want}")
+            by_kind = {}
+            for r in rec[1:]:                         # step 0 warms up
+                by_kind.setdefault(r["kind"], []).append(r["ms"])
+            ms = {k: statistics.median(v) for k, v in by_kind.items()}
+            if flush_ms is not None:
+                ms["flush"] = flush_ms
+            cycle_ms = (sum(r["ms"] for r in rec[1:2 * TRAIN_K + 1])
+                        / (2 * TRAIN_K) if variant != "eager" else ms["eager"])
+            runs[variant] = {
+                "steps": rec, "ms_by_kind": ms, "flush_ms": flush_ms,
+                "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (cycle_ms / 1e3),
+                "peak_bytes": peak, "cscatter_launches": launches,
+                "cscatter_launches_predicted": want}
+            print(f"train {variant} on {card}: ms a step by kind "
+                  f"{ {k: round(v, 3) for k, v in ms.items()} }, "
+                  f"{runs[variant]['tokens_per_s']:.1f} tokens/s, peak "
+                  f"memory {peak} bytes, cscatter launches {launches} "
+                  f"(predicted {want})")
+            if variant == "eager":
+                prof, state = profile_train_step(t.step_fn, state,
+                                                 batches[-1])
+                prof["idle_share"] = 1 - prof["device_ms"] / ms["eager"]
+                out["profile_eager_step"] = prof
+                print(f"train profile of one eager step: device "
+                      f"{prof['device_ms']:.3f} ms against "
+                      f"{ms['eager']:.3f} ms a step untraced (idle share "
+                      f"{prof['idle_share']:.3f}), "
+                      f"{prof['launches']} launches; by range (ms) "
+                      f"{ {k: round(v, 3) for k, v in prof['by_range_ms'].items()} }")
+            if variant == "deferred":
+                model, opt, dcfg = t.model, t.optimizer, t.dcfg
+                params0 = model.params()
+            del t, state
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # 2: the first deferred cycle against accumulated eager gradients
+        axis = StackedAxis(TRAIN_DP, "cuda")
+        grads_of = steps.grads_fn(model)
+        acc = None
+        for i in range(TRAIN_K):
+            b = steps.to_device(batch_at(dcfg, i), "cuda")
+            _, stack = steps.rank_grads(grads_of, params0, b, TRAIN_DP)
+            merged = merge_gradients(stack, axis,
+                                     topology=MergePlan.parse(TRAIN_PLAN))
+            del stack
+            g = pytree.tree_map(lambda x: x[0].float(), merged)
+            del merged
+            acc = g if acc is None else pytree.tree_map(torch.add, acc, g)
+        mean = pytree.tree_map(lambda a, p: (a / TRAIN_K).to(p.dtype), acc,
+                               params0)
+        del acc
+        ref, ref_opt, _ = opt.step(params0, mean, opt.init(params0))
+        cyc = _param_errs(snaps[("deferred", TRAIN_K)], ref, float(lr(1)))
+        mu = _mu_err(snaps["opt"].mu, ref_opt.mu)
+        out["deferred_vs_accumulated"] = {"params": cyc, "mu": mu}
+        print(f"train deferred cycle 1 vs AdamW on the mean of {TRAIN_K} "
+              f"eager merges: params max |err| {cyc['max_abs_err']} (bound "
+              f"{cyc['bound']}; {cyc['beyond_one_ulp_share']:.2e} of elements "
+              f"beyond one bf16 ulp), mu max err {mu['max_rel_err']:.3e} of "
+              f"each leaf's largest (bound {mu['bound']})")
+        require(cyc["ok"] and mu["ok"], f"train: the deferred cycle is not "
+                                        f"the accumulated eager step: {cyc}, "
+                                        f"{mu}")
+        del ref, ref_opt, mean
+        # 3: the overlapped run is the deferred one, one step later. The
+        # first cycle lands at step K + 1 on the same gradients, through
+        # the same operations in the same order, as the deferred commit at
+        # K: parameters and AdamW moments are held equal bit for bit (a
+        # landing that applied nothing, part of the cycle, another scale or
+        # another cycle moves the moments). From then on the overlapped
+        # cycles differ by design: step K + 1's gradient is taken before
+        # its landing, on the previous parameters (one step stale), so
+        # later steps are printed, not held.
+        stale = {f"overlapped_{TRAIN_K + 1}_vs_deferred_{TRAIN_K}": landing}
+        print(f"train overlapped after step {TRAIN_K + 1} vs deferred after "
+              f"step {TRAIN_K}: max |err| params {landing['params']}, mu "
+              f"{landing['mu']}, nu {landing['nu']}, AdamW count "
+              f"{landing['count']} (held: equal bit for bit)")
+        require(landing["equal"], f"train: the first overlapped landing is "
+                                  f"not the deferred commit: {landing}")
+        for o, d, adamw_steps in ((2 * TRAIN_K + 1, 2 * TRAIN_K, 2),
+                                  ("final", "final", 3)):
+            lr_sum = sum(float(lr(j)) for j in range(1, adamw_steps + 1))
+            e = _param_errs(snaps[("overlapped", o)], snaps[("deferred", d)],
+                            lr_sum)
+            stale[f"overlapped_{o}_vs_deferred_{d}"] = e
+            print(f"train overlapped after step {o} vs deferred after step "
+                  f"{d}: max |err| {e['max_abs_err']} "
+                  f"({e['beyond_one_ulp_share']:.2e} beyond one bf16 ulp); "
+                  f"not held: the overlapped cycle took a stale step's "
+                  f"gradient")
+        out["overlapped_vs_deferred"] = stale
+        # 4: the embedding backward through the kernel and the plain version
+        out["embedding_backward"] = _embedding_backward_check(
+            grads_of, params0, steps.to_device(batch_at(dcfg, 0), "cuda"))
+        out["logits_backward"] = _logits_backward_check(
+            params0["embed"]["table"], batch_at(dcfg, 0)["labels"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["runs"] = runs
+    out["launches"] = {k: v["cscatter_launches"] for k, v in runs.items()}
+    del snaps, params0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main_stream() -> tuple[np.ndarray, np.ndarray]:
     """The main path's stream from the seed: ``TICKS * S * B`` Pareto keys
     (flat) and their values ``[TICKS, S, B, D]``."""
@@ -1946,8 +2455,12 @@ def main() -> None:
     attn_times = timed("attention_times", phase_attention_times)
     serve = timed("serve", phase_serve, smi)
     apps = timed("apps", phase_apps, smi)
+    trained = timed("train", phase_train, smi)
 
-    tick_add = next(t for t in times if t["kind"] == "add" and t["n"] == B)
+    tick_add = next(t for t in times if t["kind"] == "add" and t["n"] == B
+                    and "what" not in t)
+    train_add = next(t for t in times if t.get("what") == "embedding_backward"
+                     and t["dtype"] == "float32")
     evict_add = next(t for t in merge_times
                      if t["kind"] == "add" and t["what"] == "evict")
     print(json.dumps({"kernels": [{
@@ -1970,6 +2483,8 @@ def main() -> None:
                           if isinstance(v, dict) and "launches" in v},
         "launches_schedules": schedules["launches"],
         "launches_durability": durability["launches"],
+        "launches_train": trained["launches"],
+        "train_embedding_backward": train_add,
         "variants": times, "apps": apps["kernel_rows"]}, {
         "name": "cmerge", "route": "cuda",
         "source": "src/repro_torch/csrc/cmerge.cu",
@@ -2009,7 +2524,8 @@ def main() -> None:
             ("decode_attention", REPLACES_DECODE, "decode"))
         for row in attn_times[key][:1]], "serve": serve,
         "apps": {k: v for k, v in apps.items() if k != "kernel_rows"},
-        "schedules": schedules, "durability": durability}))
+        "schedules": schedules, "durability": durability,
+        "train": trained}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

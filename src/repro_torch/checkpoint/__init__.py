@@ -1,17 +1,22 @@
-"""Checkpoints (atomic two-phase commit) and the fingerprints that make a
-store's snapshot durable, on the JAX package's on-disk layout."""
+"""Checkpoints (atomic two-phase commit), restore, and the fingerprints and
+manifests that make a store's snapshot or a deferred train step's state
+durable, on the JAX package's on-disk layout."""
 
 from repro_torch.checkpoint.checkpoint import (
     latest_step,
     load_raw,
+    restore,
     save,
     tree_keys,
 )
 from repro_torch.checkpoint.defer_state import (
+    defer_manifest,
+    defer_state_spec,
     manifests_compatible,
     plan_fingerprint,
     schedule_fingerprint,
 )
 
-__all__ = ["latest_step", "load_raw", "manifests_compatible",
-           "plan_fingerprint", "save", "schedule_fingerprint", "tree_keys"]
+__all__ = ["defer_manifest", "defer_state_spec", "latest_step", "load_raw",
+           "manifests_compatible", "plan_fingerprint", "restore", "save",
+           "schedule_fingerprint", "tree_keys"]

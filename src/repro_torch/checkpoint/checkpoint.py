@@ -11,11 +11,14 @@ checkpoint written by either package loads in the other):
       LATEST                   text file, written last (commit point)
 
 A partially written checkpoint is never visible: ``LATEST`` only ever
-names a fully renamed directory. A tree is a dict, list or tuple nesting of
-leaves (``torch.Tensor``, numpy arrays and scalars); dict keys flatten in
-sorted order, sequence items by index, joined by ``"/"``. ``.npz`` holds no
-bfloat16 or float8, so those leaves are stored as raw bits beside their
-true dtype, and :func:`load_raw` returns them as torch tensors.
+names a fully renamed directory. A tree is a dict, list, tuple or
+NamedTuple nesting of leaves (``torch.Tensor``, numpy arrays and scalars);
+dict keys flatten in sorted order, NamedTuple fields by name (JAX's
+``GetAttrKey``: an ``OptState``'s ``step``, ``mu``, ``nu``), other
+sequence items by index, joined by ``"/"``; ``None`` holds no leaf.
+``.npz`` holds no bfloat16 or float8, so those leaves are stored as raw
+bits beside their true dtype, and :func:`load_raw` and :func:`restore`
+return them as torch tensors.
 """
 
 from __future__ import annotations
@@ -43,6 +46,8 @@ def _flatten_with_paths(tree: PyTree, prefix: tuple = ()
         return []
     if isinstance(tree, dict):
         items = [(str(k), tree[k]) for k in sorted(tree)]
+    elif hasattr(tree, "_fields"):
+        items = [(f, getattr(tree, f)) for f in tree._fields]
     elif isinstance(tree, (list, tuple)):
         items = [(str(i), x) for i, x in enumerate(tree)]
     else:
@@ -81,27 +86,33 @@ def load_raw(ckpt_dir: str, step: Optional[int] = None
     to its numpy array, or, for bfloat16 and float8 leaves, to a torch
     tensor of that dtype (restored from the stored bits).
     """
+    path, manifest = _manifest_path(ckpt_dir, step)
+    dtypes = {e["key"]: e["dtype"] for e in manifest["keys"]}
+    with np.load(os.path.join(path, "arrays.npz")) as data:
+        leaves = {k: _true_dtype(data[k], dtypes.get(k)) for k in data.files}
+    return leaves, manifest
+
+
+def _true_dtype(arr: np.ndarray, want: Optional[str]):
+    """A stored array in its true dtype: bfloat16 and float8 (stored as raw
+    bits) as torch tensors, anything else as numpy."""
+    want = want or str(arr.dtype)
+    if want in _RAW_BITS:
+        bits = arr.view(f"int{8 * arr.itemsize}")
+        return torch.from_numpy(bits).view(_RAW_BITS[want])
+    if want != str(arr.dtype):
+        return arr.view(np.dtype(want))
+    return arr
+
+
+def _manifest_path(ckpt_dir: str, step: Optional[int]) -> tuple[str, dict]:
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
             raise FileNotFoundError(f"no committed checkpoint in {ckpt_dir}")
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
-        manifest = json.load(f)
-    dtypes = {e["key"]: e["dtype"] for e in manifest["keys"]}
-    leaves = {}
-    with np.load(os.path.join(path, "arrays.npz")) as data:
-        for k in data.files:
-            arr = data[k]
-            want = dtypes.get(k, str(arr.dtype))
-            if want in _RAW_BITS:
-                bits = arr.view(f"int{8 * arr.itemsize}")
-                leaves[k] = torch.from_numpy(bits).view(_RAW_BITS[want])
-            elif want != str(arr.dtype):
-                leaves[k] = arr.view(np.dtype(want))
-            else:
-                leaves[k] = arr
-    return leaves, manifest
+        return path, json.load(f)
 
 
 def save(ckpt_dir: str, step: int, tree: PyTree,
@@ -145,3 +156,43 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     if not os.path.isdir(os.path.join(ckpt_dir, name)):
         return None
     return int(name.split("_")[1])
+
+
+def _rebuild(like: PyTree, load, prefix: tuple = ()) -> PyTree:
+    """``like``'s structure with each leaf replaced by ``load(key, leaf)``."""
+    if like is None:
+        return None
+    if isinstance(like, dict):
+        return {k: _rebuild(v, load, prefix + (str(k),))
+                for k, v in like.items()}
+    if hasattr(like, "_fields"):
+        return type(like)(*(_rebuild(getattr(like, f), load, prefix + (f,))
+                            for f in like._fields))
+    if isinstance(like, (list, tuple)):
+        return type(like)(_rebuild(x, load, prefix + (str(i),))
+                          for i, x in enumerate(like))
+    return load(SEP.join(prefix), like)
+
+
+def restore(ckpt_dir: str, like: PyTree, step: Optional[int] = None
+            ) -> tuple[PyTree, dict]:
+    """Restore into the structure of ``like``; returns (tree, extras).
+
+    Each leaf keeps the dtype it was saved with; a leaf whose ``like`` is a
+    tensor comes back as a tensor on that tensor's device, any other as
+    numpy (bf16 and float8 always as tensors). Raises ``KeyError`` if the
+    checkpoint lacks a leaf of ``like``.
+    """
+    path, manifest = _manifest_path(ckpt_dir, step)
+    dtypes = {e["key"]: e["dtype"] for e in manifest["keys"]}
+    with np.load(os.path.join(path, "arrays.npz")) as data:
+        missing = [k for k in tree_keys(like) if k not in data.files]
+        if missing:
+            raise KeyError(f"checkpoint missing keys: {missing[:5]}...")
+
+        def load(key, leaf):
+            arr = _true_dtype(data[key], dtypes.get(key))
+            if isinstance(leaf, torch.Tensor):
+                return torch.as_tensor(arr).to(leaf.device)
+            return arr
+        return _rebuild(like, load), manifest["extras"]

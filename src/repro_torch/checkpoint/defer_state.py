@@ -5,16 +5,24 @@ A store's volatile state is only meaningful relative to the compiled
 that produced it, so snapshots record content fingerprints of both. The
 digests are the JAX package's (``repro/checkpoint/defer_state.py``): the
 same plan and schedule give the same fingerprint in either package.
-Everything here is host-side metadata.
+Checkpoints of a deferred train step record a *durability manifest*
+(:func:`defer_manifest`: the fingerprints plus the geometry a host-side
+settle needs), and :func:`defer_state_spec` says what ``state["defer"]``
+holds. Everything here is host-side metadata.
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
-from typing import Optional
+from typing import Any, Optional, Sequence
+
+import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.core.defer_schedule import AdaptiveDeferSchedule
+
+PyTree = Any
 
 
 def _digest(obj: dict) -> str:
@@ -60,6 +68,48 @@ def schedule_fingerprint(schedule) -> str:
     else:
         desc["intervals"] = [int(k) for k in schedule.intervals]
     return _digest(desc)
+
+
+def defer_manifest(plan, schedule, dp: int, merge_fn,
+                   strides: Sequence[int], settle_mode: str) -> dict:
+    """The durability manifest recorded next to a defer-state checkpoint:
+    the plan's and the schedule's fingerprints, the rank count, the commit
+    period, the per-deferred-level strides (one representative per
+    ``stride`` ranks holds the level's combined value), and how a settled
+    cycle reaches the optimizer (``"mean"`` or ``"reapply"``)."""
+    return {
+        "plan": plan_fingerprint(plan, dp, merge_name=merge_fn.name),
+        "schedule": schedule_fingerprint(schedule),
+        "dp": int(dp),
+        "period": int(schedule.period),
+        "level_names": list(schedule.level_names),
+        "strides": [int(s) for s in strides],
+        "settle_mode": str(settle_mode),
+        "overlap": bool(getattr(schedule, "overlap", False)),
+        "merge": merge_fn.name,
+    }
+
+
+def defer_state_spec(params_spec: PyTree, n_levels: int, dp: int,
+                     overlap: bool) -> dict:
+    """``state["defer"]`` of a deferred train step as meta tensors (shape
+    and dtype, no storage: the counterpart of JAX's ``ShapeDtypeStruct``):
+    the step counter, one ``(dp,)``-leading pending per deferred level, and
+    the overlap in-flight buffer. It mirrors
+    ``DeferredTrainStep.init_defer_state`` (``launch/steps.py``)."""
+    if n_levels < 1:
+        raise ValueError(f"n_levels must be >= 1, got {n_levels}")
+
+    def pending_like():
+        return pytree.tree_map(
+            lambda p: torch.empty((dp,) + tuple(p.shape), dtype=p.dtype,
+                                  device="meta"), params_spec)
+
+    spec = {"t": torch.empty((), dtype=torch.int32, device="meta"),
+            "pending": tuple(pending_like() for _ in range(n_levels))}
+    if overlap:
+        spec["inflight"] = pending_like()
+    return spec
 
 
 def manifests_compatible(saved: Optional[dict], current: Optional[dict]

@@ -127,6 +127,14 @@ class ArchConfig:
         return blocks + self.vocab * d * (1 if self.tie_embeddings else 2)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
 ARCH_IDS = [
     "qwen1_5_0_5b",
     "granite_34b",

@@ -38,6 +38,7 @@ replicated PRNG key, so the replicas of memory stay equal.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Optional, Sequence, Union
 
@@ -444,12 +445,18 @@ def _run_stages(update: PyTree, axis: StackedAxis, merge: MergeFn,
     rank = axis.index()
     for st in stages:
         use_compress = st.compress and merge.encode is not None
-        if st.stride == 1:
-            u = _stage_innermost(u, axis, merge, st, force_tree, use_compress)
-        elif st.lane_parallel:
-            u = _stage_lane(u, axis, merge, st, rank, use_compress)
-        else:
-            u = _stage_rep(u, axis, merge, st, rank, use_compress)
+        # a profiler trace names each level's share of a merge; untraced,
+        # no range is entered
+        with (torch.profiler.record_function(f"merge.{st.name}")
+              if torch.autograd.profiler._is_profiler_enabled
+              else contextlib.nullcontext()):
+            if st.stride == 1:
+                u = _stage_innermost(u, axis, merge, st, force_tree,
+                                     use_compress)
+            elif st.lane_parallel:
+                u = _stage_lane(u, axis, merge, st, rank, use_compress)
+            else:
+                u = _stage_rep(u, axis, merge, st, rank, use_compress)
     return u
 
 

@@ -35,12 +35,13 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import statistics
 import time
 
 import numpy as np
 import torch
 
+from repro_torch.launch.schedule_inputs import (describe_inputs, device_name,
+                                                time_level_merges)
 from repro_torch.serve.kv import resolve_device, sync_device
 
 
@@ -100,33 +101,6 @@ def key_stream(n: int, n_keys: int, dist: str = "uniform",
     return ((users * 2654435761) % n_keys).astype(np.int32)
 
 
-def device_name(device: torch.device) -> str:
-    return (torch.cuda.get_device_name(device) if device.type == "cuda"
-            else "cpu")
-
-
-def _median_seconds(fn, device: torch.device, runs: int) -> float:
-    """The median over ``runs`` calls of ``fn``'s time, after a warm-up:
-    CUDA events on the card, the host clock on the CPU."""
-    fn()
-    sync_device(device)
-    out = []
-    for _ in range(runs):
-        if device.type == "cuda":
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            out.append(a.elapsed_time(b) / 1e3)
-        else:
-            t0 = time.perf_counter()
-            fn()
-            out.append(time.perf_counter() - t0)
-    return statistics.median(out)
-
-
 def measure_schedule_inputs(cfg, n_shards: int, batch: int, plan,
                             device, runs: int = 5) -> dict:
     """What ``--defer auto|adaptive`` solves from, measured on ``device``.
@@ -141,9 +115,6 @@ def measure_schedule_inputs(cfg, n_shards: int, batch: int, plan,
       store (a partitioned probe that never commits would overflow its
       ring), the mean of 4 ticks synchronized at both ends.
     """
-    from repro_torch.core import ccache
-    from repro_torch.core.merge_plan import compile_plan
-    from repro_torch.core.stacked import StackedAxis
     from repro_torch.launch.wire_cost import wire_bytes_by_level
     from repro_torch.serve import ShardedKV
 
@@ -153,14 +124,9 @@ def measure_schedule_inputs(cfg, n_shards: int, batch: int, plan,
     names = tuple(lv.name for lv in plan.levels)
     wire = wire_bytes_by_level(plan, S, (R, D), itemsize, cfg.merge)
 
-    axis = StackedAxis(S, device)
     state_dtype = torch.int32 if cfg.dtype == torch.uint32 else cfg.dtype
     payload = torch.ones((S, R, D), dtype=state_dtype, device=device)
-    level_s = [0.0] * len(names)
-    for st in compile_plan(plan, S, merge_fn=cfg.merge):
-        level_s[st.index] = _median_seconds(
-            lambda: ccache.merge_stage(payload, axis, cfg.merge, st),
-            device, runs)
+    level_s = time_level_merges(plan, payload, cfg.merge, runs)
     del payload
     rates = [b / t if b > 0 else float("inf")
              for b, t in zip(wire, level_s)]
@@ -214,19 +180,6 @@ def schedule_from(mode: str, plan, inputs: dict, merge, n_shards: int,
             intervals=(schedule.period,) * len(schedule.level_names),
             predicted=schedule.predicted, overlap=overlap)
     return schedule
-
-
-def describe_inputs(inputs: dict) -> list[str]:
-    """The measured inputs of a solved schedule, as printed lines."""
-    names = inputs["names"]
-    return [
-        "wire vector (bytes a synchronized tick, machine-wide): "
-        + ", ".join(f"{n} {b:.0f}" for n, b in zip(names, inputs["wire"])),
-        f"level merges on {inputs['device']} (median of 5): "
-        + ", ".join(f"{n} {1e3 * t:.6f} ms ({r:.6g} B/s)" for n, t, r in
-                    zip(names, inputs["level_s"], inputs["rates"])),
-        f"deferred tick on {inputs['device']}: "
-        f"{1e3 * inputs['tick_s']:.6f} ms"]
 
 
 def build_store(args):

@@ -1,0 +1,356 @@
+"""End-to-end training driver of the port.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1-5-0-5b \\
+        --steps 200 --batch 16 --seq 512 --ckpt-dir ckpt/run1 \\
+        [--merge-topology chip:2,host:2:defer,pod:2:defer --merge-defer 4 \\
+         --merge-overlap] [--device cpu --smoke]
+
+The counterpart of the JAX package's ``repro/launch/train.py``, with its
+flags and its output lines, on one device (``--device``, the card unless
+the caller asks for the CPU). The data-parallel ranks of a merge plan live
+on that device as a leading dim (``launch/steps.py``); their count is the
+plan's ``num_ranks``, or 1. Weights are random from ``--seed``; the data is
+the pipeline's synthetic Zipf stream. Fault tolerance comes from
+``runtime.TrainDriver``: periodic checkpoints, SIGTERM save-and-exit, NaN
+skip-batch, straggler logging. Restart the same command and it resumes
+from the last committed checkpoint through ``checkpoint.restore``.
+
+``--merge-defer auto`` solves the deferred levels' commit intervals from
+what this device measures, where the JAX CLI walks the compiled step's HLO
+against a TPU pod's link rates: the wire vector of ``launch/wire_cost.py``
+over the gradient tree's bytes, each level's merge timed on the device,
+and a probe of the step's own per-rank forward and backward.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import tempfile
+import time
+from typing import Any, Optional
+
+import torch
+from torch.utils import _pytree as pytree
+
+from repro_torch import checkpoint as ckpt
+from repro_torch.configs.base import ShapeConfig, get_config, get_smoke_config
+from repro_torch.core.merge_functions import ADD, int8_compressed_add
+from repro_torch.data.pipeline import Prefetcher, batch_at, data_config_for
+from repro_torch.launch import steps
+from repro_torch.models.registry import build_model
+from repro_torch.optim import make_optimizer, warmup_cosine
+from repro_torch.serve.kv import resolve_device, sync_device
+
+
+def measure_defer_inputs(trainer: "Trainer", runs: int = 5) -> dict:
+    """What ``--merge-defer auto`` solves from, measured on the trainer's
+    device: ``wire`` (machine-wide bytes each plan level moves in one
+    eager merge of the gradient tree: ``wire_cost.wire_bytes_by_level``
+    summed over its leaves), ``level_s`` (each level's merge alone over a
+    ``[dp, n]`` payload of the tree's element count and dtype, median of
+    ``runs``), ``rates`` (``wire / level_s``), and ``step_s`` (the per-rank
+    forward and backward of step 0's batch, after a warm-up)."""
+    from repro_torch.launch.schedule_inputs import (device_name,
+                                                    time_level_merges)
+    from repro_torch.launch.wire_cost import wire_bytes_by_level
+
+    plan, dp, device = trainer.topology, trainer.dp, trainer.device
+    params = trainer.state["params"]
+    merge = trainer.merge_fn
+    names = tuple(lv.name for lv in plan.levels)
+    wire = [0.0] * len(names)
+    leaves = pytree.tree_leaves(params)
+    for p in leaves:
+        for i, b in enumerate(wire_bytes_by_level(
+                plan, dp, tuple(p.shape), p.element_size(), merge)):
+            wire[i] += b
+    n = sum(p.numel() for p in leaves)
+    payload = torch.ones((dp, n), dtype=leaves[0].dtype, device=device)
+    level_s = time_level_merges(plan, payload, merge, runs)
+    del payload
+    rates = [b / t if b > 0 else float("inf") for b, t in zip(wire, level_s)]
+
+    batch = steps.to_device(batch_at(trainer.dcfg, 0), device)
+    grads_of = steps.grads_fn(trainer.model, trainer.microbatches)
+    steps.rank_grads(grads_of, params, batch, dp)        # warm-up
+    sync_device(device)
+    t0 = time.perf_counter()
+    steps.rank_grads(grads_of, params, batch, dp)
+    sync_device(device)
+    return {"names": names, "wire": wire, "level_s": level_s,
+            "rates": rates, "step_s": time.perf_counter() - t0,
+            "device": device_name(device)}
+
+
+def solve_defer_for_cli(merge_defer: str, trainer: "Trainer",
+                        overlap: bool = False):
+    """Resolve ``--merge-defer`` into a ``DeferSchedule`` for the trainer's
+    plan: an integer fixes every deferred level's K; ``auto`` solves the
+    intervals from :func:`measure_defer_inputs`. Algebra-invalid
+    defer/overlap combinations fail first."""
+    from repro_torch.core.ccache import deferred_stages_of
+    from repro_torch.core.defer_schedule import (DeferSchedule,
+                                                 solve_defer_schedule)
+    from repro_torch.launch.schedule_inputs import describe_inputs
+
+    topology, dp, merge_fn = trainer.topology, trainer.dp, trainer.merge_fn
+    if overlap:
+        merge_fn.check_overlap("--merge-defer with --merge-overlap")
+    else:
+        merge_fn.check_deferrable("--merge-defer")
+    deferred_names = tuple(
+        s.name for s in deferred_stages_of(topology, dp, merge_fn=merge_fn))
+    if not deferred_names:
+        raise SystemExit("--merge-defer: the :defer levels all have size 1 "
+                         "and compile away; drop the flags")
+    if merge_defer != "auto":
+        try:
+            k = int(merge_defer)
+        except ValueError:
+            raise SystemExit(f"--merge-defer must be 'auto' or an integer, "
+                             f"got {merge_defer!r}")
+        if k < 1:
+            raise SystemExit("--merge-defer: K must be >= 1")
+        return DeferSchedule.fixed(k, deferred_names, overlap=overlap)
+
+    print("merge-defer auto: measuring the level merges and the step on "
+          "the device...")
+    inputs = measure_defer_inputs(trainer)
+    for line in describe_inputs(inputs, "per-rank step", "step_s"):
+        print(line)
+    return solve_defer_schedule(
+        topology, inputs["wire"], inputs["names"],
+        compute_s=inputs["step_s"], overlap=overlap, merge_fn=merge_fn,
+        bandwidths=inputs["rates"])
+
+
+@dataclasses.dataclass
+class Trainer:
+    """What the flags build: the model, the step, the initial state and
+    the data config (``state`` is fresh from the seed, not resumed; a run
+    takes it over, so that the initial buffers are freed as it moves)."""
+
+    cfg: Any
+    model: Any
+    optimizer: Any
+    step_fn: Any
+    state: dict
+    dcfg: Any
+    device: torch.device
+    dp: int
+    microbatches: int
+    topology: Any = None
+    merge_fn: Any = None
+    schedule: Any = None
+
+    @property
+    def deferred(self) -> Optional[steps.DeferredTrainStep]:
+        return self.step_fn if self.schedule is not None else None
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--arch", required=True)
+    p.add_argument("--smoke", action="store_true",
+                   help="use the reduced smoke config (CPU-runnable)")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--seq", type=int, default=256)
+    p.add_argument("--microbatches", type=int, default=1)
+    p.add_argument("--merge-group-size", type=int, default=0,
+                   help="explicit hierarchical gradient merge: ranks per "
+                        "intra-group level (0 = implicit reduction); "
+                        "two-level shorthand for --merge-topology")
+    p.add_argument("--merge-topology", default="",
+                   help="N-level MergePlan over the data-parallel ranks, "
+                        "innermost level first: 'chip:2,host:2,pod:2' "
+                        "(level flags: :compress :software :defer); the "
+                        "product of sizes is the rank count, stacked on "
+                        "the device; :defer levels need --merge-defer")
+    p.add_argument("--merge-defer", default="",
+                   help="commit schedule of the topology's :defer levels: "
+                        "'auto' solves per-level intervals K from the wire "
+                        "vector, the level merges and the step timed on the "
+                        "device; an integer fixes K for every deferred "
+                        "level. The optimizer steps once per full commit on "
+                        "the cycle's mean gradient (K-step gradient "
+                        "accumulation)")
+    p.add_argument("--merge-overlap", action="store_true",
+                   help="overlap the deferred top-level commit with the "
+                        "next step: the full-commit step launches the "
+                        "exchange and it lands one step later (the "
+                        "optimizer steps one step stale). Requires "
+                        "--merge-defer; only additive gradient merges")
+    p.add_argument("--merge-lane-parallel", action="store_true",
+                   help="shard the representative role over each unit's "
+                        "lanes (requires --merge-topology)")
+    p.add_argument("--merge-compress", action="store_true",
+                   help="int8-compress the outermost-level gradient "
+                        "exchange (requires --merge-group-size or "
+                        "--merge-topology)")
+    p.add_argument("--lr", type=float, default=3e-4)
+    p.add_argument("--warmup", type=int, default=20)
+    p.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
+                                                      "repro_torch_ckpt"))
+    p.add_argument("--ckpt-every", type=int, default=50)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--log", default=None)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+    return p.parse_args(argv)
+
+
+def build(args) -> Trainer:
+    """The model, optimizer, step and initial state the flags describe,
+    with the JAX CLI's refusals of bad flag combinations."""
+    device = resolve_device(args.device)
+    cfg = (get_smoke_config(args.arch) if args.smoke
+           else get_config(args.arch))
+    shape_cfg = ShapeConfig("cli", args.seq, args.batch, "train")
+    optimizer = make_optimizer(
+        cfg, warmup_cosine(args.lr, args.warmup, args.steps))
+    if args.merge_group_size and args.merge_topology:
+        raise SystemExit("--merge-group-size and --merge-topology are "
+                         "mutually exclusive")
+    if args.merge_compress and not (args.merge_group_size
+                                    or args.merge_topology):
+        raise SystemExit("--merge-compress requires --merge-group-size or "
+                         "--merge-topology")
+    if args.merge_lane_parallel and not args.merge_topology:
+        raise SystemExit("--merge-lane-parallel requires --merge-topology")
+    topology, dp = None, 1
+    if args.merge_group_size:
+        from repro_torch.core.ccache import MergeTopology
+        if dp % args.merge_group_size != 0:
+            raise SystemExit(
+                f"--merge-group-size {args.merge_group_size} does not divide "
+                f"the data axis ({dp} devices)")
+        topology = MergeTopology(group_size=args.merge_group_size)
+    elif args.merge_topology:
+        from repro_torch.core.merge_plan import MergePlan
+        try:
+            topology = MergePlan.parse(args.merge_topology,
+                                       lane_parallel=args.merge_lane_parallel)
+        except ValueError as e:
+            raise SystemExit(f"--merge-topology: {e}")
+        dp = topology.num_ranks
+        if args.batch % dp != 0:
+            raise SystemExit(
+                f"--batch {args.batch} must be divisible by the merge "
+                f"topology's {dp} ranks (each rank takes an equal batch "
+                f"shard)")
+    if (args.batch // dp) % args.microbatches != 0:
+        raise SystemExit(
+            f"--batch {args.batch} over {dp} rank(s) gives {args.batch // dp}"
+            f" rows a rank, which --microbatches {args.microbatches} does not"
+            f" divide")
+    has_deferred = topology is not None and getattr(topology, "has_deferred",
+                                                    False)
+    if args.merge_defer and not has_deferred:
+        raise SystemExit("--merge-defer requires a --merge-topology with "
+                         ":defer levels")
+    if args.merge_overlap and not args.merge_defer:
+        raise SystemExit("--merge-overlap requires --merge-defer (the "
+                         "launch/land pipeline splits a *deferred* commit "
+                         "across two steps)")
+    if has_deferred and not args.merge_defer:
+        raise SystemExit(
+            "--merge-topology has :defer levels; pass --merge-defer "
+            "auto|K to schedule the commits (the optimizer steps once "
+            "per commit on the K-step mean gradient), or drop the "
+            ":defer flags for an eager merge every step")
+
+    model = build_model(cfg, device=device, seed=args.seed)
+    params = model.params()
+    merge_fn = int8_compressed_add() if args.merge_compress else ADD
+    trainer = Trainer(
+        cfg=cfg, model=model, optimizer=optimizer, step_fn=None,
+        state={"params": params, "opt": optimizer.init(params)},
+        dcfg=data_config_for(cfg, shape_cfg, seed=args.seed),
+        device=device, dp=dp, microbatches=args.microbatches,
+        topology=topology, merge_fn=merge_fn)
+    if has_deferred:
+        trainer.schedule = solve_defer_for_cli(args.merge_defer, trainer,
+                                               overlap=args.merge_overlap)
+        print("merge-defer schedule:", trainer.schedule.describe())
+        if args.steps % trainer.schedule.period != 0:
+            print(f"note: --steps {args.steps} is not a multiple of the "
+                  f"commit period {trainer.schedule.period}; the trailing "
+                  f"partial cycle is settled by the final flush")
+    trainer.step_fn = steps.make_train_step(
+        model, cfg, optimizer, args.microbatches, dp=dp,
+        merge_topology=topology, merge_compress=args.merge_compress,
+        defer_schedule=trainer.schedule)
+    if trainer.schedule is not None:
+        trainer.state["defer"] = trainer.step_fn.init_defer_state(params)
+    return trainer
+
+
+@dataclasses.dataclass
+class TrainResult:
+    state: dict
+    start: int
+    end: int
+    events: list
+    flushed: Optional[dict]
+
+
+def main(argv=None) -> TrainResult:
+    args = parse_args(argv)
+    trainer = build(args)
+    # the run holds the only reference: the initial buffers go as it moves
+    state, trainer.state = trainer.state, None
+    device = trainer.device
+
+    # Resume from the last committed checkpoint if present.
+    start = 0
+    last = ckpt.latest_step(args.ckpt_dir)
+    if last is not None:
+        state, extras = ckpt.restore(args.ckpt_dir, state)
+        start = extras.get("next_step", last)
+        print(f"resumed from checkpoint step {last} -> start {start}")
+
+    prefetch = Prefetcher(trainer.dcfg, start_step=start)
+
+    def step_fn(s, b):
+        out = trainer.step_fn(s, b)
+        sync_device(device)        # the driver's dt is the step's own time
+        return out
+
+    from repro_torch.runtime import DriverConfig, TrainDriver
+    driver = TrainDriver(
+        DriverConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                     log_path=args.log),
+        step_fn=step_fn, batch_fn=lambda i: prefetch.get()[1],
+        # deferred runs record the durability manifest next to each
+        # boundary save
+        defer_step=trainer.deferred)
+    try:
+        state, end = driver.run(state, start, args.steps - start)
+    finally:
+        prefetch.stop()
+    fmetrics = None
+    if trainer.deferred is not None:
+        # Drain the deferred machinery: land any in-flight overlapped
+        # commit and settle the trailing partial cycle, so no gradient
+        # mass is dropped at the end of the run.
+        state, fmetrics = trainer.deferred.flush(state)
+        if fmetrics is not None:
+            parts = []
+            if fmetrics.get("flushed_inflight"):
+                parts.append("landed the in-flight commit")
+            if "flushed_steps" in fmetrics:
+                parts.append(f"settled a {fmetrics['flushed_steps']}-step"
+                             f" partial cycle")
+            print("final flush:", ", ".join(parts))
+    losses = [e for e in driver.events if e.get("event") == "step"]
+    if losses:
+        print(f"steps {start}..{end}: loss {losses[0]['loss']:.4f} -> "
+              f"{losses[-1]['loss']:.4f}")
+    return TrainResult(state, start, end, driver.events, fmetrics)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,15 @@
-"""GQA attention for serving: prefill (returns the KV cache) and decode.
+"""GQA attention: training over a full sequence, prefill (returns the KV
+cache) and decode.
 
-The counterparts of ``prefill`` and ``decode_step`` of the JAX package's
-``repro/models/attention.py``. There the attention itself is a jnp
-stand-in; here it goes through the port's kernels: prefill's causal
+The counterparts of ``attend_full``, ``prefill`` and ``decode_step`` of the
+JAX package's ``repro/models/attention.py``. Training (``attend_full``,
+with ``_attend``, ``_attend_grouped`` and the online-softmax
+``_attend_blockwise`` above ``BLOCKWISE_THRESHOLD``) is plain PyTorch, as
+the JAX package computes it in jnp outside any Pallas kernel: neither
+attention kernel has a backward in either package, so the train path never
+calls ``flash_attention``. For serving the attention itself is a jnp
+stand-in in the JAX package; here it goes through the port's kernels:
+prefill's causal
 self-attention through ``ops.flash_attention`` (at any sequence length),
 and decode through ``ops.decode_attention`` after the token's K/V is written
 at slot ``position``. ``plain=True`` takes the kernels' plain PyTorch
@@ -10,9 +17,8 @@ versions instead, on any device: the caller asks for it (``chip_smoke.py``
 holds the whole model against it on the card); nothing falls back to it.
 
 The cache keeps the JAX layout, ``k, v [B, T, KV, hd]``, and decode writes
-it in place (the JAX serve loop donates it). Sliding-window and ring
-caches, cross-attention and the training path (``attend_full``) are not on
-this path and are not ported yet.
+it in place (the JAX serve loop donates it). Ring caches and
+cross-attention are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,6 +35,10 @@ from repro_torch.models import module as nn
 from repro_torch.models.rope import apply_rope
 
 Tensor = torch.Tensor
+
+# Above this sequence length, full-seq attention switches to the online-
+# softmax blockwise path (memory O(chunk * T) instead of O(S * T)).
+BLOCKWISE_THRESHOLD = 4096
 
 
 @dataclasses.dataclass
@@ -80,6 +90,103 @@ def make_mask(q_pos: Tensor, k_pos: Tensor, mode: str,
         assert window is not None
         return (d >= 0) & (d < window)
     raise ValueError(mode)
+
+
+def _repeat_kv(k: Tensor, g: int) -> Tensor:
+    """[B,T,KV,hd] -> [B,T,KV*g,hd] (head h reads kv group h//g)."""
+    if g == 1:
+        return k
+    return torch.repeat_interleave(k, g, dim=2)
+
+
+def _masked_softmax(scores: Tensor, mask: Tensor, dtype) -> Tensor:
+    """f32 ``scores`` with masked entries at -1e30, softmaxed, in ``dtype``
+    (as the JAX package's ``jnp.where`` + ``jax.nn.softmax``)."""
+    scores = torch.where(mask, scores, torch.tensor(-1e30, dtype=scores.dtype,
+                                                    device=scores.device))
+    return torch.softmax(scores, dim=-1).to(dtype)
+
+
+def _attend(q: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tensor:
+    """q: [B,S,H,hd]; k,v: [B,T,KV,hd]; mask: [B or 1, S, T] bool."""
+    b, s, h, hd = q.shape
+    g = h // k.shape[2]
+    kf, vf = _repeat_kv(k, g), _repeat_kv(v, g)
+    scores = torch.einsum("bshd,bthd->bhst", q, kf).float()
+    scores = scores * (1.0 / hd ** 0.5)
+    probs = _masked_softmax(scores, mask[:, None, :, :], v.dtype)
+    out = torch.einsum("bhst,bthd->bshd", probs, vf)
+    return out.reshape(b, s, h * hd)
+
+
+def _attend_grouped(q: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tensor:
+    """The grouped form of :func:`_attend`: (kv, g) einsums with the same
+    h // g mapping, mathematically identical."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, s, kv, h // kv, hd)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float()
+    scores = scores * (1.0 / hd ** 0.5)
+    probs = _masked_softmax(scores, mask[:, None, None, :, :], v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(b, s, h * hd)
+
+
+def _attend_blockwise(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
+                      k_pos: Tensor, mode: str, window: Optional[int],
+                      q_chunk: int = 512) -> Tensor:
+    """Attention one chunk of ``q_chunk`` queries at a time: memory
+    O(chunk * T). With a static sliding window, each chunk attends only its
+    ``[chunk_start - window, chunk_end)`` key slice."""
+    b, s, h, hd = q.shape
+    g = h // k.shape[2]
+    t = k.shape[1]
+    scale = 1.0 / hd ** 0.5
+    if s % q_chunk:
+        raise ValueError(f"sequence {s} is not a multiple of q_chunk "
+                         f"{q_chunk}")
+    kf, vf = _repeat_kv(k, g), _repeat_kv(v, g)
+    qpc = torch.broadcast_to(q_pos, (b, s))
+    kp_full = torch.broadcast_to(k_pos, (b, t))
+    windowed = (mode == "sliding" and isinstance(window, int)
+                and 0 < window and window + q_chunk < t)
+    if windowed:
+        # left-pad keys by `window` so chunk i reads [i*qc, i*qc + qc + W)
+        kf = torch.nn.functional.pad(kf, (0, 0, 0, 0, window, 0))
+        vf = torch.nn.functional.pad(vf, (0, 0, 0, 0, window, 0))
+        kp_full = torch.nn.functional.pad(kp_full, (window, 0),
+                                          value=-(1 << 30))
+    outs = []
+    for i in range(s // q_chunk):
+        lo = i * q_chunk
+        qi, qpi = q[:, lo:lo + q_chunk], qpc[:, lo:lo + q_chunk]
+        if windowed:
+            ki = kf[:, lo:lo + q_chunk + window]
+            vi = vf[:, lo:lo + q_chunk + window]
+            kpi = kp_full[:, lo:lo + q_chunk + window]
+        else:
+            ki, vi, kpi = kf, vf, kp_full
+        scores = torch.einsum("bshd,bthd->bhst", qi, ki).float() * scale
+        probs = _masked_softmax(scores, make_mask(qpi, kpi, mode,
+                                                  window)[:, None], v.dtype)
+        out = torch.einsum("bhst,bthd->bshd", probs, vi)
+        outs.append(out.reshape(b, q_chunk, h * hd))
+    return torch.cat(outs, dim=1)
+
+
+def attend_full(p, x: Tensor, positions: Tensor, n_heads: int, n_kv: int,
+                mode: str = "causal", window: Optional[int] = None,
+                rope_theta: float = 10000.0) -> Tensor:
+    """Training / encoder path over a full sequence ``x [B, S, D]``."""
+    q, k, v = _qkv(p, x, n_heads, n_kv, positions, rope_theta)
+    if x.shape[1] > BLOCKWISE_THRESHOLD:
+        out = _attend_blockwise(q, k, v, positions, positions, mode, window)
+    else:
+        mask = make_mask(positions, positions, mode, window)
+        if mask.dim() == 2:
+            mask = mask[None]
+        out = _attend(q, k, v, mask)
+    return nn.apply_dense(p["wo"], out)
 
 
 def prefill(p, x: Tensor, positions: Tensor, n_heads: int, n_kv: int,

@@ -1,7 +1,9 @@
-"""The decoder-only transformer LM of the port, for serving (dense family).
+"""The decoder-only transformer LM of the port (dense family): serving and
+training.
 
-The counterpart of ``DecoderLM.prefill`` / ``decode_step`` of the JAX
-package's ``repro/models/transformer.py`` for ``family="dense"``
+The counterpart of ``DecoderLM.prefill`` / ``decode_step`` and of
+``forward`` / ``loss`` of the JAX package's ``repro/models/transformer.py``
+for ``family="dense"``
 (qwen1.5-0.5b, internlm2-1.8b): embed, L blocks of pre-norm attention and
 SwiGLU with residuals, a final rmsnorm, and logits in f32 against the tied
 embedding or the unembedding. Attention goes through the port's kernels
@@ -13,20 +15,35 @@ Parameters are named and stacked as the JAX tree (``embed.table``,
 ``unembed.w`` when untied), so :func:`from_jax_params` fills them leaf by
 leaf; caches are stacked as the JAX scan stacks them, ``{"scan":
 KVCache(k=[L, B, T, KV, hd], v=...)}``, and decode updates them in place.
-MoE, the training path (``forward``/``loss``) and ``dense_blocks`` are not
-ported yet.
+
+The module's own parameters are frozen: serving never builds a graph.
+Training is functional, as in the JAX package: :meth:`DecoderLM.params`
+hands out the parameter tree (nested dicts of tensors sharing the module's
+storage), and :meth:`DecoderLM.loss` takes a tree, so a train step
+differentiates whatever tree it passes (``core/grad_merge.value_and_grad``)
+and the optimizer returns new ones. The train path embeds through
+``models/embedding.embed`` (its backward is the CUDA ``cscatter``),
+attends through the plain ``attention.attend_full``, and follows
+``cfg.remat``: ``"none"``, ``"full"`` (``torch.utils.checkpoint`` of each
+block) or ``"dots"`` (selective checkpointing that saves the outputs of
+the products without batch dims, ``aten.mm``, and recomputes the rest, as
+JAX's ``dots_with_no_batch_dims_saveable``). Remat changes memory, never
+the numbers. MoE and ``dense_blocks`` (MoE only) are not ported yet.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Mapping
 
 import numpy as np
 import torch
 from torch import nn as tnn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import attention as attn
 from repro_torch.models import module as nn
+from repro_torch.models.embedding import embed
 from repro_torch.models.mlp import swiglu, swiglu_init
 from repro_torch.serve.kv import resolve_device
 
@@ -60,14 +77,81 @@ def _index(tree, i: int):
     return {k: _index(v, i) for k, v in tree.items()}
 
 
+class _MatmulF32(torch.autograd.Function):
+    """bf16 ``x @ w`` with f32 output on the card. Its backward rounds the
+    f32 output gradient to bf16 and takes both products on the tensor cores
+    (bf16 results, f32 accumulation); XLA takes them in f32."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, w: Tensor) -> Tensor:
+        ctx.save_for_backward(x, w)
+        x2 = x.reshape(-1, x.shape[-1])
+        out = torch.mm(x2, w, out_dtype=torch.float32)
+        return out.reshape(x.shape[:-1] + (w.shape[1],))
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).to(x.dtype)
+        gx = torch.mm(g2, w.t()).reshape(x.shape)
+        gw = torch.mm(x.reshape(-1, x.shape[-1]).t(), g2)
+        return gx, gw
+
+
 def _matmul_f32(x: Tensor, w: Tensor) -> Tensor:
-    """``x [N, D] @ w [D, V]`` with f32 output, as JAX's
+    """``x [..., D] @ w [D, V]`` with f32 output, as JAX's
     ``preferred_element_type=float32``: on the card one bf16 product that
     accumulates and returns f32 (no f32 copy of the weight); elsewhere in
-    f32."""
+    f32. Differentiable in both."""
     if x.device.type == "cuda" and x.dtype == torch.bfloat16:
-        return torch.mm(x, w, out_dtype=torch.float32)
+        return _MatmulF32.apply(x, w)
     return x.float() @ w.float()
+
+
+def cross_entropy(logits_f32: Tensor, labels: Tensor, z_coeff: float = 1e-4):
+    """logits: [..., V] f32; labels int (< 0 = ignore)."""
+    lse = torch.logsumexp(logits_f32, dim=-1)
+    gold = torch.gather(logits_f32, -1,
+                        labels.clamp(min=0).long()[..., None])[..., 0]
+    nll = lse - gold
+    mask = (labels >= 0).float()
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = (nll * mask).sum() / denom
+    z_loss = z_coeff * ((lse * mask) ** 2).sum() / denom
+    return loss + z_loss, {"nll": loss, "z_loss": z_loss}
+
+
+_NO_BATCH_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep the outputs of
+    the products without batch dims, recompute everything else."""
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _NO_BATCH_DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn, policy: str):
+    """``fn`` under the remat policy of ``cfg.remat``."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"remat must be none|full|dots, got {policy!r}")
+
+
+def _unbind_layers(blocks) -> list[dict]:
+    """Per-layer views of the stacked block parameters whose backward is
+    one stack per leaf (``unbind``), not one full-size scatter per layer."""
+    leaves, spec = torch.utils._pytree.tree_flatten(blocks)
+    per_leaf = [leaf.unbind(0) for leaf in leaves]
+    return [torch.utils._pytree.tree_unflatten([u[i] for u in per_leaf], spec)
+            for i in range(len(per_leaf[0]))]
 
 
 class DecoderLM(tnn.Module):
@@ -161,6 +245,50 @@ class DecoderLM(tnn.Module):
         else:
             w = self.unembed["w"]
         return _matmul_f32(h, w)
+
+    # ------------------------------------------------------------- training
+
+    def params(self) -> dict:
+        """The parameters as the JAX package's tree, detached tensors that
+        share the module's storage: what a train step differentiates and
+        the optimizer replaces."""
+        tree = {"embed": self.embed, "blocks": self.blocks, "ln_f": self.ln_f}
+        if not self.cfg.tie_embeddings:
+            tree["unembed"] = self.unembed
+        return torch.utils._pytree.tree_map(
+            lambda t: t.detach(), {k: _plain(v) for k, v in tree.items()})
+
+    def _block(self, p, h: Tensor, positions: Tensor) -> Tensor:
+        cfg = self.cfg
+        a = attn.attend_full(p["attn"], nn.rmsnorm(p["ln1"], h), positions,
+                             cfg.n_heads, cfg.n_kv_heads, "causal",
+                             rope_theta=cfg.rope_theta)
+        h = h + a
+        return h + swiglu(p["ffn"], nn.rmsnorm(p["ln2"], h))
+
+    def forward(self, params, h: Tensor, positions: Tensor):
+        """The blocks and the final norm over ``h [B, S, D]``, each block
+        under ``cfg.remat`` -> (``h``, metrics); the dense family has no
+        metrics."""
+        block = remat(functools.partial(self._block, positions=positions),
+                      self.cfg.remat)
+        for p in _unbind_layers(params["blocks"]):
+            h = block(p, h)
+        return nn.rmsnorm(params["ln_f"], h), {}
+
+    def loss(self, params, batch: dict):
+        """Mean next-token cross-entropy plus the z-loss of ``batch``
+        (``tokens``, ``labels`` ``[B, S]`` on the model's device) under the
+        parameter tree ``params`` -> (loss, metrics)."""
+        h = embed(params["embed"]["table"], batch["tokens"])
+        positions = torch.arange(h.shape[1], dtype=torch.int32,
+                                 device=h.device)
+        h, _ = self.forward(params, h, positions)
+        w = (params["embed"]["table"].t() if self.cfg.tie_embeddings
+             else params["unembed"]["w"])
+        loss, metrics = cross_entropy(_matmul_f32(h, w), batch["labels"])
+        metrics["loss"] = loss
+        return loss, metrics
 
     # -------------------------------------------------------------- serving
 

@@ -1,0 +1,154 @@
+"""Optimizers: AdamW and Adafactor (factored second moment).
+
+The counterparts of the JAX package's ``repro/optim/optimizers.py``, with
+its functional API over dicts of tensors::
+
+    opt = make_optimizer(cfg, schedule)
+    state = opt.init(params)
+    params, state, stats = opt.step(params, grads, state)
+
+Moments are f32. A bf16 parameter is updated in f32 and cast back. ``step``
+returns new tensors and leaves its arguments as they were, so a caller may
+drop a poisoned result (the train driver's NaN skip) and keep the old
+state. The step counter is a 0-dim int32 tensor on the CPU, as the
+schedule's learning rate is.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple
+
+import torch
+from torch.utils import _pytree as pytree
+
+PyTree = Any
+
+
+class OptState(NamedTuple):
+    step: torch.Tensor  # 0-dim int32
+    mu: PyTree          # first moment (AdamW) or None
+    nu: PyTree          # second moment / factored rows+cols
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    init: Callable[[PyTree], OptState]
+    step: Callable[[PyTree, PyTree, OptState], tuple[PyTree, OptState, dict]]
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: PyTree, max_norm: float
+                        ) -> tuple[PyTree, torch.Tensor]:
+    leaves = pytree.tree_leaves(grads)
+    gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+    scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
+    return pytree.tree_map(lambda g: (g * scale).to(g.dtype), grads), gn
+
+
+def adamw(schedule, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
+          max_grad_norm=1.0) -> Optimizer:
+    def init(params):
+        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device)
+        return OptState(step=torch.zeros((), dtype=torch.int32),
+                        mu=pytree.tree_map(zeros, params),
+                        nu=pytree.tree_map(zeros, params))
+
+    @torch.no_grad()
+    def step(params, grads, state):
+        grads, gn = clip_by_global_norm(grads, max_grad_norm)
+        t = state.step + 1
+        lr = schedule(t)
+        bc1 = 1 - b1 ** t.to(torch.float32)
+        bc2 = 1 - b2 ** t.to(torch.float32)
+
+        def upd(p, g, mu, nu):
+            g = g.float()
+            mu = b1 * mu + (1 - b1) * g
+            nu = b2 * nu + (1 - b2) * g * g
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+            u = u + weight_decay * p.float()
+            return (p.float() - lr * u).to(p.dtype), mu, nu
+
+        leaves_p, spec = pytree.tree_flatten(params)
+        out = [upd(*args) for args in zip(
+            leaves_p, pytree.tree_leaves(grads), pytree.tree_leaves(state.mu),
+            pytree.tree_leaves(state.nu))]
+        unflat = lambda i: pytree.tree_unflatten([o[i] for o in out], spec)
+        return (unflat(0), OptState(step=t, mu=unflat(1), nu=unflat(2)),
+                {"grad_norm": gn, "lr": lr})
+
+    return Optimizer(init=init, step=step)
+
+
+def adafactor(schedule, decay=0.8, eps=1e-30, weight_decay=0.0,
+              max_grad_norm=1.0) -> Optimizer:
+    """Factored second-moment estimator (Shazeer & Stern): O(n+m) state for
+    an [n, m] matrix instead of O(nm)."""
+
+    def _factored(shape) -> bool:
+        return len(shape) >= 2
+
+    def init(params):
+        def nu_for(p):
+            f32 = dict(dtype=torch.float32, device=p.device)
+            if _factored(p.shape):
+                return {"row": torch.zeros(p.shape[:-1], **f32),
+                        "col": torch.zeros(p.shape[:-2] + p.shape[-1:],
+                                           **f32)}
+            return {"full": torch.zeros(p.shape, **f32)}
+        leaves, spec = pytree.tree_flatten(params)
+        return OptState(step=torch.zeros((), dtype=torch.int32), mu=None,
+                        nu=pytree.tree_unflatten([nu_for(p) for p in leaves],
+                                                 spec))
+
+    @torch.no_grad()
+    def step(params, grads, state):
+        grads, gn = clip_by_global_norm(grads, max_grad_norm)
+        t = state.step + 1
+        lr = schedule(t)
+        beta = 1.0 - t.to(torch.float32) ** (-decay)
+
+        def upd(p, g, nu):
+            g = g.float()
+            g2 = g * g + eps
+            if "full" in nu:
+                nu_new = {"full": beta * nu["full"] + (1 - beta) * g2}
+                u = g / (torch.sqrt(nu_new["full"]) + 1e-12)
+            else:
+                row = beta * nu["row"] + (1 - beta) * g2.mean(-1)
+                col = beta * nu["col"] + (1 - beta) * g2.mean(-2)
+                nu_new = {"row": row, "col": col}
+                r = row / torch.clamp(row.mean(-1, keepdim=True), min=eps)
+                v = r[..., None] * col[..., None, :]
+                u = g / (torch.sqrt(v) + 1e-12)
+            # update clipping (RMS <= 1), as Adafactor
+            rms = torch.sqrt(torch.mean(u * u) + 1e-12)
+            u = u / torch.clamp(rms, min=1.0)
+            if weight_decay:
+                u = u + weight_decay * p.float()
+            return (p.float() - lr * u).to(p.dtype), nu_new
+
+        leaves_p, spec = pytree.tree_flatten(params)
+        leaves_nu = pytree.tree_leaves(state.nu, is_leaf=_is_moment)
+        out = [upd(p, g, nu) for p, g, nu in zip(
+            leaves_p, pytree.tree_leaves(grads), leaves_nu)]
+        return (pytree.tree_unflatten([o[0] for o in out], spec),
+                OptState(step=t, mu=None,
+                         nu=pytree.tree_unflatten([o[1] for o in out], spec)),
+                {"grad_norm": gn, "lr": lr})
+
+    return Optimizer(init=init, step=step)
+
+
+def _is_moment(x) -> bool:
+    """Adafactor's per-parameter second moment: ``{"row", "col"}`` or
+    ``{"full"}``."""
+    return isinstance(x, dict) and set(x) in ({"row", "col"}, {"full"})
+
+
+def make_optimizer(arch_cfg, schedule) -> Optimizer:
+    if arch_cfg.optimizer == "adafactor":
+        return adafactor(schedule)
+    return adamw(schedule)

@@ -1,0 +1,246 @@
+"""Fault-tolerant training driver.
+
+The port of the JAX package's ``repro/runtime/driver.py``. It wraps a step
+function with the operational machinery a long run needs:
+
+* periodic checkpoints (two-phase commit, checkpoint/)
+* preemption: SIGTERM/SIGINT request a save at the *next step boundary*
+  (steps run to completion)
+* poisoned steps: non-finite loss triggers restore-from-last-checkpoint and
+  a skip-batch policy — sound because the data stream is a pure function of
+  the step index, and commutative merges make skip-and-continue order-free
+* straggler detection: per-step wall times vs. a rolling median; outliers
+  (> k x median) are logged with the host id (0: one process drives the
+  card) so a scheduler can reassign — any host can recompute any shard
+  (data/pipeline.py)
+* retry-with-backoff around transient step failures
+
+``TrainDriver.resume`` (elastic restore onto another topology, through
+``runtime/elastic``) is not ported yet; a run resumes through
+``checkpoint.restore``, as ``launch/train.py`` does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+import signal
+import statistics
+import time
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch import checkpoint as ckpt
+
+
+@dataclasses.dataclass
+class DriverConfig:
+    ckpt_dir: str
+    ckpt_every: int = 100
+    keep_last: int = 3
+    straggler_factor: float = 3.0
+    straggler_window: int = 32
+    max_retries: int = 3
+    retry_backoff_s: float = 1.0
+    max_skipped_batches: int = 16
+    # Rewind to the last checkpoint on a poisoned step. Off by default:
+    # the port's steps return new tensors and leave their input state as
+    # it was, so discarding the poisoned new_state is sufficient.
+    restore_on_nan: bool = False
+    log_path: Optional[str] = None
+    # Durability policy for deferred-commit state (state["defer"], needs a
+    # defer_step): "checkpoint" saves the pending cascade as part of the
+    # state tree with the durability manifest in extras (restore resumes
+    # mid-cycle bitwise); "flush" drains everything outstanding through
+    # DeferredTrainStep.flush BEFORE each save, so the checkpoint carries no
+    # volatile mass at all (the optimizer sequence then differs from an
+    # uninterrupted run — mass-conserving, not bitwise). Either way, no
+    # gradient mass is silently dropped, and the chosen path is logged.
+    defer_save: str = "checkpoint"
+
+    def __post_init__(self):
+        if self.defer_save not in ("checkpoint", "flush"):
+            raise ValueError(f"defer_save must be 'checkpoint' or 'flush', "
+                             f"got {self.defer_save!r}")
+
+
+class TrainDriver:
+    """step_fn(state, batch) -> (state, metrics); state is a pytree that
+    includes everything needed to resume (params, opt state, step count)."""
+
+    def __init__(self, cfg: DriverConfig, step_fn: Callable,
+                 batch_fn: Callable[[int], Any],
+                 defer_step=None, optimizer=None):
+        self.cfg = cfg
+        self.step_fn = step_fn
+        self.batch_fn = batch_fn
+        # defer_step: the DeferredTrainStep (or any object with its
+        # durability surface — durability_manifest / defer_save_extras /
+        # flush / init_defer_state) whose state["defer"] this driver must
+        # keep durable. optimizer: for an elastic resume path to fold
+        # outstanding mass; defaults to defer_step.optimizer.
+        self.defer_step = defer_step
+        self.optimizer = optimizer or getattr(defer_step, "optimizer", None)
+        self._preempted = False
+        self._step_times: list[float] = []
+        self.events: list[dict] = []
+        self._orig_handlers = {}
+
+    # ----------------------------------------------------------- plumbing
+
+    def _install_signals(self):
+        def handler(signum, frame):
+            self._preempted = True
+            self._log({"event": "preemption_requested", "signal": signum})
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                self._orig_handlers[sig] = signal.signal(sig, handler)
+            except ValueError:
+                pass  # non-main thread (tests)
+
+    def _restore_signals(self):
+        for sig, h in self._orig_handlers.items():
+            signal.signal(sig, h)
+
+    def _log(self, rec: dict):
+        rec = {"t": time.time(), **rec}
+        self.events.append(rec)
+        if self.cfg.log_path:
+            with open(self.cfg.log_path, "a") as f:
+                f.write(json.dumps(rec, default=float) + "\n")
+
+    def _gc_checkpoints(self):
+        import shutil
+        steps = sorted(
+            int(d.split("_")[1]) for d in os.listdir(self.cfg.ckpt_dir)
+            if d.startswith("step_") and not d.endswith(".tmp"))
+        for s in steps[:-self.cfg.keep_last]:
+            shutil.rmtree(os.path.join(self.cfg.ckpt_dir, f"step_{s:08d}"),
+                          ignore_errors=True)
+
+    def _is_straggler(self, dt: float) -> bool:
+        w = self._step_times[-self.cfg.straggler_window:]
+        if len(w) < 8:
+            return False
+        return dt > self.cfg.straggler_factor * statistics.median(w)
+
+    @staticmethod
+    def _loss_of(metrics) -> float:
+        if isinstance(metrics, dict) and "loss" in metrics:
+            return float(metrics["loss"])
+        return float("nan")
+
+    # ------------------------------------------------------- durability
+
+    def _save_checkpoint(self, state: Any, step: int,
+                         save_extras: Optional[Callable[[int], dict]]) -> Any:
+        """Boundary save under the defer durability policy (cfg.defer_save).
+
+        "checkpoint": the pending cascade rides the state tree; extras carry
+        the durability manifest so restore can validate it (or settle it
+        elastically on a topology change). "flush": everything outstanding
+        is drained into params/opt first and the cycle counter reset, so the
+        checkpoint holds zero volatile mass. Returns the (possibly flushed)
+        state the run must continue from. Both paths log which was taken —
+        no silently dropped mass either way."""
+        cfg = self.cfg
+        extras = {"next_step": step}
+        has_defer = isinstance(state, dict) and "defer" in state
+        if has_defer and self.defer_step is not None:
+            if cfg.defer_save == "flush":
+                state, fmetrics = self.defer_step.flush(state)
+                if fmetrics is not None:
+                    # A flush empties the pendings mid-cycle; restart the
+                    # cycle counter so the next commit sees a full window.
+                    state = dict(state)
+                    state["defer"] = dict(state["defer"],
+                                          t=torch.zeros((), dtype=torch.int32))
+                self._log({"event": "defer_flush_before_save", "step": step,
+                           "flushed": fmetrics is not None})
+            extras.update(self.defer_step.defer_save_extras(state))
+            self._log({"event": "defer_save", "step": step,
+                       "policy": cfg.defer_save})
+        elif has_defer:
+            # No defer_step: the tree still rides along, but restore cannot
+            # validate it — surface that in the log.
+            self._log({"event": "defer_save", "step": step,
+                       "policy": "checkpoint", "manifest": False})
+        if save_extras:
+            extras.update(save_extras(step))
+        ckpt.save(cfg.ckpt_dir, step, state, extras=extras)
+        self._gc_checkpoints()
+        self._log({"event": "checkpoint", "step": step})
+        return state
+
+    # ---------------------------------------------------------------- run
+
+    def run(self, state: Any, start_step: int, num_steps: int,
+            save_extras: Optional[Callable[[int], dict]] = None) -> Any:
+        cfg = self.cfg
+        self._install_signals()
+        os.makedirs(cfg.ckpt_dir, exist_ok=True)
+        step = start_step
+        skipped = 0
+        last_good = None  # (ckpt step)
+        try:
+            while step < start_step + num_steps:
+                batch = self.batch_fn(step)
+                t0 = time.time()
+                attempt = 0
+                while True:
+                    try:
+                        new_state, metrics = self.step_fn(state, batch)
+                        break
+                    except Exception as e:  # transient failure path
+                        attempt += 1
+                        self._log({"event": "step_error", "step": step,
+                                   "error": repr(e), "attempt": attempt})
+                        if attempt > cfg.max_retries:
+                            raise
+                        time.sleep(cfg.retry_backoff_s * attempt)
+                dt = time.time() - t0
+
+                loss = self._loss_of(metrics)
+                if math.isnan(loss) or math.isinf(loss):
+                    # Poisoned step: discard new_state, skip this batch,
+                    # continue (sound: commutative merges are order-free and
+                    # the data stream is a pure function of the step index).
+                    skipped += 1
+                    self._log({"event": "nan_rollback", "step": step,
+                               "skipped_total": skipped})
+                    if skipped > cfg.max_skipped_batches:
+                        raise RuntimeError("too many poisoned batches")
+                    if cfg.restore_on_nan and last_good is not None:
+                        state, _ = ckpt.restore(cfg.ckpt_dir, state,
+                                                step=last_good)
+                        # The full tree is restored — including any defer
+                        # pendings, so no in-flight mass is zeroed.
+                        self._log({"event": "restore", "step": last_good,
+                                   "includes_defer":
+                                   isinstance(state, dict)
+                                   and "defer" in state})
+                    step += 1  # skip-batch policy
+                    continue
+
+                state = new_state
+                if self._is_straggler(dt):
+                    self._log({"event": "straggler", "step": step,
+                               "dt": dt, "host": 0})
+                self._step_times.append(dt)
+                self._log({"event": "step", "step": step, "loss": loss,
+                           "dt": dt})
+                step += 1
+
+                boundary = (step % cfg.ckpt_every == 0) or self._preempted
+                if boundary:
+                    state = self._save_checkpoint(state, step, save_extras)
+                    last_good = step
+                if self._preempted:
+                    self._log({"event": "preempted_exit", "step": step})
+                    break
+        finally:
+            self._restore_signals()
+        return state, step

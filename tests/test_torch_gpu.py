@@ -661,3 +661,123 @@ def test_cscatter_at_a_graph_apps_shape(cuda, kind, dtype):
     else:
         torch.testing.assert_close(got, want, rtol=TOL[dtype],
                                    atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_backward_on_the_card_matches_its_plain_version(cuda,
+                                                                  dtype):
+    """The train path's embedding backward is one ``cscatter`` call into an
+    f32 ``[V, D]`` gradient: against the plain scatter of the same output
+    gradient, each row to 1e-2 of its RMS (the kernel sums in another
+    order; bf16 rounds the summed row once either way)."""
+    from repro_torch.models.embedding import embed
+    rng = np.random.default_rng(0)
+    v, d = 5000, 96
+    tokens = torch.as_tensor((rng.zipf(1.3, (4, 64)) - 1) % v,
+                             device=cuda)
+    table = torch.as_tensor(rng.standard_normal((v, d)),
+                            dtype=torch.float32).to(cuda, dtype)
+    cot = torch.as_tensor(rng.standard_normal((4, 64, d)),
+                          dtype=torch.float32).to(cuda, dtype)
+    table.requires_grad_(True)
+    before = cs.cscatter.launches
+    (got,) = torch.autograd.grad((embed(table, tokens) * cot).sum(), table)
+    torch.cuda.synchronize()
+    assert cs.cscatter.launches - before == cs.LAUNCHES_PER_CALL
+    want = torch.zeros((v, d), device=cuda)
+    cs.cscatter_plain_(want, tokens.reshape(-1).to(torch.int32),
+                       cot.reshape(-1, d).float())
+    want = want.to(dtype).float()
+    got = got.float()
+    assert got.dtype == torch.float32 and not got[
+        (want == 0).all(1)].any()
+    rms = want.pow(2).mean(1).sqrt()
+    err = (got - want).pow(2).mean(1).sqrt()
+    assert bool((err <= 1e-2 * rms + 1e-6).all())
+
+
+def test_a_deferred_cycle_on_the_card_equals_its_eager_reference(cuda):
+    """The smoke model in f32 on the card over 4 stacked ranks, K = 2: the
+    parameters after the cycle equal one AdamW step on the mean of the two
+    steps' eagerly merged gradients (f32, 1e-5 of each leaf's largest
+    magnitude); the embedding backward launched ``cscatter`` once a rank a
+    step."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.core.defer_schedule import DeferSchedule
+    from repro_torch.core.grad_merge import merge_gradients
+    from repro_torch.core.merge_plan import MergePlan
+    from repro_torch.core.stacked import StackedAxis
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.launch import steps
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw, constant
+    cfg = dataclasses.replace(get_smoke_config("qwen1-5-0-5b"),
+                              dtype="float32")
+    model = build_model(cfg, device=cuda)
+    opt = adamw(constant(1e-3), eps=1e-3)
+    step = steps.make_train_step(
+        model, cfg, opt, merge_topology=MergePlan.parse("chip:2,pod:2:defer"),
+        defer_schedule=DeferSchedule.fixed(2, ("pod",)))
+    params = model.params()
+    state = {"params": params, "opt": opt.init(params),
+             "defer": step.init_defer_state(params)}
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=8)
+    batches = [batch_at(dcfg, t) for t in range(2)]
+    before = cs.cscatter.launches
+    for b in batches:
+        state, _ = step(state, b)
+    torch.cuda.synchronize()
+    assert cs.cscatter.launches - before == 2 * 4 * cs.LAUNCHES_PER_CALL
+    axis = StackedAxis(4, cuda)
+    grads_of = steps.grads_fn(model)
+    acc = None
+    for b in batches:
+        _, stack = steps.rank_grads(grads_of, params,
+                                    steps.to_device(b, cuda), 4)
+        g = {k: v for k, v in merge_gradients(
+            stack, axis, topology=MergePlan.parse("chip:2,pod:2")).items()}
+        g = torch.utils._pytree.tree_map(lambda x: x[0] / 2, g)
+        acc = g if acc is None else torch.utils._pytree.tree_map(
+            torch.add, acc, g)
+    want, _, _ = opt.step(params, acc, opt.init(params))
+    got_l = torch.utils._pytree.tree_leaves(state["params"])
+    for got, w in zip(got_l, torch.utils._pytree.tree_leaves(want)):
+        torch.testing.assert_close(got, w, rtol=1e-5,
+                                   atol=1e-5 * float(w.abs().max()) + 1e-6)
+
+
+def test_logits_backward_in_bf16_stays_near_the_f32_products(cuda):
+    """``_MatmulF32`` (the f32-logits product of a bf16 model on the card)
+    rounds the f32 logits gradient to bf16 before both of its products;
+    the JAX package takes them in f32. At qwen1.5-0.5b's tied logits, one
+    rank's 1024 tokens of d 1024 against the ``[151936, 1024]`` table,
+    with the cross entropy's gradient: each row of the input's and of the
+    table's gradient within 1e-2 of its RMS of the products of the f32
+    gradient with the inputs upcast (f32, no TF32)."""
+    from repro_torch.models.transformer import _matmul_f32
+    n, d, v = 1024, 1024, 151936
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    h = torch.randn((n, d), generator=gen, device=cuda).to(torch.bfloat16)
+    table = (0.02 * torch.randn((v, d), generator=gen, device=cuda)).to(
+        torch.bfloat16)
+    labels = torch.randint(0, v, (n,), generator=gen, device=cuda)
+    h.requires_grad_(True)
+    table.requires_grad_(True)
+    logits = _matmul_f32(h, table.t())
+    assert logits.dtype == torch.float32
+    g = torch.softmax(logits.detach(), -1)
+    g[torch.arange(n, device=cuda), labels] -= 1.0
+    g /= n
+    gh, gt = torch.autograd.grad(logits, (h, table), g)
+    prec = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        want_h = g @ table.detach().float()
+        want_t = g.t() @ h.detach().float()
+    finally:
+        torch.set_float32_matmul_precision(prec)
+    for got, want in ((gh, want_h), (gt, want_t)):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        rms = want.pow(2).mean(1).sqrt()
+        err = (got.float() - want).pow(2).mean(1).sqrt()
+        assert bool((err <= 1e-2 * rms + 1e-30).all())

@@ -38,7 +38,11 @@ def test_the_port_has_files_to_scan():
             "transformer.py", "registry.py", "serve.py", "base.py",
             "qwen1_5_0_5b.py", "internlm2_1_8b.py", "chip_smoke.py",
             "defer_schedule.py", "wire_cost.py", "kv_serve.py", "journal.py",
-            "checkpoint.py", "defer_state.py"} <= names
+            "checkpoint.py", "defer_state.py", "pipeline.py",
+            "optimizers.py", "schedules.py", "driver.py", "grad_merge.py",
+            "steps.py", "train.py", "embedding.py"} <= names
+    dirs = {p.parent.name for p in PORT_FILES}
+    assert {"data", "optim", "runtime", "launch", "checkpoint"} <= dirs
     for kernel in ("cscatter.cu", "cmerge.cu", "flash_attention.cu",
                    "decode_attention.cu"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / kernel).is_file()
