@@ -10,8 +10,9 @@ columns, B = 1024 updates per shard per tick, K = 8 over
 ``serving_plan(8, "all")``; the blocked engine with W = 8 ways of BR = 8
 rows), its solved and adaptive commit schedules, its write-ahead journal,
 snapshots and crash recovery, LM serving (prefill + greedy decode) of
-qwen1.5-0.5b, the paper's BFS, PageRank and k-means, and training of
-qwen1.5-0.5b with gradient accumulation as a CCache merge — and:
+qwen1.5-0.5b, the paper's BFS, PageRank and k-means, training of
+qwen1.5-0.5b with gradient accumulation as a CCache merge, and its
+elastic resume after a kill onto another rank count — and:
 
 1. prints the card (``nvidia-smi`` name and power limit, torch's name);
 2. builds every CUDA kernel of the paths from ``src/repro_torch/csrc``, all
@@ -99,9 +100,26 @@ qwen1.5-0.5b with gradient accumulation as a CCache merge — and:
    and the device's idle share; ``cscatter`` is also checked and timed at
    the embedding backward's shape ([151936, 1024], N = 1024, bf16 and
    f32) beside ``index_add_``;
-12. prints every kernel's registers and spills (``ptxas -v``),
+12. runs the chaos harness and elastic restore on the card: the integer
+   toy's preempt and kill sweeps over every boundary of 6 steps (``[8,
+   2^20]`` int32 pendings, without and with overlap) bitwise against the
+   uninterrupted run, and resolves of overlapped toy checkpoints at t = 4
+   and 5 onto another plan bitwise against a verbatim restore flushed;
+   then kills the deferred qwen1.5-0.5b run of 11 (full width and depth,
+   K = 4 over 8 ranks) by SIGKILL in a child process (this script with
+   ``--train-crash-child``) after its checkpoint of step 6 (about 20 GB),
+   resumes it through ``TrainDriver.resume`` verbatim (every leaf bit for
+   bit, then flushed: the oracle) and onto 4 ranks with K = 2 (the two
+   outstanding steps settled into the parameters and AdamW): the settled
+   gradient against an f32 sum of the raw pendings, params, mu and nu
+   against the oracle, a control with the pendings dropped that must fail
+   the mu bound, and two more steps at ``rescale_hyperparams``' lr with
+   the predicted ``cscatter`` launches; prints the checkpoint's bytes, the
+   save's ms, each resume's ms and peak device memory by part, and the
+   free disk before the save;
+13. prints every kernel's registers and spills (``ptxas -v``),
    one ``{"kernels": [...]}`` line and the card's name and power limit;
-13. ends with ``{"ok": true, "device": {...}}``.
+14. ends with ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds. Nothing is caught: any failure exits
 non-zero before the last line. Without a card, or without the repository
@@ -191,6 +209,19 @@ TRAIN_PLAN = "chip:2,host:2,pod:2"
 TRAIN_DEFER_PLAN = "chip:2,host:2:defer,pod:2:defer"
 TRAIN_K, TRAIN_LR, TRAIN_WARMUP = 4, 3e-4, 2
 TRAIN_V, TRAIN_D = 151936, 1024     # the embedding table, [vocab, d_model]
+# Elastic restore. (a) the chaos harness's integer toy on the card: a
+# [8, 2^20] int32 pending a level over TRAIN_DEFER_PLAN with intervals
+# (1, 2), swept over every boundary of 6 steps, and resolved onto
+# ELASTIC_PLAN with K = 3. (b) the deferred qwen1.5-0.5b run of phase_train
+# (K = TRAIN_K over TRAIN_DP ranks, a RESUME_STEPS-step schedule) killed by
+# SIGKILL during step RESUME_KILL_AT after its checkpoint at RESUME_CKPT,
+# then resumed on the same topology and on RESUME_PLAN (a pod left: 4
+# ranks) with K = RESUME_K
+TOY_WIDTH, TOY_STEPS, TOY_INTERVALS = 1 << 20, 6, (1, 2)
+ELASTIC_PLAN, ELASTIC_K = "chip:4,pod:2:defer", 3
+RESUME_STEPS, RESUME_CKPT, RESUME_KILL_AT = 12, 6, 7
+RESUME_PLAN, RESUME_K, RESUME_RANKS = "chip:2,host:2:defer", 2, 4
+KILL_DELAY_S = 1.0                  # into step RESUME_KILL_AT (~3 s a step)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -2413,6 +2444,432 @@ def phase_train(card: str) -> dict:
     return out
 
 
+def _elastic_toy() -> dict:
+    """(a) The chaos harness on the card: preempt and kill sweeps over every
+    boundary of TOY_STEPS steps, without and with overlap, each outcome
+    bitwise against the uninterrupted run (params, the fold count and the
+    defer tree); then overlapped checkpoints at t = 4 (a launched cycle not
+    landed) and t = 5 (mid-cycle) resolved onto ELASTIC_PLAN with K =
+    ELASTIC_K, bitwise against the same checkpoint restored verbatim on the
+    old plan and flushed."""
+    import torch
+    from repro_torch.runtime import DriverConfig, TrainDriver, chaos
+    out = {"sweeps": {}, "resolves": {}}
+    work = tempfile.mkdtemp(prefix="chip_smoke_chaos_")
+    try:
+        for overlap in (False, True):
+            fac = chaos.toy_factory(TRAIN_DEFER_PLAN, TOY_INTERVALS, TRAIN_DP,
+                                    width=TOY_WIDTH, overlap=overlap,
+                                    device="cuda")
+            for mode in ("preempt", "kill"):
+                name = f"{mode}{'_overlap' if overlap else ''}"
+                root = os.path.join(work, name)
+                t0 = time.perf_counter()
+                _, outcomes = chaos.chaos_sweep(fac, TOY_STEPS, root,
+                                                mode=mode)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+                shutil.rmtree(root)
+                actions = {}
+                for o in outcomes:
+                    key = str(o.resume_action)
+                    actions[key] = actions.get(key, 0) + 1
+                bitwise = sum(o.state_bitwise for o in outcomes)
+                out["sweeps"][name] = {"outcomes": len(outcomes),
+                                       "bitwise": bitwise,
+                                       "resume_actions": actions, "ms": ms}
+                print(f"elastic toy {name} sweep over {TOY_STEPS} boundaries "
+                      f"([{TRAIN_DP}, {TOY_WIDTH}] int32 pendings on the "
+                      f"card): {bitwise}/{len(outcomes)} bitwise, resumes "
+                      f"{actions}, {ms:.3f} ms")
+                require(bitwise == len(outcomes) == TOY_STEPS,
+                        f"elastic toy {name}: {bitwise} of {len(outcomes)} "
+                        f"recoveries bitwise")
+        for t in (4, 5):
+            root = os.path.join(work, f"resolve_{t}")
+            old = chaos.toy_factory(TRAIN_DEFER_PLAN, TOY_INTERVALS, TRAIN_DP,
+                                    width=TOY_WIDTH, overlap=True,
+                                    device="cuda")
+            step, bf, st0 = old()
+            TrainDriver(DriverConfig(ckpt_dir=root, ckpt_every=t), step, bf,
+                        defer_step=step).run(st0, 0, t)
+            step, bf, like = old()
+            oracle, _, rep = TrainDriver(DriverConfig(ckpt_dir=root), step,
+                                         bf, defer_step=step).resume(like)
+            require(rep.action == "verbatim", f"elastic toy t={t}: {rep}")
+            oracle, _ = step.flush(oracle)
+            step, bf, like = chaos.toy_factory(
+                ELASTIC_PLAN, (ELASTIC_K,), TRAIN_DP, width=TOY_WIDTH,
+                device="cuda")()
+            t0 = time.perf_counter()
+            state, start, rep = TrainDriver(DriverConfig(ckpt_dir=root), step,
+                                            bf, defer_step=step).resume(like)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            shutil.rmtree(root)
+            equal = (torch.equal(state["params"]["w"], oracle["params"]["w"])
+                     and int(state["opt"]["count"])
+                     == int(oracle["opt"]["count"]))
+            fresh = int(state["defer"]["t"]) == 0 and not any(
+                bool(p["w"].any()) for p in state["defer"]["pending"])
+            out["resolves"][t] = {"report": rep.as_dict(), "ms": ms,
+                                  "seconds": rep.seconds, "equal": equal}
+            print(f"elastic toy resolve of the overlapped t={t} checkpoint "
+                  f"onto {ELASTIC_PLAN} K={ELASTIC_K}: landed_inflight "
+                  f"{rep.landed_inflight}, flushed_steps {rep.flushed_steps}, "
+                  f"params and count == the verbatim restore flushed: "
+                  f"{equal}; {ms:.3f} ms")
+            require(rep.action == "resolved" and start == t
+                    and rep.landed_inflight == (t == 4)
+                    and rep.flushed_steps == t % TOY_INTERVALS[-1]
+                    and (rep.k_old, rep.k_new) == (TOY_INTERVALS[-1],
+                                                   ELASTIC_K),
+                    f"elastic toy resolve t={t}: {rep}")
+            require(equal and fresh, f"elastic toy resolve t={t}: params "
+                                     f"equal {equal}, fresh defer {fresh}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def train_crash_child(root: str) -> None:
+    """The killed run of :func:`phase_elastic`, in its own process: the
+    deferred qwen1.5-0.5b trainer of ``phase_train`` under ``TrainDriver``
+    with ``defer_save="checkpoint"``, a checkpoint every RESUME_CKPT steps
+    under ``root`` and its log beside it; ``batch_fn(RESUME_KILL_AT)``
+    starts a timer that SIGKILLs the process during that step."""
+    import threading
+    import torch
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.launch import train
+    from repro_torch.runtime import DriverConfig, TrainDriver
+
+    t = train.build(train.parse_args(_train_argv("deferred", RESUME_STEPS,
+                                                 root)))
+    state, t.state = t.state, None
+    torch.cuda.reset_peak_memory_stats()
+
+    def batch_fn(i):
+        if i == RESUME_KILL_AT:
+            threading.Timer(KILL_DELAY_S, os.kill,
+                            (os.getpid(), signal.SIGKILL)).start()
+        return batch_at(t.dcfg, i)
+
+    def step_fn(s, b):
+        t0 = time.perf_counter()
+        s, m = t.step_fn(s, b)
+        torch.cuda.synchronize()
+        print(f"step {int(s['defer']['t']) - 1}: loss {float(m['loss']):.6f}"
+              f" {1e3 * (time.perf_counter() - t0):.3f} ms, peak "
+              f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
+        return s, m
+
+    drv = TrainDriver(DriverConfig(ckpt_dir=root, ckpt_every=RESUME_CKPT,
+                                   log_path=root + ".log.jsonl",
+                                   defer_save="checkpoint"),
+                      step_fn, batch_fn, defer_step=t.deferred)
+    drv.run(state, 0, RESUME_STEPS)
+    raise SystemExit("train crash child: the kill did not fire")
+
+
+def _part_peaks(drv) -> dict:
+    """Wrap ``drv``'s log: at each ``elastic_part`` record (a part of a
+    restore has ended), the device's peak allocated bytes since the last
+    one is the part's; then the peak is reset. Reset it before the
+    restore."""
+    import torch
+    peaks, log = {}, drv._log
+
+    def logged(rec):
+        log(rec)
+        if rec.get("event") == "elastic_part":
+            part = rec["part"]
+            peaks[part] = max(peaks.get(part, 0),
+                              torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+    drv._log = logged
+    return peaks
+
+
+def _resume(trainer, root: str) -> tuple:
+    """``TrainDriver.resume`` of ``trainer``'s state from ``root`` -> (state,
+    start, report, ms of the whole resume, peak bytes by part)."""
+    import torch
+    from repro_torch.runtime import DriverConfig, TrainDriver
+    drv = TrainDriver(DriverConfig(ckpt_dir=root), trainer.step_fn, None,
+                      defer_step=trainer.deferred)
+    peaks = _part_peaks(drv)
+    like, trainer.state = trainer.state, None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, start, report = drv.resume(like)
+    torch.cuda.synchronize()
+    return state, start, report, 1e3 * (time.perf_counter() - t0), peaks
+
+
+def _row_rms_err(got, want) -> float:
+    """The worst row's error RMS over the row's RMS (a 1-D leaf is one
+    row)."""
+    g = got.float().reshape(got.shape[0] if got.dim() > 1 else 1, -1)
+    w = want.float().reshape(g.shape)
+    rms = w.pow(2).mean(1).sqrt()
+    err = (g - w).pow(2).mean(1).sqrt()
+    return float((err / rms.clamp(min=1e-30)).max())
+
+
+def _settled_check(raw: dict, saved: dict, m: int) -> dict:
+    """The settled gradient of each parameter leaf as the resolved restore
+    folds it (``elastic.settle_pending_leaves`` on the card, scaled by
+    1/(dp_old m) in the leaf's dtype) against the same sum in f32: the
+    stride representatives of every level over the ranks, times 1/(dp_old
+    m). Every row to 1e-2 of its RMS."""
+    import torch
+    from repro_torch.core.merge_functions import ADD
+    from repro_torch.runtime.elastic import settle_pending_leaves
+    strides, scale = saved["strides"], 1.0 / (saved["dp"] * m)
+    rests = [k[len("params/"):] for k in raw if k.startswith("params/")]
+    worst, worst_abs = 0.0, 0.0
+    for r in rests:
+        levels = [raw[f"defer/pending/{i}/{r}"] for i in range(len(strides))]
+        got = settle_pending_leaves([[x] for x in levels], strides, ADD,
+                                    device="cuda")[0]
+        got = got * torch.tensor(scale, dtype=got.dtype)
+        want = sum(torch.as_tensor(x).to("cuda")[::s].float().sum(0)
+                   for x, s in zip(levels, strides)) * scale
+        worst = max(worst, _row_rms_err(got, want))
+        worst_abs = max(worst_abs, float((got.float() - want).abs().max()))
+        del got, want
+    return {"worst_row_rel_rms_err": worst, "max_abs_err": worst_abs,
+            "row_tol": 1e-2, "ok": worst <= 1e-2, "leaves": len(rests)}
+
+
+def _elastic_lm(card: str, work: str) -> dict:
+    """(b) qwen1.5-0.5b at full width and depth, killed and resumed twice.
+    See :func:`phase_elastic`."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.kernels.cscatter import LAUNCHES_PER_CALL, cscatter
+    from repro_torch.launch import steps, train
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.runtime import rescale_hyperparams
+
+    out = {}
+    root = os.path.join(work, "ckpt")
+    p = get_config(ARCH).n_params()
+    need = p * (2 + 8 + 2 * TRAIN_DP * 2)      # bf16 params, f32 mu and nu,
+    free = shutil.disk_usage(work).free          # two [dp, ...] bf16 levels
+    out["disk_free_before_save"] = free
+    print(f"elastic: {free} bytes free in the checkpoint directory before "
+          f"the save; the checkpoint needs about {need}")
+    require(free >= 1.05 * need, f"elastic: {free} bytes free, the "
+                                 f"checkpoint needs about {need}")
+    # 1. the child, killed during step RESUME_KILL_AT
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                            "--train-crash-child", root], capture_output=True,
+                           text=True, timeout=900)
+    out["child_s"] = time.perf_counter() - t0
+    print("\n".join(f"elastic child: {ln}" for ln in
+                    child.stdout.splitlines() if ln.startswith("step ")))
+    require(child.returncode == -signal.SIGKILL,
+            f"elastic child: return code {child.returncode}, want "
+            f"{-signal.SIGKILL}: {child.stderr[-3000:]}")
+    require(ckpt.latest_step(root) == RESUME_CKPT,
+            f"elastic child: latest committed step "
+            f"{ckpt.latest_step(root)}, want {RESUME_CKPT}")
+    path = os.path.join(root, f"step_{RESUME_CKPT:08d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        extras = json.load(f)["extras"]
+    saved = extras.get("defer")
+    require(saved is not None and saved["dp"] == TRAIN_DP
+            and saved["period"] == TRAIN_K and extras["defer_t"] == RESUME_CKPT
+            and extras["next_step"] == RESUME_CKPT,
+            f"elastic child: the checkpoint's extras {extras}")
+    nbytes = sum(os.path.getsize(os.path.join(path, f))
+                 for f in os.listdir(path))
+    with open(root + ".log.jsonl") as f:
+        log = [json.loads(ln) for ln in f]
+    at = {e["event"]: e["t"] for e in log if e.get("step") == RESUME_CKPT
+          and e["event"] in ("defer_save", "checkpoint")}
+    save_ms = 1e3 * (at["checkpoint"] - at["defer_save"])
+    out.update(checkpoint_bytes=nbytes, save_ms=save_ms,
+               child_return_code=child.returncode)
+    print(f"elastic: child killed (return code {child.returncode}) during "
+          f"step {RESUME_KILL_AT} after {out['child_s']:.6f} s; checkpoint "
+          f"of step {RESUME_CKPT}: {nbytes} bytes, saved in {save_ms:.6f} ms "
+          f"(the child's log); manifest dp {saved['dp']} period "
+          f"{saved['period']} strides {saved['strides']}")
+
+    t0 = time.perf_counter()
+    raw, _ = ckpt.load_raw(root)
+    out["load_raw_ms"] = 1e3 * (time.perf_counter() - t0)
+    cscatter.launches = 0
+    # 2. verbatim, under the same flags
+    t = train.build(train.parse_args(_train_argv("deferred", RESUME_STEPS,
+                                                 root)))
+    state, start, report, ms, peaks = _resume(t, root)
+    differ = [k for k, v in _flatten_with_paths(state)
+              if not torch.equal(v, torch.as_tensor(raw[k]).to(v.device))]
+    n_leaves = len(_flatten_with_paths(state))
+    require(report.action == "verbatim" and start == RESUME_CKPT
+            and int(state["defer"]["t"]) == RESUME_CKPT,
+            f"elastic verbatim: {report.as_dict()}, start {start}")
+    require(n_leaves == len(raw) and not differ,
+            f"elastic verbatim: {n_leaves} leaves against {len(raw)} stored, "
+            f"{len(differ)} differ from load_raw's: {differ[:5]}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, fm = t.deferred.flush(state)
+    torch.cuda.synchronize()
+    flush_ms = 1e3 * (time.perf_counter() - t0)
+    require(fm is not None and fm.get("flushed_steps") == RESUME_CKPT % TRAIN_K,
+            f"elastic verbatim: flush {fm}")
+    out["verbatim"] = {"report": report.as_dict(), "seconds": report.seconds,
+                       "ms": ms, "peak_bytes": peaks, "flush_ms": flush_ms,
+                       "flush_peak_bytes": torch.cuda.max_memory_allocated()}
+    print(f"elastic verbatim resume: start {start}, defer t {RESUME_CKPT}, "
+          f"{n_leaves} leaves == load_raw's bit for bit; {ms:.6f} ms (seconds "
+          f"by part {report.seconds}; peak bytes by part {peaks}); flush of "
+          f"{fm['flushed_steps']} steps {flush_ms:.6f} ms")
+    oracle = {"params": state["params"], "opt": state["opt"]}
+    lr = warmup_cosine(TRAIN_LR, TRAIN_WARMUP, RESUME_STEPS)
+    del state, t
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. resolved: a pod left (4 ranks) and K was re-solved
+    argv = _train_argv("deferred", RESUME_STEPS, root)
+    argv[argv.index("--merge-topology") + 1] = RESUME_PLAN
+    argv[argv.index("--merge-defer") + 1] = str(RESUME_K)
+    t = train.build(train.parse_args(argv))
+    require(t.dp == RESUME_RANKS, f"elastic resolved: {t.dp} ranks")
+    state, start, report, ms, peaks = _resume(t, root)
+    pend = pytree.tree_leaves(state["defer"]["pending"])
+    fresh = (int(state["defer"]["t"]) == 0 and len(state["defer"]["pending"])
+             == 1 and all(x.shape[0] == RESUME_RANKS and not bool(x.any())
+                          for x in pend))
+    count = [int(state["opt"].step), int(oracle["opt"].step)]
+    out["resolved"] = {"report": report.as_dict(), "seconds": report.seconds,
+                       "ms": ms, "peak_bytes": peaks, "fresh_defer": fresh,
+                       "adamw_count": count}
+    print(f"elastic resolved resume onto {RESUME_PLAN} ({RESUME_RANKS} "
+          f"ranks, K={RESUME_K}): {report.as_dict()}, start {start}; fresh "
+          f"defer state {fresh}; AdamW count {count[0]} (oracle {count[1]}); "
+          f"{ms:.6f} ms (seconds by part {report.seconds}; peak bytes by "
+          f"part {peaks})")
+    require(report.action == "resolved" and start == RESUME_CKPT
+            and report.flushed_steps == RESUME_CKPT % TRAIN_K
+            and not report.landed_inflight
+            and (report.k_old, report.k_new) == (TRAIN_K, RESUME_K),
+            f"elastic resolved: {report.as_dict()}")
+    require(fresh and count[0] == count[1],
+            f"elastic resolved: fresh defer {fresh}, AdamW count {count}")
+
+    # 4. the mass
+    settled = _settled_check(raw, extras["defer"], RESUME_CKPT % TRAIN_K)
+    del raw
+    gc.collect()
+    params = _param_errs(state["params"], oracle["params"], float(lr(count[1])))
+    mu = _mu_err(state["opt"].mu, oracle["opt"].mu)
+    nu = _mu_err(state["opt"].nu, oracle["opt"].nu)
+    base, _ = ckpt.restore_resharded(
+        root, {"params": state["params"], "opt": state["opt"]}, "cuda")
+    control = {"mu": _mu_err(base["opt"].mu, oracle["opt"].mu),
+               "nu": _mu_err(base["opt"].nu, oracle["opt"].nu),
+               "params": _param_errs(base["params"], oracle["params"],
+                                     float(lr(count[1])))}
+    del base
+    out["mass"] = {"settled": settled, "params": params, "mu": mu, "nu": nu,
+                   "control_pendings_dropped": control}
+    print(f"elastic mass: settled gradient ({settled['leaves']} leaves) vs "
+          f"the f32 sum of the raw pendings' representatives: worst row "
+          f"error RMS {settled['worst_row_rel_rms_err']:.3e} of the row's "
+          f"RMS (tol 1e-2), max |err| {settled['max_abs_err']:.3e}; params "
+          f"vs the verbatim restore flushed: max |err| "
+          f"{params['max_abs_err']} (bound {params['bound']}, "
+          f"{params['beyond_one_ulp_share']:.2e} beyond one bf16 ulp); mu "
+          f"max err {mu['max_rel_err']:.3e}, nu {nu['max_rel_err']:.3e} of "
+          f"each leaf's largest (bound {mu['bound']})")
+    print(f"elastic control (the pendings dropped: params and AdamW restored "
+          f"alone): mu max err {control['mu']['max_rel_err']:.3e}, nu "
+          f"{control['nu']['max_rel_err']:.3e} of each leaf's largest (bound "
+          f"{mu['bound']}, must fail), params max |err| "
+          f"{control['params']['max_abs_err']}")
+    require(settled["ok"], f"elastic: the settled gradient strays: {settled}")
+    require(params["ok"] and mu["ok"] and nu["ok"],
+            f"elastic: the resolved state is not the flushed one: {params}, "
+            f"mu {mu}, nu {nu}")
+    require(not control["mu"]["ok"],
+            f"elastic: the check cannot see dropped pendings: {control}")
+    del oracle
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. it trains on, at the rescaled hyperparameters
+    h = rescale_hyperparams(TRAIN_K, RESUME_K, lr=TRAIN_LR)
+    opt = adamw(warmup_cosine(h["lr"], TRAIN_WARMUP, RESUME_STEPS),
+                b1=h["b1"], b2=h["b2"])
+    step_fn = steps.make_train_step(
+        t.model, t.cfg, opt, t.microbatches, dp=t.dp, merge_topology=t.topology,
+        defer_schedule=t.schedule)
+    losses = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(RESUME_CKPT, RESUME_CKPT + 2):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch_at(t.dcfg, i))
+        torch.cuda.synchronize()
+        losses.append((float(m["loss"]), 1e3 * (time.perf_counter() - t0)))
+    launches = cscatter.launches
+    want = LAUNCHES_PER_CALL * RESUME_RANKS * t.microbatches * 2
+    out["train_on"] = {"hyperparams": h, "losses_ms": losses,
+                       "peak_bytes": torch.cuda.max_memory_allocated()}
+    out["launches"] = launches
+    print(f"elastic: 2 steps on {RESUME_RANKS} ranks at lr {h['lr']} b1 "
+          f"{h['b1']:.6f} b2 {h['b2']:.6f} (rescale_hyperparams({TRAIN_K}, "
+          f"{RESUME_K})): loss, ms {losses}; cscatter launches {launches} "
+          f"(predicted {want})")
+    require(all(np.isfinite(x) for x, _ in losses),
+            f"elastic: losses {losses}")
+    require(launches == want, f"elastic: cscatter launched {launches} times, "
+                              f"the path predicts {want}")
+    del state, t, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_elastic(card: str) -> dict:
+    """Elastic restore and the chaos harness on the card: (a) the integer
+    toy's sweeps and resolves (:func:`_elastic_toy`); (b) the deferred
+    qwen1.5-0.5b run of ``phase_train`` at full width and depth killed by a
+    real SIGKILL in a child process (:func:`train_crash_child`) after its
+    checkpoint of step RESUME_CKPT, then resumed through
+    ``TrainDriver.resume`` on the same topology (verbatim: every leaf bit
+    for bit, then flushed: the oracle) and on RESUME_PLAN with K =
+    RESUME_K (resolved: the outstanding two steps settled into the params
+    and AdamW, fresh defer state). Checks: the settled gradient against an
+    f32 sum of the raw pendings, the params, mu and nu against the oracle,
+    a control with the pendings dropped that must fail the mu bound, two
+    more steps at ``rescale_hyperparams``' lr with finite losses and the
+    predicted ``cscatter`` launches."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"toy": _elastic_toy()}
+    work = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        out["lm"] = _elastic_lm(card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["launches"] = out["lm"]["launches"]
+    return out
+
+
 def main_stream() -> tuple[np.ndarray, np.ndarray]:
     """The main path's stream from the seed: ``TICKS * S * B`` Pareto keys
     (flat) and their values ``[TICKS, S, B, D]``."""
@@ -2435,6 +2892,9 @@ def main() -> None:
     if sys.argv[1:2] == ["--crash-child"]:      # phase_durability's child
         sys.path.insert(0, str(ROOT / "src"))
         crash_child(sys.argv[2])
+    if sys.argv[1:2] == ["--train-crash-child"]:    # phase_elastic's child
+        sys.path.insert(0, str(ROOT / "src"))
+        train_crash_child(sys.argv[2])
     kind, smi = phase_card()
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -2456,6 +2916,7 @@ def main() -> None:
     serve = timed("serve", phase_serve, smi)
     apps = timed("apps", phase_apps, smi)
     trained = timed("train", phase_train, smi)
+    elastic = timed("elastic", phase_elastic, smi)
 
     tick_add = next(t for t in times if t["kind"] == "add" and t["n"] == B
                     and "what" not in t)
@@ -2484,6 +2945,7 @@ def main() -> None:
         "launches_schedules": schedules["launches"],
         "launches_durability": durability["launches"],
         "launches_train": trained["launches"],
+        "launches_elastic": elastic["launches"],
         "train_embedding_backward": train_add,
         "variants": times, "apps": apps["kernel_rows"]}, {
         "name": "cmerge", "route": "cuda",
@@ -2525,7 +2987,7 @@ def main() -> None:
         for row in attn_times[key][:1]], "serve": serve,
         "apps": {k: v for k, v in apps.items() if k != "kernel_rows"},
         "schedules": schedules, "durability": durability,
-        "train": trained}))
+        "train": trained, "elastic": elastic}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -174,6 +174,51 @@ def _rebuild(like: PyTree, load, prefix: tuple = ()) -> PyTree:
     return load(SEP.join(prefix), like)
 
 
+def _targets(like: PyTree, device) -> dict:
+    """Each leaf key of ``like`` -> its target device: ``device`` is one
+    device (or its name) for every leaf, or a tree of them shaped like
+    ``like``."""
+    if isinstance(device, (str, torch.device)):
+        return {k: torch.device(device) for k in tree_keys(like)}
+    by_key = dict(_flatten_with_paths(device))
+    missing = [k for k in tree_keys(like) if k not in by_key]
+    if missing:
+        raise ValueError(f"no target device for leaves {missing[:5]}...")
+    return {k: torch.device(by_key[k]) for k in tree_keys(like)}
+
+
+def _place(like: PyTree, get, have, device=None) -> PyTree:
+    """``like``'s structure with each leaf ``get(key)`` (an array in its
+    true dtype). Without ``device`` a leaf whose ``like`` is a tensor comes
+    back as a tensor on that tensor's device, any other as it was loaded;
+    with ``device`` every leaf comes back as a tensor on its target. Raises
+    ``KeyError`` if ``have`` lacks a leaf of ``like``."""
+    missing = [k for k in tree_keys(like) if k not in have]
+    if missing:
+        raise KeyError(f"checkpoint missing keys: {missing[:5]}...")
+    if device is None:
+        def load(key, leaf):
+            if isinstance(leaf, torch.Tensor):
+                return torch.as_tensor(get(key)).to(leaf.device)
+            return get(key)
+    else:
+        targets = _targets(like, device)
+
+        def load(key, leaf):
+            return torch.as_tensor(get(key)).to(targets[key])
+    return _rebuild(like, load)
+
+
+def _restore(ckpt_dir: str, like: PyTree, step: Optional[int], device
+             ) -> tuple[PyTree, dict]:
+    path, manifest = _manifest_path(ckpt_dir, step)
+    dtypes = {e["key"]: e["dtype"] for e in manifest["keys"]}
+    with np.load(os.path.join(path, "arrays.npz")) as data:
+        tree = _place(like, lambda k: _true_dtype(data[k], dtypes.get(k)),
+                      set(data.files), device)
+    return tree, manifest["extras"]
+
+
 def restore(ckpt_dir: str, like: PyTree, step: Optional[int] = None
             ) -> tuple[PyTree, dict]:
     """Restore into the structure of ``like``; returns (tree, extras).
@@ -183,16 +228,25 @@ def restore(ckpt_dir: str, like: PyTree, step: Optional[int] = None
     numpy (bf16 and float8 always as tensors). Raises ``KeyError`` if the
     checkpoint lacks a leaf of ``like``.
     """
-    path, manifest = _manifest_path(ckpt_dir, step)
-    dtypes = {e["key"]: e["dtype"] for e in manifest["keys"]}
-    with np.load(os.path.join(path, "arrays.npz")) as data:
-        missing = [k for k in tree_keys(like) if k not in data.files]
-        if missing:
-            raise KeyError(f"checkpoint missing keys: {missing[:5]}...")
+    return _restore(ckpt_dir, like, step, None)
 
-        def load(key, leaf):
-            arr = _true_dtype(data[key], dtypes.get(key))
-            if isinstance(leaf, torch.Tensor):
-                return torch.as_tensor(arr).to(leaf.device)
-            return arr
-        return _rebuild(like, load), manifest["extras"]
+
+def restore_resharded(ckpt_dir: str, like: PyTree, device,
+                      step: Optional[int] = None) -> tuple[PyTree, dict]:
+    """Restore with each leaf placed on a target device: ``device`` is one
+    ``torch.device`` (or its name) or a tree of them shaped like ``like``.
+
+    The counterpart of the JAX package's ``restore_resharded``, which places
+    each leaf with a target sharding on any mesh: on one card the target is
+    a device, so a checkpoint that a CPU run wrote restores onto the card.
+    Every leaf comes back as a tensor in the dtype it was saved with.
+    """
+    return _restore(ckpt_dir, like, step, device)
+
+
+def from_raw(leaves: dict, like: PyTree, device=None) -> PyTree:
+    """Leaves that :func:`load_raw` returned, in the structure of ``like``
+    and placed as :func:`restore` (``device=None``) or
+    :func:`restore_resharded` places them: a restore from arrays already
+    read, without reading the file again."""
+    return _place(like, leaves.__getitem__, leaves, device)

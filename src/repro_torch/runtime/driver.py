@@ -14,10 +14,9 @@ function with the operational machinery a long run needs:
   card) so a scheduler can reassign — any host can recompute any shard
   (data/pipeline.py)
 * retry-with-backoff around transient step failures
-
-``TrainDriver.resume`` (elastic restore onto another topology, through
-``runtime/elastic``) is not ported yet; a run resumes through
-``checkpoint.restore``, as ``launch/train.py`` does.
+* elastic resume (``TrainDriver.resume``, through ``runtime/elastic``): the
+  pending cascade verbatim on the same plan and schedule, settled into the
+  parameters and the optimizer on another one
 """
 
 from __future__ import annotations
@@ -34,6 +33,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch import checkpoint as ckpt
+from repro_torch.runtime import elastic
 
 
 @dataclasses.dataclass
@@ -80,7 +80,7 @@ class TrainDriver:
         # defer_step: the DeferredTrainStep (or any object with its
         # durability surface — durability_manifest / defer_save_extras /
         # flush / init_defer_state) whose state["defer"] this driver must
-        # keep durable. optimizer: for an elastic resume path to fold
+        # keep durable. optimizer: used by the elastic resume path to fold
         # outstanding mass; defaults to defer_step.optimizer.
         self.defer_step = defer_step
         self.optimizer = optimizer or getattr(defer_step, "optimizer", None)
@@ -174,6 +174,29 @@ class TrainDriver:
         self._gc_checkpoints()
         self._log({"event": "checkpoint", "step": step})
         return state
+
+    def resume(self, state_like: Any, device=None):
+        """Resume from the latest committed checkpoint, elastically.
+
+        Returns ``(state, start_step, report)``; ``(state_like, 0, None)``
+        when no checkpoint exists. Restore goes through
+        :func:`repro_torch.runtime.elastic.elastic_restore`: matching
+        plan/schedule fingerprints restore the pending cascade verbatim
+        (onto ``device`` if given: one device or a tree of them shaped like
+        ``state_like``); a changed topology settles the outstanding mass
+        into params/opt and re-initializes fresh defer state for the new
+        one."""
+        if ckpt.latest_step(self.cfg.ckpt_dir) is None:
+            return state_like, 0, None
+        state, extras, report = elastic.elastic_restore(
+            self.cfg.ckpt_dir, state_like, defer_step=self.defer_step,
+            optimizer=self.optimizer, device=device, log=self._log)
+        start = int(extras.get("next_step", report.step or 0))
+        self._log({"event": "resume", "action": report.action,
+                   "start_step": start,
+                   "includes_defer": isinstance(state, dict)
+                   and "defer" in state})
+        return state, start, report
 
     # ---------------------------------------------------------------- run
 

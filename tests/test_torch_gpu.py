@@ -781,3 +781,44 @@ def test_logits_backward_in_bf16_stays_near_the_f32_products(cuda):
         rms = want.pow(2).mean(1).sqrt()
         err = (got.float() - want).pow(2).mean(1).sqrt()
         assert bool((err <= 1e-2 * rms + 1e-30).all())
+
+
+@pytest.mark.parametrize("mode,overlap", [("preempt", False), ("kill", False),
+                                          ("kill", True)])
+def test_toy_chaos_sweeps_on_the_card_are_bitwise(cuda, tmp_path, mode,
+                                                  overlap):
+    from repro_torch.runtime import chaos
+    fac = chaos.toy_factory("chip:2,host:2:defer,pod:2:defer", (1, 2), 8,
+                            width=4096, overlap=overlap, device=cuda)
+    baseline, outcomes = chaos.chaos_sweep(fac, 6, str(tmp_path), mode=mode)
+    assert baseline["params"]["w"].device.type == "cuda"
+    assert baseline["params"]["w"].any()
+    assert [o.state_bitwise for o in outcomes] == [True] * 6
+
+
+@pytest.mark.parametrize("t", [4, 5])
+def test_toy_elastic_resolve_on_the_card_equals_the_cpu(cuda, tmp_path, t):
+    """An overlapped checkpoint written on the CPU, resolved onto another
+    plan on the CPU and on the card: the same params, count and report."""
+    from repro_torch.runtime import DriverConfig, TrainDriver, chaos
+    step, bf, st0 = chaos.toy_factory("chip:2,host:2:defer,pod:2:defer",
+                                      (1, 2), 8, width=4096, overlap=True,
+                                      device="cpu")()
+    d = str(tmp_path)
+    TrainDriver(DriverConfig(ckpt_dir=d, ckpt_every=t), step, bf,
+                defer_step=step).run(st0, 0, t)
+    out = {}
+    for device in ("cpu", cuda):
+        step, bf, like = chaos.toy_factory("chip:4,pod:2:defer", (3,), 8,
+                                           width=4096, device=device)()
+        state, start, report = TrainDriver(
+            DriverConfig(ckpt_dir=d), step, bf,
+            defer_step=step).resume(like)
+        assert state["params"]["w"].device.type == torch.device(device).type
+        out[str(device)] = (state, report.as_dict())
+    (cpu, rep_cpu), (card, rep_card) = out["cpu"], out[str(cuda)]
+    assert rep_card == rep_cpu and rep_card["action"] == "resolved"
+    assert rep_card["landed_inflight"] == (t == 4)
+    assert torch.equal(card["params"]["w"].cpu(), cpu["params"]["w"])
+    assert int(card["opt"]["count"]) == int(cpu["opt"]["count"])
+

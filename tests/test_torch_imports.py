@@ -40,7 +40,8 @@ def test_the_port_has_files_to_scan():
             "defer_schedule.py", "wire_cost.py", "kv_serve.py", "journal.py",
             "checkpoint.py", "defer_state.py", "pipeline.py",
             "optimizers.py", "schedules.py", "driver.py", "grad_merge.py",
-            "steps.py", "train.py", "embedding.py"} <= names
+            "steps.py", "train.py", "embedding.py", "elastic.py",
+            "chaos.py"} <= names
     dirs = {p.parent.name for p in PORT_FILES}
     assert {"data", "optim", "runtime", "launch", "checkpoint"} <= dirs
     for kernel in ("cscatter.cu", "cmerge.cu", "flash_attention.cu",
