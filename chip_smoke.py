@@ -11,8 +11,10 @@ columns, B = 1024 updates per shard per tick, K = 8 over
 rows), its solved and adaptive commit schedules, its write-ahead journal,
 snapshots and crash recovery, LM serving (prefill + greedy decode) of
 qwen1.5-0.5b, the paper's BFS, PageRank and k-means, training of
-qwen1.5-0.5b with gradient accumulation as a CCache merge, and its
-elastic resume after a kill onto another rank count — and:
+qwen1.5-0.5b with gradient accumulation as a CCache merge, its elastic
+resume after a kill onto another rank count, and the xLSTM and Hymba
+families (hymba-1.5b and xlstm-125m served, xlstm-125m trained, killed
+and resumed bit for bit) — and:
 
 1. prints the card (``nvidia-smi`` name and power limit, torch's name);
 2. builds every CUDA kernel of the paths from ``src/repro_torch/csrc``, all
@@ -29,7 +31,10 @@ elastic resume after a kill onto another rank count — and:
    unstaged (``unstaged_ms``); ``cmerge`` (several ways a CTA, 16-byte
    accesses) at W in {1, 8, 8192} and D in {4, 128}, every kind, against
    its plain version, and timed for add, max and min at the evict, flush
-   and drain shapes against ``index_add_`` / ``index_reduce_``;
+   and drain shapes against ``index_add_`` / ``index_reduce_``; and
+   holds float ``cscatter`` (f32 and bf16, add and sat_add) to the bit
+   over 5 repeated calls on hot and cold streams at every shape the port
+   launches (``DET_STREAMS``);
 4. runs the privatized K = 8, sync, partitioned and partitioned+overlap
    stores over 3 commit cycles plus a partial one, and the blocked
    replicated and blocked partitioned stores over 2 cycles plus a tick: each
@@ -60,7 +65,10 @@ elastic resume after a kill onto another rank count — and:
 8. holds ``flash_attention`` and ``decode_attention`` against their plain
    versions in f32 (to ``TOL``) and bf16 (to ``ATTN_BF16_TOL`` per element
    and ``ATTN_BF16_ROW`` per output row) at qwen1.5-0.5b's and
-   internlm2-1.8b's attention shapes, and the bf16 tensor-core flash kernel at the edges of
+   internlm2-1.8b's attention shapes, with sliding windows (hymba-1.5b's
+   prefill, W = 1024, and windows of 100, 64 and 1 over ragged S), decode
+   at hymba-1.5b's ring and global caches (G = 5),
+   and the bf16 tensor-core flash kernel at the edges of
    its tiling (d of 8 to 256, ragged S != T, GQA groups of 2 and 8,
    strided views), printing the variant each shape ran; holds each pass of
    ``decode_attention`` (a split pass over ``plan_splits``'s split count,
@@ -117,9 +125,24 @@ elastic resume after a kill onto another rank count — and:
    the predicted ``cscatter`` launches; prints the checkpoint's bytes, the
    save's ms, each resume's ms and peak device memory by part, and the
    free disk before the save;
-13. prints every kernel's registers and spills (``ptxas -v``),
+13. (``phase_families``) serves hymba-1.5b at full width (bf16, batch 8,
+   prompts of 2048, 64 tokens: 32 ``flash_attention`` launches at prefill,
+   29 with the window of 1024, and a ``decode_attention`` call a layer a
+   step over the windowed layers' rings and the global layers' caches),
+   held against the same tokens teacher-forced through the plain
+   attention; serves xlstm-125m at full width (batch 8, prompts of 256,
+   257 tokens), its recurrent decode held against one chunkwise forward
+   over the 512 tokens; serves the GELU MLP (``DecoderLM`` at granite-34b's
+   smoke config with ``mlp="gelu"``) against its plain path; each with a
+   traced prefill and decode step; then runs the real-model chaos at full
+   width (xlstm-125m, the example's 5 steps of batch 8 x 32 over 8 stacked
+   ranks, an overlapped K = 2 commit, a checkpoint every step): the twin
+   twice, bitwise equal to itself in every leaf, a kill before step 2
+   resumed and flushed bitwise equal to the twin, a control with fresh
+   defer state that must differ, ``cscatter`` launches = 2 x 8 x steps;
+14. prints every kernel's registers and spills (``ptxas -v``),
    one ``{"kernels": [...]}`` line and the card's name and power limit;
-14. ends with ``{"ok": true, "device": {...}}``.
+15. ends with ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds. Nothing is caught: any failure exits
 non-zero before the last line. Without a card, or without the repository
@@ -177,6 +200,18 @@ ARCH, SERVE_BATCH, PROMPT, GEN = "qwen1-5-0-5b", 8, 512, 64
 # pass a kv tile dropped for a band of rows: hold each element to 1e-2 + 1e-2
 # * |want| and each output row's error RMS to 1e-2 of the row's RMS.
 ATTN_BF16_TOL = (1e-2, 1e-2)
+# hymba-1.5b serving: batch 8, prompts of 2048 (past the window of 1024, so
+# the windows bite at prefill and the rings are full at decode), 64 tokens
+HYMBA_W, HYMBA_PROMPT, HYMBA_GEN, FAMILY_BATCH = 1024, 2048, 64, 8
+# xlstm-125m serving: prompts of 256 and 257 tokens, so that the prompt and
+# the 256 tokens fed back make 512, two mLSTM chunks of 256
+XLSTM_PROMPT, XLSTM_GEN = 256, 257
+# the real-model chaos at full width: the example's 5 steps, a kill before
+# step 2 (its --quick point). A kill before step 3 as well, the other side
+# of an overlapped landing, passed too but took the phase past its budget:
+# every run saves a 7.1 GB checkpoint a step, 8.5-12.2 s each (NVIDIA H100
+# 80GB HBM3, 700.00 W); the CPU tests kill before each of steps 1-4
+CHAOS_STEPS, CHAOS_KILLS = 5, (2,)
 ATTN_BF16_ROW = 1e-2
 # kernel-path vs plain-attention logits (teacher-forced, same weights)
 LOGIT_TOL = 0.1
@@ -489,6 +524,68 @@ def phase_kernel_checks(stream_keys: np.ndarray) -> dict:
     print("check cscatter N=0: ok")
     worst["float"] = max(worst["float"], embedding_kernel_checks())
     return worst
+
+
+# Float cscatter streams held to the bit over repeated calls: (table shape,
+# ids a shard, law): a KV tick's shape with hot Zipf ids (units of more
+# than 32 ids: the CTA's exact fold) and cold uniform ones (warp units), a
+# ring flush, the graph apps' [8, 2^20, 1] at 4M ids, k-means's 5 hot rows,
+# and the embedding backward of qwen1.5-0.5b and of xlstm-125m (one rank)
+DET_STREAMS = (((S, R, D), B, "zipf"), ((S, R, D), B, "uniform"),
+               ((S, R, D), RING_N, "zipf"),
+               ((S, 1 << 20, 1), 1 << 22, "zipf"),
+               ((S, KM_K, KM_D), KM_B, "uniform"),
+               ((TRAIN_V, TRAIN_D), 1024, "zipf"),
+               ((50304, 768), 32, "zipf"))
+DET_CALLS = 5
+
+
+def phase_determinism() -> dict:
+    """Float cscatter is the same bits on every call: for f32 and bf16
+    tables under add and sat_add, each of ``DET_STREAMS`` goes through
+    ``cscatter`` ``DET_CALLS`` times from the same table, ids and values,
+    and every result must equal the first bit for bit (and stay within
+    TOL of the plain version, as every kernel check). Launches here are
+    checks and are not counted."""
+    import torch
+    from repro_torch.kernels.cscatter import cscatter, cscatter_plain
+    rng = np.random.default_rng(SEED + 9)
+    checked = 0
+    for shape, n, law in DET_STREAMS:
+        r, lead = shape[-2], shape[:-2]
+        ids = ((rng.zipf(1.2, lead + (n,)) - 1) % r if law == "zipf"
+               else rng.integers(0, r, lead + (n,)))
+        ids = torch.as_tensor(ids.astype(np.int32), device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device="cuda").manual_seed(checked)
+            table = torch.randn(shape, device="cuda", generator=g).to(dtype)
+            vals = torch.randn(lead + (n, shape[-1]), device="cuda",
+                               generator=g).to(dtype)
+            bits = torch.int32 if dtype == torch.float32 else torch.int16
+            for kind, sat in (("add", (0.0, 0.0)), ("sat_add", (-3.0, 3.0))):
+                first = None
+                for _ in range(DET_CALLS):
+                    got = cscatter(table.clone(), ids, vals, kind=kind,
+                                   sat_min=sat[0], sat_max=sat[1])
+                    if first is None:
+                        first = got
+                    else:
+                        require(torch.equal(got.view(bits),
+                                            first.view(bits)),
+                                f"cscatter {dtype} {kind} {list(shape)} "
+                                f"N={n} {law}: a repeated call differs")
+                torch.cuda.synchronize()
+                if n <= RING_N:
+                    _compare(first, cscatter_plain(table, ids, vals,
+                                                   kind=kind, sat_min=sat[0],
+                                                   sat_max=sat[1]))
+                del first, got
+                checked += 1
+            print(f"check cscatter determinism {list(shape)} N={n} {law} "
+                  f"ids: f32 and bf16, add and sat_add, {DET_CALLS} calls "
+                  f"each bit-identical")
+            del table, vals
+    return {"cases": checked, "calls": DET_CALLS}
 
 
 def phase_kernel_times(stream_keys: np.ndarray) -> list[dict]:
@@ -1206,11 +1303,14 @@ def phase_attention_checks() -> dict:
     f32 and bf16 (f32 to ``TOL``, bf16 to ``ATTN_BF16_TOL`` and
     ``ATTN_BF16_ROW``; see ``_attn_compare``):
     flash at qwen1.5-0.5b prefill, at internlm2-1.8b shapes (causal and
-    bidirectional) and ragged S = T = 100; the bf16 tensor-core kernel also
+    bidirectional) and ragged S = T = 100, with sliding windows at
+    hymba-1.5b's prefill (W = 1024, G = 5) and at windows of 100, 64 and 1
+    over ragged S; the bf16 tensor-core kernel also
     at d in {8, 64, 72, 128, 256}, causal and not, with ragged S != T (S =
     100 against T = 37, and 37 against 100), GQA groups of 2 and 8, and
     through strided [B, S, H, d] views; decode at both models' cache shapes
-    at positions 0, 1, mid and T - 1, and each of its two passes against
+    and at hymba-1.5b's ring (T = W = 1024) and global cache (T = 2112),
+    G = 5, at positions 0, 1, mid and T - 1, and each of its two passes against
     the plain split and combine passes there. Prints the variant each
     flash shape ran and the split count of each decode shape. Returns the
     worst errors."""
@@ -1231,21 +1331,32 @@ def phase_attention_checks() -> dict:
     edge_cases = [((1, 8, s, t, d), kv, causal)
                   for d in (8, 64, 72, 128, 256) for causal in (True, False)
                   for (s, t), kv in (((100, 37), 4), ((37, 100), 1))]
-    decode_cases = [((8, 16, 64), 576, 16), ((8, 16, 128), 4096, 8)]
+    # hymba-1.5b: G = 5; the ring of W = 1024 slots and a global cache
+    decode_cases = [((8, 16, 64), 576, 16), ((8, 16, 128), 4096, 8),
+                    ((8, 25, 64), HYMBA_W, 5), ((8, 25, 64), 2112, 5)]
+    # sliding windows (causal): hymba-1.5b's prefill, and windows that end
+    # inside a tile, cover one tile or only the diagonal, at ragged S
+    window_cases = [((8, 25, 2048, 2048, 64), 5, HYMBA_W),
+                    ((1, 8, 1000, 1000, 64), 2, 100),
+                    ((1, 4, 257, 257, 128), 4, 64),
+                    ((1, 4, 130, 130, 256), 1, 1)]
     for dtype in (torch.float32, torch.bfloat16):
         key = str(dtype)[6:]
-        cases = flash_cases + (edge_cases if dtype == torch.bfloat16 else [])
-        for (b, h, s, t, d), kv, causal in cases:
+        cases = [(shape, kv, True, w) for shape, kv, w in window_cases] + [
+            (shape, kv, causal, 0) for shape, kv, causal in flash_cases + (
+                edge_cases if dtype == torch.bfloat16 else [])]
+        for (b, h, s, t, d), kv, causal, window in cases:
             q, k, v = _attn_rand(g, dtype, (b, h, s, d), (b, kv, t, d),
                                  (b, kv, t, d))
-            want = flash_attention_plain(q, k, v, causal=causal)
+            want = flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
             # contiguous, then strided [B, S, H, d] views as the model's
             for view in ("contiguous", "strided"):
                 args = (q, k, v) if view == "contiguous" else (
                     x.transpose(1, 2).contiguous().transpose(1, 2)
                     for x in (q, k, v))
                 before = dict(flash_attention.launches_by_variant)
-                got = flash_attention(*args, causal=causal)
+                got = flash_attention(*args, causal=causal, window=window)
                 torch.cuda.synchronize()
                 ran = [name for name, n in
                        flash_attention.launches_by_variant.items()
@@ -1254,7 +1365,8 @@ def phase_attention_checks() -> dict:
                 worst[key] = max(worst[key], err)
                 worst["row_" + key] = max(worst["row_" + key], row)
                 print(f"check flash_attention {key} q [{b},{h},{s},{d}] "
-                      f"T={t} KV={kv} causal={causal} {view}: ok via "
+                      f"T={t} KV={kv} causal={causal} window={window} "
+                      f"{view}: ok via "
                       f"{ran} (max abs err {err}, worst row {row})")
         for (b, h, d), t, kv in decode_cases:
             q, k, v = _attn_rand(g, dtype, (b, h, d), (b, t, kv, d),
@@ -1293,11 +1405,14 @@ def phase_attention_checks() -> dict:
     return worst
 
 
-def flash_bound_ms(b, h, kv, s, t, d, causal, itemsize) -> tuple[float, str]:
+def flash_bound_ms(b, h, kv, s, t, d, causal, itemsize,
+                   window: int = 0) -> tuple[float, str]:
     """q, k, v read once and o written once (bytes), or the two products
-    over the visible (query, key) pairs (operations) at the bf16 tensor
-    rate (f32 inputs: the f32 rate), whichever is larger."""
-    pairs = sum(min(i + 1, t) for i in range(s)) if causal else s * t
+    over the visible (query, key) pairs (operations; a sliding window
+    keeps at most ``window`` keys a query) at the bf16 tensor rate (f32
+    inputs: the f32 rate), whichever is larger."""
+    pairs = (sum(min(i + 1, t, window or t) for i in range(s)) if causal
+             else s * t)
     nbytes = (2 * b * h * s * d + 2 * b * kv * t * d) * itemsize
     ops = 4 * b * h * pairs * d
     rate = BF16_OPS_PER_S if itemsize == 2 else F32_OPS_PER_S
@@ -1324,8 +1439,12 @@ def phase_attention_times() -> dict:
     plain version and one scaled_dot_product_attention call (the yardstick;
     the port never calls it) at the serve path's shapes: qwen1.5-0.5b
     prefill (B 8, H = KV = 16, S = T = 512, d 64, causal) and its last
-    decode step (cache T = 576, position 575), in bf16; and the same at
-    internlm2-1.8b's attention shapes (H 16, KV 8, d 128). A decode row's
+    decode step (cache T = 576, position 575), in bf16; the same at
+    internlm2-1.8b's attention shapes (H 16, KV 8, d 128); and hymba-1.5b's
+    (H 25, KV 5, d 64): its prefill of 2048 with a window of 1024 and, at
+    the same shape, causal (SDPA with an explicit mask beside the window),
+    and its decode over a full ring of 1024 slots and over a global layer's
+    cache of 2112 at its last position. A decode row's
     times cover both of its launches; it is also timed, with SDPA, from a
     cache that is not in the L2 (``cold_ms``, ``library_cold_ms``), and at
     split counts around the plan's (``ms_by_splits``)."""
@@ -1339,32 +1458,48 @@ def phase_attention_times() -> dict:
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
     bf16 = torch.bfloat16
     out = {"flash": [], "decode": []}
-    for model, (b, h, kv, s, d) in (("qwen1.5-0.5b", (8, 16, 16, 512, 64)),
-                                    ("internlm2-1.8b", (2, 16, 8, 1024, 128))):
+    for model, (b, h, kv, s, d), w in (
+            ("qwen1.5-0.5b", (8, 16, 16, 512, 64), 0),
+            ("internlm2-1.8b", (2, 16, 8, 1024, 128), 0),
+            ("hymba-1.5b", (8, 25, 5, HYMBA_PROMPT, 64), HYMBA_W),
+            ("hymba-1.5b", (8, 25, 5, HYMBA_PROMPT, 64), 0)):
         q, k, v = _attn_rand(g, bf16, (b, h, s, d), (b, kv, s, d),
                              (b, kv, s, d))
-        bound, bound_by = flash_bound_ms(b, h, kv, s, s, d, True, 2)
+        bound, bound_by = flash_bound_ms(b, h, kv, s, s, d, True, 2, w)
+        if w:       # SDPA has no window: an explicit mask
+            diff = (torch.arange(s, device="cuda")[:, None]
+                    - torch.arange(s, device="cuda")[None, :])
+            mask = (diff >= 0) & (diff < w)
 
         def sdpa():
+            if w:
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=kv != h)
             return F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                   enable_gqa=kv != h)
         row = {"model": model, "q": [b, h, s, d], "kv_heads": kv,
-               "causal": True,
-               "ms": graph_ms(lambda: flash_attention(q, k, v)),
-               "call_ms": time_ms(lambda: flash_attention(q, k, v)),
-               "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v)),
+               "causal": True, "window": w,
+               "ms": graph_ms(lambda: flash_attention(q, k, v, window=w)),
+               "call_ms": time_ms(lambda: flash_attention(q, k, v,
+                                                          window=w)),
+               "plain_ms": time_ms(lambda: flash_attention_plain(
+                   q, k, v, window=w), **({"samples": 5, "inner": 1}
+                                          if s >= HYMBA_PROMPT else {})),
                "library_ms": graph_ms(sdpa),
                "library_call_ms": time_ms(sdpa),
                "bound_ms": bound, "bound_by": bound_by}
         out["flash"].append(row)
         print(f"time flash_attention {model} bf16 q [{b},{h},{s},{d}] "
-              f"KV={kv} causal: kernel {row['ms']:.6f} ms (a call "
+              f"KV={kv} causal window={w}: kernel {row['ms']:.6f} ms (a call "
               f"{row['call_ms']:.6f} ms), plain {row['plain_ms']:.6f} ms, "
               f"sdpa {row['library_ms']:.6f} ms (a call "
               f"{row['library_call_ms']:.6f} ms), bound {bound:.6f} ms "
               f"({bound_by})")
-    for model, (b, h, kv, t, d) in (("qwen1.5-0.5b", (8, 16, 16, 576, 64)),
-                                    ("internlm2-1.8b", (8, 16, 8, 4096, 128))):
+    for model, (b, h, kv, t, d) in (
+            ("qwen1.5-0.5b", (8, 16, 16, 576, 64)),
+            ("internlm2-1.8b", (8, 16, 8, 4096, 128)),
+            ("hymba-1.5b ring", (8, 25, 5, HYMBA_W, 64)),
+            ("hymba-1.5b global", (8, 25, 5, HYMBA_PROMPT + HYMBA_GEN, 64))):
         q, k, v = _attn_rand(g, bf16, (b, h, d), (b, t, kv, d),
                              (b, t, kv, d))
         pos = t - 1
@@ -1513,6 +1648,375 @@ def phase_serve(card: str) -> dict:
     model.attention = "kernel"
     del model, caches, res
     torch.cuda.empty_cache()
+    return out
+
+
+def _teacher_forced(model, ids, res, prompt: int) -> list:
+    """The logits of every step of ``res`` (a ``generate`` run) with its
+    tokens teacher-forced through ``model`` as it is set now."""
+    import torch
+    logits, caches = model.prefill(torch.as_tensor(ids, device="cuda"),
+                                   prompt + len(res.logits))
+    out = [logits]
+    for i in range(1, len(res.logits)):
+        logits, caches = model.decode_step(res.tokens[:, i - 1], caches,
+                                           prompt + i - 1)
+        out.append(logits)
+    del caches
+    return out
+
+
+def _greedy_check(got, want, margin: float, label: str) -> tuple[int, int]:
+    """Greedy tokens of ``got`` equal to ``want``'s wherever ``want``'s
+    top-2 margin exceeds ``margin`` -> (positions required, equal)."""
+    import torch
+    top2 = want.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > margin
+    same = got.argmax(-1) == want.argmax(-1)
+    require(bool(same[sure].all()), f"{label}: greedy token differs where "
+                                    f"the margin is sure")
+    return int(sure.sum()), int(same.sum())
+
+
+def _f32_floor_check(label: str, got: list, other: list, ref: list,
+                     steps: int) -> dict:
+    """Each step's served bf16 logits ``got[i]`` held against ``ref[i]``,
+    the same function computed in f32 from the same weights, no farther
+    than ``other[i]`` (the same function in bf16 another way) is: RMS
+    error within 1.25 x ``other``'s plus 1e-3, largest error within
+    ``max(LOGIT_TOL, 1.5 x`` ``other``'s largest``)``, greedy tokens equal
+    to ``ref``'s wherever its top-2 margin exceeds twice that bound. At
+    the families' depths the bf16 rounding of either path moves the
+    logits by about ``LOGIT_TOL`` on its own (the readings this prints at
+    step 0), so a fixed bound between two bf16 paths would test their
+    rounding rather than the kernels or the recurrence."""
+    worst_apart, worst_other, checked, same_n = 0.0, 0.0, 0, 0
+    for i in range(steps):
+        g, o, f = got[i], other[i], ref[i]
+        k_err, p_err = (g - f).abs(), (o - f).abs()
+        k_max, p_max = float(k_err.max()), float(p_err.max())
+        k_rms = float(k_err.square().mean().sqrt())
+        p_rms = float(p_err.square().mean().sqrt())
+        apart = (g - o).abs()
+        worst_apart = max(worst_apart, float(apart.max()))
+        worst_other = max(worst_other, p_max)
+        bound = max(LOGIT_TOL, 1.5 * p_max)
+        require(k_rms <= 1.25 * p_rms + 1e-3 and k_max <= bound,
+                f"{label} step {i}: served logits are farther from the f32 "
+                f"reference (max {k_max}, RMS {k_rms}) than the other bf16 "
+                f"path's (max {p_max}, RMS {p_rms}) allow")
+        n, m = _greedy_check(g, f, 2 * bound, f"{label} step {i}")
+        checked += n
+        same_n += m
+        if i == 0:
+            print(f"{label} step 0 logits: served bf16 vs f32 max {k_max} "
+                  f"RMS {k_rms}; other bf16 vs f32 max {p_max} RMS {p_rms}; "
+                  f"the two bf16 paths apart max {float(apart.max())} RMS "
+                  f"{float(apart.square().mean().sqrt())}")
+    return {"max_logit_err": worst_apart, "other_vs_f32_max": worst_other,
+            "sure_tokens": checked, "same_tokens": same_n}
+
+
+def _plain_teacher_forced(model, ids, res, prompt: int, label: str,
+                          f32_floor: bool = False) -> dict:
+    """``res`` (a ``generate`` run through the kernels) against the same
+    tokens teacher-forced through the plain attention versions: every
+    step's logits within ``LOGIT_TOL``, greedy tokens equal where the plain
+    path's top-2 margin exceeds ``2 * LOGIT_TOL`` (``phase_serve``'s
+    bounds). No attention kernel may launch meanwhile. With ``f32_floor``
+    (hymba-1.5b: 32 layers, prompts of 2048) both bf16 paths are held to
+    the same weights in f32 through the plain attention instead
+    (``_f32_floor_check``); the model ends in f32 and the caller drops
+    it."""
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    before = (flash_attention.launches, decode_attention.launches)
+    model.attention = "plain"
+    plain = _teacher_forced(model, ids, res, prompt)
+    ref = None
+    if f32_floor:
+        model.float()
+        ref = _teacher_forced(model, ids, res, prompt)
+    require(before == (flash_attention.launches, decode_attention.launches),
+            f"{label}: the plain path launched an attention kernel")
+    model.attention = "kernel"
+    for i, got in enumerate(res.logits):
+        require(bool(torch.isfinite(got).all()), f"{label} step {i}: "
+                                                 f"non-finite logits")
+    if ref is not None:
+        out = _f32_floor_check(label, res.logits, plain, ref,
+                               len(res.logits))
+        print(f"{label} vs plain attention, teacher-forced over "
+              f"{len(res.logits)} steps: the two bf16 paths apart by "
+              f"{out['max_logit_err']} at most; each step within the plain "
+              f"bf16 path's distance to the same weights in f32 (at most "
+              f"{out['other_vs_f32_max']}); greedy tokens equal to the f32 "
+              f"model's at {out['same_tokens']} of {res.tokens.numel()}, "
+              f"required at the {out['sure_tokens']} with a sure margin")
+        return out
+    worst, checked, same_n = 0.0, 0, 0
+    for i, (got, want) in enumerate(zip(res.logits, plain)):
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        require(err <= LOGIT_TOL, f"{label} step {i}: kernel logits differ "
+                                  f"from the plain path's by {err}")
+        n, m = _greedy_check(got, want, 2 * LOGIT_TOL, f"{label} step {i}")
+        checked += n
+        same_n += m
+    print(f"{label} vs plain attention, teacher-forced over "
+          f"{len(res.logits)} steps: max |logit diff| {worst} <= {LOGIT_TOL}"
+          f"; greedy tokens equal at {same_n} of {res.tokens.numel()}, "
+          f"required at the {checked} with a top-2 margin above "
+          f"{2 * LOGIT_TOL}")
+    return {"max_logit_err": worst, "sure_tokens": checked,
+            "same_tokens": same_n}
+
+
+def _serve_family(arch: str, cfg, prompt: int, gen: int, card: str,
+                  want: dict) -> tuple:
+    """``cfg`` at full width in bf16 with random weights from the seed,
+    ``FAMILY_BATCH`` prompts of ``prompt`` random ids and ``gen`` greedy
+    tokens through ``launch/serve.generate``, the attention kernels'
+    counts zeroed just before and read just after and held to ``want``;
+    then a ``--profile``-style trace of a prefill and one decode step.
+    Returns (model, ids, result, the row to print)."""
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import generate, profile, prompts
+    from repro_torch.models.registry import build_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    model = build_model(cfg, device="cuda", seed=SEED)
+    ids = prompts(cfg, FAMILY_BATCH, prompt, SEED)
+    generate(model, ids[:, :16], 2)                 # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = decode_attention.launches = 0
+    flash_attention.launches_windowed = 0
+    res = generate(model, ids, gen, keep_logits=True)
+    launches = {"flash_attention": flash_attention.launches,
+                "flash_attention_windowed": flash_attention.launches_windowed,
+                "decode_attention": decode_attention.launches}
+    peak = torch.cuda.max_memory_allocated() - base
+    require(launches == want, f"{arch}: launches {launches}, the path "
+                              f"predicts {want}")
+    require(tuple(res.tokens.shape) == (FAMILY_BATCH, gen),
+            f"{arch}: generated {tuple(res.tokens.shape)}")
+    steps = gen - 1
+    row = {"prefill_ms": 1e3 * res.prefill_s,
+           "prefill_tok_s": FAMILY_BATCH * prompt / res.prefill_s,
+           "decode_ms_per_step": 1e3 * res.decode_s / steps,
+           "decode_tok_s": FAMILY_BATCH * steps / res.decode_s,
+           "peak_bytes": peak, "launches": launches}
+    print(f"serve {cfg.name} bf16 batch {FAMILY_BATCH} prompt {prompt} gen "
+          f"{gen} on {card}: prefill {row['prefill_ms']:.3f} ms "
+          f"({row['prefill_tok_s']:.1f} tok/s), decode "
+          f"{row['decode_ms_per_step']:.6f} ms a step "
+          f"({row['decode_tok_s']:.1f} tok/s), peak memory {peak} bytes; "
+          f"launches {launches} (predicted {want})")
+    row["profile"] = profile(model, ids, steps=1, rows=8)
+    return model, ids, res, row
+
+
+def _hymba_serve(card: str) -> dict:
+    """(a) hymba-1.5b: 32 flash_attention launches at prefill (29 with the
+    window), then a decode_attention call (2 launches) in each layer of
+    every decode step; held against the plain attention."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.decode_attention import LAUNCHES_PER_CALL
+    cfg = get_config("hymba-1-5b")
+    n_win = cfg.n_layers - len(cfg.full_attn_layers)
+    want = {"flash_attention": cfg.n_layers,
+            "flash_attention_windowed": n_win,
+            "decode_attention": cfg.n_layers * (HYMBA_GEN - 1)
+            * LAUNCHES_PER_CALL}
+    model, ids, res, row = _serve_family("hymba-1.5b", cfg, HYMBA_PROMPT,
+                                         HYMBA_GEN, card, want)
+    row.update(_plain_teacher_forced(model, ids, res, HYMBA_PROMPT,
+                                     "serve hymba-1.5b", f32_floor=True))
+    return row
+
+
+def _xlstm_serve(card: str) -> dict:
+    """(b) xlstm-125m: no attention kernel on the path. The recurrent
+    decode is held against the chunkwise form: one ``forward`` over the
+    prompt and the 256 tokens fed back (512, two mLSTM chunks) gives the
+    logits at positions 255 .. 511, the reference of prefill's and every
+    decode step's. In f32 the two forms must agree to 1e-3 (they are one
+    function up to f32 summation order); the served bf16 run is then held
+    to the f32 chunkwise logits no farther than the bf16 chunkwise ones
+    are (``_f32_floor_check``: the two bf16 forms drift apart by about
+    ``LOGIT_TOL`` through the rounding of 12 layers and 511 positions)."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import module as nn
+    cfg = get_config("xlstm-125m")
+    want = {"flash_attention": 0, "flash_attention_windowed": 0,
+            "decode_attention": 0}
+    model, ids, res, row = _serve_family("xlstm-125m", cfg, XLSTM_PROMPT,
+                                         XLSTM_GEN, card, want)
+    seq = torch.cat([torch.as_tensor(ids, device="cuda").long(),
+                     res.tokens[:, :-1]], dim=1)        # 256 + 256 = 512
+
+    def chunkwise():
+        with torch.no_grad():
+            h, _ = model.forward(model.params(),
+                                 nn.embed(model.embed["table"], seq))
+            full = model._logits(h[:, XLSTM_PROMPT - 1:])
+        return list(full.unbind(1))
+
+    for i, got in enumerate(res.logits):
+        require(bool(torch.isfinite(got).all()), f"xlstm-125m step {i}: "
+                                                 f"non-finite logits")
+    bf16_chunks = chunkwise()
+    model.float()
+    f32_chunks = chunkwise()
+    f32_steps = _teacher_forced(model, ids, res, XLSTM_PROMPT)
+    worst32 = max(float((a - b).abs().max())
+                  for a, b in zip(f32_steps, f32_chunks))
+    require(worst32 <= 1e-3, f"xlstm-125m in f32: recurrent logits differ "
+                             f"from the chunkwise form's by {worst32}")
+    out = _f32_floor_check("serve xlstm-125m", res.logits, bf16_chunks,
+                           f32_chunks, len(res.logits))
+    print(f"serve xlstm-125m: recurrent decode vs the chunkwise forward "
+          f"over 512 tokens, positions 255..511: {worst32} <= 1e-3 apart in "
+          f"f32; in bf16 {out['max_logit_err']} apart, the served recurrent "
+          f"run within the bf16 chunkwise form's distance to f32 (at most "
+          f"{out['other_vs_f32_max']}) at every step; greedy tokens "
+          f"required equal to the f32 form's at {out['sure_tokens']}")
+    row.update(out, max_logit_err_f32=worst32)
+    return row
+
+
+def _gelu_serve(card: str) -> dict:
+    """(c) the dense family's GELU MLP: ``DecoderLM`` at granite-34b's
+    smoke config with ``mlp="gelu"`` (a smoke width: the full config's 67
+    GB of bf16 weights leave no room on one card) through the kernels,
+    against its plain path."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.kernels.decode_attention import LAUNCHES_PER_CALL
+    cfg = dataclasses.replace(get_smoke_config("granite-34b"), mlp="gelu")
+    gen, prompt = 16, 64
+    want = {"flash_attention": cfg.n_layers, "flash_attention_windowed": 0,
+            "decode_attention": cfg.n_layers * (gen - 1) * LAUNCHES_PER_CALL}
+    model, ids, res, row = _serve_family("granite-34b-smoke gelu", cfg,
+                                         prompt, gen, card, want)
+    require(sorted(model.params()["blocks"]["ffn"]) == ["wi", "wo"],
+            "granite-34b gelu: the model did not build the GELU MLP")
+    row.update(_plain_teacher_forced(model, ids, res, prompt,
+                                     "serve granite-34b-smoke gelu"))
+    return row
+
+
+def _leaf_diff(a, b) -> list[str]:
+    """The leaf paths at which two state trees differ in bits."""
+    import torch
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+    fa, fb = dict(_flatten_with_paths(a)), dict(_flatten_with_paths(b))
+    if sorted(fa) != sorted(fb):
+        return ["<tree structure>"]
+    return [k for k in fa if not torch.equal(torch.as_tensor(fa[k]),
+                                             torch.as_tensor(fb[k]))]
+
+
+def _real_model_chaos(card: str) -> dict:
+    """(d) the real-model chaos at full width: xlstm-125m through
+    ``runtime/chaos.real_model_run`` on the card, the example's 5 steps of
+    batch 8 x 32 (one row a rank) over the 8 stacked ranks. The twin runs
+    twice and must equal itself in every leaf (params, AdamW, the flushed
+    defer state); kills before ``CHAOS_KILLS`` resume to parameters equal
+    to the twin's bit for bit; the control (fresh defer state on resume)
+    must differ. ``cscatter`` (the embedding backward) launches 2 a rank a
+    step."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.cscatter import LAUNCHES_PER_CALL, cscatter
+    from repro_torch.runtime import chaos
+    cfg = get_config("xlstm-125m")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cscatter.launches = 0
+    runs, steps = {}, 0
+    t0 = time.perf_counter()
+    twin = chaos.real_model_twin(cfg, CHAOS_STEPS, device="cuda")
+    torch.cuda.synchronize()
+    runs["twin_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = chaos.real_model_twin(cfg, CHAOS_STEPS, device="cuda")
+    torch.cuda.synchronize()
+    runs["twin_again_s"] = time.perf_counter() - t0
+    steps += 2 * CHAOS_STEPS
+    # a checkpoint holds the state's leaves (params, AdamW, the pod level's
+    # pending and in-flight [8, ...] stacks); the driver keeps 3
+    from torch.utils import _pytree as pytree
+    state_bytes = sum(x.numel() * x.element_size()
+                      for x in pytree.tree_leaves(twin)
+                      if isinstance(x, torch.Tensor))
+    free = shutil.disk_usage(tempfile.gettempdir()).free
+    print(f"chaos xlstm-125m: state {state_bytes} bytes, {free} bytes free "
+          f"under {tempfile.gettempdir()}")
+    require(free > 4 * state_bytes, "chaos: too little disk for the "
+            "driver's three checkpoints")
+    runs["state_bytes"] = state_bytes
+    diff = _leaf_diff(twin, again)
+    print(f"chaos xlstm-125m twin run twice: {'bitwise equal in every leaf' if not diff else 'differs at ' + ', '.join(diff)}")
+    require(not diff, f"the twin is not bitwise repeatable: {diff}")
+    del again
+    for kill in CHAOS_KILLS + (None,):
+        with tempfile.TemporaryDirectory() as d:
+            out = chaos.real_model_run(cfg, CHAOS_STEPS, d,
+                                       kill or CHAOS_KILLS[-1],
+                                       device="cuda",
+                                       fresh_defer=kill is None)
+        steps += CHAOS_STEPS
+        same = chaos.trees_bitwise_equal(out["state"]["params"],
+                                         twin["params"])
+        label = f"kill@{kill}" if kill else "control (fresh defer state)"
+        rec = {"resume_action": out["report"].action,
+               "params_bitwise": same, "seconds": out["seconds"],
+               "ms_per_step": 1e3 * statistics.median(out["step_s"]),
+               "save_ms": [1e3 * x for x in out["save_s"]],
+               "ckpt_bytes": out["ckpt_bytes"]}
+        runs[label] = rec
+        print(f"chaos xlstm-125m {label}: resumed {rec['resume_action']} "
+              f"in {1e3 * rec['seconds']['resume']:.3f} ms, "
+              f"{rec['ms_per_step']:.3f} ms a step (median), checkpoint "
+              f"{rec['ckpt_bytes']} bytes saved in "
+              f"{statistics.median(rec['save_ms']):.3f} ms (median); "
+              f"params {'BITWISE equal' if same else 'differ'} vs the twin")
+        if kill:
+            require(same, f"real-model chaos {label}: params diverged")
+        else:
+            require(not same, "real-model chaos: the control without the "
+                              "defer state matched the twin")
+        del out
+    want = LAUNCHES_PER_CALL * 8 * steps
+    require(cscatter.launches == want, f"chaos: cscatter launches "
+            f"{cscatter.launches}, predicted {want} (2 a rank a step)")
+    runs["cscatter_launches"] = cscatter.launches
+    runs["steps"] = steps
+    print(f"chaos xlstm-125m: {steps} steps, cscatter launches "
+          f"{cscatter.launches} (predicted {want}) on {card}")
+    del twin
+    torch.cuda.empty_cache()
+    return runs
+
+
+def phase_families(card: str) -> dict:
+    """This slice's paths, each with the kernels' counts zeroed just
+    before and read just after: (a) hymba-1.5b served at full width, (b)
+    xlstm-125m served at full width, (c) the GELU MLP, (d) the real-model
+    chaos of xlstm-125m at full width."""
+    out = {}
+    for name, fn in (("hymba", _hymba_serve), ("xlstm", _xlstm_serve),
+                     ("gelu", _gelu_serve), ("chaos", _real_model_chaos)):
+        t0 = time.perf_counter()
+        out[name] = fn(card)
+        out[name]["phase_s"] = time.perf_counter() - t0
+        print(f"phase families/{name}: {out[name]['phase_s']:.3f} s")
     return out
 
 
@@ -2902,6 +3406,7 @@ def main() -> None:
     timed("build", phase_build)
     stream, vals = main_stream()
     worst = timed("kernel_checks", phase_kernel_checks, stream)
+    determinism = timed("determinism", phase_determinism)
     worst_merge = timed("cmerge_checks", phase_cmerge_checks)
     times = timed("kernel_times", phase_kernel_times, stream)
     merge_times = timed("cmerge_times", phase_cmerge_times)
@@ -2917,6 +3422,7 @@ def main() -> None:
     apps = timed("apps", phase_apps, smi)
     trained = timed("train", phase_train, smi)
     elastic = timed("elastic", phase_elastic, smi)
+    families = timed("families", phase_families, smi)
 
     tick_add = next(t for t in times if t["kind"] == "add" and t["n"] == B
                     and "what" not in t)
@@ -2946,6 +3452,8 @@ def main() -> None:
         "launches_durability": durability["launches"],
         "launches_train": trained["launches"],
         "launches_elastic": elastic["launches"],
+        "launches_families": families["chaos"]["cscatter_launches"],
+        "determinism": determinism,
         "train_embedding_backward": train_add,
         "variants": times, "apps": apps["kernel_rows"]}, {
         "name": "cmerge", "route": "cuda",
@@ -2968,6 +3476,10 @@ def main() -> None:
         "source": f"src/repro_torch/csrc/{name}.cu",
         "replaces": replaces,
         "launches": serve["launches"][name],
+        "launches_families": {k: families[k]["launches"][name]
+                              for k in ("hymba", "gelu")},
+        "launches_windowed_families": families["hymba"]["launches"][
+            "flash_attention_windowed"],
         "max_abs_err": worst_attn["bfloat16"],
         "max_abs_err_f32": worst_attn["float32"],
         "worst_row_rel_err": worst_attn["row_bfloat16"],
@@ -2987,7 +3499,9 @@ def main() -> None:
         for row in attn_times[key][:1]], "serve": serve,
         "apps": {k: v for k, v in apps.items() if k != "kernel_rows"},
         "schedules": schedules, "durability": durability,
-        "train": trained, "elastic": elastic}))
+        "train": trained, "elastic": elastic,
+        "families": {k: {x: y for x, y in v.items() if x != "profile"}
+                     for k, v in families.items()}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -152,7 +152,8 @@ ARCH_IDS = [
 ARCH_ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
 
 # the configs ported so far
-PORTED = ("qwen1_5_0_5b", "internlm2_1_8b")
+PORTED = ("qwen1_5_0_5b", "internlm2_1_8b", "xlstm_125m", "hymba_1_5b",
+          "granite_34b")
 
 
 def _module(arch: str):

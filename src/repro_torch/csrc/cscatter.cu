@@ -51,11 +51,29 @@
 // A row lies in exactly one block, and a block in exactly one unit, so it is
 // merged by exactly one warp or CTA per column tile: "apply once" needs no
 // atomics on the table. A unit is a contiguous slice of any length, so there
-// is no list capacity to overflow and no rescan. Integer results are
-// deterministic; f32 sums are not (the order of a row's contributions comes
-// from the bucket pass's atomic cursors and the big units' atomics). Scratch (S * (2N + 2L + 3) int32) is one buffer
-// the wrapper allocates; the wrapper also computes br, dc, the rounds, the
-// staging and the grid (kernels/cscatter.py `plan`).
+// is no list capacity to overflow and no rescan. Scratch (S * (2N + 2L + 3)
+// int32) is one buffer the wrapper allocates; the wrapper also computes br,
+// dc, the rounds, the staging and the grid (kernels/cscatter.py `plan`).
+//
+// Determinism. Every result is the same bits on every call with the same
+// inputs and plan, float sums included, though the bucket pass's atomic
+// cursors leave the entries of a block in perm in an order that changes from
+// run to run. Integer kinds and max/min fold in any order to the same value.
+// For f32 and bf16 tables under add and sat_add the fold does not depend on
+// that order: a warp's unit is first sorted by position n across its lanes
+// (a 32-lane bitonic sort, 15 shuffle rounds), so the leader adds a row's
+// contributions in ascending n; a big unit adds them exactly, as integers:
+// the first pass over its entries finds each (row, column) cell's largest
+// magnitude M (an atomicMax on the bits, which is order-free), the second
+// rounds every value to a multiple of the cell's quantum q = 2^(e(M) + 1 +
+// ceil(log2(k + 1)) - 62) (k the unit's entries, so k terms fit an int64)
+// and adds the integers with 64-bit shared-memory atomics, which is exact in
+// any order; the cell's delta is the int64 sum times q, rounded once to
+// f32. Each term is off by at most q / 2, about M 2^-(62 - log2 k): at the
+// apps' largest units (2^14 ids) that is M 2^-48, far below f32's own
+// rounding of an ordered sum. A cell that holds an inf or a NaN adds in
+// float (inf and NaN absorb any order) and writes a canonical NaN. The
+// bits are not the plain version's; both stay within the tests' TOL.
 //
 // What bounds it on an H100. The function must move the ids and vals once
 // plus each touched row read and written once: for a serving tick (8 x 1024
@@ -94,6 +112,11 @@ enum DType { kF32 = 0, kBF16 = 1, kI32 = 2, kU32 = 3 };
 
 template <typename T> struct AccOf { using type = T; };
 template <> struct AccOf<__nv_bfloat16> { using type = float; };
+
+// float sums, whose bits depend on the order of the adds: folded in a fixed
+// order (warp units) or exactly (big units); see the header
+template <typename A, int KIND>
+constexpr bool kOrdered = std::is_same<A, float>::value && (KIND == kAdd || KIND == kSatAdd);
 
 __device__ __forceinline__ float to_acc(float x) { return x; }
 __device__ __forceinline__ float to_acc(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -381,8 +404,28 @@ __device__ __forceinline__ void fold_warp(T* __restrict__ stable, const T* __res
   using A = typename AccOf<T>::type;
   const int lane = threadIdx.x % 32;
   const bool act = lane < k;
-  const int n = act ? uperm[lane] : 0;
-  const int r = act ? urow[lane] : -1 - lane;  // inactive lanes: a group of their own
+  int n = act ? uperm[lane] : INT_MAX;
+  int r = act ? urow[lane] : -1;
+  if constexpr (kOrdered<A, KIND>) {
+    // float sums: lanes sorted by position n (unique; the empty lanes'
+    // INT_MAX last), so the leader below adds a row's values in ascending n
+#pragma unroll
+    for (int size = 2; size <= 32; size <<= 1)
+#pragma unroll
+      for (int stride = size / 2; stride > 0; stride >>= 1) {
+        const int pn = __shfl_xor_sync(0xffffffffu, n, stride);
+        const int pr = __shfl_xor_sync(0xffffffffu, r, stride);
+        const bool keep_min = ((lane & stride) == 0) == ((lane & size) == 0);
+        if (keep_min ? pn < n : pn > n) {
+          n = pn;
+          r = pr;
+        }
+      }
+  }
+  if (!act) {
+    n = 0;
+    r = -1 - lane;  // inactive lanes: a group of their own
+  }
   const unsigned group = __match_any_sync(0xffffffffu, r);
   const bool leader = act && lane == __ffs(group) - 1;
   const T* v = svals + (size_t)n * D;
@@ -463,6 +506,92 @@ __device__ __forceinline__ void fold_cta(T* __restrict__ stable, const T* __rest
   __syncthreads();
 }
 
+// The exponent of the quantum of a cell whose largest magnitude has the bits
+// m (finite, nonzero) in a unit of k entries, 2^lk > k: every |x| <= M is
+// below 2^(e + 1), so x / q is below 2^(62 - lk) and k of them fit an int64.
+__device__ __forceinline__ int quantum_exp(unsigned m, int lk) {
+  const int e = max((int)(m >> 23), 1) - 127;
+  return e + 1 + lk - 62;
+}
+
+// fold_cta for float sums (kOrdered): each cell's contributions added
+// exactly as integer multiples of its quantum, in any order (the header).
+// Tile: sum [br, dc] int64, then mx [br, dc] (the largest magnitude's bits).
+template <typename T, int KIND>
+__device__ __forceinline__ void fold_cta_exact(T* __restrict__ stable,
+                                               const T* __restrict__ svals,
+                                               const int* __restrict__ uperm,
+                                               const int* __restrict__ urow, int k, int br,
+                                               int D, int dc, int cols,
+                                               unsigned long long* sum, unsigned* mx,
+                                               unsigned* mask, float lo, float hi) {
+  const int g = blockDim.x, t = threadIdx.x;
+  const int base = urow[0] / br * br;
+  for (int e = t; e < k; e += g) {
+    const int r = urow[e] - base;
+    const unsigned bit = 1u << (r & 31);
+    if (!(atomicOr(&mask[r >> 5], bit) & bit))
+      for (int c = 0; c < cols; ++c) {
+        sum[r * dc + c] = 0ull;
+        mx[r * dc + c] = 0u;
+      }
+  }
+  __syncthreads();
+  constexpr int kBatch = 8;  // loads in flight before their atomics
+  for (int pass = 0; pass < 2; ++pass) {
+    const int lk = 32 - __clz(k);
+    for (int i0 = t; i0 < k * cols; i0 += kBatch * g) {
+      float x[kBatch];
+      int slot[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + u * g;
+        slot[u] = -1;
+        if (i < k * cols) {
+          const int e = i / cols, c = i - e * cols;
+          slot[u] = (urow[e] - base) * dc + c;
+          x[u] = to_acc(svals[(size_t)uperm[e] * D + c]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (slot[u] < 0) continue;
+        if (pass == 0) {
+          atomicMax(&mx[slot[u]], __float_as_uint(x[u]) & 0x7fffffffu);
+        } else {
+          const unsigned m = mx[slot[u]];
+          if (m >= 0x7f800000u)  // inf or NaN in the cell: float adds
+            atomicAdd(reinterpret_cast<float*>(&sum[slot[u]]), x[u]);
+          else if (m != 0u)
+            atomicAdd(&sum[slot[u]], (unsigned long long)__float2ll_rn(
+                                         scalbnf(x[u], -quantum_exp(m, lk))));
+        }
+      }
+    }
+    __syncthreads();
+  }
+  const int lk = 32 - __clz(k);
+  for (int e = t; e < k; e += g) {
+    const int r = urow[e] - base;
+    const unsigned bit = 1u << (r & 31);
+    if (atomicAnd(&mask[r >> 5], ~bit) & bit) {
+      T* row = stable + (size_t)(base + r) * D;
+      for (int c = 0; c < cols; ++c) {
+        const unsigned m = mx[r * dc + c];
+        float u = 0.f;
+        if (m >= 0x7f800000u) {
+          u = *reinterpret_cast<const float*>(&sum[r * dc + c]);
+          if (u != u) u = __int_as_float(0x7fffffff);
+        } else if (m != 0u) {
+          u = scalbnf(__ll2float_rn((long long)sum[r * dc + c]), quantum_exp(m, lk));
+        }
+        row[c] = apply<KIND>(row[c], u, lo, hi);
+      }
+    }
+  }
+  __syncthreads();
+}
+
 // Grid: (CTAs per shard, column tiles, shards). A CTA first folds its share
 // of the shard's big units (the long poles) with all its threads, then its
 // warps take the small units, one at a time.
@@ -471,9 +600,14 @@ __global__ void __launch_bounds__(kFoldThreads, 8)
 fold_kernel(T* __restrict__ table, const T* __restrict__ vals, Scratch sc, int R, int N, int D,
             int br, int dc, int list_cap, float lo, float hi) {
   using A = typename AccOf<T>::type;
+  constexpr bool kExact = kOrdered<A, KIND>;
   extern __shared__ __align__(16) unsigned char smem[];
-  A* acc = reinterpret_cast<A*>(smem);                                  // [br, dc]
-  unsigned* mask = reinterpret_cast<unsigned*>(acc + (size_t)br * dc);  // [br / 32]
+  // [br, dc] accumulators (kExact: int64 sums, then the magnitudes' bits)
+  A* acc = reinterpret_cast<A*>(smem);
+  unsigned long long* sum = reinterpret_cast<unsigned long long*>(smem);
+  unsigned* mx = reinterpret_cast<unsigned*>(sum + (size_t)br * dc);
+  unsigned* mask = kExact ? mx + (size_t)br * dc                      // [br / 32]
+                          : reinterpret_cast<unsigned*>(acc + (size_t)br * dc);
   const size_t s = blockIdx.z;
   const int col0 = blockIdx.y * dc;
   const int cols = min(dc, D - col0);
@@ -490,8 +624,12 @@ fold_kernel(T* __restrict__ table, const T* __restrict__ vals, Scratch sc, int R
     for (int j = blockIdx.x; j < n_big; j += gridDim.x) {
       const int u = sc.big[s * list_cap + j];
       const int e0 = sustart[u];
-      fold_cta<T, KIND>(stable, svals, sperm + e0, srow + e0, sustart[u + 1] - e0, br, D, dc,
-                        cols, acc, mask, lo, hi);
+      if constexpr (kExact)
+        fold_cta_exact<T, KIND>(stable, svals, sperm + e0, srow + e0, sustart[u + 1] - e0, br,
+                                D, dc, cols, sum, mx, mask, lo, hi);
+      else
+        fold_cta<T, KIND>(stable, svals, sperm + e0, srow + e0, sustart[u + 1] - e0, br, D, dc,
+                          cols, acc, mask, lo, hi);
     }
   }
   const int warps = gridDim.x * kFoldWarps;
@@ -505,6 +643,12 @@ fold_kernel(T* __restrict__ table, const T* __restrict__ vals, Scratch sc, int R
 struct Plan {
   int S, R, N, D, br, dc, n_blocks, hist_cap, list_cap, fold_ctas, stage;
 };
+
+// bytes of one accumulator cell of the fold's [br, dc] tile
+template <typename T, int KIND> constexpr int cell_bytes() {
+  using A = typename AccOf<T>::type;
+  return kOrdered<A, KIND> ? 12 : (int)sizeof(A);
+}
 
 template <typename T, int KIND>
 cudaError_t launch(void* table, const void* ids, const void* vals, int* scratch, const Plan& p,
@@ -530,7 +674,7 @@ cudaError_t launch(void* table, const void* ids, const void* vals, int* scratch,
       p.stage);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t fold_bytes = (size_t)p.br * p.dc * sizeof(A) + p.br / 8;
+  const size_t fold_bytes = (size_t)p.br * p.dc * cell_bytes<T, KIND>() + p.br / 8;
   const dim3 grid(p.fold_ctas, (p.D + p.dc - 1) / p.dc, p.S);
   fold_kernel<T, KIND><<<grid, kFoldThreads, fold_bytes, stream>>>(
       static_cast<T*>(table), static_cast<const T*>(vals), sc, p.R, p.N, p.D, p.br, p.dc,
@@ -573,7 +717,9 @@ extern "C" int cscatter_launch(void* table, const void* ids, const void* vals, v
       ((hist_cap + 3) / 4 * 4 + (stage ? 2 * N : 0)) * 4 > kSmemMax - kBucketStatic ||
       (stage && hist_cap < n_blocks) || list_cap < 1 ||
       list_cap < (n_blocks < N ? n_blocks : N) || fold_ctas < 1 || fold_ctas > INT_MAX ||
-      N * dc > INT_MAX || br * dc * 4 + br / 8 > kSmemMax)
+      N * dc > INT_MAX ||
+      br * dc * ((dtype == kF32 || dtype == kBF16) && (kind == kAdd || kind == kSatAdd) ? 12 : 4) +
+              br / 8 > kSmemMax)
     return cudaErrorInvalidValue;
   if (N == 0) return cudaSuccess;
   const Plan p{(int)S, (int)R, (int)N, (int)D, (int)br, (int)dc, (int)n_blocks, (int)hist_cap,

@@ -8,7 +8,9 @@
 //     o[b, h, i] = sum_j softmax_j(scale * q[b, h, i] . k[b, kvh, j]) v[b, kvh, j]
 //
 // with scale = 1 / sqrt(d) and, when causal, only keys j <= i (both counted
-// from 0). As in the TPU kernel, masked scores are -1e30, the softmax runs
+// from 0); a sliding window W > 0 (causal only) keeps only keys
+// i - W < j <= i, the JAX package's make_mask(..., "sliding", W)
+// (repro/models/attention.py; the TPU kernel has no window). As in the TPU kernel, masked scores are -1e30, the softmax runs
 // online over kv tiles (running max m, sum l, accumulator acc, all f32), and
 // the output is acc / max(l, 1e-30) in q's dtype. Both kernels read q, k and
 // v through strides, so the model's [B, S, H, d] views need no copy, and mask
@@ -46,7 +48,13 @@
 // next step under the products of this one (a runtime test of d inside them
 // kept it from doing so). Causal CTAs stop after the diagonal tile, mask
 // only the tiles that reach past a warp's first row (or past key T - 1), and
-// a warp skips a tile whose first key is past all its rows. The grid is
+// a warp skips a tile whose first key is past all its rows. With a window
+// a CTA starts at the tile that holds its first row's lowest visible key,
+// i - W + 1; a warp also skips a tile whose last key lies before the window
+// of its first row, and masks the tiles that reach below the window of its
+// last row. A row whose first tiles hold no visible key gets p = 1 on masked
+// scores there, with m = -1e30; its first visible score rescales them by
+// exp(-1e30 - m) = 0, as the online softmax does for every masked prefix. The grid is
 // flattened and launched heaviest query tile first, so the long causal rows
 // do not finish last. d is templated on 64, 128 and 256 columns of shared
 // memory; a smaller d is zero-padded to that width by the copies (the
@@ -123,7 +131,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int H, int KV, int S, int Tn,
                  int d, long long qb, long long qh, long long qs, long long kb, long long kh,
                  long long kt, long long vb, long long vh, long long vt, long long ob,
-                 long long oh, long long os, float scale, int causal) {
+                 long long oh, long long os, float scale, int causal, int window) {
   constexpr int kLdv = DMAX + kPad;
   constexpr int kChunks = DMAX / 8;
   constexpr int kCols = DMAX / 64;  // 4-column groups a thread owns
@@ -159,9 +167,11 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < 4 * kCols; ++c) acc[i][c] = 0.f;
   }
 
-  // causal: no key past the tile's last query row
+  // causal: no key past the tile's last query row; windowed: none before
+  // the first row's window
   const int kv_end = causal ? min(Tn, q0 + kBQ) : Tn;
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
+  const int kv_start = window > 0 ? max(0, q0 - window + 1) / kBK * kBK : 0;
+  for (int k0 = kv_start; k0 < kv_end; k0 += kBK) {
     __syncthreads();  // the previous tile's readers are done
     for (int idx = tid; idx < kBK * kChunks; idx += kF32Threads) {
       const int r = idx % kBK, c = idx / kBK;
@@ -203,7 +213,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int kj = k0 + tx * 4 + j;
         float x = s[i][j] * scale;
-        if (kj >= Tn || (causal && kj > qi)) x = kNegInf;
+        if (kj >= Tn || (causal && kj > qi) || (window > 0 && kj <= qi - window)) x = kNegInf;
         s[i][j] = x;
         mt = fmaxf(mt, x);
       }
@@ -272,7 +282,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int DMAX>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
                        int S, int Tn, int d, const long long* st, float scale, int causal,
-                       cudaStream_t stream) {
+                       int window, cudaStream_t stream) {
   constexpr size_t bytes = sizeof(float) * f32_smem_floats<DMAX>();
   static bool configured = false;
   if (!configured) {
@@ -285,7 +295,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
   flash_f32_kernel<DMAX><<<grid, kF32Threads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), H, KV, S, Tn, d, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], st[10], st[11], scale, causal);
+      st[7], st[8], st[9], st[10], st[11], scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -382,7 +392,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, int B, int H, int KV, int S,
                  int Tn, int d, long long qb, long long qh, long long qs, long long kb,
                  long long kh, long long kt, long long vb, long long vh, long long vt,
-                 long long ob, long long oh, long long os, float scale_log2, int causal) {
+                 long long ob, long long oh, long long os, float scale_log2, int causal,
+                 int window) {
   constexpr int MT = MmaCfg<DMAX>::MT, kRows = MmaCfg<DMAX>::kRows;
   constexpr bool kQInRegs = MmaCfg<DMAX>::kQInRegs;
   constexpr int kTile = kBK * DMAX;   // a K or V tile
@@ -409,16 +420,18 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int mi = lane / 8, mr = lane % 8;  // ldmatrix: which 8x8 matrix, which of its rows
   const int w0 = warp * 16 * MT;           // this warp's first row in the tile
   const int n_tiles = ((causal ? min(Tn, q0 + kRows) : Tn) + kBK - 1) / kBK;
+  // windowed: the first tile that holds a key of the first row's window
+  const int j0 = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
 
   // the ring: tiles j + 1 and j + 2 are in flight while tile j is computed
   // (a group is committed for every tile, empty past the last one)
   copy_tile<DMAX, kRows>(sQ, qp, qs, q0, S, d);
-  copy_tile<DMAX, kBK>(sK, kp, kt, 0, Tn, d);
-  copy_tile<DMAX, kBK>(sV, vp, vt, 0, Tn, d);
+  copy_tile<DMAX, kBK>(sK, kp, kt, j0 * kBK, Tn, d);
+  copy_tile<DMAX, kBK>(sV, vp, vt, j0 * kBK, Tn, d);
   cp_commit();
-  if (n_tiles > 1) {
-    copy_tile<DMAX, kBK>(sK + kTile, kp, kt, kBK, Tn, d);
-    copy_tile<DMAX, kBK>(sV + kTile, vp, vt, kBK, Tn, d);
+  if (n_tiles > j0 + 1) {
+    copy_tile<DMAX, kBK>(sK + kTile, kp, kt, (j0 + 1) * kBK, Tn, d);
+    copy_tile<DMAX, kBK>(sV + kTile, vp, vt, (j0 + 1) * kBK, Tn, d);
   }
   cp_commit();
 
@@ -434,10 +447,10 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[t][0] = l[t][1] = 0.f;
   }
 
-  for (int j = 0; j < n_tiles; ++j) {
-    const int st = j % kStages;
+  for (int j = j0; j < n_tiles; ++j) {
+    const int st = (j - j0) % kStages;
     if (j + 2 < n_tiles) {
-      const int nx = (j + 2) % kStages;
+      const int nx = (j - j0 + 2) % kStages;
       copy_tile<DMAX, kBK>(sK + nx * kTile, kp, kt, (j + 2) * kBK, Tn, d);
       copy_tile<DMAX, kBK>(sV + nx * kTile, vp, vt, (j + 2) * kBK, Tn, d);
     }
@@ -448,7 +461,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* tV = sV + st * kTile;
     const int k0 = j * kBK;
     if constexpr (kQInRegs) {
-      if (j == 0) {
+      if (j == j0) {
 #pragma unroll
         for (int t = 0; t < MT; ++t)
 #pragma unroll
@@ -457,8 +470,11 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     qf[t][kk]);
       }
     }
-    // causal: a tile whose first key is past all of this warp's rows adds nothing to them
-    if (!(causal && k0 > q0 + w0 + 16 * MT - 1)) {
+    // causal: a tile whose first key is past all of this warp's rows adds
+    // nothing to them; windowed: nor one whose last key is before the window
+    // of the warp's first row
+    if (!(causal && k0 > q0 + w0 + 16 * MT - 1) &&
+        !(window > 0 && k0 + kBK - 1 <= q0 + w0 - window)) {
       // S = Q K^T: this warp's 16 MT rows x 64 keys, eight n-tiles of 8 keys
       float s[MT][8][4];
 #pragma unroll
@@ -493,7 +509,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       // online softmax on the fragments: s[t][n][0..1] are row r_t, s[t][n][2..3]
       // row r_t + 8 (r_t = q0 + w0 + 16t + lane / 4), keys k0 + 8n + 2 (lane % 4)
       // + {0, 1}; scores in log2 units
-      const bool masked = k0 + kBK > Tn || (causal && k0 + kBK - 1 > q0 + w0);
+      const bool masked = k0 + kBK > Tn || (causal && k0 + kBK - 1 > q0 + w0) ||
+                          (window > 0 && k0 <= q0 + w0 + 16 * MT - 1 - window);
       unsigned pa[MT][4][4];  // P as bf16 A-fragments, per 16-key step
 #pragma unroll
       for (int t = 0; t < MT; ++t) {
@@ -510,7 +527,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             for (int e = 0; e < 4; ++e) {
               const int key = k0 + 8 * n + 2 * (lane % 4) + (e & 1);
               const int row = row_lo + (e >> 1) * 8;
-              if (key >= Tn || (causal && key > row)) s[t][n][e] = kNegInf;
+              if (key >= Tn || (causal && key > row) || (window > 0 && key <= row - window))
+                s[t][n][e] = kNegInf;
             }
         }
 #pragma unroll
@@ -607,7 +625,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int DMAX>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
                        int S, int Tn, int d, const long long* st, float scale, int causal,
-                       cudaStream_t stream) {
+                       int window, cudaStream_t stream) {
   constexpr int rows = MmaCfg<DMAX>::kRows;
   constexpr int bytes = (rows + 2 * kStages * kBK) * DMAX * (int)sizeof(bf16);  // Q, (K, V) x stages
   static bool configured = false;
@@ -622,7 +640,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int
   flash_mma_kernel<DMAX><<<(unsigned)ctas, kMmaThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), B, H, KV, S, Tn, d, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], st[9], st[10], st[11], scale * 1.4426950408889634f, causal);
+      st[6], st[7], st[8], st[9], st[10], st[11], scale * 1.4426950408889634f, causal, window);
   return cudaGetLastError();
 }
 
@@ -636,30 +654,33 @@ bool bad_shape(long long B, long long H, long long KV, long long S, long long T,
 // q [B, H, S, d], k and v [B, KV, T, d], o [B, H, S, d], each with unit stride
 // in d and the element strides `strides` = (q: b, h, s; k: b, h, t; v: b, h,
 // t; o: b, h, s), all multiples of 8, and 16-byte aligned data.
+// `window` > 0 (with causal only) keeps keys i - window < j <= i.
 // Launches on `stream`; returns the cudaError_t of the launch.
 
 // f32 inputs: the f32-core kernel.
 extern "C" int flash_attention_f32_launch(const void* q, const void* k, const void* v, void* o,
                                           long long B, long long H, long long KV, long long S,
                                           long long T, long long d, const long long* strides,
-                                          int causal, float scale, void* stream) {
-  if (bad_shape(B, H, KV, S, T, d)) return cudaErrorInvalidValue;
+                                          int causal, int window, float scale, void* stream) {
+  if (bad_shape(B, H, KV, S, T, d) || window < 0 || (window > 0 && !causal))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int b = (int)B, h = (int)H, kv = (int)KV, s = (int)S, t = (int)T, dd = (int)d;
-  if (d <= 64) return launch_f32<64>(q, k, v, o, b, h, kv, s, t, dd, strides, scale, causal, st);
-  if (d <= 128) return launch_f32<128>(q, k, v, o, b, h, kv, s, t, dd, strides, scale, causal, st);
-  return launch_f32<256>(q, k, v, o, b, h, kv, s, t, dd, strides, scale, causal, st);
+  if (d <= 64) return launch_f32<64>(q, k, v, o, b, h, kv, s, t, dd, strides, scale, causal, window, st);
+  if (d <= 128) return launch_f32<128>(q, k, v, o, b, h, kv, s, t, dd, strides, scale, causal, window, st);
+  return launch_f32<256>(q, k, v, o, b, h, kv, s, t, dd, strides, scale, causal, window, st);
 }
 
 // bf16 inputs: the tensor-core kernel.
 extern "C" int flash_attention_bf16_launch(const void* q, const void* k, const void* v, void* o,
                                            long long B, long long H, long long KV, long long S,
                                            long long T, long long d, const long long* strides,
-                                           int causal, float scale, void* stream) {
-  if (bad_shape(B, H, KV, S, T, d)) return cudaErrorInvalidValue;
+                                           int causal, int window, float scale, void* stream) {
+  if (bad_shape(B, H, KV, S, T, d) || window < 0 || (window > 0 && !causal))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int b = (int)B, h = (int)H, kv = (int)KV, s = (int)S, t = (int)T, dd = (int)d;
-  if (d <= 64) return launch_mma<64>(q, k, v, o, b, h, kv, s, t, dd, strides, scale, causal, st);
-  if (d <= 128) return launch_mma<128>(q, k, v, o, b, h, kv, s, t, dd, strides, scale, causal, st);
-  return launch_mma<256>(q, k, v, o, b, h, kv, s, t, dd, strides, scale, causal, st);
+  if (d <= 64) return launch_mma<64>(q, k, v, o, b, h, kv, s, t, dd, strides, scale, causal, window, st);
+  if (d <= 128) return launch_mma<128>(q, k, v, o, b, h, kv, s, t, dd, strides, scale, causal, window, st);
+  return launch_mma<256>(q, k, v, o, b, h, kv, s, t, dd, strides, scale, causal, window, st);
 }

@@ -15,7 +15,9 @@ id touches stay bit-exact; ids ``< 0`` or ``>= R`` are ignored (padding).
   of ``csrc/cscatter.cu`` (its header says what bounds them and why) or
   raises; it never falls back. A call is two launches, a bucket pass that
   sorts each shard's ids by row block and a fold pass that merges each
-  touched row once; :func:`plan` sizes both on the host.
+  touched row once; :func:`plan` sizes both on the host. Every result is
+  the same bits on every call with the same inputs, float sums included
+  (the header's "Determinism"); they need not be the plain version's.
   ``cscatter.launches`` counts the kernel launches, ``LAUNCHES_PER_CALL``
   a call.
 * On a CPU tensor it runs :func:`cscatter_plain_`, the plain PyTorch
@@ -196,12 +198,14 @@ def cscatter_plain(table: torch.Tensor, ids: torch.Tensor,
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2,
                torch.uint32: 3}
 
-# The kernels' geometry (csrc/cscatter.cu): 4-byte accumulators, column
-# tiles of at most 32, a fold CTA of 4 warps with one [br, dc] accumulator
-# tile (for buckets of more than 32 ids; a warp folds smaller ones in
-# registers), and one bucket-pass histogram of at most HIST_CAP blocks in
-# shared memory.
+# The kernels' geometry (csrc/cscatter.cu): 4-byte accumulators (12 bytes,
+# an int64 sum and a magnitude, for the exact float sums of add and sat_add:
+# EXACT_ACC_ITEM), column tiles of at most 32, a fold CTA of 4 warps with
+# one [br, dc] accumulator tile (for buckets of more than 32 ids; a warp
+# folds smaller ones in registers), and one bucket-pass histogram of at
+# most HIST_CAP blocks in shared memory.
 ACC_ITEM = 4
+EXACT_ACC_ITEM = 12
 MAX_COLS = 32
 FOLD_WARPS = 4
 ACC_BYTES = 16 * 1024              # a fold CTA's tile when the blocks fit
@@ -239,10 +243,20 @@ class Plan:
     scratch: int
 
 
+def acc_item(dtype: torch.dtype, kind: str) -> int:
+    """Bytes of one cell of the fold's accumulator tile: float tables
+    under add and sat_add sum exactly in int64 beside each cell's largest
+    magnitude (``csrc/cscatter.cu``, "Determinism")."""
+    return (EXACT_ACC_ITEM if dtype.is_floating_point
+            and kind in ("add", "sat_add") else ACC_ITEM)
+
+
 @functools.lru_cache(maxsize=1024)
-def plan(s: int, r: int, n: int, d: int, n_sm: int) -> Plan:
+def plan(s: int, r: int, n: int, d: int, n_sm: int,
+         item: int = ACC_ITEM) -> Plan:
     """The sizing of one call on a card with ``n_sm`` SMs, for a table
-    ``[s, r, d]`` and ``n`` ids per shard. The tile starts at ``ACC_BYTES``
+    ``[s, r, d]`` and ``n`` ids per shard, with accumulator cells of
+    ``item`` bytes (:func:`acc_item`). The tile starts at ``ACC_BYTES``
     and doubles, up to ``MAX_ACC_BYTES``, while the row blocks outnumber
     one histogram; past that the bucket pass runs in chunks. The fold runs
     about ``FOLD_CTAS_PER_SM`` CTAs per SM in all, split over the shards,
@@ -254,7 +268,7 @@ def plan(s: int, r: int, n: int, d: int, n_sm: int) -> Plan:
     r32 = -(-r // 32) * 32
     acc = ACC_BYTES
     while True:
-        br = min(max(32, acc // (dc * ACC_ITEM) // 32 * 32), r32)
+        br = min(max(32, acc // (dc * item) // 32 * 32), r32)
         n_blocks = -(-r // br)
         if n_blocks <= HIST_CAP or acc >= MAX_ACC_BYTES:
             break
@@ -311,7 +325,7 @@ def cscatter(table: torch.Tensor, ids: torch.Tensor, vals: torch.Tensor, *,
     n = i.shape[1]
     if n > 0:
         launch(t, i, v, kind, sat_min, sat_max,
-               plan(s, r, n, d, _sm_count(t.device)))
+               plan(s, r, n, d, _sm_count(t.device), acc_item(t.dtype, kind)))
     return table
 
 

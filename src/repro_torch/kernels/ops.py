@@ -36,10 +36,10 @@ def merge_buffer(table: torch.Tensor, block_ids: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """q [B,H,S,d]; k,v [B,KV,T,d] -> [B,H,S,d] (see
-    :func:`repro_torch.kernels.flash_attention.flash_attention`)."""
-    return _flash.flash_attention(q, k, v, causal=causal)
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q [B,H,S,d]; k,v [B,KV,T,d] -> [B,H,S,d], sliding when ``window``
+    > 0 (see :func:`repro_torch.kernels.flash_attention.flash_attention`)."""
+    return _flash.flash_attention(q, k, v, causal=causal, window=window)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

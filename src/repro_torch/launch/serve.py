@@ -7,9 +7,14 @@
 
 The port of the JAX package's ``repro/launch/serve.py``: random weights
 from ``--seed`` (no checkpoint is read), random prompt ids from the same
-seed, prefill through ``flash_attention`` and a fixed-shape greedy decode
-step for the whole batch through ``decode_attention``, with the KV cache
-updated in place. It runs on the card (``--device cuda``, the default) and
+seed, a prefill and a fixed-shape greedy decode step for the whole batch.
+Every ported family serves through :func:`generate`, whose model carries
+its own decode state: the dense LMs and Hymba (``--arch hymba-1-5b``)
+prefill through ``flash_attention`` (Hymba's windowed layers with their
+window) and decode through ``decode_attention`` (Hymba's windowed layers
+over a ring of W slots), with the caches updated in place; xLSTM
+(``--arch xlstm-125m``) has no attention and carries recurrent states
+(its prompt, like Hymba's, is a multiple of 256 tokens or shorter). It runs on the card (``--device cuda``, the default) and
 raises when there is none, unless ``--device cpu`` asks for the CPU, where
 the kernels' plain versions run. One card has no mesh: the JAX CLI's mesh
 and lowering rules have no counterpart here. It prints the JAX CLI's three

@@ -17,8 +17,13 @@ versions instead, on any device: the caller asks for it (``chip_smoke.py``
 holds the whole model against it on the card); nothing falls back to it.
 
 The cache keeps the JAX layout, ``k, v [B, T, KV, hd]``, and decode writes
-it in place (the JAX serve loop donates it). Ring caches and
-cross-attention are not ported yet.
+it in place (the JAX serve loop donates it). Sliding-window layers keep a
+ring of W slots (:class:`RingKVCache`): ``ring_prefill`` attends through
+``flash_attention(..., window=W)`` and writes the last ``min(W, S)`` keys
+and values into slots ``pos % W``; ``ring_decode_step`` writes the token at
+slot ``position % W`` and attends through ``decode_attention`` over slots
+``[0, min(position, W - 1)]`` (why that is exact: its docstring).
+Cross-attention is not ported yet.
 """
 
 from __future__ import annotations
@@ -189,19 +194,31 @@ def attend_full(p, x: Tensor, positions: Tensor, n_heads: int, n_kv: int,
     return nn.apply_dense(p["wo"], out)
 
 
+def _prefill_attend(p, x: Tensor, positions: Tensor, n_heads: int,
+                    n_kv: int, rope_theta: float, plain: bool, window: int
+                    ) -> tuple[Tensor, Tensor, Tensor]:
+    """Causal (``window`` > 0: sliding) self-attention of ``x [B, S, D]``
+    through the flash kernel -> (the heads' output ``[B, S, H*hd]``, k, v
+    ``[B, S, KV, hd]``)."""
+    q, k, v = _qkv(p, x, n_heads, n_kv, positions, rope_theta)
+    b, s = x.shape[:2]
+    attend = flash_attention_plain if plain else ops.flash_attention
+    out = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                 causal=True, window=window)                 # [B, H, S, hd]
+    return out.transpose(1, 2).reshape(b, s, -1), k, v
+
+
 def prefill(p, x: Tensor, positions: Tensor, n_heads: int, n_kv: int,
             cache_len: int, rope_theta: float = 10000.0, plain: bool = False,
             cache: Optional[KVCache] = None) -> tuple[Tensor, KVCache]:
     """Causal full-sequence forward over ``x [B, S, D]`` at ``positions =
     arange(S)`` (the kernel's mask counts positions from 0) that also
     materializes the KV cache (``cache_len`` slots, the first S filled, the
-    rest zero), in ``cache`` when one is given."""
-    q, k, v = _qkv(p, x, n_heads, n_kv, positions, rope_theta)
+    rest zero), in ``cache`` when one is given. A sliding-window layer
+    prefills through :func:`ring_prefill`."""
+    out, k, v = _prefill_attend(p, x, positions, n_heads, n_kv, rope_theta,
+                                plain, 0)
     b, s = x.shape[:2]
-    attend = flash_attention_plain if plain else ops.flash_attention
-    out = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                 causal=True)                                # [B, H, S, hd]
-    out = out.transpose(1, 2).reshape(b, s, -1)
     if cache is None:
         shape = (b, cache_len, n_kv, k.shape[-1])
         cache = KVCache(k=k.new_empty(shape), v=v.new_empty(shape))
@@ -224,4 +241,71 @@ def decode_step(p, x: Tensor, cache: KVCache, position: int, n_heads: int,
     cache.v[:, position] = v[:, 0]
     attend = decode_attention_plain if plain else ops.decode_attention
     out = attend(q[:, 0], cache.k, cache.v, position)        # [B, H, hd]
+    return nn.apply_dense(p["wo"], out.reshape(b, 1, -1)), cache
+
+
+# ---------------------------------------------------------------------------
+# Ring-buffer cache for sliding-window layers: O(window) memory whatever the
+# context length.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class RingKVCache:
+    """Sliding-window cache: slot i holds the most recent position = i (mod
+    W)."""
+
+    k: Tensor  # [B, W, KV, hd]
+    v: Tensor  # [B, W, KV, hd]
+
+
+def ring_slot_positions(position: int, window: int, device=None) -> Tensor:
+    """The absolute position held in each ring slot at ``position``: slot
+    i holds ``position - ((position - i) mod W)``; a negative one is
+    empty."""
+    i = torch.arange(window, dtype=torch.int64, device=device)
+    return position - torch.remainder(position - i, window)
+
+
+def ring_prefill(p, x: Tensor, positions: Tensor, n_heads: int, n_kv: int,
+                 window: int, rope_theta: float = 10000.0,
+                 plain: bool = False) -> tuple[Tensor, RingKVCache]:
+    """Sliding-window forward over ``x [B, S, D]`` at ``positions =
+    arange(S)`` through ``flash_attention(..., window=W)``; the ring keeps
+    the last ``min(W, S)`` keys and values, at slots ``pos % W`` (the rest
+    zero)."""
+    out, k, v = _prefill_attend(p, x, positions, n_heads, n_kv, rope_theta,
+                                plain, window)
+    b, s = x.shape[:2]
+    take = min(window, s)
+    last = positions.reshape(-1, s)[0, s - take:].long()
+    slots = torch.remainder(last, window)
+    shape = (b, window, n_kv, k.shape[-1])
+    ring = RingKVCache(k=k.new_zeros(shape), v=v.new_zeros(shape))
+    ring.k[:, slots] = k[:, s - take:]
+    ring.v[:, slots] = v[:, s - take:]
+    return nn.apply_dense(p["wo"], out), ring
+
+
+def ring_decode_step(p, x: Tensor, cache: RingKVCache, position: int,
+                     n_heads: int, n_kv: int, window: int,
+                     rope_theta: float = 10000.0, plain: bool = False
+                     ) -> tuple[Tensor, RingKVCache]:
+    """One-token decode in a sliding-window layer: ``x [B, 1, D]`` at int
+    ``position``. Writes the token's K/V at slot ``position % W`` (in place)
+    and attends through ``decode_attention`` over slots ``[0, min(position,
+    W - 1)]``. That equals JAX's ``ring_decode_step``, which masks the ring
+    by ``ring_slot_positions``: RoPE is applied before the write and the
+    softmax does not depend on the order of the slots; once ``position >=
+    W - 1`` all W slots hold the positions ``position - W + 1 ..
+    position``, every one visible; before that, slots ``[0, position]``
+    hold positions ``0 .. position`` and the rest are empty."""
+    b = x.shape[0]
+    pos = torch.full((b, 1), position, dtype=torch.int32, device=x.device)
+    q, k, v = _qkv(p, x, n_heads, n_kv, pos, rope_theta)
+    slot = position % window
+    cache.k[:, slot] = k[:, 0]
+    cache.v[:, slot] = v[:, 0]
+    attend = decode_attention_plain if plain else ops.decode_attention
+    out = attend(q[:, 0], cache.k, cache.v, min(position, window - 1))
     return nn.apply_dense(p["wo"], out.reshape(b, 1, -1)), cache

@@ -5,7 +5,7 @@ layers with the weight ``[d_in, d_out]`` as in JAX (``x @ w + b``), an
 f32-compute ``rmsnorm``, the embedding gather, and the initialisers
 (truncated-normal fan-in scaling, normal(0.02) embeddings). Random weights
 come from a ``torch.Generator``, not JAX's bits: the tests carry weights
-across with ``transformer.from_jax_params``. One card has no mesh, so the
+across with ``registry.from_jax_params``. One card has no mesh, so the
 logical-axis tags (``Px``) have no counterpart.
 """
 

@@ -5,15 +5,16 @@ The counterpart of ``DecoderLM.prefill`` / ``decode_step`` and of
 ``forward`` / ``loss`` of the JAX package's ``repro/models/transformer.py``
 for ``family="dense"``
 (qwen1.5-0.5b, internlm2-1.8b): embed, L blocks of pre-norm attention and
-SwiGLU with residuals, a final rmsnorm, and logits in f32 against the tied
+an MLP (SwiGLU, or the two-matrix GELU MLP for ``cfg.mlp == "gelu"``) with
+residuals, a final rmsnorm, and logits in f32 against the tied
 embedding or the unembedding. Attention goes through the port's kernels
 (``models/attention.py``); ``attention="plain"`` takes their plain
 versions.
 
 Parameters are named and stacked as the JAX tree (``embed.table``,
 ``blocks.attn.wq.w`` with a leading layers axis, ``ln_f.scale``,
-``unembed.w`` when untied), so :func:`from_jax_params` fills them leaf by
-leaf; caches are stacked as the JAX scan stacks them, ``{"scan":
+``unembed.w`` when untied), so ``registry.from_jax_params`` fills them
+leaf by leaf; caches are stacked as the JAX scan stacks them, ``{"scan":
 KVCache(k=[L, B, T, KV, hd], v=...)}``, and decode updates them in place.
 
 The module's own parameters are frozen: serving never builds a graph.
@@ -44,20 +45,41 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.models import attention as attn
 from repro_torch.models import module as nn
 from repro_torch.models.embedding import embed
-from repro_torch.models.mlp import swiglu, swiglu_init
+from repro_torch.models.mlp import (gelu_mlp, gelu_mlp_init, swiglu,
+                                   swiglu_init)
 from repro_torch.serve.kv import resolve_device
 
 Tensor = torch.Tensor
 ATTENTION = ("kernel", "plain")
 
 
-def _tree(d: Mapping) -> tnn.Module:
-    """A nested dict of tensors as modules whose parameter names are the
-    dotted paths of the dict (frozen: serving only)."""
+class _Node(tnn.Module):
+    """A dict level that holds both tensors and sub-trees (the SSM and
+    xLSTM layers' ``conv_w`` beside their dense layers), indexed by key."""
+
+    def __init__(self, d: Mapping):
+        super().__init__()
+        for k, v in d.items():
+            if isinstance(v, Tensor):
+                self.register_parameter(k, tnn.Parameter(v,
+                                                         requires_grad=False))
+            else:
+                self.add_module(k, _tree(v))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+
+def _tree(d) -> tnn.Module:
+    """A nested dict (or list) of tensors as modules whose parameter names
+    are the dotted paths of the tree, list items by index (frozen: serving
+    only)."""
+    if isinstance(d, (list, tuple)):
+        return tnn.ModuleList([_tree(x) for x in d])
     leaves = {k: v for k, v in d.items() if isinstance(v, Tensor)}
     subs = {k: v for k, v in d.items() if not isinstance(v, Tensor)}
     if subs and leaves:
-        raise ValueError(f"mixed tree level: {sorted(d)}")
+        return _Node(d)
     if leaves:
         return tnn.ParameterDict({k: tnn.Parameter(v, requires_grad=False)
                                   for k, v in leaves.items()})
@@ -160,11 +182,10 @@ class DecoderLM(tnn.Module):
         super().__init__()
         if cfg.family != "dense":
             raise NotImplementedError(
-                f"DecoderLM: family {cfg.family!r} is not ported yet")
-        if cfg.mlp != "swiglu":
-            raise NotImplementedError(
-                f"DecoderLM: mlp {cfg.mlp!r} is not ported yet (only "
-                f"'swiglu' is)")
+                f"DecoderLM: family {cfg.family!r} is not the dense family "
+                f"(registry.build_model builds each ported family's model)")
+        if cfg.mlp not in ("swiglu", "gelu"):
+            raise ValueError(f"DecoderLM: unknown mlp {cfg.mlp!r}")
         device = resolve_device(device)
         self.cfg = cfg
         self.attention = attention
@@ -179,7 +200,8 @@ class DecoderLM(tnn.Module):
                                        cfg.n_kv_heads, hd, dt,
                                        qkv_bias=cfg.qkv_bias, device=device),
                 "ln2": nn.rmsnorm_init(cfg.d_model, dt, device),
-                "ffn": swiglu_init(gen, cfg.d_model, cfg.d_ff, dt, device),
+                "ffn": (gelu_mlp_init if cfg.mlp == "gelu" else swiglu_init)(
+                    gen, cfg.d_model, cfg.d_ff, dt, device=device),
             }
 
         self.embed = _tree({"table": nn.embed_init(
@@ -190,6 +212,9 @@ class DecoderLM(tnn.Module):
             self.unembed = _tree({"w": nn.dense_init(
                 gen, (cfg.d_model, cfg.padded_vocab), dt, device=device)})
         self._layers = None
+
+    def _ffn(self, p, x: Tensor) -> Tensor:
+        return (gelu_mlp if self.cfg.mlp == "gelu" else swiglu)(p, x)
 
     @property
     def attention(self) -> str:
@@ -228,7 +253,7 @@ class DecoderLM(tnn.Module):
             plain=self.attention == "plain",
             cache=cache)
         h = h + a
-        return h + swiglu(p["ffn"], nn.rmsnorm(p["ln2"], h))
+        return h + self._ffn(p["ffn"], nn.rmsnorm(p["ln2"], h))
 
     def _block_decode(self, p, h, cache, position):
         cfg = self.cfg
@@ -237,7 +262,7 @@ class DecoderLM(tnn.Module):
             cfg.n_kv_heads, rope_theta=cfg.rope_theta,
             plain=self.attention == "plain")
         h = h + a
-        return h + swiglu(p["ffn"], nn.rmsnorm(p["ln2"], h)), cache
+        return h + self._ffn(p["ffn"], nn.rmsnorm(p["ln2"], h)), cache
 
     def _logits(self, h: Tensor) -> Tensor:
         if self.cfg.tie_embeddings:
@@ -264,7 +289,7 @@ class DecoderLM(tnn.Module):
                              cfg.n_heads, cfg.n_kv_heads, "causal",
                              rope_theta=cfg.rope_theta)
         h = h + a
-        return h + swiglu(p["ffn"], nn.rmsnorm(p["ln2"], h))
+        return h + self._ffn(p["ffn"], nn.rmsnorm(p["ln2"], h))
 
     def forward(self, params, h: Tensor, positions: Tensor):
         """The blocks and the final norm over ``h [B, S, D]``, each block
@@ -330,17 +355,25 @@ class DecoderLM(tnn.Module):
 
 
 def _plain(module: tnn.Module):
-    """A ModuleDict / ParameterDict tree as nested dicts of tensors."""
+    """A tree of :func:`_tree`'s modules as nested dicts (and lists) of
+    tensors."""
     if isinstance(module, tnn.ParameterDict):
         return {k: v for k, v in module.items()}
+    if isinstance(module, tnn.ModuleList):
+        return [_plain(m) for m in module]
+    if isinstance(module, _Node):
+        return {**dict(module._parameters),
+                **{k: _plain(m) for k, m in module._modules.items()}}
     return {k: _plain(v) for k, v in module.items()}
 
 
-def _flatten(tree: Mapping, prefix: str = "") -> dict[str, Any]:
+def _flatten(tree, prefix: str = "") -> dict[str, Any]:
     out = {}
-    for k, v in tree.items():
+    items = (enumerate(tree) if isinstance(tree, (list, tuple))
+             else tree.items())
+    for k, v in items:
         name = f"{prefix}{k}"
-        if isinstance(v, Mapping):
+        if isinstance(v, (Mapping, list, tuple)):
             out.update(_flatten(v, name + "."))
         else:
             out[name] = v
@@ -354,10 +387,11 @@ def _as_tensor(a) -> Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def load_jax_params(model: DecoderLM, tree: Mapping) -> DecoderLM:
+def load_jax_params(model: tnn.Module, tree: Mapping) -> tnn.Module:
     """Copy the JAX ``split_params`` tree (numpy arrays, bf16 or any float
-    dtype) into ``model``'s parameters, leaf by leaf, converting to their
-    dtype. Raises on a missing or extra leaf and on any shape mismatch."""
+    dtype) into ``model``'s parameters (any model of the port), leaf by
+    leaf, converting to their dtype. Raises on a missing or extra leaf and
+    on any shape mismatch."""
     want = dict(model.named_parameters())
     got = _flatten(tree)
     missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
@@ -373,12 +407,3 @@ def load_jax_params(model: DecoderLM, tree: Mapping) -> DecoderLM:
         with torch.no_grad():
             param.copy_(t.to(param.dtype))
     return model
-
-
-def from_jax_params(cfg, tree: Mapping, *, device="cuda",
-                    attention: str = "kernel") -> DecoderLM:
-    """A :class:`DecoderLM` of ``cfg`` on ``device`` (the card unless the
-    caller asks for the CPU) holding the JAX parameter tree's weights, so
-    that both packages compute the same function."""
-    model = DecoderLM(cfg, device=device, attention=attention)
-    return load_jax_params(model, tree)

@@ -27,6 +27,16 @@ anything if they are *executed*, not asserted. This module provides:
 * :func:`chaos_sweep` — inject the failure at EVERY step boundary in turn
   and compare each recovered run against the uninterrupted baseline.
 
+* :func:`real_model_run` — the real-model chaos of the JAX package's
+  ``examples/fault_tolerant_train.py`` (``chaos_real_model``): a real LM
+  (``xlstm-125m``) trained in its config's dtype over the 8 stacked ranks of
+  ``chip:2,host:2,pod:2:defer`` (lane-parallel) with an overlapped K = 2
+  commit, killed before a step, resumed and flushed. Its parameters must
+  equal the uninterrupted twin's (:func:`real_model_twin`) bit for bit:
+  that needs every float sum on the path to be the same bits on every run,
+  the embedding backward's ``cscatter`` included (``csrc/cscatter.cu``,
+  "Determinism").
+
 Under ``defer_save="checkpoint"`` the comparison is bitwise on the whole
 state (params, opt, defer tree). Under ``defer_save="flush"`` the boundary
 flush re-times the optimizer folds, so only *mass conservation* holds —
@@ -444,3 +454,128 @@ def chaos_sweep(factory, n_steps: int, root_dir: str, *,
                                                baseline["params"]),
             state_bitwise=trees_bitwise_equal(state, baseline)))
     return baseline, outcomes
+
+
+# ---------------------------------------------------------------------------
+# the real-model chaos
+# ---------------------------------------------------------------------------
+
+REAL_PLAN = "chip:2,host:2,pod:2:defer"
+REAL_SHAPE = (32, 8)                # seq, global batch: one row a rank
+
+
+def _real_model_factory(cfg, *, device="cuda", seed: int = 0):
+    """``() -> (step, batch_fn, state0)`` of the example's real-model run:
+    ``cfg``'s model with weights from ``seed`` on ``device``, AdamW at a
+    constant 1e-3, the deferred train step over ``REAL_PLAN`` (lane
+    parallel) on ``DeferSchedule.fixed(2, ("pod",), overlap=True)``, and
+    the data stream of ``ShapeConfig("t", 32, 8, "train")`` from seed 0
+    (numpy batches, a pure function of the step)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import batch_at, data_config_for
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.optim.schedules import constant
+
+    device = resolve_device(device)
+    dcfg = data_config_for(cfg, ShapeConfig("t", *REAL_SHAPE, "train"),
+                           seed=0)
+
+    def factory():
+        model = build_model(cfg, device=device, seed=seed)
+        opt = adamw(constant(1e-3))
+        step = make_train_step(
+            model, cfg, opt, 1,
+            merge_topology=MergePlan.parse(REAL_PLAN, lane_parallel=True),
+            defer_schedule=DeferSchedule.fixed(2, ("pod",), overlap=True))
+        params = model.params()
+        state0 = {"params": params, "opt": opt.init(params),
+                  "defer": step.init_defer_state(params)}
+        return step, lambda i: batch_at(dcfg, i), state0
+
+    return factory
+
+
+def real_model_twin(cfg, n_steps: int, *, device="cuda", seed: int = 0):
+    """The uninterrupted twin: ``n_steps`` of the real-model step from its
+    initial state, then the flush."""
+    step, batch_fn, state0 = _real_model_factory(cfg, device=device,
+                                                seed=seed)()
+    return run_plain(step, batch_fn, n_steps, state=state0, flush=True)
+
+
+def _tree_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def real_model_run(cfg, n_steps: int, ckpt_dir: str, kill_at: int, *,
+                   device="cuda", seed: int = 0,
+                   fresh_defer: bool = False) -> dict:
+    """One killed real-model run: a driver checkpointing every step runs
+    until ``crashing`` kills it before step ``kill_at``; a second
+    incarnation (new model, step and optimizer objects) resumes from the
+    last checkpoint, runs the remaining steps and flushes. With
+    ``fresh_defer`` the resumed defer state is replaced by fresh zeros (the
+    control: the outstanding gradient mass is lost).
+
+    Returns ``{"state", "report", "seconds": {"killed", "resume", "rest",
+    "flush"}, "step_s": [host seconds of each step run], "save_s": [each
+    checkpoint's save], "ckpt_bytes"}``."""
+    import time
+
+    if not 0 < kill_at < n_steps:
+        raise ValueError(f"kill_at {kill_at} outside (0, {n_steps})")
+    factory = _real_model_factory(cfg, device=device, seed=seed)
+    dcfg = DriverConfig(ckpt_dir=ckpt_dir, ckpt_every=1,
+                        retry_backoff_s=0.0)
+    step, batch_fn, state0 = factory()
+    drv = TrainDriver(dcfg, step, crashing(batch_fn, kill_at),
+                      defer_step=step)
+    t0 = time.perf_counter()
+    try:
+        drv.run(state0, 0, n_steps)
+        raise AssertionError("the injected kill did not fire")
+    except SimulatedCrash:
+        pass
+    killed = time.perf_counter() - t0
+    events = drv.events
+    del drv, step, state0          # the killed incarnation's buffers go
+    step2, batch2, like = factory()
+    drv2 = TrainDriver(dcfg, step2, batch2, defer_step=step2)
+    t0 = time.perf_counter()
+    state, start, report = drv2.resume(like)
+    resume = time.perf_counter() - t0
+    del like
+    if fresh_defer:
+        state["defer"] = step2.init_defer_state(state["params"])
+    t0 = time.perf_counter()
+    state, _ = drv2.run(state, start, n_steps - start)
+    rest = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state, _ = step2.flush(state)
+    flush = time.perf_counter() - t0
+    events = events + drv2.events
+    saves, last = [], None
+    for e in events:
+        if e["event"] == "step":
+            last = e["t"]
+        elif e["event"] == "checkpoint" and last is not None:
+            saves.append(e["t"] - last)
+    latest = _latest_dir(ckpt_dir)
+    return {"state": state, "report": report,
+            "seconds": {"killed": killed, "resume": resume, "rest": rest,
+                        "flush": flush},
+            "step_s": [e["dt"] for e in events if e["event"] == "step"],
+            "save_s": saves,
+            "ckpt_bytes": _tree_bytes(latest) if latest else 0}
+
+
+def _latest_dir(ckpt_dir: str) -> Optional[str]:
+    """The directory of the latest committed checkpoint under
+    ``ckpt_dir``, or None."""
+    from repro_torch.checkpoint.checkpoint import latest_step
+    step = latest_step(ckpt_dir)
+    return None if step is None else os.path.join(ckpt_dir,
+                                                  f"step_{step:08d}")

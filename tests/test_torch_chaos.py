@@ -250,3 +250,62 @@ def test_baseline_is_deterministic(tmp_path):
     step2, bf2, st02 = _fac()()
     b = chaos.run_plain(step2, bf2, 5, state=st02, flush=True)
     assert chaos.trees_bitwise_equal(a["params"], b["params"])
+
+
+# ---------------------------------------------------------------------------
+# the real-model chaos: xlstm-125m's smoke config, the example's run
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def one_thread():
+    """The real model runs thousands of small ops: with a pytest-xdist
+    worker per core, torch's intra-op threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def xlstm_twin():
+    from repro_torch.configs.base import get_smoke_config
+    cfg = get_smoke_config("xlstm-125m")
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return cfg, chaos.real_model_twin(cfg, 5, device="cpu")
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("kill", [1, 2, 3, 4])
+def test_real_model_kill_resumes_to_the_twin_bitwise(xlstm_twin, tmp_path,
+                                                     kill, one_thread):
+    """The JAX example's full run (``examples/fault_tolerant_train.py``
+    ``chaos_real_model``): killed before step ``kill`` of 5, resumed
+    verbatim from the step's checkpoint, finished and flushed, the
+    parameters equal the uninterrupted twin's bit for bit."""
+    cfg, twin = xlstm_twin
+    out = chaos.real_model_run(cfg, 5, str(tmp_path), kill, device="cpu")
+    assert out["report"].action == "verbatim"
+    assert chaos.trees_bitwise_equal(out["state"]["params"], twin["params"])
+    assert len(out["step_s"]) == 5 and out["ckpt_bytes"] > 0
+
+
+def test_real_model_resume_without_the_defer_state_differs(xlstm_twin,
+                                                           tmp_path,
+                                                           one_thread):
+    """The control: a resume whose pendings are replaced by fresh zeros
+    loses the outstanding gradient mass, and the check sees it."""
+    cfg, twin = xlstm_twin
+    out = chaos.real_model_run(cfg, 5, str(tmp_path), 3, device="cpu",
+                               fresh_defer=True)
+    assert not chaos.trees_bitwise_equal(out["state"]["params"],
+                                         twin["params"])
+
+
+def test_real_model_twin_is_bitwise_repeatable(xlstm_twin, one_thread):
+    cfg, twin = xlstm_twin
+    assert chaos.trees_bitwise_equal(
+        chaos.real_model_twin(cfg, 5, device="cpu"), twin)

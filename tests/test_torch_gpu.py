@@ -822,3 +822,117 @@ def test_toy_elastic_resolve_on_the_card_equals_the_cpu(cuda, tmp_path, t):
     assert torch.equal(card["params"]["w"].cpu(), cpu["params"]["w"])
     assert int(card["opt"]["count"]) == int(cpu["opt"]["count"])
 
+
+
+# Streams of the determinism test: (table shape, ids a shard, id law). The
+# port's shapes: a KV tick with hot Zipf ids (units of more than 32 ids: the
+# CTA's exact fold) and with cold uniform ids (warp units), k-means's 5 hot
+# rows, a graph app's scatter, and the embedding backward of xlstm-125m (one
+# rank's 32 ids) and of qwen1.5-0.5b (1024 ids).
+_DET_STREAMS = {
+    "tick_hot": ((8, 1 << 16, 4), 1024, "zipf"),
+    "tick_cold": ((8, 1 << 16, 4), 1024, "uniform"),
+    "kmeans": ((8, 5, 34), 7680, "uniform"),
+    "graph": ((8, 1 << 18, 1), 1 << 20, "zipf"),
+    "embedding_xlstm": ((50304, 768), 32, "zipf"),
+    "embedding_qwen": ((151936, 1024), 1024, "zipf"),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["add", "sat_add"])
+@pytest.mark.parametrize("stream", sorted(_DET_STREAMS))
+def test_float_cscatter_is_bitwise_repeatable(cuda, dtype, kind, stream):
+    """Float sums through cscatter are the same bits on every call: five
+    calls from the same table, ids and values, hot and cold streams, equal
+    bit for bit, and each within TOL of the plain version."""
+    shape, n, law = _DET_STREAMS[stream]
+    rng = np.random.default_rng(5)
+    r = shape[-2]
+    lead = shape[:-2]
+    if law == "zipf":
+        ids = (rng.zipf(1.2, lead + (n,)) - 1) % r
+    else:
+        ids = rng.integers(0, r, lead + (n,))
+    ids = torch.as_tensor(ids.astype(np.int32), device=cuda)
+    table = torch.as_tensor(rng.standard_normal(shape),
+                            dtype=torch.float32).to(cuda, dtype)
+    vals = torch.as_tensor(rng.standard_normal(lead + (n, shape[-1])),
+                           dtype=torch.float32).to(cuda, dtype)
+    sat = (-3.0, 3.0) if kind == "sat_add" else (0.0, 0.0)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    outs = [cs.cscatter(table.clone(), ids, vals, kind=kind, sat_min=sat[0],
+                        sat_max=sat[1]) for _ in range(5)]
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        assert torch.equal(out.view(bits), outs[0].view(bits))
+    # against the exact sums (float64), since the plain version's own f32
+    # sums of thousands of terms drift by more than TOL
+    s3 = table.reshape((-1,) + shape[-2:]).shape[0]
+    flat = (ids.reshape(s3, -1).long()
+            + r * torch.arange(s3, device=cuda)[:, None]).reshape(-1)
+    u = torch.zeros((s3 * r, shape[-1]), dtype=torch.float64, device=cuda)
+    u.index_add_(0, flat, vals.reshape(-1, shape[-1]).double())
+    want = table.double().reshape(s3 * r, -1) + u
+    if kind == "sat_add":       # clips the touched rows only
+        touched = torch.zeros(s3 * r, dtype=torch.bool, device=cuda)
+        touched[flat] = True
+        want = torch.where(touched[:, None], want.clamp(*sat),
+                           table.double().reshape(s3 * r, -1))
+    torch.testing.assert_close(outs[0].double().reshape(want.shape), want,
+                               rtol=TOL[dtype], atol=TOL[dtype] * 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,s,d,window", [
+    (2, 25, 5, 300, 64, 16),      # Hymba's GQA group of 5, window of 16
+    (1, 8, 2, 1000, 64, 100),     # a window that ends inside a tile
+    (1, 4, 4, 257, 128, 64),      # a window of one tile, ragged S
+    (1, 4, 1, 130, 256, 1),       # only the diagonal
+    (2, 25, 5, 200, 64, 1024),    # a window past the sequence: causal
+])
+def test_windowed_flash_attention_matches_plain(cuda, dtype, b, h, kv, s, d,
+                                                window):
+    """Both CUDA variants with a sliding window against the plain version
+    (key j visible to query i iff i - window < j <= i), contiguous and
+    through the model's strided [B, S, H, d] views."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _attn_inputs(dtype, (b, h, s, d), (b, kv, s, d),
+                           (b, kv, s, d), seed=window)
+    want = fa.flash_attention_plain(q, k, v, window=window)
+    variant = fa.VARIANTS[dtype]
+    for args in [(q, k, v), tuple(x.transpose(1, 2).contiguous()
+                                  .transpose(1, 2) for x in (q, k, v))]:
+        before = fa.flash_attention.launches_by_variant[variant]
+        got = fa.flash_attention(*args, window=window)
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches_by_variant[variant] == before + 1
+        _assert_attn_close(got, want, dtype)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, v, causal=False, window=window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("position", [0, 37, 1022, 1023])
+def test_decode_attention_takes_five_heads_a_group_on_a_ring_cache(
+        cuda, dtype, position):
+    """Hymba's decode geometry: G = H / KV = 5 query heads a kv head (not a
+    power of two) over a ring cache of W = 1024 slots, the position
+    clamped at W - 1 once the ring is full; against the plain version, and
+    both passes against theirs."""
+    from repro_torch.kernels import decode_attention as da
+    q, k, v = _attn_inputs(dtype, (8, 25, 64), (8, 1024, 5, 64),
+                           (8, 1024, 5, 64), seed=position)
+    before = da.decode_attention.launches
+    got = da.decode_attention(q, k, v, position)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + da.LAUNCHES_PER_CALL
+    _assert_attn_close(got, da.decode_attention_plain(q, k, v, position),
+                       dtype)
+    out, m, l, acc = da.launch(q, k, v, position, 3)
+    wm, wl, wacc = da.decode_attention_partials_plain(q, k, v, position, 3)
+    torch.testing.assert_close(m, wm, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, wl, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(acc, wacc, rtol=1e-4, atol=1e-4)
+    _assert_attn_close(out, da.decode_attention_combine_plain(m, l, acc,
+                                                              dtype), dtype)

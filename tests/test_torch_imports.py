@@ -41,7 +41,9 @@ def test_the_port_has_files_to_scan():
             "checkpoint.py", "defer_state.py", "pipeline.py",
             "optimizers.py", "schedules.py", "driver.py", "grad_merge.py",
             "steps.py", "train.py", "embedding.py", "elastic.py",
-            "chaos.py"} <= names
+            "chaos.py", "mlp.py", "ssm.py", "xlstm.py", "xlstm_lm.py",
+            "hymba.py", "xlstm_125m.py", "hymba_1_5b.py",
+            "granite_34b.py"} <= names
     dirs = {p.parent.name for p in PORT_FILES}
     assert {"data", "optim", "runtime", "launch", "checkpoint"} <= dirs
     for kernel in ("cscatter.cu", "cmerge.cu", "flash_attention.cu",

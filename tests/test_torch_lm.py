@@ -38,17 +38,17 @@ from repro.models.module import split_params
 from repro.models.registry import build_model as jbuild_model
 from repro_torch.configs import base as tbase
 from repro_torch.models import mlp, module, rope
-from repro_torch.models.registry import build_model
-from repro_torch.models.transformer import (DecoderLM, from_jax_params,
-                                           load_jax_params)
+from repro_torch.models.registry import build_model, from_jax_params
+from repro_torch.models.transformer import DecoderLM, load_jax_params
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["qwen1-5-0-5b", "internlm2-1-8b"]
+CONFIGS = ARCHS + ["xlstm-125m", "hymba-1-5b", "granite-34b"]
 LOGIT_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 CACHE_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 5e-2)}
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", CONFIGS)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_ported_configs_equal_the_jax_ones_field_by_field(arch, smoke):
     get = "get_smoke_config" if smoke else "get_config"
@@ -67,8 +67,8 @@ def test_ported_configs_equal_the_jax_ones_field_by_field(arch, smoke):
 def test_config_registry_names_what_is_not_ported():
     assert tbase.ARCH_IDS == jbase.ARCH_IDS
     assert tbase.ARCH_ALIASES == jbase.ARCH_ALIASES
-    with pytest.raises(NotImplementedError, match="xlstm_125m"):
-        tbase.get_config("xlstm-125m")
+    with pytest.raises(NotImplementedError, match="seamless_m4t_medium"):
+        tbase.get_config("seamless-m4t-medium")
     with pytest.raises(ValueError, match="unknown arch"):
         tbase.get_config("gpt-17")
     cfg = dataclasses.replace(tbase.get_smoke_config("qwen1-5-0-5b"),
@@ -182,16 +182,67 @@ def test_models_run_on_the_card_unless_the_caller_asks_for_the_cpu():
     assert DecoderLM(cfg, device="cpu").embed.table.device.type == "cpu"
 
 
-def test_decoder_lm_refuses_a_gelu_mlp():
-    """The JAX model builds ``gelu_mlp`` for ``mlp="gelu"``; the port has
-    only SwiGLU, so such a config raises instead of serving another
-    function."""
-    cfg = dataclasses.replace(
-        tbase.get_smoke_config("qwen1-5-0-5b"), name="gelu-1l", mlp="gelu",
-        n_layers=1, d_model=32, n_heads=2, n_kv_heads=2, d_ff=64, vocab=64)
-    assert cfg.family == "dense"
-    with pytest.raises(NotImplementedError, match="gelu"):
-        DecoderLM(cfg, device="cpu")
+def test_gelu_mlp_is_jax_tanh_gelu():
+    """``gelu_mlp`` against JAX's on the same weights (f32 to 1e-5): JAX's
+    ``jax.nn.gelu`` is the tanh approximation, which torch's default erf
+    GELU misses by up to 4.7e-4 per activation, so this fails with it."""
+    rng = np.random.default_rng(0)
+    h = rng.standard_normal((3, 7, 32)).astype(np.float32) * 3
+    p = {"wi": {"w": rng.standard_normal((32, 48)).astype(np.float32) * 0.3,
+                "b": rng.standard_normal(48).astype(np.float32)},
+         "wo": {"w": rng.standard_normal((48, 32)).astype(np.float32) * 0.2,
+                "b": rng.standard_normal(32).astype(np.float32)}}
+    tp = jax.tree.map(torch.from_numpy, p)
+    want = np.asarray(jmlp.gelu_mlp(jax.tree.map(jnp.asarray, p),
+                                    jnp.asarray(h)))
+    np.testing.assert_allclose(mlp.gelu_mlp(tp, torch.from_numpy(h)).numpy(),
+                               want, rtol=1e-5, atol=1e-5)
+    x = torch.linspace(-4, 4, 801)
+    np.testing.assert_allclose(mlp.gelu(x).numpy(),
+                               np.asarray(jax.nn.gelu(jnp.asarray(x.numpy()))),
+                               rtol=1e-6, atol=1e-6)
+    erf = torch.nn.functional.gelu(x).numpy()
+    assert np.abs(erf - np.asarray(jax.nn.gelu(jnp.asarray(x.numpy())))
+                  ).max() > 1e-4
+    init = mlp.gelu_mlp_init(torch.Generator().manual_seed(0), 32, 48,
+                             torch.float32)
+    assert {k: sorted(v) for k, v in init.items()} == {"wi": ["b", "w"],
+                                                       "wo": ["b", "w"]}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decoder_lm_with_a_gelu_mlp_matches_jax(dtype):
+    """``DecoderLM`` at granite-34b's smoke config with ``mlp="gelu"`` (the
+    smoke config itself is SwiGLU; the full config is GELU) against JAX's
+    ``DecoderLM``: prefill, decode steps and the loss."""
+    jcfg = dataclasses.replace(jbase.get_smoke_config("granite-34b"),
+                               mlp="gelu", dtype=dtype)
+    tcfg = dataclasses.replace(tbase.get_smoke_config("granite-34b"),
+                               mlp="gelu", dtype=dtype)
+    jmodel = jbuild_model(jcfg)
+    params, _ = split_params(jmodel.init(jax.random.key(0)))
+    tmodel = from_jax_params(tcfg, jax.tree.map(np.asarray, params),
+                             device="cpu")
+    assert sorted(tmodel.params()["blocks"]["ffn"]) == ["wi", "wo"]
+    tokens = np.random.default_rng(1).integers(
+        0, jcfg.vocab, (2, 10)).astype(np.int32)
+    jl, jc = jmodel.prefill(params, {"tokens": jnp.asarray(tokens)}, 14)
+    tl, tc = tmodel.prefill(torch.from_numpy(tokens), 14)
+    tol = LOGIT_TOL[dtype]
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=tol, atol=tol)
+    for i in range(4):
+        tok = np.asarray(jnp.argmax(jl, axis=-1)).astype(np.int32)
+        jl, jc = jmodel.decode_step(params, jnp.asarray(tok), jc,
+                                    jnp.asarray(10 + i, jnp.int32))
+        tl, tc = tmodel.decode_step(torch.from_numpy(tok), tc, 10 + i)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=tol,
+                                   atol=tol, err_msg=f"decode {i}")
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    jloss = jmodel.loss(params, jax.tree.map(jnp.asarray, batch))[0]
+    tloss = tmodel.loss(tmodel.params(), {k: torch.from_numpy(v.copy())
+                                          for k, v in batch.items()})[0]
+    np.testing.assert_allclose(float(tloss), float(jloss),
+                               rtol=1e-5 if dtype == "float32" else 2e-2)
 
 
 def test_kernel_and_plain_attention_agree_on_the_cpu():
@@ -243,6 +294,25 @@ def test_serve_cli_on_the_cpu_end_to_end():
     traced = [line for line in out if line.startswith("profile ")]
     assert [line.split(" (")[0] for line in traced] == [
         "profile prefill", "profile decode"]
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "hymba-1-5b"])
+def test_serve_cli_serves_the_new_families_on_the_cpu(arch):
+    """The xLSTM and Hymba families through the same CLI and ``generate``
+    (a prompt longer than Hymba's smoke window of 16), with the trace."""
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+         "--smoke", "--device", "cpu", "--batch", "2", "--prompt-len", "24",
+         "--gen", "20", "--profile"],
+        capture_output=True, text=True, cwd=ROOT, env=env, timeout=300,
+        check=True).stdout.splitlines()
+    assert out[0].startswith("prefill: 2x24 tok in ")
+    assert out[1].startswith("decode: 19 steps x 2 seqs in ")
+    assert len(eval(out[2].removeprefix("generated ids[0]: "))) == 20
+    assert [line.split(" (")[0] for line in out
+            if line.startswith("profile ")] == ["profile prefill",
+                                                "profile decode"]
 
 
 def test_serve_generate_is_prefill_then_greedy_decode():

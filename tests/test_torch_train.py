@@ -63,7 +63,7 @@ from repro_torch.core.merge_plan import MergePlan
 from repro_torch.core.stacked import StackedAxis
 from repro_torch.launch import steps
 from repro_torch.models.embedding import embed
-from repro_torch.models.transformer import from_jax_params
+from repro_torch.models.registry import from_jax_params
 from repro_torch.optim import optimizers as topt
 from repro_torch.optim import schedules as tsched
 
@@ -112,10 +112,10 @@ def _assert_trees_close(got: dict, want: dict, rtol=TOL, atol_frac=TOL,
 class Pair:
     """One smoke model in both packages on the same weights."""
 
-    def __init__(self, dtype="float32", remat="none"):
-        self.jcfg = dataclasses.replace(jbase.get_smoke_config(ARCH),
+    def __init__(self, dtype="float32", remat="none", arch=ARCH):
+        self.jcfg = dataclasses.replace(jbase.get_smoke_config(arch),
                                         dtype=dtype, remat=remat)
-        self.tcfg = dataclasses.replace(tbase.get_smoke_config(ARCH),
+        self.tcfg = dataclasses.replace(tbase.get_smoke_config(arch),
                                         dtype=dtype, remat=remat)
         self.jmodel = jbuild_model(self.jcfg)
         self.jparams, _ = split_params(self.jmodel.init(jax.random.key(0)))

@@ -11,6 +11,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 from repro_torch import checkpoint as ckpt
 from repro_torch.launch import train
@@ -21,8 +22,8 @@ SMOKE = ["--arch", "qwen1-5-0-5b", "--smoke", "--device", "cpu",
 LOSS_LINE = re.compile(r"^steps (\d+)\.\.(\d+): loss (\S+) -> (\S+)$", re.M)
 
 
-def _cli(args):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+def _cli(args, **env_extra):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **env_extra)
     out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
                           *args], capture_output=True, text=True, env=env,
                          cwd=ROOT, timeout=300)
@@ -71,6 +72,58 @@ def test_cli_runs(tmp_path, capsys, extra, flush):
     assert (flush in out) if flush else "final flush" not in out
     losses = [e["loss"] for e in res.events if e["event"] == "step"]
     assert len(losses) == 3 and all(x == x for x in losses)
+
+
+XLSTM = ["--arch", "xlstm-125m", "--smoke", "--device", "cpu", "--batch",
+         "8", "--seq", "16"]
+
+
+@pytest.mark.parametrize("extra,flush", [
+    ([], None),
+    (["--merge-topology", "chip:2,host:2,pod:2"], None),
+    (["--merge-topology", "chip:2,host:2:defer,pod:2:defer", "--merge-defer",
+      "2"], "final flush: settled a 1-step partial cycle"),
+    (["--merge-topology", "chip:2,host:2,pod:2:defer", "--merge-defer", "2",
+      "--merge-overlap", "--merge-lane-parallel"],
+     "final flush: settled a 1-step partial cycle"),
+], ids=["implicit", "eager", "deferred", "overlap"])
+def test_cli_trains_xlstm(tmp_path, capsys, extra, flush):
+    n = torch.get_num_threads()       # small ops: threads only contend
+    torch.set_num_threads(1)
+    try:
+        _train_xlstm(tmp_path, capsys, extra, flush)
+    finally:
+        torch.set_num_threads(n)
+
+
+def _train_xlstm(tmp_path, capsys, extra, flush):
+    """``--arch xlstm-125m`` (any model with ``params()`` and ``loss``)
+    through the implicit, eager, deferred and overlapped steps; its config
+    asks for no remat."""
+    res = train.main(XLSTM + extra + ["--steps", "3", "--ckpt-dir",
+                                      str(tmp_path), "--ckpt-every", "100"])
+    out = capsys.readouterr().out
+    assert res.end == 3 and LOSS_LINE.search(out)
+    assert (flush in out) if flush else "final flush" not in out
+    losses = [e["loss"] for e in res.events if e["event"] == "step"]
+    assert len(losses) == 3 and all(x == x for x in losses)
+    assert isinstance(res.state["params"]["blocks"], list)
+
+
+def test_xlstm_cli_end_to_end_resumes(tmp_path):
+    args = XLSTM + ["--merge-topology", "chip:2,host:2,pod:2:defer",
+                    "--merge-defer", "2", "--merge-overlap", "--steps", "4",
+                    "--ckpt-every", "2", "--ckpt-dir", str(tmp_path)]
+    first = _cli(args, OMP_NUM_THREADS="1")
+    m = LOSS_LINE.search(first)
+    assert m and m.group(1, 2) == ("0", "4")
+    assert "final flush: landed the in-flight commit" in first
+    assert ckpt.latest_step(str(tmp_path)) == 4
+    second = _cli(args[:-6] + ["--steps", "6", "--ckpt-every", "2",
+                               "--ckpt-dir", str(tmp_path)],
+                  OMP_NUM_THREADS="1")
+    assert "resumed from checkpoint step 4 -> start 4" in second
+    assert LOSS_LINE.search(second).group(1, 2) == ("4", "6")
 
 
 def test_merge_defer_auto_solves_from_measured_rates(tmp_path, capsys):
