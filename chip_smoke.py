@@ -12,9 +12,10 @@ rows), its solved and adaptive commit schedules, its write-ahead journal,
 snapshots and crash recovery, LM serving (prefill + greedy decode) of
 qwen1.5-0.5b, the paper's BFS, PageRank and k-means, training of
 qwen1.5-0.5b with gradient accumulation as a CCache merge, its elastic
-resume after a kill onto another rank count, and the xLSTM and Hymba
+resume after a kill onto another rank count, the xLSTM and Hymba
 families (hymba-1.5b and xlstm-125m served, xlstm-125m trained, killed
-and resumed bit for bit) — and:
+and resumed bit for bit) and the encoder-decoder (seamless-m4t-medium
+served and trained) — and:
 
 1. prints the card (``nvidia-smi`` name and power limit, torch's name);
 2. builds every CUDA kernel of the paths from ``src/repro_torch/csrc``, all
@@ -67,7 +68,9 @@ and resumed bit for bit) — and:
    and ``ATTN_BF16_ROW`` per output row) at qwen1.5-0.5b's and
    internlm2-1.8b's attention shapes, with sliding windows (hymba-1.5b's
    prefill, W = 1024, and windows of 100, 64 and 1 over ragged S), decode
-   at hymba-1.5b's ring and global caches (G = 5),
+   at hymba-1.5b's ring and global caches (G = 5), seamless-m4t-medium's
+   bidirectional encoder (S = T = 128) and cross-attention (S = 512, T =
+   128) and its decode over the cross cache of 128 slots,
    and the bf16 tensor-core flash kernel at the edges of
    its tiling (d of 8 to 256, ragged S != T, GQA groups of 2 and 8,
    strided views), printing the variant each shape ran; holds each pass of
@@ -106,8 +109,8 @@ and resumed bit for bit) — and:
    step by kind (eager, accumulate, commit, launch, land, flush),
    tokens/s, peak memory, a ``torch.profiler`` split of one eager step
    and the device's idle share; ``cscatter`` is also checked and timed at
-   the embedding backward's shape ([151936, 1024], N = 1024, bf16 and
-   f32) beside ``index_add_``;
+   the embedding backward's shapes ([151936, 1024] and seamless-m4t-medium's
+   [256256, 1024], N = 1024, bf16 and f32) beside ``index_add_``;
 12. runs the chaos harness and elastic restore on the card: the integer
    toy's preempt and kill sweeps over every boundary of 6 steps (``[8,
    2^20]`` int32 pendings, without and with overlap) bitwise against the
@@ -140,6 +143,15 @@ and resumed bit for bit) — and:
    twice, bitwise equal to itself in every leaf, a kill before step 2
    resumed and flushed bitwise equal to the twin, a control with fresh
    defer state that must differ, ``cscatter`` launches = 2 x 8 x steps;
+   then serves seamless-m4t-medium at full width (bf16, batch 8, prompts
+   of 512 with frames [8, 128, 1024], 64 tokens: 36 ``flash_attention``
+   launches at prefill, 24 of them bidirectional (the 12 encoder layers
+   and the 12 cross-attentions, S = 512 against T = 128), all bf16_mma;
+   3024 ``decode_attention`` launches, self and cross a layer a step),
+   held against the same weights in f32 through the plain attention, and
+   trains it 2 eager steps (batch 4 x 512 over 2 stacked ranks, AdamW):
+   losses finite, 8 ``cscatter`` launches into the [256256, 1024] f32
+   embedding gradient, held to the plain version's;
 14. prints every kernel's registers and spills (``ptxas -v``),
    one ``{"kernels": [...]}`` line and the card's name and power limit;
 15. ends with ``{"ok": true, "device": {...}}``.
@@ -244,6 +256,17 @@ TRAIN_PLAN = "chip:2,host:2,pod:2"
 TRAIN_DEFER_PLAN = "chip:2,host:2:defer,pod:2:defer"
 TRAIN_K, TRAIN_LR, TRAIN_WARMUP = 4, 3e-4, 2
 TRAIN_V, TRAIN_D = 151936, 1024     # the embedding table, [vocab, d_model]
+# seamless-m4t-medium (encoder-decoder): served at full width, batch
+# FAMILY_BATCH, prompts of ENCDEC_PROMPT ids with enc_len(512) = 128 frames
+# (ENCDEC_FRAMES), ENCDEC_GEN greedy tokens; trained ENCDEC_TRAIN_STEPS
+# eager steps of ENCDEC_TRAIN_BATCH x TRAIN_SEQ over ENCDEC_TRAIN_PLAN's
+# ENCDEC_TRAIN_DP stacked ranks. Its tied table is [256256, 1024] (vocab
+# 256206 padded).
+ENCDEC = "seamless-m4t-medium"
+ENCDEC_PROMPT, ENCDEC_GEN, ENCDEC_FRAMES = 512, 64, 128
+ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_STEPS = 4, 2
+ENCDEC_TRAIN_PLAN, ENCDEC_TRAIN_DP = "chip:2", 2
+ENCDEC_V = 256256
 # Elastic restore. (a) the chaos harness's integer toy on the card: a
 # [8, 2^20] int32 pending a level over TRAIN_DEFER_PLAN with intervals
 # (1, 2), swept over every boundary of 6 steps, and resolved onto
@@ -1303,14 +1326,17 @@ def phase_attention_checks() -> dict:
     f32 and bf16 (f32 to ``TOL``, bf16 to ``ATTN_BF16_TOL`` and
     ``ATTN_BF16_ROW``; see ``_attn_compare``):
     flash at qwen1.5-0.5b prefill, at internlm2-1.8b shapes (causal and
-    bidirectional) and ragged S = T = 100, with sliding windows at
+    bidirectional), ragged S = T = 100 and seamless-m4t-medium's
+    bidirectional encoder (S = T = 128) and cross-attention (S = 512, T =
+    128), with sliding windows at
     hymba-1.5b's prefill (W = 1024, G = 5) and at windows of 100, 64 and 1
     over ragged S; the bf16 tensor-core kernel also
     at d in {8, 64, 72, 128, 256}, causal and not, with ragged S != T (S =
     100 against T = 37, and 37 against 100), GQA groups of 2 and 8, and
     through strided [B, S, H, d] views; decode at both models' cache shapes
     and at hymba-1.5b's ring (T = W = 1024) and global cache (T = 2112),
-    G = 5, at positions 0, 1, mid and T - 1, and each of its two passes against
+    G = 5, and seamless-m4t-medium's cross cache (T = 128, read at T - 1),
+    at positions 0, 1, mid and T - 1, and each of its two passes against
     the plain split and combine passes there. Prints the variant each
     flash shape ran and the split count of each decode shape. Returns the
     worst errors."""
@@ -1327,13 +1353,17 @@ def phase_attention_checks() -> dict:
     flash_cases = [((8, 16, 512, 512, 64), 16, True),
                    ((2, 16, 1024, 1024, 128), 8, True),
                    ((2, 16, 1024, 1024, 128), 8, False),
-                   ((2, 8, 100, 100, 64), 4, True)]
+                   ((2, 8, 100, 100, 64), 4, True),
+                   # seamless-m4t-medium: the encoder, the prefill's cross
+                   ((8, 16, ENCDEC_FRAMES, ENCDEC_FRAMES, 64), 16, False),
+                   ((8, 16, ENCDEC_PROMPT, ENCDEC_FRAMES, 64), 16, False)]
     edge_cases = [((1, 8, s, t, d), kv, causal)
                   for d in (8, 64, 72, 128, 256) for causal in (True, False)
                   for (s, t), kv in (((100, 37), 4), ((37, 100), 1))]
     # hymba-1.5b: G = 5; the ring of W = 1024 slots and a global cache
     decode_cases = [((8, 16, 64), 576, 16), ((8, 16, 128), 4096, 8),
-                    ((8, 25, 64), HYMBA_W, 5), ((8, 25, 64), 2112, 5)]
+                    ((8, 25, 64), HYMBA_W, 5), ((8, 25, 64), 2112, 5),
+                    ((8, 16, 64), ENCDEC_FRAMES, 16)]   # seamless's cross
     # sliding windows (causal): hymba-1.5b's prefill, and windows that end
     # inside a tile, cover one tile or only the diagonal, at ragged S
     window_cases = [((8, 25, 2048, 2048, 64), 5, HYMBA_W),
@@ -1444,7 +1474,11 @@ def phase_attention_times() -> dict:
     (H 25, KV 5, d 64): its prefill of 2048 with a window of 1024 and, at
     the same shape, causal (SDPA with an explicit mask beside the window),
     and its decode over a full ring of 1024 slots and over a global layer's
-    cache of 2112 at its last position. A decode row's
+    cache of 2112 at its last position; and seamless-m4t-medium's (H = KV
+    = 16, d 64), bidirectional: its encoder (S = T = 128 frames) and its
+    prefill's cross-attention (S = 512 against T = 128), and its decode's
+    cross-attention over the cross cache of 128 at position 127. A decode
+    row's
     times cover both of its launches; it is also timed, with SDPA, from a
     cache that is not in the L2 (``cold_ms``, ``library_cold_ms``), and at
     split counts around the plan's (``ms_by_splits``)."""
@@ -1458,14 +1492,20 @@ def phase_attention_times() -> dict:
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
     bf16 = torch.bfloat16
     out = {"flash": [], "decode": []}
-    for model, (b, h, kv, s, d), w in (
-            ("qwen1.5-0.5b", (8, 16, 16, 512, 64), 0),
-            ("internlm2-1.8b", (2, 16, 8, 1024, 128), 0),
-            ("hymba-1.5b", (8, 25, 5, HYMBA_PROMPT, 64), HYMBA_W),
-            ("hymba-1.5b", (8, 25, 5, HYMBA_PROMPT, 64), 0)):
-        q, k, v = _attn_rand(g, bf16, (b, h, s, d), (b, kv, s, d),
-                             (b, kv, s, d))
-        bound, bound_by = flash_bound_ms(b, h, kv, s, s, d, True, 2, w)
+    for model, (b, h, kv, s, t, d), causal, w in (
+            ("qwen1.5-0.5b", (8, 16, 16, 512, 512, 64), True, 0),
+            ("internlm2-1.8b", (2, 16, 8, 1024, 1024, 128), True, 0),
+            ("hymba-1.5b", (8, 25, 5, HYMBA_PROMPT, HYMBA_PROMPT, 64), True,
+             HYMBA_W),
+            ("hymba-1.5b", (8, 25, 5, HYMBA_PROMPT, HYMBA_PROMPT, 64), True,
+             0),
+            ("seamless-m4t-medium encoder",
+             (8, 16, 16, ENCDEC_FRAMES, ENCDEC_FRAMES, 64), False, 0),
+            ("seamless-m4t-medium cross",
+             (8, 16, 16, ENCDEC_PROMPT, ENCDEC_FRAMES, 64), False, 0)):
+        q, k, v = _attn_rand(g, bf16, (b, h, s, d), (b, kv, t, d),
+                             (b, kv, t, d))
+        bound, bound_by = flash_bound_ms(b, h, kv, s, t, d, causal, 2, w)
         if w:       # SDPA has no window: an explicit mask
             diff = (torch.arange(s, device="cuda")[:, None]
                     - torch.arange(s, device="cuda")[None, :])
@@ -1475,22 +1515,25 @@ def phase_attention_times() -> dict:
             if w:
                 return F.scaled_dot_product_attention(
                     q, k, v, attn_mask=mask, enable_gqa=kv != h)
-            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                   enable_gqa=kv != h)
-        row = {"model": model, "q": [b, h, s, d], "kv_heads": kv,
-               "causal": True, "window": w,
-               "ms": graph_ms(lambda: flash_attention(q, k, v, window=w)),
-               "call_ms": time_ms(lambda: flash_attention(q, k, v,
-                                                          window=w)),
+        row = {"model": model, "q": [b, h, s, d], "kv_heads": kv, "t": t,
+               "causal": causal, "window": w,
+               "ms": graph_ms(lambda: flash_attention(q, k, v, causal=causal,
+                                                      window=w)),
+               "call_ms": time_ms(lambda: flash_attention(
+                   q, k, v, causal=causal, window=w)),
                "plain_ms": time_ms(lambda: flash_attention_plain(
-                   q, k, v, window=w), **({"samples": 5, "inner": 1}
-                                          if s >= HYMBA_PROMPT else {})),
+                   q, k, v, causal=causal, window=w),
+                   **({"samples": 5, "inner": 1}
+                      if s >= HYMBA_PROMPT else {})),
                "library_ms": graph_ms(sdpa),
                "library_call_ms": time_ms(sdpa),
                "bound_ms": bound, "bound_by": bound_by}
         out["flash"].append(row)
         print(f"time flash_attention {model} bf16 q [{b},{h},{s},{d}] "
-              f"KV={kv} causal window={w}: kernel {row['ms']:.6f} ms (a call "
+              f"KV={kv} T={t} {'causal' if causal else 'bidirectional'} "
+              f"window={w}: kernel {row['ms']:.6f} ms (a call "
               f"{row['call_ms']:.6f} ms), plain {row['plain_ms']:.6f} ms, "
               f"sdpa {row['library_ms']:.6f} ms (a call "
               f"{row['library_call_ms']:.6f} ms), bound {bound:.6f} ms "
@@ -1499,7 +1542,8 @@ def phase_attention_times() -> dict:
             ("qwen1.5-0.5b", (8, 16, 16, 576, 64)),
             ("internlm2-1.8b", (8, 16, 8, 4096, 128)),
             ("hymba-1.5b ring", (8, 25, 5, HYMBA_W, 64)),
-            ("hymba-1.5b global", (8, 25, 5, HYMBA_PROMPT + HYMBA_GEN, 64))):
+            ("hymba-1.5b global", (8, 25, 5, HYMBA_PROMPT + HYMBA_GEN, 64)),
+            ("seamless-m4t-medium cross", (8, 16, 16, ENCDEC_FRAMES, 64))):
         q, k, v = _attn_rand(g, bf16, (b, h, d), (b, t, kv, d),
                              (b, t, kv, d))
         pos = t - 1
@@ -1582,12 +1626,16 @@ def phase_serve(card: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = decode_attention.launches = 0
+    flash_attention.launches_bidirectional = 0
     flash_attention.launches_by_variant = dict.fromkeys(
         flash_attention.launches_by_variant, 0)
     res = generate(model, ids, GEN, keep_logits=True)
     launches = {"flash_attention": flash_attention.launches,
                 "decode_attention": decode_attention.launches}
     by_variant = dict(flash_attention.launches_by_variant)
+    require(flash_attention.launches_bidirectional == 0,
+            f"serve: {flash_attention.launches_bidirectional} bidirectional "
+            f"flash launches in a decoder-only model")
     # the serve path's own peak: weights, cache, activations, kept logits
     peak = torch.cuda.max_memory_allocated() - base
     want = {"flash_attention": cfg.n_layers,
@@ -1651,12 +1699,15 @@ def phase_serve(card: str) -> dict:
     return out
 
 
-def _teacher_forced(model, ids, res, prompt: int) -> list:
-    """The logits of every step of ``res`` (a ``generate`` run) with its
-    tokens teacher-forced through ``model`` as it is set now."""
+def _teacher_forced(model, batch: dict, res, prompt: int) -> list:
+    """The logits of every step of ``res`` (a ``generate`` run of
+    ``batch``'s tokens, and frames for an encoder-decoder) with its tokens
+    teacher-forced through ``model`` as it is set now."""
     import torch
-    logits, caches = model.prefill(torch.as_tensor(ids, device="cuda"),
-                                   prompt + len(res.logits))
+    frames = (batch["frames"],) if "frames" in batch else ()
+    logits, caches = model.prefill(
+        torch.as_tensor(batch["tokens"], device="cuda"),
+        prompt + len(res.logits), *frames)
     out = [logits]
     for i in range(1, len(res.logits)):
         logits, caches = model.decode_step(res.tokens[:, i - 1], caches,
@@ -1709,22 +1760,25 @@ def _f32_floor_check(label: str, got: list, other: list, ref: list,
         checked += n
         same_n += m
         if i == 0:
+            step0_apart = float(apart.max())
             print(f"{label} step 0 logits: served bf16 vs f32 max {k_max} "
                   f"RMS {k_rms}; other bf16 vs f32 max {p_max} RMS {p_rms}; "
                   f"the two bf16 paths apart max {float(apart.max())} RMS "
                   f"{float(apart.square().mean().sqrt())}")
     return {"max_logit_err": worst_apart, "other_vs_f32_max": worst_other,
-            "sure_tokens": checked, "same_tokens": same_n}
+            "step0_apart": step0_apart, "sure_tokens": checked,
+            "same_tokens": same_n}
 
 
-def _plain_teacher_forced(model, ids, res, prompt: int, label: str,
+def _plain_teacher_forced(model, batch: dict, res, prompt: int, label: str,
                           f32_floor: bool = False) -> dict:
     """``res`` (a ``generate`` run through the kernels) against the same
     tokens teacher-forced through the plain attention versions: every
     step's logits within ``LOGIT_TOL``, greedy tokens equal where the plain
     path's top-2 margin exceeds ``2 * LOGIT_TOL`` (``phase_serve``'s
     bounds). No attention kernel may launch meanwhile. With ``f32_floor``
-    (hymba-1.5b: 32 layers, prompts of 2048) both bf16 paths are held to
+    (hymba-1.5b: 32 layers, prompts of 2048; seamless-m4t-medium: 24
+    layers) both bf16 paths are held to
     the same weights in f32 through the plain attention instead
     (``_f32_floor_check``); the model ends in f32 and the caller drops
     it."""
@@ -1733,11 +1787,11 @@ def _plain_teacher_forced(model, ids, res, prompt: int, label: str,
     from repro_torch.kernels.flash_attention import flash_attention
     before = (flash_attention.launches, decode_attention.launches)
     model.attention = "plain"
-    plain = _teacher_forced(model, ids, res, prompt)
+    plain = _teacher_forced(model, batch, res, prompt)
     ref = None
     if f32_floor:
         model.float()
-        ref = _teacher_forced(model, ids, res, prompt)
+        ref = _teacher_forced(model, batch, res, prompt)
     require(before == (flash_attention.launches, decode_attention.launches),
             f"{label}: the plain path launched an attention kernel")
     model.attention = "kernel"
@@ -1777,32 +1831,43 @@ def _serve_family(arch: str, cfg, prompt: int, gen: int, card: str,
                   want: dict) -> tuple:
     """``cfg`` at full width in bf16 with random weights from the seed,
     ``FAMILY_BATCH`` prompts of ``prompt`` random ids and ``gen`` greedy
-    tokens through ``launch/serve.generate``, the attention kernels'
+    tokens (an encoder-decoder with the frames the serve CLI draws)
+    through ``launch/serve.generate``, the attention kernels'
     counts zeroed just before and read just after and held to ``want``;
     then a ``--profile``-style trace of a prefill and one decode step.
-    Returns (model, ids, result, the row to print)."""
+    Returns (model, the serve batch, result, the row to print)."""
     import torch
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.launch.serve import generate, profile, prompts
+    from repro_torch.launch.serve import generate, profile, serve_batch
     from repro_torch.models.registry import build_model
     gc.collect()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     model = build_model(cfg, device="cuda", seed=SEED)
-    ids = prompts(cfg, FAMILY_BATCH, prompt, SEED)
-    generate(model, ids[:, :16], 2)                 # warm-up, not counted
+    batch = serve_batch(cfg, FAMILY_BATCH, prompt, SEED)
+    ids, frames = batch["tokens"], batch.get("frames")
+    generate(model, ids[:, :16], 2, frames=frames)  # warm-up, not counted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = decode_attention.launches = 0
     flash_attention.launches_windowed = 0
-    res = generate(model, ids, gen, keep_logits=True)
+    flash_attention.launches_bidirectional = 0
+    flash_attention.launches_by_variant = dict.fromkeys(
+        flash_attention.launches_by_variant, 0)
+    res = generate(model, ids, gen, frames=frames, keep_logits=True)
     launches = {"flash_attention": flash_attention.launches,
                 "flash_attention_windowed": flash_attention.launches_windowed,
+                "flash_attention_bidirectional":
+                    flash_attention.launches_bidirectional,
                 "decode_attention": decode_attention.launches}
+    by_variant = dict(flash_attention.launches_by_variant)
     peak = torch.cuda.max_memory_allocated() - base
     require(launches == want, f"{arch}: launches {launches}, the path "
                               f"predicts {want}")
+    require(by_variant["bf16_mma"] == launches["flash_attention"],
+            f"{arch}: flash_attention variants {by_variant}: every launch "
+            f"must run the bf16 tensor-core kernel")
     require(tuple(res.tokens.shape) == (FAMILY_BATCH, gen),
             f"{arch}: generated {tuple(res.tokens.shape)}")
     steps = gen - 1
@@ -1810,15 +1875,16 @@ def _serve_family(arch: str, cfg, prompt: int, gen: int, card: str,
            "prefill_tok_s": FAMILY_BATCH * prompt / res.prefill_s,
            "decode_ms_per_step": 1e3 * res.decode_s / steps,
            "decode_tok_s": FAMILY_BATCH * steps / res.decode_s,
-           "peak_bytes": peak, "launches": launches}
+           "peak_bytes": peak, "launches": launches,
+           "flash_launches_by_variant": by_variant}
     print(f"serve {cfg.name} bf16 batch {FAMILY_BATCH} prompt {prompt} gen "
           f"{gen} on {card}: prefill {row['prefill_ms']:.3f} ms "
           f"({row['prefill_tok_s']:.1f} tok/s), decode "
           f"{row['decode_ms_per_step']:.6f} ms a step "
           f"({row['decode_tok_s']:.1f} tok/s), peak memory {peak} bytes; "
           f"launches {launches} (predicted {want})")
-    row["profile"] = profile(model, ids, steps=1, rows=8)
-    return model, ids, res, row
+    row["profile"] = profile(model, ids, steps=1, rows=8, frames=frames)
+    return model, batch, res, row
 
 
 def _hymba_serve(card: str) -> dict:
@@ -1831,11 +1897,12 @@ def _hymba_serve(card: str) -> dict:
     n_win = cfg.n_layers - len(cfg.full_attn_layers)
     want = {"flash_attention": cfg.n_layers,
             "flash_attention_windowed": n_win,
+            "flash_attention_bidirectional": 0,
             "decode_attention": cfg.n_layers * (HYMBA_GEN - 1)
             * LAUNCHES_PER_CALL}
-    model, ids, res, row = _serve_family("hymba-1.5b", cfg, HYMBA_PROMPT,
-                                         HYMBA_GEN, card, want)
-    row.update(_plain_teacher_forced(model, ids, res, HYMBA_PROMPT,
+    model, batch, res, row = _serve_family("hymba-1.5b", cfg, HYMBA_PROMPT,
+                                           HYMBA_GEN, card, want)
+    row.update(_plain_teacher_forced(model, batch, res, HYMBA_PROMPT,
                                      "serve hymba-1.5b", f32_floor=True))
     return row
 
@@ -1855,10 +1922,10 @@ def _xlstm_serve(card: str) -> dict:
     from repro_torch.models import module as nn
     cfg = get_config("xlstm-125m")
     want = {"flash_attention": 0, "flash_attention_windowed": 0,
-            "decode_attention": 0}
-    model, ids, res, row = _serve_family("xlstm-125m", cfg, XLSTM_PROMPT,
-                                         XLSTM_GEN, card, want)
-    seq = torch.cat([torch.as_tensor(ids, device="cuda").long(),
+            "flash_attention_bidirectional": 0, "decode_attention": 0}
+    model, batch, res, row = _serve_family("xlstm-125m", cfg, XLSTM_PROMPT,
+                                           XLSTM_GEN, card, want)
+    seq = torch.cat([torch.as_tensor(batch["tokens"], device="cuda").long(),
                      res.tokens[:, :-1]], dim=1)        # 256 + 256 = 512
 
     def chunkwise():
@@ -1874,7 +1941,7 @@ def _xlstm_serve(card: str) -> dict:
     bf16_chunks = chunkwise()
     model.float()
     f32_chunks = chunkwise()
-    f32_steps = _teacher_forced(model, ids, res, XLSTM_PROMPT)
+    f32_steps = _teacher_forced(model, batch, res, XLSTM_PROMPT)
     worst32 = max(float((a - b).abs().max())
                   for a, b in zip(f32_steps, f32_chunks))
     require(worst32 <= 1e-3, f"xlstm-125m in f32: recurrent logits differ "
@@ -1901,14 +1968,114 @@ def _gelu_serve(card: str) -> dict:
     cfg = dataclasses.replace(get_smoke_config("granite-34b"), mlp="gelu")
     gen, prompt = 16, 64
     want = {"flash_attention": cfg.n_layers, "flash_attention_windowed": 0,
+            "flash_attention_bidirectional": 0,
             "decode_attention": cfg.n_layers * (gen - 1) * LAUNCHES_PER_CALL}
-    model, ids, res, row = _serve_family("granite-34b-smoke gelu", cfg,
-                                         prompt, gen, card, want)
+    model, batch, res, row = _serve_family("granite-34b-smoke gelu", cfg,
+                                           prompt, gen, card, want)
     require(sorted(model.params()["blocks"]["ffn"]) == ["wi", "wo"],
             "granite-34b gelu: the model did not build the GELU MLP")
-    row.update(_plain_teacher_forced(model, ids, res, prompt,
+    row.update(_plain_teacher_forced(model, batch, res, prompt,
                                      "serve granite-34b-smoke gelu"))
     return row
+
+
+def _encdec_serve(card: str) -> dict:
+    """(e) seamless-m4t-medium at full width and depth: FAMILY_BATCH
+    prompts of ENCDEC_PROMPT ids and frames [8, 128, 1024], ENCDEC_GEN
+    tokens. Prefill launches flash_attention 36 times: 12 encoder layers
+    bidirectional (S = T = 128), 12 decoder self-attentions causal (S = T =
+    512) and 12 cross-attentions bidirectional (S = 512, T = 128), all
+    bf16_mma; each decode step two decode_attention calls a decoder layer
+    (self and cross), 2 launches each. Held to the same weights in f32
+    through the plain attention (24 layers: the f32 floor), with the
+    fixed-bound reading against the plain bf16 path printed at step 0."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.decode_attention import LAUNCHES_PER_CALL
+    cfg = get_config(ENCDEC)
+    n_enc, n_dec = cfg.n_enc_layers, cfg.n_dec_layers
+    want = {"flash_attention": n_enc + 2 * n_dec,
+            "flash_attention_windowed": 0,
+            "flash_attention_bidirectional": n_enc + n_dec,
+            "decode_attention": 2 * n_dec * (ENCDEC_GEN - 1)
+            * LAUNCHES_PER_CALL}
+    model, batch, res, row = _serve_family(ENCDEC, cfg, ENCDEC_PROMPT,
+                                           ENCDEC_GEN, card, want)
+    require(tuple(batch["frames"].shape) == (FAMILY_BATCH, ENCDEC_FRAMES,
+                                             cfg.d_model),
+            f"{ENCDEC}: frames {tuple(batch['frames'].shape)}")
+    out = _plain_teacher_forced(model, batch, res, ENCDEC_PROMPT,
+                                f"serve {ENCDEC}", f32_floor=True)
+    row.update(out)
+    print(f"serve {ENCDEC} step 0, the fixed bound for the record: kernel "
+          f"vs plain bf16 logits {out['step0_apart']} apart (LOGIT_TOL "
+          f"{LOGIT_TOL}: {'within' if out['step0_apart'] <= LOGIT_TOL else 'beyond'})")
+    return row
+
+
+def _encdec_train(card: str) -> dict:
+    """(f) seamless-m4t-medium trained at full width and depth (bf16,
+    remat "dots", random weights from the seed): ENCDEC_TRAIN_STEPS eager
+    steps of ENCDEC_TRAIN_BATCH x TRAIN_SEQ (frames of 128) over
+    ENCDEC_TRAIN_PLAN's 2 stacked ranks, AdamW, through
+    ``launch/train.py``'s ``build`` as ``phase_train`` drives it. Every
+    loss finite; ``cscatter`` launches (the embedding backward into the
+    [256256, 1024] f32 gradient) equal 2 x ranks x steps; one rank's
+    embedding gradient through the CUDA ``cscatter`` within 1e-2 of each
+    row's RMS of the plain version's. The step functions run without the
+    CLI's driver, so nothing is checkpointed."""
+    import torch
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.kernels.cscatter import LAUNCHES_PER_CALL, cscatter
+    from repro_torch.launch import steps, train
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = train.build(train.parse_args([
+        "--arch", ENCDEC, "--steps", str(ENCDEC_TRAIN_STEPS), "--batch",
+        str(ENCDEC_TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr",
+        str(TRAIN_LR), "--warmup", str(TRAIN_WARMUP), "--seed", str(SEED),
+        "--device", "cuda", "--merge-topology", ENCDEC_TRAIN_PLAN]))
+    require(t.dp == ENCDEC_TRAIN_DP and t.cfg.remat == "dots",
+            f"{ENCDEC} train: {t.dp} ranks, remat {t.cfg.remat}")
+    state, t.state = t.state, None
+    batches = [batch_at(t.dcfg, i) for i in range(ENCDEC_TRAIN_STEPS)]
+    require(batches[0]["frames"].shape == (ENCDEC_TRAIN_BATCH, ENCDEC_FRAMES,
+                                           t.cfg.d_model),
+            f"{ENCDEC} train: frames {batches[0]['frames'].shape}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cscatter.launches = 0
+    rec = []
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        state, m = t.step_fn(state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        loss = float(m["loss"])
+        require(np.isfinite(loss), f"{ENCDEC} train step {i}: loss {loss}")
+        rec.append({"ms": 1e3 * dt, "loss": loss})
+        print(f"train {ENCDEC} step {i}: loss {loss:.6f} {1e3 * dt:.3f} ms")
+    launches = cscatter.launches
+    peak = torch.cuda.max_memory_allocated()
+    want = LAUNCHES_PER_CALL * t.dp * t.microbatches * ENCDEC_TRAIN_STEPS
+    require(launches == want, f"{ENCDEC} train: cscatter launched "
+                              f"{launches} times, the path predicts {want}")
+    ms = rec[-1]["ms"]                        # step 0 warms up
+    out = {"steps": rec, "ranks": t.dp, "ms_per_step": ms,
+           "tokens_per_s": ENCDEC_TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
+           "peak_bytes": peak, "cscatter_launches": launches,
+           "cscatter_launches_predicted": want}
+    print(f"train {ENCDEC} eager over {t.dp} ranks on {card}: "
+          f"{ms:.3f} ms a step, {out['tokens_per_s']:.1f} tokens/s, peak "
+          f"memory {peak} bytes, cscatter launches {launches} (predicted "
+          f"{want})")
+    out["embedding_backward"] = _embedding_backward_check(
+        steps.grads_fn(t.model), state["params"],
+        steps.to_device(batches[0], "cuda"),
+        rows=ENCDEC_TRAIN_BATCH // t.dp)
+    del t, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def _leaf_diff(a, b) -> list[str]:
@@ -2006,13 +2173,16 @@ def _real_model_chaos(card: str) -> dict:
 
 
 def phase_families(card: str) -> dict:
-    """This slice's paths, each with the kernels' counts zeroed just
+    """The model families' paths, each with the kernels' counts zeroed just
     before and read just after: (a) hymba-1.5b served at full width, (b)
     xlstm-125m served at full width, (c) the GELU MLP, (d) the real-model
-    chaos of xlstm-125m at full width."""
+    chaos of xlstm-125m at full width, (e) seamless-m4t-medium served and
+    (f) trained at full width."""
     out = {}
     for name, fn in (("hymba", _hymba_serve), ("xlstm", _xlstm_serve),
-                     ("gelu", _gelu_serve), ("chaos", _real_model_chaos)):
+                     ("gelu", _gelu_serve), ("chaos", _real_model_chaos),
+                     ("encdec", _encdec_serve),
+                     ("encdec_train", _encdec_train)):
         t0 = time.perf_counter()
         out[name] = fn(card)
         out[name]["phase_s"] = time.perf_counter() - t0
@@ -2465,29 +2635,38 @@ def phase_apps(card: str) -> dict:
     return out
 
 
-def _embedding_ids():
-    """One rank's ids of the train phase's first batch: TRAIN_ROWS rows of
-    TRAIN_SEQ Zipf tokens, flattened (N = 1024)."""
+# The embedding backwards the train paths launch: (the model, its table's
+# rows, the train batch, its ranks); N = one rank's rows x TRAIN_SEQ = 1024
+EMBED_TABLES = ((ARCH, TRAIN_V, TRAIN_BATCH, TRAIN_DP),
+                (ENCDEC, ENCDEC_V, ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_DP))
+
+
+def _embedding_ids(arch: str, batch: int, ranks: int):
+    """One rank's ids of ``arch``'s train batch 0 (``batch`` rows of
+    TRAIN_SEQ Zipf tokens over ``ranks``), flattened."""
     import torch
     from repro_torch.configs.base import ShapeConfig, get_config
     from repro_torch.data.pipeline import batch_at, data_config_for
-    dcfg = data_config_for(get_config(ARCH), ShapeConfig(
-        "train", TRAIN_SEQ, TRAIN_BATCH, "train"), seed=SEED)
-    tokens = batch_at(dcfg, 0)["tokens"][:TRAIN_BATCH // TRAIN_DP]
+    dcfg = data_config_for(get_config(arch), ShapeConfig(
+        "train", TRAIN_SEQ, batch, "train"), seed=SEED)
+    tokens = batch_at(dcfg, 0)["tokens"][:batch // ranks]
     return torch.as_tensor(tokens.reshape(-1), device="cuda")
 
 
 def embedding_kernel_checks() -> float:
-    """``cscatter`` at the embedding backward's shape, [V, D] = [151936,
-    1024] with one rank's N = 1024 Zipf ids, bf16 (the table's dtype) and
-    f32 (what the train path launches), against its plain version."""
+    """``cscatter`` at each embedding backward's shape of
+    ``EMBED_TABLES`` ([151936, 1024] and [256256, 1024]) with one rank's N
+    = 1024 Zipf ids, bf16 (the table's dtype) and f32 (what the train path
+    launches), against its plain version."""
     import torch
     from repro_torch.kernels.cscatter import cscatter, cscatter_plain
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    ids = _embedding_ids()
     worst = 0.0
-    for dtype in (torch.bfloat16, torch.float32):
-        table = torch.randn((TRAIN_V, TRAIN_D), device="cuda",
+    for (arch, rows, batch, ranks), dtype in (
+            (e, dt) for e in EMBED_TABLES
+            for dt in (torch.bfloat16, torch.float32)):
+        ids = _embedding_ids(arch, batch, ranks)
+        table = torch.randn((rows, TRAIN_D), device="cuda",
                             generator=g).to(dtype)
         vals = torch.randn((ids.numel(), TRAIN_D), device="cuda",
                            generator=g).to(dtype)
@@ -2496,9 +2675,9 @@ def embedding_kernel_checks() -> float:
         torch.cuda.synchronize()
         err = _compare(got, want)
         worst = max(worst, err)
-        print(f"check cscatter {str(dtype)[6:]} [{TRAIN_V},{TRAIN_D}] "
-              f"N={ids.numel()} add embedding-backward ids: ok (max abs err "
-              f"{err})")
+        print(f"check cscatter {str(dtype)[6:]} [{rows},{TRAIN_D}] "
+              f"N={ids.numel()} add {arch} embedding-backward ids: ok (max "
+              f"abs err {err})")
         del table, vals, want, got
     return worst
 
@@ -2506,39 +2685,42 @@ def embedding_kernel_checks() -> float:
 def embedding_kernel_times() -> list[dict]:
     """The embedding backward's ``cscatter`` timed as the other rows: the
     kernel (CUDA graph), a call, the plain version, ``index_add_`` (device
-    time from a CUDA graph, and a call) and the bound in bytes."""
+    time from a CUDA graph, and a call) and the bound in bytes, at each
+    table of ``EMBED_TABLES``."""
     import torch
     from repro_torch.kernels.cscatter import cscatter, cscatter_plain_
-    ids = _embedding_ids()
-    n = ids.numel()
-    rows = []
-    for dtype in (torch.bfloat16, torch.float32):
-        table = torch.zeros((TRAIN_V, TRAIN_D), dtype=dtype, device="cuda")
+    out = []
+    for (arch, rows, batch, ranks), dtype in (
+            (e, dt) for e in EMBED_TABLES
+            for dt in (torch.bfloat16, torch.float32)):
+        ids = _embedding_ids(arch, batch, ranks)
+        n = ids.numel()
+        table = torch.zeros((rows, TRAIN_D), dtype=dtype, device="cuda")
         vals = torch.ones((n, TRAIN_D), dtype=dtype, device="cuda")
         lids = ids.long()
         bound, bound_by = scatter_bound_ms(ids[None], TRAIN_D,
-                                           table.element_size(), r=TRAIN_V)
+                                           table.element_size(), r=rows)
 
         def kernel():
             cscatter(table, ids, vals)
 
         def lib():
             table.index_add_(0, lids, vals)
-        row = {"kind": "add", "what": "embedding_backward",
-               "dtype": str(dtype)[6:], "shape": [TRAIN_V, TRAIN_D], "n": n,
+        row = {"kind": "add", "what": "embedding_backward", "arch": arch,
+               "dtype": str(dtype)[6:], "shape": [rows, TRAIN_D], "n": n,
                "ms": graph_ms(kernel), "call_ms": time_ms(kernel),
                "plain_ms": time_ms(lambda: cscatter_plain_(table, ids, vals)),
                "library_ms": graph_ms(lib), "library_call_ms": time_ms(lib),
                "bound_ms": bound, "bound_by": bound_by}
-        print(f"time cscatter add {row['dtype']} [{TRAIN_V},{TRAIN_D}] N={n} "
-              f"(embedding backward): kernel {row['ms']:.6f} ms (a call "
+        print(f"time cscatter add {row['dtype']} [{rows},{TRAIN_D}] N={n} "
+              f"({arch} embedding backward): kernel {row['ms']:.6f} ms (a call "
               f"{row['call_ms']:.6f} ms), plain {row['plain_ms']:.6f} ms, "
               f"index_add_ {row['library_ms']:.6f} ms (a call "
               f"{row['library_call_ms']:.6f} ms), bound {bound:.6f} ms "
               f"({bound_by})")
-        rows.append(row)
+        out.append(row)
         del table, vals
-    return rows
+    return out
 
 
 def _train_argv(variant: str, n: int, ckpt_dir: str) -> list[str]:
@@ -2663,16 +2845,17 @@ def profile_train_step(step_fn, state, batch) -> tuple[dict, dict]:
     return out, state
 
 
-def _embedding_backward_check(grads_of, params, batch) -> dict:
-    """One rank's gradient of the embedding table (its rows of ``batch``)
-    with the backward through the CUDA ``cscatter`` and through the plain
-    version: each row to 1e-2 of its RMS (the kernel sums the row's ids in
-    another order before the one bf16 rounding; the tied logits term is
-    the same product in both)."""
+def _embedding_backward_check(grads_of, params, batch,
+                              rows: int = TRAIN_BATCH // TRAIN_DP) -> dict:
+    """One rank's gradient of the embedding table (the first ``rows`` rows
+    of ``batch``) with the backward through the CUDA ``cscatter`` and
+    through the plain version: each row to 1e-2 of its RMS (the kernel sums
+    the row's ids in another order before the one bf16 rounding; the tied
+    logits term is the same product in both)."""
     import torch
     from repro_torch.kernels.cscatter import cscatter_plain_
     from repro_torch.models import embedding
-    shard = {k: v[:TRAIN_BATCH // TRAIN_DP] for k, v in batch.items()}
+    shard = {k: v[:rows] for k, v in batch.items()}
     _, got = grads_of(params, shard)
     got = got["embed"]["table"].float()
 
@@ -2690,7 +2873,7 @@ def _embedding_backward_check(grads_of, params, batch) -> dict:
     out = {"max_abs_err": float((got - want).abs().max()),
            "worst_row_rel_rms_err": worst_row, "row_tol": 1e-2}
     print(f"train embedding backward, CUDA cscatter vs plain, one rank's "
-          f"{shard['tokens'].numel()} ids into [{TRAIN_V},{TRAIN_D}] (tied):"
+          f"{shard['tokens'].numel()} ids into {list(want.shape)} (tied):"
           f" max |err| {out['max_abs_err']}, worst row error RMS "
           f"{worst_row:.3e} of the row's RMS (tol 1e-2)")
     require(bool((err <= 1e-2 * rms + 1e-30).all()),
@@ -3453,6 +3636,8 @@ def main() -> None:
         "launches_train": trained["launches"],
         "launches_elastic": elastic["launches"],
         "launches_families": families["chaos"]["cscatter_launches"],
+        "launches_encdec_train": families["encdec_train"][
+            "cscatter_launches"],
         "determinism": determinism,
         "train_embedding_backward": train_add,
         "variants": times, "apps": apps["kernel_rows"]}, {
@@ -3478,8 +3663,11 @@ def main() -> None:
         "launches": serve["launches"][name],
         "launches_families": {k: families[k]["launches"][name]
                               for k in ("hymba", "gelu")},
+        "launches_encdec": families["encdec"]["launches"][name],
         "launches_windowed_families": families["hymba"]["launches"][
             "flash_attention_windowed"],
+        "launches_bidirectional_encdec": families["encdec"]["launches"][
+            "flash_attention_bidirectional"],
         "max_abs_err": worst_attn["bfloat16"],
         "max_abs_err_f32": worst_attn["float32"],
         "worst_row_rel_err": worst_attn["row_bfloat16"],

@@ -153,7 +153,7 @@ ARCH_ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
 
 # the configs ported so far
 PORTED = ("qwen1_5_0_5b", "internlm2_1_8b", "xlstm_125m", "hymba_1_5b",
-          "granite_34b")
+          "granite_34b", "seamless_m4t_medium")
 
 
 def _module(arch: str):

@@ -18,8 +18,9 @@ is clamped at ``1e-30``; the output has q's dtype.
   copies in flight with ``cp.async``); f32 inputs to ``f32_fma``, products
   on the f32 cores. It raises on what they do not take; it never falls
   back. ``flash_attention.launches`` counts every launch,
-  ``flash_attention.launches_by_variant`` each variant's and
-  ``flash_attention.launches_windowed`` those with a window.
+  ``flash_attention.launches_by_variant`` each variant's,
+  ``flash_attention.launches_windowed`` those with a window and
+  ``flash_attention.launches_bidirectional`` those with ``causal=False``.
 * On a CPU tensor it runs :func:`flash_attention_plain`, the plain PyTorch
   version of the same arithmetic, which the tests hold against the JAX
   kernel and ``chip_smoke.py`` holds the CUDA kernels against.
@@ -157,9 +158,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     flash_attention.launches += 1
     flash_attention.launches_by_variant[variant] += 1
     flash_attention.launches_windowed += window > 0
+    flash_attention.launches_bidirectional += not causal
     return out
 
 
 flash_attention.launches = 0
 flash_attention.launches_windowed = 0
+flash_attention.launches_bidirectional = 0
 flash_attention.launches_by_variant = dict.fromkeys(VARIANTS.values(), 0)

@@ -14,7 +14,11 @@ prefill through ``flash_attention`` (Hymba's windowed layers with their
 window) and decode through ``decode_attention`` (Hymba's windowed layers
 over a ring of W slots), with the caches updated in place; xLSTM
 (``--arch xlstm-125m``) has no attention and carries recurrent states
-(its prompt, like Hymba's, is a multiple of 256 tokens or shorter). It runs on the card (``--device cuda``, the default) and
+(its prompt, like Hymba's, is a multiple of 256 tokens or shorter); the
+encoder-decoder (``--arch seamless-m4t-medium``) also takes the frame
+embeddings the JAX CLI draws after the prompts (:func:`serve_batch`),
+encodes them at prefill and reads its cross cache at every decode step.
+It runs on the card (``--device cuda``, the default) and
 raises when there is none, unless ``--device cpu`` asks for the CPU, where
 the kernels' plain versions run. One card has no mesh: the JAX CLI's mesh
 and lowering rules have no counterpart here. It prints the JAX CLI's three
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import get_config, get_smoke_config
+from repro_torch.models.encdec import enc_len
 from repro_torch.models.registry import build_model
 from repro_torch.serve.kv import resolve_device
 
@@ -50,24 +55,45 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def serve_batch(cfg, batch: int, prompt_len: int, seed: int) -> dict:
+    """The batch the JAX CLI draws for the same arguments, from one
+    ``default_rng(seed)``: ``tokens`` (int32 prompt ids) and, for the
+    encoder-decoder, then ``frames``, standard normals ``[batch,
+    enc_len(prompt_len), d_model]`` cast from float64 to the parameters'
+    dtype (a CPU tensor)."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab, (batch, prompt_len)).astype(
+        np.int32)}
+    if cfg.family == "encdec":
+        out["frames"] = torch.from_numpy(rng.standard_normal(
+            (batch, enc_len(prompt_len), cfg.d_model))).to(cfg.param_dtype)
+    return out
+
+
 def prompts(cfg, batch: int, prompt_len: int, seed: int) -> np.ndarray:
     """The prompt ids the JAX CLI draws for the same arguments."""
-    rng = np.random.default_rng(seed)
-    return rng.integers(0, cfg.vocab, (batch, prompt_len)).astype(np.int32)
+    return serve_batch(cfg, batch, prompt_len, seed)["tokens"]
 
 
-def generate(model, tokens, gen: int, *, keep_logits: bool = False
-             ) -> ServeResult:
-    """Prefill ``tokens [B, P]`` and decode ``gen - 1`` greedy steps after
-    the prefill's token (``gen`` tokens in all), timing each phase between
-    two synchronisations of the card."""
+def _prefill(model, tokens, cache_len: int, frames):
+    if frames is None:
+        return model.prefill(tokens, cache_len)
+    return model.prefill(tokens, cache_len, frames)
+
+
+def generate(model, tokens, gen: int, *, frames=None,
+             keep_logits: bool = False) -> ServeResult:
+    """Prefill ``tokens [B, P]`` (an encoder-decoder with its ``frames``)
+    and decode ``gen - 1`` greedy steps after the prefill's token (``gen``
+    tokens in all), timing each phase between two synchronisations of the
+    card."""
     device = model.device
     tokens = torch.as_tensor(tokens, device=device)
     cache_len = tokens.shape[1] + gen
     kept = []
     _sync(device)
     t0 = time.perf_counter()
-    logits, caches = model.prefill(tokens, cache_len)
+    logits, caches = _prefill(model, tokens, cache_len, frames)
     tok = logits.argmax(-1)
     _sync(device)
     prefill_s = time.perf_counter() - t0
@@ -87,8 +113,10 @@ def generate(model, tokens, gen: int, *, keep_logits: bool = False
     return ServeResult(torch.stack(out, 1), prefill_s, decode_s, kept)
 
 
-def profile(model, tokens, steps: int = 3, rows: int = 12) -> dict:
-    """Trace one prefill of ``tokens`` and ``steps`` greedy decode steps
+def profile(model, tokens, steps: int = 3, rows: int = 12, *,
+            frames=None) -> dict:
+    """Trace one prefill of ``tokens`` (with ``frames`` for an
+    encoder-decoder) and ``steps`` greedy decode steps
     after it with ``torch.profiler`` (CPU and CUDA activities); print the
     operators with the most device time and return, per phase, the kernel
     launches, host time and device time (ms, per decode step)."""
@@ -103,13 +131,13 @@ def profile(model, tokens, steps: int = 3, rows: int = 12) -> dict:
     out = {}
     for phase in ("prefill", "decode"):
         if phase == "decode":
-            logits, caches = model.prefill(tokens, cache_len)
+            logits, caches = _prefill(model, tokens, cache_len, frames)
             tok = logits.argmax(-1)
         _sync(device)
         t0 = time.perf_counter()
         with trace(activities=acts) as prof:
             if phase == "prefill":
-                model.prefill(tokens, cache_len)
+                _prefill(model, tokens, cache_len, frames)
             else:
                 for i in range(steps):
                     logits, caches = model.decode_step(
@@ -160,8 +188,9 @@ def main(argv=None) -> ServeResult:
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch))
     model = build_model(cfg, device=device, seed=args.seed)
-    res = generate(model, prompts(cfg, args.batch, args.prompt_len,
-                                  args.seed), args.gen)
+    batch = serve_batch(cfg, args.batch, args.prompt_len, args.seed)
+    res = generate(model, batch["tokens"], args.gen,
+                   frames=batch.get("frames"))
     steps = args.gen - 1
     print(f"prefill: {args.batch}x{args.prompt_len} tok "
           f"in {res.prefill_s * 1e3:.1f}ms")
@@ -170,7 +199,7 @@ def main(argv=None) -> ServeResult:
           f"({steps * args.batch / max(res.decode_s, 1e-9):.1f} tok/s)")
     print("generated ids[0]:", res.tokens[0].tolist())
     if args.profile:
-        profile(model, prompts(cfg, args.batch, args.prompt_len, args.seed))
+        profile(model, batch["tokens"], frames=batch.get("frames"))
     return res
 
 

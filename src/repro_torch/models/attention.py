@@ -1,10 +1,12 @@
 """GQA attention: training over a full sequence, prefill (returns the KV
-cache) and decode.
+cache) and decode, self-attention and cross-attention.
 
-The counterparts of ``attend_full``, ``prefill`` and ``decode_step`` of the
-JAX package's ``repro/models/attention.py``. Training (``attend_full``,
+The counterparts of ``attend_full``, ``attend_cross``, ``cross_kv``,
+``prefill`` and ``decode_step`` of the JAX package's
+``repro/models/attention.py``. Training (``attend_full``,
 with ``_attend``, ``_attend_grouped`` and the online-softmax
-``_attend_blockwise`` above ``BLOCKWISE_THRESHOLD``) is plain PyTorch, as
+``_attend_blockwise`` above ``BLOCKWISE_THRESHOLD``, and ``attend_cross``)
+is plain PyTorch, as
 the JAX package computes it in jnp outside any Pallas kernel: neither
 attention kernel has a backward in either package, so the train path never
 calls ``flash_attention``. For serving the attention itself is a jnp
@@ -23,7 +25,16 @@ ring of W slots (:class:`RingKVCache`): ``ring_prefill`` attends through
 and values into slots ``pos % W``; ``ring_decode_step`` writes the token at
 slot ``position % W`` and attends through ``decode_attention`` over slots
 ``[0, min(position, W - 1)]`` (why that is exact: its docstring).
-Cross-attention is not ported yet.
+
+An encoder's self-attention (:func:`encoder_attend`) sees every position:
+``flash_attention(causal=False)`` over RoPE'd q and k, as JAX's
+``attend_full(..., "bidirectional")``. Cross-attention reads k and v of
+the encoder output (:func:`cross_kv`, ``[B, T_enc, KV, hd]``, no RoPE) and
+takes q from ``wq`` with no RoPE either: :func:`attend_cross` is the plain
+form (every key visible), :func:`cross_prefill` goes through
+``flash_attention(causal=False)`` with S queries against T_enc keys, and
+:func:`cross_decode_step` through ``decode_attention`` at position
+``T_enc - 1`` over that cross cache, which no decode step writes.
 """
 
 from __future__ import annotations
@@ -194,6 +205,18 @@ def attend_full(p, x: Tensor, positions: Tensor, n_heads: int, n_kv: int,
     return nn.apply_dense(p["wo"], out)
 
 
+def _flash(q: Tensor, k: Tensor, v: Tensor, plain: bool, causal: bool,
+           window: int = 0) -> Tensor:
+    """q ``[B, S, H, hd]``, k, v ``[B, T, KV, hd]`` through the flash
+    kernel (or its plain version), as transposed views with no copy -> the
+    heads' output ``[B, S, H*hd]``."""
+    b, s = q.shape[:2]
+    attend = flash_attention_plain if plain else ops.flash_attention
+    out = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                 causal=causal, window=window)               # [B, H, S, hd]
+    return out.transpose(1, 2).reshape(b, s, -1)
+
+
 def _prefill_attend(p, x: Tensor, positions: Tensor, n_heads: int,
                     n_kv: int, rope_theta: float, plain: bool, window: int
                     ) -> tuple[Tensor, Tensor, Tensor]:
@@ -201,11 +224,58 @@ def _prefill_attend(p, x: Tensor, positions: Tensor, n_heads: int,
     through the flash kernel -> (the heads' output ``[B, S, H*hd]``, k, v
     ``[B, S, KV, hd]``)."""
     q, k, v = _qkv(p, x, n_heads, n_kv, positions, rope_theta)
-    b, s = x.shape[:2]
-    attend = flash_attention_plain if plain else ops.flash_attention
-    out = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                 causal=True, window=window)                 # [B, H, S, hd]
-    return out.transpose(1, 2).reshape(b, s, -1), k, v
+    return _flash(q, k, v, plain, True, window), k, v
+
+
+def encoder_attend(p, x: Tensor, positions: Tensor, n_heads: int, n_kv: int,
+                   rope_theta: float = 10000.0, plain: bool = False
+                   ) -> Tensor:
+    """Bidirectional self-attention of ``x [B, S, D]`` at ``positions``
+    (RoPE'd q and k) through ``flash_attention(causal=False)``: the serving
+    form of ``attend_full(..., "bidirectional")``."""
+    q, k, v = _qkv(p, x, n_heads, n_kv, positions, rope_theta)
+    return nn.apply_dense(p["wo"], _flash(q, k, v, plain, False))
+
+
+def cross_kv(p, ctx: Tensor, n_kv: int) -> tuple[Tensor, Tensor]:
+    """k and v of the encoder output ``ctx [B, T, D]``, each ``[B, T, KV,
+    hd]``, with no RoPE."""
+    return (_split_heads(nn.apply_dense(p["wk"], ctx), n_kv),
+            _split_heads(nn.apply_dense(p["wv"], ctx), n_kv))
+
+
+def _cross_q(p, x: Tensor, n_heads: int) -> Tensor:
+    return _split_heads(nn.apply_dense(p["wq"], x), n_heads)   # no RoPE
+
+
+def attend_cross(p, x: Tensor, ctx_kv: tuple[Tensor, Tensor], n_heads: int
+                 ) -> Tensor:
+    """Cross-attention of ``x [B, S, D]`` over every key of ``ctx_kv``
+    (:func:`cross_kv`), in plain PyTorch: the train path's form."""
+    k, v = ctx_kv
+    mask = torch.ones((1, x.shape[1], k.shape[1]), dtype=torch.bool,
+                      device=x.device)
+    return nn.apply_dense(p["wo"], _attend(_cross_q(p, x, n_heads), k, v,
+                                           mask))
+
+
+def cross_prefill(p, x: Tensor, ctx_kv: tuple[Tensor, Tensor], n_heads: int,
+                  plain: bool = False) -> Tensor:
+    """:func:`attend_cross` through ``flash_attention(causal=False)``: S
+    queries against the T_enc keys of ``ctx_kv``."""
+    out = _flash(_cross_q(p, x, n_heads), *ctx_kv, plain, False)
+    return nn.apply_dense(p["wo"], out)
+
+
+def cross_decode_step(p, x: Tensor, ctx_kv: tuple[Tensor, Tensor],
+                      n_heads: int, plain: bool = False) -> Tensor:
+    """One token ``x [B, 1, D]`` attending over the whole cross cache
+    ``ctx_kv`` (``[B, T_enc, KV, hd]`` each, not written) through
+    ``decode_attention`` at position ``T_enc - 1``."""
+    k, v = ctx_kv
+    attend = decode_attention_plain if plain else ops.decode_attention
+    out = attend(_cross_q(p, x, n_heads)[:, 0], k, v, k.shape[1] - 1)
+    return nn.apply_dense(p["wo"], out.reshape(x.shape[0], 1, -1))
 
 
 def prefill(p, x: Tensor, positions: Tensor, n_heads: int, n_kv: int,

@@ -1,9 +1,10 @@
 """Layers and initialisers of the port's models.
 
 The counterparts of the JAX package's ``repro/models/module.py``: dense
-layers with the weight ``[d_in, d_out]`` as in JAX (``x @ w + b``), an
-f32-compute ``rmsnorm``, the embedding gather, and the initialisers
-(truncated-normal fan-in scaling, normal(0.02) embeddings). Random weights
+layers with the weight ``[d_in, d_out]`` as in JAX (``x @ w + b``),
+``rmsnorm`` and ``layernorm`` computed in f32 and cast back, the embedding
+gather, and the initialisers (truncated-normal fan-in scaling,
+normal(0.02) embeddings). Random weights
 come from a ``torch.Generator``, not JAX's bits: the tests carry weights
 across with ``registry.from_jax_params``. One card has no mesh, so the
 logical-axis tags (``Px``) have no counterpart.
@@ -56,6 +57,20 @@ def rmsnorm(p, x: Tensor, eps: float = 1e-6) -> Tensor:
     var = (xf * xf).mean(-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(x.dtype)
+
+
+def layernorm_init(d: int, dtype, device=None) -> dict[str, Tensor]:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p, x: Tensor, eps: float = 1e-5) -> Tensor:
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
 
 
 def embed(table: Tensor, tokens: Tensor) -> Tensor:

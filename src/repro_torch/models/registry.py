@@ -1,8 +1,8 @@
 """Model registry of the port: config family -> model implementation.
 
 ``dense`` is ``DecoderLM`` (SwiGLU or GELU MLP), ``ssm`` the xLSTM model,
-``hybrid`` the Hymba model; MoE, VLM and encoder-decoder are not ported
-yet. :func:`from_jax_params` builds any ported family and fills it with a
+``hybrid`` the Hymba model, ``encdec`` the encoder-decoder; MoE and VLM
+are not ported yet. :func:`from_jax_params` builds any ported family and fills it with a
 JAX parameter tree.
 """
 
@@ -10,13 +10,15 @@ from __future__ import annotations
 
 from typing import Mapping
 
+from repro_torch.models.encdec import EncDecModel
 from repro_torch.models.hymba import HymbaModel
 from repro_torch.models.transformer import DecoderLM, load_jax_params
 from repro_torch.models.xlstm_lm import XLSTMModel
 
-_FAMILIES = {"dense": DecoderLM, "ssm": XLSTMModel, "hybrid": HymbaModel}
+_FAMILIES = {"dense": DecoderLM, "ssm": XLSTMModel, "hybrid": HymbaModel,
+             "encdec": EncDecModel}
 # families of the JAX package's registry that are not ported yet
-_NOT_PORTED = ("moe", "vlm", "encdec")
+_NOT_PORTED = ("moe", "vlm")
 
 
 def build_model(cfg, *, device="cuda", seed: int = 0,

@@ -936,3 +936,86 @@ def test_decode_attention_takes_five_heads_a_group_on_a_ring_cache(
     torch.testing.assert_close(acc, wacc, rtol=1e-4, atol=1e-4)
     _assert_attn_close(out, da.decode_attention_combine_plain(m, l, acc,
                                                               dtype), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,t", [(128, 128), (512, 128), (37, 128)])
+def test_bidirectional_flash_attention_at_the_encdec_shapes(cuda, dtype, s,
+                                                            t):
+    """seamless-m4t-medium's bidirectional launches: the encoder's
+    self-attention (S = T = 128 frames) and the prefill's cross-attention
+    (S = 512 tokens against T = 128 frames; a ragged S too), H = KV = 16,
+    d 64, through the model's strided views; each counted as
+    bidirectional."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _attn_inputs(dtype, (8, 16, s, 64), (8, 16, t, 64),
+                           (8, 16, t, 64), seed=s)
+    want = fa.flash_attention_plain(q, k, v, causal=False)
+    for args in [(q, k, v), tuple(x.transpose(1, 2).contiguous()
+                                  .transpose(1, 2) for x in (q, k, v))]:
+        before = (fa.flash_attention.launches_bidirectional,
+                  fa.flash_attention.launches_by_variant[fa.VARIANTS[dtype]])
+        got = fa.flash_attention(*args, causal=False)
+        torch.cuda.synchronize()
+        assert (fa.flash_attention.launches_bidirectional,
+                fa.flash_attention.launches_by_variant[fa.VARIANTS[dtype]]
+                ) == (before[0] + 1, before[1] + 1)
+        _assert_attn_close(got, want, dtype)
+    before = fa.flash_attention.launches_bidirectional
+    fa.flash_attention(q, k, v, causal=True)
+    assert fa.flash_attention.launches_bidirectional == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("position", [0, 127])
+def test_decode_attention_over_a_cross_cache(cuda, dtype, position):
+    """The decode's cross-attention: q [8, 16, 64] over a cache [8, 128,
+    16, 64] that no decode step wrote (the encoder's k and v), at position
+    T - 1 as the model reads it, and at 0."""
+    from repro_torch.kernels import decode_attention as da
+    q, k, v = _attn_inputs(dtype, (8, 16, 64), (8, 128, 16, 64),
+                           (8, 128, 16, 64), seed=position + 1)
+    before = da.decode_attention.launches
+    got = da.decode_attention(q, k, v, position)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + da.LAUNCHES_PER_CALL
+    _assert_attn_close(got, da.decode_attention_plain(q, k, v, position),
+                       dtype)
+
+
+def test_encdec_kernel_path_equals_its_plain_path_on_the_card(cuda):
+    """The smoke encoder-decoder on the card: a flash launch per encoder
+    layer and two per decoder layer at prefill (the encoder's and the
+    cross-attention bidirectional), two decode_attention calls a decoder
+    layer a step (self and cross); its logits equal the same weights' with
+    the plain attention to the bf16 tolerance of the LM's card tests."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import generate, serve_batch
+    from repro_torch.models.registry import build_model
+    cfg = get_smoke_config("seamless-m4t-medium")
+    model = build_model(cfg, device=cuda, seed=1)
+    batch = serve_batch(cfg, 2, 24, 1)
+    fa.flash_attention.launches = da.decode_attention.launches = 0
+    fa.flash_attention.launches_bidirectional = 0
+    res = generate(model, batch["tokens"], 5, frames=batch["frames"],
+                   keep_logits=True)
+    assert fa.flash_attention.launches == cfg.n_enc_layers + 2 * \
+        cfg.n_dec_layers
+    assert fa.flash_attention.launches_bidirectional == \
+        cfg.n_enc_layers + cfg.n_dec_layers
+    assert da.decode_attention.launches == (cfg.n_dec_layers * 2 * 4
+                                            * da.LAUNCHES_PER_CALL)
+    model.attention = "plain"
+    logits, caches = model.prefill(torch.as_tensor(batch["tokens"],
+                                                   device=cuda), 29,
+                                   batch["frames"])
+    steps = [logits]
+    for i in range(4):
+        logits, caches = model.decode_step(res.tokens[:, i], caches, 24 + i)
+        steps.append(logits)
+    assert fa.flash_attention.launches == cfg.n_enc_layers + 2 * \
+        cfg.n_dec_layers
+    for got, want in zip(res.logits, steps):
+        torch.testing.assert_close(got, want, rtol=5e-2, atol=5e-2)

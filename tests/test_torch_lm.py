@@ -43,7 +43,8 @@ from repro_torch.models.transformer import DecoderLM, load_jax_params
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["qwen1-5-0-5b", "internlm2-1-8b"]
-CONFIGS = ARCHS + ["xlstm-125m", "hymba-1-5b", "granite-34b"]
+CONFIGS = ARCHS + ["xlstm-125m", "hymba-1-5b", "granite-34b",
+                   "seamless-m4t-medium"]
 LOGIT_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 CACHE_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 5e-2)}
 
@@ -67,14 +68,19 @@ def test_ported_configs_equal_the_jax_ones_field_by_field(arch, smoke):
 def test_config_registry_names_what_is_not_ported():
     assert tbase.ARCH_IDS == jbase.ARCH_IDS
     assert tbase.ARCH_ALIASES == jbase.ARCH_ALIASES
-    with pytest.raises(NotImplementedError, match="seamless_m4t_medium"):
-        tbase.get_config("seamless-m4t-medium")
+    with pytest.raises(NotImplementedError, match="llama3_405b"):
+        tbase.get_config("llama3-405b")
     with pytest.raises(ValueError, match="unknown arch"):
         tbase.get_config("gpt-17")
-    cfg = dataclasses.replace(tbase.get_smoke_config("qwen1-5-0-5b"),
-                              family="moe")
-    with pytest.raises(NotImplementedError, match="moe"):
-        build_model(cfg, device="cpu")
+    for family in ("moe", "vlm"):
+        cfg = dataclasses.replace(tbase.get_smoke_config("qwen1-5-0-5b"),
+                                  family=family)
+        with pytest.raises(NotImplementedError, match=family):
+            build_model(cfg, device="cpu")
+    from repro_torch.models import registry
+    assert registry._NOT_PORTED == ("moe", "vlm")
+    assert type(build_model(tbase.get_smoke_config("seamless-m4t-medium"),
+                            device="cpu")).__name__ == "EncDecModel"
 
 
 def test_layers_match_jax():
