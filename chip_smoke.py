@@ -14,8 +14,9 @@ qwen1.5-0.5b, the paper's BFS, PageRank and k-means, training of
 qwen1.5-0.5b with gradient accumulation as a CCache merge, its elastic
 resume after a kill onto another rank count, the xLSTM and Hymba
 families (hymba-1.5b and xlstm-125m served, xlstm-125m trained, killed
-and resumed bit for bit) and the encoder-decoder (seamless-m4t-medium
-served and trained) — and:
+and resumed bit for bit), the encoder-decoder (seamless-m4t-medium
+served and trained) and the MoE and VLM families (qwen3-moe-235b and
+llava-next-34b served at full width, kimi-k2-1t's smoke config) — and:
 
 1. prints the card (``nvidia-smi`` name and power limit, torch's name);
 2. builds every CUDA kernel of the paths from ``src/repro_torch/csrc``, all
@@ -151,7 +152,23 @@ served and trained) — and:
    held against the same weights in f32 through the plain attention, and
    trains it 2 eager steps (batch 4 x 512 over 2 stacked ranks, AdamW):
    losses finite, 8 ``cscatter`` launches into the [256256, 1024] f32
-   embedding gradient, held to the plain version's;
+   embedding gradient, held to the plain version's; then serves
+   qwen3-moe-235b at full width, depth cut to 5 of 94 layers (bf16, batch
+   8, prompts of 512, 64 tokens: each MoE layer's token combine through
+   ``cscatter``, 640 launches; 5 flash launches at G = 16; 630
+   ``decode_attention`` launches, its GMAX = 16 configuration), held to
+   its f32 twin on the row-steps that every path routed alike (at least
+   half of them; the share of flipped assignments printed), and
+   llava-next-34b's backbone at full width, 24 of 60 layers, prefilled
+   from embeds [8, 640, 7168] (576 seeded patch rows, then 64 prompt
+   tokens' table rows), 64 tokens (24 flash launches at G = 7, 3024
+   decode launches), held to its f32 twin on every row; and
+   kimi-k2-1t's smoke config (a shared expert, a dense first layer) in
+   f32, its kernel path against the plain attention and the plain
+   combine: logits within 1e-4, the same expert ids; the combine's
+   ``cscatter`` is also checked and timed at the prefill ([4096, 4096]
+   bf16, N = 32768) and decode ([8, 4096], N = 64) shapes beside
+   ``index_add_``, and the attention kernels at G = 16 and G = 7;
 14. prints every kernel's registers and spills (``ptxas -v``),
    one ``{"kernels": [...]}`` line and the card's name and power limit;
 15. ends with ``{"ok": true, "device": {...}}``.
@@ -267,6 +284,29 @@ ENCDEC_PROMPT, ENCDEC_GEN, ENCDEC_FRAMES = 512, 64, 128
 ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_STEPS = 4, 2
 ENCDEC_TRAIN_PLAN, ENCDEC_TRAIN_DP = "chip:2", 2
 ENCDEC_V = 256256
+# qwen3-moe-235b served at full width (d 4096, 64 heads over 4 kv heads,
+# 128 experts, top-8, d_ff_expert 1536, vocab 151936), its depth cut to
+# MOE_LAYERS of 94 so that its f32 twin fits on the card (a layer is 4.98
+# GB of bf16 weights, 4.83 of them experts; the tables 2.49 GB: 27.4 GB in
+# bf16, 54.7 in f32); batch FAMILY_BATCH, prompts of MOE_PROMPT, MOE_GEN
+# greedy tokens. At least MOE_UNFLIPPED_MIN of the row-steps must route
+# every token alike in both bf16 paths and the f32 twin.
+MOE, MOE_LAYERS, MOE_PROMPT, MOE_GEN = "qwen3-moe-235b", 5, 512, 64
+MOE_UNFLIPPED_MIN = 0.5
+# llava-next-34b's backbone at full width (d 7168, 56 heads over 8 kv
+# heads, ff 20480, vocab 64000), depth cut to VLM_LAYERS of 60 (1.116 GB a
+# layer: 28.6 GB in bf16, 57.2 in f32), prefilled from embeds: VLM_PATCHES
+# image-patch rows (LLaVA-NeXT's base 24 x 24 grid; standard normals x
+# 0.02, the table's init scale, standing in for the vision frontend, a stub
+# in the JAX package too), then VLM_TEXT prompt tokens' table rows;
+# VLM_GEN greedy tokens
+VLM, VLM_LAYERS, VLM_PATCHES, VLM_TEXT, VLM_GEN = (
+    "llava-next-34b", 24, 576, 64, 64)
+# kimi-k2-1t (shared expert, a dense first layer) at its smoke config in
+# f32: the kernel path (flash, decode, the cscatter combine) against the
+# plain path (plain attention, the plain combine) to KIMI_TOL, the same
+# expert ids; at full width one MoE layer alone is 33.8 GB of experts
+KIMI, KIMI_PROMPT, KIMI_GEN, KIMI_TOL = "kimi-k2-1t", 64, 16, 1e-4
 # Elastic restore. (a) the chaos harness's integer toy on the card: a
 # [8, 2^20] int32 pending a level over TRAIN_DEFER_PLAN with intervals
 # (1, 2), swept over every boundary of 6 steps, and resolved onto
@@ -545,7 +585,8 @@ def phase_kernel_checks(stream_keys: np.ndarray) -> dict:
     torch.cuda.synchronize()
     require(torch.equal(table, before), "an empty batch changed the table")
     print("check cscatter N=0: ok")
-    worst["float"] = max(worst["float"], embedding_kernel_checks())
+    worst["float"] = max(worst["float"], embedding_kernel_checks(),
+                         moe_combine_kernel_checks())
     return worst
 
 
@@ -662,7 +703,7 @@ def phase_kernel_times(stream_keys: np.ndarray) -> list[dict]:
                   f"{row['library_ms']:.6f} ms (a call "
                   f"{row['library_call_ms']:.6f} ms), bound {bound:.6f} ms")
             out.append(row)
-    return out + embedding_kernel_times()
+    return out + embedding_kernel_times() + moe_combine_kernel_times()
 
 
 def _ways(g, s: int, n_blocks: int, w: int):
@@ -1356,14 +1397,22 @@ def phase_attention_checks() -> dict:
                    ((2, 8, 100, 100, 64), 4, True),
                    # seamless-m4t-medium: the encoder, the prefill's cross
                    ((8, 16, ENCDEC_FRAMES, ENCDEC_FRAMES, 64), 16, False),
-                   ((8, 16, ENCDEC_PROMPT, ENCDEC_FRAMES, 64), 16, False)]
+                   ((8, 16, ENCDEC_PROMPT, ENCDEC_FRAMES, 64), 16, False),
+                   # qwen3-moe-235b's prefill (G = 16), llava-next-34b's
+                   # (G = 7)
+                   ((8, 64, MOE_PROMPT, MOE_PROMPT, 128), 4, True),
+                   ((8, 56, VLM_PATCHES + VLM_TEXT, VLM_PATCHES + VLM_TEXT,
+                     128), 8, True)]
     edge_cases = [((1, 8, s, t, d), kv, causal)
                   for d in (8, 64, 72, 128, 256) for causal in (True, False)
                   for (s, t), kv in (((100, 37), 4), ((37, 100), 1))]
     # hymba-1.5b: G = 5; the ring of W = 1024 slots and a global cache
     decode_cases = [((8, 16, 64), 576, 16), ((8, 16, 128), 4096, 8),
                     ((8, 25, 64), HYMBA_W, 5), ((8, 25, 64), 2112, 5),
-                    ((8, 16, 64), ENCDEC_FRAMES, 16)]   # seamless's cross
+                    ((8, 16, 64), ENCDEC_FRAMES, 16),   # seamless's cross
+                    # qwen3-moe-235b (G = 16: GMAX = 16), llava (G = 7)
+                    ((8, 64, 128), MOE_PROMPT + MOE_GEN, 4),
+                    ((8, 56, 128), VLM_PATCHES + VLM_TEXT + VLM_GEN, 8)]
     # sliding windows (causal): hymba-1.5b's prefill, and windows that end
     # inside a tile, cover one tile or only the diagonal, at ragged S
     window_cases = [((8, 25, 2048, 2048, 64), 5, HYMBA_W),
@@ -1502,7 +1551,10 @@ def phase_attention_times() -> dict:
             ("seamless-m4t-medium encoder",
              (8, 16, 16, ENCDEC_FRAMES, ENCDEC_FRAMES, 64), False, 0),
             ("seamless-m4t-medium cross",
-             (8, 16, 16, ENCDEC_PROMPT, ENCDEC_FRAMES, 64), False, 0)):
+             (8, 16, 16, ENCDEC_PROMPT, ENCDEC_FRAMES, 64), False, 0),
+            (MOE, (8, 64, 4, MOE_PROMPT, MOE_PROMPT, 128), True, 0),
+            (VLM, (8, 56, 8, VLM_PATCHES + VLM_TEXT, VLM_PATCHES + VLM_TEXT,
+                   128), True, 0)):
         q, k, v = _attn_rand(g, bf16, (b, h, s, d), (b, kv, t, d),
                              (b, kv, t, d))
         bound, bound_by = flash_bound_ms(b, h, kv, s, t, d, causal, 2, w)
@@ -1543,7 +1595,9 @@ def phase_attention_times() -> dict:
             ("internlm2-1.8b", (8, 16, 8, 4096, 128)),
             ("hymba-1.5b ring", (8, 25, 5, HYMBA_W, 64)),
             ("hymba-1.5b global", (8, 25, 5, HYMBA_PROMPT + HYMBA_GEN, 64)),
-            ("seamless-m4t-medium cross", (8, 16, 16, ENCDEC_FRAMES, 64))):
+            ("seamless-m4t-medium cross", (8, 16, 16, ENCDEC_FRAMES, 64)),
+            (MOE, (8, 64, 4, MOE_PROMPT + MOE_GEN, 128)),
+            (VLM, (8, 56, 8, VLM_PATCHES + VLM_TEXT + VLM_GEN, 128))):
         q, k, v = _attn_rand(g, bf16, (b, h, d), (b, t, kv, d),
                              (b, t, kv, d))
         pos = t - 1
@@ -1701,13 +1755,15 @@ def phase_serve(card: str) -> dict:
 
 def _teacher_forced(model, batch: dict, res, prompt: int) -> list:
     """The logits of every step of ``res`` (a ``generate`` run of
-    ``batch``'s tokens, and frames for an encoder-decoder) with its tokens
-    teacher-forced through ``model`` as it is set now."""
+    ``batch``'s tokens, and frames for an encoder-decoder; the VLM's of its
+    embeds) with its tokens teacher-forced through ``model`` as it is set
+    now."""
     import torch
     frames = (batch["frames"],) if "frames" in batch else ()
+    extra = {"embeds": batch["embeds"]} if "embeds" in batch else {}
     logits, caches = model.prefill(
         torch.as_tensor(batch["tokens"], device="cuda"),
-        prompt + len(res.logits), *frames)
+        prompt + len(res.logits), *frames, **extra)
     out = [logits]
     for i in range(1, len(res.logits)):
         logits, caches = model.decode_step(res.tokens[:, i - 1], caches,
@@ -1730,7 +1786,7 @@ def _greedy_check(got, want, margin: float, label: str) -> tuple[int, int]:
 
 
 def _f32_floor_check(label: str, got: list, other: list, ref: list,
-                     steps: int) -> dict:
+                     steps: int, rows: list | None = None) -> dict:
     """Each step's served bf16 logits ``got[i]`` held against ``ref[i]``,
     the same function computed in f32 from the same weights, no farther
     than ``other[i]`` (the same function in bf16 another way) is: RMS
@@ -1740,10 +1796,18 @@ def _f32_floor_check(label: str, got: list, other: list, ref: list,
     the families' depths the bf16 rounding of either path moves the
     logits by about ``LOGIT_TOL`` on its own (the readings this prints at
     step 0), so a fixed bound between two bf16 paths would test their
-    rounding rather than the kernels or the recurrence."""
+    rounding rather than the kernels or the recurrence. ``rows[i]`` (a
+    bool mask over the batch) keeps step ``i``'s check to those rows (the
+    MoE's rows whose tokens every path routed alike); a step without one
+    is not held."""
     worst_apart, worst_other, checked, same_n = 0.0, 0.0, 0, 0
+    step0_apart = None
     for i in range(steps):
         g, o, f = got[i], other[i], ref[i]
+        if rows is not None:
+            if not bool(rows[i].any()):
+                continue
+            g, o, f = g[rows[i]], o[rows[i]], f[rows[i]]
         k_err, p_err = (g - f).abs(), (o - f).abs()
         k_max, p_max = float(k_err.max()), float(p_err.max())
         k_rms = float(k_err.square().mean().sqrt())
@@ -1759,11 +1823,12 @@ def _f32_floor_check(label: str, got: list, other: list, ref: list,
         n, m = _greedy_check(g, f, 2 * bound, f"{label} step {i}")
         checked += n
         same_n += m
-        if i == 0:
+        if step0_apart is None:
             step0_apart = float(apart.max())
-            print(f"{label} step 0 logits: served bf16 vs f32 max {k_max} "
-                  f"RMS {k_rms}; other bf16 vs f32 max {p_max} RMS {p_rms}; "
-                  f"the two bf16 paths apart max {float(apart.max())} RMS "
+            print(f"{label} step {i} (the first held) logits: served bf16 "
+                  f"vs f32 max {k_max} RMS {k_rms}; other bf16 vs f32 max "
+                  f"{p_max} RMS {p_rms}; the two bf16 paths apart max "
+                  f"{float(apart.max())} RMS "
                   f"{float(apart.square().mean().sqrt())}")
     return {"max_logit_err": worst_apart, "other_vs_f32_max": worst_other,
             "step0_apart": step0_apart, "sure_tokens": checked,
@@ -1828,15 +1893,21 @@ def _plain_teacher_forced(model, batch: dict, res, prompt: int, label: str,
 
 
 def _serve_family(arch: str, cfg, prompt: int, gen: int, card: str,
-                  want: dict) -> tuple:
+                  want: dict, batch: dict | None = None,
+                  variant: str = "bf16_mma", around=None) -> tuple:
     """``cfg`` at full width in bf16 with random weights from the seed,
     ``FAMILY_BATCH`` prompts of ``prompt`` random ids and ``gen`` greedy
-    tokens (an encoder-decoder with the frames the serve CLI draws)
-    through ``launch/serve.generate``, the attention kernels'
-    counts zeroed just before and read just after and held to ``want``;
-    then a ``--profile``-style trace of a prefill and one decode step.
-    Returns (model, the serve batch, result, the row to print)."""
+    tokens (an encoder-decoder with the frames the serve CLI draws; the
+    batch ``batch(model)`` makes instead, the VLM's with its embeds) through
+    ``launch/serve.generate``, the attention kernels' and ``cscatter``'s
+    counts zeroed just before and read just after and held to ``want``,
+    every flash launch through ``variant``, the run inside ``around()``
+    when given; then a ``--profile``-style trace of a prefill and one
+    decode step. Returns (model, the serve batch, result, the row to
+    print)."""
+    import contextlib
     import torch
+    from repro_torch.kernels.cscatter import cscatter
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.serve import generate, profile, serve_batch
@@ -1845,29 +1916,38 @@ def _serve_family(arch: str, cfg, prompt: int, gen: int, card: str,
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     model = build_model(cfg, device="cuda", seed=SEED)
-    batch = serve_batch(cfg, FAMILY_BATCH, prompt, SEED)
+    if batch is None:
+        batch = serve_batch(cfg, FAMILY_BATCH, prompt, SEED)
+    elif callable(batch):
+        batch = batch(model)
     ids, frames = batch["tokens"], batch.get("frames")
-    generate(model, ids[:, :16], 2, frames=frames)  # warm-up, not counted
+    embeds = batch.get("embeds")
+    generate(model, ids[:, :16], 2, frames=frames,      # warm-up, not counted
+             embeds=None if embeds is None else embeds[:, :16])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = decode_attention.launches = 0
+    cscatter.launches = 0
     flash_attention.launches_windowed = 0
     flash_attention.launches_bidirectional = 0
     flash_attention.launches_by_variant = dict.fromkeys(
         flash_attention.launches_by_variant, 0)
-    res = generate(model, ids, gen, frames=frames, keep_logits=True)
+    with (around or contextlib.nullcontext)():
+        res = generate(model, ids, gen, frames=frames, embeds=embeds,
+                       keep_logits=True)
     launches = {"flash_attention": flash_attention.launches,
                 "flash_attention_windowed": flash_attention.launches_windowed,
                 "flash_attention_bidirectional":
                     flash_attention.launches_bidirectional,
-                "decode_attention": decode_attention.launches}
+                "decode_attention": decode_attention.launches,
+                "cscatter": cscatter.launches}
     by_variant = dict(flash_attention.launches_by_variant)
     peak = torch.cuda.max_memory_allocated() - base
     require(launches == want, f"{arch}: launches {launches}, the path "
                               f"predicts {want}")
-    require(by_variant["bf16_mma"] == launches["flash_attention"],
+    require(by_variant[variant] == launches["flash_attention"],
             f"{arch}: flash_attention variants {by_variant}: every launch "
-            f"must run the bf16 tensor-core kernel")
+            f"must run {variant}")
     require(tuple(res.tokens.shape) == (FAMILY_BATCH, gen),
             f"{arch}: generated {tuple(res.tokens.shape)}")
     steps = gen - 1
@@ -1875,15 +1955,19 @@ def _serve_family(arch: str, cfg, prompt: int, gen: int, card: str,
            "prefill_tok_s": FAMILY_BATCH * prompt / res.prefill_s,
            "decode_ms_per_step": 1e3 * res.decode_s / steps,
            "decode_tok_s": FAMILY_BATCH * steps / res.decode_s,
-           "peak_bytes": peak, "launches": launches,
-           "flash_launches_by_variant": by_variant}
-    print(f"serve {cfg.name} bf16 batch {FAMILY_BATCH} prompt {prompt} gen "
-          f"{gen} on {card}: prefill {row['prefill_ms']:.3f} ms "
-          f"({row['prefill_tok_s']:.1f} tok/s), decode "
-          f"{row['decode_ms_per_step']:.6f} ms a step "
-          f"({row['decode_tok_s']:.1f} tok/s), peak memory {peak} bytes; "
-          f"launches {launches} (predicted {want})")
-    row["profile"] = profile(model, ids, steps=1, rows=8, frames=frames)
+           "peak_bytes": peak, "weights_bytes": sum(
+               p.numel() * p.element_size() for p in model.parameters()),
+           "launches": launches, "flash_launches_by_variant": by_variant,
+           "card": card}
+    print(f"serve {cfg.name} {str(cfg.param_dtype)[6:]} batch "
+          f"{FAMILY_BATCH} prompt {prompt} gen {gen} on {card}: prefill "
+          f"{row['prefill_ms']:.3f} ms ({row['prefill_tok_s']:.1f} tok/s), "
+          f"decode {row['decode_ms_per_step']:.6f} ms a step "
+          f"({row['decode_tok_s']:.1f} tok/s), peak memory {peak} bytes "
+          f"({row['weights_bytes']} of weights); launches {launches} "
+          f"(predicted {want})")
+    row["profile"] = profile(model, ids, steps=1, rows=8, frames=frames,
+                             embeds=embeds)
     return model, batch, res, row
 
 
@@ -1899,7 +1983,7 @@ def _hymba_serve(card: str) -> dict:
             "flash_attention_windowed": n_win,
             "flash_attention_bidirectional": 0,
             "decode_attention": cfg.n_layers * (HYMBA_GEN - 1)
-            * LAUNCHES_PER_CALL}
+            * LAUNCHES_PER_CALL, "cscatter": 0}
     model, batch, res, row = _serve_family("hymba-1.5b", cfg, HYMBA_PROMPT,
                                            HYMBA_GEN, card, want)
     row.update(_plain_teacher_forced(model, batch, res, HYMBA_PROMPT,
@@ -1922,7 +2006,8 @@ def _xlstm_serve(card: str) -> dict:
     from repro_torch.models import module as nn
     cfg = get_config("xlstm-125m")
     want = {"flash_attention": 0, "flash_attention_windowed": 0,
-            "flash_attention_bidirectional": 0, "decode_attention": 0}
+            "flash_attention_bidirectional": 0, "decode_attention": 0,
+            "cscatter": 0}
     model, batch, res, row = _serve_family("xlstm-125m", cfg, XLSTM_PROMPT,
                                            XLSTM_GEN, card, want)
     seq = torch.cat([torch.as_tensor(batch["tokens"], device="cuda").long(),
@@ -1969,7 +2054,8 @@ def _gelu_serve(card: str) -> dict:
     gen, prompt = 16, 64
     want = {"flash_attention": cfg.n_layers, "flash_attention_windowed": 0,
             "flash_attention_bidirectional": 0,
-            "decode_attention": cfg.n_layers * (gen - 1) * LAUNCHES_PER_CALL}
+            "decode_attention": cfg.n_layers * (gen - 1) * LAUNCHES_PER_CALL,
+            "cscatter": 0}
     model, batch, res, row = _serve_family("granite-34b-smoke gelu", cfg,
                                            prompt, gen, card, want)
     require(sorted(model.params()["blocks"]["ffn"]) == ["wi", "wo"],
@@ -1997,7 +2083,7 @@ def _encdec_serve(card: str) -> dict:
             "flash_attention_windowed": 0,
             "flash_attention_bidirectional": n_enc + n_dec,
             "decode_attention": 2 * n_dec * (ENCDEC_GEN - 1)
-            * LAUNCHES_PER_CALL}
+            * LAUNCHES_PER_CALL, "cscatter": 0}
     model, batch, res, row = _serve_family(ENCDEC, cfg, ENCDEC_PROMPT,
                                            ENCDEC_GEN, card, want)
     require(tuple(batch["frames"].shape) == (FAMILY_BATCH, ENCDEC_FRAMES,
@@ -2172,17 +2258,260 @@ def _real_model_chaos(card: str) -> dict:
     return runs
 
 
+class _Routes:
+    """The expert ids of every MoE layer ``repro_torch.models.moe.route``
+    routes while the context is open, in order (wrapping the module's
+    function; the model code is unchanged)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.route, self.ids = moe, moe.route, []
+
+    def __enter__(self):
+        self.ids = []
+
+        def recorded(*args):
+            out = self.route(*args)
+            self.ids.append(out[1])
+            return out
+        self.moe.route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+    def steps(self, layers: int, batch: int) -> list:
+        """Per step, per layer, the sorted ids ``[batch, tokens, k]``."""
+        import torch
+        require(len(self.ids) % layers == 0, f"{len(self.ids)} routes for "
+                                             f"{layers} layers")
+        return [[torch.sort(x, -1).values.reshape(batch, -1, x.shape[-1])
+                 for x in self.ids[i:i + layers]]
+                for i in range(0, len(self.ids), layers)]
+
+
+def _route_flips(paths: dict, ref: list) -> tuple[list, dict]:
+    """Rows routed alike: per step, a bool mask over the batch of the rows
+    whose every token took the f32 twin's experts in every layer, in every
+    path of ``paths``; and per path the share of its assignments (token,
+    layer, slot) that are not the f32 twin's."""
+    import torch
+    masks, flipped = [], {name: [0, 0] for name in paths}
+    for i, want in enumerate(ref):
+        ok = None
+        for name, got in paths.items():
+            for g, w in zip(got[i], want):
+                same = (g == w).all(-1).all(-1)
+                ok = same if ok is None else ok & same
+                hit = (g[..., :, None] == w[..., None, :]).any(-1)
+                flipped[name][0] += int((~hit).sum())
+                flipped[name][1] += hit.numel()
+        masks.append(ok)
+    return masks, {name: n / total for name, (n, total) in flipped.items()}
+
+
+def _moe_serve(card: str) -> dict:
+    """(g) qwen3-moe-235b at full width, MOE_LAYERS layers, bf16: prefill
+    of FAMILY_BATCH x MOE_PROMPT and MOE_GEN tokens. A MoE layer combines
+    its tokens' expert outputs with one ``cscatter`` call (2 launches) a
+    forward: MOE_LAYERS x MOE_GEN calls; one flash launch a layer at
+    prefill (G = 16), a ``decode_attention`` call a layer a step (its
+    ``GMAX = 16`` configuration). Held to the same weights in f32 through
+    the plain attention (``_f32_floor_check``, the rule of the families)
+    on the row-steps whose tokens every path routed as the f32 twin, at
+    least MOE_UNFLIPPED_MIN of them: bf16 rounding moves the router's
+    logits by about 1e-3, enough to swap an expert at the k-th boundary,
+    and a swapped expert is another function, not an error."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.cscatter import LAUNCHES_PER_CALL as CS_CALL
+    from repro_torch.kernels.decode_attention import LAUNCHES_PER_CALL
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    cfg = dataclasses.replace(get_config(MOE), n_layers=MOE_LAYERS)
+    require((cfg.n_heads // cfg.n_kv_heads, cfg.n_experts, cfg.top_k) ==
+            (16, 128, 8), f"{MOE}: G, experts, top-k of the config")
+    want = {"flash_attention": MOE_LAYERS, "flash_attention_windowed": 0,
+            "flash_attention_bidirectional": 0,
+            "decode_attention": MOE_LAYERS * (MOE_GEN - 1)
+            * LAUNCHES_PER_CALL,
+            "cscatter": MOE_LAYERS * MOE_GEN * CS_CALL}
+    served = _Routes()
+    model, batch, res, row = _serve_family(MOE, cfg, MOE_PROMPT, MOE_GEN,
+                                           card, want, around=lambda: served)
+    before = (flash_attention.launches, decode_attention.launches)
+    model.attention = "plain"
+    with _Routes() as plain_ids:
+        plain = _teacher_forced(model, batch, res, MOE_PROMPT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.float()                   # the f32 twin, converted in place
+    torch.cuda.synchronize()
+    row["f32_convert_s"] = time.perf_counter() - t0
+    with _Routes() as ref_ids:
+        ref = _teacher_forced(model, batch, res, MOE_PROMPT)
+    model.attention = "kernel"
+    require(before == (flash_attention.launches, decode_attention.launches),
+            f"{MOE}: the plain path launched an attention kernel")
+    for i, got in enumerate(res.logits):
+        require(bool(torch.isfinite(got).all()), f"{MOE} step {i}: "
+                                                 f"non-finite logits")
+    paths = {"served": served.steps(MOE_LAYERS, FAMILY_BATCH),
+             "plain": plain_ids.steps(MOE_LAYERS, FAMILY_BATCH)}
+    ref_steps = ref_ids.steps(MOE_LAYERS, FAMILY_BATCH)
+    require(len(ref_steps) == MOE_GEN and all(
+        len(p) == MOE_GEN for p in paths.values()), f"{MOE}: routed steps")
+    masks, flip_share = _route_flips(paths, ref_steps)
+    held = sum(int(m.sum()) for m in masks)
+    share = held / (FAMILY_BATCH * MOE_GEN)
+    print(f"serve {MOE}: router assignments not the f32 twin's: served "
+          f"{flip_share['served']}, plain {flip_share['plain']}; row-steps "
+          f"routed alike in all three {held} of {FAMILY_BATCH * MOE_GEN} "
+          f"({share}); at step 0 (the prompts) {int(masks[0].sum())} rows")
+    require(share >= MOE_UNFLIPPED_MIN, f"{MOE}: only {share} of the "
+            f"row-steps routed alike, fewer than {MOE_UNFLIPPED_MIN}")
+    out = _f32_floor_check(f"serve {MOE}", res.logits, plain, ref, MOE_GEN,
+                           rows=masks)
+    print(f"serve {MOE} vs plain attention, teacher-forced over {MOE_GEN} "
+          f"steps, on the {held} row-steps routed alike: the two bf16 paths "
+          f"apart by {out['max_logit_err']} at most; each within the plain "
+          f"bf16 path's distance to f32 (at most {out['other_vs_f32_max']}); "
+          f"greedy tokens equal to f32's at {out['same_tokens']}, required "
+          f"at the {out['sure_tokens']} with a sure margin")
+    row.update(out, flipped_assignments=flip_share, rows_held=held,
+               rows_held_share=share, layers=MOE_LAYERS)
+    del model, res, plain, ref, served, plain_ids, ref_ids
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def _vlm_batch(model) -> dict:
+    """The VLM's serve batch: the text prompt ids (drawn as the serve CLI
+    draws prompts) and embeds ``[FAMILY_BATCH, VLM_PATCHES + VLM_TEXT,
+    d]`` in the parameters' dtype: seeded patch rows, then the prompt's
+    rows of the model's table."""
+    import torch
+    from repro_torch.launch.serve import prompts
+    cfg = model.cfg
+    ids = torch.as_tensor(prompts(cfg, FAMILY_BATCH, VLM_TEXT, SEED),
+                          device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    patches = torch.randn((FAMILY_BATCH, VLM_PATCHES, cfg.d_model),
+                          device="cuda", generator=g) * 0.02
+    table = model.embed["table"]
+    return {"tokens": ids, "embeds": torch.cat(
+        [patches.to(table.dtype), table[ids]], dim=1)}
+
+
+def _vlm_serve(card: str) -> dict:
+    """(h) llava-next-34b's backbone at full width, VLM_LAYERS layers,
+    bf16, prefilled from embeds ``[8, 640, 7168]`` (patch rows, then the
+    text prompt's table rows) and VLM_GEN tokens: one flash launch a layer
+    (G = 7), a ``decode_attention`` call a layer a step (``GMAX = 8``), no
+    ``cscatter``. Held to the same weights in f32 through the plain
+    attention on every row (the families' rule)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.decode_attention import LAUNCHES_PER_CALL
+    cfg = dataclasses.replace(get_config(VLM), n_layers=VLM_LAYERS)
+    require(cfg.family == "vlm" and cfg.n_heads // cfg.n_kv_heads == 7,
+            f"{VLM}: family {cfg.family}, heads {cfg.n_heads} over "
+            f"{cfg.n_kv_heads}")
+    prompt = VLM_PATCHES + VLM_TEXT
+    want = {"flash_attention": VLM_LAYERS, "flash_attention_windowed": 0,
+            "flash_attention_bidirectional": 0,
+            "decode_attention": VLM_LAYERS * (VLM_GEN - 1)
+            * LAUNCHES_PER_CALL, "cscatter": 0}
+    model, batch, res, row = _serve_family(VLM, cfg, prompt, VLM_GEN, card,
+                                           want, batch=_vlm_batch)
+    require(tuple(batch["embeds"].shape) == (FAMILY_BATCH, prompt,
+                                             cfg.d_model),
+            f"{VLM}: embeds {tuple(batch['embeds'].shape)}")
+    out = _plain_teacher_forced(model, batch, res, prompt, f"serve {VLM}",
+                                f32_floor=True)
+    row.update(out, layers=VLM_LAYERS, embeds=list(batch["embeds"].shape))
+    del model, res, batch
+    return row
+
+
+def _kimi_serve(card: str) -> dict:
+    """(i) kimi-k2-1t's smoke config (a shared expert, a dense first
+    layer) in f32 on the card: the kernel path — flash at prefill, decode
+    steps, the ``cscatter`` combine of each MoE layer — against the plain
+    path (the plain attention and ``cscatter_plain_`` for the combine) on
+    the same tokens: logits within KIMI_TOL, the same expert ids in every
+    layer, no kernel launched by the plain path."""
+    import torch
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cscatter import LAUNCHES_PER_CALL as CS_CALL
+    from repro_torch.kernels.cscatter import cscatter, cscatter_plain_
+    from repro_torch.kernels.decode_attention import LAUNCHES_PER_CALL
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    cfg = dataclasses.replace(get_smoke_config(KIMI), dtype="float32")
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    require(cfg.first_dense_layers == 1 and cfg.n_shared_experts == 1,
+            f"{KIMI}: dense layers {cfg.first_dense_layers}, shared "
+            f"experts {cfg.n_shared_experts}")
+    want = {"flash_attention": cfg.n_layers, "flash_attention_windowed": 0,
+            "flash_attention_bidirectional": 0,
+            "decode_attention": cfg.n_layers * (KIMI_GEN - 1)
+            * LAUNCHES_PER_CALL,
+            "cscatter": n_moe * KIMI_GEN * CS_CALL}
+    served = _Routes()
+    model, batch, res, row = _serve_family(
+        f"{KIMI} smoke f32", cfg, KIMI_PROMPT, KIMI_GEN, card, want,
+        variant="f32_fma", around=lambda: served)
+    require("dense" in model.prefill(torch.as_tensor(
+        batch["tokens"][:, :4], device="cuda"), 8)[1], f"{KIMI}: no dense "
+        f"caches")
+    before = (flash_attention.launches, decode_attention.launches,
+              cscatter.launches)
+    kernel_scatter = ops.commutative_scatter
+    model.attention = "plain"
+    ops.commutative_scatter = (lambda t, i, v, **kw:
+                               cscatter_plain_(t, i, v, **kw))
+    try:
+        with _Routes() as plain_ids:
+            plain = _teacher_forced(model, batch, res, KIMI_PROMPT)
+    finally:
+        ops.commutative_scatter = kernel_scatter
+        model.attention = "kernel"
+    require(before == (flash_attention.launches, decode_attention.launches,
+                       cscatter.launches),
+            f"{KIMI}: the plain path launched a kernel")
+    got_ids = served.steps(n_moe, FAMILY_BATCH)
+    want_ids = plain_ids.steps(n_moe, FAMILY_BATCH)
+    require(all(torch.equal(a, b) for x, y in zip(got_ids, want_ids)
+                for a, b in zip(x, y)), f"{KIMI}: the kernel path routed a "
+                                        f"token to other experts")
+    worst = max(float((g - p).abs().max()) for g, p in zip(res.logits,
+                                                           plain))
+    require(worst <= KIMI_TOL, f"{KIMI}: kernel logits {worst} from the "
+                               f"plain path's, above {KIMI_TOL}")
+    print(f"serve {KIMI} smoke f32 vs its plain path (plain attention, "
+          f"plain combine), teacher-forced over {KIMI_GEN} steps: max "
+          f"|logit diff| {worst} <= {KIMI_TOL}; expert ids equal in all "
+          f"{n_moe} MoE layers of every step")
+    row.update(max_logit_err=worst, same_expert_ids=True)
+    del model, res, plain
+    return row
+
+
 def phase_families(card: str) -> dict:
     """The model families' paths, each with the kernels' counts zeroed just
     before and read just after: (a) hymba-1.5b served at full width, (b)
     xlstm-125m served at full width, (c) the GELU MLP, (d) the real-model
     chaos of xlstm-125m at full width, (e) seamless-m4t-medium served and
-    (f) trained at full width."""
+    (f) trained at full width, (g) qwen3-moe-235b and (h) llava-next-34b
+    served at full width, (i) kimi-k2-1t's smoke config in f32."""
     out = {}
     for name, fn in (("hymba", _hymba_serve), ("xlstm", _xlstm_serve),
                      ("gelu", _gelu_serve), ("chaos", _real_model_chaos),
                      ("encdec", _encdec_serve),
-                     ("encdec_train", _encdec_train)):
+                     ("encdec_train", _encdec_train), ("moe", _moe_serve),
+                     ("vlm", _vlm_serve), ("kimi", _kimi_serve)):
         t0 = time.perf_counter()
         out[name] = fn(card)
         out[name]["phase_s"] = time.perf_counter() - t0
@@ -2680,6 +3009,80 @@ def embedding_kernel_checks() -> float:
               f"abs err {err})")
         del table, vals, want, got
     return worst
+
+
+# qwen3-moe-235b's token combine: a zero bf16 [t, 4096] table, each
+# token's 8 expert outputs (ids arange(8 t) // 8; a dropped assignment a
+# zero row) at the prefill (t = 8 x 512) and decode (t = 8) shapes
+COMBINE_SHAPES = ((FAMILY_BATCH * MOE_PROMPT, 4096, 8),
+                  (FAMILY_BATCH, 4096, 8))
+
+
+def _combine_inputs(t: int, d: int, k: int, g):
+    """The combine's ids ``[t k]`` and bf16 vals ``[t k, d]`` (expert
+    outputs of the scale of a hidden state, a tenth of the assignments
+    dropped to zero rows)."""
+    import torch
+    ids = (torch.arange(t * k, device="cuda") // k).to(torch.int32)
+    vals = torch.randn((t * k, d), device="cuda", generator=g) * 0.1
+    vals[torch.rand(t * k, device="cuda", generator=g) < 0.1] = 0
+    return ids, vals.to(torch.bfloat16)
+
+
+def moe_combine_kernel_checks() -> float:
+    """``cscatter`` at the MoE combine's shapes (``COMBINE_SHAPES``) into
+    a zero bf16 table, against its plain version."""
+    import torch
+    from repro_torch.kernels.cscatter import cscatter, cscatter_plain
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    worst = 0.0
+    for t, d, k in COMBINE_SHAPES:
+        ids, vals = _combine_inputs(t, d, k, g)
+        table = torch.zeros((t, d), dtype=torch.bfloat16, device="cuda")
+        want = cscatter_plain(table, ids, vals)
+        got = cscatter(table, ids, vals)
+        torch.cuda.synchronize()
+        err = _compare(got, want)
+        worst = max(worst, err)
+        print(f"check cscatter bf16 [{t},{d}] N={t * k} add {MOE} token "
+              f"combine: ok (max abs err {err})")
+    return worst
+
+
+def moe_combine_kernel_times() -> list[dict]:
+    """The MoE combine's ``cscatter`` timed as the other rows at
+    ``COMBINE_SHAPES``: kernel (CUDA graph), a call, the plain version,
+    ``index_add_`` (graph and a call) and the bound."""
+    import torch
+    from repro_torch.kernels.cscatter import cscatter, cscatter_plain_
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    out = []
+    for t, d, k in COMBINE_SHAPES:
+        ids, vals = _combine_inputs(t, d, k, g)
+        table = torch.zeros((t, d), dtype=torch.bfloat16, device="cuda")
+        lids = ids.long()
+        bound, bound_by = scatter_bound_ms(ids[None], d, 2, r=t)
+
+        def kernel():
+            cscatter(table, ids, vals)
+
+        def lib():
+            table.index_add_(0, lids, vals)
+        row = {"kind": "add", "what": "moe_combine", "arch": MOE,
+               "dtype": "bfloat16", "shape": [t, d], "n": t * k,
+               "ms": graph_ms(kernel), "call_ms": time_ms(kernel),
+               "plain_ms": time_ms(lambda: cscatter_plain_(table, ids, vals)),
+               "library_ms": graph_ms(lib), "library_call_ms": time_ms(lib),
+               "bound_ms": bound, "bound_by": bound_by}
+        print(f"time cscatter add bf16 [{t},{d}] N={t * k} ({MOE} token "
+              f"combine): kernel {row['ms']:.6f} ms (a call "
+              f"{row['call_ms']:.6f} ms), plain {row['plain_ms']:.6f} ms, "
+              f"index_add_ {row['library_ms']:.6f} ms (a call "
+              f"{row['library_call_ms']:.6f} ms), bound {bound:.6f} ms "
+              f"({bound_by})")
+        out.append(row)
+        del table, vals
+    return out
 
 
 def embedding_kernel_times() -> list[dict]:
@@ -3638,6 +4041,10 @@ def main() -> None:
         "launches_families": families["chaos"]["cscatter_launches"],
         "launches_encdec_train": families["encdec_train"][
             "cscatter_launches"],
+        "launches_moe": families["moe"]["launches"]["cscatter"],
+        "launches_vlm": families["vlm"]["launches"]["cscatter"],
+        "launches_kimi": families["kimi"]["launches"]["cscatter"],
+        "moe_combine": [t for t in times if t.get("what") == "moe_combine"],
         "determinism": determinism,
         "train_embedding_backward": train_add,
         "variants": times, "apps": apps["kernel_rows"]}, {
@@ -3664,6 +4071,9 @@ def main() -> None:
         "launches_families": {k: families[k]["launches"][name]
                               for k in ("hymba", "gelu")},
         "launches_encdec": families["encdec"]["launches"][name],
+        "launches_moe": families["moe"]["launches"][name],
+        "launches_vlm": families["vlm"]["launches"][name],
+        "launches_kimi": families["kimi"]["launches"][name],
         "launches_windowed_families": families["hymba"]["launches"][
             "flash_attention_windowed"],
         "launches_bidirectional_encdec": families["encdec"]["launches"][

@@ -2,8 +2,8 @@
 
 The port's own copy of the JAX package's ``repro/configs/base.py``
 ``ArchConfig`` (every field, the same derived sizes), with ``param_dtype``
-a ``torch.dtype``. Only the configs the port runs are ported; asking for
-another arch raises :class:`NotImplementedError` naming it.
+a ``torch.dtype``. Every config of ``ARCH_IDS`` is ported; an arch whose
+module is missing raises :class:`NotImplementedError` naming it.
 """
 
 from __future__ import annotations
@@ -151,9 +151,10 @@ ARCH_IDS = [
 # Canonical --arch ids (dash form) -> module name.
 ARCH_ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
 
-# the configs ported so far
+# the configs ported so far: all of ARCH_IDS
 PORTED = ("qwen1_5_0_5b", "internlm2_1_8b", "xlstm_125m", "hymba_1_5b",
-          "granite_34b", "seamless_m4t_medium")
+          "granite_34b", "seamless_m4t_medium", "qwen3_moe_235b",
+          "kimi_k2_1t", "llava_next_34b", "llama3_405b")
 
 
 def _module(arch: str):

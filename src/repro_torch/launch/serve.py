@@ -18,6 +18,11 @@ over a ring of W slots), with the caches updated in place; xLSTM
 encoder-decoder (``--arch seamless-m4t-medium``) also takes the frame
 embeddings the JAX CLI draws after the prompts (:func:`serve_batch`),
 encodes them at prefill and reads its cross cache at every decode step.
+The MoE family (``--arch qwen3-moe-235b``, ``kimi-k2-1t``) routes each
+token through its experts and combines their outputs through ``cscatter``;
+the VLM backbone (``--arch llava-next-34b``) serves the prompt ids the JAX
+CLI draws, and :func:`generate` also prefills it from precomputed patch
+and text embeddings (``embeds=``, the JAX prefill's ``batch["embeds"]``).
 It runs on the card (``--device cuda``, the default) and
 raises when there is none, unless ``--device cpu`` asks for the CPU, where
 the kernels' plain versions run. One card has no mesh: the JAX CLI's mesh
@@ -75,25 +80,34 @@ def prompts(cfg, batch: int, prompt_len: int, seed: int) -> np.ndarray:
     return serve_batch(cfg, batch, prompt_len, seed)["tokens"]
 
 
-def _prefill(model, tokens, cache_len: int, frames):
+def _prefill(model, tokens, cache_len: int, frames, embeds=None):
+    if embeds is not None:
+        return model.prefill(tokens, cache_len, embeds=embeds)
     if frames is None:
         return model.prefill(tokens, cache_len)
     return model.prefill(tokens, cache_len, frames)
 
 
-def generate(model, tokens, gen: int, *, frames=None,
+def _prompt_len(tokens, embeds) -> int:
+    return (embeds if embeds is not None else tokens).shape[1]
+
+
+def generate(model, tokens, gen: int, *, frames=None, embeds=None,
              keep_logits: bool = False) -> ServeResult:
-    """Prefill ``tokens [B, P]`` (an encoder-decoder with its ``frames``)
-    and decode ``gen - 1`` greedy steps after the prefill's token (``gen``
-    tokens in all), timing each phase between two synchronisations of the
-    card."""
+    """Prefill ``tokens [B, P]`` (an encoder-decoder with its ``frames``;
+    the VLM from ``embeds [B, P, D]`` instead, cast to the parameters'
+    dtype, with ``tokens`` then unused) and decode ``gen - 1`` greedy steps
+    after the prefill's token (``gen`` tokens in all), timing each phase
+    between two synchronisations of the card."""
     device = model.device
-    tokens = torch.as_tensor(tokens, device=device)
-    cache_len = tokens.shape[1] + gen
+    if embeds is None:
+        tokens = torch.as_tensor(tokens, device=device)
+    prompt = _prompt_len(tokens, embeds)
+    cache_len = prompt + gen
     kept = []
     _sync(device)
     t0 = time.perf_counter()
-    logits, caches = _prefill(model, tokens, cache_len, frames)
+    logits, caches = _prefill(model, tokens, cache_len, frames, embeds)
     tok = logits.argmax(-1)
     _sync(device)
     prefill_s = time.perf_counter() - t0
@@ -102,8 +116,7 @@ def generate(model, tokens, gen: int, *, frames=None,
     out = [tok]
     t1 = time.perf_counter()
     for i in range(gen - 1):
-        logits, caches = model.decode_step(tok, caches,
-                                           tokens.shape[1] + i)
+        logits, caches = model.decode_step(tok, caches, prompt + i)
         tok = logits.argmax(-1)
         out.append(tok)
         if keep_logits:
@@ -114,9 +127,10 @@ def generate(model, tokens, gen: int, *, frames=None,
 
 
 def profile(model, tokens, steps: int = 3, rows: int = 12, *,
-            frames=None) -> dict:
+            frames=None, embeds=None) -> dict:
     """Trace one prefill of ``tokens`` (with ``frames`` for an
-    encoder-decoder) and ``steps`` greedy decode steps
+    encoder-decoder; of ``embeds`` for the VLM) and ``steps`` greedy
+    decode steps
     after it with ``torch.profiler`` (CPU and CUDA activities); print the
     operators with the most device time and return, per phase, the kernel
     launches, host time and device time (ms, per decode step)."""
@@ -126,22 +140,25 @@ def profile(model, tokens, steps: int = 3, rows: int = 12, *,
     device = model.device
     acts = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if device.type == "cuda" else [])
-    tokens = torch.as_tensor(tokens, device=device)
-    cache_len = tokens.shape[1] + steps + 1
+    if embeds is None:
+        tokens = torch.as_tensor(tokens, device=device)
+    prompt = _prompt_len(tokens, embeds)
+    cache_len = prompt + steps + 1
     out = {}
     for phase in ("prefill", "decode"):
         if phase == "decode":
-            logits, caches = _prefill(model, tokens, cache_len, frames)
+            logits, caches = _prefill(model, tokens, cache_len, frames,
+                                      embeds)
             tok = logits.argmax(-1)
         _sync(device)
         t0 = time.perf_counter()
         with trace(activities=acts) as prof:
             if phase == "prefill":
-                _prefill(model, tokens, cache_len, frames)
+                _prefill(model, tokens, cache_len, frames, embeds)
             else:
                 for i in range(steps):
-                    logits, caches = model.decode_step(
-                        tok, caches, tokens.shape[1] + i)
+                    logits, caches = model.decode_step(tok, caches,
+                                                       prompt + i)
                     tok = logits.argmax(-1)
             _sync(device)
         host_s = time.perf_counter() - t0

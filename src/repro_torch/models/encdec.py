@@ -43,7 +43,7 @@ from repro_torch.models import module as nn
 from repro_torch.models.embedding import embed
 from repro_torch.models.mlp import gelu_mlp, gelu_mlp_init
 from repro_torch.models.transformer import (ATTENTION, _index, _matmul_f32,
-                                           _plain, _stack, _tree,
+                                           _plain, _stacked_init, _tree,
                                            _unbind_layers, cross_entropy,
                                            remat)
 from repro_torch.serve.kv import resolve_device
@@ -94,8 +94,8 @@ class EncDecModel(tnn.Module):
 
         self.embed = _tree({"table": nn.embed_init(
             gen, (cfg.padded_vocab, d), dt, device)})
-        self.enc = _tree(_stack([enc_block() for _ in range(self.n_enc)]))
-        self.dec = _tree(_stack([dec_block() for _ in range(self.n_dec)]))
+        self.enc = _tree(_stacked_init(enc_block, self.n_enc))
+        self.dec = _tree(_stacked_init(dec_block, self.n_dec))
         self.ln_enc = _tree(nn.layernorm_init(d, dt, device))
         self.ln_f = _tree(nn.layernorm_init(d, dt, device))
         self._layers = None

@@ -37,7 +37,7 @@ from repro_torch.models import ssm
 from repro_torch.models.embedding import embed
 from repro_torch.models.mlp import swiglu, swiglu_init
 from repro_torch.models.transformer import (ATTENTION, _index, _matmul_f32,
-                                           _plain, _stack, _tree,
+                                           _plain, _stacked_init, _tree,
                                            _unbind_layers, cross_entropy,
                                            remat)
 from repro_torch.serve.kv import resolve_device
@@ -79,7 +79,7 @@ class HymbaModel(tnn.Module):
 
         self.embed = _tree({"table": nn.embed_init(
             gen, (cfg.padded_vocab, cfg.d_model), dt, device)})
-        self.blocks = _tree(_stack([block() for _ in range(cfg.n_layers)]))
+        self.blocks = _tree(_stacked_init(block, cfg.n_layers))
         self.ln_f = _tree(nn.rmsnorm_init(cfg.d_model, dt, device))
         self._layers = None
 

@@ -1,21 +1,32 @@
-"""The decoder-only transformer LM of the port (dense family): serving and
-training.
+"""The decoder-only transformer LM of the port (dense, MoE and VLM
+families): serving and training.
 
 The counterpart of ``DecoderLM.prefill`` / ``decode_step`` and of
 ``forward`` / ``loss`` of the JAX package's ``repro/models/transformer.py``
-for ``family="dense"``
-(qwen1.5-0.5b, internlm2-1.8b): embed, L blocks of pre-norm attention and
-an MLP (SwiGLU, or the two-matrix GELU MLP for ``cfg.mlp == "gelu"``) with
-residuals, a final rmsnorm, and logits in f32 against the tied
-embedding or the unembedding. Attention goes through the port's kernels
-(``models/attention.py``); ``attention="plain"`` takes their plain
-versions.
+for ``family`` ``"dense"`` (qwen1.5-0.5b, internlm2-1.8b, granite-34b,
+llama3-405b), ``"moe"`` (qwen3-moe-235b, kimi-k2-1t) and ``"vlm"``
+(llava-next-34b): embed, L blocks of pre-norm attention and a
+feed-forward layer with residuals, a final rmsnorm, and logits in f32
+against the tied embedding or the unembedding. The feed-forward layer is
+an MLP (SwiGLU, or the two-matrix GELU MLP for ``cfg.mlp == "gelu"``) or,
+in the MoE family, ``models/moe.apply`` (routing, the capacity dispatch,
+the grouped experts and the token combine through the CUDA ``cscatter``),
+after ``cfg.first_dense_layers`` unrolled dense blocks of width ``cfg.d_ff
+or 4 * cfg.d_ff_expert`` (kimi-k2). One card has no mesh, so the MoE
+layer is ``moe.apply`` as in JAX without one; ``models/moe_ep`` is the
+stacked counterpart of the expert-parallel form. The VLM is the dense
+backbone fed precomputed patch and text embeddings (``embeds``) in
+``loss`` and ``prefill``, cast to the parameters' dtype. Attention goes
+through the port's kernels (``models/attention.py``); ``attention="plain"``
+takes their plain versions.
 
 Parameters are named and stacked as the JAX tree (``embed.table``,
-``blocks.attn.wq.w`` with a leading layers axis, ``ln_f.scale``,
-``unembed.w`` when untied), so ``registry.from_jax_params`` fills them
-leaf by leaf; caches are stacked as the JAX scan stacks them, ``{"scan":
-KVCache(k=[L, B, T, KV, hd], v=...)}``, and decode updates them in place.
+``blocks.attn.wq.w`` and ``blocks.moe.router.w`` with a leading layers
+axis, ``dense_blocks.<i>.*``, ``ln_f.scale``, ``unembed.w`` when untied),
+so ``registry.from_jax_params`` fills them leaf by leaf; the router stays
+f32 in a bf16 model. Caches are stacked as the JAX scan stacks them,
+``{"scan": KVCache(k=[L, B, T, KV, hd], v=...)}`` plus ``"dense"``, a
+``KVCache`` a dense block, and decode updates them in place.
 
 The module's own parameters are frozen: serving never builds a graph.
 Training is functional, as in the JAX package: :meth:`DecoderLM.params`
@@ -24,12 +35,13 @@ storage), and :meth:`DecoderLM.loss` takes a tree, so a train step
 differentiates whatever tree it passes (``core/grad_merge.value_and_grad``)
 and the optimizer returns new ones. The train path embeds through
 ``models/embedding.embed`` (its backward is the CUDA ``cscatter``),
-attends through the plain ``attention.attend_full``, and follows
-``cfg.remat``: ``"none"``, ``"full"`` (``torch.utils.checkpoint`` of each
-block) or ``"dots"`` (selective checkpointing that saves the outputs of
-the products without batch dims, ``aten.mm``, and recomputes the rest, as
-JAX's ``dots_with_no_batch_dims_saveable``). Remat changes memory, never
-the numbers. MoE and ``dense_blocks`` (MoE only) are not ported yet.
+attends through the plain ``attention.attend_full``, adds the router's aux
+and z losses of the MoE blocks, and follows ``cfg.remat``: ``"none"``,
+``"full"`` (``torch.utils.checkpoint`` of each block) or ``"dots"``
+(selective checkpointing that saves the outputs of the products without
+batch dims, ``aten.mm``, and recomputes the rest, as JAX's
+``dots_with_no_batch_dims_saveable``). Remat changes memory, never the
+numbers.
 """
 
 from __future__ import annotations
@@ -43,6 +55,7 @@ from torch import nn as tnn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe
 from repro_torch.models import module as nn
 from repro_torch.models.embedding import embed
 from repro_torch.models.mlp import (gelu_mlp, gelu_mlp_init, swiglu,
@@ -84,12 +97,6 @@ def _tree(d) -> tnn.Module:
         return tnn.ParameterDict({k: tnn.Parameter(v, requires_grad=False)
                                   for k, v in leaves.items()})
     return tnn.ModuleDict({k: _tree(v) for k, v in subs.items()})
-
-
-def _stack(trees: list) -> dict:
-    if isinstance(trees[0], Tensor):
-        return torch.stack(trees)
-    return {k: _stack([t[k] for t in trees]) for k in trees[0]}
 
 
 def _index(tree, i: int):
@@ -176,38 +183,70 @@ def _unbind_layers(blocks) -> list[dict]:
             for i in range(len(per_leaf[0]))]
 
 
+def _stacked_init(make, n: int) -> dict:
+    """``n`` trees of ``make()`` stacked leaf by leaf into one tree with a
+    leading layers dim, filled a layer at a time (one layer's tree lives
+    beside the stack, not all ``n``)."""
+    first = make()
+    out = torch.utils._pytree.tree_map(
+        lambda t: t.new_empty((n,) + tuple(t.shape)), first)
+    for i in range(n):
+        layer = first if i == 0 else make()
+        torch.utils._pytree.tree_map(lambda o, t: o[i].copy_(t), out, layer)
+    return out
+
+
+FAMILIES = ("dense", "moe", "vlm")
+
+
 class DecoderLM(tnn.Module):
     def __init__(self, cfg, *, device="cuda", seed: int = 0,
                  attention: str = "kernel"):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"DecoderLM: family {cfg.family!r} is not the dense family "
+                f"DecoderLM: family {cfg.family!r} is not one of {FAMILIES} "
                 f"(registry.build_model builds each ported family's model)")
         if cfg.mlp not in ("swiglu", "gelu"):
             raise ValueError(f"DecoderLM: unknown mlp {cfg.mlp!r}")
         device = resolve_device(device)
         self.cfg = cfg
+        self.is_moe = cfg.family == "moe"
+        self.embeds_input = cfg.family == "vlm"
         self.attention = attention
         gen = torch.Generator(device=device).manual_seed(seed)
         dt = cfg.param_dtype
         hd = cfg.resolved_head_dim
+        ffn_init = gelu_mlp_init if cfg.mlp == "gelu" else swiglu_init
 
-        def block() -> dict:
-            return {
+        def block(moe_ffn: bool, d_ff: int) -> dict:
+            p = {
                 "ln1": nn.rmsnorm_init(cfg.d_model, dt, device),
                 "attn": attn.init(gen, cfg.d_model, cfg.n_heads,
-                                       cfg.n_kv_heads, hd, dt,
-                                       qkv_bias=cfg.qkv_bias, device=device),
+                                  cfg.n_kv_heads, hd, dt,
+                                  qkv_bias=cfg.qkv_bias, device=device),
                 "ln2": nn.rmsnorm_init(cfg.d_model, dt, device),
-                "ffn": (gelu_mlp_init if cfg.mlp == "gelu" else swiglu_init)(
-                    gen, cfg.d_model, cfg.d_ff, dt, device=device),
             }
+            if moe_ffn:
+                p["moe"] = moe.init(gen, cfg.d_model, cfg.d_ff_expert,
+                                    cfg.n_experts, dt,
+                                    n_shared=cfg.n_shared_experts,
+                                    device=device)
+            else:
+                p["ffn"] = ffn_init(gen, cfg.d_model, d_ff, dt,
+                                    device=device)
+            return p
 
         self.embed = _tree({"table": nn.embed_init(
             gen, (cfg.padded_vocab, cfg.d_model), dt, device)})
-        self.blocks = _tree(_stack([block() for _ in range(cfg.n_layers)]))
+        self.n_scan = cfg.n_layers - cfg.first_dense_layers
+        self.blocks = _tree(_stacked_init(
+            functools.partial(block, self.is_moe, cfg.d_ff), self.n_scan))
         self.ln_f = _tree(nn.rmsnorm_init(cfg.d_model, dt, device))
+        if cfg.first_dense_layers:
+            self.dense_blocks = _tree([
+                block(False, cfg.d_ff or 4 * cfg.d_ff_expert)
+                for _ in range(cfg.first_dense_layers)])
         if not cfg.tie_embeddings:
             self.unembed = _tree({"w": nn.dense_init(
                 gen, (cfg.d_model, cfg.padded_vocab), dt, device=device)})
@@ -215,6 +254,14 @@ class DecoderLM(tnn.Module):
 
     def _ffn(self, p, x: Tensor) -> Tensor:
         return (gelu_mlp if self.cfg.mlp == "gelu" else swiglu)(p, x)
+
+    def _serve_ffn(self, p, x: Tensor) -> Tensor:
+        """A block's feed-forward layer at serving: the MoE layer (its
+        metrics dropped, as JAX drops them), or the MLP."""
+        if "moe" in p:
+            cfg = self.cfg
+            return moe.apply(p["moe"], x, cfg.top_k, cfg.capacity_factor)[0]
+        return self._ffn(p["ffn"], x)
 
     @property
     def attention(self) -> str:
@@ -232,11 +279,14 @@ class DecoderLM(tnn.Module):
         return super()._apply(fn, *args, **kwargs)
 
     def layers(self) -> list[dict]:
-        """Per-layer views of the stacked block parameters."""
+        """Per-layer views of the stacked block parameters, after the
+        dense blocks' own trees (MoE only)."""
         if self._layers is None:
             tree = _plain(self.blocks)
-            self._layers = [_index(tree, i)
-                            for i in range(self.cfg.n_layers)]
+            dense = (_plain(self.dense_blocks)
+                     if self.cfg.first_dense_layers else [])
+            self._layers = dense + [_index(tree, i)
+                                    for i in range(self.n_scan)]
         return self._layers
 
     @property
@@ -253,7 +303,7 @@ class DecoderLM(tnn.Module):
             plain=self.attention == "plain",
             cache=cache)
         h = h + a
-        return h + self._ffn(p["ffn"], nn.rmsnorm(p["ln2"], h))
+        return h + self._serve_ffn(p, nn.rmsnorm(p["ln2"], h))
 
     def _block_decode(self, p, h, cache, position):
         cfg = self.cfg
@@ -262,7 +312,7 @@ class DecoderLM(tnn.Module):
             cfg.n_kv_heads, rope_theta=cfg.rope_theta,
             plain=self.attention == "plain")
         h = h + a
-        return h + self._ffn(p["ffn"], nn.rmsnorm(p["ln2"], h)), cache
+        return h + self._serve_ffn(p, nn.rmsnorm(p["ln2"], h)), cache
 
     def _logits(self, h: Tensor) -> Tensor:
         if self.cfg.tie_embeddings:
@@ -278,66 +328,117 @@ class DecoderLM(tnn.Module):
         share the module's storage: what a train step differentiates and
         the optimizer replaces."""
         tree = {"embed": self.embed, "blocks": self.blocks, "ln_f": self.ln_f}
+        if self.cfg.first_dense_layers:
+            tree["dense_blocks"] = self.dense_blocks
         if not self.cfg.tie_embeddings:
             tree["unembed"] = self.unembed
         return torch.utils._pytree.tree_map(
             lambda t: t.detach(), {k: _plain(v) for k, v in tree.items()})
 
-    def _block(self, p, h: Tensor, positions: Tensor) -> Tensor:
+    def _block(self, p, h: Tensor, positions: Tensor):
+        """One block of the train path -> (h, the MoE layer's metrics or
+        ``{}``)."""
         cfg = self.cfg
         a = attn.attend_full(p["attn"], nn.rmsnorm(p["ln1"], h), positions,
                              cfg.n_heads, cfg.n_kv_heads, "causal",
                              rope_theta=cfg.rope_theta)
         h = h + a
-        return h + self._ffn(p["ffn"], nn.rmsnorm(p["ln2"], h))
+        x = nn.rmsnorm(p["ln2"], h)
+        if "moe" in p:
+            f, metrics = moe.apply(p["moe"], x, cfg.top_k,
+                                   cfg.capacity_factor)
+        else:
+            f, metrics = self._ffn(p["ffn"], x), {}
+        return h + f, metrics
 
     def forward(self, params, h: Tensor, positions: Tensor):
-        """The blocks and the final norm over ``h [B, S, D]``, each block
-        under ``cfg.remat`` -> (``h``, metrics); the dense family has no
-        metrics."""
+        """The dense blocks, the stacked blocks and the final norm over
+        ``h [B, S, D]``, each block under ``cfg.remat`` -> (``h``,
+        metrics): the MoE blocks' metrics, each summed over its elements
+        and the stacked layers (JAX's ``tree.map(jnp.sum)`` of the scan's
+        stack); ``{}`` without MoE blocks."""
         block = remat(functools.partial(self._block, positions=positions),
                       self.cfg.remat)
+        for p in params.get("dense_blocks", []):
+            h, _ = block(p, h)
+        totals = {}
         for p in _unbind_layers(params["blocks"]):
-            h = block(p, h)
-        return nn.rmsnorm(params["ln_f"], h), {}
+            h, metrics = block(p, h)
+            for k, v in metrics.items():
+                totals[k] = totals[k] + v.sum() if k in totals else v.sum()
+        return nn.rmsnorm(params["ln_f"], h), totals
+
+    def _input(self, table: Tensor, tokens, embeds) -> Tensor:
+        """The first hidden state: ``embeds`` (VLM) cast to the parameters'
+        dtype, else the table at ``tokens``."""
+        if self.embeds_input and embeds is not None:
+            return torch.as_tensor(embeds, device=table.device).to(
+                table.dtype)
+        return embed(table, tokens)
 
     def loss(self, params, batch: dict):
         """Mean next-token cross-entropy plus the z-loss of ``batch``
-        (``tokens``, ``labels`` ``[B, S]`` on the model's device) under the
-        parameter tree ``params`` -> (loss, metrics)."""
-        h = embed(params["embed"]["table"], batch["tokens"])
+        (``tokens`` or, for the VLM, ``embeds [B, S, D]``, and ``labels``
+        ``[B, S]``, on the model's device) under the parameter tree
+        ``params``, plus the MoE router's aux and z losses over
+        ``cfg.n_layers`` -> (loss, metrics)."""
+        cfg = self.cfg
+        h = self._input(params["embed"]["table"], batch.get("tokens"),
+                        batch.get("embeds"))
         positions = torch.arange(h.shape[1], dtype=torch.int32,
                                  device=h.device)
-        h, _ = self.forward(params, h, positions)
-        w = (params["embed"]["table"].t() if self.cfg.tie_embeddings
+        h, moe_metrics = self.forward(params, h, positions)
+        w = (params["embed"]["table"].t() if cfg.tie_embeddings
              else params["unembed"]["w"])
         loss, metrics = cross_entropy(_matmul_f32(h, w), batch["labels"])
+        if moe_metrics:
+            loss = loss + 0.01 * moe_metrics["aux_loss"] / cfg.n_layers \
+                + 1e-3 * moe_metrics["router_z"] / cfg.n_layers
+            metrics.update({k: v for k, v in moe_metrics.items()
+                            if k != "expert_load"})
         metrics["loss"] = loss
         return loss, metrics
 
     # -------------------------------------------------------------- serving
 
-    @torch.no_grad()
-    def prefill(self, tokens: Tensor, cache_len: int):
-        """``tokens [B, S]`` int -> (last-position logits ``[B, V]`` f32,
-        caches ``{"scan": KVCache(k=[L, B, cache_len, KV, hd], ...)}``)."""
+    def _caches(self, n: int, b: int, cache_len: int, dtype) -> attn.KVCache:
         cfg = self.cfg
-        tokens = torch.as_tensor(tokens, device=self.device)
-        b, s = tokens.shape
+        shape = (n, b, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        ck = torch.empty(shape, dtype=dtype, device=self.device)
+        return attn.KVCache(k=ck, v=torch.empty_like(ck))
+
+    @torch.no_grad()
+    def prefill(self, tokens, cache_len: int, embeds=None):
+        """``tokens [B, S]`` int, or for the VLM ``embeds [B, S, D]`` (cast
+        to the parameters' dtype; ``tokens`` is then unused) -> (last-
+        position logits ``[B, V]`` f32, caches ``{"scan": KVCache(k=[L, B,
+        cache_len, KV, hd], ...)}``, with ``"dense"``, a ``KVCache`` a
+        dense block, when the model has dense blocks)."""
+        cfg = self.cfg
+        if embeds is not None and not self.embeds_input:
+            raise ValueError(f"{cfg.name}: embeds are the VLM's input")
+        if embeds is None:
+            tokens = torch.as_tensor(tokens, device=self.device)
+        h = self._input(self.embed["table"], tokens, embeds)
+        b, s = h.shape[:2]
         if s > cache_len:
             raise ValueError(f"prompt of {s} tokens exceeds cache_len "
                              f"{cache_len}")
-        h = nn.embed(self.embed["table"], tokens)
         positions = torch.arange(s, dtype=torch.int32, device=self.device)
-        hd = cfg.resolved_head_dim
-        shape = (cfg.n_layers, b, cache_len, cfg.n_kv_heads, hd)
-        ck = torch.empty(shape, dtype=h.dtype, device=self.device)
-        cv = torch.empty_like(ck)
-        for i, p in enumerate(self.layers()):
-            h = self._block_prefill(p, h, positions,
-                                    attn.KVCache(k=ck[i], v=cv[i]))
+        n_dense = cfg.first_dense_layers
+        dense = self._caches(n_dense, b, cache_len, h.dtype)
+        scan = self._caches(self.n_scan, b, cache_len, h.dtype)
+        layer_caches = ([attn.KVCache(k=dense.k[i], v=dense.v[i])
+                         for i in range(n_dense)]
+                        + [attn.KVCache(k=scan.k[i], v=scan.v[i])
+                           for i in range(self.n_scan)])
+        for p, cache in zip(self.layers(), layer_caches):
+            h = self._block_prefill(p, h, positions, cache)
         h = nn.rmsnorm(self.ln_f, h)
-        return self._logits(h[:, -1]), {"scan": attn.KVCache(k=ck, v=cv)}
+        caches = {"scan": scan}
+        if n_dense:
+            caches["dense"] = layer_caches[:n_dense]
+        return self._logits(h[:, -1]), caches
 
     @torch.no_grad()
     def decode_step(self, tokens: Tensor, caches: dict, position: int):
@@ -346,10 +447,11 @@ class DecoderLM(tnn.Module):
         tokens = torch.as_tensor(tokens, device=self.device)
         h = nn.embed(self.embed["table"], tokens)[:, None, :]
         stacked = caches["scan"]
-        for i, p in enumerate(self.layers()):
-            h, _ = self._block_decode(
-                p, h, attn.KVCache(k=stacked.k[i], v=stacked.v[i]),
-                int(position))
+        layer_caches = list(caches.get("dense", [])) + [
+            attn.KVCache(k=stacked.k[i], v=stacked.v[i])
+            for i in range(self.n_scan)]
+        for p, cache in zip(self.layers(), layer_caches):
+            h, _ = self._block_decode(p, h, cache, int(position))
         h = nn.rmsnorm(self.ln_f, h)
         return self._logits(h[:, 0]), caches
 

@@ -1019,3 +1019,125 @@ def test_encdec_kernel_path_equals_its_plain_path_on_the_card(cuda):
         cfg.n_dec_layers
     for got, want in zip(res.logits, steps):
         torch.testing.assert_close(got, want, rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d,k", [(4096, 4096, 8), (8, 4096, 8)])
+def test_moe_combine_at_the_serve_shapes(cuda, dtype, t, d, k):
+    """The MoE token combine, ``cscatter`` add into a zero ``[t, d]`` table
+    of each token's k weighted expert outputs (ids ``arange(t k) // k``, a
+    dropped assignment a zero row), at qwen3-moe-235b's prefill (t = 8 x
+    512 tokens, N = 32768) and decode (t = 8, N = 64) shapes: one call, two
+    launches, each element within two roundings of the f64 sum (bf16: 2^-7
+    of it; f32: 1e-5), and equal to the plain version's to the same bound;
+    and through ``models.moe.combine``, whose backward gathers."""
+    from repro_torch.models import moe
+    rng = np.random.default_rng(t)
+    n = t * k
+    y = torch.as_tensor(rng.standard_normal((n, d)) * 0.1,
+                        dtype=torch.float32)
+    y[rng.random(n) < 0.1] = 0                      # dropped assignments
+    y = y.to(cuda, dtype)
+    ids = (torch.arange(n, device=cuda) // k).to(torch.int32)
+    want = torch.zeros((t, d), dtype=torch.float64, device=cuda).index_add_(
+        0, ids.long(), y.double())
+    before = cs.cscatter.launches
+    got = commutative_scatter(torch.zeros((t, d), dtype=dtype, device=cuda),
+                              ids, y)
+    torch.cuda.synchronize()
+    assert cs.cscatter.launches - before == cs.LAUNCHES_PER_CALL
+    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    plain = cs.cscatter_plain(torch.zeros((t, d), dtype=dtype, device=cuda),
+                              ids, y)
+    for out in (got, plain):
+        assert bool(((out.double() - want).abs()
+                     <= rel * want.abs() + 1e-6).all())
+    yy = y.clone().requires_grad_(True)
+    out = moe.combine(yy, ids, t)
+    assert torch.equal(out, got)
+    g = torch.randn((t, d), device=cuda).to(dtype)
+    (grad,) = torch.autograd.grad(out, yy, g)
+    assert torch.equal(grad, g[ids.long()])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv,t", [(64, 4, 576), (56, 8, 704)])
+def test_decode_attention_at_the_moe_and_vlm_groups(cuda, dtype, h, kv, t):
+    """qwen3-moe-235b's decode (G = H / KV = 16, the ``GMAX = 16``
+    configuration) and llava-next-34b's (G = 7, ``GMAX = 8``), d 128,
+    batch 8, at positions 0, mid and T - 1: against the plain version, and
+    both passes against theirs."""
+    from repro_torch.kernels import decode_attention as da
+    q, k, v = _attn_inputs(dtype, (8, h, 128), (8, t, kv, 128),
+                           (8, t, kv, 128), seed=h)
+    splits = da.plan_splits(8, kv, t, 128, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    for position in (0, t // 2, t - 1):
+        before = da.decode_attention.launches
+        got = da.decode_attention(q, k, v, position)
+        torch.cuda.synchronize()
+        assert da.decode_attention.launches == before + da.LAUNCHES_PER_CALL
+        _assert_attn_close(got, da.decode_attention_plain(q, k, v, position),
+                           dtype)
+        out, m, l, acc = da.launch(q, k, v, position, splits)
+        wm, wl, wacc = da.decode_attention_partials_plain(q, k, v, position,
+                                                          splits)
+        torch.testing.assert_close(m, wm, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(l, wl, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(acc, wacc, rtol=1e-4, atol=1e-4)
+        _assert_attn_close(out, da.decode_attention_combine_plain(
+            m, l, acc, dtype), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv,s", [(64, 4, 512), (56, 8, 640)])
+def test_flash_attention_at_the_moe_and_vlm_groups(cuda, dtype, h, kv, s):
+    """The prefills' causal flash launches at G = 16 (qwen3-moe-235b) and
+    G = 7 (llava-next-34b), d 128, batch 2, through the model's strided
+    views."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _attn_inputs(dtype, (2, h, s, 128), (2, kv, s, 128),
+                           (2, kv, s, 128), seed=s)
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    for args in [(q, k, v), tuple(x.transpose(1, 2).contiguous()
+                                  .transpose(1, 2) for x in (q, k, v))]:
+        before = fa.flash_attention.launches_by_variant[fa.VARIANTS[dtype]]
+        got = fa.flash_attention(*args, causal=True)
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches_by_variant[
+            fa.VARIANTS[dtype]] == before + 1
+        _assert_attn_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b", "kimi-k2-1t"])
+def test_moe_kernel_path_equals_its_plain_path_on_the_card(cuda, arch):
+    """A smoke MoE LM on the card in f32: one ``cscatter`` call (the
+    combine) a MoE layer a forward, one flash launch a layer at prefill
+    and a ``decode_attention`` call a layer a step; its logits within 1e-4
+    of the same weights with the plain attention, the combine through the
+    CUDA kernel in both (the plain path swaps only the attention)."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import generate, serve_batch
+    from repro_torch.models.registry import build_model
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    model = build_model(cfg, device=cuda, seed=1)
+    tokens = serve_batch(cfg, 2, 24, 1)["tokens"]
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    fa.flash_attention.launches = da.decode_attention.launches = 0
+    cs.cscatter.launches = 0
+    res = generate(model, tokens, 5, keep_logits=True)
+    assert fa.flash_attention.launches == cfg.n_layers
+    assert da.decode_attention.launches == cfg.n_layers * 4 * \
+        da.LAUNCHES_PER_CALL
+    assert cs.cscatter.launches == n_moe * 5 * cs.LAUNCHES_PER_CALL
+    model.attention = "plain"
+    logits, caches = model.prefill(torch.as_tensor(tokens, device=cuda), 29)
+    steps = [logits]
+    for i in range(4):
+        logits, caches = model.decode_step(res.tokens[:, i], caches, 24 + i)
+        steps.append(logits)
+    assert fa.flash_attention.launches == cfg.n_layers
+    for got, want in zip(res.logits, steps):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -44,7 +44,8 @@ from repro_torch.models.transformer import DecoderLM, load_jax_params
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["qwen1-5-0-5b", "internlm2-1-8b"]
 CONFIGS = ARCHS + ["xlstm-125m", "hymba-1-5b", "granite-34b",
-                   "seamless-m4t-medium"]
+                   "seamless-m4t-medium", "qwen3-moe-235b", "kimi-k2-1t",
+                   "llava-next-34b", "llama3-405b"]
 LOGIT_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 CACHE_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 5e-2)}
 
@@ -66,19 +67,26 @@ def test_ported_configs_equal_the_jax_ones_field_by_field(arch, smoke):
 
 
 def test_config_registry_names_what_is_not_ported():
+    """Nothing is left unported: every ``ARCH_IDS`` entry's smoke config
+    builds its model, DecoderLM for the dense, MoE and VLM families; an
+    unknown arch or family is still refused."""
     assert tbase.ARCH_IDS == jbase.ARCH_IDS
     assert tbase.ARCH_ALIASES == jbase.ARCH_ALIASES
-    with pytest.raises(NotImplementedError, match="llama3_405b"):
-        tbase.get_config("llama3-405b")
+    assert sorted(tbase.PORTED) == sorted(tbase.ARCH_IDS)
+    assert tbase.get_config("llama3-405b").name == "llama3-405b"
     with pytest.raises(ValueError, match="unknown arch"):
         tbase.get_config("gpt-17")
-    for family in ("moe", "vlm"):
-        cfg = dataclasses.replace(tbase.get_smoke_config("qwen1-5-0-5b"),
-                                  family=family)
-        with pytest.raises(NotImplementedError, match=family):
-            build_model(cfg, device="cpu")
+    for arch in tbase.ARCH_IDS:
+        cfg = tbase.get_smoke_config(arch)
+        model = build_model(cfg, device="cpu")
+        if cfg.family in ("dense", "moe", "vlm"):
+            assert type(model) is DecoderLM, arch
     from repro_torch.models import registry
-    assert registry._NOT_PORTED == ("moe", "vlm")
+    assert not hasattr(registry, "_NOT_PORTED")
+    with pytest.raises(ValueError, match="unknown model family"):
+        build_model(dataclasses.replace(
+            tbase.get_smoke_config("qwen1-5-0-5b"), family="rnn"),
+            device="cpu")
     assert type(build_model(tbase.get_smoke_config("seamless-m4t-medium"),
                             device="cpu")).__name__ == "EncDecModel"
 
