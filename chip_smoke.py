@@ -14,9 +14,11 @@ qwen1.5-0.5b, the paper's BFS, PageRank and k-means, training of
 qwen1.5-0.5b with gradient accumulation as a CCache merge, its elastic
 resume after a kill onto another rank count, the xLSTM and Hymba
 families (hymba-1.5b and xlstm-125m served, xlstm-125m trained, killed
-and resumed bit for bit), the encoder-decoder (seamless-m4t-medium
-served and trained) and the MoE and VLM families (qwen3-moe-235b and
-llava-next-34b served at full width, kimi-k2-1t's smoke config) — and:
+and resumed bit for bit; hymba-1.5b trained at full width and depth
+through the selective scan's CUDA kernels), the encoder-decoder
+(seamless-m4t-medium served and trained) and the MoE and VLM families
+(qwen3-moe-235b and llava-next-34b served at full width, kimi-k2-1t's
+smoke config) — and:
 
 1. prints the card (``nvidia-smi`` name and power limit, torch's name);
 2. builds every CUDA kernel of the paths from ``src/repro_torch/csrc``, all
@@ -36,7 +38,13 @@ llava-next-34b served at full width, kimi-k2-1t's smoke config) — and:
    and drain shapes against ``index_add_`` / ``index_reduce_``; and
    holds float ``cscatter`` (f32 and bf16, add and sat_add) to the bit
    over 5 repeated calls on hot and cold streams at every shape the port
-   launches (``DET_STREAMS``);
+   launches (``DET_STREAMS``); holds the selective scan (``phase_scan``:
+   hymba-1.5b's SSM, a kernel with no Pallas original) against its plain
+   version at the prefill shape ``[8, 2048, 3200]`` (forward), one training
+   rank's ``[2, 2048, 3200]`` (forward and backward) and a smoke shape at
+   S = 4, u in f32 and bf16: y and h_T to 1e-5 of their largest
+   magnitude, every gradient to 1e-4 of its own, two backward calls
+   bitwise; times it (warm, cold, a call, plain) beside its bound;
 4. runs the privatized K = 8, sync, partitioned and partitioned+overlap
    stores over 3 commit cycles plus a partial one, and the blocked
    replicated and blocked partitioned stores over 2 cycles plus a tick: each
@@ -131,11 +139,20 @@ llava-next-34b served at full width, kimi-k2-1t's smoke config) — and:
    free disk before the save;
 13. (``phase_families``) serves hymba-1.5b at full width (bf16, batch 8,
    prompts of 2048, 64 tokens: 32 ``flash_attention`` launches at prefill,
-   29 with the window of 1024, and a ``decode_attention`` call a layer a
-   step over the windowed layers' rings and the global layers' caches),
-   held against the same tokens teacher-forced through the plain
-   attention; serves xlstm-125m at full width (batch 8, prompts of 256,
-   257 tokens), its recurrent decode held against one chunkwise forward
+   29 with the window of 1024, 32 ``selective_scan`` launches, and a
+   ``decode_attention`` call a layer a step over the windowed layers'
+   rings and the global layers' caches), held against the same tokens
+   teacher-forced through the plain attention and the plain scan; (j)
+   trains hymba-1.5b at full width and depth (bf16, remat "dots", batch 4
+   x 2048 over chip:2's 2 stacked ranks, AdamW): 2 eager steps and 5
+   deferred ones with K = 2, every loss finite, the first deferred cycle
+   equal to AdamW on the mean of its two batches' eager merges, launches
+   of ``cscatter`` (2 x ranks x steps) and of the scan (2 x 32 forwards
+   and 32 backwards a rank and a step) as predicted, one rank's gradient
+   through the scan kernels against the plain scan's in f32; ms a step
+   by kind, tokens/s, peak memory, the profiler's idle share of an eager
+   step; serves xlstm-125m at full width (batch 8, prompts of 256, 257
+   tokens), its recurrent decode held against one chunkwise forward
    over the 512 tokens; serves the GELU MLP (``DecoderLM`` at granite-34b's
    smoke config with ``mlp="gelu"``) against its plain path; each with a
    traced prefill and decode step; then runs the real-model chaos at full
@@ -220,6 +237,13 @@ REPLACES_FLASH = ("src/repro/kernels/flash_attention.py:66 "
 REPLACES_DECODE = ("src/repro/kernels/decode_attention.py:58 "
                    "(decode_attention -> _kernel :22)")
 BF16_OPS_PER_S = 989e12             # dense bf16 tensor-core peak, H100 SXM
+# exponentials (MUFU.EX2, one an expf) a second: 16 a clock on each of the
+# 132 SMs (CUDA's throughput table, compute capability 9.0) at the H100
+# SXM's 1.98 GHz boost clock
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
+REPLACES_SCAN = ("no Pallas original: src/repro/models/ssm.py:75 "
+                 "(_scan_chunk, jax.lax.associative_scan; with _ssm_params "
+                 ":63 and the einsum of apply_seq :107)")
 # LM serving: qwen1.5-0.5b at full width, as the JAX serve CLI would run it
 ARCH, SERVE_BATCH, PROMPT, GEN = "qwen1-5-0-5b", 8, 512, 64
 # attention kernels vs their plain versions in bf16: both round an f32 result
@@ -284,6 +308,38 @@ ENCDEC_PROMPT, ENCDEC_GEN, ENCDEC_FRAMES = 512, 64, 128
 ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_STEPS = 4, 2
 ENCDEC_TRAIN_PLAN, ENCDEC_TRAIN_DP = "chip:2", 2
 ENCDEC_V = 256256
+# hymba-1.5b trained at full width and depth (bf16, remat "dots", random
+# weights from the seed) on the pipeline's Zipf stream: batch
+# HYMBA_TRAIN_BATCH x HYMBA_TRAIN_SEQ (past the window of 1024) over
+# HYMBA_TRAIN_PLAN's 2 stacked ranks, 2 rows a rank (JAX's train_4k cell is
+# 256 x 4096): HYMBA_TRAIN_EAGER eager steps, then HYMBA_TRAIN_DEFERRED
+# deferred ones over HYMBA_TRAIN_DEFER_PLAN with K = HYMBA_TRAIN_K (two
+# cycles and a partial one that the flush settles), AdamW under
+# warmup_cosine(TRAIN_LR, TRAIN_WARMUP, steps)
+HYMBA_TRAIN_BATCH, HYMBA_TRAIN_SEQ, HYMBA_TRAIN_DP = 4, 2048, 2
+HYMBA_TRAIN_PLAN, HYMBA_TRAIN_DEFER_PLAN = "chip:2", "chip:2:defer"
+HYMBA_TRAIN_K, HYMBA_TRAIN_EAGER, HYMBA_TRAIN_DEFERRED = 2, 2, 5
+# the selective scan's calls a layer, a rank and a step of that run, the
+# prediction written down before the first run on the card: under remat
+# "dots" the forward runs in the forward and again in the backward's
+# recompute (the scan is no product), the backward once
+HYMBA_SCAN_CALLS = {"forward": 2, "backward": 1}
+# the selective scan held to its plain version: (what, B, T, D, S, u's
+# dtype, backward too): hymba-1.5b's prefill (its 32 calls' shape), one
+# training rank's, and the smoke config's d_inner at S = 4 over a ragged T.
+# The plain backward at the training shape takes ~15 GB; at the prefill
+# shape it would take ~60 GB, so the prefill shape is checked forward only.
+SCAN_SHAPES = [("prefill", 8, 2048, 3200, 16, "bfloat16", False),
+               ("prefill", 8, 2048, 3200, 16, "float32", False),
+               ("train", 2, 2048, 3200, 16, "bfloat16", True),
+               ("train", 2, 2048, 3200, 16, "float32", True),
+               ("smoke", 2, 300, 128, 4, "float32", True),
+               ("smoke", 2, 300, 128, 4, "bfloat16", True)]
+# y and h_T to 1e-5 of their largest magnitude, every gradient to 1e-4 of
+# its own: two f32 orders of summation over 2048 steps (the kernel's
+# sequential one, the plain version's Hillis-Steele tree and einsum); a
+# bf16 u's gradient, rounded once in both, also to one bf16 ulp
+SCAN_TOL = {"forward": 1e-5, "backward": 1e-4}
 # qwen3-moe-235b served at full width (d 4096, 64 heads over 4 kv heads,
 # 128 experts, top-8, d_ff_expert 1536, vocab 151936), its depth cut to
 # MOE_LAYERS of 94 so that its f32 twin fits on the card (a layer is 4.98
@@ -447,10 +503,10 @@ def phase_build() -> None:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     secs = _build.build("cscatter", "cmerge", "flash_attention",
-                        "decode_attention")
+                        "decode_attention", "selective_scan")
     print(f"build: {secs} ({time.perf_counter() - t0:.3f} s in all)")
     for name in ("flash_attention", "cscatter", "decode_attention",
-                 "cmerge"):
+                 "cmerge", "selective_scan"):
         for line in ptxas_report(_build.LOGS.get(name, "")):
             print(f"ptxas {name}: {line}")
 
@@ -1648,6 +1704,178 @@ def phase_attention_times() -> dict:
     return out
 
 
+def _scan_inputs(what: str, b: int, t: int, d: int, s: int, u_dtype: str,
+                 seed: int) -> list:
+    """The scan's inputs on the card from the seed: dt = softplus(normal),
+    u normal in ``u_dtype``, b and c normal, a = -(1..S) as the model's
+    init, h0 zero as the model passes it (normal for the smoke shape, so
+    that its gradient is checked)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def f(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    a = -torch.arange(1, s + 1, dtype=torch.float32,
+                      device="cuda").repeat(d, 1)
+    h0 = f(b, d, s) if what == "smoke" else torch.zeros((b, d, s),
+                                                        device="cuda")
+    return [torch.nn.functional.softplus(f(b, t, d)),
+            f(b, t, d).to(getattr(torch, u_dtype)), f(b, t, s), f(b, t, s),
+            a, h0]
+
+
+def scan_bound_ms(b: int, t: int, d: int, s: int, u_item: int,
+                  backward: bool, checkpoints: bool) -> tuple[float, str]:
+    """The least time the card needs for one selective-scan call: its
+    inputs read and outputs written once (bytes), or its B T D S
+    exponentials at the SFU rate (operations), whichever is larger. The
+    forward reads dt, u, b, c, a, h0 and writes y, h_T (and, for a
+    backward, the checkpoints); the backward reads dt, u, b, c, a, the
+    checkpoints and dy and writes the six gradients."""
+    btd, bts, ds, bds = b * t * d, b * t * s, d * s, b * d * s
+    ckpt = 4 * b * (-(-t // 256) + 1) * d * s
+    if backward:
+        nbytes = (4 * btd + u_item * btd + 8 * bts + 4 * ds + ckpt
+                  + 4 * btd) + (4 * btd + u_item * btd + 8 * bts + 4 * ds
+                                + 4 * bds)
+    else:
+        nbytes = (4 * btd + u_item * btd + 8 * bts + 4 * ds + 4 * bds
+                  + 4 * btd + 4 * bds + (ckpt if checkpoints else 0))
+    by_bytes = nbytes / HBM_BYTES_PER_S
+    by_ops = b * t * d * s / SFU_EXP_PER_S
+    return (1e3 * max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def _scan_err(got, want) -> tuple[float, float]:
+    """The largest |got - want|, and it over the largest |want|."""
+    err = float((got.float() - want.float()).abs().max())
+    return err, err / max(float(want.float().abs().max()), 1e-30)
+
+
+def phase_scan() -> list[dict]:
+    """The selective scan (``kernels/selective_scan``, hymba-1.5b's SSM)
+    against its plain version at SCAN_SHAPES: y and h_T to
+    SCAN_TOL["forward"] of their largest magnitude; where the row has a
+    backward, the six gradients of ``sum(y dy) + sum(h_T dh)`` to
+    SCAN_TOL["backward"] of theirs (a bf16 u's also to one bf16 ulp of
+    each element) and two backward calls equal bit for bit. Then times,
+    with CUDA events: the kernel (``ms``: a CUDA graph of 20 launches of
+    the same inputs; ``cold_ms``: the same rotating over inputs past the
+    L2), a call through the wrapper (``call_ms``: the forward under
+    no_grad; for a backward row the Function's forward and backward), the
+    plain version the same way (``plain_ms``) and the bound. No PyTorch
+    call computes this function (``library_ms`` null)."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import selective_scan as sc
+    from repro_torch.kernels.ops import selective_scan
+    rows = []
+    for what, b, t, d, s, u_name, bwd in SCAN_SHAPES:
+        torch.cuda.empty_cache()
+        ins = _scan_inputs(what, b, t, d, s, u_name, SEED)
+        u_item = ins[1].element_size()
+        tag = f"selective_scan {what} [{b},{t},{d}] S {s} u {u_name}"
+        with torch.no_grad():
+            y, h = selective_scan(*ins)
+            yp, hp = sc.selective_scan_plain(*ins)
+            torch.cuda.synchronize()
+        errs = {"y": _scan_err(y, yp), "h_T": _scan_err(h, hp)}
+        del y, h, yp, hp
+        err = {k: v[1] for k, v in errs.items()}
+        require(max(err.values()) <= SCAN_TOL["forward"],
+                f"{tag}: forward off its plain version: {err}")
+        n_sets = max(2, -(-int(COLD_BYTES) // sum(
+            x.numel() * x.element_size() for x in ins)))
+        sets = [ins] + [_scan_inputs(what, b, t, d, s, u_name, SEED + i)
+                        for i in range(1, n_sets)]
+        n_cold = max(20, n_sets)
+        fwd = dict(what=what, direction="forward", shape=[b, t, d, s],
+                   u=u_name, max_rel_err=err, tol=SCAN_TOL["forward"],
+                   max_abs_err=max(v[0] for v in errs.values()))
+        fwd["bound_ms"], fwd["bound_by"] = scan_bound_ms(
+            b, t, d, s, u_item, False, bwd)
+        fwd["ms"] = graph_ms(lambda: sc.launch_forward(*ins, checkpoints=bwd),
+                             launches=20, samples=5)
+        fwd["cold_ms"] = graph_ms(rotating(
+            lambda *x: sc.launch_forward(*x, checkpoints=bwd), sets),
+            launches=n_cold, samples=5)
+        with torch.no_grad():
+            fwd["call_ms"] = time_ms(lambda: selective_scan(*ins), samples=7,
+                                     inner=3)
+            fwd["plain_ms"] = time_ms(lambda: sc.selective_scan_plain(*ins),
+                                      samples=3, inner=1)
+        fwd["library_ms"] = None
+        rows.append(fwd)
+        print(f"{tag} forward: max rel err {err} (tol {SCAN_TOL['forward']})"
+              f"; kernel {fwd['ms']:.6f} ms (cold {fwd['cold_ms']:.6f}), "
+              f"call {fwd['call_ms']:.6f}, plain {fwd['plain_ms']:.6f}, bound "
+              f"{fwd['bound_ms']:.6f} ({fwd['bound_by']}), no library call")
+        if not bwd:
+            del sets, ins
+            continue
+        g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+        dy = torch.randn((b, t, d), generator=g, device="cuda")
+        dh = torch.randn((b, d, s), generator=g, device="cuda")
+
+        def grads(fn):
+            xs = [x.detach().requires_grad_(True) for x in ins]
+            y, h = fn(*xs)
+            return torch.autograd.grad((y * dy).sum() + (h * dh).sum(), xs)
+        got, again = grads(selective_scan), grads(selective_scan)
+        bitwise = all(torch.equal(x, z) for x, z in zip(got, again))
+        del again
+        torch.cuda.reset_peak_memory_stats()
+        want = grads(sc.selective_scan_plain)
+        plain_peak = torch.cuda.max_memory_allocated()
+        gerr, gabs, ulp_ok = {}, {}, True
+        for name, x, w in zip(("dt", "u", "b", "c", "a", "h0"), got, want):
+            gabs[name], gerr[name] = _scan_err(x, w)
+            if name == "u" and u_name == "bfloat16":
+                ulp_ok = bool(((x.float() - w.float()).abs()
+                               <= 2 ** -7 * w.float().abs()
+                               + SCAN_TOL["backward"]
+                               * w.float().abs().max()).all())
+            elif gerr[name] > SCAN_TOL["backward"]:
+                ulp_ok = False
+        del got, want
+        require(ulp_ok and bitwise, f"{tag}: backward off its plain version "
+                                    f"or not repeatable: {gerr}, bitwise "
+                                    f"{bitwise}")
+        y, h, ckpt = sc.launch_forward(*ins)
+        back = dict(what=what, direction="backward", shape=[b, t, d, s],
+                    u=u_name, max_rel_err=gerr, tol=SCAN_TOL["backward"],
+                    max_abs_err=max(gabs.values()),
+                    bitwise_repeat=bitwise, plain_peak_bytes=plain_peak)
+        back["bound_ms"], back["bound_by"] = scan_bound_ms(
+            b, t, d, s, u_item, True, True)
+        back["ms"] = graph_ms(lambda: sc.launch_backward(
+            *ins[:5], ckpt, dy, dh), launches=20, samples=5)
+        ckpts = [sc.launch_forward(*x)[2] for x in sets]
+        back["cold_ms"] = graph_ms(rotating(
+            lambda x, ck: sc.launch_backward(*x[:5], ck, dy, dh),
+            list(zip(sets, ckpts))), launches=n_cold, samples=5)
+        del ckpts, y, h, ckpt
+        back["call_ms"] = time_ms(lambda: grads(selective_scan), samples=7,
+                                  inner=3)
+        back["plain_ms"] = time_ms(lambda: grads(sc.selective_scan_plain),
+                                   samples=3, inner=1)
+        back["library_ms"] = None
+        rows.append(back)
+        print(f"{tag} backward: max rel err {gerr} (tol "
+              f"{SCAN_TOL['backward']}; d u of bf16 also to one ulp), two "
+              f"calls bitwise {bitwise}; kernel {back['ms']:.6f} ms (cold "
+              f"{back['cold_ms']:.6f}), call (forward + backward) "
+              f"{back['call_ms']:.6f}, plain (forward + backward) "
+              f"{back['plain_ms']:.6f}, plain's peak {plain_peak} bytes, "
+              f"bound {back['bound_ms']:.6f} ({back['bound_by']}), no "
+              f"library call")
+        del sets, ins
+    rows[0]["ptxas"] = ptxas_report(_build.LOGS.get("selective_scan", ""))
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_serve(card: str) -> dict:
     """The LM serving path at full width: qwen1.5-0.5b in bf16 with random
     weights from a seeded generator, a batch of SERVE_BATCH prompts of
@@ -1717,7 +1945,7 @@ def phase_serve(card: str) -> dict:
           f"launches {launches} (predicted {want}), flash_attention by "
           f"variant {by_variant}")
     # teacher-forced through the plain attention, same weights and tokens
-    model.attention = "plain"
+    model.impl = "plain"
     tokens = torch.as_tensor(ids, device="cuda")
     logits, caches = model.prefill(tokens, PROMPT + GEN)
     worst, checked, argmax_ok = 0.0, 0, 0
@@ -1747,7 +1975,7 @@ def phase_serve(card: str) -> dict:
           f"|logit diff| {worst} <= {LOGIT_TOL}; greedy tokens equal at "
           f"{argmax_ok} of {SERVE_BATCH * GEN} positions, required at the "
           f"{checked} with a top-2 margin above {2 * LOGIT_TOL}")
-    model.attention = "kernel"
+    model.impl = "kernel"
     del model, caches, res
     torch.cuda.empty_cache()
     return out
@@ -1851,7 +2079,7 @@ def _plain_teacher_forced(model, batch: dict, res, prompt: int, label: str,
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     before = (flash_attention.launches, decode_attention.launches)
-    model.attention = "plain"
+    model.impl = "plain"
     plain = _teacher_forced(model, batch, res, prompt)
     ref = None
     if f32_floor:
@@ -1859,7 +2087,7 @@ def _plain_teacher_forced(model, batch: dict, res, prompt: int, label: str,
         ref = _teacher_forced(model, batch, res, prompt)
     require(before == (flash_attention.launches, decode_attention.launches),
             f"{label}: the plain path launched an attention kernel")
-    model.attention = "kernel"
+    model.impl = "kernel"
     for i, got in enumerate(res.logits):
         require(bool(torch.isfinite(got).all()), f"{label} step {i}: "
                                                  f"non-finite logits")
@@ -1910,7 +2138,9 @@ def _serve_family(arch: str, cfg, prompt: int, gen: int, card: str,
     from repro_torch.kernels.cscatter import cscatter
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.selective_scan import selective_scan
     from repro_torch.launch.serve import generate, profile, serve_batch
+    want = {"selective_scan": 0, **want}    # a path without an SSM: none
     from repro_torch.models.registry import build_model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1927,7 +2157,7 @@ def _serve_family(arch: str, cfg, prompt: int, gen: int, card: str,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = decode_attention.launches = 0
-    cscatter.launches = 0
+    cscatter.launches = selective_scan.launches = 0
     flash_attention.launches_windowed = 0
     flash_attention.launches_bidirectional = 0
     flash_attention.launches_by_variant = dict.fromkeys(
@@ -1940,7 +2170,8 @@ def _serve_family(arch: str, cfg, prompt: int, gen: int, card: str,
                 "flash_attention_bidirectional":
                     flash_attention.launches_bidirectional,
                 "decode_attention": decode_attention.launches,
-                "cscatter": cscatter.launches}
+                "cscatter": cscatter.launches,
+                "selective_scan": selective_scan.launches}
     by_variant = dict(flash_attention.launches_by_variant)
     peak = torch.cuda.max_memory_allocated() - base
     require(launches == want, f"{arch}: launches {launches}, the path "
@@ -1973,22 +2204,263 @@ def _serve_family(arch: str, cfg, prompt: int, gen: int, card: str,
 
 def _hymba_serve(card: str) -> dict:
     """(a) hymba-1.5b: 32 flash_attention launches at prefill (29 with the
-    window), then a decode_attention call (2 launches) in each layer of
-    every decode step; held against the plain attention."""
+    window) and a selective_scan forward in each layer, then a
+    decode_attention call (2 launches) in each layer of every decode step
+    (the SSM's decode is the elementwise step, no kernel); held against the
+    plain attention and the plain scan."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.decode_attention import LAUNCHES_PER_CALL
+    from repro_torch.kernels.selective_scan import (
+        LAUNCHES_PER_CALL as SCAN_LAUNCHES)
     cfg = get_config("hymba-1-5b")
     n_win = cfg.n_layers - len(cfg.full_attn_layers)
     want = {"flash_attention": cfg.n_layers,
             "flash_attention_windowed": n_win,
             "flash_attention_bidirectional": 0,
             "decode_attention": cfg.n_layers * (HYMBA_GEN - 1)
-            * LAUNCHES_PER_CALL, "cscatter": 0}
+            * LAUNCHES_PER_CALL, "cscatter": 0,
+            "selective_scan": cfg.n_layers * SCAN_LAUNCHES["forward"]}
     model, batch, res, row = _serve_family("hymba-1.5b", cfg, HYMBA_PROMPT,
                                            HYMBA_GEN, card, want)
     row.update(_plain_teacher_forced(model, batch, res, HYMBA_PROMPT,
                                      "serve hymba-1.5b", f32_floor=True))
     return row
+
+
+def _scan_backward_check(model, grads_of, params, batch, rows: int) -> dict:
+    """One rank's loss and gradient of the whole model (the first ``rows``
+    rows of ``batch``, the parameters upcast to f32) with every layer's SSM
+    through the scan kernels (``impl="kernel"``) and through the plain scan
+    (``"plain"``): the loss to 1e-5 relative and each leaf's error RMS to
+    1e-3 of the leaf's RMS. The two scans agree to ~1e-7 in f32
+    (``phase_scan``), and a wrong scan gradient is off by its own size. In
+    bf16 the two paths round the scan's output into bf16 activations at
+    other places, and over 32 layers their gradients part at bf16
+    rounding's level (4.7e-2 of a leaf's RMS at ``blocks/ssm/x_bc/w``,
+    NVIDIA H100 80GB HBM3, 700 W), so the check is made in f32."""
+    from torch.utils import _pytree as pytree
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+    shard = {k: v[:rows] for k, v in batch.items()}
+    tree = pytree.tree_map(lambda p: p.float(), params)
+    try:
+        model.impl = "plain"
+        loss_p, want = grads_of(tree, shard)
+        want = dict(_flatten_with_paths(want))
+        model.impl = "kernel"
+        loss_k, got = grads_of(tree, shard)
+    finally:
+        model.impl = "kernel"
+    worst, worst_leaf = 0.0, None
+    for name, g in _flatten_with_paths(got):
+        w = want[name]
+        rel = float((g - w).pow(2).mean().sqrt()
+                    / w.pow(2).mean().sqrt().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_leaf = rel, name
+    del got, want, tree
+    out = {"loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+           "loss_rel_err": abs(float(loss_k) - float(loss_p))
+           / abs(float(loss_p)),
+           "worst_leaf_rel_rms_err": worst, "worst_leaf": worst_leaf,
+           "tol": {"loss_rel": 1e-5, "leaf_rel_rms": 1e-3}}
+    print(f"train hymba-1.5b, one rank's gradient ({rows} x "
+          f"{shard['tokens'].shape[1]}, all 32 layers, f32 parameters) "
+          f"through the scan kernels vs the plain scan: loss "
+          f"{out['loss_kernel']} vs {out['loss_plain']}, worst leaf error "
+          f"RMS {worst:.3e} of its RMS ({worst_leaf}; tol 1e-3)")
+    require(out["loss_rel_err"] <= 1e-5 and worst <= 1e-3,
+            f"hymba train: the scan kernels' gradient disagrees with the "
+            f"plain scan's: {out}")
+    return out
+
+
+def _hymba_train(card: str) -> dict:
+    """(j) hymba-1.5b trained at full width and depth (bf16, remat "dots",
+    random weights from the seed) through ``launch/train.py``'s ``build``
+    with the CLI's flags, as ``phase_train`` drives qwen1.5-0.5b: eager over
+    HYMBA_TRAIN_PLAN for HYMBA_TRAIN_EAGER steps, then deferred over
+    HYMBA_TRAIN_DEFER_PLAN with K = HYMBA_TRAIN_K for HYMBA_TRAIN_DEFERRED
+    steps (two cycles and a partial one that the flush settles), batch
+    HYMBA_TRAIN_BATCH x HYMBA_TRAIN_SEQ over 2 stacked ranks. Checks: every
+    loss finite; the first deferred cycle equals one AdamW step on the mean
+    of its batches' eager merges from the same starting parameters (the
+    bounds of ``phase_train``); ``cscatter`` launches equal 2 x ranks x
+    steps; the selective scan's forward and backward launches equal
+    HYMBA_SCAN_CALLS a layer, a rank and a step. The overlapped variant is
+    held on the CPU (``tests/test_torch_train_hymba.py``), not here.
+    Records ms a step by kind, tokens/s, peak memory and the profiler's
+    split and idle share of one eager step. The first cycle's parameters
+    and AdamW mu are kept on the host until the check (device memory).
+    Then holds one rank's gradient of the whole model through the scan
+    kernels against the plain scan's, in f32 (``_scan_backward_check``)."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.core.grad_merge import merge_gradients
+    from repro_torch.core.merge_plan import MergePlan
+    from repro_torch.core.stacked import StackedAxis
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.kernels import selective_scan as sc
+    from repro_torch.kernels.cscatter import LAUNCHES_PER_CALL, cscatter
+    from repro_torch.launch import steps, train
+    from repro_torch.optim import warmup_cosine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out, runs, snaps = {}, {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_hymba_train_")
+    lr = warmup_cosine(TRAIN_LR, TRAIN_WARMUP, HYMBA_TRAIN_DEFERRED)
+    try:
+        for variant, n in (("eager", HYMBA_TRAIN_EAGER),
+                           ("deferred", HYMBA_TRAIN_DEFERRED)):
+            argv = ["--arch", "hymba-1-5b", "--steps", str(n), "--batch",
+                    str(HYMBA_TRAIN_BATCH), "--seq", str(HYMBA_TRAIN_SEQ),
+                    "--lr", str(TRAIN_LR), "--warmup", str(TRAIN_WARMUP),
+                    "--seed", str(SEED), "--ckpt-dir", tmp, "--ckpt-every",
+                    str(1 << 30), "--device", "cuda", "--merge-topology"]
+            argv += ([HYMBA_TRAIN_PLAN] if variant == "eager" else
+                     [HYMBA_TRAIN_DEFER_PLAN, "--merge-defer",
+                      str(HYMBA_TRAIN_K)])
+            t = train.build(train.parse_args(argv))
+            cfg = t.cfg
+            require(t.dp == HYMBA_TRAIN_DP and cfg.remat == "dots"
+                    and (cfg.n_layers, cfg.d_model, cfg.ssm_state)
+                    == (32, 1600, 16),
+                    f"hymba train {variant}: {t.dp} ranks, remat "
+                    f"{cfg.remat}, {cfg.n_layers} layers")
+            state, t.state = t.state, None
+            batches = [batch_at(t.dcfg, i) for i in range(n)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cscatter.launches = sc.selective_scan.launches = 0
+            sc.selective_scan.launches_forward = 0
+            sc.selective_scan.launches_backward = 0
+            rec = []
+            for i, batch in enumerate(batches):
+                kind = _step_kind(t, state)
+                t0 = time.perf_counter()
+                state, m = t.step_fn(state, batch)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                loss = float(m["loss"])
+                require(np.isfinite(loss), f"hymba train {variant} step {i}:"
+                                           f" loss {loss}")
+                rec.append({"kind": kind, "ms": 1e3 * dt, "loss": loss})
+                print(f"train hymba-1.5b {variant} step {i}: {kind} loss "
+                      f"{loss:.6f} {1e3 * dt:.3f} ms")
+                if variant == "deferred" and i + 1 == HYMBA_TRAIN_K:
+                    host = lambda x: x.to("cpu", copy=True)   # noqa: E731
+                    snaps["params"] = pytree.tree_map(host, state["params"])
+                    snaps["mu"] = pytree.tree_map(host, state["opt"].mu)
+            flush_ms = None
+            if t.deferred is not None:
+                t0 = time.perf_counter()
+                state, fm = t.deferred.flush(state)
+                torch.cuda.synchronize()
+                flush_ms = 1e3 * (time.perf_counter() - t0)
+                require(fm is not None and fm.get("flushed_steps")
+                        == n % HYMBA_TRAIN_K,
+                        f"hymba train {variant}: flush {fm}")
+            peak = torch.cuda.max_memory_allocated()
+            launches = {"cscatter": cscatter.launches,
+                        "selective_scan_forward":
+                            sc.selective_scan.launches_forward,
+                        "selective_scan_backward":
+                            sc.selective_scan.launches_backward}
+            per = t.dp * t.microbatches * n * cfg.n_layers
+            want = {"cscatter": LAUNCHES_PER_CALL * t.dp * t.microbatches * n,
+                    "selective_scan_forward": per * HYMBA_SCAN_CALLS[
+                        "forward"] * sc.LAUNCHES_PER_CALL["forward"],
+                    "selective_scan_backward": per * HYMBA_SCAN_CALLS[
+                        "backward"] * sc.LAUNCHES_PER_CALL["backward"]}
+            require(launches == want, f"hymba train {variant}: launches "
+                                      f"{launches}, predicted {want}")
+            by_kind = {}
+            for r in rec[1:]:                         # step 0 warms up
+                by_kind.setdefault(r["kind"], []).append(r["ms"])
+            ms = {k: statistics.median(v) for k, v in by_kind.items()}
+            if flush_ms is not None:
+                ms["flush"] = flush_ms
+            cycle_ms = (statistics.mean(r["ms"] for r in rec[1:])
+                        if variant == "deferred" else ms["eager"])
+            runs[variant] = {
+                "steps": rec, "ms_by_kind": ms, "flush_ms": flush_ms,
+                "tokens_per_s": HYMBA_TRAIN_BATCH * HYMBA_TRAIN_SEQ
+                / (cycle_ms / 1e3), "peak_bytes": peak,
+                "launches": launches, "launches_predicted": want}
+            print(f"train hymba-1.5b {variant} over {t.dp} ranks on {card}: "
+                  f"ms a step by kind "
+                  f"{ {k: round(v, 3) for k, v in ms.items()} }, "
+                  f"{runs[variant]['tokens_per_s']:.1f} tokens/s, peak "
+                  f"memory {peak} bytes; launches {launches} (predicted "
+                  f"{want})")
+            if variant == "eager":
+                prof, state = profile_train_step(t.step_fn, state,
+                                                 batches[-1])
+                prof["idle_share"] = 1 - prof["device_ms"] / ms["eager"]
+                out["profile_eager_step"] = prof
+                ranges = {k: round(v, 3)
+                          for k, v in prof["by_range_ms"].items()}
+                print(f"train hymba-1.5b profile of one eager step: device "
+                      f"{prof['device_ms']:.3f} ms against "
+                      f"{ms['eager']:.3f} ms a step untraced (idle share "
+                      f"{prof['idle_share']:.3f}), {prof['launches']} "
+                      f"launches; by range (ms) {ranges}")
+            else:
+                model, opt, dcfg = t.model, t.optimizer, t.dcfg
+                params0 = model.params()
+            del t, state
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # the first deferred cycle against accumulated eager gradients
+        axis = StackedAxis(HYMBA_TRAIN_DP, "cuda")
+        grads_of = steps.grads_fn(model)
+        acc = None
+        for i in range(HYMBA_TRAIN_K):
+            b = steps.to_device(batch_at(dcfg, i), "cuda")
+            _, stack = steps.rank_grads(grads_of, params0, b, HYMBA_TRAIN_DP)
+            merged = merge_gradients(stack, axis, topology=MergePlan.parse(
+                HYMBA_TRAIN_PLAN))
+            del stack
+            g = pytree.tree_map(lambda x: x[0].float(), merged)
+            del merged
+            acc = g if acc is None else pytree.tree_map(torch.add, acc, g)
+        mean = pytree.tree_map(lambda a, p: (a / HYMBA_TRAIN_K).to(p.dtype),
+                               acc, params0)
+        del acc
+        ref, ref_opt, _ = opt.step(params0, mean, opt.init(params0))
+        del mean
+        ref_mu = ref_opt.mu
+        del ref_opt
+        got = pytree.tree_map(lambda x: x.to("cuda"), snaps.pop("params"))
+        cyc = _param_errs(got, ref, float(lr(1)))
+        del got, ref
+        mu = _mu_err(pytree.tree_map(lambda x: x.to("cuda"),
+                                     snaps.pop("mu")), ref_mu)
+        del ref_mu
+        out["deferred_vs_accumulated"] = {"params": cyc, "mu": mu}
+        print(f"train hymba-1.5b deferred cycle 1 vs AdamW on the mean of "
+              f"{HYMBA_TRAIN_K} eager merges: params max |err| "
+              f"{cyc['max_abs_err']} (bound {cyc['bound']}; "
+              f"{cyc['beyond_one_ulp_share']:.2e} of elements beyond one "
+              f"bf16 ulp), mu max err {mu['max_rel_err']:.3e} of each "
+              f"leaf's largest (bound {mu['bound']})")
+        require(cyc["ok"] and mu["ok"], f"hymba train: the deferred cycle "
+                                        f"is not the accumulated eager step:"
+                                        f" {cyc}, {mu}")
+        out["scan_backward"] = _scan_backward_check(
+            model, grads_of, params0, steps.to_device(batch_at(dcfg, 0),
+                                                      "cuda"),
+            HYMBA_TRAIN_BATCH // HYMBA_TRAIN_DP)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["runs"] = runs
+    out["launches"] = {k: v["launches"] for k, v in runs.items()}
+    out["card"] = card
+    del params0, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def _xlstm_serve(card: str) -> dict:
@@ -2340,7 +2812,7 @@ def _moe_serve(card: str) -> dict:
     model, batch, res, row = _serve_family(MOE, cfg, MOE_PROMPT, MOE_GEN,
                                            card, want, around=lambda: served)
     before = (flash_attention.launches, decode_attention.launches)
-    model.attention = "plain"
+    model.impl = "plain"
     with _Routes() as plain_ids:
         plain = _teacher_forced(model, batch, res, MOE_PROMPT)
     torch.cuda.synchronize()
@@ -2350,7 +2822,7 @@ def _moe_serve(card: str) -> dict:
     row["f32_convert_s"] = time.perf_counter() - t0
     with _Routes() as ref_ids:
         ref = _teacher_forced(model, batch, res, MOE_PROMPT)
-    model.attention = "kernel"
+    model.impl = "kernel"
     require(before == (flash_attention.launches, decode_attention.launches),
             f"{MOE}: the plain path launched an attention kernel")
     for i, got in enumerate(res.logits):
@@ -2469,7 +2941,7 @@ def _kimi_serve(card: str) -> dict:
     before = (flash_attention.launches, decode_attention.launches,
               cscatter.launches)
     kernel_scatter = ops.commutative_scatter
-    model.attention = "plain"
+    model.impl = "plain"
     ops.commutative_scatter = (lambda t, i, v, **kw:
                                cscatter_plain_(t, i, v, **kw))
     try:
@@ -2477,7 +2949,7 @@ def _kimi_serve(card: str) -> dict:
             plain = _teacher_forced(model, batch, res, KIMI_PROMPT)
     finally:
         ops.commutative_scatter = kernel_scatter
-        model.attention = "kernel"
+        model.impl = "kernel"
     require(before == (flash_attention.launches, decode_attention.launches,
                        cscatter.launches),
             f"{KIMI}: the plain path launched a kernel")
@@ -2501,13 +2973,15 @@ def _kimi_serve(card: str) -> dict:
 
 def phase_families(card: str) -> dict:
     """The model families' paths, each with the kernels' counts zeroed just
-    before and read just after: (a) hymba-1.5b served at full width, (b)
+    before and read just after: (a) hymba-1.5b served at full width, (j)
+    hymba-1.5b trained at full width and depth, (b)
     xlstm-125m served at full width, (c) the GELU MLP, (d) the real-model
     chaos of xlstm-125m at full width, (e) seamless-m4t-medium served and
     (f) trained at full width, (g) qwen3-moe-235b and (h) llava-next-34b
     served at full width, (i) kimi-k2-1t's smoke config in f32."""
     out = {}
-    for name, fn in (("hymba", _hymba_serve), ("xlstm", _xlstm_serve),
+    for name, fn in (("hymba", _hymba_serve), ("hymba_train", _hymba_train),
+                     ("xlstm", _xlstm_serve),
                      ("gelu", _gelu_serve), ("chaos", _real_model_chaos),
                      ("encdec", _encdec_serve),
                      ("encdec_train", _encdec_train), ("moe", _moe_serve),
@@ -4004,6 +4478,7 @@ def main() -> None:
     timed("frontend", phase_frontend, stream)
     worst_attn = timed("attention_checks", phase_attention_checks)
     attn_times = timed("attention_times", phase_attention_times)
+    scan_rows = timed("scan", phase_scan)
     serve = timed("serve", phase_serve, smi)
     apps = timed("apps", phase_apps, smi)
     trained = timed("train", phase_train, smi)
@@ -4094,7 +4569,30 @@ def main() -> None:
         for name, replaces, key in (
             ("flash_attention", REPLACES_FLASH, "flash"),
             ("decode_attention", REPLACES_DECODE, "decode"))
-        for row in attn_times[key][:1]], "serve": serve,
+        for row in attn_times[key][:1]] + [{
+        "name": "selective_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/selective_scan.cu",
+        "replaces": REPLACES_SCAN, "pallas_original": False,
+        "launches": families["hymba"]["launches"]["selective_scan"],
+        "launches_by_path": {
+            "hymba_prefill": families["hymba"]["launches"]["selective_scan"],
+            **{f"hymba_train_{k}": v for k, v in
+               families["hymba_train"]["launches"].items()}},
+        "max_abs_err": scan_rows[0]["max_abs_err"],
+        "max_rel_err": max(max(r["max_rel_err"].values())
+                           for r in scan_rows),
+        "matched": True,
+        "ms": scan_rows[0]["ms"], "kernel_ms": scan_rows[0]["ms"],
+        "cold_ms": scan_rows[0]["cold_ms"],
+        "call_ms": scan_rows[0]["call_ms"],
+        "plain_ms": scan_rows[0]["plain_ms"],
+        "bound_ms": scan_rows[0]["bound_ms"],
+        "bound_us": 1e3 * scan_rows[0]["bound_ms"],
+        "bound_by": scan_rows[0]["bound_by"],
+        "library_ms": None, "library_call_ms": None,
+        "ptxas": scan_rows[0]["ptxas"],
+        "variants": [{k: v for k, v in r.items() if k != "ptxas"}
+                     for r in scan_rows]}], "serve": serve,
         "apps": {k: v for k, v in apps.items() if k != "kernel_rows"},
         "schedules": schedules, "durability": durability,
         "train": trained, "elastic": elastic,

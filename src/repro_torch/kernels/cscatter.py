@@ -120,7 +120,12 @@ def _merged_rows(table: torch.Tensor, ids: torch.Tensor, vals: torch.Tensor,
         mem = table.reshape(s * r, d)[rows]
         v = vals[ok].float()
         if kind in ("add", "sat_add"):
-            u = torch.zeros(len(rows), d, device=v.device).index_add_(0, inv, v)
+            # on the card an f32 index_add_ adds in the order of its atomics,
+            # which changes from call to call: there the sums are taken in
+            # f64 and rounded once to f32, as the kernel's exact sums are
+            acc = torch.float64 if v.is_cuda else torch.float32
+            u = torch.zeros(len(rows), d, dtype=acc, device=v.device
+                            ).index_add_(0, inv, v.to(acc)).float()
         else:
             info = torch.finfo(torch.float32)
             u = torch.full((len(rows), d), info.min if kind == "max"

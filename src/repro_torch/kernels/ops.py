@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import selective_scan as _scan
 from repro_torch.kernels.cmerge import cmerge
 from repro_torch.kernels.cscatter import cscatter
 
@@ -47,6 +48,16 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q [B,H,d]; k,v [B,T,KV,d]; attends to slots [0, position] -> [B,H,d]
     (see :func:`repro_torch.kernels.decode_attention.decode_attention`)."""
     return _decode.decode_attention(q, k, v, position)
+
+
+def selective_scan(dt: torch.Tensor, u: torch.Tensor, b: torch.Tensor,
+                   c: torch.Tensor, a: torch.Tensor, h0: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The selective SSM recurrence ``h_t = exp(dt_t a) h_{t-1} + (dt_t
+    u_t) b_t``, ``y_t = sum_s h_t c_t`` -> (y [B,T,D] f32, h_T [B,D,S]),
+    differentiable (see
+    :func:`repro_torch.kernels.selective_scan.selective_scan`)."""
+    return _scan.selective_scan(dt, u, b, c, a, h0)
 
 
 def embedding_grad_scatter(table_grad: torch.Tensor, token_ids: torch.Tensor,

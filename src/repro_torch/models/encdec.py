@@ -22,7 +22,7 @@ cross-attention through ``flash_attention(causal=False)`` with S queries
 against S_enc keys, and fills the self-attention caches and, once, the
 cross caches; :meth:`decode_step` writes the self cache in place and reads
 the cross cache through ``decode_attention`` at position ``S_enc - 1``,
-never recomputing it. ``attention="plain"`` takes the kernels' plain
+never recomputing it. ``impl="plain"`` takes the kernels' plain
 versions. Training (:meth:`loss`) embeds through ``models/embedding.embed``
 (its backward is the CUDA ``cscatter``), attends through the plain
 ``attention.attend_full`` and ``attend_cross`` (neither kernel has a
@@ -42,7 +42,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import module as nn
 from repro_torch.models.embedding import embed
 from repro_torch.models.mlp import gelu_mlp, gelu_mlp_init
-from repro_torch.models.transformer import (ATTENTION, _index, _matmul_f32,
+from repro_torch.models.transformer import (IMPLS, _index, _matmul_f32,
                                            _plain, _stacked_init, _tree,
                                            _unbind_layers, cross_entropy,
                                            remat)
@@ -59,14 +59,14 @@ def enc_len(seq_len: int) -> int:
 
 class EncDecModel(tnn.Module):
     def __init__(self, cfg, *, device="cuda", seed: int = 0,
-                 attention: str = "kernel"):
+                 impl: str = "kernel"):
         super().__init__()
         if cfg.family != "encdec":
             raise ValueError(f"EncDecModel: family {cfg.family!r} is not "
                              f"'encdec'")
         device = resolve_device(device)
         self.cfg = cfg
-        self.attention = attention
+        self.impl = impl
         self.n_enc = cfg.n_enc_layers or cfg.n_layers
         self.n_dec = cfg.n_dec_layers or cfg.n_layers
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -101,15 +101,15 @@ class EncDecModel(tnn.Module):
         self._layers = None
 
     @property
-    def attention(self) -> str:
-        return self._attention
+    def impl(self) -> str:
+        return self._impl
 
-    @attention.setter
-    def attention(self, value: str) -> None:
-        if value not in ATTENTION:
-            raise ValueError(f"attention must be one of {ATTENTION}, got "
+    @impl.setter
+    def impl(self, value: str) -> None:
+        if value not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}, got "
                              f"{value!r}")
-        self._attention = value
+        self._impl = value
 
     def _apply(self, fn, *args, **kwargs):
         self._layers = None       # .to() and friends make new tensors
@@ -145,7 +145,7 @@ class EncDecModel(tnn.Module):
         if serve:
             a = attn.encoder_attend(p["attn"], x, positions, cfg.n_heads,
                                     cfg.n_kv_heads, cfg.rope_theta,
-                                    plain=self.attention == "plain")
+                                    plain=self.impl == "plain")
         else:
             a = attn.attend_full(p["attn"], x, positions, cfg.n_heads,
                                  cfg.n_kv_heads, "bidirectional",
@@ -159,7 +159,7 @@ class EncDecModel(tnn.Module):
         D]`` under the parameter tree ``params``. The train path's form
         (plain attention, each block under ``cfg.remat``); ``serve=True``
         attends through ``flash_attention(causal=False)`` (or its plain
-        version, ``attention="plain"``)."""
+        version, ``impl="plain"``)."""
         dt = params["ln_enc"]["scale"].dtype
         h = torch.as_tensor(frames, device=self.device).to(dt)
         positions = torch.arange(h.shape[1], dtype=torch.int32,
@@ -220,7 +220,7 @@ class EncDecModel(tnn.Module):
         caches ``{"kv": KVCache(k=[L, B, cache_len, KV, hd], ...),
         "cross_k", "cross_v": [L, B, S_enc, KV, hd]}``)."""
         cfg = self.cfg
-        plain = self.attention == "plain"
+        plain = self.impl == "plain"
         tokens = torch.as_tensor(tokens, device=self.device)
         b, s = tokens.shape
         if s > cache_len:
@@ -256,7 +256,7 @@ class EncDecModel(tnn.Module):
         """``tokens [B]`` int at ``position`` -> (logits ``[B, V]`` f32,
         caches, the self-attention cache updated in place)."""
         cfg = self.cfg
-        plain = self.attention == "plain"
+        plain = self.impl == "plain"
         tokens = torch.as_tensor(tokens, device=self.device)
         h = nn.embed(self.embed["table"], tokens)[:, None, :]
         kv = caches["kv"]

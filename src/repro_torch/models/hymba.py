@@ -15,10 +15,13 @@ Serving runs the attention kernels in every layer: prefill through
 ``flash_attention`` (windowed layers with ``window=W``, global ones
 causal), decode through ``decode_attention`` (windowed layers over their
 ring of W slots, ``attention.ring_decode_step``; global ones over a cache
-of ``cache_len`` slots). ``attention="plain"`` takes the kernels' plain
-versions. Training attends through the plain ``attention.attend_full``
-("sliding", with a window of ``_BIG_WINDOW`` for the global layers, which
-equals causal), as JAX does. Prefill takes each layer's SSM output and its
+of ``cache_len`` slots). Training attends through the plain
+``attention.attend_full`` ("sliding", with a window of ``_BIG_WINDOW`` for
+the global layers, which equals causal), as JAX does. Prefill and training
+run every layer's SSM (``ssm.apply_seq``) through ``ops.selective_scan``,
+the CUDA scan kernel on the card, forward and backward.
+``impl="plain"`` takes the kernels' plain versions: the plain attention
+and ``selective_scan_plain``. Prefill takes each layer's SSM output and its
 decode state from one pass (``ssm.apply_seq_with_state``); JAX runs the
 SSM a second time for the state (``_ssm_prefill``), with the same values.
 The SSM's conv history has the model's dtype.
@@ -36,7 +39,7 @@ from repro_torch.models import module as nn
 from repro_torch.models import ssm
 from repro_torch.models.embedding import embed
 from repro_torch.models.mlp import swiglu, swiglu_init
-from repro_torch.models.transformer import (ATTENTION, _index, _matmul_f32,
+from repro_torch.models.transformer import (IMPLS, _index, _matmul_f32,
                                            _plain, _stacked_init, _tree,
                                            _unbind_layers, cross_entropy,
                                            remat)
@@ -48,14 +51,14 @@ _BIG_WINDOW = 1 << 30      # a sliding window so large it equals causal
 
 class HymbaModel(tnn.Module):
     def __init__(self, cfg, *, device="cuda", seed: int = 0,
-                 attention: str = "kernel"):
+                 impl: str = "kernel"):
         super().__init__()
         if cfg.family != "hybrid":
             raise ValueError(f"HymbaModel: family {cfg.family!r} is not "
                              f"'hybrid'")
         device = resolve_device(device)
         self.cfg = cfg
-        self.attention = attention
+        self.impl = impl
         full = set(cfg.full_attn_layers)
         self.is_global = [i in full for i in range(cfg.n_layers)]
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -84,15 +87,15 @@ class HymbaModel(tnn.Module):
         self._layers = None
 
     @property
-    def attention(self) -> str:
-        return self._attention
+    def impl(self) -> str:
+        return self._impl
 
-    @attention.setter
-    def attention(self, value: str) -> None:
-        if value not in ATTENTION:
-            raise ValueError(f"attention must be one of {ATTENTION}, got "
+    @impl.setter
+    def impl(self, value: str) -> None:
+        if value not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}, got "
                              f"{value!r}")
-        self._attention = value
+        self._impl = value
 
     def _apply(self, fn, *args, **kwargs):
         self._layers = None       # .to() and friends make new tensors
@@ -137,7 +140,8 @@ class HymbaModel(tnn.Module):
         a = attn.attend_full(p["attn"], x, positions, cfg.n_heads,
                              cfg.n_kv_heads, "sliding", window=window,
                              rope_theta=cfg.rope_theta)
-        return self._mix(p, h, a, ssm.apply_seq(p["ssm"], x))
+        return self._mix(p, h, a, ssm.apply_seq(
+            p["ssm"], x, plain=self.impl == "plain"))
 
     def forward(self, params, h: Tensor, positions: Tensor):
         """The blocks and the final norm over ``h [B, S, D]``, each block
@@ -174,7 +178,7 @@ class HymbaModel(tnn.Module):
         or RingKVCache [B, W, KV, hd] (windowed), "ssm": SSMState}``). S is
         a multiple of 256 or shorter (the SSM chunk)."""
         cfg = self.cfg
-        plain = self.attention == "plain"
+        plain = self.impl == "plain"
         tokens = torch.as_tensor(tokens, device=self.device)
         b, s = tokens.shape
         if s > cache_len:
@@ -195,7 +199,7 @@ class HymbaModel(tnn.Module):
                                           cfg.sliding_window,
                                           rope_theta=cfg.rope_theta,
                                           plain=plain)
-            s_out, sst = ssm.apply_seq_with_state(p["ssm"], x)
+            s_out, sst = ssm.apply_seq_with_state(p["ssm"], x, plain=plain)
             h = self._mix(p, h, a, s_out)
             caches.append({"kv": kv, "ssm": sst})
         h = nn.rmsnorm(self.ln_f, h)
@@ -206,7 +210,7 @@ class HymbaModel(tnn.Module):
         """``tokens [B]`` int at ``position`` -> (logits ``[B, V]`` f32, the
         caches, the attention caches updated in place)."""
         cfg = self.cfg
-        plain = self.attention == "plain"
+        plain = self.impl == "plain"
         position = int(position)
         tokens = torch.as_tensor(tokens, device=self.device)
         h = nn.embed(self.embed["table"], tokens)[:, None, :]

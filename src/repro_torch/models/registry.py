@@ -21,21 +21,21 @@ _FAMILIES = {"dense": DecoderLM, "moe": DecoderLM, "vlm": DecoderLM,
 
 
 def build_model(cfg, *, device="cuda", seed: int = 0,
-                attention: str = "kernel"):
+                impl: str = "kernel"):
     """The model of ``cfg`` with random weights from ``seed`` on
     ``device`` (the card unless the caller asks for the CPU)."""
     try:
         cls = _FAMILIES[cfg.family]
     except KeyError:
         raise ValueError(f"unknown model family: {cfg.family!r}") from None
-    return cls(cfg, device=device, seed=seed, attention=attention)
+    return cls(cfg, device=device, seed=seed, impl=impl)
 
 
 def from_jax_params(cfg, tree: Mapping, *, device="cuda",
-                    attention: str = "kernel"):
+                    impl: str = "kernel"):
     """The model of ``cfg``'s family on ``device`` (the card unless the
     caller asks for the CPU) holding the JAX ``split_params`` tree's
     weights (numpy arrays), leaf by leaf; raises on a missing, extra or
     misshaped leaf."""
     return load_jax_params(build_model(cfg, device=device,
-                                       attention=attention), tree)
+                                       impl=impl), tree)

@@ -1,11 +1,17 @@
 """Mamba-style selective SSM (the hybrid family's parallel-head branch).
 
 The port of the JAX package's ``repro/models/ssm.py``. Training and prefill
-run the chunked scan (chunk 256): parallel within a chunk, sequential across
-chunks, so the ``[T, d_inner, d_state]`` intermediate exists for one chunk
-at a time. JAX's ``associative_scan`` becomes a log-depth Hillis-Steele
-scan over the chunk's time axis (8 rounds at chunk 256), not a loop over
-time. Decode is the O(1) recurrent step. ``a_log`` and ``d_skip`` stay f32
+(:func:`apply_seq_with_state`) compute the scan's inputs over the whole
+sequence (``dt``, ``b``, ``c`` and ``a = -exp(a_log)``) and run the
+recurrence in one call of ``kernels/ops.selective_scan``: on the card the
+hand-written CUDA kernel, forward and backward, which keeps each channel's
+states in registers and never writes the ``[T, d_inner, d_state]`` states;
+on the CPU its plain version, JAX's chunk loop (chunk 256, parallel within
+a chunk, sequential across chunks), whose ``associative_scan`` becomes a
+log-depth Hillis-Steele scan over the chunk's time axis (8 rounds at chunk
+256), each round out of place, so that autograd keeps every round.
+``plain=True`` takes the plain version on the card too. Decode is the O(1)
+recurrent step, elementwise, as in JAX. ``a_log`` and ``d_skip`` stay f32
 in a bf16 model, and the state ``h`` is f32; the conv history has the
 model's dtype.
 """
@@ -17,6 +23,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
+from repro_torch.kernels.selective_scan import selective_scan_plain
 from repro_torch.models import module as nn
 
 Tensor = torch.Tensor
@@ -71,43 +79,33 @@ def _softplus(x: Tensor) -> Tensor:
                                           device=x.device))
 
 
-def _ssm_params(p, u: Tensor):
-    """u: [..., T, d_inner] -> (da, dbx [..., T, d_inner, d_state], c
-    [..., T, d_state]) for the scan, in f32."""
+def _ssm_inputs(p, u: Tensor):
+    """u: [..., T, d_inner] -> the scan's inputs in f32: (dt [..., T,
+    d_inner] after softplus, b, c [..., T, d_state], a = -exp(a_log)
+    [d_inner, d_state])."""
     dt = _softplus(nn.apply_dense(p["dt_proj"],
                                   nn.apply_dense(p["x_dt"], u)).float())
     bc = nn.apply_dense(p["x_bc"], u).float()
     b, c = bc.chunk(2, dim=-1)
-    a = -torch.exp(p["a_log"])                     # [d_inner, d_state]
+    return dt, b, c, -torch.exp(p["a_log"])
+
+
+def _ssm_params(p, u: Tensor):
+    """u: [..., T, d_inner] -> (da, dbx [..., T, d_inner, d_state], c
+    [..., T, d_state]) for one recurrent step, in f32."""
+    dt, b, c, a = _ssm_inputs(p, u)
     da = torch.exp(dt[..., None] * a)
     dbx = (dt * u.float())[..., None] * b[..., None, :]
     return da, dbx, c
 
 
-def _scan_chunk(da: Tensor, dbx: Tensor, h0: Tensor) -> tuple[Tensor, Tensor]:
-    """The first-order recurrence ``h_t = da_t * h_{t-1} + dbx_t`` over a
-    chunk's axis 1, from ``h0``: a Hillis-Steele scan of the pairs ``(a,
-    b)`` under ``(a1, b1), (a2, b2) -> (a2 a1, a2 b1 + b2)``, log2(chunk)
-    rounds, out of place (autograd keeps each round). -> (h [B, c, ...],
-    h at the chunk's end)."""
-    t = da.shape[1]
-    b = torch.cat([dbx[:, :1] + da[:, :1] * h0[:, None], dbx[:, 1:]], dim=1)
-    a = da
-    off = 1
-    while off < t:
-        b = torch.cat([b[:, :off], a[:, off:] * b[:, :-off] + b[:, off:]],
-                      dim=1)
-        if 2 * off < t:
-            a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
-        off *= 2
-    return b, b[:, -1]
-
-
-def apply_seq_with_state(p, x: Tensor, chunk: int = 256
+def apply_seq_with_state(p, x: Tensor, chunk: int = 256, plain: bool = False
                          ) -> tuple[Tensor, SSMState]:
     """Training/prefill forward ``x [B, T, d_model] -> [B, T, d_model]``
     and the state after the sequence (the final ``h`` and the last k-1
-    pre-conv inputs), from the one pass."""
+    pre-conv inputs), from the one pass. T is at most ``chunk`` or a
+    multiple of it, as JAX asserts. The scan is ``ops.selective_scan``
+    (the CUDA kernel on the card), or its plain version with ``plain``."""
     b, t, _ = x.shape
     u, z = nn.apply_dense(p["in_proj"], x).chunk(2, dim=-1)
     u, hist = _conv1d_causal(p["conv_w"], p["conv_b"], u)
@@ -115,24 +113,22 @@ def apply_seq_with_state(p, x: Tensor, chunk: int = 256
     d_inner, d_state = p["a_log"].shape
     chunk = min(chunk, t)
     assert t % chunk == 0, (t, chunk)
-    h = torch.zeros((b, d_inner, d_state), dtype=torch.float32,
-                    device=x.device)
-    ys = []
-    for i in range(t // chunk):
-        da, dbx, c = _ssm_params(p, u[:, i * chunk:(i + 1) * chunk])
-        h_seq, h = _scan_chunk(da, dbx, h)
-        del da, dbx
-        ys.append(torch.einsum("btds,bts->btd", h_seq, c))
-        del h_seq
-    y = torch.cat(ys, dim=1)
+    dt, bm, cm, a = _ssm_inputs(p, u)
+    h0 = torch.zeros((b, d_inner, d_state), dtype=torch.float32,
+                     device=x.device)
+    if plain:
+        y, h = selective_scan_plain(dt, u, bm, cm, a, h0, chunk)
+    else:
+        y, h = ops.selective_scan(dt, u, bm, cm, a, h0)
     y = y + u.float() * p["d_skip"]
     y = y.to(x.dtype) * F.silu(z)
     return nn.apply_dense(p["out_proj"], y), SSMState(h=h, conv=hist)
 
 
-def apply_seq(p, x: Tensor, chunk: int = 256) -> Tensor:
+def apply_seq(p, x: Tensor, chunk: int = 256, plain: bool = False
+              ) -> Tensor:
     """Training/prefill forward. x: [B, T, d_model] -> [B, T, d_model]."""
-    return apply_seq_with_state(p, x, chunk)[0]
+    return apply_seq_with_state(p, x, chunk, plain)[0]
 
 
 def init_state(p, batch: int) -> SSMState:

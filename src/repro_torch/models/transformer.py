@@ -17,7 +17,7 @@ layer is ``moe.apply`` as in JAX without one; ``models/moe_ep`` is the
 stacked counterpart of the expert-parallel form. The VLM is the dense
 backbone fed precomputed patch and text embeddings (``embeds``) in
 ``loss`` and ``prefill``, cast to the parameters' dtype. Attention goes
-through the port's kernels (``models/attention.py``); ``attention="plain"``
+through the port's kernels (``models/attention.py``); ``impl="plain"``
 takes their plain versions.
 
 Parameters are named and stacked as the JAX tree (``embed.table``,
@@ -63,7 +63,7 @@ from repro_torch.models.mlp import (gelu_mlp, gelu_mlp_init, swiglu,
 from repro_torch.serve.kv import resolve_device
 
 Tensor = torch.Tensor
-ATTENTION = ("kernel", "plain")
+IMPLS = ("kernel", "plain")
 
 
 class _Node(tnn.Module):
@@ -201,7 +201,7 @@ FAMILIES = ("dense", "moe", "vlm")
 
 class DecoderLM(tnn.Module):
     def __init__(self, cfg, *, device="cuda", seed: int = 0,
-                 attention: str = "kernel"):
+                 impl: str = "kernel"):
         super().__init__()
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
@@ -213,7 +213,7 @@ class DecoderLM(tnn.Module):
         self.cfg = cfg
         self.is_moe = cfg.family == "moe"
         self.embeds_input = cfg.family == "vlm"
-        self.attention = attention
+        self.impl = impl
         gen = torch.Generator(device=device).manual_seed(seed)
         dt = cfg.param_dtype
         hd = cfg.resolved_head_dim
@@ -264,15 +264,15 @@ class DecoderLM(tnn.Module):
         return self._ffn(p["ffn"], x)
 
     @property
-    def attention(self) -> str:
-        return self._attention
+    def impl(self) -> str:
+        return self._impl
 
-    @attention.setter
-    def attention(self, value: str) -> None:
-        if value not in ATTENTION:
-            raise ValueError(f"attention must be one of {ATTENTION}, got "
+    @impl.setter
+    def impl(self, value: str) -> None:
+        if value not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}, got "
                              f"{value!r}")
-        self._attention = value
+        self._impl = value
 
     def _apply(self, fn, *args, **kwargs):
         self._layers = None       # .to() and friends make new tensors
@@ -300,7 +300,7 @@ class DecoderLM(tnn.Module):
         a, _ = attn.prefill(
             p["attn"], nn.rmsnorm(p["ln1"], h), positions, cfg.n_heads,
             cfg.n_kv_heads, cache.k.shape[1], rope_theta=cfg.rope_theta,
-            plain=self.attention == "plain",
+            plain=self.impl == "plain",
             cache=cache)
         h = h + a
         return h + self._serve_ffn(p, nn.rmsnorm(p["ln2"], h))
@@ -310,7 +310,7 @@ class DecoderLM(tnn.Module):
         a, cache = attn.decode_step(
             p["attn"], nn.rmsnorm(p["ln1"], h), cache, position, cfg.n_heads,
             cfg.n_kv_heads, rope_theta=cfg.rope_theta,
-            plain=self.attention == "plain")
+            plain=self.impl == "plain")
         h = h + a
         return h + self._serve_ffn(p, nn.rmsnorm(p["ln2"], h)), cache
 

@@ -29,7 +29,7 @@ from torch import nn as tnn
 from repro_torch.models import module as nn
 from repro_torch.models import xlstm
 from repro_torch.models.embedding import embed
-from repro_torch.models.transformer import (ATTENTION, _matmul_f32, _plain,
+from repro_torch.models.transformer import (IMPLS, _matmul_f32, _plain,
                                            _tree, cross_entropy, remat)
 from repro_torch.serve.kv import resolve_device
 
@@ -38,17 +38,17 @@ Tensor = torch.Tensor
 
 class XLSTMModel(tnn.Module):
     def __init__(self, cfg, *, device="cuda", seed: int = 0,
-                 attention: str = "kernel"):
+                 impl: str = "kernel"):
         super().__init__()
         if cfg.family != "ssm":
             raise ValueError(f"XLSTMModel: family {cfg.family!r} is not "
                              f"'ssm'")
-        if attention not in ATTENTION:
-            raise ValueError(f"attention must be one of {ATTENTION}, got "
-                             f"{attention!r}")
+        if impl not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}, got "
+                             f"{impl!r}")
         device = resolve_device(device)
         self.cfg = cfg
-        self.attention = attention      # no attention layer: nothing reads it
+        self.impl = impl      # no kernel of its own: nothing reads it
         k = cfg.slstm_every
         self.kinds = ["slstm" if (k and (i % k == k - 1)) else "mlstm"
                       for i in range(cfg.n_layers)]

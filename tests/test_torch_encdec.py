@@ -302,14 +302,14 @@ def test_kernel_path_equals_the_plain_path_on_the_cpu():
     want, caches = model.prefill(tokens, 15, frames)
     wsteps = [model.decode_step(tokens[:, i], caches, 12 + i)[0]
               for i in range(3)]
-    model.attention = "plain"
+    model.impl = "plain"
     got, caches = model.prefill(tokens, 15, frames)
     assert torch.equal(got, want)
     for i in range(3):
         assert torch.equal(model.decode_step(tokens[:, i], caches,
                                              12 + i)[0], wsteps[i])
-    with pytest.raises(ValueError, match="attention"):
-        model.attention = "sdpa"
+    with pytest.raises(ValueError, match="impl"):
+        model.impl = "sdpa"
 
 
 def test_params_are_the_jax_tree_and_the_model_runs_on_the_card_by_default():

@@ -522,7 +522,7 @@ def test_lm_serves_through_the_kernels_on_the_card(cuda, arch):
     assert fa.flash_attention.launches == cfg.n_layers
     assert da.decode_attention.launches == (cfg.n_layers * 4
                                             * da.LAUNCHES_PER_CALL)
-    model.attention = "plain"
+    model.impl = "plain"
     logits, caches = model.prefill(torch.as_tensor(p, device=cuda), 29)
     steps = [logits]
     for i in range(4):
@@ -1007,7 +1007,7 @@ def test_encdec_kernel_path_equals_its_plain_path_on_the_card(cuda):
         cfg.n_enc_layers + cfg.n_dec_layers
     assert da.decode_attention.launches == (cfg.n_dec_layers * 2 * 4
                                             * da.LAUNCHES_PER_CALL)
-    model.attention = "plain"
+    model.impl = "plain"
     logits, caches = model.prefill(torch.as_tensor(batch["tokens"],
                                                    device=cuda), 29,
                                    batch["frames"])
@@ -1132,7 +1132,7 @@ def test_moe_kernel_path_equals_its_plain_path_on_the_card(cuda, arch):
     assert da.decode_attention.launches == cfg.n_layers * 4 * \
         da.LAUNCHES_PER_CALL
     assert cs.cscatter.launches == n_moe * 5 * cs.LAUNCHES_PER_CALL
-    model.attention = "plain"
+    model.impl = "plain"
     logits, caches = model.prefill(torch.as_tensor(tokens, device=cuda), 29)
     steps = [logits]
     for i in range(4):
@@ -1141,3 +1141,83 @@ def test_moe_kernel_path_equals_its_plain_path_on_the_card(cuda, arch):
     assert fa.flash_attention.launches == cfg.n_layers
     for got, want in zip(res.logits, steps):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the selective scan (hymba-1.5b's SSM), forward and backward
+# ---------------------------------------------------------------------------
+
+
+def _scan_case(b, t, d, s, u_dtype, device, seed=0):
+    """dt after softplus, u, b, c, a = -(1..S) as the init's, h0 and the
+    cotangents dy, dh, from a seeded numpy generator."""
+    rng = np.random.default_rng(seed)
+
+    def f(*shape):
+        return torch.as_tensor(rng.standard_normal(shape),
+                               dtype=torch.float32, device=device)
+    dt = torch.nn.functional.softplus(f(b, t, d))
+    a = -torch.arange(1, s + 1, dtype=torch.float32,
+                      device=device).repeat(d, 1)
+    return ([dt, f(b, t, d).to(u_dtype), f(b, t, s), f(b, t, s), a,
+             f(b, d, s)], f(b, t, d), f(b, d, s))
+
+
+def _scan_grads(fn, ins, dy, dh):
+    ins = [x.detach().requires_grad_(True) for x in ins]
+    y, h = fn(*ins)
+    return (y, h), torch.autograd.grad((y * dy).sum() + (h * dh).sum(), ins)
+
+
+@pytest.mark.parametrize("s", [4, 8, 16])
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_kernel_matches_plain_forward_and_backward(
+        cuda, s, u_dtype):
+    """A ragged T (300: a 256-step segment and a partial one) and D (100:
+    a partial CTA). y and h_T within 1e-5 of their largest magnitude, every
+    gradient within 1e-4 of its own (two f32 orders of summation); a bf16
+    u's gradient, rounded once in both, also within one bf16 ulp of each
+    element."""
+    from repro_torch.kernels import selective_scan as sc
+    from repro_torch.kernels.ops import selective_scan
+    ins, dy, dh = _scan_case(2, 300, 100, s, u_dtype, cuda)
+    before = (sc.selective_scan.launches_forward,
+              sc.selective_scan.launches_backward)
+    (y, h), got = _scan_grads(selective_scan, ins, dy, dh)
+    torch.cuda.synchronize()
+    assert (sc.selective_scan.launches_forward - before[0],
+            sc.selective_scan.launches_backward - before[1]) == (
+        sc.LAUNCHES_PER_CALL["forward"], sc.LAUNCHES_PER_CALL["backward"])
+    (yp, hp), want = _scan_grads(sc.selective_scan_plain, ins, dy, dh)
+    for name, g, w, tol in (("y", y, yp, 1e-5), ("h_T", h, hp, 1e-5)) + tuple(
+            (f"d {n}", g, w, 1e-4) for n, g, w in
+            zip(("dt", "u", "b", "c", "a", "h0"), got, want)):
+        assert g.dtype == w.dtype, name
+        err = (g.float() - w.float()).abs()
+        scale = float(w.float().abs().max())
+        if name == "d u" and u_dtype == torch.bfloat16:
+            assert bool((err <= 2 ** -7 * w.float().abs()
+                         + tol * scale).all()), name
+        else:
+            assert float(err.max()) <= tol * scale, (name, float(err.max()),
+                                                     scale)
+
+
+def test_selective_scan_backward_is_bitwise_repeatable(cuda):
+    """The sums over channels and over (batch, time) are per-warp and
+    per-row partials added in a fixed order: no float atomics."""
+    from repro_torch.kernels.ops import selective_scan
+    ins, dy, dh = _scan_case(2, 600, 200, 16, torch.bfloat16, cuda, seed=1)
+    first = _scan_grads(selective_scan, ins, dy, dh)[1]
+    second = _scan_grads(selective_scan, ins, dy, dh)[1]
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("s", [2, 5, 32])
+def test_selective_scan_refuses_a_d_state_it_has_no_kernel_for(cuda, s):
+    from repro_torch.kernels import selective_scan as sc
+    ins, _, _ = _scan_case(1, 16, 32, s, torch.float32, cuda)
+    before = sc.selective_scan.launches
+    with pytest.raises(ValueError, match="d_state"):
+        sc.selective_scan(*ins)
+    assert sc.selective_scan.launches == before

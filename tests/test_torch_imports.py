@@ -43,11 +43,12 @@ def test_the_port_has_files_to_scan():
             "steps.py", "train.py", "embedding.py", "elastic.py",
             "chaos.py", "mlp.py", "ssm.py", "xlstm.py", "xlstm_lm.py",
             "hymba.py", "xlstm_125m.py", "hymba_1_5b.py",
-            "granite_34b.py", "encdec.py", "seamless_m4t_medium.py"} <= names
+            "granite_34b.py", "encdec.py", "seamless_m4t_medium.py",
+            "selective_scan.py"} <= names
     dirs = {p.parent.name for p in PORT_FILES}
     assert {"data", "optim", "runtime", "launch", "checkpoint"} <= dirs
     for kernel in ("cscatter.cu", "cmerge.cu", "flash_attention.cu",
-                   "decode_attention.cu"):
+                   "decode_attention.cu", "selective_scan.cu"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / kernel).is_file()
 
 

@@ -267,11 +267,11 @@ def test_kernel_and_plain_attention_agree_on_the_cpu():
     tokens = torch.randint(0, cfg.vocab, (2, 9),
                            generator=torch.Generator().manual_seed(0))
     want, _ = model.prefill(tokens, 12)
-    model.attention = "plain"
+    model.impl = "plain"
     got, _ = model.prefill(tokens, 12)
     assert torch.equal(got, want)
-    with pytest.raises(ValueError, match="attention"):
-        model.attention = "sdpa"
+    with pytest.raises(ValueError, match="impl"):
+        model.impl = "sdpa"
 
 
 def test_load_jax_params_rejects_missing_extra_and_misshaped_leaves():

@@ -582,7 +582,7 @@ def test_kernel_path_equals_the_plain_path_on_the_cpu():
     tokens = torch.randint(0, cfg.vocab, (2, 9),
                            generator=torch.Generator().manual_seed(0))
     want, _ = model.prefill(tokens, 12)
-    model.attention = "plain"
+    model.impl = "plain"
     got, _ = model.prefill(tokens, 12)
     assert torch.equal(got, want)
 

@@ -2,7 +2,14 @@
 the JAX package's ``repro/models/ssm.py`` on the same numpy inputs and
 weights: the causal conv, the chunk scan, the chunked forward and the
 decode step. f32 to 1e-5; bf16 to the dense tests' cache tolerances (the
-two packages round bf16 products at other places)."""
+two packages round bf16 products at other places). The scan's plain version
+(``kernels/selective_scan.selective_scan_plain``) and its gradients are
+held to JAX's chunk loop at 1e-5 (a bf16 ``u``'s own gradient to one bf16
+ulp: both round the same f32 sum once); the autograd Function of the
+kernels is driven on the CPU with its launches replaced by plain mirrors,
+under each remat policy."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -12,8 +19,10 @@ import torch
 
 from repro.models import ssm as jssm
 from repro.models.module import split_params
+from repro_torch.kernels import ops
+from repro_torch.kernels import selective_scan as tscan
 from repro_torch.models import ssm as tssm
-from repro_torch.models.transformer import _as_tensor
+from repro_torch.models.transformer import _as_tensor, remat
 
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 5e-2)}
 D_MODEL, D_STATE, D_INNER = 32, 4, 64
@@ -85,7 +94,7 @@ def test_scan_chunk_matches_jax(t):
     dbx = rng.standard_normal((2, t, 6, 3)).astype(np.float32)
     h0 = rng.standard_normal((2, 6, 3)).astype(np.float32)
     jh, jl = jssm._scan_chunk(*map(jnp.asarray, (da, dbx, h0)))
-    th, tl = tssm._scan_chunk(*map(torch.from_numpy, (da, dbx, h0)))
+    th, tl = tscan._scan_chunk(*map(torch.from_numpy, (da, dbx, h0)))
     _close(th, jh, "float32", "h")
     _close(tl, jl, "float32", "last")
 
@@ -143,3 +152,194 @@ def test_apply_seq_keeps_the_chunk_rule():
     tp = _torch(_params("float32"))
     with pytest.raises(AssertionError):
         tssm.apply_seq(tp, torch.zeros((1, 300, D_MODEL)))
+
+
+# ---------------------------------------------------------------------------
+# the selective scan's plain version and its autograd Function
+# ---------------------------------------------------------------------------
+
+SCAN_B, SCAN_D = 2, 24
+
+
+def _scan_inputs(t, s, u_dtype, seed=0):
+    """dt (after softplus), u, b, c, a_log, h0 and the cotangents dy, dh
+    as numpy: dt in (0, ~3), a_log near log(1..S) as the init's, so that
+    exp(dt a) spans 1 down to ~1e-20."""
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    dt = np.log1p(np.exp(f(SCAN_B, t, SCAN_D)))
+    u = f(SCAN_B, t, SCAN_D).astype(jnp.dtype(u_dtype))
+    a_log = (np.log(np.arange(1, s + 1, dtype=np.float32))[None]
+             + 0.1 * f(SCAN_D, s))
+    return (dt, u, f(SCAN_B, t, s), f(SCAN_B, t, s), a_log,
+            f(SCAN_B, SCAN_D, s), f(SCAN_B, t, SCAN_D), f(SCAN_B, SCAN_D, s))
+
+
+def _jax_chunk_loop(dt, u, b, c, a_log, h0, chunk=256):
+    """JAX's ``apply_seq`` scan from the scan's inputs: ``_ssm_params``'
+    da and dbx, ``_scan_chunk`` chained over chunks, the einsum."""
+    a = -jnp.exp(a_log)
+    t = dt.shape[1]
+    chunk = min(chunk, t)
+    h, ys = h0, []
+    for i in range(0, t, chunk):
+        d_t = dt[:, i:i + chunk]
+        da = jnp.exp(d_t[..., None] * a)
+        dbx = ((d_t * u[:, i:i + chunk].astype(jnp.float32))[..., None]
+               * b[:, i:i + chunk, None, :])
+        h_seq, h = jssm._scan_chunk(da, dbx, h)
+        ys.append(jnp.einsum("btds,bts->btd", h_seq, c[:, i:i + chunk]))
+    return jnp.concatenate(ys, axis=1), h
+
+
+def _torch_scan(dt, u, b, c, a_log, h0):
+    return tscan.selective_scan_plain(dt, u, b, c, -torch.exp(a_log), h0)
+
+
+SCAN_CASES = [(t, s, u) for t in (64, 256, 512) for s in (4, 16)
+              for u in ("float32", "bfloat16")]
+SCAN_IDS = [f"T{t}-S{s}-u{'f32' if u == 'float32' else 'bf16'}"
+            for t, s, u in SCAN_CASES]
+
+
+@pytest.mark.parametrize("t,s,u_dtype", SCAN_CASES, ids=SCAN_IDS)
+def test_selective_scan_plain_matches_the_jax_chunk_loop(t, s, u_dtype):
+    ins = _scan_inputs(t, s, u_dtype)[:6]
+    jy, jh = _jax_chunk_loop(*map(jnp.asarray, ins))
+    ty, th = _torch_scan(*map(_as_tensor, ins))
+    assert ty.dtype == th.dtype == torch.float32
+    _close(ty, jy, "float32", "y")
+    _close(th, jh, "float32", "h_T")
+
+
+@pytest.mark.parametrize("t,s,u_dtype", SCAN_CASES, ids=SCAN_IDS)
+def test_selective_scan_plain_gradients_match_jax(t, s, u_dtype):
+    """d dt, d u, d b, d c and d a_log of ``sum(y dy) + sum(h_T dh)``
+    against ``jax.grad``: 1e-5 relative plus 1e-5 of the leaf's largest
+    magnitude; a bf16 ``u``'s gradient is bf16 in both, rounded once from
+    f32 sums taken in other orders, so it is held to one bf16 ulp (2^-7
+    of the value) instead."""
+    *ins, dy, dh = _scan_inputs(t, s, u_dtype)
+    argnums = (0, 1, 2, 3, 4)
+
+    def jloss(*args):
+        y, h = _jax_chunk_loop(*args)
+        return jnp.sum(y * dy) + jnp.sum(h * dh)
+    want = jax.grad(jloss, argnums=argnums)(*map(jnp.asarray, ins))
+    targs = [_as_tensor(x).requires_grad_(i in argnums)
+             for i, x in enumerate(ins)]
+    y, h = _torch_scan(*targs)
+    got = torch.autograd.grad((y * torch.from_numpy(dy)).sum()
+                              + (h * torch.from_numpy(dh)).sum(),
+                              [targs[i] for i in argnums])
+    for name, g, w, x in zip(("dt", "u", "b", "c", "a_log"), got, want,
+                             targs):
+        w = np.asarray(w, np.float32)
+        assert g.dtype == x.dtype
+        rtol = 2 ** -7 if (name == "u" and u_dtype == "bfloat16") else 1e-5
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=rtol,
+                                   atol=1e-5 * np.abs(w).max(),
+                                   err_msg=f"d {name}")
+
+
+def test_selective_scan_on_a_cpu_tensor_launches_nothing():
+    ins = [_as_tensor(x) for x in _scan_inputs(64, 4, "float32")[:6]]
+    ins[4] = -torch.exp(ins[4])
+    before = (tscan.selective_scan.launches,
+              tscan.selective_scan.launches_forward,
+              tscan.selective_scan.launches_backward)
+    y, h = ops.selective_scan(*ins)
+    want = tscan.selective_scan_plain(*ins)
+    assert torch.equal(y, want[0]) and torch.equal(h, want[1])
+    assert (tscan.selective_scan.launches,
+            tscan.selective_scan.launches_forward,
+            tscan.selective_scan.launches_backward) == before
+    assert tscan.LAUNCHES_PER_CALL == {"forward": 1, "backward": 2}
+
+
+def test_selective_scan_refuses_what_the_kernels_do_not_take():
+    dt, u, b, c, a_log, h0 = (_as_tensor(x) for x in
+                              _scan_inputs(16, 4, "float32")[:6])
+    a = -torch.exp(a_log)
+    with pytest.raises(ValueError, match="shapes"):
+        tscan.selective_scan_plain(dt, u, b[:, :8], c, a, h0)
+    with pytest.raises(TypeError, match="u dtype"):
+        tscan.selective_scan_plain(dt, u.half(), b, c, a, h0)
+    with pytest.raises(TypeError, match="b must be f32"):
+        tscan.selective_scan_plain(dt, u, b.double(), c, a, h0)
+
+
+def _apply_seq_grads(tp, x, policy):
+    """``apply_seq``'s gradients over every parameter and the input, the
+    layer under ``remat(policy)`` as a model's block is."""
+    params = {k: (v if isinstance(v, torch.Tensor) else dict(v))
+              for k, v in tp.items()}
+    leaves, spec = torch.utils._pytree.tree_flatten(params)
+    leaves = [p.detach().clone().requires_grad_(True) for p in leaves]
+    x = x.clone().requires_grad_(True)
+    fn = remat(lambda ps, xx: tssm.apply_seq(
+        torch.utils._pytree.tree_unflatten(ps, spec), xx), policy)
+    y = fn(leaves, x)
+    w = torch.from_numpy(_x(tuple(y.shape), "float32", seed=5))
+    return torch.autograd.grad((y * w).sum(), leaves + [x])
+
+
+@pytest.mark.parametrize("policy", ["dots", "full"])
+def test_apply_seq_gradient_under_remat_is_its_gradient_without(policy):
+    """Remat changes memory, never the numbers: the scan recomputed in the
+    backward (T = 512, two chunks) gives the gradient of ``"none"``."""
+    tp = _torch(_params("float32"))
+    x = torch.from_numpy(_x((2, 512, D_MODEL), "float32"))
+    for g, w in zip(_apply_seq_grads(tp, x, policy),
+                    _apply_seq_grads(tp, x, "none")):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-7)
+
+
+class _Mirror:
+    """The kernels' launches in plain PyTorch on the CPU, for driving
+    ``selective_scan``'s autograd Function there: the forward is the plain
+    version under ``no_grad`` and hands out a numbered token for its
+    checkpoints; the backward records the token it got and returns
+    autograd's gradients of the plain version."""
+
+    def __init__(self):
+        self.forward_tokens, self.backward_tokens = [], []
+
+    def forward(self, dt, u, b, c, a, h0, checkpoints=True):
+        with torch.no_grad():
+            y, h = tscan.selective_scan_plain(dt, u, b, c, a, h0)
+        self.forward_tokens.append(len(self.forward_tokens))
+        return y, h, torch.tensor([float(self.forward_tokens[-1])])
+
+    def backward(self, dt, u, b, c, a, ckpt, dy, dh_last):
+        self.backward_tokens.append(int(ckpt.item()))
+        ins = [x.detach().requires_grad_(True) for x in (dt, u, b, c, a)]
+        h0 = torch.zeros((dt.shape[0], a.shape[0], a.shape[1]),
+                         requires_grad=True)
+        with torch.enable_grad():
+            y, h = tscan.selective_scan_plain(*ins, h0)
+            out = (y * dy).sum() + (0 if dh_last is None
+                                    else (h * dh_last).sum())
+            return torch.autograd.grad(out, ins + [h0])
+
+
+@pytest.mark.parametrize("policy,forwards", [("none", 1), ("dots", 2),
+                                             ("full", 2)])
+def test_the_scan_function_under_remat(monkeypatch, policy, forwards):
+    """The Function the card runs, its launches mirrored: under ``"dots"``
+    (hymba-1.5b's) and ``"full"`` the forward runs again in the backward's
+    recompute and the backward reads the recompute's own checkpoints; the
+    gradient is the plain version's under every policy."""
+    mirror = _Mirror()
+    monkeypatch.setattr(tscan, "launch_forward", mirror.forward)
+    monkeypatch.setattr(tscan, "launch_backward", mirror.backward)
+    monkeypatch.setattr(ops, "selective_scan",
+                        lambda *xs: tscan._Scan.apply(*xs))
+    tp = _torch(_params("float32"))
+    x = torch.from_numpy(_x((2, 256, D_MODEL), "float32"))
+    got = _apply_seq_grads(tp, x, policy)
+    assert mirror.forward_tokens == list(range(forwards))
+    assert mirror.backward_tokens == [forwards - 1]
+    monkeypatch.undo()
+    for g, w in zip(got, _apply_seq_grads(tp, x, "none")):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-7)

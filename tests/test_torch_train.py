@@ -126,14 +126,14 @@ class Pair:
     def tparams(self):
         return self.tmodel.params()
 
-    def jax_rank_grads(self, params, batch):
-        """JAX's per-rank (loss, grads) over a ``[DP, B/DP, S]`` batch."""
+    def jax_rank_grads(self, params, batch, dp=DP):
+        """JAX's per-rank (loss, grads) over a ``[dp, B/dp, S]`` batch."""
         if self._jgrads is None:
             loss_fn = lambda p, b: self.jmodel.loss(p, b)[0]
             self._jgrads = jax.jit(jax.vmap(jax.value_and_grad(loss_fn),
                                             in_axes=(None, 0)))
         shards = jax.tree.map(
-            lambda x: jnp.asarray(x).reshape((DP, -1) + x.shape[1:]), batch)
+            lambda x: jnp.asarray(x).reshape((dp, -1) + x.shape[1:]), batch)
         loss, grads = self._jgrads(params, shards)
         return loss.mean(), grads
 
@@ -394,8 +394,8 @@ def test_explicit_eager_step_is_the_mean_of_rank_gradients(f32):
 # ---------------------------------------------------------------------------
 
 
-def _zeros_stack(params):
-    return jax.tree.map(lambda p: jnp.zeros((DP,) + p.shape, p.dtype), params)
+def _zeros_stack(params, dp=DP):
+    return jax.tree.map(lambda p: jnp.zeros((dp,) + p.shape, p.dtype), params)
 
 
 _CASCADES = {}
@@ -422,15 +422,16 @@ def _cascade(spec, overlap, due, land):
 
 def _jax_deferred_run(pair, spec, sched, batches, opt):
     """The JAX train step's deferred logic (``steps.py:439-560``), composed
-    from per-rank value_and_grad, the cascades under vmap and ``adamw``.
-    Returns the per-step (loss, params, land, due) history and the flushed
-    params."""
+    from per-rank value_and_grad, the cascades under vmap and ``adamw``,
+    over ``spec``'s ranks. Returns the per-step (loss, params, land, due)
+    history and the flushed params."""
     plan = JMergePlan.parse(spec)
+    dp = plan.num_ranks
     n_def, period, overlap = sched.num_levels, sched.period, sched.overlap
-    scale = 1.0 / (DP * period)
+    scale = 1.0 / (dp * period)
     params, opt_state = pair.jparams, opt.init(pair.jparams)
-    pends = tuple(_zeros_stack(params) for _ in range(n_def))
-    inflight = _zeros_stack(params)
+    pends = tuple(_zeros_stack(params, dp) for _ in range(n_def))
+    inflight = _zeros_stack(params, dp)
 
     def opt_step(params, opt_state, settled, s):
         grads = jax.tree.map(lambda g: g[0] * jnp.asarray(s, g.dtype),
@@ -439,7 +440,7 @@ def _jax_deferred_run(pair, spec, sched, batches, opt):
 
     hist = []
     for t, batch in enumerate(batches, start=1):
-        loss, grads = pair.jax_rank_grads(params, batch)
+        loss, grads = pair.jax_rank_grads(params, batch, dp)
         due = sched.due_count(t)
         land = overlap and t > 1 and sched.due_count(t - 1) == n_def
         fn = _cascade(spec, overlap, due, land)
@@ -463,7 +464,7 @@ def _jax_deferred_run(pair, spec, sched, batches, opt):
             jax.tree.map(jnp.zeros_like, p[0]), list(p), n_def, "r", jmf.ADD,
             plan)[1], axis_name="r")(*pends)
         params, opt_state = opt_step(params, opt_state, settled,
-                                     1.0 / (DP * m))
+                                     1.0 / (dp * m))
     return hist, _flat_jax(params)
 
 
