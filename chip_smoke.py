@@ -17,7 +17,8 @@ families (hymba-1.5b and xlstm-125m served, xlstm-125m trained, killed
 and resumed bit for bit; hymba-1.5b trained at full width and depth
 through the selective scan's CUDA kernels), the encoder-decoder
 (seamless-m4t-medium served and trained) and the MoE and VLM families
-(qwen3-moe-235b and llava-next-34b served at full width, kimi-k2-1t's
+(qwen3-moe-235b and llava-next-34b served at full width, qwen3-moe-235b
+trained at full width through the expert-parallel MoE layer, kimi-k2-1t's
 smoke config) — and:
 
 1. prints the card (``nvidia-smi`` name and power limit, torch's name);
@@ -105,9 +106,9 @@ smoke config) — and:
    then times ``cscatter`` at each app's shapes against its plain version,
    one library call and the bound, with its two passes split by a
    ``torch.profiler`` trace;
-11. trains qwen1.5-0.5b at full width and depth (bf16, remat "dots",
-   random weights from the seed) through ``launch/train.py`` on the data
-   pipeline's Zipf stream, batch 16 x 512 over 8 stacked ranks: 4 eager
+11. trains qwen1.5-0.5b at full width, 12 of its 24 layers (bf16, remat
+   "dots", random weights from the seed) through ``launch/train.py`` on the
+   data pipeline's Zipf stream, batch 16 x 512 over 8 stacked ranks: 4 eager
    steps over chip:2,host:2,pod:2, then 9 deferred steps (K = 4 on two
    deferred levels, a partial cycle that the flush settles) and the same
    overlapped; every loss finite, the first deferred cycle equal to AdamW
@@ -125,9 +126,10 @@ smoke config) — and:
    2^20]`` int32 pendings, without and with overlap) bitwise against the
    uninterrupted run, and resolves of overlapped toy checkpoints at t = 4
    and 5 onto another plan bitwise against a verbatim restore flushed;
-   then kills the deferred qwen1.5-0.5b run of 11 (full width and depth,
-   K = 4 over 8 ranks) by SIGKILL in a child process (this script with
-   ``--train-crash-child``) after its checkpoint of step 6 (about 20 GB),
+   then kills the deferred qwen1.5-0.5b run of 11 (full width, 6 of its 24
+   layers, K = 4 over 8 ranks) by SIGKILL in a child process (this script
+   with ``--train-crash-child``) after its checkpoint of step 6 (about 10
+   GB),
    resumes it through ``TrainDriver.resume`` verbatim (every leaf bit for
    bit, then flushed: the oracle) and onto 4 ranks with K = 2 (the two
    outstanding steps settled into the parameters and AdamW): the settled
@@ -156,11 +158,12 @@ smoke config) — and:
    over the 512 tokens; serves the GELU MLP (``DecoderLM`` at granite-34b's
    smoke config with ``mlp="gelu"``) against its plain path; each with a
    traced prefill and decode step; then runs the real-model chaos at full
-   width (xlstm-125m, the example's 5 steps of batch 8 x 32 over 8 stacked
-   ranks, an overlapped K = 2 commit, a checkpoint every step): the twin
-   twice, bitwise equal to itself in every leaf, a kill before step 2
-   resumed and flushed bitwise equal to the twin, a control with fresh
-   defer state that must differ, ``cscatter`` launches = 2 x 8 x steps;
+   width (xlstm-125m, 4 of the example's 5 steps of batch 8 x 32 over 8
+   stacked ranks, an overlapped K = 2 commit, a checkpoint every step):
+   the twin twice, bitwise equal to itself in every leaf, a kill before
+   step 2 resumed and flushed bitwise equal to the twin, a control with
+   fresh defer state that must differ, ``cscatter`` launches = 2 x 8 x
+   steps;
    then serves seamless-m4t-medium at full width (bf16, batch 8, prompts
    of 512 with frames [8, 128, 1024], 64 tokens: 36 ``flash_attention``
    launches at prefill, 24 of them bidirectional (the 12 encoder layers
@@ -175,8 +178,21 @@ smoke config) — and:
    ``cscatter``, 640 launches; 5 flash launches at G = 16; 630
    ``decode_attention`` launches, its GMAX = 16 configuration), held to
    its f32 twin on the row-steps that every path routed alike (at least
-   half of them; the share of flipped assignments printed), and
-   llava-next-34b's backbone at full width, 24 of 60 layers, prefilled
+   half of them; the share of flipped assignments printed); (k) trains
+   qwen3-moe-235b at full width, 1 of 94 layers (bf16, remat "full",
+   batch 2 x 2048 over chip:2's 2 stacked data ranks, ``--model-ranks
+   4``: the MoE layer through ``moe_ep.apply_ep`` over 4 stacked model
+   ranks, its combine one ``cscatter`` call over a [4, 2048, 4096] stack;
+   ``--donate``: AdamW in place) 3 eager steps: losses finite, 36
+   ``cscatter`` launches as predicted, no attention kernel, the peak
+   memory, ms a step, the router's metrics, a profiled step's idle share
+   and top operations; then one rank's f32 gradient through the kernel
+   path against ``moe.apply`` with the plain combine (loss 1e-5, each
+   leaf's error RMS 1e-3 of its RMS); at the smoke configs kimi-k2-1t's
+   expert-parallel steps (Adafactor) against ``moe.apply``'s (1e-5 in
+   f32), qwen3-moe-235b deferred K = 2 against the accumulated eager
+   merges, and the donating optimizer bit for bit against the functional
+   one; and llava-next-34b's backbone at full width, 24 of 60 layers, prefilled
    from embeds [8, 640, 7168] (576 seeded patch rows, then 64 prompt
    tokens' table rows), 64 tokens (24 flash launches at G = 7, 3024
    decode launches), held to its f32 twin on every row; and
@@ -184,8 +200,9 @@ smoke config) — and:
    f32, its kernel path against the plain attention and the plain
    combine: logits within 1e-4, the same expert ids; the combine's
    ``cscatter`` is also checked and timed at the prefill ([4096, 4096]
-   bf16, N = 32768) and decode ([8, 4096], N = 64) shapes beside
-   ``index_add_``, and the attention kernels at G = 16 and G = 7;
+   bf16, N = 32768), decode ([8, 4096], N = 64) and expert-parallel train
+   ([4, 2048, 4096], N = 16384 a shard) shapes beside ``index_add_``
+   (warm and cold), and the attention kernels at G = 16 and G = 7;
 14. prints every kernel's registers and spills (``ptxas -v``),
    one ``{"kernels": [...]}`` line and the card's name and power limit;
 15. ends with ``{"ok": true, "device": {...}}``.
@@ -259,12 +276,14 @@ HYMBA_W, HYMBA_PROMPT, HYMBA_GEN, FAMILY_BATCH = 1024, 2048, 64, 8
 # xlstm-125m serving: prompts of 256 and 257 tokens, so that the prompt and
 # the 256 tokens fed back make 512, two mLSTM chunks of 256
 XLSTM_PROMPT, XLSTM_GEN = 256, 257
-# the real-model chaos at full width: the example's 5 steps, a kill before
-# step 2 (its --quick point). A kill before step 3 as well, the other side
-# of an overlapped landing, passed too but took the phase past its budget:
-# every run saves a 7.1 GB checkpoint a step, 8.5-12.2 s each (NVIDIA H100
-# 80GB HBM3, 700.00 W); the CPU tests kill before each of steps 1-4
-CHAOS_STEPS, CHAOS_KILLS = 5, (2,)
+# the real-model chaos at full width: 4 steps (the example runs 5; cut to
+# keep the script inside its time: one overlapped K = 2 launch at step 2
+# and its landing at step 3 remain), a kill before step 2 (the example's
+# --quick point). A kill before step 3 as well, the other side of an
+# overlapped landing, passed too but took the phase past its budget: every
+# run saves a 7.1 GB checkpoint a step, 8.5-12.2 s each (NVIDIA H100 80GB
+# HBM3, 700.00 W); the CPU tests kill before each of steps 1-4 of 5
+CHAOS_STEPS, CHAOS_KILLS = 4, (2,)
 ATTN_BF16_ROW = 1e-2
 # kernel-path vs plain-attention logits (teacher-forced, same weights)
 LOGIT_TOL = 0.1
@@ -289,10 +308,13 @@ PR_RTOL_EAGER, PR_RTOL_DEFER = 1e-4, 2e-3
 # its default 5 clusters; S x T x B = 8 x 8 x 7680 points
 KM_D, KM_K, KM_T, KM_B = 34, 5, 8, 7680
 KM_TOL = 1e-3                       # atol = rtol against the numpy mirror
-# Training: qwen1.5-0.5b at full width and depth, batch 16 x 512 over 8
-# stacked data-parallel ranks (2 rows a rank); eager over TRAIN_PLAN,
-# deferred over TRAIN_DEFER_PLAN with K = TRAIN_K on both deferred levels
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_DP = 16, 512, 8
+# Training: qwen1.5-0.5b at full width, TRAIN_LAYERS of its 24 layers, batch
+# 16 x 512 over 8 stacked data-parallel ranks (2 rows a rank); eager over
+# TRAIN_PLAN, deferred over TRAIN_DEFER_PLAN with K = TRAIN_K on both
+# deferred levels. The step is host-bound (~50k launches at 24 layers,
+# 2.7-5.5 s a step on NVIDIA H100 80GB HBM3, 700.00 W machines), and half
+# the depth keeps the script inside its time
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_DP, TRAIN_LAYERS = 16, 512, 8, 12
 TRAIN_PLAN = "chip:2,host:2,pod:2"
 TRAIN_DEFER_PLAN = "chip:2,host:2:defer,pod:2:defer"
 TRAIN_K, TRAIN_LR, TRAIN_WARMUP = 4, 3e-4, 2
@@ -349,6 +371,33 @@ SCAN_TOL = {"forward": 1e-5, "backward": 1e-4}
 # every token alike in both bf16 paths and the f32 twin.
 MOE, MOE_LAYERS, MOE_PROMPT, MOE_GEN = "qwen3-moe-235b", 5, 512, 64
 MOE_UNFLIPPED_MIN = 0.5
+# qwen3-moe-235b trained at full width (bf16, remat "full" as its config,
+# random weights from the seed) through launch/train.py's build, its depth
+# cut to MOE_TRAIN_LAYERS of 94: a layer's state is 7.47 GB of bf16
+# parameters (4.83 GB of experts, 2.49 GB of tables), 29.9 GB of AdamW
+# moments and a 14.9 GB [2, ...] gradient stack, and a second layer would
+# add 40 GB. Batch MOE_TRAIN_BATCH x MOE_TRAIN_SEQ over MOE_TRAIN_PLAN's 2
+# stacked data ranks (a row, MOE_TRAIN_TOKENS tokens, a rank: capacity
+# 168), the MoE layer over MOE_MODEL_RANKS stacked model ranks (32 experts
+# a rank; JAX's --mesh prod has 16), MOE_TRAIN_STEPS eager steps whose
+# AdamW step donates the state (the functional step holds old and new
+# parameters and moments at once: ~90 GB)
+MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 1, 2, 2048
+MOE_TRAIN_PLAN, MOE_TRAIN_DP, MOE_MODEL_RANKS = "chip:2", 2, 4
+MOE_TRAIN_STEPS = 3
+MOE_TRAIN_TOKENS = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ // MOE_TRAIN_DP
+# the prediction, written before the first run on the card: cscatter calls
+# a rank and a step, the token combine once a MoE layer in the forward and
+# once more in remat "full"'s recompute, the embedding backward once
+MOE_TRAIN_CALLS = {"combine": 2, "embedding": 1}
+# the smoke configs on the card, with moe_impl="ep" (theirs is "gshard",
+# as JAX's) over MOE_SMOKE_RANKS model ranks, batch MOE_SMOKE_BATCH x
+# MOE_SMOKE_SEQ over MOE_TRAIN_PLAN: kimi-k2-1t (Adafactor, a shared
+# expert, a dense first layer) 2 eager steps in f32 against the same steps
+# through moe.apply to MOE_SMOKE_TOL; qwen3-moe-235b deferred, K =
+# MOE_SMOKE_K over chip:2:defer, 3 steps
+MOE_SMOKE_RANKS, MOE_SMOKE_BATCH, MOE_SMOKE_SEQ = 2, 4, 64
+MOE_SMOKE_K, MOE_SMOKE_TOL = 2, 1e-5
 # llava-next-34b's backbone at full width (d 7168, 56 heads over 8 kv
 # heads, ff 20480, vocab 64000), depth cut to VLM_LAYERS of 60 (1.116 GB a
 # layer: 28.6 GB in bf16, 57.2 in f32), prefilled from embeds: VLM_PATCHES
@@ -376,6 +425,12 @@ ELASTIC_PLAN, ELASTIC_K = "chip:4,pod:2:defer", 3
 RESUME_STEPS, RESUME_CKPT, RESUME_KILL_AT = 12, 6, 7
 RESUME_PLAN, RESUME_K, RESUME_RANKS = "chip:2,host:2:defer", 2, 4
 KILL_DELAY_S = 1.0                  # into step RESUME_KILL_AT (~3 s a step)
+# the killed run's depth: 6 of qwen1.5-0.5b's 24 layers at full width (an
+# earlier path run at a smaller depth, to keep the script inside its time):
+# the step-6 checkpoint ~10 GB, where all 24 layers wrote 19.5 GB, since
+# the 0.31 GB embedding with its moments and two levels of [8, ...]
+# pendings stays
+ELASTIC_LAYERS = 6
 
 
 def require(cond: bool, msg: str) -> None:
@@ -2274,6 +2329,54 @@ def _scan_backward_check(model, grads_of, params, batch, rows: int) -> dict:
     return out
 
 
+def _first_cycle_check(label: str, model, opt, dcfg, params0, snaps: dict,
+                       plan: str, k: int, dp: int, lr1: float) -> dict:
+    """The first deferred cycle of a run from ``params0`` (its parameters
+    and AdamW mu after the commit, ``snaps["params"]`` and ``snaps["mu"]``,
+    kept on the host) against one AdamW step on the mean of its ``k``
+    batches' eager merges over ``plan``'s ``dp`` stacked ranks from the
+    same parameters: ``_param_errs`` at the first step's lr ``lr1`` and
+    ``_mu_err`` (``phase_train``'s bounds)."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.core.grad_merge import merge_gradients
+    from repro_torch.core.merge_plan import MergePlan
+    from repro_torch.core.stacked import StackedAxis
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.launch import steps
+    axis = StackedAxis(dp, "cuda")
+    grads_of = steps.grads_fn(model)
+    acc = None
+    for i in range(k):
+        b = steps.to_device(batch_at(dcfg, i), "cuda")
+        _, stack = steps.rank_grads(grads_of, params0, b, dp)
+        merged = merge_gradients(stack, axis, topology=MergePlan.parse(plan))
+        del stack
+        g = pytree.tree_map(lambda x: x[0].float(), merged)
+        del merged
+        acc = g if acc is None else pytree.tree_map(torch.add, acc, g)
+    mean = pytree.tree_map(lambda a, p: (a / k).to(p.dtype), acc, params0)
+    del acc
+    ref, ref_opt, _ = opt.step(params0, mean, opt.init(params0))
+    del mean
+    ref_mu = ref_opt.mu
+    del ref_opt
+    got = pytree.tree_map(lambda x: x.to("cuda"), snaps.pop("params"))
+    cyc = _param_errs(got, ref, lr1)
+    del got, ref
+    mu = _mu_err(pytree.tree_map(lambda x: x.to("cuda"), snaps.pop("mu")),
+                 ref_mu)
+    del ref_mu
+    print(f"{label} deferred cycle 1 vs AdamW on the mean of {k} eager "
+          f"merges: params max |err| {cyc['max_abs_err']} (bound "
+          f"{cyc['bound']}; {cyc['beyond_one_ulp_share']:.2e} of elements "
+          f"beyond one bf16 ulp), mu max err {mu['max_rel_err']:.3e} of each "
+          f"leaf's largest (bound {mu['bound']})")
+    require(cyc["ok"] and mu["ok"], f"{label}: the deferred cycle is not the "
+                                    f"accumulated eager step: {cyc}, {mu}")
+    return {"params": cyc, "mu": mu}
+
+
 def _hymba_train(card: str) -> dict:
     """(j) hymba-1.5b trained at full width and depth (bf16, remat "dots",
     random weights from the seed) through ``launch/train.py``'s ``build``
@@ -2295,9 +2398,6 @@ def _hymba_train(card: str) -> dict:
     kernels against the plain scan's, in f32 (``_scan_backward_check``)."""
     import torch
     from torch.utils import _pytree as pytree
-    from repro_torch.core.grad_merge import merge_gradients
-    from repro_torch.core.merge_plan import MergePlan
-    from repro_torch.core.stacked import StackedAxis
     from repro_torch.data.pipeline import batch_at
     from repro_torch.kernels import selective_scan as sc
     from repro_torch.kernels.cscatter import LAUNCHES_PER_CALL, cscatter
@@ -2412,42 +2512,10 @@ def _hymba_train(card: str) -> dict:
             gc.collect()
             torch.cuda.empty_cache()
 
-        # the first deferred cycle against accumulated eager gradients
-        axis = StackedAxis(HYMBA_TRAIN_DP, "cuda")
+        out["deferred_vs_accumulated"] = _first_cycle_check(
+            "train hymba-1.5b", model, opt, dcfg, params0, snaps,
+            HYMBA_TRAIN_PLAN, HYMBA_TRAIN_K, HYMBA_TRAIN_DP, float(lr(1)))
         grads_of = steps.grads_fn(model)
-        acc = None
-        for i in range(HYMBA_TRAIN_K):
-            b = steps.to_device(batch_at(dcfg, i), "cuda")
-            _, stack = steps.rank_grads(grads_of, params0, b, HYMBA_TRAIN_DP)
-            merged = merge_gradients(stack, axis, topology=MergePlan.parse(
-                HYMBA_TRAIN_PLAN))
-            del stack
-            g = pytree.tree_map(lambda x: x[0].float(), merged)
-            del merged
-            acc = g if acc is None else pytree.tree_map(torch.add, acc, g)
-        mean = pytree.tree_map(lambda a, p: (a / HYMBA_TRAIN_K).to(p.dtype),
-                               acc, params0)
-        del acc
-        ref, ref_opt, _ = opt.step(params0, mean, opt.init(params0))
-        del mean
-        ref_mu = ref_opt.mu
-        del ref_opt
-        got = pytree.tree_map(lambda x: x.to("cuda"), snaps.pop("params"))
-        cyc = _param_errs(got, ref, float(lr(1)))
-        del got, ref
-        mu = _mu_err(pytree.tree_map(lambda x: x.to("cuda"),
-                                     snaps.pop("mu")), ref_mu)
-        del ref_mu
-        out["deferred_vs_accumulated"] = {"params": cyc, "mu": mu}
-        print(f"train hymba-1.5b deferred cycle 1 vs AdamW on the mean of "
-              f"{HYMBA_TRAIN_K} eager merges: params max |err| "
-              f"{cyc['max_abs_err']} (bound {cyc['bound']}; "
-              f"{cyc['beyond_one_ulp_share']:.2e} of elements beyond one "
-              f"bf16 ulp), mu max err {mu['max_rel_err']:.3e} of each "
-              f"leaf's largest (bound {mu['bound']})")
-        require(cyc["ok"] and mu["ok"], f"hymba train: the deferred cycle "
-                                        f"is not the accumulated eager step:"
-                                        f" {cyc}, {mu}")
         out["scan_backward"] = _scan_backward_check(
             model, grads_of, params0, steps.to_device(batch_at(dcfg, 0),
                                                       "cuda"),
@@ -2649,7 +2717,7 @@ def _leaf_diff(a, b) -> list[str]:
 
 def _real_model_chaos(card: str) -> dict:
     """(d) the real-model chaos at full width: xlstm-125m through
-    ``runtime/chaos.real_model_run`` on the card, the example's 5 steps of
+    ``runtime/chaos.real_model_run`` on the card, CHAOS_STEPS steps of
     batch 8 x 32 (one row a rank) over the 8 stacked ranks. The twin runs
     twice and must equal itself in every leaf (params, AdamW, the flushed
     defer state); kills before ``CHAOS_KILLS`` resume to parameters equal
@@ -2731,26 +2799,27 @@ def _real_model_chaos(card: str) -> dict:
 
 
 class _Routes:
-    """The expert ids of every MoE layer ``repro_torch.models.moe.route``
-    routes while the context is open, in order (wrapping the module's
-    function; the model code is unchanged)."""
+    """The expert ids of every MoE layer routed while the context is open,
+    in order: ``repro_torch.models.moe.top_k``'s, which ``moe.route`` and
+    ``moe_ep.apply_ep`` both call (wrapping the module's function; the
+    model code is unchanged)."""
 
     def __init__(self):
         from repro_torch.models import moe
-        self.moe, self.route, self.ids = moe, moe.route, []
+        self.moe, self.top_k, self.ids = moe, moe.top_k, []
 
     def __enter__(self):
         self.ids = []
 
         def recorded(*args):
-            out = self.route(*args)
+            out = self.top_k(*args)
             self.ids.append(out[1])
             return out
-        self.moe.route = recorded
+        self.moe.top_k = recorded
         return self
 
     def __exit__(self, *exc):
-        self.moe.route = self.route
+        self.moe.top_k = self.top_k
 
     def steps(self, layers: int, batch: int) -> list:
         """Per step, per layer, the sorted ids ``[batch, tokens, k]``."""
@@ -2760,6 +2829,23 @@ class _Routes:
         return [[torch.sort(x, -1).values.reshape(batch, -1, x.shape[-1])
                  for x in self.ids[i:i + layers]]
                 for i in range(0, len(self.ids), layers)]
+
+
+class _PlainScatter:
+    """Inside the context ``kernels.ops.commutative_scatter`` (the MoE
+    combine, the embedding backward) runs ``cscatter_plain_``, the
+    kernel's plain version, on the card."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.cscatter import cscatter_plain_
+        self.ops, self.kernel = ops, ops.commutative_scatter
+        ops.commutative_scatter = (lambda t, i, v, **kw:
+                                   cscatter_plain_(t, i, v, **kw))
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.commutative_scatter = self.kernel
 
 
 def _route_flips(paths: dict, ref: list) -> tuple[list, dict]:
@@ -2858,6 +2944,390 @@ def _moe_serve(card: str) -> dict:
     return row
 
 
+def _leaf_rel_rms(got, want) -> tuple[float, str]:
+    """The worst leaf's error RMS over its RMS between two gradient trees,
+    and that leaf's path."""
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+    want = dict(_flatten_with_paths(want))
+    worst, worst_leaf = 0.0, None
+    for name, g in _flatten_with_paths(got):
+        w = want[name]
+        rel = float((g - w).pow(2).mean().sqrt()
+                    / w.pow(2).mean().sqrt().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_leaf = rel, name
+    return worst, worst_leaf
+
+
+def _moe_grad_check(dcfg) -> dict:
+    """One data rank's loss and whole-model gradient of qwen3-moe-235b at
+    full width (MOE_TRAIN_LAYERS layers, the train run's weights from the
+    seed, upcast to f32; rank 0's row of batch 0) through ``apply_ep`` over
+    MOE_MODEL_RANKS model ranks with the CUDA ``cscatter`` combine and
+    embedding backward, against ``moe.apply`` with the plain combine and
+    embedding backward (``cscatter_plain_``): the loss to 1e-5 relative,
+    each leaf's error RMS to 1e-3 of its RMS (``_scan_backward_check``'s
+    rule). The two paths' router products run as other GEMMs, so an
+    assignment at a near-tie may differ: then the tokens routed otherwise
+    in either path are left out of the loss (label -1; with one layer a
+    token's expert outputs reach only its own logits) and both gradients
+    taken again; their count is printed."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.launch import steps
+    from repro_torch.models.registry import build_model
+    cfg = dataclasses.replace(get_config(MOE), n_layers=MOE_TRAIN_LAYERS)
+    model = build_model(cfg, device="cuda", seed=SEED,
+                        model_ranks=MOE_MODEL_RANKS).float()
+    params = model.params()
+    rows = MOE_TRAIN_BATCH // MOE_TRAIN_DP
+    shard = {k: v[:rows] for k, v in steps.to_device(batch_at(dcfg, 0),
+                                                     "cuda").items()}
+    grads_of = steps.grads_fn(model)
+
+    def run(ranks, labels):
+        model.model_ranks = ranks
+        with _Routes() as ids:
+            if ranks is None:
+                with _PlainScatter():
+                    loss, g = grads_of(params, dict(shard, labels=labels))
+            else:
+                loss, g = grads_of(params, dict(shard, labels=labels))
+        torch.cuda.synchronize()
+        return float(loss), g, [torch.sort(x, -1).values for x in ids.ids]
+
+    labels = shard["labels"]
+    loss_k, got, ids_k = run(MOE_MODEL_RANKS, labels)
+    loss_p, want, ids_p = run(None, labels)
+    require(len(ids_k) == len(ids_p) > 0, f"{MOE} gradient check: "
+                                          f"{len(ids_k)}, {len(ids_p)} routes")
+    other = torch.zeros(labels.numel(), dtype=torch.bool, device="cuda")
+    for a, b in zip(ids_k, ids_p):
+        other |= (a != b).any(-1)
+    n_other = int(other.sum())
+    if n_other:
+        del got, want
+        labels = torch.where(other.reshape(labels.shape), -1, labels)
+        loss_k, got, _ = run(MOE_MODEL_RANKS, labels)
+        loss_p, want, _ = run(None, labels)
+    model.model_ranks = MOE_MODEL_RANKS
+    worst, worst_leaf = _leaf_rel_rms(got, want)
+    del got, want, params, model
+    out = {"loss_kernel": loss_k, "loss_plain": loss_p,
+           "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p),
+           "worst_leaf_rel_rms_err": worst, "worst_leaf": worst_leaf,
+           "tokens_routed_otherwise": n_other,
+           "tol": {"loss_rel": 1e-5, "leaf_rel_rms": 1e-3}}
+    print(f"train {MOE}, one rank's gradient ({rows} x "
+          f"{labels.shape[1]}, {MOE_TRAIN_LAYERS} layer at full width, f32) "
+          f"through apply_ep over {MOE_MODEL_RANKS} model ranks and the "
+          f"CUDA cscatter vs moe.apply and the plain combine: tokens routed "
+          f"otherwise {n_other} (left out of the loss); loss {loss_k} vs "
+          f"{loss_p}, worst leaf error RMS {worst:.3e} of its RMS "
+          f"({worst_leaf}; tol 1e-3)")
+    require(out["loss_rel_err"] <= 1e-5 and worst <= 1e-3,
+            f"{MOE} train: the kernel path's gradient disagrees with the "
+            f"plain path's: {out}")
+    return out
+
+
+def _smoke_data(cfg, steps_: int):
+    """The smoke checks' optimizer (the config's, ``warmup_cosine`` over
+    ``steps_``), its schedule and the Zipf data config of MOE_SMOKE_BATCH x
+    MOE_SMOKE_SEQ."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import data_config_for
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    lr = warmup_cosine(TRAIN_LR, TRAIN_WARMUP, steps_)
+    return (make_optimizer(cfg, lr), lr, data_config_for(cfg, ShapeConfig(
+        "train", MOE_SMOKE_SEQ, MOE_SMOKE_BATCH, "train"), seed=SEED))
+
+
+def _kimi_train() -> dict:
+    """kimi-k2-1t's smoke config in f32 with ``moe_impl="ep"`` and the full
+    config's Adafactor (the smoke config's is AdamW): 2 eager
+    steps over MOE_TRAIN_PLAN (Adafactor), its MoE layers over
+    MOE_SMOKE_RANKS model ranks, against the same steps through
+    ``moe.apply`` on the same weights: each loss to MOE_SMOKE_TOL relative,
+    each parameter leaf's largest error within MOE_SMOKE_TOL of 1 + its
+    largest magnitude; ``cscatter`` launches of the ep run as the path
+    predicts (remat "none": the combine once a MoE layer, the embedding
+    backward once, a rank and a step)."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs.base import get_config, get_smoke_config
+    from repro_torch.core.merge_plan import MergePlan
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.kernels.cscatter import LAUNCHES_PER_CALL, cscatter
+    from repro_torch.launch import steps
+    from repro_torch.models.registry import build_model
+    cfg = dataclasses.replace(get_smoke_config(KIMI), dtype="float32",
+                              moe_impl="ep",
+                              optimizer=get_config(KIMI).optimizer)
+    require(cfg.optimizer == "adafactor" and cfg.remat == "none"
+            and cfg.first_dense_layers == 1 and cfg.n_shared_experts == 1,
+            f"{KIMI} smoke: {cfg}")
+    opt, _, dcfg = _smoke_data(cfg, 2)
+    runs = {}
+    for ranks in (MOE_SMOKE_RANKS, None):
+        model = build_model(cfg, device="cuda", seed=SEED, model_ranks=ranks)
+        step = steps.make_train_step(model, cfg, opt, merge_topology=(
+            MergePlan.parse(MOE_TRAIN_PLAN)))
+        params = model.params()
+        state = {"params": params, "opt": opt.init(params)}
+        cscatter.launches = 0
+        losses = []
+        for i in range(2):
+            state, m = step(state, batch_at(dcfg, i))
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        runs[ranks] = (losses, state["params"], cscatter.launches)
+    (got_l, got_p, launches), (want_l, want_p, _) = (runs[MOE_SMOKE_RANKS],
+                                                     runs[None])
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    want = LAUNCHES_PER_CALL * MOE_TRAIN_DP * 2 * (n_moe + 1)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(got_l, want_l))
+    param_err = max(float((g - w).abs().max()) / (1 + float(w.abs().max()))
+                    for g, w in zip(pytree.tree_leaves(got_p),
+                                    pytree.tree_leaves(want_p)))
+    out = {"losses": got_l, "losses_moe_apply": want_l,
+           "loss_rel_err": loss_err, "param_err": param_err,
+           "cscatter_launches": launches, "cscatter_predicted": want}
+    print(f"train {KIMI} smoke f32, 2 eager steps over {MOE_TRAIN_DP} ranks "
+          f"(Adafactor), apply_ep over {MOE_SMOKE_RANKS} model ranks vs "
+          f"moe.apply: losses {got_l} vs {want_l} (rel err {loss_err:.3e}), "
+          f"params {param_err:.3e} of 1 + each leaf's largest (tol "
+          f"{MOE_SMOKE_TOL}); cscatter launches {launches} (predicted "
+          f"{want})")
+    require(all(np.isfinite(got_l)) and loss_err <= MOE_SMOKE_TOL
+            and param_err <= MOE_SMOKE_TOL,
+            f"{KIMI} train: apply_ep's steps are not moe.apply's: {out}")
+    require(launches == want, f"{KIMI} train: cscatter launched {launches} "
+                              f"times, the path predicts {want}")
+    return out
+
+
+def _moe_deferred_smoke() -> dict:
+    """qwen3-moe-235b's smoke config (bf16, AdamW) with ``moe_impl="ep"``
+    over MOE_SMOKE_RANKS model ranks, deferred with K = MOE_SMOKE_K over
+    chip:2:defer: 3 steps (a commit at step K, a partial cycle the flush
+    settles), every loss finite, the first cycle against AdamW on the mean
+    of its batches' eager merges (``_first_cycle_check``)."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.core.defer_schedule import DeferSchedule
+    from repro_torch.core.merge_plan import MergePlan
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.launch import steps
+    from repro_torch.models.registry import build_model
+    cfg = dataclasses.replace(get_smoke_config(MOE), moe_impl="ep")
+    n = MOE_SMOKE_K + 1
+    opt, lr, dcfg = _smoke_data(cfg, n)
+    model = build_model(cfg, device="cuda", seed=SEED,
+                        model_ranks=MOE_SMOKE_RANKS)
+    step = steps.make_train_step(
+        model, cfg, opt, merge_topology=MergePlan.parse(
+            MOE_TRAIN_PLAN + ":defer"),
+        defer_schedule=DeferSchedule.fixed(MOE_SMOKE_K, ("chip",)))
+    params0 = model.params()
+    state = {"params": params0, "opt": opt.init(params0),
+             "defer": step.init_defer_state(params0)}
+    snaps, losses = {}, []
+    for i in range(n):
+        state, m = step(state, batch_at(dcfg, i))
+        losses.append(float(m["loss"]))
+        if i + 1 == MOE_SMOKE_K:
+            host = lambda x: x.to("cpu", copy=True)   # noqa: E731
+            snaps["params"] = pytree.tree_map(host, state["params"])
+            snaps["mu"] = pytree.tree_map(host, state["opt"].mu)
+    state, fm = step.flush(state)
+    torch.cuda.synchronize()
+    require(all(np.isfinite(losses)) and fm is not None
+            and fm.get("flushed_steps") == n % MOE_SMOKE_K,
+            f"{MOE} smoke deferred: losses {losses}, flush {fm}")
+    print(f"train {MOE} smoke deferred K={MOE_SMOKE_K} over "
+          f"{MOE_TRAIN_DP} ranks, apply_ep over {MOE_SMOKE_RANKS} model "
+          f"ranks: losses {losses}; flush of {fm['flushed_steps']} step")
+    return {"losses": losses, "first_cycle": _first_cycle_check(
+        f"train {MOE} smoke", model, opt, dcfg, params0, snaps,
+        MOE_TRAIN_PLAN, MOE_SMOKE_K, MOE_TRAIN_DP, float(lr(1)))}
+
+
+def _donate_check() -> dict:
+    """The donating optimizer step (``Optimizer.step(..., donate=True)``)
+    against the functional one on the card: AdamW (qwen3-moe-235b's smoke
+    tree) and Adafactor (kimi-k2-1t's, its full config's optimizer), bf16
+    and f32, 3 steps on seeded
+    gradients from the same state: the parameters and every moment equal
+    bit for bit, the donated tensors updated in place. Held at the
+    optimizer: the train step's backward need not repeat its bits on the
+    card (atomics in PyTorch's index backward)."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs.base import get_config, get_smoke_config
+    from repro_torch.models.registry import build_model
+    out = {}
+    for arch in (MOE, KIMI):
+        for dtype in ("bfloat16", "float32"):
+            cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype,
+                                      optimizer=get_config(arch).optimizer)
+            opt, _, _ = _smoke_data(cfg, 3)
+            params = build_model(cfg, device="cuda", seed=SEED).params()
+            g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+            func = (params, opt.init(params))
+            clone = lambda t: pytree.tree_map(            # noqa: E731
+                lambda x: x.clone() if isinstance(x, torch.Tensor) else x, t)
+            don = clone(func)
+            mine = pytree.tree_leaves(don)
+            for _ in range(3):
+                grads = pytree.tree_map(lambda p: (torch.randn(
+                    p.shape, device="cuda", generator=g) * 30).to(p.dtype),
+                    params)
+                p, o, _ = opt.step(func[0], clone(grads), func[1])
+                func = (p, o)
+                p, o, _ = opt.step(don[0], grads, don[1], donate=True)
+                don = (p, o)
+            torch.cuda.synchronize()
+            got, want = pytree.tree_leaves(don), pytree.tree_leaves(func)
+            tensors = [(a, b) for a, b in zip(got, want)
+                       if isinstance(a, torch.Tensor) and a.dim() > 0]
+            equal = all(torch.equal(a, b) for a, b in tensors)
+            in_place = all(a is b for a, b in zip(
+                [x for x in pytree.tree_leaves(don)
+                 if isinstance(x, torch.Tensor) and x.dim() > 0],
+                [x for x in mine if isinstance(x, torch.Tensor)
+                 and x.dim() > 0]))
+            out[f"{cfg.optimizer}_{dtype}"] = {"bitwise": equal,
+                                               "in_place": in_place,
+                                               "leaves": len(tensors)}
+            require(equal and in_place, f"donated {cfg.optimizer} {dtype}: "
+                                        f"bitwise {equal}, in place "
+                                        f"{in_place}")
+    print(f"donated optimizer steps vs functional ones, 3 steps each: "
+          f"{out}")
+    return out
+
+
+def _moe_train(card: str) -> dict:
+    """(k) qwen3-moe-235b trained at full width, MOE_TRAIN_LAYERS of 94
+    layers (bf16, remat "full", random weights from the seed), through
+    ``launch/train.py``'s ``build`` with the CLI's flags: ``--model-ranks
+    MOE_MODEL_RANKS`` (the MoE layer through ``moe_ep.apply_ep``, its
+    token combine one ``cscatter`` call over a ``[4, 2048, 4096]`` stack)
+    and ``--donate``, MOE_TRAIN_STEPS eager steps of MOE_TRAIN_BATCH x
+    MOE_TRAIN_SEQ over MOE_TRAIN_PLAN's 2 stacked data ranks. Checks: every
+    loss finite; ``cscatter`` launches as MOE_TRAIN_CALLS predicts, no
+    attention kernel launched (training attends through ``attend_full``);
+    the peak device memory under the card's. Prints ms a step, the
+    router's aux loss, z and drop share after the run, the profiler's idle
+    share and top operations of one more step. Then, the bf16 state freed,
+    the kernel path's f32 gradient against the plain path's
+    (``_moe_grad_check``), and at the smoke configs the expert-parallel
+    train steps (``_kimi_train``, ``_moe_deferred_smoke``) and the
+    donating optimizer (``_donate_check``)."""
+    import torch
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.kernels.cscatter import LAUNCHES_PER_CALL, cscatter
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import steps, train
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = train.build(train.parse_args([
+        "--arch", MOE, "--layers", str(MOE_TRAIN_LAYERS), "--model-ranks",
+        str(MOE_MODEL_RANKS), "--donate", "--steps", str(MOE_TRAIN_STEPS),
+        "--batch", str(MOE_TRAIN_BATCH), "--seq", str(MOE_TRAIN_SEQ),
+        "--lr", str(TRAIN_LR), "--warmup", str(TRAIN_WARMUP), "--seed",
+        str(SEED), "--device", "cuda", "--merge-topology", MOE_TRAIN_PLAN]))
+    cfg, model = t.cfg, t.model
+    require(t.dp == MOE_TRAIN_DP and cfg.remat == "full"
+            and cfg.moe_impl == "ep" and model.model_ranks == MOE_MODEL_RANKS
+            and t.step_fn.donates and (cfg.n_layers, cfg.d_model,
+                                       cfg.n_experts, cfg.top_k,
+                                       cfg.d_ff_expert)
+            == (MOE_TRAIN_LAYERS, 4096, 128, 8, 1536),
+            f"{MOE} train: {t.dp} ranks, {cfg}, model ranks "
+            f"{model.model_ranks}")
+    state, t.state = t.state, None
+    batches = [batch_at(t.dcfg, i) for i in range(MOE_TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cscatter.launches = flash_attention.launches = 0
+    decode_attention.launches = 0
+    rec = []
+    for i, batch in enumerate(batches[:MOE_TRAIN_STEPS]):
+        t0 = time.perf_counter()
+        state, m = t.step_fn(state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        loss = float(m["loss"])
+        require(np.isfinite(loss), f"{MOE} train step {i}: loss {loss}")
+        rec.append({"ms": 1e3 * dt, "loss": loss,
+                    "grad_norm": float(m["grad_norm"])})
+        print(f"train {MOE} step {i}: loss {loss:.6f} grad norm "
+              f"{rec[-1]['grad_norm']:.6f} {1e3 * dt:.3f} ms")
+    launches = {"cscatter": cscatter.launches,
+                "flash_attention": flash_attention.launches,
+                "decode_attention": decode_attention.launches}
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    calls = (t.dp * t.microbatches * MOE_TRAIN_STEPS
+             * (MOE_TRAIN_CALLS["combine"] * n_moe
+                + MOE_TRAIN_CALLS["embedding"]))
+    want = {"cscatter": LAUNCHES_PER_CALL * calls, "flash_attention": 0,
+            "decode_attention": 0}
+    ms = statistics.median(r["ms"] for r in rec[1:])      # step 0 warms up
+    print(f"train {MOE} ({MOE_TRAIN_LAYERS} of 94 layers, full width) eager"
+          f" over {t.dp} data ranks x {MOE_MODEL_RANKS} model ranks, "
+          f"donating AdamW, on {card}: {ms:.3f} ms a step, "
+          f"{MOE_TRAIN_BATCH * MOE_TRAIN_SEQ / (ms / 1e3):.1f} tokens/s, "
+          f"peak memory {peak} bytes of {total}; launches {launches} "
+          f"(predicted {want})")
+    require(launches == want, f"{MOE} train: launches {launches}, "
+                              f"predicted {want}")
+    require(peak < total, f"{MOE} train: peak {peak} of {total} bytes")
+    with torch.no_grad():
+        shard = steps.to_device({k: v[:MOE_TRAIN_BATCH // t.dp]
+                                 for k, v in batches[0].items()}, "cuda")
+        _, lm = model.loss(state["params"], shard)
+    router = {k: float(lm[k]) for k in ("aux_loss", "router_z",
+                                        "drop_frac")}
+    print(f"train {MOE} after {MOE_TRAIN_STEPS} steps, rank 0's row of "
+          f"batch 0: {router}")
+    require(all(np.isfinite(v) for v in router.values()),
+            f"{MOE} train: router metrics {router}")
+    prof, state = profile_train_step(t.step_fn, state, batches[-1])
+    prof["idle_share"] = 1 - prof["device_ms"] / ms
+    print(f"train {MOE} profile of one eager step: device "
+          f"{prof['device_ms']:.3f} ms against {ms:.3f} ms a step untraced "
+          f"(idle share {prof['idle_share']:.3f}), {prof['launches']} "
+          f"launches; by range (ms) "
+          f"{ {k: round(v, 3) for k, v in prof['by_range_ms'].items()} }; "
+          f"top operations (ms) "
+          f"{ {k: round(v, 3) for k, v in prof['top_ops_ms'].items()} }")
+    out = {"steps": rec, "ms_per_step": ms, "peak_bytes": peak,
+           "card_bytes": total, "launches": launches,
+           "launches_predicted": want, "router": router,
+           "profile_eager_step": prof, "card": card,
+           "tokens_per_s": MOE_TRAIN_BATCH * MOE_TRAIN_SEQ / (ms / 1e3)}
+    dcfg = t.dcfg
+    del t, model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["f32_gradient"] = _moe_grad_check(dcfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["kimi_smoke"] = _kimi_train()
+    out["deferred_smoke"] = _moe_deferred_smoke()
+    out["donate"] = _donate_check()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _vlm_batch(model) -> dict:
     """The VLM's serve batch: the text prompt ids (drawn as the serve CLI
     draws prompts) and embeds ``[FAMILY_BATCH, VLM_PATCHES + VLM_TEXT,
@@ -2915,9 +3385,8 @@ def _kimi_serve(card: str) -> dict:
     layer, no kernel launched by the plain path."""
     import torch
     from repro_torch.configs.base import get_smoke_config
-    from repro_torch.kernels import ops
     from repro_torch.kernels.cscatter import LAUNCHES_PER_CALL as CS_CALL
-    from repro_torch.kernels.cscatter import cscatter, cscatter_plain_
+    from repro_torch.kernels.cscatter import cscatter
     from repro_torch.kernels.decode_attention import LAUNCHES_PER_CALL
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
@@ -2940,15 +3409,11 @@ def _kimi_serve(card: str) -> dict:
         f"caches")
     before = (flash_attention.launches, decode_attention.launches,
               cscatter.launches)
-    kernel_scatter = ops.commutative_scatter
     model.impl = "plain"
-    ops.commutative_scatter = (lambda t, i, v, **kw:
-                               cscatter_plain_(t, i, v, **kw))
     try:
-        with _Routes() as plain_ids:
+        with _PlainScatter(), _Routes() as plain_ids:
             plain = _teacher_forced(model, batch, res, KIMI_PROMPT)
     finally:
-        ops.commutative_scatter = kernel_scatter
         model.impl = "kernel"
     require(before == (flash_attention.launches, decode_attention.launches,
                        cscatter.launches),
@@ -2977,15 +3442,17 @@ def phase_families(card: str) -> dict:
     hymba-1.5b trained at full width and depth, (b)
     xlstm-125m served at full width, (c) the GELU MLP, (d) the real-model
     chaos of xlstm-125m at full width, (e) seamless-m4t-medium served and
-    (f) trained at full width, (g) qwen3-moe-235b and (h) llava-next-34b
-    served at full width, (i) kimi-k2-1t's smoke config in f32."""
+    (f) trained at full width, (g) qwen3-moe-235b served and (k) trained
+    at full width, (h) llava-next-34b served at full width, (i) kimi-k2-1t's
+    smoke config in f32."""
     out = {}
     for name, fn in (("hymba", _hymba_serve), ("hymba_train", _hymba_train),
                      ("xlstm", _xlstm_serve),
                      ("gelu", _gelu_serve), ("chaos", _real_model_chaos),
                      ("encdec", _encdec_serve),
                      ("encdec_train", _encdec_train), ("moe", _moe_serve),
-                     ("vlm", _vlm_serve), ("kimi", _kimi_serve)):
+                     ("moe_train", _moe_train), ("vlm", _vlm_serve),
+                     ("kimi", _kimi_serve)):
         t0 = time.perf_counter()
         out[name] = fn(card)
         out[name]["phase_s"] = time.perf_counter() - t0
@@ -3487,20 +3954,38 @@ def embedding_kernel_checks() -> float:
 
 # qwen3-moe-235b's token combine: a zero bf16 [t, 4096] table, each
 # token's 8 expert outputs (ids arange(8 t) // 8; a dropped assignment a
-# zero row) at the prefill (t = 8 x 512) and decode (t = 8) shapes
-COMBINE_SHAPES = ((FAMILY_BATCH * MOE_PROMPT, 4096, 8),
-                  (FAMILY_BATCH, 4096, 8))
+# zero row) at the prefill (t = 8 x 512) and decode (t = 8) shapes, and the
+# expert-parallel train path's [4, 2048, 4096] stack (MOE_MODEL_RANKS
+# shards, one a model rank, each with all of a data rank's 16384
+# assignments, nonzero in the shard of the assignment's expert): (shards,
+# t, d, k)
+COMBINE_SHAPES = ((1, FAMILY_BATCH * MOE_PROMPT, 4096, 8),
+                  (1, FAMILY_BATCH, 4096, 8),
+                  (MOE_MODEL_RANKS, MOE_TRAIN_TOKENS, 4096, 8))
 
 
-def _combine_inputs(t: int, d: int, k: int, g):
-    """The combine's ids ``[t k]`` and bf16 vals ``[t k, d]`` (expert
-    outputs of the scale of a hidden state, a tenth of the assignments
-    dropped to zero rows)."""
+def _combine_inputs(s: int, t: int, d: int, k: int, g):
+    """The combine's ids and bf16 vals: expert outputs of the scale of a
+    hidden state, a tenth of the assignments dropped to zero rows; with s >
+    1 shards, ids ``[s, t k]`` and vals ``[s, t k, d]``, each assignment
+    nonzero in one shard (its expert's model rank), else ``[t k]`` and
+    ``[t k, d]``."""
     import torch
     ids = (torch.arange(t * k, device="cuda") // k).to(torch.int32)
     vals = torch.randn((t * k, d), device="cuda", generator=g) * 0.1
     vals[torch.rand(t * k, device="cuda", generator=g) < 0.1] = 0
-    return ids, vals.to(torch.bfloat16)
+    if s == 1:
+        return ids, vals.to(torch.bfloat16)
+    owner = torch.randint(0, s, (t * k,), device="cuda", generator=g)
+    mine = owner == torch.arange(s, device="cuda")[:, None]
+    return (ids.expand(s, -1).contiguous(),
+            torch.where(mine[..., None], vals.to(torch.bfloat16), 0))
+
+
+def _combine_table(s: int, t: int, d: int):
+    import torch
+    return torch.zeros(((s,) if s > 1 else ()) + (t, d),
+                       dtype=torch.bfloat16, device="cuda")
 
 
 def moe_combine_kernel_checks() -> float:
@@ -3510,52 +3995,66 @@ def moe_combine_kernel_checks() -> float:
     from repro_torch.kernels.cscatter import cscatter, cscatter_plain
     g = torch.Generator(device="cuda").manual_seed(SEED + 9)
     worst = 0.0
-    for t, d, k in COMBINE_SHAPES:
-        ids, vals = _combine_inputs(t, d, k, g)
-        table = torch.zeros((t, d), dtype=torch.bfloat16, device="cuda")
+    for s, t, d, k in COMBINE_SHAPES:
+        ids, vals = _combine_inputs(s, t, d, k, g)
+        table = _combine_table(s, t, d)
         want = cscatter_plain(table, ids, vals)
         got = cscatter(table, ids, vals)
         torch.cuda.synchronize()
         err = _compare(got, want)
         worst = max(worst, err)
-        print(f"check cscatter bf16 [{t},{d}] N={t * k} add {MOE} token "
-              f"combine: ok (max abs err {err})")
+        print(f"check cscatter bf16 {list(table.shape)} N={t * k} a shard "
+              f"add {MOE} token combine: ok (max abs err {err})")
+        del ids, vals, table, want, got
     return worst
 
 
 def moe_combine_kernel_times() -> list[dict]:
     """The MoE combine's ``cscatter`` timed as the other rows at
     ``COMBINE_SHAPES``: kernel (CUDA graph), a call, the plain version,
-    ``index_add_`` (graph and a call) and the bound."""
+    ``index_add_`` over the flattened table (graph and a call), both
+    graphs again from inputs out of the L2 (``cold_ms``,
+    ``library_cold_ms``: sets of inputs rotated through, COLD_BYTES in
+    all and at least two) and the bound."""
     import torch
     from repro_torch.kernels.cscatter import cscatter, cscatter_plain_
     g = torch.Generator(device="cuda").manual_seed(SEED + 10)
     out = []
-    for t, d, k in COMBINE_SHAPES:
-        ids, vals = _combine_inputs(t, d, k, g)
-        table = torch.zeros((t, d), dtype=torch.bfloat16, device="cuda")
-        lids = ids.long()
-        bound, bound_by = scatter_bound_ms(ids[None], d, 2, r=t)
+    for s, t, d, k in COMBINE_SHAPES:
+        ids, vals = _combine_inputs(s, t, d, k, g)
+        table = _combine_table(s, t, d)
+        flat = table.view(-1, d)
+        sets = [(ids, vals)] + [_combine_inputs(s, t, d, k, g) for _ in range(
+            max(1, -(-int(COLD_BYTES) // vals.nbytes) - 1))]
+        lib_sets = [((i.long() + t * torch.arange(
+            s, device="cuda")[:, None]).reshape(-1) if s > 1 else i.long(),
+            v.reshape(-1, d)) for i, v in sets]
+        bound, bound_by = scatter_bound_ms(ids.reshape(s, -1), d, 2, r=t)
 
         def kernel():
             cscatter(table, ids, vals)
 
         def lib():
-            table.index_add_(0, lids, vals)
+            flat.index_add_(0, *lib_sets[0])
         row = {"kind": "add", "what": "moe_combine", "arch": MOE,
-               "dtype": "bfloat16", "shape": [t, d], "n": t * k,
+               "dtype": "bfloat16", "shape": list(table.shape), "n": t * k,
                "ms": graph_ms(kernel), "call_ms": time_ms(kernel),
                "plain_ms": time_ms(lambda: cscatter_plain_(table, ids, vals)),
                "library_ms": graph_ms(lib), "library_call_ms": time_ms(lib),
+               "cold_ms": graph_ms(rotating(
+                   lambda i, v: cscatter(table, i, v), sets)),
+               "library_cold_ms": graph_ms(rotating(
+                   lambda i, v: flat.index_add_(0, i, v), lib_sets)),
                "bound_ms": bound, "bound_by": bound_by}
-        print(f"time cscatter add bf16 [{t},{d}] N={t * k} ({MOE} token "
-              f"combine): kernel {row['ms']:.6f} ms (a call "
-              f"{row['call_ms']:.6f} ms), plain {row['plain_ms']:.6f} ms, "
-              f"index_add_ {row['library_ms']:.6f} ms (a call "
-              f"{row['library_call_ms']:.6f} ms), bound {bound:.6f} ms "
-              f"({bound_by})")
+        print(f"time cscatter add bf16 {row['shape']} N={t * k} a shard "
+              f"({MOE} token combine): kernel {row['ms']:.6f} ms [cold "
+              f"{row['cold_ms']:.6f}] (a call {row['call_ms']:.6f} ms), "
+              f"plain {row['plain_ms']:.6f} ms, index_add_ "
+              f"{row['library_ms']:.6f} ms [cold {row['library_cold_ms']:.6f}]"
+              f" (a call {row['library_call_ms']:.6f} ms), bound "
+              f"{bound:.6f} ms ({bound_by})")
         out.append(row)
-        del table, vals
+        del table, flat, ids, vals, sets, lib_sets
     return out
 
 
@@ -3600,11 +4099,14 @@ def embedding_kernel_times() -> list[dict]:
     return out
 
 
-def _train_argv(variant: str, n: int, ckpt_dir: str) -> list[str]:
+def _train_argv(variant: str, n: int, ckpt_dir: str,
+                layers: int | None = None) -> list[str]:
     argv = ["--arch", ARCH, "--steps", str(n), "--batch", str(TRAIN_BATCH),
             "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR), "--warmup",
             str(TRAIN_WARMUP), "--seed", str(SEED), "--ckpt-dir", ckpt_dir,
             "--ckpt-every", str(1 << 30), "--device", "cuda"]
+    if layers is not None:
+        argv += ["--layers", str(layers)]
     if variant == "eager":
         return argv + ["--merge-topology", TRAIN_PLAN]
     argv += ["--merge-topology", TRAIN_DEFER_PLAN, "--merge-defer",
@@ -3814,9 +4316,10 @@ def _logits_backward_check(table, labels: np.ndarray) -> dict:
 
 
 def phase_train(card: str) -> dict:
-    """Training of qwen1.5-0.5b at full width and depth (bf16, tied,
-    remat "dots", random weights from the seed) on the pipeline's Zipf
-    stream, batch TRAIN_BATCH x TRAIN_SEQ over TRAIN_DP stacked ranks,
+    """Training of qwen1.5-0.5b at full width, TRAIN_LAYERS of its 24
+    layers (bf16, tied, remat "dots", random weights from the seed) on the
+    pipeline's Zipf stream, batch TRAIN_BATCH x TRAIN_SEQ over TRAIN_DP
+    stacked ranks,
     AdamW under warmup_cosine(TRAIN_LR, TRAIN_WARMUP, steps), through
     ``launch/train.py``'s ``build`` (the CLI's flags): an eager run
     (TRAIN_PLAN, 4 steps), a deferred one (TRAIN_DEFER_PLAN, K =
@@ -3854,8 +4357,10 @@ def phase_train(card: str) -> dict:
     try:
         for variant, n in (("eager", 4), ("deferred", 9),
                            ("overlapped", 9)):
-            t = train.build(train.parse_args(_train_argv(variant, n, tmp)))
-            require(t.dp == TRAIN_DP and t.cfg.remat == "dots",
+            t = train.build(train.parse_args(_train_argv(variant, n, tmp,
+                                                         TRAIN_LAYERS)))
+            require(t.dp == TRAIN_DP and t.cfg.remat == "dots"
+                    and t.cfg.n_layers == TRAIN_LAYERS,
                     f"train {variant}: {t.dp} ranks, remat {t.cfg.remat}")
             state, t.state = t.state, None      # the run's own reference
             batches = [batch_at(t.dcfg, i) for i in range(n)]
@@ -4109,7 +4614,7 @@ def train_crash_child(root: str) -> None:
     from repro_torch.runtime import DriverConfig, TrainDriver
 
     t = train.build(train.parse_args(_train_argv("deferred", RESUME_STEPS,
-                                                 root)))
+                                                 root, ELASTIC_LAYERS)))
     state, t.state = t.state, None
     torch.cuda.reset_peak_memory_stats()
 
@@ -4209,7 +4714,8 @@ def _settled_check(raw: dict, saved: dict, m: int) -> dict:
 
 
 def _elastic_lm(card: str, work: str) -> dict:
-    """(b) qwen1.5-0.5b at full width and depth, killed and resumed twice.
+    """(b) qwen1.5-0.5b at full width (ELASTIC_LAYERS layers), killed and
+    resumed twice.
     See :func:`phase_elastic`."""
     import torch
     from torch.utils import _pytree as pytree
@@ -4224,7 +4730,8 @@ def _elastic_lm(card: str, work: str) -> dict:
 
     out = {}
     root = os.path.join(work, "ckpt")
-    p = get_config(ARCH).n_params()
+    p = dataclasses.replace(get_config(ARCH),
+                            n_layers=ELASTIC_LAYERS).n_params()
     need = p * (2 + 8 + 2 * TRAIN_DP * 2)      # bf16 params, f32 mu and nu,
     free = shutil.disk_usage(work).free          # two [dp, ...] bf16 levels
     out["disk_free_before_save"] = free
@@ -4275,7 +4782,7 @@ def _elastic_lm(card: str, work: str) -> dict:
     cscatter.launches = 0
     # 2. verbatim, under the same flags
     t = train.build(train.parse_args(_train_argv("deferred", RESUME_STEPS,
-                                                 root)))
+                                                 root, ELASTIC_LAYERS)))
     state, start, report, ms, peaks = _resume(t, root)
     differ = [k for k, v in _flatten_with_paths(state)
               if not torch.equal(v, torch.as_tensor(raw[k]).to(v.device))]
@@ -4307,7 +4814,7 @@ def _elastic_lm(card: str, work: str) -> dict:
     torch.cuda.empty_cache()
 
     # 3. resolved: a pod left (4 ranks) and K was re-solved
-    argv = _train_argv("deferred", RESUME_STEPS, root)
+    argv = _train_argv("deferred", RESUME_STEPS, root, ELASTIC_LAYERS)
     argv[argv.index("--merge-topology") + 1] = RESUME_PLAN
     argv[argv.index("--merge-defer") + 1] = str(RESUME_K)
     t = train.build(train.parse_args(argv))
@@ -4410,9 +4917,10 @@ def _elastic_lm(card: str, work: str) -> dict:
 def phase_elastic(card: str) -> dict:
     """Elastic restore and the chaos harness on the card: (a) the integer
     toy's sweeps and resolves (:func:`_elastic_toy`); (b) the deferred
-    qwen1.5-0.5b run of ``phase_train`` at full width and depth killed by a
-    real SIGKILL in a child process (:func:`train_crash_child`) after its
-    checkpoint of step RESUME_CKPT, then resumed through
+    qwen1.5-0.5b run of ``phase_train`` at full width, ELASTIC_LAYERS of
+    its 24 layers, killed by a real SIGKILL in a child process
+    (:func:`train_crash_child`) after its checkpoint of step RESUME_CKPT,
+    then resumed through
     ``TrainDriver.resume`` on the same topology (verbatim: every leaf bit
     for bit, then flushed: the oracle) and on RESUME_PLAN with K =
     RESUME_K (resolved: the outstanding two steps settled into the params
@@ -4517,6 +5025,7 @@ def main() -> None:
         "launches_encdec_train": families["encdec_train"][
             "cscatter_launches"],
         "launches_moe": families["moe"]["launches"]["cscatter"],
+        "launches_moe_train": families["moe_train"]["launches"]["cscatter"],
         "launches_vlm": families["vlm"]["launches"]["cscatter"],
         "launches_kimi": families["kimi"]["launches"]["cscatter"],
         "moe_combine": [t for t in times if t.get("what") == "moe_combine"],
@@ -4547,6 +5056,7 @@ def main() -> None:
                               for k in ("hymba", "gelu")},
         "launches_encdec": families["encdec"]["launches"][name],
         "launches_moe": families["moe"]["launches"][name],
+        "launches_moe_train": families["moe_train"]["launches"][name],
         "launches_vlm": families["vlm"]["launches"][name],
         "launches_kimi": families["kimi"]["launches"][name],
         "launches_windowed_families": families["hymba"]["launches"][

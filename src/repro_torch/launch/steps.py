@@ -17,7 +17,13 @@ the ``dp`` ranks are the leading dim of a stack on one device
   each gradient leaf is freed once merged: at qwen1.5-0.5b's width over 8
   ranks the whole tree's took the card past 80 GB);
 * the loss is the mean over ranks (``lax.pmean``), the optimizer consumes
-  rank 0's copy of the merged gradient (every rank holds the same).
+  rank 0's copy of the merged gradient (every rank holds the same);
+* with ``donate=True`` the optimizer updates the parameters and its moments
+  in place (``Optimizer.step(..., donate=True)``), the counterpart of a jitted
+  step that donates its state: the step consumes its input ``state``, and
+  the caller must not read it again (``runtime/driver.py`` then rewinds a
+  poisoned step to its last checkpoint). The values are the functional
+  step's, bit for bit.
 
 :func:`make_train_step` without a topology is the implicit step (one rank,
 the whole batch). The mesh rules of the JAX module (``lowering_rules``,
@@ -144,9 +150,11 @@ def make_train_step(model, cfg, optimizer, num_microbatches: int = 1, *,
                     dp: Optional[int] = None,
                     merge_topology: Optional[Topology] = None,
                     merge_compress: bool = False,
-                    defer_schedule: Optional[DeferSchedule] = None):
+                    defer_schedule: Optional[DeferSchedule] = None,
+                    donate: bool = False):
     """Build the train step ``step(state, batch) -> (state, metrics)`` over
-    ``state = {"params", "opt"}`` and a numpy or tensor batch.
+    ``state = {"params", "opt"}`` and a numpy or tensor batch. The step's
+    ``donates`` attribute is ``donate``: whether it consumes its input state.
 
     Default: the implicit step, one rank over the whole batch. With
     ``merge_topology`` (a two-level ``MergeTopology``, with ``dp``, or an
@@ -169,10 +177,11 @@ def make_train_step(model, cfg, optimizer, num_microbatches: int = 1, *,
             params = state["params"]
             loss, grads = grads_of(params, to_device(batch,
                                                       _device_of(params)))
-            params, opt_state, stats = optimizer.step(params, grads,
-                                                      state["opt"])
+            params, opt_state, stats = optimizer.step(
+                params, grads, state["opt"], donate=donate)
             return ({"params": params, "opt": opt_state},
                     {"loss": loss, **stats})
+        train_step.donates = donate
         return train_step
 
     has_deferred = getattr(merge_topology, "has_deferred", False)
@@ -194,7 +203,7 @@ def make_train_step(model, cfg, optimizer, num_microbatches: int = 1, *,
     if defer_schedule is not None:
         return _make_deferred_train_step(
             grads_of, optimizer, merge_topology, merge_compress,
-            defer_schedule, n_ranks, grad_merge_fn)
+            defer_schedule, n_ranks, grad_merge_fn, donate)
 
     def train_step(state, batch):
         params = state["params"]
@@ -208,9 +217,11 @@ def make_train_step(model, cfg, optimizer, num_microbatches: int = 1, *,
                     compress=merge_compress)), stack, consume=True)
         with torch.profiler.record_function("train.optimizer"):
             params, opt_state, stats = optimizer.step(
-                params, pytree.tree_unflatten(merged, spec), state["opt"])
+                params, pytree.tree_unflatten(merged, spec), state["opt"],
+                donate=donate)
         return {"params": params, "opt": opt_state}, {"loss": loss, **stats}
 
+    train_step.donates = donate
     return train_step
 
 
@@ -241,7 +252,7 @@ class DeferredTrainStep:
                  deferred_names: tuple, land_variants=None, flush_fn=None,
                  topology=None, merge_fn=None, merge_compress: bool = False,
                  optimizer=None, strides: Optional[tuple] = None,
-                 settle_mode: Optional[str] = None):
+                 settle_mode: Optional[str] = None, donates: bool = False):
         self.variants = variants
         self.land_variants = land_variants
         self.schedule = schedule
@@ -255,6 +266,7 @@ class DeferredTrainStep:
         self.optimizer = optimizer
         self.strides = strides
         self._settle_mode = settle_mode
+        self.donates = donates
 
     @property
     def overlap(self) -> bool:
@@ -329,7 +341,8 @@ class DeferredTrainStep:
 
 def _make_deferred_train_step(grads_of, optimizer, plan, merge_compress: bool,
                               schedule: DeferSchedule, dp: int,
-                              grad_merge_fn) -> DeferredTrainStep:
+                              grad_merge_fn, donate: bool = False
+                              ) -> DeferredTrainStep:
     """The merge-on-evict train step family over ``defer_cascade``.
 
     Gradients are contributions to an ADD merge, so the pending cascade IS
@@ -380,7 +393,7 @@ def _make_deferred_train_step(grads_of, optimizer, plan, merge_compress: bool,
         """AdamW on rank 0's copy of a settled cycle, scaled by ``s``."""
         grads = pytree.tree_map(
             lambda g: g * torch.tensor(s, dtype=g.dtype), settled)
-        return optimizer.step(params, grads, opt_state)
+        return optimizer.step(params, grads, opt_state, donate=donate)
 
     def _cascade(stack, d, due, land, axis):
         """One step's cascade over the gradient stack (consumed), leaf by
@@ -504,4 +517,4 @@ def _make_deferred_train_step(grads_of, optimizer, plan, merge_compress: bool,
                              merge_compress=merge_compress,
                              optimizer=optimizer,
                              strides=tuple(s.stride for s in deferred),
-                             settle_mode=settle_mode)
+                             settle_mode=settle_mode, donates=donate)

@@ -3,17 +3,32 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1-5-0-5b \\
         --steps 200 --batch 16 --seq 512 --ckpt-dir ckpt/run1 \\
         [--merge-topology chip:2,host:2:defer,pod:2:defer --merge-defer 4 \\
-         --merge-overlap] [--device cpu --smoke]
+         --merge-overlap] [--device cpu --smoke] [--layers N] \\
+        [--model-ranks N] [--donate]
 
 The counterpart of the JAX package's ``repro/launch/train.py``, with its
 flags and its output lines, on one device (``--device``, the card unless
 the caller asks for the CPU). The data-parallel ranks of a merge plan live
 on that device as a leading dim (``launch/steps.py``); their count is the
 plan's ``num_ranks``, or 1. Weights are random from ``--seed``; the data is
-the pipeline's synthetic Zipf stream. Fault tolerance comes from
-``runtime.TrainDriver``: periodic checkpoints, SIGTERM save-and-exit, NaN
-skip-batch, straggler logging. Restart the same command and it resumes
-from the last committed checkpoint through ``checkpoint.restore``.
+the pipeline's synthetic Zipf stream. ``--layers`` cuts the config's depth
+(a full-width model that does not fit the card whole).
+
+The JAX CLI's mesh sets the size of the ``"model"`` axis that an
+expert-parallel MoE config (``moe_impl="ep"``) runs its experts over:
+``--mesh host`` has ``model=1``, ``--mesh prod`` ``model=16``. One card
+has no mesh, so ``--model-ranks N`` stands for that axis: the MoE layers
+run ``models/moe_ep.apply_ep`` over N model ranks stacked on the device
+(default 1 for an ``"ep"`` config, as the host mesh; refused where N does
+not split the experts). ``--donate`` makes the optimizer update the
+parameters and its moments in place, the counterpart of XLA's buffer
+donation, so that no second copy of the state is alive at the optimizer
+step; the driver then rewinds a poisoned step to its last checkpoint.
+
+Fault tolerance comes from ``runtime.TrainDriver``: periodic checkpoints,
+SIGTERM save-and-exit, NaN skip-batch, straggler logging. Restart the same
+command and it resumes from the last committed checkpoint through
+``checkpoint.restore``.
 
 ``--merge-defer auto`` solves the deferred levels' commit intervals from
 what this device measures, where the JAX CLI walks the compiled step's HLO
@@ -126,6 +141,20 @@ def solve_defer_for_cli(merge_defer: str, trainer: "Trainer",
         bandwidths=inputs["rates"])
 
 
+def model_ranks_for(cfg, ranks: Optional[int]) -> Optional[int]:
+    """``--model-ranks``: the size of the model axis ``cfg``'s MoE layers
+    run over, 1 for an ``"ep"`` config when not given (the JAX host
+    mesh's), ``None`` (no model axis) for any other config."""
+    if ranks is None:
+        return 1 if cfg.moe_impl == "ep" else None
+    if cfg.family != "moe":
+        raise SystemExit(f"--model-ranks: {cfg.name} has no MoE layers")
+    if ranks < 1 or cfg.n_experts % ranks:
+        raise SystemExit(f"--model-ranks {ranks} does not split "
+                         f"{cfg.name}'s {cfg.n_experts} experts")
+    return ranks
+
+
 @dataclasses.dataclass
 class Trainer:
     """What the flags build: the model, the step, the initial state and
@@ -190,6 +219,16 @@ def parse_args(argv=None):
                    help="int8-compress the outermost-level gradient "
                         "exchange (requires --merge-group-size or "
                         "--merge-topology)")
+    p.add_argument("--layers", type=int, default=None,
+                   help="cut the config's depth to this many layers")
+    p.add_argument("--model-ranks", type=int, default=None,
+                   help="model ranks an expert-parallel MoE config's layers "
+                        "run over, stacked on the device (the JAX mesh's "
+                        "'model' axis; default 1 for an 'ep' config)")
+    p.add_argument("--donate", action="store_true",
+                   help="update the parameters and the optimizer's moments "
+                        "in place (buffer donation); a poisoned step then "
+                        "rewinds to the last checkpoint")
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument("--warmup", type=int, default=20)
     p.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
@@ -208,6 +247,13 @@ def build(args) -> Trainer:
     device = resolve_device(args.device)
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch))
+    if args.layers is not None:
+        if not cfg.first_dense_layers < args.layers <= cfg.n_layers:
+            raise SystemExit(f"--layers {args.layers}: {cfg.name} has "
+                             f"{cfg.n_layers} layers, "
+                             f"{cfg.first_dense_layers} of them dense")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    model_ranks = model_ranks_for(cfg, args.model_ranks)
     shape_cfg = ShapeConfig("cli", args.seq, args.batch, "train")
     optimizer = make_optimizer(
         cfg, warmup_cosine(args.lr, args.warmup, args.steps))
@@ -262,7 +308,8 @@ def build(args) -> Trainer:
             "per commit on the K-step mean gradient), or drop the "
             ":defer flags for an eager merge every step")
 
-    model = build_model(cfg, device=device, seed=args.seed)
+    model = build_model(cfg, device=device, seed=args.seed,
+                        model_ranks=model_ranks)
     params = model.params()
     merge_fn = int8_compressed_add() if args.merge_compress else ADD
     trainer = Trainer(
@@ -282,7 +329,7 @@ def build(args) -> Trainer:
     trainer.step_fn = steps.make_train_step(
         model, cfg, optimizer, args.microbatches, dp=dp,
         merge_topology=topology, merge_compress=args.merge_compress,
-        defer_schedule=trainer.schedule)
+        defer_schedule=trainer.schedule, donate=args.donate)
     if trainer.schedule is not None:
         trainer.state["defer"] = trainer.step_fn.init_defer_state(params)
     return trainer
@@ -318,6 +365,7 @@ def main(argv=None) -> TrainResult:
         out = trainer.step_fn(s, b)
         sync_device(device)        # the driver's dt is the step's own time
         return out
+    step_fn.donates = args.donate
 
     from repro_torch.runtime import DriverConfig, TrainDriver
     driver = TrainDriver(

@@ -12,9 +12,12 @@ an MLP (SwiGLU, or the two-matrix GELU MLP for ``cfg.mlp == "gelu"``) or,
 in the MoE family, ``models/moe.apply`` (routing, the capacity dispatch,
 the grouped experts and the token combine through the CUDA ``cscatter``),
 after ``cfg.first_dense_layers`` unrolled dense blocks of width ``cfg.d_ff
-or 4 * cfg.d_ff_expert`` (kimi-k2). One card has no mesh, so the MoE
-layer is ``moe.apply`` as in JAX without one; ``models/moe_ep`` is the
-stacked counterpart of the expert-parallel form. The VLM is the dense
+or 4 * cfg.d_ff_expert`` (kimi-k2). One card has no mesh: ``model_ranks``
+stands for the size of the mesh's ``"model"`` axis, and the MoE layer is
+chosen as JAX's ``_moe`` chooses it (:meth:`DecoderLM._moe`):
+``models/moe_ep.apply_ep`` over that many stacked model ranks for a
+``moe_impl="ep"`` config whose experts they split, ``moe.apply`` otherwise
+and without ranks (``None``, JAX without a mesh). The VLM is the dense
 backbone fed precomputed patch and text embeddings (``embeds``) in
 ``loss`` and ``prefill``, cast to the parameters' dtype. Attention goes
 through the port's kernels (``models/attention.py``); ``impl="plain"``
@@ -33,10 +36,13 @@ Training is functional, as in the JAX package: :meth:`DecoderLM.params`
 hands out the parameter tree (nested dicts of tensors sharing the module's
 storage), and :meth:`DecoderLM.loss` takes a tree, so a train step
 differentiates whatever tree it passes (``core/grad_merge.value_and_grad``)
-and the optimizer returns new ones. The train path embeds through
-``models/embedding.embed`` (its backward is the CUDA ``cscatter``),
-attends through the plain ``attention.attend_full``, adds the router's aux
-and z losses of the MoE blocks, and follows ``cfg.remat``: ``"none"``,
+and the optimizer returns new ones; a donating step
+(``make_train_step(..., donate=True)``) writes the tree in place, and with
+it the module's own parameters, which share its storage. The train path
+embeds through ``models/embedding.embed`` (its backward is the CUDA
+``cscatter``), attends through the plain ``attention.attend_full``, adds
+the router's aux and z losses of the MoE blocks, and follows
+``cfg.remat``: ``"none"``,
 ``"full"`` (``torch.utils.checkpoint`` of each block) or ``"dots"``
 (selective checkpointing that saves the outputs of the products without
 batch dims, ``aten.mm``, and recomputes the rest, as JAX's
@@ -55,7 +61,7 @@ from torch import nn as tnn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import attention as attn
-from repro_torch.models import moe
+from repro_torch.models import moe, moe_ep
 from repro_torch.models import module as nn
 from repro_torch.models.embedding import embed
 from repro_torch.models.mlp import (gelu_mlp, gelu_mlp_init, swiglu,
@@ -201,7 +207,7 @@ FAMILIES = ("dense", "moe", "vlm")
 
 class DecoderLM(tnn.Module):
     def __init__(self, cfg, *, device="cuda", seed: int = 0,
-                 impl: str = "kernel"):
+                 impl: str = "kernel", model_ranks: int | None = None):
         super().__init__()
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
@@ -214,6 +220,7 @@ class DecoderLM(tnn.Module):
         self.is_moe = cfg.family == "moe"
         self.embeds_input = cfg.family == "vlm"
         self.impl = impl
+        self.model_ranks = model_ranks
         gen = torch.Generator(device=device).manual_seed(seed)
         dt = cfg.param_dtype
         hd = cfg.resolved_head_dim
@@ -255,12 +262,22 @@ class DecoderLM(tnn.Module):
     def _ffn(self, p, x: Tensor) -> Tensor:
         return (gelu_mlp if self.cfg.mlp == "gelu" else swiglu)(p, x)
 
+    def _moe(self, p, x: Tensor) -> tuple[Tensor, dict]:
+        """The MoE layer -> (out, metrics), chosen by JAX's condition: the
+        expert-parallel form over ``model_ranks`` stacked model ranks for
+        an ``"ep"`` config whose experts they split, else ``moe.apply``."""
+        cfg, ranks = self.cfg, self.model_ranks
+        if (ranks is not None and cfg.moe_impl == "ep"
+                and cfg.n_experts % ranks == 0):
+            return moe_ep.apply_ep(p, x, cfg.top_k, cfg.capacity_factor,
+                                   ranks)
+        return moe.apply(p, x, cfg.top_k, cfg.capacity_factor)
+
     def _serve_ffn(self, p, x: Tensor) -> Tensor:
         """A block's feed-forward layer at serving: the MoE layer (its
         metrics dropped, as JAX drops them), or the MLP."""
         if "moe" in p:
-            cfg = self.cfg
-            return moe.apply(p["moe"], x, cfg.top_k, cfg.capacity_factor)[0]
+            return self._moe(p["moe"], x)[0]
         return self._ffn(p["ffn"], x)
 
     @property
@@ -345,8 +362,7 @@ class DecoderLM(tnn.Module):
         h = h + a
         x = nn.rmsnorm(p["ln2"], h)
         if "moe" in p:
-            f, metrics = moe.apply(p["moe"], x, cfg.top_k,
-                                   cfg.capacity_factor)
+            f, metrics = self._moe(p["moe"], x)
         else:
             f, metrics = self._ffn(p["ffn"], x), {}
         return h + f, metrics

@@ -10,14 +10,19 @@ its functional API over dicts of tensors::
 Moments are f32. A bf16 parameter is updated in f32 and cast back. ``step``
 returns new tensors and leaves its arguments as they were, so a caller may
 drop a poisoned result (the train driver's NaN skip) and keep the old
-state. The step counter is a 0-dim int32 tensor on the CPU, as the
-schedule's learning rate is.
+state. ``step(..., donate=True)`` is the counterpart of a jitted step with
+donated buffers: it updates the parameters and the moments in place, leaf
+by leaf, and scales the gradients in place for the clip, so that no second
+copy of the state is alive. It runs the same operations in the same order
+as the functional form (the same bits); the caller must not read its
+arguments again, as with a donated argument. The step counter is a 0-dim
+int32 tensor on the CPU, as the schedule's learning rate is.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 from torch.utils import _pytree as pytree
@@ -34,15 +39,34 @@ class OptState(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable[[PyTree], OptState]
-    step: Callable[[PyTree, PyTree, OptState], tuple[PyTree, OptState, dict]]
+    # step(params, grads, state, donate=False) -> (params, state, stats)
+    step: Callable[..., tuple[PyTree, OptState, dict]]
+
+
+def _into(x: torch.Tensor, donate: bool) -> Optional[torch.Tensor]:
+    """The ``out=`` of an update of ``x``: ``x`` itself when donated, else
+    a new tensor."""
+    return x if donate else None
+
+
+def _write(p: torch.Tensor, new: torch.Tensor, donate: bool) -> torch.Tensor:
+    """The updated parameter in ``p``'s dtype: written into ``p`` when
+    donated (the same rounding as ``.to``), else a new tensor."""
+    return p.copy_(new) if donate else new.to(p.dtype)
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: PyTree, max_norm: float
+def clip_by_global_norm(grads: PyTree, max_norm: float, donate: bool = False
                         ) -> tuple[PyTree, torch.Tensor]:
+    """``grads`` scaled to a global norm of at most ``max_norm`` (in place
+    when ``donate``) -> (grads, the norm before the clip)."""
     leaves = pytree.tree_leaves(grads)
     gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
+    if donate:
+        for g in leaves:
+            torch.mul(g, scale, out=g)
+        return grads, gn
     return pytree.tree_map(lambda g: (g * scale).to(g.dtype), grads), gn
 
 
@@ -56,20 +80,25 @@ def adamw(schedule, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
                         nu=pytree.tree_map(zeros, params))
 
     @torch.no_grad()
-    def step(params, grads, state):
-        grads, gn = clip_by_global_norm(grads, max_grad_norm)
+    def step(params, grads, state, donate=False):
+        grads, gn = clip_by_global_norm(grads, max_grad_norm, donate)
         t = state.step + 1
         lr = schedule(t)
         bc1 = 1 - b1 ** t.to(torch.float32)
         bc2 = 1 - b2 ** t.to(torch.float32)
 
         def upd(p, g, mu, nu):
+            # mu = b1 mu + (1 - b1) g;  nu = b2 nu + (1 - b2) g g;
+            # p - lr ((mu / bc1) / (sqrt(nu / bc2) + eps) + wd p)
             g = g.float()
-            mu = b1 * mu + (1 - b1) * g
-            nu = b2 * nu + (1 - b2) * g * g
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
-            u = u + weight_decay * p.float()
-            return (p.float() - lr * u).to(p.dtype), mu, nu
+            mu = torch.mul(mu, b1, out=_into(mu, donate)).add_(
+                torch.mul(g, 1 - b1))
+            nu = torch.mul(nu, b2, out=_into(nu, donate)).add_(
+                torch.mul(g, 1 - b2).mul_(g))
+            u = torch.div(mu, bc1).div_(torch.div(nu, bc2).sqrt_().add_(eps))
+            u.add_(torch.mul(p.float(), weight_decay))
+            return (_write(p, torch.sub(p.float(), u.mul_(lr), out=u),
+                           donate), mu, nu)
 
         leaves_p, spec = pytree.tree_flatten(params)
         out = [upd(*args) for args in zip(
@@ -104,31 +133,37 @@ def adafactor(schedule, decay=0.8, eps=1e-30, weight_decay=0.0,
                                                  spec))
 
     @torch.no_grad()
-    def step(params, grads, state):
-        grads, gn = clip_by_global_norm(grads, max_grad_norm)
+    def step(params, grads, state, donate=False):
+        grads, gn = clip_by_global_norm(grads, max_grad_norm, donate)
         t = state.step + 1
         lr = schedule(t)
         beta = 1.0 - t.to(torch.float32) ** (-decay)
 
+        def ema(x, new):
+            """beta x + (1 - beta) new, into ``x`` when donated."""
+            return torch.mul(x, beta, out=_into(x, donate)).add_(
+                torch.mul(new, 1 - beta))
+
         def upd(p, g, nu):
             g = g.float()
-            g2 = g * g + eps
+            g2 = torch.mul(g, g).add_(eps)
             if "full" in nu:
-                nu_new = {"full": beta * nu["full"] + (1 - beta) * g2}
-                u = g / (torch.sqrt(nu_new["full"]) + 1e-12)
+                nu_new = {"full": ema(nu["full"], g2)}
+                u = torch.div(g, torch.sqrt(nu_new["full"]).add_(1e-12))
             else:
-                row = beta * nu["row"] + (1 - beta) * g2.mean(-1)
-                col = beta * nu["col"] + (1 - beta) * g2.mean(-2)
+                row = ema(nu["row"], g2.mean(-1))
+                col = ema(nu["col"], g2.mean(-2))
                 nu_new = {"row": row, "col": col}
                 r = row / torch.clamp(row.mean(-1, keepdim=True), min=eps)
                 v = r[..., None] * col[..., None, :]
-                u = g / (torch.sqrt(v) + 1e-12)
+                u = torch.div(g, v.sqrt_().add_(1e-12))
             # update clipping (RMS <= 1), as Adafactor
             rms = torch.sqrt(torch.mean(u * u) + 1e-12)
-            u = u / torch.clamp(rms, min=1.0)
+            u.div_(torch.clamp(rms, min=1.0))
             if weight_decay:
-                u = u + weight_decay * p.float()
-            return (p.float() - lr * u).to(p.dtype), nu_new
+                u.add_(torch.mul(p.float(), weight_decay))
+            return (_write(p, torch.sub(p.float(), u.mul_(lr), out=u),
+                           donate), nu_new)
 
         leaves_p, spec = pytree.tree_flatten(params)
         leaves_nu = pytree.tree_leaves(state.nu, is_leaf=_is_moment)

@@ -48,7 +48,10 @@ class DriverConfig:
     max_skipped_batches: int = 16
     # Rewind to the last checkpoint on a poisoned step. Off by default:
     # the port's steps return new tensors and leave their input state as
-    # it was, so discarding the poisoned new_state is sufficient.
+    # it was, so discarding the poisoned new_state is sufficient. A step
+    # that donates its state (``step_fn.donates``, make_train_step(...,
+    # donate=True)) has already overwritten it, so the driver turns this
+    # on for such a step.
     restore_on_nan: bool = False
     log_path: Optional[str] = None
     # Durability policy for deferred-commit state (state["defer"], needs a
@@ -69,11 +72,17 @@ class DriverConfig:
 
 class TrainDriver:
     """step_fn(state, batch) -> (state, metrics); state is a pytree that
-    includes everything needed to resume (params, opt state, step count)."""
+    includes everything needed to resume (params, opt state, step count).
+    A ``step_fn`` whose ``donates`` attribute is true consumes its input
+    state: the driver then rewinds a poisoned step to the last checkpoint
+    (``restore_on_nan``), and raises if there is none."""
 
     def __init__(self, cfg: DriverConfig, step_fn: Callable,
                  batch_fn: Callable[[int], Any],
                  defer_step=None, optimizer=None):
+        self.donates = bool(getattr(step_fn, "donates", False))
+        if self.donates and not cfg.restore_on_nan:
+            cfg = dataclasses.replace(cfg, restore_on_nan=True)
         self.cfg = cfg
         self.step_fn = step_fn
         self.batch_fn = batch_fn
@@ -236,6 +245,10 @@ class TrainDriver:
                                "skipped_total": skipped})
                     if skipped > cfg.max_skipped_batches:
                         raise RuntimeError("too many poisoned batches")
+                    if self.donates and last_good is None:
+                        raise RuntimeError(
+                            f"step {step} poisoned a donated state and this "
+                            f"run has saved no checkpoint to rewind to")
                     if cfg.restore_on_nan and last_good is not None:
                         state, _ = ckpt.restore(cfg.ckpt_dir, state,
                                                 step=last_good)

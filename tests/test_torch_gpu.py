@@ -1144,6 +1144,99 @@ def test_moe_kernel_path_equals_its_plain_path_on_the_card(cuda, arch):
 
 
 # ---------------------------------------------------------------------------
+# MoE training: the expert-parallel train step and the donating optimizer
+# ---------------------------------------------------------------------------
+
+
+def _moe_train_cfg(arch, dtype="float32"):
+    """``arch``'s smoke config with ``moe_impl="ep"`` and the full config's
+    optimizer (the smoke configs are "gshard" with AdamW)."""
+    from repro_torch.configs.base import get_config, get_smoke_config
+    return dataclasses.replace(get_smoke_config(arch), dtype=dtype,
+                               moe_impl="ep",
+                               optimizer=get_config(arch).optimizer)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b", "kimi-k2-1t"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_donated_optimizer_step_equals_the_functional_one_on_the_card(
+        cuda, arch, dtype):
+    """AdamW (qwen3-moe) and Adafactor (kimi-k2) over a smoke tree on the
+    card, 3 steps on seeded gradients: the donating step's parameters and
+    moments equal the functional step's bit for bit, and are the tensors
+    it was given."""
+    from torch.utils import _pytree as pytree
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import constant, make_optimizer
+    cfg = _moe_train_cfg(arch, dtype)
+    opt = make_optimizer(cfg, constant(1e-3))
+    params = build_model(cfg, device=cuda, seed=0).params()
+    g = torch.Generator(device=cuda).manual_seed(1)
+
+    def clone(tree):
+        return pytree.tree_map(lambda x: x.clone() if isinstance(
+            x, torch.Tensor) else x, tree)
+    func = (params, opt.init(params))
+    don = clone(func)
+    before = [x for x in pytree.tree_leaves(don)
+              if isinstance(x, torch.Tensor) and x.dim()]
+    for _ in range(3):
+        grads = pytree.tree_map(lambda p: (torch.randn(
+            p.shape, device=cuda, generator=g) * 30).to(p.dtype), params)
+        p, o, _ = opt.step(func[0], clone(grads), func[1])
+        func = (p, o)
+        p, o, _ = opt.step(don[0], grads, don[1], donate=True)
+        don = (p, o)
+    got = [x for x in pytree.tree_leaves(don)
+           if isinstance(x, torch.Tensor) and x.dim()]
+    want = [x for x in pytree.tree_leaves(func)
+            if isinstance(x, torch.Tensor) and x.dim()]
+    assert len(got) == len(want) == len(before)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(a is b for a, b in zip(got, before))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b", "kimi-k2-1t"])
+def test_ep_train_step_on_the_card_equals_the_cpu(cuda, arch):
+    """Two eager steps over chip:2 with the MoE layers over 2 stacked model
+    ranks, in f32 from the same weights: on the card (the combine and the
+    embedding backward through the CUDA ``cscatter``, its launches as the
+    path predicts) and on the CPU (their plain versions); the losses to
+    1e-5 and the parameters within 1e-5 of 1 + each leaf's largest."""
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.merge_plan import MergePlan
+    from repro_torch.data.pipeline import batch_at, data_config_for
+    from repro_torch.launch import steps
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import constant, make_optimizer
+    cfg = _moe_train_cfg(arch)
+    opt = make_optimizer(cfg, constant(1e-3))
+    dcfg = data_config_for(cfg, ShapeConfig("t", 32, 4, "train"), seed=0)
+    runs = {}
+    for device in ("cpu", cuda):
+        model = build_model(cfg, device="cpu", seed=0,
+                            model_ranks=2).to(device)
+        step = steps.make_train_step(model, cfg, opt,
+                                     merge_topology=MergePlan.parse("chip:2"))
+        params = model.params()
+        state = {"params": params, "opt": opt.init(params)}
+        cs.cscatter.launches = 0
+        losses = []
+        for i in range(2):
+            state, m = step(state, batch_at(dcfg, i))
+            losses.append(float(m["loss"]))
+        runs[str(device)] = (losses, state["params"], cs.cscatter.launches)
+    (cl, cp, _), (gl, gp, launches) = runs["cpu"], runs[str(cuda)]
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    assert launches == cs.LAUNCHES_PER_CALL * 2 * 2 * (n_moe + 1)
+    np.testing.assert_allclose(gl, cl, rtol=1e-5)
+    for a, b in zip(pytree.tree_leaves(gp), pytree.tree_leaves(cp)):
+        err = float((a.cpu() - b).abs().max())
+        assert err <= 1e-5 * (1 + float(b.abs().max()))
+
+
+# ---------------------------------------------------------------------------
 # the selective scan (hymba-1.5b's SSM), forward and backward
 # ---------------------------------------------------------------------------
 

@@ -110,17 +110,21 @@ def _assert_trees_close(got: dict, want: dict, rtol=TOL, atol_frac=TOL,
 
 
 class Pair:
-    """One smoke model in both packages on the same weights."""
+    """One smoke model in both packages on the same weights: the smoke
+    config with ``dtype``, ``remat`` and any other ``overrides``; the port's
+    MoE layers over ``model_ranks`` stacked model ranks (``DecoderLM``)."""
 
-    def __init__(self, dtype="float32", remat="none", arch=ARCH):
+    def __init__(self, dtype="float32", remat="none", arch=ARCH,
+                 model_ranks=None, **overrides):
         self.jcfg = dataclasses.replace(jbase.get_smoke_config(arch),
-                                        dtype=dtype, remat=remat)
+                                        dtype=dtype, remat=remat, **overrides)
         self.tcfg = dataclasses.replace(tbase.get_smoke_config(arch),
-                                        dtype=dtype, remat=remat)
+                                        dtype=dtype, remat=remat, **overrides)
         self.jmodel = jbuild_model(self.jcfg)
         self.jparams, _ = split_params(self.jmodel.init(jax.random.key(0)))
         self.tmodel = from_jax_params(
-            self.tcfg, jax.tree.map(np.asarray, self.jparams), device="cpu")
+            self.tcfg, jax.tree.map(np.asarray, self.jparams), device="cpu",
+            model_ranks=model_ranks)
         self._jgrads = None
 
     def tparams(self):
