@@ -42,8 +42,9 @@ smoke config) — and:
    launches (``DET_STREAMS``); holds the selective scan (``phase_scan``:
    hymba-1.5b's SSM, a kernel with no Pallas original) against its plain
    version at the prefill shape ``[8, 2048, 3200]`` (forward), one training
-   rank's ``[2, 2048, 3200]`` (forward and backward) and a smoke shape at
-   S = 4, u in f32 and bf16: y and h_T to 1e-5 of their largest
+   rank's ``[2, 2048, 3200]`` (forward and backward), a ragged one (T = 2
+   chunks and 3 steps, D = 100) and a smoke shape at S = 4, u in f32 and
+   bf16: y and h_T to 1e-5 of their largest
    magnitude, every gradient to 1e-4 of its own, two backward calls
    bitwise; times it (warm, cold, a call, plain) beside its bound;
 4. runs the privatized K = 8, sync, partitioned and partitioned+overlap
@@ -141,7 +142,7 @@ smoke config) — and:
    free disk before the save;
 13. (``phase_families``) serves hymba-1.5b at full width (bf16, batch 8,
    prompts of 2048, 64 tokens: 32 ``flash_attention`` launches at prefill,
-   29 with the window of 1024, 32 ``selective_scan`` launches, and a
+   29 with the window of 1024, 32 ``selective_scan`` calls, and a
    ``decode_attention`` call a layer a step over the windowed layers'
    rings and the global layers' caches), held against the same tokens
    teacher-forced through the plain attention and the plain scan; (j)
@@ -149,8 +150,9 @@ smoke config) — and:
    x 2048 over chip:2's 2 stacked ranks, AdamW): 2 eager steps and 5
    deferred ones with K = 2, every loss finite, the first deferred cycle
    equal to AdamW on the mean of its two batches' eager merges, launches
-   of ``cscatter`` (2 x ranks x steps) and of the scan (2 x 32 forwards
-   and 32 backwards a rank and a step) as predicted, one rank's gradient
+   of ``cscatter`` (2 x ranks x steps) and of the scan (2 x 32 forward
+   calls and 32 backward calls a rank and a step, ``LAUNCHES_PER_CALL``
+   launches each) as predicted, one rank's gradient
    through the scan kernels against the plain scan's in f32; ms a step
    by kind, tokens/s, peak memory, the profiler's idle share of an eager
    step; serves xlstm-125m at full width (batch 8, prompts of 256, 257
@@ -348,15 +350,25 @@ HYMBA_TRAIN_K, HYMBA_TRAIN_EAGER, HYMBA_TRAIN_DEFERRED = 2, 2, 5
 HYMBA_SCAN_CALLS = {"forward": 2, "backward": 1}
 # the selective scan held to its plain version: (what, B, T, D, S, u's
 # dtype, backward too): hymba-1.5b's prefill (its 32 calls' shape), one
-# training rank's, and the smoke config's d_inner at S = 4 over a ragged T.
+# training rank's, a ragged one (T = 2 L + 3 for the kernels' chunk L =
+# selective_scan.SEGMENT = 64, a partial CTA of channels), the smoke
+# config's d_inner at S = 4 over a ragged T, and small steps ("small_dt":
+# dt = softplus(normal - 5), about 0.007, as a trained Mamba-style model's
+# 1e-3 to 1e-1) at the training shape and ragged ones. At the init's dt of
+# about 0.8 a chunk's decay product is below 1e-15, so only the small-dt
+# rows hold the carry of the start state over chunks to the tolerance.
 # The plain backward at the training shape takes ~15 GB; at the prefill
 # shape it would take ~60 GB, so the prefill shape is checked forward only.
 SCAN_SHAPES = [("prefill", 8, 2048, 3200, 16, "bfloat16", False),
                ("prefill", 8, 2048, 3200, 16, "float32", False),
                ("train", 2, 2048, 3200, 16, "bfloat16", True),
                ("train", 2, 2048, 3200, 16, "float32", True),
+               ("ragged", 2, 131, 100, 16, "bfloat16", True),
                ("smoke", 2, 300, 128, 4, "float32", True),
-               ("smoke", 2, 300, 128, 4, "bfloat16", True)]
+               ("smoke", 2, 300, 128, 4, "bfloat16", True),
+               ("small_dt", 2, 2048, 3200, 16, "bfloat16", True),
+               ("small_dt", 2, 131, 100, 16, "float32", True),
+               ("small_dt", 2, 300, 128, 4, "bfloat16", True)]
 # y and h_T to 1e-5 of their largest magnitude, every gradient to 1e-4 of
 # its own: two f32 orders of summation over 2048 steps (the kernel's
 # sequential one, the plain version's Hillis-Steele tree and einsum); a
@@ -1761,10 +1773,11 @@ def phase_attention_times() -> dict:
 
 def _scan_inputs(what: str, b: int, t: int, d: int, s: int, u_dtype: str,
                  seed: int) -> list:
-    """The scan's inputs on the card from the seed: dt = softplus(normal),
-    u normal in ``u_dtype``, b and c normal, a = -(1..S) as the model's
-    init, h0 zero as the model passes it (normal for the smoke shape, so
-    that its gradient is checked)."""
+    """The scan's inputs on the card from the seed: dt = softplus(normal)
+    (softplus(normal - 5) for "small_dt"), u normal in ``u_dtype``, b and c
+    normal, a = -(1..S) as the model's init, h0 zero as the model passes it
+    for the prefill and train rows (normal for the others, so that its
+    gradient and its carry over chunks are checked)."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -1772,30 +1785,31 @@ def _scan_inputs(what: str, b: int, t: int, d: int, s: int, u_dtype: str,
         return torch.randn(shape, generator=g, device="cuda")
     a = -torch.arange(1, s + 1, dtype=torch.float32,
                       device="cuda").repeat(d, 1)
-    h0 = f(b, d, s) if what == "smoke" else torch.zeros((b, d, s),
-                                                        device="cuda")
-    return [torch.nn.functional.softplus(f(b, t, d)),
+    h0 = (torch.zeros((b, d, s), device="cuda")
+          if what in ("prefill", "train") else f(b, d, s))
+    shift = -5.0 if what == "small_dt" else 0.0
+    return [torch.nn.functional.softplus(f(b, t, d) + shift),
             f(b, t, d).to(getattr(torch, u_dtype)), f(b, t, s), f(b, t, s),
             a, h0]
 
 
 def scan_bound_ms(b: int, t: int, d: int, s: int, u_item: int,
-                  backward: bool, checkpoints: bool) -> tuple[float, str]:
+                  backward: bool) -> tuple[float, str]:
     """The least time the card needs for one selective-scan call: its
     inputs read and outputs written once (bytes), or its B T D S
     exponentials at the SFU rate (operations), whichever is larger. The
-    forward reads dt, u, b, c, a, h0 and writes y, h_T (and, for a
-    backward, the checkpoints); the backward reads dt, u, b, c, a, the
-    checkpoints and dy and writes the six gradients."""
+    forward reads dt, u, b, c, a, h0 and writes y, h_T; the backward reads
+    dt, u, b, c, a, h0 (from which it may recompute every state), dy and
+    dh and writes the six gradients. The kernels' own checkpoints are a
+    choice of their design, not something the function needs, so neither
+    direction counts them."""
     btd, bts, ds, bds = b * t * d, b * t * s, d * s, b * d * s
-    ckpt = 4 * b * (-(-t // 256) + 1) * d * s
+    ins = 4 * btd + u_item * btd + 8 * bts + 4 * ds + 4 * bds
     if backward:
-        nbytes = (4 * btd + u_item * btd + 8 * bts + 4 * ds + ckpt
-                  + 4 * btd) + (4 * btd + u_item * btd + 8 * bts + 4 * ds
-                                + 4 * bds)
+        nbytes = ins + 4 * btd + 4 * bds + (4 * btd + u_item * btd + 8 * bts
+                                            + 4 * ds + 4 * bds)
     else:
-        nbytes = (4 * btd + u_item * btd + 8 * bts + 4 * ds + 4 * bds
-                  + 4 * btd + 4 * bds + (ckpt if checkpoints else 0))
+        nbytes = ins + 4 * btd + 4 * bds
     by_bytes = nbytes / HBM_BYTES_PER_S
     by_ops = b * t * d * s / SFU_EXP_PER_S
     return (1e3 * max(by_bytes, by_ops),
@@ -1820,11 +1834,15 @@ def phase_scan() -> list[dict]:
     L2), a call through the wrapper (``call_ms``: the forward under
     no_grad; for a backward row the Function's forward and backward), the
     plain version the same way (``plain_ms``) and the bound. No PyTorch
-    call computes this function (``library_ms`` null)."""
+    call computes this function (``library_ms`` null). Prints the
+    launches a call and every kernel's registers and spills."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import selective_scan as sc
     from repro_torch.kernels.ops import selective_scan
+    require(any(r[0] == "ragged" and r[2] == 2 * sc.SEGMENT + 3
+                for r in SCAN_SHAPES),
+            f"SCAN_SHAPES' ragged row wants T = 2 x {sc.SEGMENT} + 3")
     rows = []
     for what, b, t, d, s, u_name, bwd in SCAN_SHAPES:
         torch.cuda.empty_cache()
@@ -1849,7 +1867,7 @@ def phase_scan() -> list[dict]:
                    u=u_name, max_rel_err=err, tol=SCAN_TOL["forward"],
                    max_abs_err=max(v[0] for v in errs.values()))
         fwd["bound_ms"], fwd["bound_by"] = scan_bound_ms(
-            b, t, d, s, u_item, False, bwd)
+            b, t, d, s, u_item, False)
         fwd["ms"] = graph_ms(lambda: sc.launch_forward(*ins, checkpoints=bwd),
                              launches=20, samples=5)
         fwd["cold_ms"] = graph_ms(rotating(
@@ -1903,7 +1921,7 @@ def phase_scan() -> list[dict]:
                     max_abs_err=max(gabs.values()),
                     bitwise_repeat=bitwise, plain_peak_bytes=plain_peak)
         back["bound_ms"], back["bound_by"] = scan_bound_ms(
-            b, t, d, s, u_item, True, True)
+            b, t, d, s, u_item, True)
         back["ms"] = graph_ms(lambda: sc.launch_backward(
             *ins[:5], ckpt, dy, dh), launches=20, samples=5)
         ckpts = [sc.launch_forward(*x)[2] for x in sets]
@@ -1927,6 +1945,10 @@ def phase_scan() -> list[dict]:
               f"library call")
         del sets, ins
     rows[0]["ptxas"] = ptxas_report(_build.LOGS.get("selective_scan", ""))
+    print(f"selective_scan: {sc.LAUNCHES_PER_CALL} launches a call, chunk "
+          f"{sc.SEGMENT} steps")
+    for line in rows[0]["ptxas"]:
+        print(f"selective_scan ptxas: {line}")
     torch.cuda.empty_cache()
     return rows
 

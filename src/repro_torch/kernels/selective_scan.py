@@ -14,15 +14,18 @@ and returns ``(y [B, T, D] f32, h_T [B, D, S] f32)``.
 
 * On a CUDA tensor, :func:`selective_scan` is a ``torch.autograd.Function``
   over the hand-written kernels of ``csrc/selective_scan.cu`` (its header
-  says what bounds them): the forward (one launch) walks t in order with
-  each channel's S states in registers and saves h every 256 steps; the
-  backward (two launches) recomputes each 256-step segment from its saved
-  state and walks it in reverse, then adds the per-warp partials of the
-  sums over channels in a fixed order (two calls give the same bits). It
-  takes ``S`` in :data:`DSTATES` and raises on anything else; it never
-  falls back. ``selective_scan.launches`` counts every launch,
-  ``launches_forward`` and ``launches_backward`` each direction's
-  (:data:`LAUNCHES_PER_CALL` a call).
+  says what bounds them): time is cut into chunks of :data:`SEGMENT`
+  steps, each channel's states spread over several lanes. The forward
+  (three launches) takes each chunk's local end state and decay product,
+  walks the chunks for their true start states (the backward's
+  checkpoints, h_T last) and runs each chunk again from its start for y;
+  the backward (four launches) chains the adjoint over the chunks the same
+  way, walks each chunk in reverse with its true carry, then adds the
+  per-CTA partials of the sums over channels in a fixed order (two calls
+  give the same bits). It takes ``S`` in :data:`DSTATES` and raises on
+  anything else; it never falls back. ``selective_scan.launches`` counts
+  every launch, ``launches_forward`` and ``launches_backward`` each
+  direction's (:data:`LAUNCHES_PER_CALL` a call).
 * On a CPU tensor it runs :func:`selective_scan_plain`, the JAX module's
   chunk loop in plain PyTorch (its gradient from autograd), which the tests
   hold against JAX and ``chip_smoke.py`` holds the kernels against.
@@ -37,8 +40,8 @@ import torch
 Tensor = torch.Tensor
 DSTATES = (4, 8, 16)
 U_DTYPES = (torch.float32, torch.bfloat16)
-SEGMENT = 256               # the forward's checkpoint spacing (csrc kSeg)
-LAUNCHES_PER_CALL = {"forward": 1, "backward": 2}
+SEGMENT = 64                # the chunk, the checkpoint spacing (csrc kChunk)
+LAUNCHES_PER_CALL = {"forward": 3, "backward": 4}
 
 
 def _check(dt: Tensor, u: Tensor, b: Tensor, c: Tensor, a: Tensor,
@@ -114,12 +117,18 @@ def _lib():
     lib = _build.load("selective_scan")
     if lib.selective_scan_fwd_launch.argtypes is None:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        lib.selective_scan_chunk.restype = i32
+        lib.selective_scan_chunk.argtypes = []
+        if lib.selective_scan_chunk() != SEGMENT:
+            raise RuntimeError(f"selective_scan: the library's chunk is "
+                               f"{lib.selective_scan_chunk()}, SEGMENT "
+                               f"{SEGMENT}")
         lib.selective_scan_fwd_launch.restype = i32
         lib.selective_scan_fwd_launch.argtypes = (
-            [p, p, i32] + [p] * 7 + [i64] * 3 + [i32, p])
+            [p, p, i32] + [p] * 8 + [i64] * 3 + [i32, p])
         lib.selective_scan_bwd_launch.restype = i32
         lib.selective_scan_bwd_launch.argtypes = (
-            [p, p, i32] + [p] * 14 + [i64] * 3 + [i32, p])
+            [p, p, i32] + [p] * 15 + [i64] * 3 + [i32, p])
         lib.selective_scan_bwd_partials.restype = i32
         lib.selective_scan_bwd_partials.argtypes = [i64]
     return lib
@@ -132,34 +141,37 @@ def _ptr(x: Tensor | None) -> int | None:
 def launch_forward(dt: Tensor, u: Tensor, b: Tensor, c: Tensor, a: Tensor,
                    h0: Tensor, checkpoints: bool = True
                    ) -> tuple[Tensor, Tensor, Tensor | None]:
-    """One launch of the forward kernel on contiguous CUDA inputs ->
-    (y, h_T, the checkpoints ``[B, ceil(T / 256) + 1, D, S]`` or None)."""
+    """The forward kernels (three launches) on contiguous CUDA inputs ->
+    (y, h_T, the chunks' start states ``[B, ceil(T / SEGMENT) + 1, D, S]``
+    with h_T last, or None). The start states are made either way: the
+    last launch runs each chunk from its own."""
     bsz, t, d = dt.shape
     s = a.shape[1]
+    nc = -(-t // SEGMENT)
+    f32 = dict(dtype=torch.float32, device=dt.device)
     y = torch.empty_like(dt)
     h_last = torch.empty_like(h0)
-    ckpt = (torch.empty((bsz, -(-t // SEGMENT) + 1, d, s),
-                        dtype=torch.float32, device=dt.device)
-            if checkpoints else None)
+    ckpt = torch.empty((bsz, nc + 1, d, s), **f32)
+    scratch = torch.empty((2, bsz, nc, d, s), **f32)
     with torch.cuda.device(dt.device):
         stream = torch.cuda.current_stream(dt.device).cuda_stream
         err = _lib().selective_scan_fwd_launch(
             dt.data_ptr(), u.data_ptr(), int(u.dtype == torch.bfloat16),
             b.data_ptr(), c.data_ptr(), a.data_ptr(), h0.data_ptr(),
-            y.data_ptr(), h_last.data_ptr(), _ptr(ckpt), bsz, t, d, s,
-            stream)
+            y.data_ptr(), h_last.data_ptr(), ckpt.data_ptr(),
+            scratch.data_ptr(), bsz, t, d, s, stream)
     if err != 0:
         raise RuntimeError(f"selective_scan forward kernel launch failed: "
                            f"cudaError {err}")
     selective_scan.launches += LAUNCHES_PER_CALL["forward"]
     selective_scan.launches_forward += LAUNCHES_PER_CALL["forward"]
-    return y, h_last, ckpt
+    return y, h_last, (ckpt if checkpoints else None)
 
 
 def launch_backward(dt: Tensor, u: Tensor, b: Tensor, c: Tensor, a: Tensor,
                     ckpt: Tensor, dy: Tensor, dh_last: Tensor | None
                     ) -> tuple[Tensor, ...]:
-    """The backward kernels (two launches) on contiguous CUDA inputs ->
+    """The backward kernels (four launches) on contiguous CUDA inputs ->
     (d dt, d u in u's dtype, d b, d c, d a, d h0)."""
     bsz, t, d = dt.shape
     s = a.shape[1]
@@ -171,7 +183,9 @@ def launch_backward(dt: Tensor, u: Tensor, b: Tensor, c: Tensor, a: Tensor,
     dh0 = torch.empty((bsz, d, s), **f32)
     part_bc = torch.empty((lib.selective_scan_bwd_partials(d), bsz, t,
                            2 * s), **f32)
-    part_a = torch.empty((bsz, d, s), **f32)
+    nc = -(-t // SEGMENT)
+    part_a = torch.empty((bsz, nc, d, s), **f32)
+    scratch = torch.empty((3, bsz, nc, d, s), **f32)
     with torch.cuda.device(dt.device):
         stream = torch.cuda.current_stream(dt.device).cuda_stream
         err = lib.selective_scan_bwd_launch(
@@ -179,7 +193,8 @@ def launch_backward(dt: Tensor, u: Tensor, b: Tensor, c: Tensor, a: Tensor,
             b.data_ptr(), c.data_ptr(), a.data_ptr(), ckpt.data_ptr(),
             dy.data_ptr(), _ptr(dh_last), ddt.data_ptr(), du.data_ptr(),
             db.data_ptr(), dc.data_ptr(), da.data_ptr(), dh0.data_ptr(),
-            part_bc.data_ptr(), part_a.data_ptr(), bsz, t, d, s, stream)
+            part_bc.data_ptr(), part_a.data_ptr(), scratch.data_ptr(), bsz, t,
+            d, s, stream)
     if err != 0:
         raise RuntimeError(f"selective_scan backward kernel launch failed: "
                            f"cudaError {err}")

@@ -20,6 +20,7 @@ import torch
 from repro_torch.kernels import cmerge as cm
 from repro_torch.kernels import cscatter as cs
 from repro_torch.kernels.ops import commutative_scatter, merge_buffer
+from repro_torch.kernels.selective_scan import SEGMENT
 
 pytestmark = pytest.mark.gpu
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -1241,15 +1242,16 @@ def test_ep_train_step_on_the_card_equals_the_cpu(cuda, arch):
 # ---------------------------------------------------------------------------
 
 
-def _scan_case(b, t, d, s, u_dtype, device, seed=0):
-    """dt after softplus, u, b, c, a = -(1..S) as the init's, h0 and the
-    cotangents dy, dh, from a seeded numpy generator."""
+def _scan_case(b, t, d, s, u_dtype, device, seed=0, dt_shift=0.0):
+    """dt after softplus (of normals + ``dt_shift``), u, b, c, a = -(1..S)
+    as the init's, h0 and the cotangents dy, dh, from a seeded numpy
+    generator."""
     rng = np.random.default_rng(seed)
 
     def f(*shape):
         return torch.as_tensor(rng.standard_normal(shape),
                                dtype=torch.float32, device=device)
-    dt = torch.nn.functional.softplus(f(b, t, d))
+    dt = torch.nn.functional.softplus(f(b, t, d) + dt_shift)
     a = -torch.arange(1, s + 1, dtype=torch.float32,
                       device=device).repeat(d, 1)
     return ([dt, f(b, t, d).to(u_dtype), f(b, t, s), f(b, t, s), a,
@@ -1259,21 +1261,18 @@ def _scan_case(b, t, d, s, u_dtype, device, seed=0):
 def _scan_grads(fn, ins, dy, dh):
     ins = [x.detach().requires_grad_(True) for x in ins]
     y, h = fn(*ins)
-    return (y, h), torch.autograd.grad((y * dy).sum() + (h * dh).sum(), ins)
+    loss = (y * dy).sum() + (0 if dh is None else (h * dh).sum())
+    return (y, h), torch.autograd.grad(loss, ins)
 
 
-@pytest.mark.parametrize("s", [4, 8, 16])
-@pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
-def test_selective_scan_kernel_matches_plain_forward_and_backward(
-        cuda, s, u_dtype):
-    """A ragged T (300: a 256-step segment and a partial one) and D (100:
-    a partial CTA). y and h_T within 1e-5 of their largest magnitude, every
-    gradient within 1e-4 of its own (two f32 orders of summation); a bf16
-    u's gradient, rounded once in both, also within one bf16 ulp of each
-    element."""
+def _assert_scan_close(ins, dy, dh):
+    """The kernels against the plain version on the same inputs: y and h_T
+    within 1e-5 of their largest magnitude, every gradient within 1e-4 of
+    its own (two f32 orders of summation); a bf16 u's gradient, rounded
+    once in both, also within one bf16 ulp of each element. Counts one
+    call's launches."""
     from repro_torch.kernels import selective_scan as sc
     from repro_torch.kernels.ops import selective_scan
-    ins, dy, dh = _scan_case(2, 300, 100, s, u_dtype, cuda)
     before = (sc.selective_scan.launches_forward,
               sc.selective_scan.launches_backward)
     (y, h), got = _scan_grads(selective_scan, ins, dy, dh)
@@ -1282,13 +1281,15 @@ def test_selective_scan_kernel_matches_plain_forward_and_backward(
             sc.selective_scan.launches_backward - before[1]) == (
         sc.LAUNCHES_PER_CALL["forward"], sc.LAUNCHES_PER_CALL["backward"])
     (yp, hp), want = _scan_grads(sc.selective_scan_plain, ins, dy, dh)
+    u_bf16 = ins[1].dtype == torch.bfloat16
     for name, g, w, tol in (("y", y, yp, 1e-5), ("h_T", h, hp, 1e-5)) + tuple(
             (f"d {n}", g, w, 1e-4) for n, g, w in
             zip(("dt", "u", "b", "c", "a", "h0"), got, want)):
         assert g.dtype == w.dtype, name
+        assert bool(torch.isfinite(g).all()), name
         err = (g.float() - w.float()).abs()
         scale = float(w.float().abs().max())
-        if name == "d u" and u_dtype == torch.bfloat16:
+        if name == "d u" and u_bf16:
             assert bool((err <= 2 ** -7 * w.float().abs()
                          + tol * scale).all()), name
         else:
@@ -1296,9 +1297,60 @@ def test_selective_scan_kernel_matches_plain_forward_and_backward(
                                                      scale)
 
 
+SCAN_L = SEGMENT
+
+
+@pytest.mark.parametrize("t", [1, SCAN_L - 1, SCAN_L, SCAN_L + 1, 300,
+                               2 * SCAN_L + 3])
+@pytest.mark.parametrize("s", [4, 8, 16])
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_kernel_matches_plain_forward_and_backward(
+        cuda, s, u_dtype, t):
+    """T around the chunk L (one step, a partial chunk, one, one and a
+    step, several and a partial one) and a ragged D (100: a partial
+    CTA)."""
+    ins, dy, dh = _scan_case(2, t, 100, s, u_dtype, cuda)
+    _assert_scan_close(ins, dy, dh)
+
+
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_from_a_nonzero_state_with_h_t_unused(cuda, u_dtype):
+    """A nonzero h0 and a loss of y alone: the backward's carry starts
+    from zero (no dh_T), and d h0 is still the carry out of the first
+    chunk."""
+    ins, dy, _ = _scan_case(2, 2 * SCAN_L + 3, 100, 16, u_dtype, cuda,
+                            seed=2)
+    _assert_scan_close(ins, dy, None)
+
+
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_where_the_decays_underflow(cuda, u_dtype):
+    """dt = softplus(x + 8) (about 8) against a = -(1..16): exp(dt a)
+    underflows to 0 for most states, and so do the chunks' decay
+    products; nothing divides by them."""
+    ins, dy, dh = _scan_case(2, 300, 100, 16, u_dtype, cuda, seed=3,
+                             dt_shift=8.0)
+    _assert_scan_close(ins, dy, dh)
+
+
+@pytest.mark.parametrize("t", [300, 2 * SCAN_L + 3])
+@pytest.mark.parametrize("s", [4, 16])
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_with_small_steps_carries_the_state_over_chunks(
+        cuda, u_dtype, s, t):
+    """dt = softplus(x - 5) (about 0.007, as a trained model's): a chunk's
+    decay product stays between ~1e-3 and ~0.6, so the start state and the
+    adjoint's carry reach several chunks on, forward and backward. At the
+    init's dt (about 0.8) they are below f32 rounding after one chunk
+    (``tests/test_torch_ssm.py`` shows the difference)."""
+    ins, dy, dh = _scan_case(2, t, 100, s, u_dtype, cuda, seed=4,
+                             dt_shift=-5.0)
+    _assert_scan_close(ins, dy, dh)
+
+
 def test_selective_scan_backward_is_bitwise_repeatable(cuda):
-    """The sums over channels and over (batch, time) are per-warp and
-    per-row partials added in a fixed order: no float atomics."""
+    """The sums over channels and over (batch, time) are per-CTA and
+    per-(row, chunk) partials added in a fixed order: no float atomics."""
     from repro_torch.kernels.ops import selective_scan
     ins, dy, dh = _scan_case(2, 600, 200, 16, torch.bfloat16, cuda, seed=1)
     first = _scan_grads(selective_scan, ins, dy, dh)[1]

@@ -161,13 +161,14 @@ def test_apply_seq_keeps_the_chunk_rule():
 SCAN_B, SCAN_D = 2, 24
 
 
-def _scan_inputs(t, s, u_dtype, seed=0):
-    """dt (after softplus), u, b, c, a_log, h0 and the cotangents dy, dh
-    as numpy: dt in (0, ~3), a_log near log(1..S) as the init's, so that
-    exp(dt a) spans 1 down to ~1e-20."""
+def _scan_inputs(t, s, u_dtype, seed=0, dt_shift=0.0):
+    """dt (after softplus, of normals + ``dt_shift``), u, b, c, a_log, h0
+    and the cotangents dy, dh as numpy: dt in (0, ~3) unshifted, a_log
+    near log(1..S) as the init's, so that exp(dt a) spans 1 down to
+    ~1e-20."""
     rng = np.random.default_rng(seed)
     f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
-    dt = np.log1p(np.exp(f(SCAN_B, t, SCAN_D)))
+    dt = np.log1p(np.exp(f(SCAN_B, t, SCAN_D) + np.float32(dt_shift)))
     u = f(SCAN_B, t, SCAN_D).astype(jnp.dtype(u_dtype))
     a_log = (np.log(np.arange(1, s + 1, dtype=np.float32))[None]
              + 0.1 * f(SCAN_D, s))
@@ -242,6 +243,164 @@ def test_selective_scan_plain_gradients_match_jax(t, s, u_dtype):
                                    err_msg=f"d {name}")
 
 
+# The kernels' chunked decomposition, in float64 numpy: per chunk of L steps
+# the local scan from zero and the decay product, the carry over chunks,
+# each chunk again from its true start (the forward); the adjoint's local
+# carries, its reverse carry over chunks and each chunk's reverse walk (the
+# backward). The algorithm of csrc/selective_scan.cu, held where no kernel
+# runs.
+
+
+def _chunks(t, length):
+    return [range(k, min(t, k + length)) for k in range(0, t, length)]
+
+
+def _chunked_forward(dt, u, b, c, a, h0, length, with_carry=True):
+    """-> (y [B, T, D], h_T, the chunks' start states [B, nc + 1, D, S]).
+    A chunk's decay product is exp(a sum_t dt_t), as the kernel takes it.
+    ``with_carry=False`` drops the decayed start state from each chunk's end
+    (a wrong carry, to show which inputs can see it)."""
+    da = np.exp(dt[..., None] * a)
+    dbx = (dt * u)[..., None] * b[:, :, None, :]
+    steps = _chunks(dt.shape[1], length)
+    local = np.zeros((len(steps),) + h0.shape)
+    decay = np.empty_like(local)
+    for k, ts in enumerate(steps):
+        for t in ts:
+            local[k] = da[:, t] * local[k] + dbx[:, t]
+        decay[k] = np.exp(dt[:, ts].sum(1)[..., None] * a)
+    start = [h0]
+    for k in range(len(steps)):
+        start.append(decay[k] * start[k] * with_carry + local[k])
+    y = np.empty(dt.shape)
+    for k, ts in enumerate(steps):
+        h = start[k]
+        for t in ts:
+            h = da[:, t] * h + dbx[:, t]
+            y[:, t] = (h * c[:, t, None, :]).sum(-1)
+    return y, start[-1], np.stack(start, axis=1)
+
+
+def _chunked_backward(dt, u, b, c, a, start, dy, dh, length,
+                      with_carry=True):
+    """The gradients of ``sum(y dy) + sum(h_T dh)`` -> (d dt, d u, d b,
+    d c, d a, d h0). ``with_carry=False`` drops the decayed carry from each
+    chunk's start, as in ``_chunked_forward``."""
+    da = np.exp(dt[..., None] * a)
+    dbx = (dt * u)[..., None] * b[:, :, None, :]
+    steps = _chunks(dt.shape[1], length)
+    dyc = dy[..., None] * c[:, :, None, :]
+    local = np.zeros((len(steps),) + dh.shape)
+    decay = np.ones_like(local)
+    for k, ts in enumerate(steps):       # a forward walk from a zero carry
+        for t in ts:
+            decay[k] *= da[:, t]
+            local[k] += decay[k] * dyc[:, t]
+    carry, g = [None] * len(steps), dh
+    for k in reversed(range(len(steps))):
+        carry[k] = g
+        g = local[k] + decay[k] * g * with_carry
+    ddt, du = np.empty(dt.shape), np.empty(dt.shape)
+    db, dc = np.empty(b.shape), np.empty(c.shape)
+    d_a = np.zeros(a.shape)
+    for k, ts in enumerate(steps):
+        hs = [start[:, k]]
+        for t in ts:
+            hs.append(da[:, t] * hs[-1] + dbx[:, t])
+        cr = carry[k]
+        for i in reversed(range(len(ts))):
+            t = ts[i]
+            gt = dyc[:, t] + cr
+            gb = (gt * b[:, t, None, :]).sum(-1)
+            gha = gt * hs[i] * da[:, t]
+            ddt[:, t] = (gha * a).sum(-1) + u[:, t] * gb
+            du[:, t] = dt[:, t] * gb
+            db[:, t] = (gt * (dt[:, t] * u[:, t])[..., None]).sum(1)
+            dc[:, t] = (dy[:, t, :, None] * hs[i + 1]).sum(1)
+            d_a += (gha * dt[:, t, :, None]).sum(0)
+            cr = da[:, t] * gt
+    return ddt, du, db, dc, d_a, g
+
+
+# dt_shift -5: dt about 0.007, as a trained Mamba-style model's, where a
+# chunk's decay product keeps the start state for several chunks; at 0 (the
+# init's dt, about 0.8) it is below f32 rounding within one chunk
+DECOMP_CASES = [(t, length, s, shift) for t in (300, 512)
+                for length in (64, 128) for s in (4, 16)
+                for shift in (0.0, -5.0)]
+DECOMP_IDS = [f"T{t}-L{n}-S{s}" + ("-small_dt" if shift else "")
+              for t, n, s, shift in DECOMP_CASES]
+
+
+@pytest.mark.parametrize("t,length,s,dt_shift", DECOMP_CASES, ids=DECOMP_IDS)
+def test_chunked_forward_matches_the_jax_chunk_loop(t, length, s, dt_shift):
+    """y and h_T against JAX's chunk loop (its 256-step chunks'
+    associative scans) in f32, to 1e-5; every chunk's start state against
+    the plain version's state after the steps before it."""
+    dt, u, b, c, a_log, h0 = _scan_inputs(t, s, "float32",
+                                          dt_shift=dt_shift)[:6]
+    a = -np.exp(a_log.astype(np.float64))
+    y, h_t, start = _chunked_forward(
+        *(x.astype(np.float64) for x in (dt, u, b, c)), a,
+        h0.astype(np.float64), length)
+    jy, jh = _jax_chunk_loop(*map(jnp.asarray, (dt, u, b, c, a_log, h0)))
+    _close(torch.from_numpy(y), jy, "float32", "y")
+    _close(torch.from_numpy(h_t), jh, "float32", "h_T")
+    for k in range(1, start.shape[1] - 1):
+        cut = [torch.from_numpy(x[:, :k * length]) for x in (dt, u, b, c)]
+        _, hk = _torch_scan(*cut, torch.from_numpy(a_log),
+                            torch.from_numpy(h0))
+        _close(torch.from_numpy(start[:, k]), hk, "float32", f"start {k}")
+
+
+@pytest.mark.parametrize("t,length,s,dt_shift", DECOMP_CASES, ids=DECOMP_IDS)
+def test_chunked_backward_matches_the_plain_gradients(t, length, s,
+                                                      dt_shift):
+    """The adjoint carried over chunks in reverse, then each chunk walked
+    back with its true carry: all six gradients against autograd through
+    ``selective_scan_plain`` in f32, 1e-5 relative plus 1e-5 of the leaf's
+    largest magnitude."""
+    *ins, dy, dh = _scan_inputs(t, s, "float32", dt_shift=dt_shift)
+    ins[4] = -np.exp(ins[4])
+    f64 = [x.astype(np.float64) for x in ins]
+    start = _chunked_forward(*f64, length)[2]
+    got = _chunked_backward(*f64[:5], start, dy.astype(np.float64),
+                            dh.astype(np.float64), length)
+    xs = [torch.from_numpy(x).requires_grad_(True) for x in ins]
+    y, h = tscan.selective_scan_plain(*xs)
+    want = torch.autograd.grad((y * torch.from_numpy(dy)).sum()
+                               + (h * torch.from_numpy(dh)).sum(), xs)
+    for name, g, w in zip(("dt", "u", "b", "c", "a", "h0"), got, want):
+        w = w.numpy()
+        np.testing.assert_allclose(g, w, rtol=1e-5,
+                                   atol=1e-5 * np.abs(w).max(),
+                                   err_msg=f"d {name}")
+
+
+@pytest.mark.parametrize("t", [300, 512])
+@pytest.mark.parametrize("s", [4, 16])
+def test_small_steps_make_the_carry_over_chunks_visible(t, s):
+    """At dt = softplus(x - 5) a decomposition that drops the carry over
+    L = 64 chunks misses y, h_T and every gradient by far more than the
+    kernels' tolerances (1e-5 of the largest forward, 1e-4 backward), so
+    the small-dt cases of the card tests and ``chip_smoke.py`` would catch
+    a wrong decay product or carry."""
+    *ins, dy, dh = _scan_inputs(t, s, "float32", dt_shift=-5.0)
+    ins[4] = -np.exp(ins[4])
+    f64 = [x.astype(np.float64) for x in ins] + [dy.astype(np.float64),
+                                                 dh.astype(np.float64)]
+
+    def run(with_carry):
+        y, h_t, start = _chunked_forward(*f64[:6], 64, with_carry)
+        return (y, h_t) + _chunked_backward(*f64[:5], start, *f64[6:], 64,
+                                            with_carry)
+    names = ("y", "h_T", "d dt", "d u", "d b", "d c", "d a", "d h0")
+    for name, right, wrong in zip(names, run(True), run(False)):
+        off = np.abs(wrong - right).max() / np.abs(right).max()
+        assert off > 100 * (1e-5 if name in ("y", "h_T") else 1e-4), (
+            name, off)
+
+
 def test_selective_scan_on_a_cpu_tensor_launches_nothing():
     ins = [_as_tensor(x) for x in _scan_inputs(64, 4, "float32")[:6]]
     ins[4] = -torch.exp(ins[4])
@@ -254,7 +413,7 @@ def test_selective_scan_on_a_cpu_tensor_launches_nothing():
     assert (tscan.selective_scan.launches,
             tscan.selective_scan.launches_forward,
             tscan.selective_scan.launches_backward) == before
-    assert tscan.LAUNCHES_PER_CALL == {"forward": 1, "backward": 2}
+    assert tscan.LAUNCHES_PER_CALL == {"forward": 3, "backward": 4}
 
 
 def test_selective_scan_refuses_what_the_kernels_do_not_take():
