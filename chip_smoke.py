@@ -205,9 +205,29 @@ smoke config) — and:
    bf16, N = 32768), decode ([8, 4096], N = 64) and expert-parallel train
    ([4, 2048, 4096], N = 16384 a shard) shapes beside ``index_add_``
    (warm and cold), and the attention kernels at G = 16 and G = 7;
-14. prints every kernel's registers and spills (``ptxas -v``),
+14. (``phase_pipeline``) runs the GPipe schedule
+   (``repro_torch.sharding.pipeline_apply``) over 4 stacked stages, each
+   one consecutive decoder layer of a full-width qwen1.5-0.5b (bf16,
+   random weights from the seed) through ``DecoderLM._block_prefill``,
+   its attention the CUDA ``flash_attention``: 8 microbatches of 4 x 512
+   tokens from the embedding, 11 ticks; the last stage's outputs bitwise
+   against the same 4 layers run serially through the same function (each
+   stage runs on its own slice, so the products see the same shapes);
+   ``flash_attention`` launches (4 stages x 11 ticks, all bf16_mma); ms of
+   the pipeline and of the serial run, their ratio beside the schedule's
+   (n_micro + S - 1) / n_micro;
+15. (``phase_lint``) runs the static verifier in-process, ``python -m
+   repro_torch.analysis --device cuda`` (merges, configs, apps and the
+   serve sweep on the card: every tick of 7 serving stores through the
+   CUDA ``cscatter``, the blocked ones through ``cmerge``): any
+   unsuppressed diagnostic fails the run; then the seeded fixtures on the
+   card, each of which must trip its code. Before the sweep it holds
+   ``cscatter`` and ``cmerge`` to their plain versions at the sweep's
+   shapes; around the sweep it zeroes their counts and requires
+   LINT_LAUNCHES. Prints the sites swept, the seconds and the launches;
+16. prints every kernel's registers and spills (``ptxas -v``),
    one ``{"kernels": [...]}`` line and the card's name and power limit;
-15. ends with ``{"ok": true, "device": {...}}``.
+17. ends with ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds. Nothing is caught: any failure exits
 non-zero before the last line. Without a card, or without the repository
@@ -443,6 +463,15 @@ KILL_DELAY_S = 1.0                  # into step RESUME_KILL_AT (~3 s a step)
 # the 0.31 GB embedding with its moments and two levels of [8, ...]
 # pendings stays
 ELASTIC_LAYERS = 6
+# The pipeline schedule: PIPE_STAGES consecutive decoder layers of ARCH at
+# full width, one a stage, over PIPE_MICRO microbatches of PIPE_MB x
+# PROMPT tokens
+PIPE_STAGES, PIPE_MICRO, PIPE_MB = 4, 8, 4
+# The verifier's sweep on the card launches exactly these (its stores,
+# shapes and seeds are fixed): cscatter 40 in the serve sweep (20 calls of
+# LAUNCHES_PER_CALL) and 8 in the apps sweep, cmerge 520 in the blocked
+# stores' ticks
+LINT_LAUNCHES = {"cscatter": 48, "cmerge": 520}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -4964,6 +4993,196 @@ def phase_elastic(card: str) -> dict:
     return out
 
 
+def phase_pipeline(card: str) -> dict:
+    """The GPipe schedule on the card (module doc, item 14). The stage
+    function runs each stage's layer on that stage's own slice of the
+    stacked input, so the serial run through the same function is the
+    bitwise reference. ``flash_attention``'s counts are zeroed just before
+    the pipeline's run and read just after."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.stacked import StackedAxis
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import prompts
+    from repro_torch.models import attention as attn
+    from repro_torch.models.registry import build_model
+    from repro_torch.sharding import bubble_fraction, pipeline_apply
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=PIPE_STAGES)
+    require(cfg.d_model == 1024, f"pipeline: {ARCH} is not at full width")
+    model = build_model(cfg, device="cuda", seed=SEED)
+    require(model.embed["table"].dtype == torch.bfloat16,
+            "pipeline: the model is not in bf16")
+    axis = StackedAxis(PIPE_STAGES, "cuda")
+    ids = prompts(cfg, PIPE_MICRO * PIPE_MB, PROMPT, SEED)
+    with torch.no_grad():
+        x = model._input(model.embed["table"], torch.as_tensor(
+            ids, device="cuda"), None).reshape(
+                PIPE_MICRO, PIPE_MB, PROMPT, cfg.d_model)
+    positions = torch.arange(PROMPT, dtype=torch.int32, device="cuda")
+    scan = model._caches(PIPE_STAGES, PIPE_MB, PROMPT, x.dtype)
+    caches = [attn.KVCache(k=scan.k[i], v=scan.v[i])
+              for i in range(PIPE_STAGES)]
+    params = model.params()["blocks"]
+
+    def stage_fn(p, xs):
+        return torch.stack([model._block_prefill(
+            pytree.tree_map(lambda a: a[i], p), xs[i], positions, caches[i])
+            for i in range(xs.shape[0])])
+
+    def piped():
+        stream = x[None].expand((PIPE_STAGES,) + tuple(x.shape))
+        return pipeline_apply(stage_fn, params, stream, axis)
+
+    def serial():
+        out = []
+        for m in range(PIPE_MICRO):
+            h = x[m]
+            for i in range(PIPE_STAGES):
+                h = model._block_prefill(
+                    pytree.tree_map(lambda a: a[i], params), h, positions,
+                    caches[i])
+            out.append(h)
+        return torch.stack(out)
+
+    ticks = PIPE_MICRO + PIPE_STAGES - 1
+    with torch.no_grad():
+        piped()                                   # warm-up, not counted
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        flash_attention.launches_by_variant = dict.fromkeys(
+            flash_attention.launches_by_variant, 0)
+        got = piped()
+        torch.cuda.synchronize()
+        launches = flash_attention.launches
+        by_variant = dict(flash_attention.launches_by_variant)
+        want = serial()
+        require(got.shape == (PIPE_STAGES, PIPE_MICRO, PIPE_MB, PROMPT,
+                              cfg.d_model), f"pipeline: {tuple(got.shape)}")
+        require(bool(torch.isfinite(got[-1]).all()),
+                "pipeline: non-finite outputs")
+        require(torch.equal(got[-1], want), "pipeline: the last stage's "
+                f"outputs differ from the serial run by "
+                f"{float((got[-1].float() - want.float()).abs().max())}")
+        require(not bool(got[:-1].any()),
+                "pipeline: a stage but the last banked outputs")
+        require(launches == PIPE_STAGES * ticks
+                and by_variant["bf16_mma"] == launches,
+                f"pipeline: flash_attention launches {launches} "
+                f"({by_variant}), the schedule predicts "
+                f"{PIPE_STAGES * ticks} bf16_mma")
+        ms = time_ms(piped, samples=5, inner=1)
+        serial_ms = time_ms(serial, samples=5, inner=1)
+    out = {"stages": PIPE_STAGES, "n_micro": PIPE_MICRO, "ticks": ticks,
+           "microbatch": [PIPE_MB, PROMPT], "ms": ms, "serial_ms": serial_ms,
+           "overhead": ms / serial_ms,
+           "schedule_overhead": ticks / PIPE_MICRO,
+           "bubble_fraction": bubble_fraction(PIPE_STAGES, PIPE_MICRO),
+           "launches": {"flash_attention": launches},
+           "flash_launches_by_variant": by_variant, "bitwise": True}
+    print(f"pipeline {cfg.name} bf16, {PIPE_STAGES} stages x {PIPE_MICRO} "
+          f"microbatches of {PIPE_MB} x {PROMPT} on {card}: {ms:.3f} ms "
+          f"({ticks} ticks) against {serial_ms:.3f} ms serial: "
+          f"{out['overhead']:.4f}x, the schedule's (n_micro + S - 1) / "
+          f"n_micro {out['schedule_overhead']:.4f}x (bubble fraction "
+          f"{out['bubble_fraction']:.4f}); outputs bitwise equal to the "
+          f"serial run; flash_attention launches {launches} ({by_variant})")
+    del model, got, want, x, scan, caches
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lint_kernel_checks() -> dict:
+    """``cscatter`` and ``cmerge`` against their plain versions at the
+    shapes the verifier's serve sweep gives them (``analysis/cli.py``: S =
+    8 shards of a ``[256, 2]`` int32 add table, a tick of 32 updates a
+    shard and a partitioned commit's ring of 4 ticks; the blocked stores'
+    ways of 8 rows: one at an eviction, 8 at a cache flush, the 64-block
+    spill at its drain). Launches here are comparisons and are not
+    counted; returns the worst errors (integers: exact)."""
+    import torch
+    from repro_torch.analysis import cli
+    from repro_torch.kernels.cmerge import cmerge, cmerge_plain
+    from repro_torch.kernels.cscatter import cscatter, cscatter_plain
+    from repro_torch.serve.kv import KVConfig
+    s, r, d = cli.SERVE_SHARDS, cli.SERVE_KEYS, cli.SERVE_COLS
+    cfg = KVConfig(n_keys=r, cols=d, engine="blocked")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    table = _rand_table(g, (s, r, d), torch.int32, 0, 1 << 20)
+    worst = {"cscatter": 0.0, "cmerge": 0.0}
+    for n in (cli.SERVE_BATCH, cli.SERVE_K * cli.SERVE_BATCH):
+        ids = torch.randint(0, r, (s, n), device="cuda", generator=g,
+                            dtype=torch.int32)
+        vals = _rand_table(g, (s, n, d), torch.int32, 1, 9)
+        want = cscatter_plain(table, ids, vals, kind="add")
+        got = cscatter(table.clone(), ids, vals, kind="add")
+        torch.cuda.synchronize()
+        worst["cscatter"] = max(worst["cscatter"], _compare(got, want))
+    br = cfg.block_rows
+    for w in (1, cfg.ways, cfg.spill_blocks):
+        ids = _ways(g, s, r // br, min(w, r // br))
+        if w > ids.shape[1]:            # the spill's unused slots: invalid
+            ids = torch.cat([ids, torch.full((s, w - ids.shape[1]), -1,
+                                             dtype=torch.int32,
+                                             device="cuda")], 1)
+        dirty = torch.rand(ids.shape, device="cuda", generator=g) < 0.7
+        src = _rand_table(g, (s, ids.shape[1], br, d), torch.int32, 0, 9)
+        upd = src + _rand_table(g, src.shape, torch.int32, 0, 9)
+        want = cmerge_plain(table, ids, dirty, src, upd, kind="add")
+        got = cmerge(table.clone(), ids, dirty, src, upd, kind="add")
+        torch.cuda.synchronize()
+        worst["cmerge"] = max(worst["cmerge"], _compare(got, want))
+    print(f"check lint shapes: cscatter [{s},{r},{d}] int32 add N = "
+          f"{cli.SERVE_BATCH}, {cli.SERVE_K * cli.SERVE_BATCH} and cmerge "
+          f"W = 1, {cfg.ways}, {cfg.spill_blocks} (capped at {r // br} "
+          f"blocks) BR = {br} equal their plain versions")
+    return worst
+
+
+def phase_lint() -> dict:
+    """The static verifier on the card (module doc, item 15): the kernels
+    at the sweep's shapes against their plain versions, the sweep
+    in-process through the CLI's entry point with the kernels' counts
+    zeroed just before and read just after (they must equal
+    LINT_LAUNCHES), and the fixtures."""
+    import torch
+    from repro_torch.analysis import cli
+    from repro_torch.kernels.cmerge import cmerge
+    from repro_torch.kernels.cscatter import cscatter
+    worst = _lint_kernel_checks()
+    work = tempfile.mkdtemp(prefix="lint-")
+    try:
+        path = os.path.join(work, "lint.json")
+        torch.cuda.synchronize()
+        cscatter.launches = cmerge.launches = 0
+        t0 = time.perf_counter()
+        rc = cli.main(["--device", "cuda", "--json", path])
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        launches = {"cscatter": cscatter.launches, "cmerge": cmerge.launches}
+        with open(path) as f:
+            report = json.load(f)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    require(rc == 0 and report["ok"] and not report["diagnostics"],
+            f"lint: the sweep found {report['diagnostics']}")
+    require(launches == LINT_LAUNCHES,
+            f"lint: the sweep launched {launches}, not {LINT_LAUNCHES}")
+    t0 = time.perf_counter()
+    fixtures = cli.run_fixtures("cuda")
+    fixtures_s = time.perf_counter() - t0
+    missed = [r["name"] for r in fixtures if not r["tripped"]]
+    require(not missed, f"lint: fixtures {missed} did not trip their codes")
+    out = {"sites": len(report["checked"]), "sweep_s": sweep_s,
+           "fixtures": len(fixtures), "fixtures_s": fixtures_s,
+           "launches": launches, "max_abs_err": worst}
+    print(f"lint on the card: {out['sites']} sites swept in {sweep_s:.3f} "
+          f"s, no finding, launching cscatter {launches['cscatter']} and "
+          f"cmerge {launches['cmerge']} times (as LINT_LAUNCHES); "
+          f"{len(fixtures)} fixtures tripped in {fixtures_s:.3f} s")
+    return out
+
+
 def main_stream() -> tuple[np.ndarray, np.ndarray]:
     """The main path's stream from the seed: ``TICKS * S * B`` Pareto keys
     (flat) and their values ``[TICKS, S, B, D]``."""
@@ -5014,6 +5233,8 @@ def main() -> None:
     trained = timed("train", phase_train, smi)
     elastic = timed("elastic", phase_elastic, smi)
     families = timed("families", phase_families, smi)
+    pipeline = timed("pipeline", phase_pipeline, smi)
+    lint = timed("lint", phase_lint)
 
     tick_add = next(t for t in times if t["kind"] == "add" and t["n"] == B
                     and "what" not in t)
@@ -5050,6 +5271,7 @@ def main() -> None:
         "launches_moe_train": families["moe_train"]["launches"]["cscatter"],
         "launches_vlm": families["vlm"]["launches"]["cscatter"],
         "launches_kimi": families["kimi"]["launches"]["cscatter"],
+        "launches_lint": lint["launches"]["cscatter"],
         "moe_combine": [t for t in times if t.get("what") == "moe_combine"],
         "determinism": determinism,
         "train_embedding_backward": train_add,
@@ -5058,6 +5280,7 @@ def main() -> None:
         "source": "src/repro_torch/csrc/cmerge.cu",
         "replaces": REPLACES_CMERGE,
         "launches": blocked_path["cmerge"],
+        "launches_lint": lint["launches"]["cmerge"],
         "max_abs_err": worst_merge["int"],
         "max_abs_err_float": worst_merge["float"],
         "matched": True,
@@ -5081,6 +5304,7 @@ def main() -> None:
         "launches_moe_train": families["moe_train"]["launches"][name],
         "launches_vlm": families["vlm"]["launches"][name],
         "launches_kimi": families["kimi"]["launches"][name],
+        "launches_pipeline": pipeline["launches"].get(name, 0),
         "launches_windowed_families": families["hymba"]["launches"][
             "flash_attention_windowed"],
         "launches_bidirectional_encdec": families["encdec"]["launches"][
@@ -5127,7 +5351,8 @@ def main() -> None:
                      for r in scan_rows]}], "serve": serve,
         "apps": {k: v for k, v in apps.items() if k != "kernel_rows"},
         "schedules": schedules, "durability": durability,
-        "train": trained, "elastic": elastic,
+        "train": trained, "elastic": elastic, "pipeline": pipeline,
+        "lint": lint,
         "families": {k: {x: y for x, y in v.items() if x != "profile"}
                      for k, v in families.items()}}))
     print(smi)

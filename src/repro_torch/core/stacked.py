@@ -16,6 +16,10 @@ tensor ops over that dim, provided by a :class:`StackedAxis`:
 Functions written against the axis take and return stacked tensors (or
 pytrees of them) and see all shards at once; a per-rank predicate is an
 ``[S]`` mask broadcast over the trailing dims (:meth:`StackedAxis.where`).
+
+Every collective is emitted as a ``"collective"`` event
+(``repro_torch/hooks.py``) before it runs, so that
+``repro_torch.analysis.trace`` can record a program's collectives.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from typing import Any, Callable, Sequence
 
 import torch
 from torch.utils import _pytree as pytree
+
+from repro_torch import hooks
 
 PyTree = Any
 
@@ -56,6 +62,7 @@ class StackedAxis:
                  perm: Sequence[tuple[int, int]]) -> PyTree:
         """Send rank ``src``'s value to rank ``dst`` for every pair; ranks
         that receive nothing get zeros."""
+        hooks.emit("collective", self, "ppermute", x, None, perm)
         src = torch.tensor([p[0] for p in perm], dtype=torch.long,
                            device=self.device)
         dst = torch.tensor([p[1] for p in perm], dtype=torch.long,
@@ -74,6 +81,11 @@ class StackedAxis:
             return out
         return pytree.tree_map(move, x)
 
+    def _told(self, kind: str, x: PyTree, group: int | None) -> int:
+        group = group or self.size
+        hooks.emit("collective", self, kind, x, group, None)
+        return group
+
     def _grouped(self, x: torch.Tensor, group: int, reduce: Callable
                  ) -> torch.Tensor:
         if group < 1 or self.size % group:
@@ -86,18 +98,18 @@ class StackedAxis:
 
     def psum(self, x: PyTree, group: int | None = None) -> PyTree:
         """Sum over each group of ranks; integer sums wrap in the dtype."""
-        group = group or self.size
+        group = self._told("psum", x, group)
         return pytree.tree_map(
             lambda t: self._grouped(t, group,
                                     lambda g: g.sum(1, dtype=t.dtype)), x)
 
     def pmax(self, x: PyTree, group: int | None = None) -> PyTree:
-        group = group or self.size
+        group = self._told("pmax", x, group)
         return pytree.tree_map(
             lambda t: self._grouped(t, group, lambda g: g.amax(1)), x)
 
     def pmin(self, x: PyTree, group: int | None = None) -> PyTree:
-        group = group or self.size
+        group = self._told("pmin", x, group)
         return pytree.tree_map(
             lambda t: self._grouped(t, group, lambda g: g.amin(1)), x)
 

@@ -33,6 +33,7 @@ import ctypes
 
 import torch
 
+from repro_torch import hooks
 from repro_torch.kernels.cscatter import DTYPES, _domain, _f32, _wrap
 
 MERGE_KINDS = ("add", "sat_add", "max", "min", "or")
@@ -199,6 +200,7 @@ def cmerge(table: torch.Tensor, block_ids: torch.Tensor, dirty: torch.Tensor,
                  sat_max, stream)
     if err != 0:
         raise RuntimeError(f"cmerge kernel launch failed: cudaError {err}")
+    hooks.emit("kernel", "cmerge", (t, ids, dirty, s_, u_), (t,))
     cmerge.launches += 1
     return table
 

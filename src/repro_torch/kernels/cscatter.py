@@ -44,6 +44,8 @@ import functools
 
 import torch
 
+from repro_torch import hooks
+
 MERGE_KINDS = ("add", "sat_add", "max", "min", "or")
 DTYPES = (torch.float32, torch.bfloat16, torch.int32, torch.uint32)
 _U32 = 1 << 32
@@ -352,6 +354,7 @@ def launch(t: torch.Tensor, i: torch.Tensor, v: torch.Tensor, kind: str,
                  p.list_cap, p.fold_ctas, int(p.stage), stream)
     if err != 0:
         raise RuntimeError(f"cscatter kernel launch failed: cudaError {err}")
+    hooks.emit("kernel", "cscatter", (t, i, v), (t,))
     cscatter.launches += LAUNCHES_PER_CALL
 
 

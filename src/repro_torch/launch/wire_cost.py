@@ -29,7 +29,7 @@ the vector is the eager twin's, as the solver wants it.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Collection, Optional, Sequence
 
 from repro_torch.core import permutes
 from repro_torch.core.ccache import collective_manifest
@@ -86,10 +86,14 @@ def _cross_unit(vec, perms, fanout: int, nbytes: float, bounds) -> None:
 
 def wire_bytes_by_level(plan: MergePlan, axis_size: int,
                         payload_shape: Sequence[int], itemsize: int,
-                        merge_fn: Optional[MergeFn] = None) -> list[float]:
+                        merge_fn: Optional[MergeFn] = None,
+                        levels: Optional[Collection[int]] = None
+                        ) -> list[float]:
     """Machine-wide bytes each level of ``plan`` carries in one synchronized
     merge of a ``payload_shape`` tensor of ``itemsize``-byte elements on
-    every one of ``axis_size`` ranks (a KV store's tick: ``(R, D)``)."""
+    every one of ``axis_size`` ranks (a KV store's tick: ``(R, D)``).
+    ``levels`` keeps only the stages of those plan level indices (the
+    stages a deferred tick runs: its manifest's)."""
     bounds = _bounds(plan)
     vec = [0.0] * len(plan.levels)
     elems = 1
@@ -102,6 +106,8 @@ def wire_bytes_by_level(plan: MergePlan, axis_size: int,
     S = axis_size
     for st, m in zip(compile_plan(plan, S, merge_fn=merge_fn),
                      collective_manifest(plan, S, merge_fn=merge_fn)):
+        if levels is not None and st.index not in levels:
+            continue
         if (st.compress and merge_fn is not None
                 and merge_fn.encode is not None):
             raise ValueError(

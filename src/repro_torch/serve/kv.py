@@ -327,29 +327,11 @@ class ShardedKV:
             if self._overlap:
                 merge.check_overlap("ShardedKV(partitioned, overlap)")
 
-        # -- device state (leading shard dim). Real [S, ...] tensors, never
-        # broadcast views: the kernel writes the pendings in place.
-        S, R, D = n_shards, config.n_keys, config.cols
-        if config.partitioned:
-            self.settled = self._identity((S, R // S, D))
-            self.pendings = ()
-        else:
-            self.settled = self._identity((S, R, D))
-            self.pendings = tuple(self._identity((S, R, D))
-                                  for _ in range(self.n_deferred))
-        self.cache = None
-        self.spill = None
-        if config.engine == "blocked":
-            self.cache = blocked.init_cache(S, config.ways, config.block_rows,
-                                            D, self._dtype, self.device)
-            if config.partitioned:
-                self.spill = blocked.init_spill(
-                    S, config.spill_blocks, config.block_rows, D,
-                    self._dtype, merge, self.device)
-        # partitioned pendings: a ring (keys [S, C], vals [S, C, D], cursor)
-        # sized max_period * batch at the first tick, when the fixed batch
-        # shape is first seen. Every shard appends the same B per tick, so
-        # one cursor serves all shards.
+        # -- device state (leading shard dim; :meth:`_fresh_state`). The
+        # partitioned kernel store's ring is sized at the first tick, when
+        # the fixed batch shape is first seen (:meth:`_fresh_ring`).
+        self.settled, self.pendings, self.cache, self.spill = \
+            self._fresh_state()
         self.ring = None
         self._ring_batch = None
         self.inflight = None
@@ -393,6 +375,41 @@ class ShardedKV:
     def _identity(self, shape) -> torch.Tensor:
         return self.config.merge.identity(shape, self._dtype,
                                           device=self.device)
+
+    def _fresh_state(self) -> tuple:
+        """The state a new store holds, ``(settled, pendings, cache,
+        spill)``: identity tables (the settled rows home-sharded when
+        partitioned, no pending tables then) and, for the blocked engine, a
+        cold cache and (partitioned) an empty spill buffer, else None. Real
+        ``[S, ...]`` tensors, never broadcast views: the kernels write the
+        pendings in place."""
+        cfg, S = self.config, self.n_shards
+        R, D = cfg.n_keys, cfg.cols
+        if cfg.partitioned:
+            settled, pendings = self._identity((S, R // S, D)), ()
+        else:
+            settled = self._identity((S, R, D))
+            pendings = tuple(self._identity((S, R, D))
+                             for _ in range(self.n_deferred))
+        cache = spill = None
+        if cfg.engine == "blocked":
+            cache = blocked.init_cache(S, cfg.ways, cfg.block_rows, D,
+                                       self._dtype, self.device)
+            if cfg.partitioned:
+                spill = blocked.init_spill(S, cfg.spill_blocks,
+                                           cfg.block_rows, D, self._dtype,
+                                           cfg.merge, self.device)
+        return settled, pendings, cache, spill
+
+    def _fresh_ring(self, batch: int) -> tuple:
+        """An empty pending ring of the partitioned kernel store for ticks
+        of ``batch`` updates a shard: keys ``[S, C]`` (-1), values ``[S, C,
+        D]`` (identity) and the cursor 0, ``C = max_period * batch``. Every
+        shard appends the same batch a tick, so one cursor serves all."""
+        C = self.schedule.max_period * batch
+        return (torch.full((self.n_shards, C), -1, dtype=torch.int32,
+                           device=self.device),
+                self._identity((self.n_shards, C, self.config.cols)), 0)
 
     def _encode(self, x: torch.Tensor) -> torch.Tensor:
         """Values of the table's dtype as the state holds them."""
@@ -793,12 +810,9 @@ class ShardedKV:
                 keys, vals, donate=(0, 1, 2))
 
     def _ensure_ring(self, shape) -> None:
-        S, B = shape
+        _, B = shape
         if self.ring is None:
-            C = self.schedule.max_period * B
-            self.ring = (torch.full((S, C), -1, dtype=torch.int32,
-                                    device=self.device),
-                         self._identity((S, C, self.config.cols)), 0)
+            self.ring = self._fresh_ring(B)
             self._ring_batch = B
         elif B != self._ring_batch:
             raise ValueError(
@@ -1207,6 +1221,10 @@ class ShardedKV:
             out.update(blocked.stats(self.cache))
         return out
 
+    # ------------------------------------------------------------------
+    # the tick programs, for the verifier (``repro_torch.analysis``)
+    # ------------------------------------------------------------------
+
     @property
     def supported_dues(self) -> tuple:
         """The due counts the store has tick programs for: one sync
@@ -1218,6 +1236,77 @@ class ShardedKV:
             return (0, self.n_deferred)
         return tuple(range(self.n_deferred + 1))
 
+    def _check_land(self, land: bool) -> None:
+        if land and not (self.partitioned and self._overlap):
+            raise ValueError("land=True is the overlapped partitioned "
+                             "store's landing tick — needs "
+                             "partitioned=True and schedule.overlap")
+
+    def raw_tick_fn(self, due: Optional[int] = None,
+                    land: bool = False) -> Callable:
+        """The tick program :meth:`tick` runs, on stacked arguments (the
+        order :meth:`tick_args` gives). ``due=None`` on a synchronized store
+        is the sync tick, on a partitioned one the full commit;
+        ``land=True`` is the overlapped store's landing variant (the tick
+        that settles the in-flight aggregate)."""
+        self._check_land(land)
+        if self.synchronized:
+            return self._tick_fns["sync"]
+        if self.partitioned:
+            if due is None:
+                due = self.n_deferred
+            if due not in self.supported_dues:
+                raise ValueError(f"partitioned store commits all-or-"
+                                 f"nothing: due must be one of "
+                                 f"{self.supported_dues}, got {due}")
+            return self._tick_fns[("p", due == self.n_deferred, land)]
+        if due is None:
+            raise ValueError("deferred store: pass due (0..n_deferred)")
+        return self._tick_fns[due]
+
+    def raw_flush_fn(self) -> Callable:
+        """The flush program (a full commit of everything outstanding)."""
+        if self.synchronized:
+            raise ValueError("synchronized store has nothing to flush")
+        return self._flush_fn
+
+    def tick_args(self, batch: int, land: bool = False,
+                  seed: int = 0) -> tuple:
+        """Example stacked arguments of :meth:`raw_tick_fn` for a tick of
+        ``batch`` updates a shard: the state a new store holds
+        (:meth:`_fresh_state`; the partitioned kernel store's ring sized
+        for ``batch``; an identity in-flight aggregate when ``land``) and
+        keys and values drawn from ``seed``. The store's own state is not
+        touched."""
+        self._check_land(land)
+        cfg, S = self.config, self.n_shards
+        rng = np.random.default_rng(seed)
+        keys = torch.as_tensor(rng.integers(0, cfg.n_keys, (S, batch)),
+                               dtype=torch.int32, device=self.device)
+        vals = torch.as_tensor(rng.integers(1, 9, (S, batch, cfg.cols)),
+                               dtype=self._dtype, device=self.device)
+        settled, pendings, cache, spill = self._fresh_state()
+        if self.synchronized:
+            return (settled, keys, vals)
+        if self.partitioned:
+            state = ((self._fresh_ring(batch),) if cfg.engine == "kernel"
+                     else (cache, spill))
+            inflight = (self._identity_table(),) if land else ()
+            return (settled, *state, *inflight, keys, vals)
+        if cfg.engine == "kernel":
+            return (settled, pendings, keys, vals)
+        return (settled, pendings, cache, keys, vals)
+
+    @property
+    def donate_argnums(self) -> tuple:
+        """The state argument positions a plain (non-landing) tick donates
+        (updated in place: every one comes back in its own storage). A
+        landing tick donates one more, the in-flight aggregate right after
+        these, which it consumes."""
+        if self.synchronized:
+            return (0,)
+        return (0, 1) if self.config.engine == "kernel" else (0, 1, 2)
+
     def scheduled_manifest(self, due: Optional[int] = None,
                            land: bool = False) -> list:
         """The collective schedule a tick runs (``ccache.program_manifest``);
@@ -1226,10 +1315,7 @@ class ShardedKV:
         tick runs the launch half, the landing tick the withheld top
         exchange (a landing tick that is itself a full commit runs both,
         land first)."""
-        if land and not (self.partitioned and self._overlap):
-            raise ValueError("land=True is the overlapped partitioned "
-                             "store's landing tick — needs "
-                             "partitioned=True and schedule.overlap")
+        self._check_land(land)
         merge = self.config.merge
         if self.synchronized:
             return ccache.collective_manifest(self.plan, self.n_shards,

@@ -1366,3 +1366,91 @@ def test_selective_scan_refuses_a_d_state_it_has_no_kernel_for(cuda, s):
     with pytest.raises(ValueError, match="d_state"):
         sc.selective_scan(*ins)
     assert sc.selective_scan.launches == before
+
+
+# -- the pipeline schedule and the static verifier on the card -------------
+
+
+def test_pipeline_of_decoder_layers_on_the_card_equals_the_serial_run(cuda):
+    """4 stacked stages of qwen1.5-0.5b's smoke layers (bf16) through the
+    CUDA flash_attention: the last stage's outputs bitwise equal to the
+    same layers run serially through the same function, one flash launch
+    a stage a tick."""
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.core.stacked import StackedAxis
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import attention as attn
+    from repro_torch.models.registry import build_model
+    from repro_torch.sharding import pipeline_apply
+
+    stages, n_micro, mb, seq = 4, 5, 2, 64
+    cfg = dataclasses.replace(get_smoke_config("qwen1-5-0-5b"),
+                              n_layers=stages, dtype="bfloat16")
+    model = build_model(cfg, device=cuda, seed=0)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((n_micro, mb, seq, cfg.d_model), generator=g).to(
+        cuda, torch.bfloat16)
+    positions = torch.arange(seq, dtype=torch.int32, device=cuda)
+    scan = model._caches(stages, mb, seq, x.dtype)
+    caches = [attn.KVCache(k=scan.k[i], v=scan.v[i]) for i in range(stages)]
+    params = model.params()["blocks"]
+    layer = lambda i: pytree.tree_map(lambda a: a[i], params)
+
+    def stage_fn(p, xs):
+        return torch.stack([model._block_prefill(layer(i), xs[i], positions,
+                                                 caches[i])
+                            for i in range(stages)])
+
+    with torch.no_grad():
+        before = flash_attention.launches
+        got = pipeline_apply(stage_fn, params,
+                             x[None].expand((stages,) + tuple(x.shape)),
+                             StackedAxis(stages, cuda))
+        launches = flash_attention.launches - before
+        want = []
+        for m in range(n_micro):
+            h = x[m]
+            for i in range(stages):
+                h = model._block_prefill(layer(i), h, positions, caches[i])
+            want.append(h)
+    assert torch.equal(got[-1], torch.stack(want))
+    assert launches == stages * (n_micro + stages - 1)
+
+
+def test_the_serve_sweep_on_the_card_is_clean_through_the_kernels(cuda):
+    from repro_torch.analysis import Report, cli
+
+    report = Report()
+    before = (cs.cscatter.launches, cm.cmerge.launches)
+    cli.sweep_serve(report, cuda)
+    assert report.ok(), report.format()
+    # its stores, shapes and seeds are fixed: 20 cscatter calls of the
+    # kernel store's ticks, 520 cmerge launches of the blocked stores'
+    assert (cs.cscatter.launches - before[0],
+            cm.cmerge.launches - before[1]) == (
+                20 * cs.LAUNCHES_PER_CALL, 520)
+    missed = [r["name"] for r in cli.run_fixtures(cuda) if not r["tripped"]]
+    assert not missed
+
+
+def test_taint_follows_the_cuda_cscatter(cuda):
+    """The kernel writes its table past the dispatcher; its wrapper's
+    kernel event carries keys and values into the pending, and a tick that
+    scatters into the settled table is caught."""
+    from repro_torch.analysis import check_kv_tick_taint, out_deps
+    from repro_torch.apps.common import scatter
+    from repro_torch.serve.kv import KVConfig, ShardedKV, serving_plan
+
+    kv = ShardedKV(KVConfig(n_keys=256, cols=2), 8, device=cuda,
+                   plan=serving_plan(8, "all"), commit_every=4)
+    settled, pendings, keys, vals = kv.tick_args(32)
+    deps = out_deps(kv.raw_tick_fn(0), (settled, pendings, keys, vals))
+    n = len(pendings)
+    assert deps[0] == {0} and deps[1] == {1, n + 1, n + 2}
+
+    def leaky(settled, pendings, keys, vals):
+        return scatter(settled, keys, vals, kind="add"), tuple(pendings)
+
+    assert [d.code for d in check_kv_tick_taint(
+        leaky, settled, pendings, keys, vals, "leaky")] == ["CC012"]
