@@ -225,9 +225,24 @@ smoke config) — and:
    ``cscatter`` and ``cmerge`` to their plain versions at the sweep's
    shapes; around the sweep it zeroes their counts and requires
    LINT_LAUNCHES. Prints the sites swept, the seconds and the launches;
-16. prints every kernel's registers and spills (``ptxas -v``),
+16. (``phase_dryrun``) plans two production cells on the card's host
+   (``python -m repro_torch.launch.dryrun``'s ``run_cell``: DTensors on
+   meta tensors over a fake process group, the op walk, the H100
+   roofline): llama3-405b train_4k on pod2x16x16 and qwen1.5-0.5b
+   decode_32k on pod16x16, each ``ok``, printing its dominant term and its
+   floor; then the count check: qwen1.5-0.5b's prefill at the serve cell
+   for real on the card under the op walk (24 ``flash_attention``
+   launches) and traced on a 1 x 1 fake mesh, whose FLOPs and HBM bytes
+   must be equal; prints the walk's peak beside ``max_memory_allocated``,
+   the prefill's time beside its floor (FLOPs at peak, or the bytes it
+   must move: weights, tokens, caches and tokens out) and beside the time
+   of the eager traffic the walk counts, and ``cscatter``'s host time a
+   call direct and through its custom op. Every kernel's count is zeroed
+   at the phase's start and read after each part (the cells, the count
+   check, the prefill's timing, the dispatch timing);
+17. prints every kernel's registers and spills (``ptxas -v``),
    one ``{"kernels": [...]}`` line and the card's name and power limit;
-17. ends with ``{"ok": true, "device": {...}}``.
+18. ends with ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds. Nothing is caught: any failure exits
 non-zero before the last line. Without a card, or without the repository
@@ -307,6 +322,11 @@ XLSTM_PROMPT, XLSTM_GEN = 256, 257
 # HBM3, 700.00 W); the CPU tests kill before each of steps 1-4 of 5
 CHAOS_STEPS, CHAOS_KILLS = 4, (2,)
 ATTN_BF16_ROW = 1e-2
+# phase_dryrun: two production cells planned on the card's host (nothing
+# allocated; ``launch/dryrun.py``), then the count check at the serve cell
+# (SERVE_BATCH x PROMPT) for real and on a 1 x 1 mesh
+DRYRUN_CELLS = (("llama3_405b", "train_4k", True),
+                ("qwen1_5_0_5b", "decode_32k", False))
 # kernel-path vs plain-attention logits (teacher-forced, same weights)
 LOGIT_TOL = 0.1
 # The paper's apps. BFS and PageRank run on Graph500's Kronecker graph
@@ -5183,6 +5203,201 @@ def phase_lint() -> dict:
     return out
 
 
+def _dispatch_us(calls: int = 400) -> dict:
+    """Host microseconds a call of ``cscatter`` takes directly and through
+    its custom op (``kernels/custom_ops.py``), on a small table: the
+    dispatch the op would add to the KV tick's path."""
+    import torch
+    from repro_torch.kernels import custom_ops  # noqa: F401 (registers)
+    from repro_torch.kernels.cscatter import cscatter
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    table = torch.zeros((1024, 8), device="cuda")
+    ids = torch.randint(0, 1024, (64,), device="cuda", generator=g,
+                        dtype=torch.int32)
+    vals = torch.ones((64, 8), device="cuda")
+    op = torch.ops.repro_torch.cscatter
+    runs = {"direct": lambda: cscatter(table, ids, vals, kind="add"),
+            "custom_op": lambda: op(table, ids, vals, "add", 0.0, 0.0)}
+    out = {}
+    for name, fn in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        samples = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            samples.append((time.perf_counter() - t0) / calls)
+            torch.cuda.synchronize()
+        out[name] = 1e6 * statistics.median(samples)
+    out["added_us"] = out["custom_op"] - out["direct"]
+    return out
+
+
+def _counts() -> dict:
+    """Every kernel's launch count, by name."""
+    from repro_torch.kernels import cmerge, cscatter, decode_attention
+    from repro_torch.kernels import flash_attention, selective_scan
+    return {"cscatter": cscatter.cscatter.launches,
+            "cmerge": cmerge.cmerge.launches,
+            "flash_attention": flash_attention.flash_attention.launches,
+            "decode_attention": decode_attention.decode_attention.launches,
+            "selective_scan": selective_scan.selective_scan.launches}
+
+
+def _zero_counts() -> None:
+    from repro_torch.kernels import cmerge, cscatter, decode_attention
+    from repro_torch.kernels import flash_attention, selective_scan
+    for fn in (cscatter.cscatter, cmerge.cmerge,
+               flash_attention.flash_attention,
+               decode_attention.decode_attention,
+               selective_scan.selective_scan):
+        fn.launches = 0
+
+
+def phase_dryrun(card: str) -> dict:
+    """The production-mesh dry-run (module doc, item 16): (a) the cells of
+    DRYRUN_CELLS planned on the card's host, each ``ok`` with its dominant
+    term and its floor; (b) the count check: qwen1.5-0.5b's prefill at the
+    serve cell run for real on the card under the op walk (one flash launch
+    a layer, no other kernel), then traced on a 1 x 1 fake mesh: FLOPs and
+    HBM bytes must be equal; the walk's peak beside
+    ``max_memory_allocated``; the measured prefill beside its floor (the
+    larger of its FLOPs at peak and its boundary bytes, weights and tokens
+    in, caches and tokens out, at the HBM rate) and beside the eager
+    traffic's time; and the custom op's dispatch beside the direct call.
+    Every kernel's count is zeroed at the start and read after each part:
+    ``launches`` holds each part's counts."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch import mesh as pmesh
+    from repro_torch.launch.hw_analysis import roofline_terms
+    from repro_torch.launch.op_cost import OpWalk
+    from repro_torch.launch.serve import prompts
+    from repro_torch.models.registry import build_model
+    out = {"cells": {}, "launches": {}}
+
+    def part(name: str) -> dict:
+        out["launches"][name] = _counts()
+        _zero_counts()
+        return out["launches"][name]
+
+    _zero_counts()
+    work = tempfile.mkdtemp(prefix="dryrun-")
+    try:
+        for arch, shape, multi in DRYRUN_CELLS:
+            rec = dryrun.run_cell(arch, shape, multi, work)
+            require(rec["status"] == "ok", f"dryrun {arch} x {shape}: "
+                    f"{rec.get('error')}")
+            r, f = rec["roofline"], rec["roofline_floor"]
+            out["cells"][f"{arch}__{shape}__{rec['mesh']}"] = {
+                "dominant": r["dominant"], "compute_s": r["compute_s"],
+                "memory_s": r["memory_s"],
+                "collective_s": r["collective_s"],
+                "floor_s": f["bound_s"], "floor_dominant": f["dominant"],
+                "floor_memory_s": f["memory_s"],
+                "live_bytes": rec["memory"]["live_bytes_per_device"],
+                "fits_80gb_hbm": rec["memory"]["fits_80gb_hbm"],
+                "trace_s": rec["trace_s"],
+                "trip_counts": rec["op_walk"]["trip_counts"]}
+            print(f"dryrun {arch} x {shape} x {rec['mesh']} planned on "
+                  f"{card}'s host: dominant={r['dominant']} (compute "
+                  f"{r['compute_s']:.6f} s, memory {r['memory_s']:.6f} s "
+                  f"of eager traffic, collective {r['collective_s']:.6f} s "
+                  f"at the data sheet's rates); floor {f['bound_s']:.6f} s "
+                  f"({f['dominant']}; boundary bytes {f['memory_s']:.6f} "
+                  f"s); {rec['memory']['live_bytes_per_device']} live bytes"
+                  f" a device, traced in {rec['trace_s']:.3f} s")
+        planned = part("cells")
+        require(not any(planned.values()),
+                f"dryrun: planning launched kernels {planned}")
+        # (b) the count check at the serve cell
+        cfg = get_config(ARCH)
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = build_model(cfg, device="cuda", seed=SEED)
+        tokens = torch.as_tensor(prompts(cfg, SERVE_BATCH, PROMPT, SEED),
+                                 device="cuda")
+        model.prefill(tokens[:, :16], 16)            # warm-up, not counted
+        torch.cuda.synchronize()
+        part("warmup")
+        torch.cuda.reset_peak_memory_stats()
+        walk = OpWalk(inputs=[*model.parameters(), tokens])
+        with walk:
+            logits, caches = model.prefill(tokens, PROMPT)
+            picked = steps.greedy(logits)
+        walk.add_outputs((picked, caches))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        real = walk.result()
+        del logits, caches, picked, walk
+        launches = part("count_check")
+        want = dict(dict.fromkeys(launches, 0), flash_attention=cfg.n_layers)
+        require(launches == want, f"dryrun count check: launches "
+                f"{launches}, want {want}")
+        samples = []
+        for _ in range(5):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            model.prefill(tokens, PROMPT)
+            end.record()
+            torch.cuda.synchronize()
+            samples.append(start.elapsed_time(end))
+        prefill_ms = statistics.median(samples)
+        part("prefill_timing")
+        del model
+        torch.cuda.empty_cache()
+        one = pmesh.make_host_mesh(1, 1)
+        shape = ShapeConfig("serve", PROMPT, SERVE_BATCH, "prefill")
+        fake = steps.plan_prefill(cfg, shape, one).trace()
+        require(real["flops"] == fake["flops"]
+                and real["hbm_bytes"] == fake["hbm_bytes"],
+                f"dryrun count check: on the card {real['flops']} FLOPs, "
+                f"{real['hbm_bytes']} HBM bytes; traced on 1 x 1 "
+                f"{fake['flops']}, {fake['hbm_bytes']}")
+        floor = roofline_terms(real["flops"], real["boundary_bytes"], 0.0)
+        eager = roofline_terms(real["flops"], real["hbm_bytes"], 0.0)
+        out["count_check"] = {
+            "flops": real["flops"], "hbm_bytes": real["hbm_bytes"],
+            "boundary_bytes": real["boundary_bytes"],
+            "fake_boundary_bytes": fake["boundary_bytes"],
+            "flash_launches": launches["flash_attention"],
+            "kernels": real["kernels"],
+            "walk_peak_bytes": real["peak_live_bytes"],
+            "max_memory_allocated": peak,
+            "fake_peak_bytes": fake["peak_live_bytes"],
+            "prefill_ms": prefill_ms, "bound_ms": 1e3 * floor["bound_s"],
+            "bound_by": floor["dominant"],
+            "roofline_share": 1e3 * floor["bound_s"] / prefill_ms,
+            "eager_traffic_ms": 1e3 * eager["memory_s"],
+            "eager_bound_ms": 1e3 * eager["bound_s"],
+            "eager_share": 1e3 * eager["bound_s"] / prefill_ms}
+        c = out["count_check"]
+        print(f"dryrun count check {cfg.name} prefill {SERVE_BATCH} x "
+              f"{PROMPT} on {card}: {c['flops']} FLOPs and {c['hbm_bytes']}"
+              f" HBM bytes of eager traffic, equal on the card and traced "
+              f"on a 1 x 1 mesh; launches {launches}; walk peak "
+              f"{c['walk_peak_bytes']} bytes beside max_memory_allocated "
+              f"{peak}; prefill {prefill_ms:.6f} ms (median of 5) beside its"
+              f" floor {c['bound_ms']:.6f} ms ({c['bound_by']}; "
+              f"{c['boundary_bytes']} boundary bytes): roofline share "
+              f"{c['roofline_share']:.6f}; the eager traffic alone "
+              f"{c['eager_traffic_ms']:.6f} ms (share "
+              f"{c['eager_share']:.6f})")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        pmesh.shutdown()
+    out["dispatch_us"] = _dispatch_us()
+    part("dispatch_timing")
+    d = out["dispatch_us"]
+    print(f"dryrun dispatch on {card}'s host: cscatter {d['direct']:.3f} us "
+          f"a call direct, {d['custom_op']:.3f} us through its custom op "
+          f"(+{d['added_us']:.3f} us); launches by part {out['launches']}")
+    return out
+
+
 def main_stream() -> tuple[np.ndarray, np.ndarray]:
     """The main path's stream from the seed: ``TICKS * S * B`` Pareto keys
     (flat) and their values ``[TICKS, S, B, D]``."""
@@ -5235,6 +5450,7 @@ def main() -> None:
     families = timed("families", phase_families, smi)
     pipeline = timed("pipeline", phase_pipeline, smi)
     lint = timed("lint", phase_lint)
+    dry = timed("dryrun", phase_dryrun, smi)
 
     tick_add = next(t for t in times if t["kind"] == "add" and t["n"] == B
                     and "what" not in t)
@@ -5272,6 +5488,10 @@ def main() -> None:
         "launches_vlm": families["vlm"]["launches"]["cscatter"],
         "launches_kimi": families["kimi"]["launches"]["cscatter"],
         "launches_lint": lint["launches"]["cscatter"],
+        "launches_dryrun": dry["launches"]["count_check"]["cscatter"],
+        "launches_dryrun_other": {
+            k: v["cscatter"] for k, v in dry["launches"].items()
+            if k != "count_check"},
         "moe_combine": [t for t in times if t.get("what") == "moe_combine"],
         "determinism": determinism,
         "train_embedding_backward": train_add,
@@ -5281,6 +5501,10 @@ def main() -> None:
         "replaces": REPLACES_CMERGE,
         "launches": blocked_path["cmerge"],
         "launches_lint": lint["launches"]["cmerge"],
+        "launches_dryrun": dry["launches"]["count_check"]["cmerge"],
+        "launches_dryrun_other": {
+            k: v["cmerge"] for k, v in dry["launches"].items()
+            if k != "count_check"},
         "max_abs_err": worst_merge["int"],
         "max_abs_err_float": worst_merge["float"],
         "matched": True,
@@ -5305,6 +5529,10 @@ def main() -> None:
         "launches_vlm": families["vlm"]["launches"][name],
         "launches_kimi": families["kimi"]["launches"][name],
         "launches_pipeline": pipeline["launches"].get(name, 0),
+        "launches_dryrun": dry["launches"]["count_check"][name],
+        "launches_dryrun_other": {
+            k: v[name] for k, v in dry["launches"].items()
+            if k != "count_check"},
         "launches_windowed_families": families["hymba"]["launches"][
             "flash_attention_windowed"],
         "launches_bidirectional_encdec": families["encdec"]["launches"][
@@ -5334,6 +5562,10 @@ def main() -> None:
             "hymba_prefill": families["hymba"]["launches"]["selective_scan"],
             **{f"hymba_train_{k}": v for k, v in
                families["hymba_train"]["launches"].items()}},
+        "launches_dryrun": dry["launches"]["count_check"]["selective_scan"],
+        "launches_dryrun_other": {
+            k: v["selective_scan"] for k, v in dry["launches"].items()
+            if k != "count_check"},
         "max_abs_err": scan_rows[0]["max_abs_err"],
         "max_rel_err": max(max(r["max_rel_err"].values())
                            for r in scan_rows),
@@ -5352,7 +5584,7 @@ def main() -> None:
         "apps": {k: v for k, v in apps.items() if k != "kernel_rows"},
         "schedules": schedules, "durability": durability,
         "train": trained, "elastic": elastic, "pipeline": pipeline,
-        "lint": lint,
+        "lint": lint, "dryrun": dry,
         "families": {k: {x: y for x, y in v.items() if x != "profile"}
                      for k, v in families.items()}}))
     print(smi)

@@ -16,9 +16,10 @@ it does:
   dependency sets, tracked by a ``TorchDispatchMode`` over storages through
   every aten op, in-place ones included (the counterpart of the
   reference's ``_out_deps``). Hand-written kernels are launched through
-  ``ctypes`` past the dispatcher, so their wrappers emit what they read
-  and write (a ``"kernel"`` event) and the tracker folds that in: on the
-  card the check follows the real hot path. On a due=0 tick the settled
+  ``ctypes`` past the dispatcher, so each wrapper's call is bracketed by
+  ``"kernel_begin"`` (its arguments: what it reads) and ``"kernel_end"``
+  (its result: what it wrote) events, and the tracker folds that in: on
+  the card the check follows the real hot path. On a due=0 tick the settled
   output may depend only on the settled input (CC012 otherwise) and no
   pending output may depend on the settled input (CC011);
 * :func:`audit_plan` / :func:`audit_stages` — the plan/trait audit
@@ -136,6 +137,8 @@ class _Taint(TorchDispatchMode):
         self.deps: dict[int, frozenset] = {}
         # every storage seen stays alive, so no address is reused
         self._held: dict[int, Any] = {}
+        # the arguments of each kernel call begun and not yet ended
+        self._calls: list[list] = []
 
     def key(self, t: torch.Tensor) -> Optional[int]:
         st = t.untyped_storage()
@@ -167,9 +170,13 @@ class _Taint(TorchDispatchMode):
                 self.deps[k] = src
 
     def on(self, event: str, *args) -> None:
-        if event == "kernel":
-            _, reads, writes = args
-            self.flow(reads, writes)
+        if event == "kernel_begin":
+            self._calls.append(pytree.tree_leaves((args[1], args[2])))
+        elif event == "kernel_end":
+            reads = [t for t in self._calls.pop()
+                     if isinstance(t, torch.Tensor)]
+            self.flow(reads, [t for t in pytree.tree_leaves(args[1])
+                              if isinstance(t, torch.Tensor)])
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}

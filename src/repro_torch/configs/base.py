@@ -2,8 +2,9 @@
 
 The port's own copy of the JAX package's ``repro/configs/base.py``
 ``ArchConfig`` (every field, the same derived sizes), with ``param_dtype``
-a ``torch.dtype``. Every config of ``ARCH_IDS`` is ported; an arch whose
-module is missing raises :class:`NotImplementedError` naming it.
+a ``torch.dtype``, and its ``SHAPES`` and ``applicable_shapes``. Every
+config of ``ARCH_IDS`` is ported; an arch whose module is missing raises
+:class:`NotImplementedError` naming it.
 """
 
 from __future__ import annotations
@@ -135,6 +136,13 @@ class ShapeConfig:
     kind: str  # train | prefill | decode
 
 
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
 ARCH_IDS = [
     "qwen1_5_0_5b",
     "granite_34b",
@@ -175,3 +183,12 @@ def get_config(arch: str) -> ArchConfig:
 
 def get_smoke_config(arch: str) -> ArchConfig:
     return _module(arch).smoke_config()
+
+
+def applicable_shapes(cfg: ArchConfig) -> list[str]:
+    """Which of the 4 shapes run for this arch (brief's skip rules)."""
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    # long_500k needs sub-quadratic context state: SSM / hybrid only.
+    if cfg.family in ("ssm", "hybrid"):
+        out.append("long_500k")
+    return out

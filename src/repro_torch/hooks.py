@@ -6,11 +6,16 @@ Two kinds are emitted, each before or where the work happens:
 * ``emit("collective", axis, kind, x, group, perm)`` — every
   ``StackedAxis.ppermute/psum/pmax/pmin`` call (``core/stacked.py``),
   which ``analysis.trace.CollectiveRecorder`` records;
-* ``emit("kernel", name, reads, writes)`` — every launch of a hand-written
-  kernel. A kernel launched through ``ctypes`` (``kernels/_build.py``) is
-  invisible to PyTorch's dispatcher, so its wrapper tells the tensors it
-  reads and those it writes in place, and the taint tracker
-  (``analysis.trace.out_deps``) follows the data through it.
+* ``emit("kernel_begin", name, args, kwargs)`` and ``emit("kernel_end",
+  name, result)`` — around every concrete call of a hand-written kernel's
+  wrapper (``kernels/custom_ops.kernel_call``), whichever route runs it:
+  the CUDA launch or the plain version. A kernel launched through
+  ``ctypes`` (``kernels/_build.py``) is invisible to PyTorch's dispatcher,
+  so the taint tracker (``analysis.trace.out_deps``) follows the data from
+  the arguments into the result (an in-place kernel returns the table it
+  wrote), and the op-level cost walk (``launch/op_cost.py``) counts the
+  call once, by the kernel's own formula, and not the plain version's
+  operations inside.
 
 A listener is added only for the span of a :func:`listening` block, so none
 is left behind on an error; with none, :func:`emit` is an empty loop.
@@ -38,3 +43,4 @@ def listening(fn: Callable) -> Iterator[None]:
         yield
     finally:
         LISTENERS.remove(fn)
+

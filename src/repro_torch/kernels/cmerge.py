@@ -33,7 +33,7 @@ import ctypes
 
 import torch
 
-from repro_torch import hooks
+from repro_torch.kernels.custom_ops import kernel_call
 from repro_torch.kernels.cscatter import DTYPES, _domain, _f32, _wrap
 
 MERGE_KINDS = ("add", "sat_add", "max", "min", "or")
@@ -173,6 +173,7 @@ def _kernel_fn():
     return fn
 
 
+@kernel_call("cmerge")
 def cmerge(table: torch.Tensor, block_ids: torch.Tensor, dirty: torch.Tensor,
            src: torch.Tensor, upd: torch.Tensor, *, kind: str = "add",
            sat_min: float = 0.0, sat_max: float = 0.0) -> torch.Tensor:
@@ -200,7 +201,6 @@ def cmerge(table: torch.Tensor, block_ids: torch.Tensor, dirty: torch.Tensor,
                  sat_max, stream)
     if err != 0:
         raise RuntimeError(f"cmerge kernel launch failed: cudaError {err}")
-    hooks.emit("kernel", "cmerge", (t, ids, dirty, s_, u_), (t,))
     cmerge.launches += 1
     return table
 

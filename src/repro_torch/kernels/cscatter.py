@@ -44,7 +44,7 @@ import functools
 
 import torch
 
-from repro_torch import hooks
+from repro_torch.kernels.custom_ops import kernel_call
 
 MERGE_KINDS = ("add", "sat_add", "max", "min", "or")
 DTYPES = (torch.float32, torch.bfloat16, torch.int32, torch.uint32)
@@ -315,6 +315,7 @@ def _kernel_fn():
     return fn
 
 
+@kernel_call("cscatter")
 def cscatter(table: torch.Tensor, ids: torch.Tensor, vals: torch.Tensor, *,
              kind: str = "add", sat_min: float = 0.0,
              sat_max: float = 0.0) -> torch.Tensor:
@@ -354,7 +355,6 @@ def launch(t: torch.Tensor, i: torch.Tensor, v: torch.Tensor, kind: str,
                  p.list_cap, p.fold_ctas, int(p.stage), stream)
     if err != 0:
         raise RuntimeError(f"cscatter kernel launch failed: cudaError {err}")
-    hooks.emit("kernel", "cscatter", (t, i, v), (t,))
     cscatter.launches += LAUNCHES_PER_CALL
 
 

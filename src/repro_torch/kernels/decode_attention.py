@@ -32,6 +32,8 @@ import functools
 
 import torch
 
+from repro_torch.kernels.custom_ops import kernel_call
+
 from repro_torch.kernels.cscatter import _sm_count
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -174,6 +176,7 @@ def _strides(x: torch.Tensor, name: str) -> list[int]:
     return list(st[:-1])
 
 
+@kernel_call("decode_attention")
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      position: int) -> torch.Tensor:
     """``q [B,H,d]``, ``k, v [B,T,KV,d]``, ``position`` -> ``[B,H,d]``: the

@@ -43,6 +43,8 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.custom_ops import kernel_call
+
 DTYPES = (torch.float32, torch.bfloat16)
 # the kernel each input dtype launches, and its C entry point
 VARIANTS = {torch.float32: "f32_fma", torch.bfloat16: "bf16_mma"}
@@ -125,6 +127,7 @@ def _strides(x: torch.Tensor, name: str) -> list[int]:
     return list(st[:3])
 
 
+@kernel_call("flash_attention")
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """``q [B,H,S,d]``, ``k, v [B,KV,T,d]`` -> ``[B,H,S,d]``, with a

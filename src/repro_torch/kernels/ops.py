@@ -2,7 +2,10 @@
 ``repro/kernels/ops.py``.
 
 Each runs the hand-written CUDA kernel on a CUDA tensor and the kernel's
-plain PyTorch version on a CPU tensor.
+plain PyTorch version on a CPU tensor; ``flash_attention``,
+``decode_attention`` and ``commutative_scatter`` take their custom op on a
+planner's tensor (a DTensor, a fake tensor), which has no data to launch a
+kernel on (``kernels/custom_ops.kernel_call``).
 """
 
 from __future__ import annotations

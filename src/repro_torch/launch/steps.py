@@ -26,13 +26,22 @@ the ``dp`` ranks are the leading dim of a stack on one device
   step's, bit for bit.
 
 :func:`make_train_step` without a topology is the implicit step (one rank,
-the whole batch). The mesh rules of the JAX module (``lowering_rules``,
-``axes_to_shardings``, ``opt_state_axes``, ``plan_train``,
-``LoweredPlan``) have no counterpart on one device and are not ported.
+the whole batch).
+
+The plan half (the JAX module's ``lowering_rules``, ``axes_to_shardings``,
+``opt_state_axes``, ``plan_train``, ``plan_prefill``, ``plan_decode`` and
+``plan_for``) plans a cell of the production mesh without devices: a
+:class:`StepPlan` holds the step, the specs and logical axes of its inputs
+and the rules, and :meth:`StepPlan.trace` runs the step on fake DTensors
+over a fake process group (``launch/mesh.py``) under the op-level cost walk
+(``launch/op_cost.py``), where JAX lowers and compiles. Only the dense
+family is planned so far; ``merge_plan=`` and ``defer_schedule=`` wait for
+a later slice.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Optional
 
 import torch
@@ -518,3 +527,383 @@ def _make_deferred_train_step(grads_of, optimizer, plan, merge_compress: bool,
                              optimizer=optimizer,
                              strides=tuple(s.stride for s in deferred),
                              settle_mode=settle_mode, donates=donate)
+
+
+# ---------------------------------------------------------------------------
+# The plan half: logical rules, fake DTensor inputs, the traced step.
+# ---------------------------------------------------------------------------
+
+PLANNED_FAMILIES = ("dense",)
+NOT_PLANNED = ("the other families' dry-run is ROADMAP queue 1 item 2")
+
+
+def lowering_rules(cfg, shape_cfg, mesh) -> dict:
+    """Per (arch x shape x mesh) logical->mesh adjustments, as JAX's."""
+    from repro_torch.sharding.partition import mesh_shape
+    shape = mesh_shape(mesh)
+    rules: dict = {}
+    model_size = shape.get("model", 1)
+    dp = shape.get("data", 1) * shape.get("pod", 1)
+    if shape_cfg.kind == "train":
+        # Sequence parallelism for the stored residual stream, only when
+        # the saved stack would otherwise pass a few GB a device.
+        tokens_per_dev = shape_cfg.global_batch * shape_cfg.seq_len // max(
+            dp, 1)
+        saved_bytes = cfg.n_layers * tokens_per_dev * cfg.d_model * 2
+        if saved_bytes > 4 * 1024**3 and model_size > 1:
+            rules["seq_res"] = "model"
+    if shape_cfg.kind == "decode":
+        if cfg.n_kv_heads % model_size != 0:
+            # KV heads don't divide TP: shard the cache on sequence instead.
+            rules["kv_heads"] = None
+            rules["cache_seq"] = "model"
+    if cfg.n_params() > 1e11:
+        # Giants: FSDP the embed dim across pods too.
+        rules["embed"] = ("pod", "data")
+    return rules
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(e, (str, type(None)))
+                                        for e in x)
+
+
+def axes_to_shardings(axes_tree: PyTree, specs_tree: PyTree, mesh,
+                      rules: dict) -> PyTree:
+    """Tree of logical-axes tuples + tree of specs -> tree of partition
+    specs (tuples, as JAX's ``PartitionSpec``)."""
+    from repro_torch.sharding.partition import spec_for
+    flat_ax, spec = pytree.tree_flatten(axes_tree, is_leaf=_is_axes)
+    flat_sp = spec.flatten_up_to(specs_tree)
+    return pytree.tree_unflatten(
+        [None if s is None else spec_for(tuple(s.shape), a, mesh, rules)
+         for a, s in zip(flat_ax, flat_sp)], spec)
+
+
+def opt_state_axes(opt_specs, param_axes: PyTree):
+    """Logical axes for optimizer state, mirroring the parameter axes."""
+    from repro_torch.optim.optimizers import OptState, _is_moment
+
+    def nu_axes(ax, nu_leaf):
+        if isinstance(nu_leaf, dict) and "row" in nu_leaf:
+            return {"row": tuple(ax[:-1]), "col": tuple(ax[:-2]) + (ax[-1],)}
+        if isinstance(nu_leaf, dict) and "full" in nu_leaf:
+            return {"full": tuple(ax)}
+        return tuple(ax)
+
+    flat_ax, spec = pytree.tree_flatten(param_axes, is_leaf=_is_axes)
+    mu = (None if opt_specs.mu is None
+          else pytree.tree_unflatten(flat_ax, spec))
+    flat_nu = pytree.tree_leaves(opt_specs.nu, is_leaf=_is_moment)
+    nu = pytree.tree_unflatten([nu_axes(a, n) for a, n in
+                                zip(flat_ax, flat_nu)], spec)
+    return OptState(step=(), mu=mu, nu=nu)
+
+
+def opt_state_specs(cfg, param_specs: PyTree):
+    """The optimizer state's specs for parameters of ``param_specs``, as
+    ``make_optimizer(cfg, ...).init`` lays them out (f32 moments, the
+    step a 0-dim int32)."""
+    from repro_torch.models.layout import Spec
+    from repro_torch.optim.optimizers import OptState
+    f32 = torch.float32
+    is_spec = lambda x: isinstance(x, Spec)
+    if cfg.optimizer == "adafactor":
+        def nu_for(p):
+            if len(p.shape) >= 2:
+                return {"row": Spec(p.shape[:-1], f32),
+                        "col": Spec(p.shape[:-2] + p.shape[-1:], f32)}
+            return {"full": Spec(p.shape, f32)}
+        return OptState(step=Spec((), torch.int32), mu=None,
+                        nu=pytree.tree_map(nu_for, param_specs,
+                                           is_leaf=is_spec))
+    moment = pytree.tree_map(lambda p: Spec(p.shape, f32), param_specs,
+                             is_leaf=is_spec)
+    return OptState(step=Spec((), torch.int32), mu=moment, nu=moment)
+
+
+class StepPlan:
+    """Everything needed to trace one (arch x shape x mesh) cell: the step,
+    its inputs' specs and logical axes (parallel trees), and the rules.
+
+    :meth:`trace` builds each input as a meta DTensor laid out by its axes
+    (nothing is allocated), runs the step under the rules and the op-level
+    walk, and returns the walk's counts."""
+
+    def __init__(self, fn, in_specs, in_axes, rules: dict, mesh):
+        self.fn = fn
+        self.in_specs = in_specs
+        self.in_axes = in_axes
+        self.rules = rules
+        self.mesh = mesh
+
+    def shardings(self) -> PyTree:
+        """The inputs' partition specs."""
+        return axes_to_shardings(self.in_axes, self.in_specs, self.mesh,
+                                 self.rules)
+
+    def inputs(self) -> PyTree:
+        """Meta DTensors for the inputs: shapes, dtypes and placements, no
+        data."""
+        from torch.distributed.tensor import DTensor
+        from repro_torch.sharding.partition import local_shape, placements_for
+        mesh = self.mesh
+
+        def make(spec, part):
+            if spec is None:
+                return None
+            shape = tuple(spec.shape)
+            local = torch.empty(local_shape(shape, part, mesh),
+                                dtype=spec.dtype, device="meta")
+            stride = [1] * len(shape)
+            for i in range(len(shape) - 2, -1, -1):
+                stride[i] = stride[i + 1] * shape[i + 1]
+            return DTensor.from_local(local, mesh,
+                                      placements_for(part, mesh),
+                                      run_check=False, shape=torch.Size(shape),
+                                      stride=tuple(stride))
+
+        from repro_torch.models.layout import Spec
+        flat_sp, spec = pytree.tree_flatten(
+            self.in_specs, is_leaf=lambda x: isinstance(x, Spec))
+        flat_part = spec.flatten_up_to(self.shardings())
+        return pytree.tree_unflatten(
+            [make(s, p) for s, p in zip(flat_sp, flat_part)], spec)
+
+    def merged(self):
+        """(mesh, rules) to trace on: mesh axes that the rules only ever
+        name together (``("pod", "data")`` when the giants' FSDP joins the
+        batch there) become one mesh dim over the same ranks, when every
+        input dim they split divides by the whole group. The local shapes,
+        the groups and so the counts are the same; DTensor then plans one
+        collective over the group (JAX's one replica group) and searches far
+        fewer placements."""
+        from repro_torch.sharding.partition import DEFAULT_RULES
+        rules = dict(DEFAULT_RULES, **self.rules)
+        names = list(self.mesh.mesh_dim_names)
+        groups = {v for v in rules.values()
+                  if isinstance(v, tuple) and len(v) > 1}
+        for grp in groups:
+            idx = [names.index(a) for a in grp if a in names]
+            alone = any(v in grp for v in rules.values()
+                        if not isinstance(v, tuple)) or any(
+                v != grp and set(v) & set(grp) for v in rules.values()
+                if isinstance(v, tuple))
+            if (len(idx) != len(grp) or alone
+                    or idx != list(range(idx[0], idx[0] + len(idx)))
+                    or not self._divides(grp)):
+                continue
+            from torch.distributed.device_mesh import DeviceMesh
+            shape = list(self.mesh.shape)
+            ranks = self.mesh.mesh.reshape(
+                shape[:idx[0]] + [math.prod(shape[i] for i in idx)]
+                + shape[idx[-1] + 1:])
+            name = "_".join(grp)
+            new_names = names[:idx[0]] + [name] + names[idx[-1] + 1:]
+            mesh = DeviceMesh(self.mesh.device_type, ranks,
+                              mesh_dim_names=tuple(new_names))
+            return mesh, {k: (name if v == grp else v)
+                          for k, v in rules.items()}
+        return self.mesh, self.rules
+
+    def _divides(self, grp) -> bool:
+        """Whether every input dim the rules give to ``grp`` takes it
+        whole."""
+        from repro_torch.models.layout import Spec
+        from repro_torch.sharding.partition import DEFAULT_RULES, spec_for
+        rules = dict(DEFAULT_RULES, **self.rules)
+        flat_ax, spec = pytree.tree_flatten(self.in_axes, is_leaf=_is_axes)
+        flat_sp = spec.flatten_up_to(self.in_specs)
+        for ax, sp in zip(flat_ax, flat_sp):
+            if not isinstance(sp, Spec):
+                continue
+            part = spec_for(tuple(sp.shape), ax, self.mesh, self.rules)
+            for e, name in zip(part, ax):
+                if rules.get(name) == grp and e != grp:
+                    return False
+        return True
+
+    def trace(self, level_sizes=None, level_names=None) -> dict:
+        """Run the step once on meta DTensors under :class:`OpWalk`; -> the
+        walk's result."""
+        from torch.distributed.tensor.experimental import implicit_replication
+        from repro_torch.launch.op_cost import OpWalk
+        from repro_torch.sharding.partition import sharding_rules
+        mesh, rules = self.merged()
+        plan = StepPlan(self.fn, self.in_specs, self.in_axes, rules, mesh)
+        walk = OpWalk(mesh, level_sizes, level_names, device="meta")
+        # a tensor the model makes (positions, RoPE tables, masks) is the
+        # same on every device: DTensor takes it as replicated
+        with implicit_replication(), sharding_rules(mesh, rules):
+            args = plan.inputs()
+            walk.add_inputs(args)
+            with walk:
+                out = self.fn(*args)
+            walk.add_outputs(out)
+            del out, args
+        return walk.result()
+
+
+def greedy(logits: torch.Tensor) -> torch.Tensor:
+    """``argmax(logits, -1)`` as int32; for DTensor logits with the vocab
+    split over mesh dims, each device takes its slice's best and the
+    slices' bests (one value a row each) meet on every device."""
+    if not hasattr(logits, "placements"):
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.sharding.partition import dim_shards
+    mesh, last = logits.device_mesh, logits.dim() - 1
+    vocab, n, first = dim_shards(mesh, logits.placements, last,
+                                 logits.shape[-1])
+    if not vocab:      # each device holds whole rows: argmax in place
+        keep = [p if isinstance(p, Shard) and p.dim < last else Replicate()
+                for p in logits.placements]
+        return local_map(lambda lg: torch.argmax(lg, dim=-1).to(torch.int32),
+                         out_placements=keep, in_placements=(keep,),
+                         device_mesh=mesh, redistribute_inputs=True)(logits)
+    lg_in, out = [], []
+    for i, p in enumerate(logits.placements):
+        batch = isinstance(p, Shard) and p.dim < last
+        lg_in.append(Shard(last) if i in vocab else p if batch
+                     else Replicate())
+        out.append(Shard(0) if i in vocab else Shard(p.dim + 1) if batch
+                   else Replicate())
+
+    def local(lg):
+        best, idx = lg.max(-1)
+        return best[None], (idx + first).to(torch.int32)[None]
+
+    best, idx = local_map(local, out_placements=(out, out),
+                          in_placements=(lg_in,), device_mesh=mesh,
+                          redistribute_inputs=True)(logits)
+    whole = [Replicate() if i in vocab else p for i, p in enumerate(out)]
+    best, idx = best.redistribute(mesh, whole), idx.redistribute(mesh, whole)
+    return torch.gather(idx, 0, best.argmax(0)[None])[0]
+
+
+def _check_family(cfg) -> None:
+    if cfg.family not in PLANNED_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not planned yet; "
+            f"{NOT_PLANNED}")
+
+
+def _abstract_model(cfg):
+    from repro_torch.models.transformer import DecoderLM
+    return DecoderLM(cfg, abstract=True)
+
+
+def _planned_train_step(model, optimizer, num_microbatches: int):
+    """The implicit step over DTensors: the loss and its backward (summed
+    over ``num_microbatches``, each device's rows ``i::n`` of its shard, so
+    the batch stays sharded), each gradient reduced onto its parameter's
+    placements, the global-norm clip and the optimizer."""
+    vg = value_and_grad(lambda p, b: model.loss(p, b)[0])
+    n = num_microbatches
+
+    def step(state, batch):
+        params = state["params"]
+        if n == 1:
+            loss, grads = vg(params, batch)
+        else:
+            micro = pytree.tree_map(
+                lambda x: x.reshape((x.shape[0] // n, n) + tuple(x.shape[1:])),
+                batch)
+            loss, grads = None, None
+            for i in range(n):
+                l, g = vg(params, pytree.tree_map(lambda x: x[:, i], micro))
+                loss = l if loss is None else loss + l
+                grads = g if grads is None else pytree.tree_map(
+                    torch.add, grads, g)
+                del g
+            loss = loss / n
+            grads = pytree.tree_map(lambda g: g / n, grads)
+        # each gradient reduced onto its parameter's layout (the data
+        # axes' reduce-scatter), as the jitted step's out_shardings ask
+        grads = pytree.tree_map(
+            lambda g, p: g.redistribute(p.device_mesh, p.placements),
+            grads, params)
+        params, opt_state, stats = optimizer.step(params, grads,
+                                                  state["opt"])
+        return {"params": params, "opt": opt_state}, {"loss": loss, **stats}
+
+    return step
+
+
+def plan_train(cfg, shape_cfg, mesh, num_microbatches: Optional[int] = None,
+               extra_rules: Optional[dict] = None) -> StepPlan:
+    """The implicit production train plan (no explicit merge plan)."""
+    from repro_torch.models.layout import param_axes, param_specs
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    _check_family(cfg)
+    model = _abstract_model(cfg)
+    rules = lowering_rules(cfg, shape_cfg, mesh)
+    rules.update(extra_rules or {})
+    nmb = (num_microbatches if num_microbatches is not None
+           else cfg.microbatches.get(shape_cfg.name, 1))
+    p_specs, p_axes = param_specs(cfg), param_axes(cfg)
+    o_specs = opt_state_specs(cfg, p_specs)
+    optimizer = make_optimizer(cfg, warmup_cosine(3e-4, 100, 10_000))
+    step = _planned_train_step(model, optimizer, nmb)
+    specs = ({"params": p_specs, "opt": o_specs}, model.input_specs(shape_cfg))
+    axes = ({"params": p_axes, "opt": opt_state_axes(o_specs, p_axes)},
+            model.input_axes(shape_cfg))
+    return StepPlan(step, specs, axes, rules, mesh)
+
+
+def plan_prefill(cfg, shape_cfg, mesh,
+                 extra_rules: Optional[dict] = None) -> StepPlan:
+    """Prefill of ``shape_cfg``'s batch into caches of its length; the
+    caches are an input (laid out by ``cache_axes``) the step fills."""
+    from repro_torch.models.layout import param_axes, param_specs
+    _check_family(cfg)
+    model = _abstract_model(cfg)
+    rules = lowering_rules(cfg, shape_cfg, mesh)
+    rules.update(extra_rules or {})
+    b, s = shape_cfg.global_batch, shape_cfg.seq_len
+    inputs = model.input_specs(shape_cfg)
+    in_axes = model.input_axes(shape_cfg)
+
+    def prefill_step(params, batch, caches):
+        logits, caches = model.prefill(batch.get("tokens"), s,
+                                       batch.get("embeds"), params=params,
+                                       caches=caches)
+        return greedy(logits), caches
+
+    return StepPlan(prefill_step,
+                    (param_specs(cfg), inputs, model.cache_specs(b, s)),
+                    (param_axes(cfg), in_axes, model.cache_axes(b, s)),
+                    rules, mesh)
+
+
+def plan_decode(cfg, shape_cfg, mesh,
+                extra_rules: Optional[dict] = None) -> StepPlan:
+    """One decode step of ``shape_cfg``'s batch against caches of its
+    length, at the last position (every slot read)."""
+    from repro_torch.models.layout import param_axes, param_specs
+    _check_family(cfg)
+    model = _abstract_model(cfg)
+    rules = lowering_rules(cfg, shape_cfg, mesh)
+    rules.update(extra_rules or {})
+    inputs = model.input_specs(shape_cfg)
+    in_axes = model.input_axes(shape_cfg)
+    position = shape_cfg.seq_len - 1
+
+    def serve_step(params, tokens, caches):
+        logits, caches = model.decode_step(tokens, caches, position,
+                                           params=params)
+        return greedy(logits), caches
+
+    return StepPlan(serve_step,
+                    (param_specs(cfg), inputs["tokens"], inputs["caches"]),
+                    (param_axes(cfg), in_axes["tokens"], in_axes["caches"]),
+                    rules, mesh)
+
+
+def plan_for(cfg, shape_cfg, mesh, **kw) -> StepPlan:
+    if shape_cfg.kind == "train":
+        return plan_train(cfg, shape_cfg, mesh, **kw)
+    if shape_cfg.kind == "prefill":
+        return plan_prefill(cfg, shape_cfg, mesh, **kw)
+    return plan_decode(cfg, shape_cfg, mesh, **kw)

@@ -18,6 +18,14 @@ at slot ``position``. ``plain=True`` takes the kernels' plain PyTorch
 versions instead, on any device: the caller asks for it (``chip_smoke.py``
 holds the whole model against it on the card); nothing falls back to it.
 
+On DTensors (the planner's, ``launch/steps.py``) ``attend_full`` constrains
+q and k to their logical axes, as JAX's does, and the attention itself
+runs on each device's batch and heads (:func:`_on_head_shards`, slicing the
+KV heads a device's heads read when the mesh cannot split them); a decode
+cache split by sequence is attended slice by slice and combined by each
+head's log-sum-exp (:func:`_sharded_decode`). On a plain tensor, and
+outside a rules context, none of it runs.
+
 The cache keeps the JAX layout, ``k, v [B, T, KV, hd]``, and decode writes
 it in place (the JAX serve loop donates it). Sliding-window layers keep a
 ring of W slots (:class:`RingKVCache`): ``ring_prefill`` attends through
@@ -40,6 +48,7 @@ form (every key visible), :func:`cross_prefill` goes through
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -49,6 +58,8 @@ from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.models import module as nn
 from repro_torch.models.rope import apply_rope
+from repro_torch.sharding.partition import dim_shards, partial_grad
+from repro_torch.sharding.partition import logical_constraint as lc
 
 Tensor = torch.Tensor
 
@@ -59,10 +70,16 @@ BLOCKWISE_THRESHOLD = 4096
 
 @dataclasses.dataclass
 class KVCache:
-    """Decode-time KV cache for one attention layer (or stacked layers)."""
+    """Decode-time KV cache for one attention layer (or stacked layers); a
+    pytree node, as JAX's."""
 
     k: Tensor  # [B, T, KV, hd]
     v: Tensor  # [B, T, KV, hd]
+
+
+torch.utils._pytree.register_pytree_node(
+    KVCache, lambda c: ([c.k, c.v], None),
+    lambda leaves, _: KVCache(*leaves))
 
 
 def init(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int,
@@ -80,6 +97,15 @@ def init(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int,
 
 
 def _split_heads(x: Tensor, n: int) -> Tensor:
+    if _is_dtensor(x):      # heads the mesh cannot split evenly: gather them
+        from torch.distributed.tensor import Replicate, Shard
+        last = x.dim() - 1
+        split = [i for i, p in enumerate(x.placements)
+                 if isinstance(p, Shard) and p.dim == last]
+        if n % math.prod(x.device_mesh.size(i) for i in split):
+            x = x.redistribute(x.device_mesh, [
+                Replicate() if i in split else p
+                for i, p in enumerate(x.placements)])
     return x.reshape(x.shape[:-1] + (n, x.shape[-1] // n))
 
 
@@ -113,6 +139,67 @@ def _repeat_kv(k: Tensor, g: int) -> Tensor:
     if g == 1:
         return k
     return torch.repeat_interleave(k, g, dim=2)
+
+
+def _is_dtensor(x) -> bool:
+    return type(x) is not Tensor and hasattr(x, "placements")
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _on_head_shards(fn, q, k, v):
+    """``fn(q, k, v) -> [B, S, H*hd]`` on each device's shard of DTensors
+    q ``[B, S, H, hd]``, k, v ``[B, T, KV, hd]`` (the planner's): batch
+    and heads stay where q has them, as JAX's ``_repeat_kv`` keeps the
+    score tensor head-sharded. Where the mesh splits the heads but not the
+    KV heads, each device slices the KV heads its own heads read (h // G),
+    so G = H / KV holds locally."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    h, kv = q.shape[2], k.shape[2]
+    q_in, kv_in, out = [], [], []
+    head_dims = []
+    for i, p in enumerate(q.placements):
+        if isinstance(p, Shard) and p.dim == 0:
+            q_in.append(Shard(0)), kv_in.append(Shard(0)), out.append(Shard(0))
+        elif isinstance(p, Shard) and p.dim == 2:
+            q_in.append(Shard(2)), out.append(Shard(2))
+            head_dims.append(i)
+            kv_in.append(Shard(2) if kv % mesh.size(i) == 0 else Replicate())
+        else:
+            q_in.append(Replicate()), kv_in.append(Replicate())
+            out.append(Replicate())
+    sliced = [i for i in head_dims if not isinstance(kv_in[i], Shard)]
+    _, h_loc, first = dim_shards(mesh, q_in, 2, h)
+    g = h // kv
+    lo = first // g
+    hi = (first + h_loc - 1) // g + 1
+    if sliced and h_loc % (hi - lo):
+        raise ValueError(f"{h} heads, {h_loc} a device, do not map onto "
+                         f"whole groups of {kv} KV heads")
+
+    def local(ql, kl, vl):
+        # the gradients leave in the layout DTensor assumes (contiguous)
+        ql, kl, vl = (_ContiguousGrad.apply(t) for t in (ql, kl, vl))
+        if sliced:
+            kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
+        return fn(ql, kl, vl).contiguous()
+
+    # a device reads only its slice of replicated k, v: its gradient is a
+    # share of theirs
+    k, v = partial_grad(k, sliced), partial_grad(v, sliced)
+    return local_map(local, out_placements=out,
+                     in_placements=(q_in, kv_in, kv_in),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
 
 
 def _masked_softmax(scores: Tensor, mask: Tensor, dtype) -> Tensor:
@@ -195,13 +282,17 @@ def attend_full(p, x: Tensor, positions: Tensor, n_heads: int, n_kv: int,
                 rope_theta: float = 10000.0) -> Tensor:
     """Training / encoder path over a full sequence ``x [B, S, D]``."""
     q, k, v = _qkv(p, x, n_heads, n_kv, positions, rope_theta)
-    if x.shape[1] > BLOCKWISE_THRESHOLD:
-        out = _attend_blockwise(q, k, v, positions, positions, mode, window)
-    else:
+    q = lc(q, ("batch", "seq", "heads", "head_dim"))
+    k = lc(k, ("batch", "seq", "kv_heads", "head_dim"))
+
+    def core(q, k, v):
+        if q.shape[1] > BLOCKWISE_THRESHOLD:
+            return _attend_blockwise(q, k, v, positions, positions, mode,
+                                     window)
         mask = make_mask(positions, positions, mode, window)
-        if mask.dim() == 2:
-            mask = mask[None]
-        out = _attend(q, k, v, mask)
+        return _attend(q, k, v, mask[None] if mask.dim() == 2 else mask)
+
+    out = _on_head_shards(core, q, k, v) if _is_dtensor(q) else core(q, k, v)
     return nn.apply_dense(p["wo"], out)
 
 
@@ -212,6 +303,9 @@ def _flash(q: Tensor, k: Tensor, v: Tensor, plain: bool, causal: bool,
     heads' output ``[B, S, H*hd]``."""
     b, s = q.shape[:2]
     attend = flash_attention_plain if plain else ops.flash_attention
+    if _is_dtensor(q):
+        return _on_head_shards(
+            lambda q, k, v: _flash(q, k, v, plain, causal, window), q, k, v)
     out = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                  causal=causal, window=window)               # [B, H, S, hd]
     return out.transpose(1, 2).reshape(b, s, -1)
@@ -294,7 +388,8 @@ def prefill(p, x: Tensor, positions: Tensor, n_heads: int, n_kv: int,
         cache = KVCache(k=k.new_empty(shape), v=v.new_empty(shape))
     for dst, src in ((cache.k, k), (cache.v, v)):
         dst[:, :s] = src
-        dst[:, s:] = 0
+        if s < cache_len:
+            dst[:, s:].zero_()
     return nn.apply_dense(p["wo"], out), cache
 
 
@@ -307,11 +402,73 @@ def decode_step(p, x: Tensor, cache: KVCache, position: int, n_heads: int,
     b = x.shape[0]
     pos = torch.full((b, 1), position, dtype=torch.int32, device=x.device)
     q, k, v = _qkv(p, x, n_heads, n_kv, pos, rope_theta)
+    if _is_dtensor(cache.k):
+        _write_slot(cache.k, k[:, 0], position)
+        _write_slot(cache.v, v[:, 0], position)
+        out = _sharded_decode(q[:, 0], cache.k, cache.v, position)
+        return nn.apply_dense(p["wo"], out.reshape(b, 1, -1)), cache
     cache.k[:, position] = k[:, 0]
     cache.v[:, position] = v[:, 0]
     attend = decode_attention_plain if plain else ops.decode_attention
     out = attend(q[:, 0], cache.k, cache.v, position)        # [B, H, hd]
     return nn.apply_dense(p["wo"], out.reshape(b, 1, -1)), cache
+
+
+def _seq_shards(cache):
+    """(mesh dims that split a DTensor cache's slots, slots a shard, this
+    device's first slot)."""
+    return dim_shards(cache.device_mesh, cache.placements, 1, cache.shape[1])
+
+
+def _write_slot(cache, x, position: int) -> None:
+    """``cache[:, position] = x`` for a DTensor cache ``[B, T, KV, hd]``
+    (the planner's): the device holding the slot writes it, in place."""
+    from torch.distributed.tensor import Replicate, Shard
+    dims, n, first = _seq_shards(cache)
+    want = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else
+            Shard(1) if isinstance(p, Shard) and p.dim == 2 else Replicate()
+            for p in cache.placements]
+    local = cache.to_local()
+    if first <= position < first + n:
+        local[:, position - first] = x.redistribute(
+            cache.device_mesh, want).to_local()
+
+
+def _sharded_decode(q, k, v, position: int):
+    """``decode_attention`` of DTensors q ``[B, H, d]``, k, v ``[B, T, KV,
+    d]`` (the planner's). Over KV heads or the batch the kernel's op splits
+    by its own rule; over the slots (a cache split by sequence, JAX's
+    decode rule when KV does not divide the model axis) each device attends
+    to its slots with every head and the slices combine by the softmax of
+    their log-sum-exps, as the kernel's own split pass does within one
+    device."""
+    import torch.distributed.tensor as dt
+    from torch.distributed.tensor.experimental import local_map
+    dims, n, first = _seq_shards(k)
+    if not dims:
+        return ops.decode_attention(q, k, v, position)
+    mesh = k.device_mesh
+    q_in = [dt.Shard(0) if isinstance(p, dt.Shard) and p.dim == 0
+            else dt.Replicate() for p in k.placements]
+    out = [dt.Shard(0) if i in dims else dt.Shard(1) if p == dt.Shard(0)
+           else dt.Replicate() for i, p in enumerate(q_in)]
+
+    def local(ql, kl, vl):
+        last = position - first
+        if last < 0:        # none of this device's slots is visible yet
+            return (ql.new_zeros((1,) + tuple(ql.shape)),
+                    ql.new_full((1,) + tuple(ql.shape[:2]), -1e30,
+                                dtype=torch.float32))
+        o, lse = torch.ops.repro_torch.decode_attention_lse(
+            ql, kl, vl, min(last, n - 1))
+        return o[None], lse[None]
+
+    o, lse = local_map(local, out_placements=(out, out),
+                       in_placements=(q_in, k.placements, v.placements),
+                       device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+    w = torch.softmax(lse, dim=0)
+    out = (o.float() * w[..., None]).sum(0).to(q.dtype)
+    return lc(out, ("batch", "heads", "head_dim"))
 
 
 # ---------------------------------------------------------------------------

@@ -26,8 +26,76 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.sharding.partition import dim_shards
 
 Tensor = torch.Tensor
+
+
+def _batch_and_rows(mesh, placements, tokens, vocab: int):
+    """For a DTensor table of ``vocab`` rows laid out by ``placements``:
+    (the ids' placements that keep each device's batch rows, whole
+    sequences, and replicate them over the mesh dims that split the table's
+    rows; those mesh dims; rows a device; its first row)."""
+    from torch.distributed.tensor import Replicate, Shard
+    dims, n_rows, first = dim_shards(mesh, placements, 0, vocab)
+    rows = [Shard(0) if isinstance(p, Shard) and p.dim == 0
+            and i not in dims else Replicate()
+            for i, p in enumerate(tokens.placements)]
+    return rows, dims, n_rows, first
+
+
+def _sharded_grad(grad_out, tokens, placements, vocab: int, dtype):
+    """The gradient of a DTensor table of ``vocab`` rows laid out by
+    ``placements``: ``cscatter`` of each device's batch shard into its
+    shard of rows, as a ``local_map``; a partial sum over the batch's mesh
+    dims, which DTensor reduces onto ``placements``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = grad_out.device_mesh
+    rows, dims, n_rows, first = _batch_and_rows(mesh, placements, tokens,
+                                                vocab)
+    # flattening [B, S] needs each device's whole sequences
+    ids = tokens.redistribute(mesh, rows).reshape(-1)
+    g = grad_out.redistribute(mesh, rows).reshape(-1, grad_out.shape[-1])
+    out = [Shard(0) if i in dims else Partial() if p == Shard(0)
+           else Replicate() for i, p in enumerate(rows)]
+
+    def local(g_loc, ids_loc):
+        grad = torch.zeros((n_rows, g_loc.shape[-1]), dtype=torch.float32,
+                           device=g_loc.device)
+        ops.embedding_grad_scatter(grad, (ids_loc - first).to(torch.int32),
+                                   g_loc.float())
+        return grad
+
+    grad = local_map(local, out_placements=out, in_placements=(rows, rows),
+                     device_mesh=mesh, redistribute_inputs=True)(g, ids)
+    return grad.redistribute(mesh, placements).to(dtype)
+
+
+def sharded_lookup(table, tokens):
+    """``table[tokens]`` of a DTensor table (the planner's), as a
+    ``local_map``: each device looks up the ids of its rows (the table's
+    columns gathered), zeros elsewhere, and the result is a partial sum
+    over the mesh dims that split the rows (vocab parallelism)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    ids_in, dims, n_rows, first = _batch_and_rows(
+        mesh, table.placements, tokens, table.shape[0])
+    t_in = [Shard(0) if i in dims else Replicate() for i in range(mesh.ndim)]
+    out = [Partial() if i in dims else p for i, p in enumerate(ids_in)]
+
+    def local(t, ids):
+        if not dims:                  # every device holds every row
+            return t[ids]
+        ids = ids.long() - first
+        hit = (ids >= 0) & (ids < n_rows)
+        rows = t[ids.clamp(0, n_rows - 1)]
+        return rows * hit[..., None].to(rows.dtype)
+
+    return local_map(local, out_placements=out, in_placements=(t_in, ids_in),
+                     device_mesh=mesh, redistribute_inputs=True)(table,
+                                                                 tokens)
 
 
 class _Embed(torch.autograd.Function):
@@ -35,11 +103,17 @@ class _Embed(torch.autograd.Function):
     def forward(ctx, table: Tensor, tokens: Tensor) -> Tensor:
         ctx.save_for_backward(tokens)
         ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        ctx.placements = getattr(table, "placements", None)
+        if ctx.placements is not None:
+            return sharded_lookup(table, tokens)
         return table[tokens]
 
     @staticmethod
     def backward(ctx, grad_out: Tensor):
         (tokens,) = ctx.saved_tensors
+        if ctx.placements is not None:
+            return _sharded_grad(grad_out, tokens, ctx.placements,
+                                 ctx.table_shape[0], ctx.table_dtype), None
         v, d = ctx.table_shape
         grad = torch.zeros((v, d), dtype=torch.float32,
                            device=grad_out.device)

@@ -6,8 +6,9 @@ layers with the weight ``[d_in, d_out]`` as in JAX (``x @ w + b``),
 gather, and the initialisers (truncated-normal fan-in scaling,
 normal(0.02) embeddings). Random weights
 come from a ``torch.Generator``, not JAX's bits: the tests carry weights
-across with ``registry.from_jax_params``. One card has no mesh, so the
-logical-axis tags (``Px``) have no counterpart.
+across with ``registry.from_jax_params``. The logical-axis tags (``Px``)
+are a tree of their own here, parallel to the parameters:
+``models/layout.py``.
 """
 
 from __future__ import annotations
@@ -74,4 +75,7 @@ def layernorm(p, x: Tensor, eps: float = 1e-5) -> Tensor:
 
 
 def embed(table: Tensor, tokens: Tensor) -> Tensor:
+    if hasattr(table, "placements"):     # the planner's DTensor
+        from repro_torch.models.embedding import sharded_lookup
+        return sharded_lookup(table, tokens)
     return table[tokens]

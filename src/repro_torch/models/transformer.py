@@ -48,6 +48,16 @@ the router's aux and z losses of the MoE blocks, and follows
 batch dims, ``aten.mm``, and recomputes the rest, as JAX's
 ``dots_with_no_batch_dims_saveable``). Remat changes memory, never the
 numbers.
+
+The production-mesh planner (``launch/steps.py``) runs the same code on
+DTensors: ``DecoderLM(cfg, abstract=True)`` holds no parameters, and
+``loss``, ``prefill(..., params=, caches=)`` and ``decode_step(...,
+params=)`` take its trees; ``input_specs`` / ``input_axes`` and
+``cache_specs`` / ``cache_axes`` give its inputs, as JAX's. Under its
+rules context the blocks constrain the residual stream and each
+sublayer's input and output (``_RESID``, ``_ACT``), and the lookup, the
+cross-entropy and the attention run per device; outside one those
+constraints are the identity and nothing else changes.
 """
 
 from __future__ import annotations
@@ -64,9 +74,12 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe, moe_ep
 from repro_torch.models import module as nn
 from repro_torch.models.embedding import embed
+from repro_torch.models.layout import Spec
 from repro_torch.models.mlp import (gelu_mlp, gelu_mlp_init, swiglu,
                                    swiglu_init)
 from repro_torch.serve.kv import resolve_device
+from repro_torch.sharding.partition import dim_shards
+from repro_torch.sharding.partition import logical_constraint as lc
 
 Tensor = torch.Tensor
 IMPLS = ("kernel", "plain")
@@ -136,18 +149,57 @@ class _MatmulF32(torch.autograd.Function):
 def _matmul_f32(x: Tensor, w: Tensor) -> Tensor:
     """``x [..., D] @ w [D, V]`` with f32 output, as JAX's
     ``preferred_element_type=float32``: on the card one bf16 product that
-    accumulates and returns f32 (no f32 copy of the weight); elsewhere in
-    f32. Differentiable in both."""
-    if x.device.type == "cuda" and x.dtype == torch.bfloat16:
+    accumulates and returns f32 (no f32 copy of the weight); on the CPU in
+    f32. The planner's meta tensors plan the card's program and take the
+    card's form. Differentiable in both."""
+    if x.device.type in ("cuda", "meta") and x.dtype == torch.bfloat16:
         return _MatmulF32.apply(x, w)
     return x.float() @ w.float()
 
 
+def _sharded_lse_gold(logits: Tensor, labels: Tensor):
+    """(logsumexp, the label's logit) of DTensor logits ``[..., V]`` (the
+    planner's) with the vocab split over mesh dims: each device reduces its
+    slice of V (a ``local_map`` whose results gain a leading dim, one entry
+    a vocab shard), then the slices combine."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh, last = logits.device_mesh, logits.dim() - 1
+    vocab, n, first = dim_shards(mesh, logits.placements, last,
+                                 logits.shape[-1])
+    lg_in, lab_in, out = [], [], []
+    for i, p in enumerate(logits.placements):
+        batch = isinstance(p, Shard) and p.dim < last
+        lg_in.append(Shard(last) if i in vocab else p if batch
+                     else Replicate())
+        lab_in.append(p if batch else Replicate())
+        out.append(Shard(0) if i in vocab else Shard(p.dim + 1) if batch
+                   else Replicate())
+
+    def local(lg, lab):
+        m = lg.amax(-1)
+        se = torch.exp(lg - m[..., None]).sum(-1)
+        ids = lab.long() - first
+        hit = (ids >= 0) & (ids < n)
+        gold = torch.gather(lg, -1, ids.clamp(0, n - 1)[..., None])[..., 0]
+        return m[None], se[None], (gold * hit)[None]
+
+    m, se, gold = local_map(local, out_placements=(out, out, out),
+                            in_placements=(lg_in, lab_in),
+                            device_mesh=mesh, redistribute_inputs=True)(logits, labels)
+    top = m.amax(0)
+    lse = top + torch.log((se * torch.exp(m - top)).sum(0))
+    return lse, gold.sum(0)
+
+
 def cross_entropy(logits_f32: Tensor, labels: Tensor, z_coeff: float = 1e-4):
     """logits: [..., V] f32; labels int (< 0 = ignore)."""
-    lse = torch.logsumexp(logits_f32, dim=-1)
-    gold = torch.gather(logits_f32, -1,
-                        labels.clamp(min=0).long()[..., None])[..., 0]
+    if hasattr(logits_f32, "placements"):
+        lse, gold = _sharded_lse_gold(logits_f32, labels)
+    else:
+        lse = torch.logsumexp(logits_f32, dim=-1)
+        gold = torch.gather(logits_f32, -1,
+                            labels.clamp(min=0).long()[..., None])[..., 0]
     nll = lse - gold
     mask = (labels >= 0).float()
     denom = torch.clamp(mask.sum(), min=1.0)
@@ -204,10 +256,22 @@ def _stacked_init(make, n: int) -> dict:
 
 FAMILIES = ("dense", "moe", "vlm")
 
+# The residual stream's logical axes. Under a rules context the train
+# blocks constrain it where JAX's do (a block's input), after the attention
+# residual, each sublayer's input to _ACT and its output onto _RESID (its
+# gradient back to _ACT): DTensor's propagation is greedy and would otherwise carry the
+# attention output's partial sum into the MLP, gathering its weights where
+# GSPMD reduces the activation. Outside one it is the identity.
+_RESID = ("batch", "seq_res", "embed_act")
+# a sublayer's input: the whole sequence on each device (with the residual
+# split by sequence, Megatron's gather before the column-parallel products)
+_ACT = ("batch", "seq", "embed_act")
+
 
 class DecoderLM(tnn.Module):
     def __init__(self, cfg, *, device="cuda", seed: int = 0,
-                 impl: str = "kernel", model_ranks: int | None = None):
+                 impl: str = "kernel", model_ranks: int | None = None,
+                 abstract: bool = False):
         super().__init__()
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
@@ -215,12 +279,16 @@ class DecoderLM(tnn.Module):
                 f"(registry.build_model builds each ported family's model)")
         if cfg.mlp not in ("swiglu", "gelu"):
             raise ValueError(f"DecoderLM: unknown mlp {cfg.mlp!r}")
-        device = resolve_device(device)
         self.cfg = cfg
         self.is_moe = cfg.family == "moe"
         self.embeds_input = cfg.family == "vlm"
         self.impl = impl
         self.model_ranks = model_ranks
+        self.n_scan = cfg.n_layers - cfg.first_dense_layers
+        self._layers = None
+        if abstract:        # no parameters: the planner passes its trees
+            return
+        device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
         dt = cfg.param_dtype
         hd = cfg.resolved_head_dim
@@ -246,7 +314,6 @@ class DecoderLM(tnn.Module):
 
         self.embed = _tree({"table": nn.embed_init(
             gen, (cfg.padded_vocab, cfg.d_model), dt, device)})
-        self.n_scan = cfg.n_layers - cfg.first_dense_layers
         self.blocks = _tree(_stacked_init(
             functools.partial(block, self.is_moe, cfg.d_ff), self.n_scan))
         self.ln_f = _tree(nn.rmsnorm_init(cfg.d_model, dt, device))
@@ -257,7 +324,6 @@ class DecoderLM(tnn.Module):
         if not cfg.tie_embeddings:
             self.unembed = _tree({"w": nn.dense_init(
                 gen, (cfg.d_model, cfg.padded_vocab), dt, device=device)})
-        self._layers = None
 
     def _ffn(self, p, x: Tensor) -> Tensor:
         return (gelu_mlp if self.cfg.mlp == "gelu" else swiglu)(p, x)
@@ -314,29 +380,43 @@ class DecoderLM(tnn.Module):
 
     def _block_prefill(self, p, h, positions, cache):
         cfg = self.cfg
+        h = lc(h, _RESID)
         a, _ = attn.prefill(
             p["attn"], nn.rmsnorm(p["ln1"], h), positions, cfg.n_heads,
             cfg.n_kv_heads, cache.k.shape[1], rope_theta=cfg.rope_theta,
             plain=self.impl == "plain",
             cache=cache)
-        h = h + a
+        h = lc(h + a, _RESID)
         return h + self._serve_ffn(p, nn.rmsnorm(p["ln2"], h))
 
     def _block_decode(self, p, h, cache, position):
         cfg = self.cfg
+        h = lc(h, _RESID)
         a, cache = attn.decode_step(
             p["attn"], nn.rmsnorm(p["ln1"], h), cache, position, cfg.n_heads,
             cfg.n_kv_heads, rope_theta=cfg.rope_theta,
             plain=self.impl == "plain")
-        h = h + a
+        h = lc(h + a, _RESID)
         return h + self._serve_ffn(p, nn.rmsnorm(p["ln2"], h)), cache
 
-    def _logits(self, h: Tensor) -> Tensor:
+    def _logits(self, h: Tensor, params=None) -> Tensor:
+        embed_, unembed = ((self.embed, getattr(self, "unembed", None))
+                           if params is None
+                           else (params["embed"], params.get("unembed")))
         if self.cfg.tie_embeddings:
-            w = self.embed["table"].t()
+            w = embed_["table"].t()
         else:
-            w = self.unembed["w"]
+            w = unembed["w"]
         return _matmul_f32(h, w)
+
+    def _serving(self, params) -> tuple[list[dict], Tensor, dict]:
+        """(per-layer trees, embedding table, final norm) of the module's
+        own parameters, or of the tree ``params`` (the planner's)."""
+        if params is None:
+            return self.layers(), self.embed["table"], self.ln_f
+        layers = list(params.get("dense_blocks", [])) + [
+            _index(params["blocks"], i) for i in range(self.n_scan)]
+        return layers, params["embed"]["table"], params["ln_f"]
 
     # ------------------------------------------------------------- training
 
@@ -356,16 +436,17 @@ class DecoderLM(tnn.Module):
         """One block of the train path -> (h, the MoE layer's metrics or
         ``{}``)."""
         cfg = self.cfg
-        a = attn.attend_full(p["attn"], nn.rmsnorm(p["ln1"], h), positions,
-                             cfg.n_heads, cfg.n_kv_heads, "causal",
-                             rope_theta=cfg.rope_theta)
-        h = h + a
-        x = nn.rmsnorm(p["ln2"], h)
+        h = lc(h, _RESID)
+        a = attn.attend_full(p["attn"], lc(nn.rmsnorm(p["ln1"], h), _ACT),
+                             positions, cfg.n_heads, cfg.n_kv_heads,
+                             "causal", rope_theta=cfg.rope_theta)
+        h = lc(h + lc(a, _RESID, _ACT), _RESID)
+        x = lc(nn.rmsnorm(p["ln2"], h), _ACT)
         if "moe" in p:
             f, metrics = self._moe(p["moe"], x)
         else:
             f, metrics = self._ffn(p["ffn"], x), {}
-        return h + f, metrics
+        return h + lc(f, _RESID, _ACT), metrics
 
     def forward(self, params, h: Tensor, positions: Tensor):
         """The dense blocks, the stacked blocks and the final norm over
@@ -382,7 +463,7 @@ class DecoderLM(tnn.Module):
             h, metrics = block(p, h)
             for k, v in metrics.items():
                 totals[k] = totals[k] + v.sum() if k in totals else v.sum()
-        return nn.rmsnorm(params["ln_f"], h), totals
+        return nn.rmsnorm(params["ln_f"], lc(h, _RESID)), totals
 
     def _input(self, table: Tensor, tokens, embeds) -> Tensor:
         """The first hidden state: ``embeds`` (VLM) cast to the parameters'
@@ -404,6 +485,7 @@ class DecoderLM(tnn.Module):
         positions = torch.arange(h.shape[1], dtype=torch.int32,
                                  device=h.device)
         h, moe_metrics = self.forward(params, h, positions)
+        h = lc(h, ("batch", "seq", "embed_act"))
         w = (params["embed"]["table"].t() if cfg.tie_embeddings
              else params["unembed"]["w"])
         loss, metrics = cross_entropy(_matmul_f32(h, w), batch["labels"])
@@ -424,52 +506,123 @@ class DecoderLM(tnn.Module):
         return attn.KVCache(k=ck, v=torch.empty_like(ck))
 
     @torch.no_grad()
-    def prefill(self, tokens, cache_len: int, embeds=None):
+    def prefill(self, tokens, cache_len: int, embeds=None, *, params=None,
+                caches=None):
         """``tokens [B, S]`` int, or for the VLM ``embeds [B, S, D]`` (cast
         to the parameters' dtype; ``tokens`` is then unused) -> (last-
         position logits ``[B, V]`` f32, caches ``{"scan": KVCache(k=[L, B,
         cache_len, KV, hd], ...)}``, with ``"dense"``, a ``KVCache`` a
-        dense block, when the model has dense blocks)."""
+        dense block, when the model has dense blocks). ``params`` (a
+        parameter tree, :meth:`params`' layout) and ``caches`` (laid out as
+        the result, filled in place) are the planner's: its DTensors stand
+        for the module's own parameters and fresh caches."""
         cfg = self.cfg
+        layers, table, ln_f = self._serving(params)
         if embeds is not None and not self.embeds_input:
             raise ValueError(f"{cfg.name}: embeds are the VLM's input")
-        if embeds is None:
+        if embeds is None and params is None:
             tokens = torch.as_tensor(tokens, device=self.device)
-        h = self._input(self.embed["table"], tokens, embeds)
+        h = self._input(table, tokens, embeds)
         b, s = h.shape[:2]
         if s > cache_len:
             raise ValueError(f"prompt of {s} tokens exceeds cache_len "
                              f"{cache_len}")
-        positions = torch.arange(s, dtype=torch.int32, device=self.device)
+        positions = torch.arange(s, dtype=torch.int32, device=h.device)
         n_dense = cfg.first_dense_layers
-        dense = self._caches(n_dense, b, cache_len, h.dtype)
-        scan = self._caches(self.n_scan, b, cache_len, h.dtype)
-        layer_caches = ([attn.KVCache(k=dense.k[i], v=dense.v[i])
-                         for i in range(n_dense)]
-                        + [attn.KVCache(k=scan.k[i], v=scan.v[i])
-                           for i in range(self.n_scan)])
-        for p, cache in zip(self.layers(), layer_caches):
+        if caches is None:
+            dense = self._caches(n_dense, b, cache_len, h.dtype)
+            scan = self._caches(self.n_scan, b, cache_len, h.dtype)
+            dense_caches = [attn.KVCache(k=dense.k[i], v=dense.v[i])
+                            for i in range(n_dense)]
+        else:
+            scan = caches["scan"]
+            dense_caches = list(caches.get("dense", []))
+        layer_caches = dense_caches + [
+            attn.KVCache(k=scan.k[i], v=scan.v[i])
+            for i in range(self.n_scan)]
+        for p, cache in zip(layers, layer_caches):
             h = self._block_prefill(p, h, positions, cache)
-        h = nn.rmsnorm(self.ln_f, h)
-        caches = {"scan": scan}
+        h = nn.rmsnorm(ln_f, lc(h, _RESID))
+        out = {"scan": scan}
         if n_dense:
-            caches["dense"] = layer_caches[:n_dense]
-        return self._logits(h[:, -1]), caches
+            out["dense"] = layer_caches[:n_dense]
+        return self._logits(h[:, -1], params), out
 
     @torch.no_grad()
-    def decode_step(self, tokens: Tensor, caches: dict, position: int):
+    def decode_step(self, tokens: Tensor, caches: dict, position: int, *,
+                    params=None):
         """``tokens [B]`` int at ``position`` -> (logits ``[B, V]`` f32,
-        caches, updated in place)."""
-        tokens = torch.as_tensor(tokens, device=self.device)
-        h = nn.embed(self.embed["table"], tokens)[:, None, :]
+        caches, updated in place); ``params`` as in :meth:`prefill`."""
+        layers, table, ln_f = self._serving(params)
+        if params is None:
+            tokens = torch.as_tensor(tokens, device=self.device)
+        h = nn.embed(table, tokens)[:, None, :]
         stacked = caches["scan"]
         layer_caches = list(caches.get("dense", [])) + [
             attn.KVCache(k=stacked.k[i], v=stacked.v[i])
             for i in range(self.n_scan)]
-        for p, cache in zip(self.layers(), layer_caches):
+        for p, cache in zip(layers, layer_caches):
             h, _ = self._block_decode(p, h, cache, int(position))
-        h = nn.rmsnorm(self.ln_f, h)
-        return self._logits(h[:, 0]), caches
+        h = nn.rmsnorm(ln_f, lc(h, _RESID))
+        return self._logits(h[:, 0], params), caches
+
+    # ---------------------------------------------------------- input specs
+
+    def cache_specs(self, batch: int, cache_len: int) -> dict:
+        """The caches' :class:`~repro_torch.models.layout.Spec` tree, as
+        JAX's ``cache_specs``."""
+        cfg = self.cfg
+        shape = (batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        one = lambda pre: attn.KVCache(k=Spec(pre + shape, cfg.param_dtype),
+                                       v=Spec(pre + shape, cfg.param_dtype))
+        specs = {"scan": one((self.n_scan,))}
+        if cfg.first_dense_layers:
+            specs["dense"] = [one(()) for _ in range(cfg.first_dense_layers)]
+        return specs
+
+    def cache_axes(self, batch: int, cache_len: int) -> dict:
+        ax = ("batch", "cache_seq", "kv_heads", "head_dim")
+        specs = {"scan": attn.KVCache(k=("layers",) + ax,
+                                      v=("layers",) + ax)}
+        if self.cfg.first_dense_layers:
+            specs["dense"] = [attn.KVCache(k=ax, v=ax)
+                              for _ in range(self.cfg.first_dense_layers)]
+        return specs
+
+    def input_specs(self, shape_cfg) -> dict:
+        """Each input's :class:`~repro_torch.models.layout.Spec`, as JAX's
+        ``input_specs``: a decode step's ``position`` is a 0-dim int32."""
+        cfg = self.cfg
+        b, s = shape_cfg.global_batch, shape_cfg.seq_len
+        i32 = torch.int32
+        if shape_cfg.kind == "train":
+            if self.embeds_input:
+                return {"embeds": Spec((b, s, cfg.d_model), cfg.param_dtype),
+                        "labels": Spec((b, s), i32)}
+            return {"tokens": Spec((b, s), i32), "labels": Spec((b, s), i32)}
+        if shape_cfg.kind == "prefill":
+            if self.embeds_input:
+                return {"embeds": Spec((b, s, cfg.d_model), cfg.param_dtype)}
+            return {"tokens": Spec((b, s), i32)}
+        return {"tokens": Spec((b,), i32),
+                "caches": self.cache_specs(b, s),
+                "position": Spec((), i32)}
+
+    def input_axes(self, shape_cfg) -> dict:
+        """Logical axes for each input (for shardings)."""
+        if shape_cfg.kind == "train":
+            if self.embeds_input:
+                return {"embeds": ("batch", "seq", "embed_act"),
+                        "labels": ("batch", "seq")}
+            return {"tokens": ("batch", "seq"), "labels": ("batch", "seq")}
+        if shape_cfg.kind == "prefill":
+            if self.embeds_input:
+                return {"embeds": ("batch", "seq", "embed_act")}
+            return {"tokens": ("batch", "seq")}
+        return {"tokens": ("batch",),
+                "caches": self.cache_axes(shape_cfg.global_batch,
+                                          shape_cfg.seq_len),
+                "position": ()}
 
 
 def _plain(module: tnn.Module):

@@ -1454,3 +1454,72 @@ def test_taint_follows_the_cuda_cscatter(cuda):
 
     assert [d.code for d in check_kv_tick_taint(
         leaky, settled, pendings, keys, vals, "leaky")] == ["CC012"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_custom_ops_equal_the_direct_launches_bitwise(cuda, dtype):
+    """Each kernel's dispatcher-visible op (the planner's route,
+    ``kernels/custom_ops.py``) on CUDA tensors launches the same kernel as
+    the direct call: the same bits, and the same launch counts."""
+    from repro_torch.kernels import cscatter as csm
+    from repro_torch.kernels import custom_ops  # noqa: F401 (registers)
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    op = torch.ops.repro_torch
+    q, k, v = _attn_inputs(dtype, (2, 8, 100, 64), (2, 2, 100, 64),
+                           (2, 2, 100, 64), seed=5)
+    before = fa.flash_attention.launches
+    assert torch.equal(op.flash_attention(q, k, v, True, 0),
+                       fa.flash_attention(q, k, v, causal=True))
+    assert fa.flash_attention.launches == before + 2
+    qd, kd, vd = _attn_inputs(dtype, (2, 16, 128), (2, 257, 8, 128),
+                              (2, 257, 8, 128), seed=6)
+    before = da.decode_attention.launches
+    assert torch.equal(op.decode_attention(qd, kd, vd, 200),
+                       da.decode_attention(qd, kd, vd, 200))
+    assert da.decode_attention.launches == before + 2 * da.LAUNCHES_PER_CALL
+    out, lse = op.decode_attention_lse(qd, kd, vd, 200)
+    assert torch.equal(out, da.decode_attention(qd, kd, vd, 200))
+    assert lse.shape == (2, 16) and torch.isfinite(lse).all()
+    if dtype == torch.float32:
+        table, ids, vals = _case(dtype, 1, 4096, 64, 3000, 7, cuda)[:3]
+        table, ids, vals = table[0], ids[0], vals[0]
+        a, b = table.clone(), table.clone()
+        before = csm.cscatter.launches
+        op.cscatter(a, ids, vals, "add", 0.0, 0.0)
+        csm.cscatter(b, ids, vals, kind="add")
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+        assert csm.cscatter.launches == before + 2 * csm.LAUNCHES_PER_CALL
+
+
+def test_prefill_counts_on_the_card_equal_the_traced_ones(cuda):
+    """The count check (``chip_smoke.py`` ``phase_dryrun`` (b)) at a smoke
+    size: qwen1.5-0.5b's smoke prefill in bf16 run on the card under the op
+    walk and traced on a 1 x 1 fake mesh give equal FLOPs, HBM bytes and
+    boundary bytes."""
+    from repro_torch.configs.base import ShapeConfig, get_smoke_config
+    from repro_torch.launch import mesh, steps
+    from repro_torch.launch.op_cost import OpWalk
+    from repro_torch.models.registry import build_model
+    cfg = get_smoke_config("qwen1_5_0_5b")
+    model = build_model(cfg, device="cuda", seed=0)
+    tokens = torch.randint(0, cfg.vocab, (2, 64), dtype=torch.int32,
+                           device="cuda")
+    model.prefill(tokens, 64)
+    walk = OpWalk(inputs=[*model.parameters(), tokens])
+    with walk:
+        logits, caches = model.prefill(tokens, 64)
+        out = steps.greedy(logits), caches
+    walk.add_outputs(out)
+    real = walk.result()
+    try:
+        one = mesh.make_host_mesh(1, 1)
+        fake = steps.plan_prefill(cfg, ShapeConfig("p", 64, 2, "prefill"),
+                                  one).trace()
+    finally:
+        mesh.shutdown()
+    assert real["flops"] == fake["flops"]
+    assert real["hbm_bytes"] == fake["hbm_bytes"]
+    assert real["boundary_bytes"] == fake["boundary_bytes"] > 0
+    assert real["kernels"]["flash_attention"]["calls"] == cfg.n_layers
