@@ -160,8 +160,9 @@ smoke config) — and:
    over the 512 tokens; serves the GELU MLP (``DecoderLM`` at granite-34b's
    smoke config with ``mlp="gelu"``) against its plain path; each with a
    traced prefill and decode step; then runs the real-model chaos at full
-   width (xlstm-125m, 4 of the example's 5 steps of batch 8 x 32 over 8
-   stacked ranks, an overlapped K = 2 commit, a checkpoint every step):
+   width (xlstm-125m at 4 of its 12 layers, 4 of the example's
+   5 steps of batch 8 x 32 over 8 stacked ranks, an overlapped K = 2
+   commit, a checkpoint every step):
    the twin twice, bitwise equal to itself in every leaf, a kill before
    step 2 resumed and flushed bitwise equal to the twin, a control with
    fresh defer state that must differ, ``cscatter`` launches = 2 x 8 x
@@ -184,7 +185,8 @@ smoke config) — and:
    qwen3-moe-235b at full width, 1 of 94 layers (bf16, remat "full",
    batch 2 x 2048 over chip:2's 2 stacked data ranks, ``--model-ranks
    4``: the MoE layer through ``moe_ep.apply_ep`` over 4 stacked model
-   ranks, its combine one ``cscatter`` call over a [4, 2048, 4096] stack;
+   ranks, its combine one ``cscatter`` call of the 4 ranks' 4 x 16384
+   rows into one [2048, 4096] table;
    ``--donate``: AdamW in place) 3 eager steps: losses finite, 36
    ``cscatter`` launches as predicted, no attention kernel, the peak
    memory, ms a step, the router's metrics, a profiled step's idle share
@@ -203,7 +205,7 @@ smoke config) — and:
    combine: logits within 1e-4, the same expert ids; the combine's
    ``cscatter`` is also checked and timed at the prefill ([4096, 4096]
    bf16, N = 32768), decode ([8, 4096], N = 64) and expert-parallel train
-   ([4, 2048, 4096], N = 16384 a shard) shapes beside ``index_add_``
+   ([2048, 4096], N = 4 x 16384) shapes beside ``index_add_``
    (warm and cold), and the attention kernels at G = 16 and G = 7;
 14. (``phase_pipeline``) runs the GPipe schedule
    (``repro_torch.sharding.pipeline_apply``) over 4 stacked stages, each
@@ -225,21 +227,26 @@ smoke config) — and:
    ``cscatter`` and ``cmerge`` to their plain versions at the sweep's
    shapes; around the sweep it zeroes their counts and requires
    LINT_LAUNCHES. Prints the sites swept, the seconds and the launches;
-16. (``phase_dryrun``) plans two production cells on the card's host
+16. (``phase_dryrun``) plans four production cells on the card's host
    (``python -m repro_torch.launch.dryrun``'s ``run_cell``: DTensors on
    meta tensors over a fake process group, the op walk, the H100
-   roofline): llama3-405b train_4k on pod2x16x16 and qwen1.5-0.5b
-   decode_32k on pod16x16, each ``ok``, printing its dominant term and its
-   floor; then the count check: qwen1.5-0.5b's prefill at the serve cell
-   for real on the card under the op walk (24 ``flash_attention``
-   launches) and traced on a 1 x 1 fake mesh, whose FLOPs and HBM bytes
-   must be equal; prints the walk's peak beside ``max_memory_allocated``,
-   the prefill's time beside its floor (FLOPs at peak, or the bytes it
-   must move: weights, tokens, caches and tokens out) and beside the time
-   of the eager traffic the walk counts, and ``cscatter``'s host time a
-   call direct and through its custom op. Every kernel's count is zeroed
-   at the phase's start and read after each part (the cells, the count
-   check, the prefill's timing, the dispatch timing);
+   roofline): llama3-405b train_4k and kimi-k2-1t train_4k on pod2x16x16,
+   qwen1.5-0.5b decode_32k and hymba-1.5b long_500k on pod16x16, each
+   ``ok`` and launching no kernel, printing its dominant term, its floor
+   and its kernel calls; then three count checks, each a prefill for real
+   on the card under the op walk and traced on a 1 x 1 fake mesh, whose
+   FLOPs, HBM bytes and kernel calls must be equal: qwen1.5-0.5b at the
+   serve cell (24 ``flash_attention`` launches), qwen3-moe-235b at full
+   width and 1 of 94 layers at one model rank (one ``flash_attention``
+   launch, ``cscatter`` for the combine) and hymba-1.5b at full width and
+   depth (32 ``flash_attention`` launches, 96 ``selective_scan``); each
+   prints the walk's peak beside ``max_memory_allocated``, the prefill's
+   time beside its floor (FLOPs at peak, or the bytes it must move:
+   weights, tokens, caches and tokens out) and beside the time of the
+   eager traffic the walk counts; then ``cscatter``'s host time a call
+   direct and through its custom op. Every kernel's count is zeroed at
+   the phase's start and read after each part (the cells, each count
+   check's warm-up, count and timing, the dispatch timing);
 17. prints every kernel's registers and spills (``ptxas -v``),
    one ``{"kernels": [...]}`` line and the card's name and power limit;
 18. ends with ``{"ok": true, "device": {...}}``.
@@ -319,14 +326,23 @@ XLSTM_PROMPT, XLSTM_GEN = 256, 257
 # --quick point). A kill before step 3 as well, the other side of an
 # overlapped landing, passed too but took the phase past its budget: every
 # run saves a 7.1 GB checkpoint a step, 8.5-12.2 s each (NVIDIA H100 80GB
-# HBM3, 700.00 W); the CPU tests kill before each of steps 1-4 of 5
-CHAOS_STEPS, CHAOS_KILLS = 4, (2,)
+# HBM3, 700.00 W); the CPU tests kill before each of steps 1-4 of 5. Its
+# depth: 4 of the 12 layers (three mLSTM blocks and the sLSTM block that
+# ends each group of four), cut when a whole run took 938 s on a slow host:
+# every layer adds to the checkpoint saved and loaded at each step
+CHAOS_STEPS, CHAOS_KILLS, CHAOS_LAYERS = 4, (2,), 4
 ATTN_BF16_ROW = 1e-2
-# phase_dryrun: two production cells planned on the card's host (nothing
-# allocated; ``launch/dryrun.py``), then the count check at the serve cell
-# (SERVE_BATCH x PROMPT) for real and on a 1 x 1 mesh
+# phase_dryrun: four production cells planned on the card's host (nothing
+# allocated; ``launch/dryrun.py``), then the count checks for real and on a
+# 1 x 1 mesh: qwen1.5-0.5b at the serve cell (SERVE_BATCH x PROMPT),
+# qwen3-moe-235b at full width and DRYRUN_MOE_LAYERS of 94 layers
+# (SERVE_BATCH x MOE_PROMPT) and hymba-1.5b at full width and depth
+# (FAMILY_BATCH x HYMBA_PROMPT)
 DRYRUN_CELLS = (("llama3_405b", "train_4k", True),
-                ("qwen1_5_0_5b", "decode_32k", False))
+                ("qwen1_5_0_5b", "decode_32k", False),
+                ("kimi_k2_1t", "train_4k", True),
+                ("hymba_1_5b", "long_500k", False))
+DRYRUN_MOE_LAYERS = 1
 # kernel-path vs plain-attention logits (teacher-forced, same weights)
 LOGIT_TOL = 0.1
 # The paper's apps. BFS and PageRank run on Graph500's Kronecker graph
@@ -2787,7 +2803,8 @@ def _leaf_diff(a, b) -> list[str]:
 
 
 def _real_model_chaos(card: str) -> dict:
-    """(d) the real-model chaos at full width: xlstm-125m through
+    """(d) the real-model chaos at full width: xlstm-125m at CHAOS_LAYERS
+    of its layers through
     ``runtime/chaos.real_model_run`` on the card, CHAOS_STEPS steps of
     batch 8 x 32 (one row a rank) over the 8 stacked ranks. The twin runs
     twice and must equal itself in every leaf (params, AdamW, the flushed
@@ -2799,7 +2816,8 @@ def _real_model_chaos(card: str) -> dict:
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.cscatter import LAUNCHES_PER_CALL, cscatter
     from repro_torch.runtime import chaos
-    cfg = get_config("xlstm-125m")
+    cfg = dataclasses.replace(get_config("xlstm-125m"),
+                              n_layers=CHAOS_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     cscatter.launches = 0
@@ -3286,7 +3304,8 @@ def _moe_train(card: str) -> dict:
     layers (bf16, remat "full", random weights from the seed), through
     ``launch/train.py``'s ``build`` with the CLI's flags: ``--model-ranks
     MOE_MODEL_RANKS`` (the MoE layer through ``moe_ep.apply_ep``, its
-    token combine one ``cscatter`` call over a ``[4, 2048, 4096]`` stack)
+    token combine one ``cscatter`` call of every rank's rows into one
+    ``[2048, 4096]`` table)
     and ``--donate``, MOE_TRAIN_STEPS eager steps of MOE_TRAIN_BATCH x
     MOE_TRAIN_SEQ over MOE_TRAIN_PLAN's 2 stacked data ranks. Checks: every
     loss finite; ``cscatter`` launches as MOE_TRAIN_CALLS predicts, no
@@ -4026,9 +4045,9 @@ def embedding_kernel_checks() -> float:
 # qwen3-moe-235b's token combine: a zero bf16 [t, 4096] table, each
 # token's 8 expert outputs (ids arange(8 t) // 8; a dropped assignment a
 # zero row) at the prefill (t = 8 x 512) and decode (t = 8) shapes, and the
-# expert-parallel train path's [4, 2048, 4096] stack (MOE_MODEL_RANKS
-# shards, one a model rank, each with all of a data rank's 16384
-# assignments, nonzero in the shard of the assignment's expert): (shards,
+# expert-parallel train path's (MOE_MODEL_RANKS model ranks, each with all
+# of a data rank's 16384 assignments, nonzero in the rank of the
+# assignment's expert, all of them into one [2048, 4096] table): (ranks,
 # t, d, k)
 COMBINE_SHAPES = ((1, FAMILY_BATCH * MOE_PROMPT, 4096, 8),
                   (1, FAMILY_BATCH, 4096, 8),
@@ -4036,11 +4055,11 @@ COMBINE_SHAPES = ((1, FAMILY_BATCH * MOE_PROMPT, 4096, 8),
 
 
 def _combine_inputs(s: int, t: int, d: int, k: int, g):
-    """The combine's ids and bf16 vals: expert outputs of the scale of a
-    hidden state, a tenth of the assignments dropped to zero rows; with s >
-    1 shards, ids ``[s, t k]`` and vals ``[s, t k, d]``, each assignment
-    nonzero in one shard (its expert's model rank), else ``[t k]`` and
-    ``[t k, d]``."""
+    """The combine's ids ``[s t k]`` and bf16 vals ``[s t k, d]``: expert
+    outputs of the scale of a hidden state, a tenth of the assignments
+    dropped to zero rows; with s > 1 model ranks, each rank's ``t k`` rows
+    one after another, each assignment nonzero in one rank's (its
+    expert's), as ``moe_ep.rank_body`` hands them to the combine."""
     import torch
     ids = (torch.arange(t * k, device="cuda") // k).to(torch.int32)
     vals = torch.randn((t * k, d), device="cuda", generator=g) * 0.1
@@ -4049,14 +4068,13 @@ def _combine_inputs(s: int, t: int, d: int, k: int, g):
         return ids, vals.to(torch.bfloat16)
     owner = torch.randint(0, s, (t * k,), device="cuda", generator=g)
     mine = owner == torch.arange(s, device="cuda")[:, None]
-    return (ids.expand(s, -1).contiguous(),
-            torch.where(mine[..., None], vals.to(torch.bfloat16), 0))
+    return (ids.repeat(s), torch.where(mine[..., None], vals.to(
+        torch.bfloat16), 0).reshape(s * t * k, d))
 
 
-def _combine_table(s: int, t: int, d: int):
+def _combine_table(t: int, d: int):
     import torch
-    return torch.zeros(((s,) if s > 1 else ()) + (t, d),
-                       dtype=torch.bfloat16, device="cuda")
+    return torch.zeros((t, d), dtype=torch.bfloat16, device="cuda")
 
 
 def moe_combine_kernel_checks() -> float:
@@ -4068,13 +4086,13 @@ def moe_combine_kernel_checks() -> float:
     worst = 0.0
     for s, t, d, k in COMBINE_SHAPES:
         ids, vals = _combine_inputs(s, t, d, k, g)
-        table = _combine_table(s, t, d)
+        table = _combine_table(t, d)
         want = cscatter_plain(table, ids, vals)
         got = cscatter(table, ids, vals)
         torch.cuda.synchronize()
         err = _compare(got, want)
         worst = max(worst, err)
-        print(f"check cscatter bf16 {list(table.shape)} N={t * k} a shard "
+        print(f"check cscatter bf16 {list(table.shape)} N={s} x {t * k} "
               f"add {MOE} token combine: ok (max abs err {err})")
         del ids, vals, table, want, got
     return worst
@@ -4093,31 +4111,28 @@ def moe_combine_kernel_times() -> list[dict]:
     out = []
     for s, t, d, k in COMBINE_SHAPES:
         ids, vals = _combine_inputs(s, t, d, k, g)
-        table = _combine_table(s, t, d)
-        flat = table.view(-1, d)
+        table = _combine_table(t, d)
         sets = [(ids, vals)] + [_combine_inputs(s, t, d, k, g) for _ in range(
             max(1, -(-int(COLD_BYTES) // vals.nbytes) - 1))]
-        lib_sets = [((i.long() + t * torch.arange(
-            s, device="cuda")[:, None]).reshape(-1) if s > 1 else i.long(),
-            v.reshape(-1, d)) for i, v in sets]
-        bound, bound_by = scatter_bound_ms(ids.reshape(s, -1), d, 2, r=t)
+        lib_sets = [(i.long(), v) for i, v in sets]
+        bound, bound_by = scatter_bound_ms(ids[None], d, 2, r=t)
 
         def kernel():
             cscatter(table, ids, vals)
 
         def lib():
-            flat.index_add_(0, *lib_sets[0])
+            table.index_add_(0, *lib_sets[0])
         row = {"kind": "add", "what": "moe_combine", "arch": MOE,
-               "dtype": "bfloat16", "shape": list(table.shape), "n": t * k,
+               "dtype": "bfloat16", "shape": list(table.shape), "n": s * t * k,
                "ms": graph_ms(kernel), "call_ms": time_ms(kernel),
                "plain_ms": time_ms(lambda: cscatter_plain_(table, ids, vals)),
                "library_ms": graph_ms(lib), "library_call_ms": time_ms(lib),
                "cold_ms": graph_ms(rotating(
                    lambda i, v: cscatter(table, i, v), sets)),
                "library_cold_ms": graph_ms(rotating(
-                   lambda i, v: flat.index_add_(0, i, v), lib_sets)),
+                   lambda i, v: table.index_add_(0, i, v), lib_sets)),
                "bound_ms": bound, "bound_by": bound_by}
-        print(f"time cscatter add bf16 {row['shape']} N={t * k} a shard "
+        print(f"time cscatter add bf16 {row['shape']} N={s} x {t * k} "
               f"({MOE} token combine): kernel {row['ms']:.6f} ms [cold "
               f"{row['cold_ms']:.6f}] (a call {row['call_ms']:.6f} ms), "
               f"plain {row['plain_ms']:.6f} ms, index_add_ "
@@ -4125,7 +4140,7 @@ def moe_combine_kernel_times() -> list[dict]:
               f" (a call {row['library_call_ms']:.6f} ms), bound "
               f"{bound:.6f} ms ({bound_by})")
         out.append(row)
-        del table, flat, ids, vals, sets, lib_sets
+        del table, ids, vals, sets, lib_sets
     return out
 
 
@@ -5255,27 +5270,124 @@ def _zero_counts() -> None:
         fn.launches = 0
 
 
-def phase_dryrun(card: str) -> dict:
-    """The production-mesh dry-run (module doc, item 16): (a) the cells of
-    DRYRUN_CELLS planned on the card's host, each ``ok`` with its dominant
-    term and its floor; (b) the count check: qwen1.5-0.5b's prefill at the
-    serve cell run for real on the card under the op walk (one flash launch
-    a layer, no other kernel), then traced on a 1 x 1 fake mesh: FLOPs and
-    HBM bytes must be equal; the walk's peak beside
-    ``max_memory_allocated``; the measured prefill beside its floor (the
-    larger of its FLOPs at peak and its boundary bytes, weights and tokens
-    in, caches and tokens out, at the HBM rate) and beside the eager
-    traffic's time; and the custom op's dispatch beside the direct call.
-    Every kernel's count is zeroed at the start and read after each part:
-    ``launches`` holds each part's counts."""
+def _dry_launches(dry: dict, name: str) -> dict:
+    """Kernel ``name``'s launches in each of ``phase_dryrun``'s count
+    checks (the main path's runs of the dry-run phase)."""
+    return {k: v[name] for k, v in dry["launches"].items()
+            if k.startswith("count_check")}
+
+
+def _count_check(card: str, part, label: str, cfg, batch: int, prompt: int,
+                 want: dict, **model_kw) -> dict:
+    """One prefill's count check: ``cfg``'s model on the card (random
+    weights from SEED), ``batch`` x ``prompt`` prompts, run under the op
+    walk (after a warm-up of 16 tokens, not counted), its launches held to
+    ``want`` (a kernel name -> its count, or ``None`` for "at least one";
+    every other kernel 0), then traced on a 1 x 1 fake mesh: FLOPs and HBM
+    bytes must be equal. Times five prefills (median) beside the floor
+    (FLOPs at peak, or the boundary bytes at the HBM rate) and the eager
+    traffic's time. ``part`` reads and zeroes the counts."""
     import torch
-    from repro_torch.configs.base import ShapeConfig, get_config
-    from repro_torch.launch import dryrun, steps
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
     from repro_torch.launch import mesh as pmesh
     from repro_torch.launch.hw_analysis import roofline_terms
     from repro_torch.launch.op_cost import OpWalk
     from repro_torch.launch.serve import prompts
     from repro_torch.models.registry import build_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_model(cfg, device="cuda", seed=SEED, **model_kw)
+    tokens = torch.as_tensor(prompts(cfg, batch, prompt, SEED), device="cuda")
+    model.prefill(tokens[:, :16], 16)            # warm-up, not counted
+    torch.cuda.synchronize()
+    part(f"warmup{label}")
+    torch.cuda.reset_peak_memory_stats()
+    walk = OpWalk(inputs=[*model.parameters(), tokens])
+    with walk:
+        logits, caches = model.prefill(tokens, prompt)
+        picked = steps.greedy(logits)
+    walk.add_outputs((picked, caches))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    real = walk.result()
+    del logits, caches, picked, walk
+    launches = part(f"count_check{label}")
+    ok = all(launches[k] > 0 if want.get(k, 0) is None
+             else launches[k] == want.get(k, 0) for k in launches)
+    require(ok, f"dryrun count check {cfg.name}: launches {launches}, want "
+            f"{want} (None: at least one)")
+    samples = []
+    for _ in range(5):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        model.prefill(tokens, prompt)
+        end.record()
+        torch.cuda.synchronize()
+        samples.append(start.elapsed_time(end))
+    prefill_ms = statistics.median(samples)
+    part(f"prefill_timing{label}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = pmesh.make_host_mesh(1, 1)
+    shape = ShapeConfig("serve", prompt, batch, "prefill")
+    fake = steps.plan_prefill(cfg, shape, one).trace()
+    require(real["flops"] == fake["flops"]
+            and real["hbm_bytes"] == fake["hbm_bytes"]
+            and real["kernels"] == fake["kernels"],
+            f"dryrun count check {cfg.name}: on the card {real['flops']} "
+            f"FLOPs, {real['hbm_bytes']} HBM bytes, kernels "
+            f"{real['kernels']}; traced on 1 x 1 {fake['flops']}, "
+            f"{fake['hbm_bytes']}, {fake['kernels']}")
+    floor = roofline_terms(real["flops"], real["boundary_bytes"], 0.0)
+    eager = roofline_terms(real["flops"], real["hbm_bytes"], 0.0)
+    c = {"arch": cfg.name, "layers": cfg.n_layers, "batch": batch,
+         "prompt": prompt, "flops": real["flops"],
+         "hbm_bytes": real["hbm_bytes"],
+         "boundary_bytes": real["boundary_bytes"],
+         "fake_boundary_bytes": fake["boundary_bytes"],
+         "launches": launches, "kernels": real["kernels"],
+         "walk_peak_bytes": real["peak_live_bytes"],
+         "max_memory_allocated": peak,
+         "fake_peak_bytes": fake["peak_live_bytes"],
+         "prefill_ms": prefill_ms, "bound_ms": 1e3 * floor["bound_s"],
+         "bound_by": floor["dominant"],
+         "roofline_share": 1e3 * floor["bound_s"] / prefill_ms,
+         "eager_traffic_ms": 1e3 * eager["memory_s"],
+         "eager_bound_ms": 1e3 * eager["bound_s"],
+         "eager_share": 1e3 * eager["bound_s"] / prefill_ms}
+    print(f"dryrun count check {cfg.name} ({cfg.n_layers} layers) prefill "
+          f"{batch} x {prompt} on {card}: {c['flops']} FLOPs and "
+          f"{c['hbm_bytes']} HBM bytes of eager traffic, equal on the card "
+          f"and traced on a 1 x 1 mesh; launches {launches}; kernel calls "
+          f"{ {k: v['calls'] for k, v in real['kernels'].items()} }; walk "
+          f"peak {c['walk_peak_bytes']} bytes beside max_memory_allocated "
+          f"{peak}; prefill {prefill_ms:.6f} ms (median of 5) beside its "
+          f"floor {c['bound_ms']:.6f} ms ({c['bound_by']}; "
+          f"{c['boundary_bytes']} boundary bytes): roofline share "
+          f"{c['roofline_share']:.6f}; the eager traffic alone "
+          f"{c['eager_traffic_ms']:.6f} ms (share {c['eager_share']:.6f})")
+    return c
+
+
+def phase_dryrun(card: str) -> dict:
+    """The production-mesh dry-run (module doc, item 16): (a) the cells of
+    DRYRUN_CELLS planned on the card's host, each ``ok`` with its dominant
+    term and its floor, launching no kernel; (b) the count checks
+    (:func:`_count_check`): qwen1.5-0.5b's prefill at the serve cell (one
+    flash launch a layer, no other kernel), qwen3-moe-235b's at full width
+    and DRYRUN_MOE_LAYERS layer at one model rank, JAX's choice on a 1 x 1
+    mesh (flash once a layer, ``cscatter`` for the combine), and
+    hymba-1.5b's at full width and depth (flash once a layer, the
+    selective scan's three launches a layer): each run for real on the
+    card under the op walk and traced on a 1 x 1 fake mesh, FLOPs and HBM
+    bytes equal; and the custom op's dispatch beside the direct call.
+    Every kernel's count is zeroed at the start and read after each part:
+    ``launches`` holds each part's counts."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as pmesh
     out = {"cells": {}, "launches": {}}
 
     def part(name: str) -> dict:
@@ -5291,7 +5403,8 @@ def phase_dryrun(card: str) -> dict:
             require(rec["status"] == "ok", f"dryrun {arch} x {shape}: "
                     f"{rec.get('error')}")
             r, f = rec["roofline"], rec["roofline_floor"]
-            out["cells"][f"{arch}__{shape}__{rec['mesh']}"] = {
+            key = f"{arch}__{shape}__{rec['mesh']}"
+            out["cells"][key] = {
                 "dominant": r["dominant"], "compute_s": r["compute_s"],
                 "memory_s": r["memory_s"],
                 "collective_s": r["collective_s"],
@@ -5300,7 +5413,9 @@ def phase_dryrun(card: str) -> dict:
                 "live_bytes": rec["memory"]["live_bytes_per_device"],
                 "fits_80gb_hbm": rec["memory"]["fits_80gb_hbm"],
                 "trace_s": rec["trace_s"],
-                "trip_counts": rec["op_walk"]["trip_counts"]}
+                "trip_counts": rec["op_walk"]["trip_counts"],
+                "kernels": {k: v["calls"] for k, v in
+                            rec["op_walk"]["kernels"].items()}}
             print(f"dryrun {arch} x {shape} x {rec['mesh']} planned on "
                   f"{card}'s host: dominant={r['dominant']} (compute "
                   f"{r['compute_s']:.6f} s, memory {r['memory_s']:.6f} s "
@@ -5308,84 +5423,31 @@ def phase_dryrun(card: str) -> dict:
                   f"at the data sheet's rates); floor {f['bound_s']:.6f} s "
                   f"({f['dominant']}; boundary bytes {f['memory_s']:.6f} "
                   f"s); {rec['memory']['live_bytes_per_device']} live bytes"
-                  f" a device, traced in {rec['trace_s']:.3f} s")
+                  f" a device (fits 80 GB: "
+                  f"{rec['memory']['fits_80gb_hbm']}), kernel calls "
+                  f"{out['cells'][key]['kernels']}, traced in "
+                  f"{rec['trace_s']:.3f} s")
         planned = part("cells")
         require(not any(planned.values()),
                 f"dryrun: planning launched kernels {planned}")
-        # (b) the count check at the serve cell
+        # (b) the count checks
         cfg = get_config(ARCH)
-        gc.collect()
-        torch.cuda.empty_cache()
-        model = build_model(cfg, device="cuda", seed=SEED)
-        tokens = torch.as_tensor(prompts(cfg, SERVE_BATCH, PROMPT, SEED),
-                                 device="cuda")
-        model.prefill(tokens[:, :16], 16)            # warm-up, not counted
-        torch.cuda.synchronize()
-        part("warmup")
-        torch.cuda.reset_peak_memory_stats()
-        walk = OpWalk(inputs=[*model.parameters(), tokens])
-        with walk:
-            logits, caches = model.prefill(tokens, PROMPT)
-            picked = steps.greedy(logits)
-        walk.add_outputs((picked, caches))
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated()
-        real = walk.result()
-        del logits, caches, picked, walk
-        launches = part("count_check")
-        want = dict(dict.fromkeys(launches, 0), flash_attention=cfg.n_layers)
-        require(launches == want, f"dryrun count check: launches "
-                f"{launches}, want {want}")
-        samples = []
-        for _ in range(5):
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            start.record()
-            model.prefill(tokens, PROMPT)
-            end.record()
-            torch.cuda.synchronize()
-            samples.append(start.elapsed_time(end))
-        prefill_ms = statistics.median(samples)
-        part("prefill_timing")
-        del model
-        torch.cuda.empty_cache()
-        one = pmesh.make_host_mesh(1, 1)
-        shape = ShapeConfig("serve", PROMPT, SERVE_BATCH, "prefill")
-        fake = steps.plan_prefill(cfg, shape, one).trace()
-        require(real["flops"] == fake["flops"]
-                and real["hbm_bytes"] == fake["hbm_bytes"],
-                f"dryrun count check: on the card {real['flops']} FLOPs, "
-                f"{real['hbm_bytes']} HBM bytes; traced on 1 x 1 "
-                f"{fake['flops']}, {fake['hbm_bytes']}")
-        floor = roofline_terms(real["flops"], real["boundary_bytes"], 0.0)
-        eager = roofline_terms(real["flops"], real["hbm_bytes"], 0.0)
-        out["count_check"] = {
-            "flops": real["flops"], "hbm_bytes": real["hbm_bytes"],
-            "boundary_bytes": real["boundary_bytes"],
-            "fake_boundary_bytes": fake["boundary_bytes"],
-            "flash_launches": launches["flash_attention"],
-            "kernels": real["kernels"],
-            "walk_peak_bytes": real["peak_live_bytes"],
-            "max_memory_allocated": peak,
-            "fake_peak_bytes": fake["peak_live_bytes"],
-            "prefill_ms": prefill_ms, "bound_ms": 1e3 * floor["bound_s"],
-            "bound_by": floor["dominant"],
-            "roofline_share": 1e3 * floor["bound_s"] / prefill_ms,
-            "eager_traffic_ms": 1e3 * eager["memory_s"],
-            "eager_bound_ms": 1e3 * eager["bound_s"],
-            "eager_share": 1e3 * eager["bound_s"] / prefill_ms}
-        c = out["count_check"]
-        print(f"dryrun count check {cfg.name} prefill {SERVE_BATCH} x "
-              f"{PROMPT} on {card}: {c['flops']} FLOPs and {c['hbm_bytes']}"
-              f" HBM bytes of eager traffic, equal on the card and traced "
-              f"on a 1 x 1 mesh; launches {launches}; walk peak "
-              f"{c['walk_peak_bytes']} bytes beside max_memory_allocated "
-              f"{peak}; prefill {prefill_ms:.6f} ms (median of 5) beside its"
-              f" floor {c['bound_ms']:.6f} ms ({c['bound_by']}; "
-              f"{c['boundary_bytes']} boundary bytes): roofline share "
-              f"{c['roofline_share']:.6f}; the eager traffic alone "
-              f"{c['eager_traffic_ms']:.6f} ms (share "
-              f"{c['eager_share']:.6f})")
+        out["count_check"] = _count_check(
+            card, part, "", cfg, SERVE_BATCH, PROMPT,
+            {"flash_attention": cfg.n_layers})
+        moe = dataclasses.replace(get_config(MOE),
+                                  n_layers=DRYRUN_MOE_LAYERS)
+        out["count_check_moe"] = _count_check(
+            card, part, "_moe", moe, SERVE_BATCH, MOE_PROMPT,
+            {"flash_attention": moe.n_layers, "cscatter": None},
+            model_ranks=1)
+        require(out["count_check_moe"]["kernels"]["cscatter"]["calls"]
+                == moe.n_layers, "dryrun count check: one combine a layer")
+        hymba = get_config("hymba_1_5b")
+        out["count_check_hymba"] = _count_check(
+            card, part, "_hymba", hymba, FAMILY_BATCH, HYMBA_PROMPT,
+            {"flash_attention": hymba.n_layers,
+             "selective_scan": hymba.n_layers * 3})
     finally:
         shutil.rmtree(work, ignore_errors=True)
         pmesh.shutdown()
@@ -5488,10 +5550,10 @@ def main() -> None:
         "launches_vlm": families["vlm"]["launches"]["cscatter"],
         "launches_kimi": families["kimi"]["launches"]["cscatter"],
         "launches_lint": lint["launches"]["cscatter"],
-        "launches_dryrun": dry["launches"]["count_check"]["cscatter"],
+        "launches_dryrun": _dry_launches(dry, "cscatter"),
         "launches_dryrun_other": {
             k: v["cscatter"] for k, v in dry["launches"].items()
-            if k != "count_check"},
+            if not k.startswith("count_check")},
         "moe_combine": [t for t in times if t.get("what") == "moe_combine"],
         "determinism": determinism,
         "train_embedding_backward": train_add,
@@ -5501,10 +5563,10 @@ def main() -> None:
         "replaces": REPLACES_CMERGE,
         "launches": blocked_path["cmerge"],
         "launches_lint": lint["launches"]["cmerge"],
-        "launches_dryrun": dry["launches"]["count_check"]["cmerge"],
+        "launches_dryrun": _dry_launches(dry, "cmerge"),
         "launches_dryrun_other": {
             k: v["cmerge"] for k, v in dry["launches"].items()
-            if k != "count_check"},
+            if not k.startswith("count_check")},
         "max_abs_err": worst_merge["int"],
         "max_abs_err_float": worst_merge["float"],
         "matched": True,
@@ -5529,10 +5591,10 @@ def main() -> None:
         "launches_vlm": families["vlm"]["launches"][name],
         "launches_kimi": families["kimi"]["launches"][name],
         "launches_pipeline": pipeline["launches"].get(name, 0),
-        "launches_dryrun": dry["launches"]["count_check"][name],
+        "launches_dryrun": _dry_launches(dry, name),
         "launches_dryrun_other": {
             k: v[name] for k, v in dry["launches"].items()
-            if k != "count_check"},
+            if not k.startswith("count_check")},
         "launches_windowed_families": families["hymba"]["launches"][
             "flash_attention_windowed"],
         "launches_bidirectional_encdec": families["encdec"]["launches"][
@@ -5562,10 +5624,10 @@ def main() -> None:
             "hymba_prefill": families["hymba"]["launches"]["selective_scan"],
             **{f"hymba_train_{k}": v for k, v in
                families["hymba_train"]["launches"].items()}},
-        "launches_dryrun": dry["launches"]["count_check"]["selective_scan"],
+        "launches_dryrun": _dry_launches(dry, "selective_scan"),
         "launches_dryrun_other": {
             k: v["selective_scan"] for k, v in dry["launches"].items()
-            if k != "count_check"},
+            if not k.startswith("count_check")},
         "max_abs_err": scan_rows[0]["max_abs_err"],
         "max_rel_err": max(max(r["max_rel_err"].values())
                            for r in scan_rows),

@@ -1,9 +1,10 @@
-"""The kernels on the dense family's path as dispatcher-visible operators
+"""The kernels on the planner's paths as dispatcher-visible operators
 (the planner's route), and the decorator every kernel's wrapper wears.
 
 A kernel launched through ``ctypes`` is invisible to PyTorch's dispatcher,
 so neither a fake tensor nor a DTensor can pass through it. This module
-registers ``flash_attention``, ``decode_attention`` and ``cscatter`` as
+registers ``flash_attention``, ``decode_attention``, ``cscatter`` and
+``selective_scan`` (with its backward, ``selective_scan_backward``) as
 ``torch.library.custom_op`` operators (``torch.ops.repro_torch.*``), each
 with
 
@@ -15,8 +16,19 @@ with
   DTensors with each device's shard: flash over the batch or over the
   heads (H and KV split together, so that G = H / KV holds), decode over
   the batch or the KV heads, ``cscatter`` over the columns D (columns are
-  independent) or replicated. DTensor keeps only strategies that split
-  their dims evenly; anything else is replicated.
+  independent) or replicated, the scan over the batch or the channels D
+  (JAX's ``"mlp"``: each channel's states are independent; its backward
+  leaves the sums over channels, ``d b`` and ``d c``, and the sum over the
+  batch, ``d a``, as partial sums). DTensor keeps only strategies that
+  split their dims evenly; anything else is replicated.
+
+``selective_scan`` has ``register_autograd``: its backward is the op
+``selective_scan_backward``, so that a train step traces its backward on
+DTensors. On CUDA tensors that op runs the forward kernels again for
+their checkpoints and then the backward kernels; on CPU tensors the
+autograd formula takes the plain version's own backward instead, and the
+op refuses them. The train path on a concrete tensor never takes the op
+(``kernels/selective_scan._Scan`` keeps the checkpoints).
 
 ``decode_attention_lse`` is decode with each head's log-sum-exp, which a
 cache split over devices by sequence combines by; it runs on each
@@ -79,9 +91,13 @@ def _cscatter_route(table, ids, vals, *, kind="add", sat_min=0.0,
     return table
 
 
+def _scan_route(dt, u, b, c, a, h0):
+    return torch.ops.repro_torch.selective_scan(dt, u, b, c, a, h0)
+
+
 # the wrapper's arguments -> its custom op's call
 _ROUTES = {"flash_attention": _flash_route, "decode_attention": _decode_route,
-           "cscatter": _cscatter_route}
+           "cscatter": _cscatter_route, "selective_scan": _scan_route}
 
 
 def kernel_call(name: str) -> Callable:
@@ -180,11 +196,67 @@ def _(table, ids, vals, kind, sat_min, sat_max):
     return None
 
 
+@torch.library.custom_op("repro_torch::selective_scan", mutates_args=())
+def selective_scan(dt: Tensor, u: Tensor, b: Tensor, c: Tensor, a: Tensor,
+                   h0: Tensor) -> tuple[Tensor, Tensor]:
+    from repro_torch.kernels.selective_scan import selective_scan as fn
+    y, h = fn(dt, u, b, c, a, h0)
+    return y, h
+
+
+@selective_scan.register_fake
+def _(dt, u, b, c, a, h0):
+    return dt.new_empty(dt.shape), h0.new_empty(h0.shape)
+
+
+@torch.library.custom_op("repro_torch::selective_scan_backward",
+                         mutates_args=())
+def selective_scan_backward(dt: Tensor, u: Tensor, b: Tensor, c: Tensor,
+                            a: Tensor, h0: Tensor, dy: Tensor, dh: Tensor
+                            ) -> tuple[Tensor, Tensor, Tensor, Tensor,
+                                       Tensor, Tensor]:
+    """The six gradients of ``sum(y dy) + sum(h_T dh)``: (d dt, d u, d b,
+    d c, d a, d h0)."""
+    from repro_torch.kernels import selective_scan as sc
+    if dt.device.type != "cuda":
+        raise ValueError(f"selective_scan_backward: no kernel for device "
+                         f"{dt.device} (a CPU tensor's backward is the plain "
+                         f"version's autograd)")
+    ins = [x.contiguous() for x in (dt, u, b, c, a, h0)]
+    _, _, ckpt = sc.launch_forward(*ins)
+    return sc.launch_backward(*ins[:5], ckpt, dy.float().contiguous(),
+                              dh.float().contiguous())
+
+
+@selective_scan_backward.register_fake
+def _(dt, u, b, c, a, h0, dy, dh):
+    return tuple(x.new_empty(x.shape) for x in (dt, u, b, c, a, h0))
+
+
+def _scan_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _scan_backward(ctx, dy, dh):
+    ins = ctx.saved_tensors
+    if ins[0].device.type == "cpu":
+        # the plain version's own backward, built here above the dispatcher
+        from repro_torch.kernels.selective_scan import selective_scan_plain
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_() for x in ins]
+            y, h = selective_scan_plain(*leaves)
+            return torch.autograd.grad((y, h), leaves, (dy, dh))
+    return torch.ops.repro_torch.selective_scan_backward(*ins, dy, dh)
+
+
+selective_scan.register_autograd(_scan_backward, setup_context=_scan_setup)
+
+
 _REGISTERED = False
 
 
 def register_shardings() -> None:
-    """Register the three ops' DTensor sharding rules (once a process)."""
+    """Register the ops' DTensor sharding rules (once a process)."""
     global _REGISTERED
     if _REGISTERED:
         return
@@ -213,6 +285,28 @@ def register_shardings() -> None:
         return [([], [R, R, R, None, None, None]),
                 ([], [Shard(col), R, Shard(len(vals.shape) - 1), None, None,
                       None])]
+
+    @register_sharding(torch.ops.repro_torch.selective_scan.default)
+    def _scan_rule(dt, u, b, c, a, h0):
+        # dt, u [B, T, D], b, c [B, T, S], a [D, S], h0 [B, D, S] -> y
+        # [B, T, D], h [B, D, S]: the batch, or the channels D.
+        S0 = Shard(0)
+        return [([R, R], [R] * 6),
+                ([S0, S0], [S0, S0, S0, S0, R, S0]),
+                ([Shard(2), Shard(1)],
+                 [Shard(2), Shard(2), R, R, S0, Shard(1)])]
+
+    @register_sharding(torch.ops.repro_torch.selective_scan_backward.default)
+    def _scan_backward_rule(dt, u, b, c, a, h0, dy, dh):
+        # -> d dt, d u, d b, d c, d a, d h0: over the batch d a is a
+        # partial sum, over the channels d b and d c are.
+        from torch.distributed.tensor import Partial
+        S0, P = Shard(0), Partial()
+        return [([R] * 6, [R] * 8),
+                ([S0, S0, S0, S0, P, S0], [S0, S0, S0, S0, R, S0, S0, S0]),
+                ([Shard(2), Shard(2), P, P, S0, Shard(1)],
+                 [Shard(2), Shard(2), R, R, S0, Shard(1), Shard(2),
+                  Shard(1)])]
 
     @register_sharding(torch.ops.aten.mm.dtype)
     def _mm_dtype_rule(a, b, out_dtype):

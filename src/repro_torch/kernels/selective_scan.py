@@ -29,6 +29,10 @@ and returns ``(y [B, T, D] f32, h_T [B, D, S] f32)``.
 * On a CPU tensor it runs :func:`selective_scan_plain`, the JAX module's
   chunk loop in plain PyTorch (its gradient from autograd), which the tests
   hold against JAX and ``chip_smoke.py`` holds the kernels against.
+* On a planner's tensor (a DTensor, a meta or a fake tensor) it takes the
+  custom op ``repro_torch::selective_scan`` (``kernels/custom_ops.py``:
+  its shape function, its sharding rule and its backward op); a concrete
+  tensor launches directly, as before.
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from repro_torch.kernels.custom_ops import kernel_call
 
 Tensor = torch.Tensor
 DSTATES = (4, 8, 16)
@@ -109,7 +115,9 @@ def selective_scan_plain(dt: Tensor, u: Tensor, b: Tensor, c: Tensor,
         del da, dbx
         ys.append(torch.einsum("btds,bts->btd", h_seq, c[:, sl]))
         del h_seq
-    return torch.cat(ys, dim=1), h
+    # h_T in its own storage, as the kernel's (not a view of the last
+    # chunk's states)
+    return torch.cat(ys, dim=1), h.clone()
 
 
 def _lib():
@@ -222,11 +230,13 @@ class _Scan(torch.autograd.Function):
         return launch_backward(dt, u, b, c, a, ckpt, dy, dh_last)
 
 
+@kernel_call("selective_scan")
 def selective_scan(dt: Tensor, u: Tensor, b: Tensor, c: Tensor, a: Tensor,
                    h0: Tensor) -> tuple[Tensor, Tensor]:
     """``(y [B,T,D] f32, h_T [B,D,S] f32)`` of the selective scan: the CUDA
     kernels (differentiable through the backward kernel) on CUDA tensors,
-    :func:`selective_scan_plain` on CPU tensors."""
+    :func:`selective_scan_plain` on CPU tensors, the custom op
+    ``torch.ops.repro_torch.selective_scan`` on a planner's tensors."""
     if dt.device.type == "cpu":
         return selective_scan_plain(dt, u, b, c, a, h0)
     _check(dt, u, b, c, a, h0)

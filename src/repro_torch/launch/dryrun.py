@@ -23,13 +23,21 @@ The port of the JAX package's ``repro/launch/dryrun.py``. For each cell:
 
 A cell deeper than :data:`SCALE_ABOVE` layers is traced at 2 and 3 layers
 and every count extrapolated linearly to its depth (``trip_counts``,
-``traced_layers``), as the HLO walk scales a loop body by its trip count;
-``trace_cell(..., exact=True)`` traces the whole depth (the tests hold
-the extrapolation to it).
+``traced_layers``), as the HLO walk scales a loop body by its trip count.
+A family whose model walks time in a Python loop (:data:`TIME_LOOPS`: the
+xLSTM's sLSTM steps token by token, its mLSTM 256-token chunks) is traced,
+for a train or prefill cell longer than 3 chunks, at 2 and 3 chunks and
+extrapolated linearly to the cell's length (``trip_counts`` the chunks,
+``traced_lengths``): JAX's walk scales a ``lax.scan`` body by its trip
+count the same way. That is exact because no op of the family grows
+faster than the sequence (the one count that grows slower is
+``cscatter``'s row term, ``min(N, R)``, in the train cells' embedding
+backward). ``trace_cell(..., exact=True)`` traces the whole depth and
+length (the tests hold both extrapolations to it).
 
-Only the dense family is planned so far; any other family's cell is
-written as ``status: "not_ported"`` with the ROADMAP item that brings it,
-and is not a failure. There is no ``--dump-hlo``: there is no HLO.
+Every family is planned: the 64 cells of ``ARCH_IDS`` x each config's
+``applicable_shapes`` x both meshes. There is no ``--dump-hlo``: there is
+no HLO.
 
 Run one cell:     python -m repro_torch.launch.dryrun --arch llama3-405b --shape train_4k
 Multi-pod:        ... --multipod
@@ -52,6 +60,9 @@ import time
 import traceback
 
 SCALE_ABOVE = 32        # deeper cells are traced at 2 and 3 layers, scaled
+# family -> the step of its Python loop over time; longer train and prefill
+# cells are traced at 2 and 3 steps, scaled
+TIME_LOOPS = {"ssm": 256}
 _NUMERIC = (int, float)
 
 
@@ -71,27 +82,52 @@ def _extrapolate(a, b, steps: int):
     return b
 
 
+def _scaled(walks: list, steps: int) -> dict:
+    """Two walks extrapolated ``steps`` past the first, in the second's
+    levels."""
+    walk = _extrapolate(walks[0], walks[1], steps)
+    walk["level_names"] = walks[1]["level_names"]
+    walk["level_sizes"] = walks[1]["level_sizes"]
+    return walk
+
+
 def trace_cell(cfg, shape_cfg, mesh, level_sizes, level_names,
                extra_rules=None, exact: bool = False, **kw) -> dict:
-    """The op walk of one cell: traced whole, or at 2 and 3 layers and
-    extrapolated to the config's depth when it is deeper than
-    :data:`SCALE_ABOVE` and not ``exact``."""
+    """The op walk of one cell: traced whole; or, when not ``exact``, at 2
+    and 3 layers and extrapolated to the config's depth when it is deeper
+    than :data:`SCALE_ABOVE`, or at 2 and 3 steps of its loop over time
+    (:data:`TIME_LOOPS`) and extrapolated to the cell's length."""
     from repro_torch.launch.steps import lowering_rules, plan_for
     depth = cfg.n_layers
-    if exact or depth <= SCALE_ABOVE:
+    step = TIME_LOOPS.get(cfg.family)
+    over_time = (step is not None and shape_cfg.kind != "decode"
+                 and shape_cfg.seq_len > 3 * step)
+    if exact or (depth <= SCALE_ABOVE and not over_time):
         walk = plan_for(cfg, shape_cfg, mesh, extra_rules=extra_rules,
                         **kw).trace(level_sizes, level_names)
         walk["trip_counts"] = []
         return walk
-    # the full config's rules (depth and size pick some of them)
+    # the full cell's rules (depth, length and size pick some of them)
     rules = lowering_rules(cfg, shape_cfg, mesh)
     rules.update(extra_rules or {})
-    walks = [plan_for(dataclasses.replace(cfg, n_layers=n), shape_cfg, mesh,
-                      extra_rules=rules, **kw).trace(level_sizes, level_names)
-             for n in (2, 3)]
-    walk = _extrapolate(walks[0], walks[1], depth - 2)
-    walk["level_names"] = walks[1]["level_names"]
-    walk["level_sizes"] = walks[1]["level_sizes"]
+    if over_time:
+        if depth > SCALE_ABOVE or shape_cfg.seq_len % step:
+            raise ValueError(f"{cfg.name} x {shape_cfg.name}: no linear "
+                             f"scaling over both depth and time, or over a "
+                             f"length that is not a multiple of {step}")
+        lengths = [2 * step, 3 * step]
+        walk = _scaled(
+            [plan_for(cfg, dataclasses.replace(shape_cfg, seq_len=n), mesh,
+                      extra_rules=rules, **kw).trace(level_sizes,
+                                                     level_names)
+             for n in lengths], (shape_cfg.seq_len - lengths[0]) // step)
+        walk["trip_counts"] = [shape_cfg.seq_len // step]
+        walk["traced_lengths"] = lengths
+        return walk
+    walk = _scaled(
+        [plan_for(dataclasses.replace(cfg, n_layers=n), shape_cfg, mesh,
+                  extra_rules=rules, **kw).trace(level_sizes, level_names)
+         for n in (2, 3)], depth - 2)
     walk["trip_counts"] = [depth]
     walk["traced_layers"] = [2, 3]
     return walk
@@ -137,7 +173,6 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str,
                                           get_smoke_config)
     from repro_torch.launch import hw_analysis as hw
     from repro_torch.launch.mesh import make_production_mesh, mesh_name
-    from repro_torch.launch.steps import PLANNED_FAMILIES, NOT_PLANNED
 
     if smoke:
         cfg = get_smoke_config(arch)
@@ -154,11 +189,6 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str,
                  "chips": 512 if multi_pod else 256, "status": "running",
                  "kind": shape_cfg.kind}
     t0 = time.time()
-    if cfg.family not in PLANNED_FAMILIES:
-        rec["status"] = "not_ported"
-        rec["reason"] = f"family {cfg.family!r}: {NOT_PLANNED}"
-        print(f"[{arch} x {shape} x {name}] not ported: {rec['reason']}")
-        return _write(rec, out_dir, tag, t0)
     try:
         mesh = make_production_mesh(multi_pod=multi_pod)
         assert mesh_name(mesh) == name
@@ -179,8 +209,9 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str,
         rec["op_walk"] = {k: walk[k] for k in (
             "flops", "hbm_bytes", "wire_bytes", "wire_bytes_by_level",
             "level_names", "level_sizes", "trip_counts", "kernels")}
-        if "traced_layers" in walk:
-            rec["op_walk"]["traced_layers"] = walk["traced_layers"]
+        for key in ("traced_layers", "traced_lengths"):
+            if key in walk:
+                rec["op_walk"][key] = walk[key]
         rec["op_walk"]["per_collective"] = walk["per_collective"]
         rec["per_collective"] = walk["per_collective"]
         rec["op_walk"]["wire_bytes_inter_derived"] = hw.dci_bytes(
@@ -236,10 +267,9 @@ def _write(rec: dict, out_dir: str, tag: str, t0: float) -> dict:
 def orchestrate(meshes: list[bool], out_dir: str, force: bool,
                 timeout: int, only_arch: str | None = None) -> int:
     """Every cell of ``ARCH_IDS`` x its shapes x ``meshes``, one subprocess
-    a cell -> the number of failed cells (``not_ported`` is none)."""
+    a cell -> the number of failed cells."""
     from repro_torch.configs.base import ARCH_IDS, applicable_shapes, \
         get_config
-    from repro_torch.launch.steps import PLANNED_FAMILIES
     failures = 0
     for arch in ARCH_IDS:
         if only_arch and arch != only_arch.replace("-", "_"):
@@ -249,9 +279,6 @@ def orchestrate(meshes: list[bool], out_dir: str, force: bool,
             for multi_pod in meshes:
                 name = "pod2x16x16" if multi_pod else "pod16x16"
                 path = os.path.join(out_dir, f"{arch}__{shape}__{name}.json")
-                if cfg.family not in PLANNED_FAMILIES:
-                    run_cell(arch, shape, multi_pod, out_dir)
-                    continue
                 if os.path.exists(path) and not force:
                     with open(path) as f:
                         if json.load(f).get("status") == "ok":
@@ -329,7 +356,7 @@ def main(argv=None) -> None:
                    args.out, extra_rules=extra_rules, tag=args.tag,
                    microbatches=args.microbatches, smoke=args.smoke,
                    overrides=_overrides(args.set) or None)
-    sys.exit(0 if rec["status"] in ("ok", "not_ported") else 1)
+    sys.exit(0 if rec["status"] == "ok" else 1)
 
 
 if __name__ == "__main__":

@@ -12,7 +12,8 @@ fake tensors, and the collectives DTensor inserts are recorded
 The fake group is global to a process: :func:`fake_world` initialises it
 once, with at least the ranks a mesh asks for (512 by default, so both
 production meshes and every smaller one share it: a mesh takes ranks ``0 ..
-n-1``), and :func:`shutdown` destroys it. A process that has initialised
+n-1``), and :func:`shutdown` destroys it, with DTensor's cached sharding
+decisions, which hold its meshes. A process that has initialised
 another backend is refused. ``FakeStore`` is internal to PyTorch: this is
 the one module that imports it (``tests/test_torch_partition.py`` fails
 clearly if it moves).
@@ -59,10 +60,35 @@ def fake_world(ranks: int = WORLD) -> int:
 
 
 def shutdown() -> None:
-    """Destroy the fake process group (and every mesh's groups)."""
+    """Destroy the fake process group (and every mesh's groups), and
+    DTensor's caches of sharding decisions: a mesh made later over the
+    same ranks equals one of the old meshes, so a cached decision would
+    hand it the old mesh, whose groups are gone."""
     import torch.distributed as dist
     if dist.is_initialized():
         dist.destroy_process_group()
+    _clear_dtensor_caches()
+
+
+def _clear_dtensor_caches() -> None:
+    """Clear DTensor's caches that hold meshes (internal names, each
+    cleared where this PyTorch has it: the native dispatch cache, the
+    sharding propagator's, the redistribution planner's)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import _redistribute
+    native = getattr(torch._C, "_clear_DTensor_sharding_propagator_cache",
+                     None)
+    if native is not None:
+        native()
+    prop = getattr(getattr(DTensor, "_op_dispatcher", None),
+                   "sharding_propagator", None)
+    for cache in (getattr(prop, "propagate_op_sharding", None),
+                  getattr(_redistribute, "_gen_transform_infos", None)):
+        if hasattr(cache, "cache_clear"):
+            cache.cache_clear()
+    clear = getattr(_redistribute, "clear_redistribute_planner_cache", None)
+    if clear is not None:
+        clear()
 
 
 def _mesh(shape: tuple, names: tuple):

@@ -31,7 +31,8 @@ the device's shard, and the collectives DTensor inserts.
   program's traffic, an upper bound on a fused one's; the boundary bytes
   are the floor a roofline share is taken against.
 * **Kernels**: each call of ``flash_attention``, ``decode_attention``,
-  ``cscatter`` or ``cmerge`` is counted once, by its own formula here,
+  ``cscatter``, ``cmerge`` or ``selective_scan`` (and the scan's backward
+  op, ``selective_scan_backward``) is counted once, by its own formula here,
   whichever route ran it: the custom op on a planner's tensor, the
   wrapper's ``kernel_begin`` event on a concrete one (the CUDA launch, or
   the plain version, whose own aten ops are then not counted).
@@ -69,7 +70,9 @@ _COLLECTIVES = {"all_gather_into_tensor": "all-gather",
 # custom ops -> the kernel whose formula counts them
 _OPS = {"flash_attention": "flash_attention",
         "decode_attention": "decode_attention",
-        "decode_attention_lse": "decode_attention", "cscatter": "cscatter"}
+        "decode_attention_lse": "decode_attention", "cscatter": "cscatter",
+        "selective_scan": "selective_scan",
+        "selective_scan_backward": "selective_scan_backward"}
 
 
 def _wire_bytes(op: str, rbytes: int, g: int) -> float:
@@ -170,6 +173,13 @@ def kernel_cost(name: str, args: Sequence, kwargs: dict) -> tuple[float, float]:
     * ``cmerge(table, block_ids, dirty, src, upd)``: one combine per update
       element; ids, dirty, src, upd and the ways' rows of the table, read
       and written (every way dirty: the bound without the flags' values).
+    * ``selective_scan(dt, u [B,T,D], b, c [B,T,S], a [D,S], h0 [B,D,S])``:
+      ``B T D S`` exponentials (its operations, at whatever rate); the six
+      inputs, y (f32, dt's shape) and h_T (h0's). Its backward
+      ``selective_scan_backward(dt, u, b, c, a, h0, dy, dh)``: the same
+      exponentials; the eight inputs and the six gradients (each its
+      input's shape and dtype). Neither counts the kernels' own checkpoints
+      (``chip_smoke.py``'s ``scan_bound_ms``: a choice of their design).
     """
     if name == "flash_attention":
         q, k, v = args[:3]
@@ -200,6 +210,12 @@ def kernel_cost(name: str, args: Sequence, kwargs: dict) -> tuple[float, float]:
         return (float(upd.numel()),
                 float(_nbytes(block_ids) + _nbytes(dirty) + _nbytes(src)
                       + _nbytes(upd) + 2 * rows))
+    if name in ("selective_scan", "selective_scan_backward"):
+        dt, u, b, c, a, h0 = args[:6]
+        ins = sum(_nbytes(t) for t in args[:8] if isinstance(t, torch.Tensor))
+        outs = (_nbytes(dt) + _nbytes(h0) if name == "selective_scan"
+                else sum(_nbytes(t) for t in args[:6]))
+        return float(dt.numel() * a.shape[-1]), float(ins + outs)
     raise ValueError(f"no cost formula for kernel {name!r}")
 
 

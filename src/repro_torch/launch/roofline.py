@@ -2,6 +2,9 @@
 
 The port of the JAX package's ``repro/launch/roofline.py``; "fits" is
 measured against the H100's 80 GB (``launch/hw_analysis.HBM_BYTES``).
+:func:`floor_table` follows it: a row an (arch, shape), the two meshes
+side by side, with the walk's counts, both rooflines' terms and the live
+bytes (``PERF.md``'s table of the cells).
 
     python -m repro_torch.launch.roofline [--dir results/dryrun_torch] [--mesh pod16x16]
 """
@@ -71,6 +74,57 @@ def table(cells: list[dict], mesh: str | None = None,
     return "\n".join(rows)
 
 
+MESHES = ("pod16x16", "pod2x16x16")
+
+
+def _both(values: list, fmt: str) -> str:
+    """One mesh's value, or both's joined by "; " where they differ."""
+    out = [format(v, fmt) if isinstance(v, (int, float)) else str(v)
+           for v in values]
+    return out[0] if len(set(out)) == 1 else "; ".join(out)
+
+
+def floor_table(cells: list[dict]) -> str:
+    """A row an (arch, shape) of ``ok`` cells, the meshes of
+    :data:`MESHES` side by side: FLOPs, the eager HBM bytes, the boundary
+    bytes, the wire bytes by level, the three terms with the eager
+    traffic, the floor's memory term, the dominant term of each roofline,
+    the live GB a device (NO past 80 GB) and the useful-FLOPs ratio."""
+    terms = ("compute_s", "memory_s", "collective_s")
+
+    def gb(c):
+        g = c["memory"]["live_bytes_per_device"] / 1e9
+        return format(g, ".3g") + ("" if g < 80 else " NO")
+
+    columns = [
+        (lambda c: c["op_walk"]["flops"], ".4g"),
+        (lambda c: c["op_walk"]["hbm_bytes"], ".4g"),
+        (lambda c: c["memory"]["boundary_bytes_per_device"], ".4g"),
+        (lambda c: "/".join(format(b, ".3g") for b in
+                            c["op_walk"]["wire_bytes_by_level"]), ""),
+        (lambda c: " / ".join(format(c["roofline"][k], ".4g")
+                              for k in terms), ""),
+        (lambda c: c["roofline_floor"]["memory_s"], ".4g"),
+        (lambda c: f"{c['roofline']['dominant']}, "
+                   f"{c['roofline_floor']['dominant']}", ""),
+        (gb, ""),
+        (lambda c: c.get("useful_flops_ratio") or 0.0, ".3g")]
+    rows = ["| Cell (16×16; 2×16×16) | FLOPs | Eager HBM bytes | Boundary "
+            "bytes | Wire bytes by level | Compute / eager memory / "
+            "collective s | Floor memory s | Dominant: eager, floor | Live "
+            "GB (fits 80) | Useful |",
+            "|---|---|---|---|---|---|---|---|---|---|"]
+    by_cell: dict = {}
+    for c in cells:
+        if c.get("status") == "ok" and c.get("mesh") in MESHES:
+            by_cell.setdefault((c["arch"], c["shape"]), {})[c["mesh"]] = c
+    for (arch, shape), meshes in by_cell.items():
+        cs = [meshes[m] for m in MESHES if m in meshes]
+        cols = [_both([get(c) for c in cs], fmt) for get, fmt in columns]
+        rows.append(f"| {arch} {shape} | " + " | ".join(cols) + " |")
+    return "\n".join(rows)
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--dir", default="results/dryrun_torch")
@@ -87,6 +141,8 @@ def main(argv=None) -> None:
         print(f"\nworst useful-FLOPs cell: {worst['arch']} x {worst['shape']}"
               f" ({worst.get('useful_flops_ratio'):.3f})")
         print(f"most collective-bound: {coll['arch']} x {coll['shape']}")
+    print("\n# Counts and floors, a row an (arch, shape)\n")
+    print(floor_table(cells))
 
 
 if __name__ == "__main__":

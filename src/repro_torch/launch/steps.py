@@ -34,9 +34,12 @@ The plan half (the JAX module's ``lowering_rules``, ``axes_to_shardings``,
 :class:`StepPlan` holds the step, the specs and logical axes of its inputs
 and the rules, and :meth:`StepPlan.trace` runs the step on fake DTensors
 over a fake process group (``launch/mesh.py``) under the op-level cost walk
-(``launch/op_cost.py``), where JAX lowers and compiles. Only the dense
-family is planned so far; ``merge_plan=`` and ``defer_schedule=`` wait for
-a later slice.
+(``launch/op_cost.py``), where JAX lowers and compiles. Every family is
+planned: each builds its abstract model through
+``models/registry.abstract_model`` and takes its own inputs and caches
+(``input_specs`` / ``input_axes``, the caches of a decode of the same
+batch and length for a prefill to fill). ``merge_plan=`` and
+``defer_schedule=`` wait for a later slice.
 """
 
 from __future__ import annotations
@@ -533,10 +536,6 @@ def _make_deferred_train_step(grads_of, optimizer, plan, merge_compress: bool,
 # The plan half: logical rules, fake DTensor inputs, the traced step.
 # ---------------------------------------------------------------------------
 
-PLANNED_FAMILIES = ("dense",)
-NOT_PLANNED = ("the other families' dry-run is ROADMAP queue 1 item 2")
-
-
 def lowering_rules(cfg, shape_cfg, mesh) -> dict:
     """Per (arch x shape x mesh) logical->mesh adjustments, as JAX's."""
     from repro_torch.sharding.partition import mesh_shape
@@ -782,16 +781,9 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.gather(idx, 0, best.argmax(0)[None])[0]
 
 
-def _check_family(cfg) -> None:
-    if cfg.family not in PLANNED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not planned yet; "
-            f"{NOT_PLANNED}")
-
-
 def _abstract_model(cfg):
-    from repro_torch.models.transformer import DecoderLM
-    return DecoderLM(cfg, abstract=True)
+    from repro_torch.models.registry import abstract_model
+    return abstract_model(cfg)
 
 
 def _planned_train_step(model, optimizer, num_microbatches: int):
@@ -836,7 +828,6 @@ def plan_train(cfg, shape_cfg, mesh, num_microbatches: Optional[int] = None,
     """The implicit production train plan (no explicit merge plan)."""
     from repro_torch.models.layout import param_axes, param_specs
     from repro_torch.optim import make_optimizer, warmup_cosine
-    _check_family(cfg)
     model = _abstract_model(cfg)
     rules = lowering_rules(cfg, shape_cfg, mesh)
     rules.update(extra_rules or {})
@@ -855,26 +846,49 @@ def plan_train(cfg, shape_cfg, mesh, num_microbatches: Optional[int] = None,
 def plan_prefill(cfg, shape_cfg, mesh,
                  extra_rules: Optional[dict] = None) -> StepPlan:
     """Prefill of ``shape_cfg``'s batch into caches of its length; the
-    caches are an input (laid out by ``cache_axes``) the step fills."""
+    attention caches (those a decode of the same batch and length reads,
+    laid out by their axes) are an input the step fills, the recurrent
+    states (:func:`_written_caches`) its outputs. The batch's other inputs
+    (the VLM's ``embeds``, the encoder's ``frames``) go to ``prefill`` by
+    name."""
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.models.layout import param_axes, param_specs
-    _check_family(cfg)
     model = _abstract_model(cfg)
     rules = lowering_rules(cfg, shape_cfg, mesh)
     rules.update(extra_rules or {})
     b, s = shape_cfg.global_batch, shape_cfg.seq_len
-    inputs = model.input_specs(shape_cfg)
-    in_axes = model.input_axes(shape_cfg)
+    serve = ShapeConfig(shape_cfg.name, s, b, "decode")
+    cache_specs = _written_caches(model.input_specs(serve)["caches"])
 
     def prefill_step(params, batch, caches):
-        logits, caches = model.prefill(batch.get("tokens"), s,
-                                       batch.get("embeds"), params=params,
-                                       caches=caches)
+        extra = {k: v for k, v in batch.items() if k != "tokens"}
+        if any(t is not None for t in pytree.tree_leaves(caches)):
+            extra["caches"] = caches
+        logits, caches = model.prefill(batch.get("tokens"), s, **extra,
+                                       params=params)
         return greedy(logits), caches
 
     return StepPlan(prefill_step,
-                    (param_specs(cfg), inputs, model.cache_specs(b, s)),
-                    (param_axes(cfg), in_axes, model.cache_axes(b, s)),
+                    (param_specs(cfg), model.input_specs(shape_cfg),
+                     cache_specs),
+                    (param_axes(cfg), model.input_axes(shape_cfg),
+                     _written_caches(model.input_axes(serve)["caches"])),
                     rules, mesh)
+
+
+def _written_caches(tree):
+    """A decode's cache tree with each recurrent state (hymba's SSM, the
+    xLSTM's) as None: a prefill makes those and returns them, where it
+    writes the attention caches into the ones it is given."""
+    from repro_torch.models.ssm import SSMState
+    from repro_torch.models.xlstm import MLSTMState, SLSTMState
+    if isinstance(tree, (SSMState, MLSTMState, SLSTMState)):
+        return None
+    if isinstance(tree, list):
+        return [_written_caches(t) for t in tree]
+    if isinstance(tree, dict):
+        return {k: _written_caches(v) for k, v in tree.items()}
+    return tree
 
 
 def plan_decode(cfg, shape_cfg, mesh,
@@ -882,7 +896,6 @@ def plan_decode(cfg, shape_cfg, mesh,
     """One decode step of ``shape_cfg``'s batch against caches of its
     length, at the last position (every slot read)."""
     from repro_torch.models.layout import param_axes, param_specs
-    _check_family(cfg)
     model = _abstract_model(cfg)
     rules = lowering_rules(cfg, shape_cfg, mesh)
     rules.update(extra_rules or {})

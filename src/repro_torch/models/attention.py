@@ -58,7 +58,8 @@ from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.models import module as nn
 from repro_torch.models.rope import apply_rope
-from repro_torch.sharding.partition import dim_shards, partial_grad
+from repro_torch.sharding.partition import (dim_shards, is_dtensor,
+                                            partial_grad)
 from repro_torch.sharding.partition import logical_constraint as lc
 
 Tensor = torch.Tensor
@@ -97,7 +98,7 @@ def init(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int,
 
 
 def _split_heads(x: Tensor, n: int) -> Tensor:
-    if _is_dtensor(x):      # heads the mesh cannot split evenly: gather them
+    if is_dtensor(x):      # heads the mesh cannot split evenly: gather them
         from torch.distributed.tensor import Replicate, Shard
         last = x.dim() - 1
         split = [i for i, p in enumerate(x.placements)
@@ -139,10 +140,6 @@ def _repeat_kv(k: Tensor, g: int) -> Tensor:
     if g == 1:
         return k
     return torch.repeat_interleave(k, g, dim=2)
-
-
-def _is_dtensor(x) -> bool:
-    return type(x) is not Tensor and hasattr(x, "placements")
 
 
 class _ContiguousGrad(torch.autograd.Function):
@@ -292,7 +289,7 @@ def attend_full(p, x: Tensor, positions: Tensor, n_heads: int, n_kv: int,
         mask = make_mask(positions, positions, mode, window)
         return _attend(q, k, v, mask[None] if mask.dim() == 2 else mask)
 
-    out = _on_head_shards(core, q, k, v) if _is_dtensor(q) else core(q, k, v)
+    out = _on_head_shards(core, q, k, v) if is_dtensor(q) else core(q, k, v)
     return nn.apply_dense(p["wo"], out)
 
 
@@ -303,7 +300,7 @@ def _flash(q: Tensor, k: Tensor, v: Tensor, plain: bool, causal: bool,
     heads' output ``[B, S, H*hd]``."""
     b, s = q.shape[:2]
     attend = flash_attention_plain if plain else ops.flash_attention
-    if _is_dtensor(q):
+    if is_dtensor(q):
         return _on_head_shards(
             lambda q, k, v: _flash(q, k, v, plain, causal, window), q, k, v)
     out = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -347,10 +344,18 @@ def attend_cross(p, x: Tensor, ctx_kv: tuple[Tensor, Tensor], n_heads: int
     """Cross-attention of ``x [B, S, D]`` over every key of ``ctx_kv``
     (:func:`cross_kv`), in plain PyTorch: the train path's form."""
     k, v = ctx_kv
-    mask = torch.ones((1, x.shape[1], k.shape[1]), dtype=torch.bool,
-                      device=x.device)
-    return nn.apply_dense(p["wo"], _attend(_cross_q(p, x, n_heads), k, v,
-                                           mask))
+    q = _cross_q(p, x, n_heads)
+    if is_dtensor(q):
+        q = lc(q, ("batch", "seq", "heads", "head_dim"))
+        k = lc(k, ("batch", "seq", "kv_heads", "head_dim"))
+
+    def core(q, k, v):
+        mask = torch.ones((1, q.shape[1], k.shape[1]), dtype=torch.bool,
+                          device=q.device)
+        return _attend(q, k, v, mask)
+
+    out = _on_head_shards(core, q, k, v) if is_dtensor(q) else core(q, k, v)
+    return nn.apply_dense(p["wo"], out)
 
 
 def cross_prefill(p, x: Tensor, ctx_kv: tuple[Tensor, Tensor], n_heads: int,
@@ -367,8 +372,12 @@ def cross_decode_step(p, x: Tensor, ctx_kv: tuple[Tensor, Tensor],
     ``ctx_kv`` (``[B, T_enc, KV, hd]`` each, not written) through
     ``decode_attention`` at position ``T_enc - 1``."""
     k, v = ctx_kv
-    attend = decode_attention_plain if plain else ops.decode_attention
-    out = attend(_cross_q(p, x, n_heads)[:, 0], k, v, k.shape[1] - 1)
+    q = _cross_q(p, x, n_heads)[:, 0]
+    if is_dtensor(k):
+        out = _sharded_decode(q, k, v, k.shape[1] - 1)
+    else:
+        attend = decode_attention_plain if plain else ops.decode_attention
+        out = attend(q, k, v, k.shape[1] - 1)
     return nn.apply_dense(p["wo"], out.reshape(x.shape[0], 1, -1))
 
 
@@ -402,7 +411,7 @@ def decode_step(p, x: Tensor, cache: KVCache, position: int, n_heads: int,
     b = x.shape[0]
     pos = torch.full((b, 1), position, dtype=torch.int32, device=x.device)
     q, k, v = _qkv(p, x, n_heads, n_kv, pos, rope_theta)
-    if _is_dtensor(cache.k):
+    if is_dtensor(cache.k):
         _write_slot(cache.k, k[:, 0], position)
         _write_slot(cache.v, v[:, 0], position)
         out = _sharded_decode(q[:, 0], cache.k, cache.v, position)
@@ -480,10 +489,15 @@ def _sharded_decode(q, k, v, position: int):
 @dataclasses.dataclass
 class RingKVCache:
     """Sliding-window cache: slot i holds the most recent position = i (mod
-    W)."""
+    W); a pytree node, as JAX's."""
 
     k: Tensor  # [B, W, KV, hd]
     v: Tensor  # [B, W, KV, hd]
+
+
+torch.utils._pytree.register_pytree_node(
+    RingKVCache, lambda c: ([c.k, c.v], None),
+    lambda leaves, _: RingKVCache(*leaves))
 
 
 def ring_slot_positions(position: int, window: int, device=None) -> Tensor:
@@ -496,22 +510,29 @@ def ring_slot_positions(position: int, window: int, device=None) -> Tensor:
 
 def ring_prefill(p, x: Tensor, positions: Tensor, n_heads: int, n_kv: int,
                  window: int, rope_theta: float = 10000.0,
-                 plain: bool = False) -> tuple[Tensor, RingKVCache]:
+                 plain: bool = False, cache: Optional[RingKVCache] = None
+                 ) -> tuple[Tensor, RingKVCache]:
     """Sliding-window forward over ``x [B, S, D]`` at ``positions =
     arange(S)`` through ``flash_attention(..., window=W)``; the ring keeps
     the last ``min(W, S)`` keys and values, at slots ``pos % W`` (the rest
-    zero)."""
+    zero), in ``cache`` when one is given. Those slots are at most two
+    runs of consecutive ones, each written as a slice."""
     out, k, v = _prefill_attend(p, x, positions, n_heads, n_kv, rope_theta,
                                 plain, window)
     b, s = x.shape[:2]
     take = min(window, s)
-    last = positions.reshape(-1, s)[0, s - take:].long()
-    slots = torch.remainder(last, window)
-    shape = (b, window, n_kv, k.shape[-1])
-    ring = RingKVCache(k=k.new_zeros(shape), v=v.new_zeros(shape))
-    ring.k[:, slots] = k[:, s - take:]
-    ring.v[:, slots] = v[:, s - take:]
-    return nn.apply_dense(p["wo"], out), ring
+    if cache is None:
+        shape = (b, window, n_kv, k.shape[-1])
+        cache = RingKVCache(k=k.new_empty(shape), v=v.new_empty(shape))
+    first = (s - take) % window          # the slot of position s - take
+    run = min(take, window - first)
+    for dst, src in ((cache.k, k), (cache.v, v)):
+        dst[:, first:first + run] = src[:, s - take:s - take + run]
+        if run < take:
+            dst[:, :take - run] = src[:, s - take + run:]
+        if take < window:
+            dst[:, take:].zero_()
+    return nn.apply_dense(p["wo"], out), cache
 
 
 def ring_decode_step(p, x: Tensor, cache: RingKVCache, position: int,
@@ -531,8 +552,14 @@ def ring_decode_step(p, x: Tensor, cache: RingKVCache, position: int,
     pos = torch.full((b, 1), position, dtype=torch.int32, device=x.device)
     q, k, v = _qkv(p, x, n_heads, n_kv, pos, rope_theta)
     slot = position % window
+    last = min(position, window - 1)
+    if is_dtensor(cache.k):
+        _write_slot(cache.k, k[:, 0], slot)
+        _write_slot(cache.v, v[:, 0], slot)
+        out = _sharded_decode(q[:, 0], cache.k, cache.v, last)
+        return nn.apply_dense(p["wo"], out.reshape(b, 1, -1)), cache
     cache.k[:, slot] = k[:, 0]
     cache.v[:, slot] = v[:, 0]
     attend = decode_attention_plain if plain else ops.decode_attention
-    out = attend(q[:, 0], cache.k, cache.v, min(position, window - 1))
+    out = attend(q[:, 0], cache.k, cache.v, last)
     return nn.apply_dense(p["wo"], out.reshape(b, 1, -1)), cache

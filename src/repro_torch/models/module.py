@@ -49,6 +49,45 @@ def apply_dense(p, x: Tensor) -> Tensor:
     return y
 
 
+def dense_halves(p, x: Tensor, axes: tuple) -> tuple[Tensor, Tensor]:
+    """``apply_dense(p, x)`` cut into its two halves along the last dim (no
+    bias). For the planner's DTensors whose halves ``axes`` split by
+    channels (``"mlp"`` on the model axis) each device multiplies its rows
+    of x by the columns of its own slice of each half, from the gathered
+    weight (a ``local_map``): a split of the product itself would leave a
+    device's slice of one half on other devices, and gathering the product
+    moves far more bytes than the weight. Elsewhere the product is cut."""
+    from repro_torch.sharding.partition import (dim_shards, is_dtensor,
+                                                partial_grad, placements_of)
+    w = p["w"]
+    n = w.shape[-1] // 2
+    shape = tuple(x.shape[:-1]) + (n,)
+    out_pl = (placements_of(shape, axes, x.device_mesh) if is_dtensor(x)
+              else None)
+    last = len(shape) - 1
+    chan = ([] if out_pl is None else
+            dim_shards(x.device_mesh, out_pl, last, n)[0])
+    if not chan:
+        return apply_dense(p, x).chunk(2, dim=-1)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    _, n_loc, first = dim_shards(mesh, out_pl, last, n)
+    x_pl = [q if isinstance(q, Shard) and q.dim < last else Replicate()
+            for q in out_pl]
+    split = [i for i, q in enumerate(out_pl) if isinstance(q, Shard)]
+    rep = [Replicate()] * mesh.ndim
+    xin = partial_grad(x.redistribute(mesh, x_pl), chan)
+    win = partial_grad(w.redistribute(mesh, rep), split)
+
+    def local(xl, wl):
+        return (xl @ wl[:, first:first + n_loc],
+                xl @ wl[:, n + first:n + first + n_loc])
+
+    return local_map(local, out_placements=(out_pl, out_pl),
+                     in_placements=(x_pl, rep), device_mesh=mesh)(xin, win)
+
+
 def rmsnorm_init(d: int, dtype, device=None) -> dict[str, Tensor]:
     return {"scale": torch.ones((d,), dtype=dtype, device=device)}
 

@@ -22,6 +22,12 @@ Where the port decides (each pinned by ``tests/test_torch_moe.py``):
 * **Router precision.** ``route`` takes ``x @ router_w`` in IEEE f32,
   whatever ``torch.set_float32_matmul_precision`` says (no TF32 on the
   card, no bf16 passes on the CPU).
+* **On DTensors** (the planner's, for a config that does not take the
+  expert-parallel form) the layer runs whole on every device
+  (:func:`_replicated`): x and the weights gathered, the global dispatch
+  computed alike everywhere, as a ``local_map`` whose results are
+  replicated. GSPMD partitions the global sort instead; either way it is
+  the slow path the expert-parallel form replaces.
 * **The combine accumulates in f32 and rounds once** (``cscatter`` folds
   a bf16 table in f32), where JAX's bf16 ``.at[].add`` rounds at every
   add. In f32 the two agree to 1e-5.
@@ -37,6 +43,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models import module as nn
 from repro_torch.models.mlp import swiglu, swiglu_init
+from repro_torch.sharding.partition import is_dtensor
 
 Tensor = torch.Tensor
 
@@ -157,7 +164,10 @@ def metrics_of(ids: Tensor, probs: Tensor, keep: Tensor, n: int,
                n_experts: int) -> dict[str, Tensor]:
     """The router's commutative counters: the load-balancing aux loss, the
     z term, the dropped share and each expert's first-choice load."""
-    e_one = F.one_hot(ids[:, 0], n_experts).float()
+    # one_hot by comparison: F.one_hot takes other ops on a meta tensor
+    # than on data (a range check), which the planner's count would miss
+    e_one = (ids[:, :1] == torch.arange(n_experts, device=ids.device)
+             ).float()
     dispatched = keep.float().sum()
     return {
         "aux_loss": n_experts * (e_one.mean(0) * probs.mean(0)).sum(),
@@ -174,6 +184,8 @@ def apply(p, x: Tensor, top_k: int, capacity_factor: float = 1.25,
     contribute 0. Token streams longer than ``token_chunk`` that it divides
     run in chunks of that many tokens, one after another, and their
     metrics are the chunks' mean."""
+    if is_dtensor(x):
+        return _replicated(p, x, top_k, capacity_factor, token_chunk)
     b, s, d = x.shape
     t = b * s
     if t > token_chunk and t % token_chunk == 0:
@@ -184,6 +196,29 @@ def apply(p, x: Tensor, top_k: int, capacity_factor: float = 1.25,
         return out, {k: torch.stack([m[k] for m in ms]).mean(0)
                      for k in ms[0]}
     return _apply_tokens(p, x, top_k, capacity_factor)
+
+
+def _replicated(p, x, top_k: int, capacity_factor: float, token_chunk: int):
+    """:func:`apply` of DTensors, whole on every device (a ``local_map``
+    whose inputs are gathered and whose results are replicated)."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    from torch.utils import _pytree as pytree
+    mesh = x.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    leaves, spec = pytree.tree_flatten(p)
+    keys = ("aux_loss", "router_z", "drop_frac", "expert_load")
+
+    def local(xl, *ws):
+        out, metrics = apply(pytree.tree_unflatten(list(ws), spec), xl,
+                             top_k, capacity_factor, token_chunk)
+        return (out,) + tuple(metrics[k] for k in keys)
+
+    out, *metrics = local_map(
+        local, out_placements=(rep,) * (1 + len(keys)),
+        in_placements=(rep,) * (1 + len(leaves)), device_mesh=mesh,
+        redistribute_inputs=True)(x, *leaves)
+    return out, dict(zip(keys, metrics))
 
 
 def _apply_tokens(p, x: Tensor, top_k: int, capacity_factor: float

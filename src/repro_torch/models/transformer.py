@@ -78,7 +78,7 @@ from repro_torch.models.layout import Spec
 from repro_torch.models.mlp import (gelu_mlp, gelu_mlp_init, swiglu,
                                    swiglu_init)
 from repro_torch.serve.kv import resolve_device
-from repro_torch.sharding.partition import dim_shards
+from repro_torch.sharding.partition import active_mesh, dim_shards, is_dtensor
 from repro_torch.sharding.partition import logical_constraint as lc
 
 Tensor = torch.Tensor
@@ -330,9 +330,20 @@ class DecoderLM(tnn.Module):
 
     def _moe(self, p, x: Tensor) -> tuple[Tensor, dict]:
         """The MoE layer -> (out, metrics), chosen by JAX's condition: the
-        expert-parallel form over ``model_ranks`` stacked model ranks for
-        an ``"ep"`` config whose experts they split, else ``moe.apply``."""
-        cfg, ranks = self.cfg, self.model_ranks
+        expert-parallel form for an ``"ep"`` config whose experts the model
+        axis splits, else ``moe.apply``. The model axis is ``model_ranks``
+        stacked ranks on one card, or the ``"model"`` dim of the planner's
+        mesh (``partition.active_mesh``) for DTensors."""
+        cfg = self.cfg
+        if is_dtensor(x):
+            mesh = active_mesh()
+            names = list(getattr(mesh, "mesh_dim_names", None) or ())
+            if (cfg.moe_impl == "ep" and "model" in names and cfg.n_experts
+                    % mesh.size(names.index("model")) == 0):
+                return moe_ep.apply_ep_mesh(p, x, cfg.top_k,
+                                            cfg.capacity_factor, mesh)
+            return moe.apply(p, x, cfg.top_k, cfg.capacity_factor)
+        ranks = self.model_ranks
         if (ranks is not None and cfg.moe_impl == "ep"
                 and cfg.n_experts % ranks == 0):
             return moe_ep.apply_ep(p, x, cfg.top_k, cfg.capacity_factor,

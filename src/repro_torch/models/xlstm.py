@@ -14,6 +14,14 @@ Training and prefill run the chunkwise form (quadratic within a chunk of
 ``[T, d, d]`` state sequence never exists; decode is the O(1) recurrent
 step. sLSTM mixes its memory through recurrent weights and runs as a loop
 over time. The recurrences and gates are f32 whatever the model's dtype.
+
+On the planner's DTensors the projections are DTensor products (the mLSTM's
+``in_proj`` halves split by channels, ``module.dense_halves``; the conv on
+each device's channels), and each recurrence, the mLSTM's chunk loop and
+the sLSTM's loop over time, runs as a ``local_map`` on each device's batch
+rows with every head (DTensor has no strategy for the loop's ops, and a
+step on DTensors costs a Python dispatch per op). The states are pytree
+nodes, as JAX's.
 """
 
 from __future__ import annotations
@@ -26,9 +34,30 @@ import torch.nn.functional as F
 from repro_torch.models import module as nn
 from repro_torch.models.mlp import gelu
 from repro_torch.models.ssm import _conv1d_causal
+from repro_torch.sharding.partition import is_dtensor, partial_grad
 
 Tensor = torch.Tensor
 NEG = -1e30        # the log-scale stabilizer of an empty state
+
+
+def _on_batch_shards(fn, batch_like: Tensor, args: list, n_out: int,
+                     weights: tuple = ()):
+    """``fn(*args, *weights)`` on each device's batch rows of DTensor
+    ``args`` (dim 0 split where ``batch_like``'s is, everything else whole),
+    as a ``local_map``; ``weights`` are whole on every device and their
+    gradients partial sums over the batch's mesh dims. -> ``n_out``
+    DTensors split as the args."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = batch_like.device_mesh
+    pl = [Shard(0) if p == Shard(0) else Replicate()
+          for p in batch_like.placements]
+    rep = [Replicate()] * mesh.ndim
+    batch = [i for i, p in enumerate(pl) if p == Shard(0)]
+    ws = [partial_grad(w.redistribute(mesh, rep), batch) for w in weights]
+    return local_map(fn, out_placements=(pl,) * n_out,
+                     in_placements=(pl,) * len(args) + (rep,) * len(ws),
+                     device_mesh=mesh, redistribute_inputs=True)(*args, *ws)
 
 
 # ---------------------------------------------------------------------------
@@ -44,6 +73,9 @@ class MLSTMState:
     n: Tensor      # [B, H, d]      normalizer (same scale)
     m: Tensor      # [B, H]         log-scale stabilizer
     conv: Tensor   # [B, k-1, d_inner] trailing causal-conv inputs, f32
+
+
+torch.utils._pytree.register_dataclass(MLSTMState)
 
 
 def init(gen: torch.Generator, d_model: int, n_heads: int, dtype,
@@ -121,16 +153,29 @@ def _mlstm_chunk(q, k, v, li, lf, state):
     return h, (c_out, n_out, m_out)
 
 
-def _gates_qkv(p, u: Tensor, n_heads: int):
-    """u: [B,T,d_inner] -> q, k, v [B,H,T,d], li, lf [B,H,T], in f32."""
+def _projections(p, u: Tensor, n_heads: int):
+    """u: [B,T,d_inner] -> q, k, v [B,H,T,d] and the gates' preactivations
+    [B,T,2H], in f32."""
     d_head = u.shape[-1] // n_heads
     q = _heads(nn.apply_dense(p["wq"], u), n_heads)
     k = _heads(nn.apply_dense(p["wk"], u), n_heads) / (d_head ** 0.5)
     v = _heads(nn.apply_dense(p["wv"], u), n_heads)
     gif = nn.apply_dense(p["w_if"], u).float()        # [B,T,2H]
+    return q.float(), k.float(), v.float(), gif
+
+
+def _gates(gif: Tensor, n_heads: int) -> tuple[Tensor, Tensor]:
+    """The gates' preactivations [B,T,2H] -> li, lf [B,H,T]: the log input
+    gate (exponential) and the log forget gate."""
     li = gif[..., :n_heads].movedim(-1, -2)           # exp input gate
     lf = F.logsigmoid(gif[..., n_heads:].movedim(-1, -2))
-    return q.float(), k.float(), v.float(), li, lf
+    return li, lf
+
+
+def _gates_qkv(p, u: Tensor, n_heads: int):
+    """u: [B,T,d_inner] -> q, k, v [B,H,T,d], li, lf [B,H,T], in f32."""
+    q, k, v, gif = _projections(p, u, n_heads)
+    return (q, k, v) + _gates(gif, n_heads)
 
 
 def _empty_carry(b: int, n_heads: int, d_head: int, device):
@@ -147,24 +192,19 @@ def apply_seq_with_state(p, x: Tensor, n_heads: int, chunk: int = 256
     decode state after it, from the one pass: the carry ``(C, n, m)`` the
     chunk loop ends with and the last k-1 pre-conv inputs in f32."""
     b, t, _ = x.shape
-    u, z = nn.apply_dense(p["in_proj"], x).chunk(2, dim=-1)
+    u, z = nn.dense_halves(p["in_proj"], x, ("batch", "seq", "mlp"))
     u_conv, hist = _conv1d_causal(p["conv_w"], p["conv_b"], u)
     u_conv = F.silu(u_conv)
 
-    q, k, v, li, lf = _gates_qkv(p, u_conv, n_heads)
-    d_inner = u.shape[-1]
-    d_head = d_inner // n_heads
+    q, k, v, gif = _projections(p, u_conv, n_heads)
     chunk = min(chunk, t)
     assert t % chunk == 0, (t, chunk)
-    state = _empty_carry(b, n_heads, d_head, x.device)
-    hs = []
-    for i in range(t // chunk):
-        sl = slice(i * chunk, (i + 1) * chunk)
-        h, state = _mlstm_chunk(q[:, :, sl], k[:, :, sl], v[:, :, sl],
-                                li[:, :, sl], lf[:, :, sl], state)
-        hs.append(h)
-    h = torch.cat(hs, dim=2)                          # [B,H,T,d]
-    h = h.movedim(1, 2).reshape(b, t, d_inner).to(x.dtype)
+    if is_dtensor(q):
+        h, *state = _on_batch_shards(
+            lambda *a: _chunk_loop(*a, chunk=chunk), x, [q, k, v, gif], 4)
+    else:
+        h, *state = _chunk_loop(q, k, v, gif, chunk=chunk)
+    h = h.to(x.dtype)
 
     h = nn.rmsnorm(p["ln_h"], h)
     # learnable skip (xLSTM block): gated by the z branch
@@ -172,6 +212,23 @@ def apply_seq_with_state(p, x: Tensor, n_heads: int, chunk: int = 256
     c, n, m = state
     return (nn.apply_dense(p["out_proj"], h),
             MLSTMState(c=c, n=n, m=m, conv=hist.float()))
+
+
+def _chunk_loop(q, k, v, gif, chunk: int):
+    """The chunkwise mLSTM over q, k, v ``[B,H,T,d]`` and the gates'
+    preactivations ``gif [B,T,2H]`` from the empty carry -> (h ``[B,T,
+    H*d]``, C, n, m after the last chunk)."""
+    b, n_heads, t, d_head = q.shape
+    li, lf = _gates(gif, n_heads)
+    state = _empty_carry(b, n_heads, d_head, q.device)
+    hs = []
+    # one split a tensor: its backward is one concatenation, where a slice
+    # a chunk would write a zero-filled full-length gradient each
+    for parts in zip(*(x.split(chunk, dim=2) for x in (q, k, v, li, lf))):
+        h, state = _mlstm_chunk(*parts, state)
+        hs.append(h)
+    h = torch.cat(hs, dim=2).movedim(1, 2).reshape(b, t, n_heads * d_head)
+    return (h,) + tuple(state)
 
 
 def apply_seq(p, x: Tensor, n_heads: int, chunk: int = 256) -> Tensor:
@@ -191,7 +248,7 @@ def init_state(p, batch: int, n_heads: int) -> MLSTMState:
 def decode_step(p, x: Tensor, state: MLSTMState, n_heads: int
                 ) -> tuple[Tensor, MLSTMState]:
     """One-token mLSTM step. x: [B,1,D]."""
-    u, z = nn.apply_dense(p["in_proj"], x).chunk(2, dim=-1)
+    u, z = nn.dense_halves(p["in_proj"], x, ("batch", "seq", "mlp"))
     u_conv, conv_hist = _conv1d_causal(p["conv_w"], p["conv_b"], u,
                                        state.conv.to(u.dtype))
     u_conv = F.silu(u_conv)
@@ -229,6 +286,9 @@ class SLSTMState:
     n: Tensor  # [B, d]
     h: Tensor  # [B, d]
     m: Tensor  # [B, d]
+
+
+torch.utils._pytree.register_dataclass(SLSTMState)
 
 
 def slstm_init(gen: torch.Generator, d_model: int, n_heads: int, dtype,
@@ -293,13 +353,27 @@ def slstm_apply_seq_with_state(p, x: Tensor, n_heads: int
     after the sequence, from the one pass."""
     b, t, d = x.shape
     x_gates = nn.apply_dense(p["w_x"], x)             # [B,T,4D]
-    state = slstm_init_state(b, d, x.device)
+    if is_dtensor(x_gates):
+        h, *state = _on_batch_shards(
+            lambda xg, r: _slstm_loop({"r": r}, xg, n_heads), x, [x_gates],
+            5, weights=(p["r"],))
+    else:
+        h, *state = _slstm_loop(p, x_gates, n_heads)
+    return _slstm_out(p, h.to(x.dtype)), SLSTMState(*state)
+
+
+def _slstm_loop(p, x_gates: Tensor, n_heads: int):
+    """The sLSTM over ``x_gates [B,T,4D]`` from the empty state -> (h
+    ``[B,T,D]`` f32, c, n, h, m after the last step)."""
+    b, t, d4 = x_gates.shape
+    state = slstm_init_state(b, d4 // 4, x_gates.device)
     hs = []
-    for i in range(t):
-        state = _slstm_cell(p, x_gates[:, i], state, n_heads)
+    # unbind: its backward is one stack, where an index a step would write
+    # a zero-filled full-length gradient each (quadratic in T)
+    for xg in x_gates.unbind(1):
+        state = _slstm_cell(p, xg, state, n_heads)
         hs.append(state.h)
-    h = torch.stack(hs, dim=1).to(x.dtype)            # [B,T,D]
-    return _slstm_out(p, h), state
+    return torch.stack(hs, dim=1), state.c, state.n, state.h, state.m
 
 
 def slstm_apply_seq(p, x: Tensor, n_heads: int) -> Tensor:
@@ -311,5 +385,14 @@ def slstm_decode_step(p, x: Tensor, state: SLSTMState, n_heads: int
                       ) -> tuple[Tensor, SLSTMState]:
     """x: [B,1,D]."""
     xg = nn.apply_dense(p["w_x"], x[:, 0])
-    state = _slstm_cell(p, xg, state, n_heads)
+    if is_dtensor(xg):
+        def cell(xl, c, n, h, m, r):
+            st = _slstm_cell({"r": r}, xl, SLSTMState(c, n, h, m), n_heads)
+            return st.c, st.n, st.h, st.m
+
+        state = SLSTMState(*_on_batch_shards(
+            cell, xg, [xg, state.c, state.n, state.h, state.m], 4,
+            weights=(p["r"],)))
+    else:
+        state = _slstm_cell(p, xg, state, n_heads)
     return _slstm_out(p, state.h[:, None].to(x.dtype)), state

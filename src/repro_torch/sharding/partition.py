@@ -280,5 +280,34 @@ def partial_grad(x: torch.Tensor, dims) -> torch.Tensor:
     return _PartialGrad.apply(x, tuple(dims)) if dims else x
 
 
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (the planner's)."""
+    return type(x) is not torch.Tensor and hasattr(x, "placements")
+
+
+def placements_of(shape: tuple, axes: tuple, mesh) -> list:
+    """The placements of a tensor of ``shape`` with logical ``axes`` under
+    the installed rules (the default ones outside a rules context)."""
+    return placements_for(spec_for(tuple(shape), axes, mesh, _CTX.rules),
+                          mesh)
+
+
+def zeros(shape: tuple, dtype, like, placements) -> torch.Tensor:
+    """A DTensor of zeros of global ``shape`` laid out by ``placements``
+    over ``like``'s mesh, each device's shard made on ``like``'s local
+    device (the planner's meta tensors: nothing allocated)."""
+    from torch.distributed.tensor import DTensor, Shard
+    mesh = like.device_mesh
+    local = list(shape)
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            local[p.dim] //= mesh.size(i)
+    t = torch.zeros(local, dtype=dtype, device=like.to_local().device)
+    return DTensor.from_local(t, mesh, placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
 def count_params(params: Any) -> int:
     return sum(math.prod(x.shape) for x in pytree.tree_leaves(params))

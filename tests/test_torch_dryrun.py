@@ -102,6 +102,33 @@ def test_roofline_table_rows_match_jax():
         jax_roofline.table(cells, mesh="pod16x16").splitlines()[1:]
 
 
+def test_floor_table_pairs_the_meshes_of_a_cell():
+    """``roofline.floor_table``: one row an (arch, shape), each figure
+    once where the two meshes agree and both, single-pod first, where they
+    differ; a cell past 80 GB says NO."""
+    from repro_torch.launch import roofline
+
+    def rec(mesh, flops, live):
+        r = _record("a", "train_4k", mesh)
+        r["memory"].update(live_bytes_per_device=live,
+                           boundary_bytes_per_device=1e6)
+        r["op_walk"] = {"flops": flops, "hbm_bytes": 2e9,
+                        "wire_bytes_by_level": [1e9, 0.0]}
+        r["roofline_floor"] = dict(r["roofline"], memory_s=3e-7)
+        return r
+    rows = roofline.floor_table([rec("pod2x16x16", 5e14, 90e9),
+                                 rec("pod16x16", 1e15, 90e9),
+                                 _record("b", "decode_32k", "pod16x16",
+                                         status="error")]).splitlines()
+    assert len(rows) == 3
+    cols = [c.strip() for c in rows[2].split("|")[1:-1]]
+    assert cols[0] == "a train_4k"
+    assert cols[1] == "1e+15; 5e+14"
+    assert cols[2] == "2e+09" and cols[4] == "1e+09/0"
+    assert cols[7] == "compute, compute" and cols[8] == "90 NO"
+    assert cols[9] == "0.75"
+
+
 @pytest.fixture(scope="module")
 def meshes():
     from repro_torch.launch import mesh
@@ -345,16 +372,6 @@ def test_floor_bytes_of_a_plan_are_its_inputs_and_outputs(meshes, kind):
         assert walk["output_bytes"] >= params
     else:     # the tokens the step picks; the caches are filled in place
         assert walk["output_bytes"] == shape.global_batch * 4
-
-
-def test_not_ported_families_are_named(tmp_path):
-    from repro_torch.launch import dryrun
-    rec = dryrun.run_cell("hymba_1_5b", "train_4k", False, str(tmp_path))
-    assert rec["status"] == "not_ported"
-    assert "ROADMAP" in rec["reason"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        steps.plan_for(get_smoke_config("qwen3_moe_235b"), SHAPES["train_4k"],
-                       None)
 
 
 def test_dryrun_smoke_cell_on_production_mesh(tmp_path):

@@ -1491,6 +1491,26 @@ def test_custom_ops_equal_the_direct_launches_bitwise(cuda, dtype):
         torch.cuda.synchronize()
         assert torch.equal(a, b)
         assert csm.cscatter.launches == before + 2 * csm.LAUNCHES_PER_CALL
+    # the scan (u in ``dtype``): the op's forward, and its backward op
+    # through autograd (the forward kernels again, then the backward's),
+    # against the direct call's ``_Scan``
+    from repro_torch.kernels import selective_scan as sc
+    ins, dy, dh = _scan_case(2, 2 * SEGMENT + 5, 48, 16, dtype, cuda, seed=7)
+    before = (sc.selective_scan.launches_forward,
+              sc.selective_scan.launches_backward)
+    (y, h), got = _scan_grads(op.selective_scan, ins, dy, dh)
+    torch.cuda.synchronize()
+    fwd, bwd = (sc.LAUNCHES_PER_CALL["forward"],
+                sc.LAUNCHES_PER_CALL["backward"])
+    assert (sc.selective_scan.launches_forward - before[0],
+            sc.selective_scan.launches_backward - before[1]) == (2 * fwd, bwd)
+    (yd, hd), want = _scan_grads(sc.selective_scan, ins, dy, dh)
+    torch.cuda.synchronize()
+    assert (sc.selective_scan.launches_forward - before[0],
+            sc.selective_scan.launches_backward - before[1]) == (
+        3 * fwd, 2 * bwd)
+    for g, w in zip((y, h) + got, (yd, hd) + want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 def test_prefill_counts_on_the_card_equal_the_traced_ones(cuda):

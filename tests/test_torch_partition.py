@@ -4,23 +4,26 @@ The parameter layout (``models/layout.py``) of every ``ARCH_IDS`` config at
 full width against JAX's ``split_params(jax.eval_shape(init))``, leaf by
 leaf (axes, shapes, dtypes), and at smoke size against the port's own
 models; ``spec_for`` against JAX's on ``tests/test_sharding.py``'s cases and
-on every dense parameter at full width on both production meshes;
-``lowering_rules`` for every (dense arch, shape, mesh); ``opt_state_axes``;
-the input and cache specs; DTensor's order of a composite shard pinned to
-JAX's; ``logical_constraint`` outside and inside a rules context.
+on every parameter of every config at full width on both production
+meshes; ``lowering_rules`` for every (arch, applicable shape, mesh);
+``opt_state_axes``; every family's input, cache and state specs and axes,
+and the partition specs they give; DTensor's order of a composite shard
+pinned to JAX's; ``logical_constraint`` outside and inside a rules
+context.
 """
 
 import pytest
 import torch
 from torch.utils import _pytree as pytree
 
-from repro_torch.configs.base import (ARCH_IDS, SHAPES, get_config,
-                                      get_smoke_config)
+from repro_torch.configs.base import (ARCH_IDS, SHAPES, applicable_shapes,
+                                      get_config, get_smoke_config)
 from repro_torch.launch import steps
 from repro_torch.models import layout
 from repro_torch.sharding import partition
 
-DENSE = [a for a in ARCH_IDS if get_config(a).family == "dense"]
+# every config and each of its applicable shapes: the dry-run's cells
+CELLS = [(a, s) for a in ARCH_IDS for s in applicable_shapes(get_config(a))]
 
 
 class FakeMesh:
@@ -142,7 +145,7 @@ def test_spec_for_matches_jax(shape, axes, mesh, rules):
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_spec_for_every_dense_param_matches_jax(arch, mesh):
     from repro.configs.base import SHAPES as JSHAPES
     from repro.configs.base import get_config as jget
@@ -160,8 +163,7 @@ def test_spec_for_every_dense_param_matches_jax(arch, mesh):
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
-@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch,shape", CELLS)
 def test_lowering_rules_match_jax(arch, shape, mesh):
     from repro.configs.base import SHAPES as JSHAPES
     from repro.configs.base import get_config as jget
@@ -199,15 +201,19 @@ def test_opt_state_axes_and_specs_match_jax(arch):
         assert str(s.dtype).split(".")[-1] == str(want_sp[k].dtype), k
 
 
-@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
-@pytest.mark.parametrize("arch", DENSE)
-def test_input_and_cache_specs_match_jax(arch, shape):
-    from repro.configs.base import SHAPES as JSHAPES
+def _models(arch):
     from repro.configs.base import get_config as jget
     from repro.models.registry import build_model as jbuild
-    from repro_torch.models.transformer import DecoderLM
-    jm = jbuild(jget(arch))
-    pm = DecoderLM(get_config(arch), abstract=True)
+    from repro_torch.models.registry import abstract_model
+    return jbuild(jget(arch)), abstract_model(get_config(arch))
+
+
+@pytest.mark.parametrize("arch,shape", CELLS)
+def test_input_and_cache_specs_match_jax(arch, shape):
+    """Every family's inputs (a decode's caches or recurrent states among
+    them): specs and logical axes, leaf by leaf."""
+    from repro.configs.base import SHAPES as JSHAPES
+    jm, pm = _models(arch)
     want_sp = _flat(jm.input_specs(JSHAPES[shape]),
                     lambda x: hasattr(x, "shape"))
     got_sp = _flat(pm.input_specs(SHAPES[shape]),
@@ -218,6 +224,43 @@ def test_input_and_cache_specs_match_jax(arch, shape):
         assert str(s.dtype).split(".")[-1] == str(want_sp[k].dtype), k
     assert _flat(pm.input_axes(SHAPES[shape]), _is_axes) == \
         _flat(jm.input_axes(JSHAPES[shape]), _is_axes)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch,shape", CELLS)
+def test_input_partition_specs_match_jax(arch, shape, mesh):
+    """The partition spec of every input leaf under the cell's rules, and
+    for a prefill the caches it fills (a decode's of the same batch and
+    length), against JAX's ``spec_for`` on its own axes and specs."""
+    from repro.configs.base import SHAPES as JSHAPES
+    from repro.configs.base import ShapeConfig as JShape
+    from repro.configs.base import get_config as jget
+    from repro.launch.steps import lowering_rules as jax_rules
+    from repro.sharding.partition import spec_for as jax_spec_for
+    jm, pm = _models(arch)
+    m = MESHES[mesh]
+    rules = jax_rules(jget(arch), JSHAPES[shape], m)
+    base = SHAPES[shape]
+    trees = [(pm.input_axes(base), pm.input_specs(base),
+              jm.input_axes(JSHAPES[shape]), jm.input_specs(JSHAPES[shape]))]
+    if base.kind == "prefill":
+        serve = base.__class__(base.name, base.seq_len, base.global_batch,
+                               "decode")
+        jserve = JShape(base.name, base.seq_len, base.global_batch, "decode")
+        trees.append((pm.input_axes(serve)["caches"],
+                      pm.input_specs(serve)["caches"],
+                      jm.input_axes(jserve)["caches"],
+                      jm.input_specs(jserve)["caches"]))
+    for p_ax, p_sp, j_ax, j_sp in trees:
+        got = _flat(steps.axes_to_shardings(p_ax, p_sp, m, rules),
+                    lambda x: isinstance(x, tuple))
+        axes, specs = _flat(j_ax, _is_axes), _flat(j_sp,
+                                                   lambda x: hasattr(x,
+                                                                     "shape"))
+        assert set(got) == set(specs)
+        for k, spec in got.items():
+            assert spec == tuple(jax_spec_for(tuple(specs[k].shape), axes[k],
+                                              m, rules)), k
 
 
 @pytest.fixture(scope="module")
