@@ -246,7 +246,21 @@ smoke config) — and:
    eager traffic the walk counts; then ``cscatter``'s host time a call
    direct and through its custom op. Every kernel's count is zeroed at
    the phase's start and read after each part (the cells, each count
-   check's warm-up, count and timing, the dispatch timing);
+   check's warm-up, count and timing, the dispatch timing); then (c) the
+   explicit CCache gradient merge in the planned train step
+   (``steps.plan_train(merge_plan=, defer_schedule=)``): qwen1.5-0.5b at
+   train_4k on a pure data-parallel ``(pod 2, data 128, model 1)`` mesh
+   planned three ways (eager ``chip:16,host:8,pod:2``, ``pod`` deferred
+   with K = 4, the same overlapped), each ``ok``, launching no kernel,
+   its bytes by level equal to ``launch/wire_cost.py``'s (CC021) and,
+   deferred, its due-0 variant idle on ``pod`` (CC020); one eager step of
+   the stacked explicit-merge train step on the card (TRAIN_PLAN, 8
+   stacked ranks, TRAIN_LAYERS layers, batch TRAIN_BATCH x TRAIN_SEQ)
+   under ``analysis.trace``'s recorder and the planned step of the same
+   config and batch traced on a fake ``(pod 2, data 4, model 1)`` mesh:
+   the two walks' bytes by level equal each other and the cost model's,
+   and the stacked step's ``cscatter`` calls 8 x the planned step's per
+   device;
 17. prints every kernel's registers and spills (``ptxas -v``),
    one ``{"kernels": [...]}`` line and the card's name and power limit;
 18. ends with ``{"ok": true, "device": {...}}``.
@@ -343,6 +357,13 @@ DRYRUN_CELLS = (("llama3_405b", "train_4k", True),
                 ("kimi_k2_1t", "train_4k", True),
                 ("hymba_1_5b", "long_500k", False))
 DRYRUN_MOE_LAYERS = 1
+# phase_dryrun (c): the explicit merge planned at full width on a pure
+# data-parallel (pod 2, data 128, model 1) mesh, three ways: (name, plan,
+# deferred K or None, overlapped)
+MERGE_DATA = 128
+MERGE_PLANS = (("eager", "chip:16,host:8,pod:2", None, False),
+               ("deferred", "chip:16,host:8,pod:2:defer", 4, False),
+               ("overlapped", "chip:16,host:8,pod:2:defer", 4, True))
 # kernel-path vs plain-attention logits (teacher-forced, same weights)
 LOGIT_TOL = 0.1
 # The paper's apps. BFS and PageRank run on Graph500's Kronecker graph
@@ -5371,6 +5392,182 @@ def _count_check(card: str, part, label: str, cfg, batch: int, prompt: int,
     return c
 
 
+def _merge_plans(card: str) -> dict:
+    """(c), first half: qwen1.5-0.5b at train_4k planned on the pure
+    data-parallel mesh with each of MERGE_PLANS, under JAX's rules (the
+    parameters FSDP over ``data``, gathered by the step); each plan's
+    merge (the full commit, or its land twin: the walk's ``MeshAxis``
+    collectives) must move exactly the cost model's bytes on every level
+    (CC021), and a deferred plan's due-0 variant nothing on ``pod`` and
+    its eager levels' bytes elsewhere (CC020)."""
+    from repro_torch.analysis import placement
+    from repro_torch.configs.base import SHAPES, get_config
+    from repro_torch.core import ccache
+    from repro_torch.core.defer_schedule import DeferSchedule
+    from repro_torch.core.merge_functions import ADD
+    from repro_torch.core.merge_plan import MergePlan
+    from repro_torch.launch import mesh as pmesh
+    from repro_torch.launch import steps, wire_cost
+    from repro_torch.models.layout import Spec, param_specs
+    from torch.utils import _pytree as pytree
+    cfg = get_config(ARCH)
+    mesh = pmesh.make_data_parallel_mesh(MERGE_DATA)
+    dp = 2 * MERGE_DATA
+    leaves = pytree.tree_leaves(param_specs(cfg),
+                                is_leaf=lambda x: isinstance(x, Spec))
+    out = {}
+    for name, spec, k, overlap in MERGE_PLANS:
+        plan = MergePlan.parse(spec)
+        sched = (None if k is None
+                 else DeferSchedule.fixed(k, ("pod",), overlap=overlap))
+        t0 = time.perf_counter()
+        lp = steps.plan_train(cfg, SHAPES["train_4k"], mesh,
+                              merge_plan=plan, defer_schedule=sched)
+        walk = lp.trace()
+        trace_s = time.perf_counter() - t0
+        merge = walk["merge"]
+        want = wire_cost.tree_wire_bytes_by_level(plan, dp, leaves,
+                                                  merge_fn=ADD)
+        diags = placement.check_walk_bytes(merge, want, f"merge:{name}")
+        rec = {"plan": spec, "k": k, "overlap": overlap,
+               "wire_bytes_by_level": merge["wire_bytes_by_level"],
+               "wire_bytes_by_level_total":
+                   merge["wire_bytes_by_level_total"],
+               "step_wire_bytes_by_level": walk["wire_bytes_by_level"],
+               "level_names": walk["level_names"],
+               "live_bytes_per_device": walk["peak_live_bytes"],
+               "kernels": {x: v["calls"]
+                           for x, v in walk["kernels"].items()},
+               "trace_s": trace_s}
+        if lp.defer_step is not None:
+            eager = {m.index for m in ccache.program_manifest(
+                plan, dp, 0, merge_fn=ADD)}
+            w0 = lp.trace_variant(lp.noncommit_fn)["merge"]
+            diags += placement.check_deferred_levels_idle(
+                w0, ("pod",), f"merge:{name}:due0")
+            diags += placement.check_walk_bytes(
+                w0, wire_cost.tree_wire_bytes_by_level(
+                    plan, dp, leaves, merge_fn=ADD, levels=eager),
+                f"merge:{name}:due0")
+            rec["due0_wire_bytes_by_level"] = w0["wire_bytes_by_level"]
+        require(not diags, f"dryrun merge plan {name}: "
+                f"{[d.message for d in diags]}")
+        require(rec["kernels"] == {"cscatter": 1},
+                f"dryrun merge plan {name}: kernel calls {rec['kernels']}")
+        out[name] = rec
+        print(f"dryrun merge plan {name} ({spec}"
+              f"{'' if k is None else f', pod K = {k}'}"
+              f"{', overlapped' if overlap else ''}) of {ARCH} x train_4k "
+              f"on pod2xdata{MERGE_DATA}xmodel1, planned on {card}'s host: "
+              f"ok; the merge's wire bytes by level a device "
+              f"{dict(zip(walk['level_names'], rec['wire_bytes_by_level']))}"
+              f" (equal to the cost model's, machine-wide), the step's "
+              f"with the FSDP gather and the loss's mean "
+              f"{dict(zip(walk['level_names'], rec['step_wire_bytes_by_level']))}; "
+              + ("" if k is None else
+                 f"due-0 variant {rec['due0_wire_bytes_by_level']}; ")
+              + f"{rec['live_bytes_per_device']} live bytes a device; "
+              f"kernel calls a device {rec['kernels']}; traced in "
+              f"{trace_s:.3f} s")
+    return out
+
+
+def _merge_walks(card: str, part) -> dict:
+    """(c), second half: one eager step of the stacked explicit-merge train
+    step on the card (``launch/train.py``'s build of TRAIN_PLAN over 8
+    stacked ranks, TRAIN_LAYERS layers, TRAIN_BATCH x TRAIN_SEQ) under
+    ``analysis.trace``'s recorder, and the planned step of the same config
+    and batch traced on a fake ``(pod 2, data 4, model 1)`` mesh: the
+    stacked walk and the planned walk's merge (its ``MeshAxis``
+    collectives; the planned step also gathers its FSDP parameters and
+    takes the loss's mean, as JAX's does, which the stacked step need not)
+    must move equal bytes by level, the cost model's over the gradient
+    leaves (CC021), and the stacked step's ``cscatter`` calls 8 x the
+    planned step's a device. ``part`` reads and zeroes the counts."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.analysis import placement, trace
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.merge_functions import ADD
+    from repro_torch.core.merge_plan import MergePlan
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.kernels.cscatter import LAUNCHES_PER_CALL
+    from repro_torch.launch import mesh as pmesh
+    from repro_torch.launch import steps, train, wire_cost
+    plan = MergePlan.parse(TRAIN_PLAN)
+    sizes = [lv.size for lv in plan.levels]
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_merge_")
+    try:
+        t = train.build(train.parse_args(_train_argv("eager", 1, tmp,
+                                                     TRAIN_LAYERS)))
+        batch = batch_at(t.dcfg, 0)
+        leaves = [x for x in pytree.tree_leaves(t.state["params"])]
+        torch.cuda.synchronize()
+        part("warmup_merge")
+        t0 = time.perf_counter()
+        (state, m), calls = trace.record(t.step_fn, t.state, batch)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        launches = part("count_check_merge")
+        loss = float(m["loss"])
+        require(np.isfinite(loss), f"dryrun merge: stacked loss {loss}")
+        del state, m
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    stacked = placement.walk_of(calls, sizes, plan.level_names())
+    cfg = t.cfg
+    del t
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = pmesh.make_data_parallel_mesh(4)
+    t0 = time.perf_counter()
+    lp = steps.plan_train(cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH,
+                                           "train"), mesh, merge_plan=plan)
+    walk = lp.trace()
+    planned = walk["merge"]
+    trace_s = time.perf_counter() - t0
+    want = wire_cost.tree_wire_bytes_by_level(plan, TRAIN_DP, leaves,
+                                              merge_fn=ADD)
+    diags = (placement.check_walk_bytes(stacked, want, "merge:stacked")
+             + placement.check_walk_bytes(planned, want, "merge:planned"))
+    require(not diags and stacked["wire_bytes_by_level_total"]
+            == planned["wire_bytes_by_level_total"],
+            f"dryrun merge walks: stacked "
+            f"{stacked['wire_bytes_by_level_total']}, planned "
+            f"{planned['wire_bytes_by_level_total']}, cost model {want}; "
+            f"{[d.message for d in diags]}")
+    per_device = walk["kernels"]["cscatter"]["calls"]
+    stacked_calls = launches["cscatter"] // LAUNCHES_PER_CALL
+    require(stacked_calls == TRAIN_DP * per_device
+            and launches["cscatter"] % LAUNCHES_PER_CALL == 0
+            and not any(v for x, v in launches.items() if x != "cscatter"),
+            f"dryrun merge: stacked launches {launches}, planned "
+            f"{per_device} cscatter call(s) a device over {TRAIN_DP}")
+    out = {"plan": TRAIN_PLAN, "ranks": TRAIN_DP, "layers": cfg.n_layers,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "wire_bytes_by_level_total": want,
+           "level_names": list(plan.level_names()),
+           "stacked_cscatter_calls": stacked_calls,
+           "planned_cscatter_calls_per_device": per_device,
+           "launches": launches, "stacked_step_ms": step_ms, "loss": loss,
+           "planned_trace_s": trace_s,
+           "planned_step_wire_bytes_by_level_total":
+               walk["wire_bytes_by_level_total"],
+           "planned_live_bytes_per_device": walk["peak_live_bytes"]}
+    print(f"dryrun merge walks on {card}: one eager step of the stacked "
+          f"{TRAIN_PLAN} step over {TRAIN_DP} ranks ({cfg.n_layers} layers, "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}; loss {loss:.6f}, {step_ms:.3f} ms "
+          f"recorded) and the planned step traced on pod2xdata4xmodel1 "
+          f"({trace_s:.3f} s) merge with equal bytes by level "
+          f"{dict(zip(out['level_names'], want))} (machine-wide, the cost "
+          f"model's; the planned step's all collectives "
+          f"{walk['wire_bytes_by_level_total']}); cscatter calls {stacked_calls} stacked = {TRAIN_DP} x "
+          f"{per_device} a device; launches {launches}")
+    return out
+
+
 def phase_dryrun(card: str) -> dict:
     """The production-mesh dry-run (module doc, item 16): (a) the cells of
     DRYRUN_CELLS planned on the card's host, each ``ok`` with its dominant
@@ -5382,9 +5579,10 @@ def phase_dryrun(card: str) -> dict:
     hymba-1.5b's at full width and depth (flash once a layer, the
     selective scan's three launches a layer): each run for real on the
     card under the op walk and traced on a 1 x 1 fake mesh, FLOPs and HBM
-    bytes equal; and the custom op's dispatch beside the direct call.
-    Every kernel's count is zeroed at the start and read after each part:
-    ``launches`` holds each part's counts."""
+    bytes equal; (c) the explicit gradient merge (:func:`_merge_plans`,
+    :func:`_merge_walks`); and the custom op's dispatch beside the direct
+    call. Every kernel's count is zeroed at the start and read after each
+    part: ``launches`` holds each part's counts."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as pmesh
@@ -5448,6 +5646,12 @@ def phase_dryrun(card: str) -> dict:
             card, part, "_hymba", hymba, FAMILY_BATCH, HYMBA_PROMPT,
             {"flash_attention": hymba.n_layers,
              "selective_scan": hymba.n_layers * 3})
+        # (c) the explicit merge in the planned train step
+        out["merge_plans"] = _merge_plans(card)
+        planned = part("merge_plans")
+        require(not any(planned.values()),
+                f"dryrun: planning the merge launched kernels {planned}")
+        out["merge_walks"] = _merge_walks(card, part)
     finally:
         shutil.rmtree(work, ignore_errors=True)
         pmesh.shutdown()

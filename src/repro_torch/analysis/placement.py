@@ -13,7 +13,9 @@ level). The checks over a walk dict are the reference's, unchanged:
 
 * :func:`check_noncommit_walk` — CC020: a non-commit tick must move ZERO
   cross-rank collective bytes; :func:`check_noncommit_record` is the same
-  check over a record carrying the walk's fields.
+  check over a record carrying the walk's fields, and
+  :func:`check_deferred_levels_idle` the check of a train plan's due-0
+  step on its deferred levels (its eager levels merge every step).
 * :func:`check_commit_walk` — CC021: a commit program's collectives must
   match the manifest (no bytes above the topmost scheduled level, every
   scheduled exchange moves bytes on its own level, only the scheduled
@@ -131,6 +133,20 @@ def check_noncommit_record(rec: dict, site: str) -> Optional[Diagnostic]:
 def check_noncommit_walk(walk: dict, site: str) -> list[Diagnostic]:
     d = check_noncommit_record(walk, site)
     return [d] if d else []
+
+
+def check_deferred_levels_idle(walk: dict, deferred: Sequence[str],
+                               site: str) -> list[Diagnostic]:
+    """CC020 for a train plan's due-0 step (``StepPlan.noncommit_fn``):
+    its eager levels merge every step, and its ``deferred`` levels must
+    move zero bytes (JAX's verifier asserts no collective on them)."""
+    names = walk.get("level_names") or []
+    totals = walk.get("wire_bytes_by_level_total") or []
+    return check_noncommit_walk(
+        {"level_names": names,
+         "wire_bytes_by_level_total": [
+             b if i < len(names) and names[i] in deferred else 0.0
+             for i, b in enumerate(totals)]}, site)
 
 
 def check_commit_walk(walk: dict, manifest: Sequence, site: str,

@@ -71,8 +71,9 @@ class CollectiveCall:
 
 
 class CollectiveRecorder:
-    """Records every collective made through any ``StackedAxis`` while
-    :meth:`on` listens (:func:`record`)."""
+    """Records every collective made through any ``StackedAxis`` (or
+    ``MeshAxis``: a rank's bytes are a leaf's over the ranks it stacks)
+    while :meth:`on` listens (:func:`record`)."""
 
     def __init__(self):
         self.calls: list[CollectiveCall] = []
@@ -86,7 +87,7 @@ class CollectiveRecorder:
         self.calls.append(CollectiveCall(
             kind=kind, size=axis.size, group=group,
             perm=None if perm is None else tuple(map(tuple, perm)),
-            rank_bytes=tuple(t.numel() // axis.size * t.element_size()
+            rank_bytes=tuple(t.numel() // axis.stack * t.element_size()
                              for t in leaves)))
 
 

@@ -5,7 +5,11 @@ every shard on one device as dim 0 of each tensor and the collectives taken
 from a :class:`~repro_torch.core.stacked.StackedAxis` (see ``stacked.py``).
 Each function takes and returns stacked tensors (or pytrees of them): where
 the reference's per-shard program sees ``x[...]`` with ``axis_name`` bound,
-this one sees ``x[S, ...]`` and an ``axis``.
+this one sees ``x[S, ...]`` and an ``axis``. The same functions run once a
+device over a :class:`~repro_torch.core.mesh_axis.MeshAxis`, each device
+holding its ``[1, ...]`` slice of the stack: ``axis.size`` is the logical
+rank count the plan and the permutations are built over, ``axis.stack``
+the ranks a local tensor stacks.
 
 * ``privatize`` / ``c_read`` / ``c_write`` / ``c_update`` — the ``CView``
   of a privatized copy: preserved source plus mutable update copy.
@@ -159,6 +163,11 @@ def tree_merge(update: PyTree, axis: StackedAxis, merge: MergeFn,
             f"drop compress")
     size = axis.size
     if not permutes.is_pow2(size):  # gather + local fold, in rank order
+        if axis.stack != size:
+            raise NotImplementedError(
+                f"tree_merge over a non-power-of-two axis of {size} ranks "
+                f"gathers every rank's value: it runs on a stacked axis, "
+                f"not on a mesh axis (one rank a device)")
         def _fold(x):
             acc = x[0]
             for i in range(1, size):
@@ -220,13 +229,13 @@ class MergeTopology:
 Topology = Union[MergeTopology, MergePlan]
 
 
-def _resolve_plan(topology: Topology, axis: StackedAxis,
-                  compress: bool) -> Optional[MergePlan]:
+def resolve_plan(topology: Topology, size: int,
+                 compress: bool = False) -> Optional[MergePlan]:
     """Normalize (MergeTopology | MergePlan) to a plan validated against
-    the axis; ``None`` for the degenerate flat dispatch (group_size <= 1 or
-    a single rank). The function-level ``compress`` flag maps onto the
-    *outermost* executing level, as in the reference."""
-    size = axis.size
+    an axis of ``size`` ranks; ``None`` for the degenerate flat dispatch
+    (group_size <= 1 or a single rank). The function-level ``compress``
+    flag maps onto the *outermost* executing level, as in the reference:
+    the plan the engine runs."""
     if isinstance(topology, MergeTopology):
         if topology.group_size <= 1 or size == 1:
             return None
@@ -369,10 +378,11 @@ def _lane_all_gather(chunks: list[torch.Tensor], axis: StackedAxis,
     chunks: recursive doubling for power-of-two units, ring otherwise. All
     traffic stays inside the unit."""
     size = axis.size
-    ranks = axis.index()
+    # the local stack's rows (every rank stacked, or this device's one)
+    ranks = torch.arange(axis.stack, device=lane.device)
     bufs = []
     for ch in chunks:
-        b = ch.new_zeros((size, stride) + tuple(ch.shape[1:]))
+        b = ch.new_zeros((axis.stack, stride) + tuple(ch.shape[1:]))
         b[ranks, lane] = ch
         bufs.append(b)
     if permutes.is_pow2(stride):
@@ -474,7 +484,7 @@ def hierarchical_merge(update: PyTree, axis: StackedAxis, merge: MergeFn,
     combination, as with ``tree_merge``, but each level's exchange stays on
     its link class. Runs ALL levels eagerly, including ones marked
     ``defer`` (``partial_merge`` + ``commit_deferred`` defer them)."""
-    plan = _resolve_plan(topology, axis, compress)
+    plan = resolve_plan(topology, axis.size, compress)
     if plan is None:  # every rank is its own group: flat dispatch
         return reduce_update(update, axis, merge, compress=compress,
                              force_tree=force_tree)
@@ -489,7 +499,7 @@ def partial_merge(update: PyTree, axis: StackedAxis, merge: MergeFn,
     its eager-scope block's combination and no deferred-level traffic has
     occurred. Accumulate the results into a ``PendingUpdate`` and settle
     the deferred levels with ``commit_deferred`` every K steps."""
-    plan = _resolve_plan(topology, axis, compress)
+    plan = resolve_plan(topology, axis.size, compress)
     if plan is None:
         return update if axis.size == 1 else reduce_update(
             update, axis, merge, compress=compress, force_tree=force_tree)
@@ -501,7 +511,7 @@ def partial_merge(update: PyTree, axis: StackedAxis, merge: MergeFn,
 def _split(topology: Topology, axis: StackedAxis, merge_fn: MergeFn,
            compress: bool, caller: str) -> tuple[list, list]:
     """The eager and deferred stages of a plan that has deferred ones."""
-    plan = _resolve_plan(topology, axis, compress)
+    plan = resolve_plan(topology, axis.size, compress)
     if plan is None:
         raise ValueError(f"{caller} needs a MergePlan with deferred levels "
                          f"(got a degenerate/flat topology)")
@@ -519,7 +529,7 @@ def settle_deferred(update: PyTree, axis: StackedAxis, merge_fn: MergeFn,
     """Run every DEFERRED stage of the plan on ``update`` (already settled
     through the eager levels, a ``partial_merge`` output). Does not touch
     memory."""
-    plan = _resolve_plan(topology, axis, compress)
+    plan = resolve_plan(topology, axis.size, compress)
     if plan is None:
         return update
     _, deferred = split_eager_deferred(

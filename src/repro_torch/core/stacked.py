@@ -11,7 +11,10 @@ tensor ops over that dim, provided by a :class:`StackedAxis`:
 * ``psum`` / ``pmax`` / ``pmin`` over contiguous groups of ``group`` ranks
   (the whole axis by default): a reduce over a ``[S/group, group, ...]``
   view, broadcast back to every member;
-* ``index()`` — ``torch.arange(S)``, the stacked ``axis_index``.
+* ``index()`` — ``torch.arange(S)``, the stacked ``axis_index``;
+* ``stack`` — the ranks a tensor stacks along dim 0: ``S`` here, 1 on a
+  device of a mesh (``core/mesh_axis.MeshAxis``, the same contract on
+  each device's ``[1, ...]`` slice).
 
 Functions written against the axis take and return stacked tensors (or
 pytrees of them) and see all shards at once; a per-rank predicate is an
@@ -47,6 +50,11 @@ class StackedAxis:
         if self.size < 1:
             raise ValueError(f"axis size must be >= 1, got {self.size}")
         object.__setattr__(self, "device", torch.device(self.device))
+
+    @property
+    def stack(self) -> int:
+        """The ranks a tensor stacks along dim 0: all of them."""
+        return self.size
 
     def index(self) -> torch.Tensor:
         """``axis_index`` for every rank at once: ``[S]`` int64."""

@@ -1,11 +1,14 @@
 """Events the port tells its listeners, for the verifier
 (``repro_torch.analysis``).
 
-Two kinds are emitted, each before or where the work happens:
+These kinds are emitted, each before or where the work happens:
 
 * ``emit("collective", axis, kind, x, group, perm)`` — every
-  ``StackedAxis.ppermute/psum/pmax/pmin`` call (``core/stacked.py``),
-  which ``analysis.trace.CollectiveRecorder`` records;
+  ``StackedAxis.ppermute/psum/pmax/pmin`` call (``core/stacked.py``) and
+  every ``MeshAxis`` one (``core/mesh_axis.py``), which
+  ``analysis.trace.CollectiveRecorder`` records; a ``MeshAxis`` ends each
+  with ``emit("collective_end", axis)``, so that the op-level walk counts
+  the exchange once and not the ``torch.distributed`` calls that carry it;
 * ``emit("kernel_begin", name, args, kwargs)`` and ``emit("kernel_end",
   name, result)`` — around every concrete call of a hand-written kernel's
   wrapper (``kernels/custom_ops.kernel_call``), whichever route runs it:

@@ -13,7 +13,8 @@ The fake group is global to a process: :func:`fake_world` initialises it
 once, with at least the ranks a mesh asks for (512 by default, so both
 production meshes and every smaller one share it: a mesh takes ranks ``0 ..
 n-1``), and :func:`shutdown` destroys it, with DTensor's cached sharding
-decisions, which hold its meshes. A process that has initialised
+decisions, which hold its meshes, and the merge axes' groups
+(``core/mesh_axis.py``). A process that has initialised
 another backend is refused. ``FakeStore`` is internal to PyTorch: this is
 the one module that imports it (``tests/test_torch_partition.py`` fails
 clearly if it moves).
@@ -65,8 +66,10 @@ def shutdown() -> None:
     same ranks equals one of the old meshes, so a cached decision would
     hand it the old mesh, whose groups are gone."""
     import torch.distributed as dist
+    from repro_torch.core.mesh_axis import clear_groups
     if dist.is_initialized():
         dist.destroy_process_group()
+    clear_groups()
     _clear_dtensor_caches()
 
 
@@ -114,6 +117,13 @@ def make_host_mesh(data: int = 1, model: int = 1):
     """A small ``(data, model)`` mesh over the same fake group (tests, the
     count check's 1 x 1)."""
     return _mesh((data, model), ("data", "model"))
+
+
+def make_data_parallel_mesh(data: int):
+    """A pure data-parallel ``(pod 2, data, model 1)`` mesh over the same
+    fake group: the explicit gradient merge's (``steps.plan_train(
+    merge_plan=)`` refuses a model axis of size > 1, as JAX's does)."""
+    return _mesh((2, data, 1), ("pod", "data", "model"))
 
 
 def mesh_name(mesh) -> str:

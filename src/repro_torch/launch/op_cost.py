@@ -22,6 +22,20 @@ the device's shard, and the collectives DTensor inserts.
   crosses (``_link_level``, ``_ring_level_fractions``): the bytes of every
   group of the mesh dim the collective runs over, machine-wide, divided by
   the device count, as the HLO walk divides its replica groups' bytes.
+  The merge engine's exchanges over a ``core/mesh_axis.MeshAxis`` are
+  counted from the axis's ``"collective"`` event, one collective a leaf
+  (a ``ppermute`` a collective-permute, a ``psum/pmax/pmin`` an
+  all-reduce), as ``launch/wire_cost.py`` and the recorded walk of
+  ``analysis/placement.py`` count them: a permutation's payload once on
+  every pair whose ranks differ, on the level where the two first share a
+  block; a reduction's by the ring model over each aligned group; pairs
+  and groups are merge ranks, which the levels block. The ops that carry
+  the exchange, up to the axis's ``"collective_end"``, are not counted
+  (their results are kept alive in the live bytes). These exchanges are
+  also kept apart, as the result's ``"merge"``, a dict of the same
+  collective keys: the merge's own traffic, which the plan checks against
+  the cost model, where the totals add the step's other collectives (the
+  gather of FSDP parameters, the loss's mean).
 * **Peak live bytes**: the storages alive at once on the device (the
   inputs' from the start), the counterpart of ``memory_analysis()``.
 * **Boundary bytes**: the inputs' storages (:meth:`OpWalk.add_inputs`)
@@ -54,6 +68,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import hooks
+from repro_torch.launch import wire_cost
 
 _DOTS = {"mm", "addmm", "bmm", "baddbmm"}
 _GATHERS = {"embedding", "index", "index_select", "gather"}
@@ -249,9 +264,13 @@ class OpWalk(TorchDispatchMode):
         self.bounds = (level_bounds(level_sizes) if level_sizes else None)
         self.by_level_total = ([0.0] * len(level_sizes) if level_sizes
                                else None)
+        # the merge axes' own collectives (a subset of the totals)
+        self.merge_per_collective: dict = {}
+        self.merge_by_level = list(self.by_level_total or [])
         self.n_devices = mesh.size() if mesh is not None else 1
         self._groups = self._mesh_groups(mesh) if mesh is not None else {}
         self._suppress = 0
+        self._carrying = 0      # inside a merge axis's collective
         self._live: dict[int, list] = {}
         self.live_bytes = 0
         self.peak_bytes = 0
@@ -376,6 +395,45 @@ class OpWalk(TorchDispatchMode):
             dl[lvl] += b
             self.by_level_total[lvl] += b
 
+    def _count_merge(self, axis, kind: str, x, group, perm) -> None:
+        """One ``MeshAxis`` collective, a collective a leaf of ``x`` (each
+        device's ``[1, ...]`` slice), machine-wide, into the totals and
+        into the merge's own counts (:meth:`result`'s ``"merge"``). Its
+        pairs and groups are merge ranks, which the levels block."""
+        from torch.utils import _pytree as pytree
+        leaves = [t for t in pytree.tree_leaves(x)
+                  if isinstance(t, torch.Tensor)]
+        base = "collective-permute" if kind == "ppermute" else "all-reduce"
+        g = group or axis.size
+        sends = kind == "ppermute" and any(
+            a == axis.rank and b != axis.rank for a, b in perm)
+        for per, vec in ((self.per_collective, self.by_level_total),
+                         (self.merge_per_collective, self.merge_by_level)):
+            d = per.setdefault(base, {"count": 0.0, "result_bytes": 0.0,
+                                      "wire_bytes": 0.0})
+            if self.bounds is not None:
+                dl = d.setdefault("wire_bytes_by_level_total",
+                                  [0.0] * len(self.level_sizes))
+            for t in leaves:
+                nbytes = _nbytes(t) // axis.stack
+                mine = ((float(nbytes) if sends else 0.0) if perm is not None
+                        else (_wire_bytes("all-reduce", nbytes, g)
+                              if g > 1 else 0.0))
+                d["count"] += 1
+                d["result_bytes"] += nbytes
+                d["wire_bytes"] += mine
+                if per is self.per_collective:
+                    self.wire_bytes += mine
+                if self.bounds is None:
+                    continue
+                # machine-wide, as wire_cost and the recorded walk add them
+                for v in (dl, vec):
+                    if perm is not None:
+                        wire_cost._permute(v, perm, nbytes, self.bounds)
+                    else:
+                        wire_cost._all_reduce(v, axis.size, g, nbytes,
+                                              self.bounds)
+
     def _on_device(self, tree) -> bool:
         """Whether an op works on the device's data: with a device type,
         a plain tensor of that type among its arguments or results."""
@@ -391,13 +449,25 @@ class OpWalk(TorchDispatchMode):
             self._suppress += 1
         elif event == "kernel_end":
             self._suppress -= 1
+        elif event == "collective" and _on_mesh(args[0]):
+            if self._suppress == 0:
+                self._count_merge(*args)
+            self._suppress += 1
+            self._carrying += 1
+        elif event == "collective_end" and _on_mesh(args[0]):
+            self._suppress -= 1
+            self._carrying -= 1
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         if any(getattr(t, "__name__", "") == "DTensor" for t in types):
             return NotImplemented
         if self._suppress:
-            return func(*args, **kwargs)
+            out = func(*args, **kwargs)
+            if self._carrying and not func.is_view:
+                for t in _tensors(out):
+                    self._track(t)
+            return out
         ns = func.namespace
         name = func._schema.name.split("::")[-1]
         if ns == "repro_torch" and name in _OPS:
@@ -467,7 +537,21 @@ class OpWalk(TorchDispatchMode):
             out["wire_bytes_by_level_total"] = list(self.by_level_total)
             out["wire_bytes_by_level"] = [b / self.n_devices
                                           for b in self.by_level_total]
+        if self.merge_per_collective:
+            out["merge"] = {
+                "per_collective": self.merge_per_collective,
+                "level_sizes": out.get("level_sizes"),
+                "level_names": out.get("level_names"),
+                "wire_bytes_by_level_total": list(self.merge_by_level),
+                "wire_bytes_by_level": [b / self.n_devices
+                                        for b in self.merge_by_level]}
         return out
+
+
+def _on_mesh(axis) -> bool:
+    """Whether a collective's axis is a merge axis over a mesh's dims."""
+    from repro_torch.core.mesh_axis import MeshAxis
+    return isinstance(axis, MeshAxis)
 
 
 def _storage_key(t: torch.Tensor) -> Optional[int]:

@@ -26,7 +26,17 @@ the ``dp`` ranks are the leading dim of a stack on one device
   step's, bit for bit.
 
 :func:`make_train_step` without a topology is the implicit step (one rank,
-the whole batch).
+the whole batch). With a ``mesh`` (a ``DeviceMesh``) and a topology the
+step is JAX's explicit branch over DTensors: it runs once a device in a
+``local_map`` manual over the merge dims (:func:`merge_axes_on_mesh`), the
+parameters gathered whole over them and the batch ``Shard(0)``, the loss's
+mean taken there (JAX's ``pmean``); each device's
+gradients are merged by the same engine over a
+``core/mesh_axis.MeshAxis``, whose collectives are ``torch.distributed``
+calls among the mesh's processes, and the deferred and overlapped steps
+are the same :class:`DeferredTrainStep` over that axis, their pendings a
+global ``[dp, ...]`` stack ``Shard(0)`` over the merge dims. As in JAX, a
+mesh whose other dims have size > 1 is refused.
 
 The plan half (the JAX module's ``lowering_rules``, ``axes_to_shardings``,
 ``opt_state_axes``, ``plan_train``, ``plan_prefill``, ``plan_decode`` and
@@ -38,12 +48,15 @@ over a fake process group (``launch/mesh.py``) under the op-level cost walk
 planned: each builds its abstract model through
 ``models/registry.abstract_model`` and takes its own inputs and caches
 (``input_specs`` / ``input_axes``, the caches of a decode of the same
-batch and length for a prefill to fill). ``merge_plan=`` and
-``defer_schedule=`` wait for a later slice.
+batch and length for a prefill to fill). ``plan_train(merge_plan=,
+merge_compress=, defer_schedule=)`` plans the explicit step on the mesh
+instead: its walk counts the merge's exchanges by the plan's levels, and
+a deferred plan carries every commit variant (``StepPlan.defer_step``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Optional
 
@@ -58,7 +71,9 @@ from repro_torch.core.grad_merge import (merge_gradients,
                                          value_and_grad)
 from repro_torch.core.merge_functions import ADD, int8_compressed_add
 from repro_torch.core.merge_plan import MergePlan
+from repro_torch.core.mesh_axis import MeshAxis, merge_ranks
 from repro_torch.core.stacked import StackedAxis
+from repro_torch.sharding import partition
 
 PyTree = Any
 
@@ -78,6 +93,41 @@ def merge_axes_for(topology: Optional[Topology], dp: Optional[int] = None
     if topology is not None:
         topology.validate(dp)
     return dp
+
+
+def merge_axes_on_mesh(mesh, topology: Optional[Topology]
+                       ) -> tuple[str, ...]:
+    """The mesh dims a gradient-merge topology reduces over (the JAX
+    package's mesh form of ``merge_axes_for``): a plan pinned to an axis
+    (``axis_name``, a dim or a tuple of dims) wins; otherwise the mesh's
+    data-parallel dims, ``("pod", "data")`` on the multi-pod mesh (one
+    flattened merge axis), ``("data",)`` elsewhere."""
+    axis = getattr(topology, "axis_name", None)
+    if axis is None:
+        names = tuple(mesh.mesh_dim_names)
+        return tuple(a for a in ("pod", "data") if a in names) or ("data",)
+    return tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
+
+
+def _mesh_merge_dims(mesh, topology: Topology) -> tuple[str, ...]:
+    """The merge dims of an explicit step on ``mesh``, under JAX's
+    restriction: every other mesh dim must have size 1."""
+    dims = merge_axes_on_mesh(mesh, topology)
+    shape = partition.mesh_shape(mesh)
+    missing = [d for d in dims if d not in shape]
+    if missing:
+        raise ValueError(f"merge axes {dims} are not dims of the mesh "
+                         f"{tuple(shape)}")
+    auto = sorted(a for a, n in shape.items() if a not in dims and n > 1)
+    if auto:
+        raise NotImplementedError(
+            f"explicit hierarchical gradient merge needs the non-merge mesh "
+            f"axes to be trivial, but {auto} have size > 1; the JAX package "
+            f"refuses such a mesh (its partitioner cannot split this model "
+            f"under a partial-auto shard_map), and so does the port. Use a "
+            f"pure data-parallel mesh for the merge plan, or the implicit "
+            f"reduction for tensor-parallel cells.")
+    return dims
 
 
 def _device_of(params: PyTree) -> torch.device:
@@ -158,8 +208,207 @@ def _rank0(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if x is None else x[0].clone()
 
 
+class _Stacked:
+    """The ``dp`` ranks stacked on one device: each rank's gradients into
+    slice ``r`` of ``[dp, ...]`` stacks (:func:`rank_grads`), merged over a
+    :class:`StackedAxis` one leaf at a time (:func:`_leafwise`)."""
+
+    def __init__(self, grads_of, dp: int):
+        self.grads_of = grads_of
+        self.dp = dp
+
+    def replicating(self):
+        return contextlib.nullcontext()
+
+    def grads_step(self, params, batch, bufs: list, leaf_fn, n_out: int,
+                   settles: bool):
+        """Every rank's loss and gradients, then ``leaf_fn(axis, grad,
+        *bufs' leaves) -> (n_out new buffer leaves, settled leaf or None)``
+        at each leaf position -> (mean loss, the ``n_out`` new buffer
+        trees, the settled tree or None)."""
+        axis = StackedAxis(self.dp, _device_of(params))
+        loss, stack = rank_grads(self.grads_of, params,
+                                 to_device(batch, axis.device), self.dp)
+        with torch.profiler.record_function("train.merge"):
+            out, spec = _leafwise(lambda g, *b: leaf_fn(axis, g, *b), stack,
+                                  *bufs, consume=True)
+        new = [pytree.tree_unflatten([o[0][j] for o in out], spec)
+               for j in range(n_out)]
+        settled = (pytree.tree_unflatten([o[1] for o in out], spec)
+                   if settles else None)
+        return loss, new, settled
+
+    def settle(self, params, trees: list, leaf_fn):
+        """``leaf_fn(axis, *leaves) -> settled leaf`` at each leaf position
+        of ``trees`` -> the settled tree (a flush: no gradients)."""
+        axis = StackedAxis(self.dp, _device_of(params))
+        out, spec = _leafwise(lambda *x: leaf_fn(axis, *x), *trees)
+        return pytree.tree_unflatten(out, spec)
+
+    def identity(self, params, merge_fn) -> PyTree:
+        """The merge's identity as a ``[dp, ...]`` stack of each
+        parameter."""
+        return pytree.tree_map(
+            lambda p: merge_fn.identity((self.dp,) + tuple(p.shape), p.dtype,
+                                        device=p.device), params)
+
+    def reset(self, tree, merge_fn) -> PyTree:
+        return merge_fn.tree_identity(tree)
+
+
+class _OnMesh:
+    """One rank a device of ``mesh``: the step's work runs in a
+    ``local_map`` manual over the merge ``dims`` (JAX's ``shard_map``),
+    on each device's local tensors: the parameters gathered whole over the
+    merge dims at the region's edge (JAX's ``P()`` in_specs: FSDP-sharded
+    parameters are all-gathered there), its ``Shard(0)`` rows of the batch
+    and its ``[1, ...]`` slice of each ``[dp, ...]`` buffer; the merge
+    runs over a :class:`MeshAxis`. The loss leaves replicated, its mean
+    taken over the ranks in the region (JAX's ``pmean``); the settled
+    gradients leave replicated over the merge dims (JAX's ``P()``
+    out_specs) and are laid onto their parameters' placements for the
+    optimizer (a local slice of an FSDP parameter's), the buffers
+    ``Shard(0)`` over the merge dims."""
+
+    def __init__(self, grads_of, mesh, dims: tuple):
+        self.grads_of = grads_of
+        self.mesh = mesh
+        self.dims = dims
+        names = list(mesh.mesh_dim_names)
+        self._merge = {names.index(d) for d in dims}
+        self.dp = merge_ranks(mesh, dims)
+
+    def replicating(self):
+        """DTensor takes a plain tensor the step makes (a scale, the
+        optimizer's step count) as replicated."""
+        from torch.distributed.tensor.experimental import implicit_replication
+        return implicit_replication()
+
+    def _placed(self, p, stacked: bool) -> list:
+        """A parameter's placements in the region: whole over the merge
+        dims; or those of its ``[dp, ...]`` stack (``Shard(0)`` over the
+        merge dims, the parameter's dims one further)."""
+        from torch.distributed.tensor import Replicate, Shard
+        return [(Shard(0) if stacked else Replicate()) if i in self._merge
+                else Shard(x.dim + 1) if stacked and isinstance(x, Shard)
+                else x for i, x in enumerate(p.placements)]
+
+    def _laid(self, tree, params) -> PyTree:
+        """Settled gradients onto their parameters' placements."""
+        return pytree.tree_map(
+            lambda g, p: g.redistribute(p.device_mesh, p.placements),
+            tree, params)
+
+    def _batch_placements(self) -> list:
+        from torch.distributed.tensor import Replicate, Shard
+        return [Shard(0) if i in self._merge else Replicate()
+                for i in range(self.mesh.ndim)]
+
+    def _run(self, region, flat_in: list, in_pl: list, out_pl: list):
+        from torch.distributed.tensor.experimental import local_map
+        return local_map(region, out_placements=tuple(out_pl),
+                         in_placements=tuple(in_pl), device_mesh=self.mesh,
+                         redistribute_inputs=True)(*flat_in)
+
+    def grads_step(self, params, batch, bufs: list, leaf_fn, n_out: int,
+                   settles: bool):
+        """As :meth:`_Stacked.grads_step`, once a device."""
+        from torch.distributed.tensor import Replicate
+        p_leaves, spec = pytree.tree_flatten(params)
+        b_leaves, b_spec = pytree.tree_flatten(batch)
+        buf_leaves = [pytree.tree_leaves(b) for b in bufs]
+        n_p, n_b = len(p_leaves), len(b_leaves)
+        grads_of, dims = self.grads_of, self.dims
+        mesh = self.mesh
+
+        def region(*flat):
+            local = pytree.tree_unflatten(list(flat[:n_p]), spec)
+            rows = pytree.tree_unflatten(list(flat[n_p:n_p + n_b]), b_spec)
+            rest = flat[n_p + n_b:]
+            held = [list(rest[j * n_p:(j + 1) * n_p])
+                    for j in range(len(bufs))]
+            with partition.manual_axes(dims):
+                loss, grads = grads_of(local, rows)
+            axis = MeshAxis(mesh, dims, _device_of(local))
+            loss = axis.pmean(loss)
+            g = [x[None] for x in pytree.tree_leaves(grads)]
+            del grads
+            new = [[None] * n_p for _ in range(n_out)]
+            settled = []
+            with torch.profiler.record_function("train.merge"):
+                for k in range(n_p):
+                    nb, st = leaf_fn(axis, g[k], *(h[k] for h in held))
+                    g[k] = None
+                    for j, t in enumerate(nb):
+                        new[j][k] = t
+                    if settles:
+                        settled.append(st)
+            return tuple([loss] + [t for row in new for t in row] + settled)
+
+        param_pl = [self._placed(p, False) for p in p_leaves]
+        stack_pl = [self._placed(p, True) for p in p_leaves]
+        in_pl = (param_pl + [self._batch_placements()] * n_b
+                 + stack_pl * len(bufs))
+        out_pl = ([[Replicate()] * mesh.ndim] + stack_pl * n_out
+                  + (param_pl if settles else []))
+        out = self._run(region, p_leaves + b_leaves
+                        + [t for row in buf_leaves for t in row], in_pl,
+                        out_pl)
+        new = [pytree.tree_unflatten(list(out[1 + j * n_p:1 + (j + 1) * n_p]),
+                                     spec) for j in range(n_out)]
+        settled = (self._laid(pytree.tree_unflatten(
+            list(out[1 + n_out * n_p:]), spec), params) if settles else None)
+        return out[0], new, settled
+
+    def settle(self, params, trees: list, leaf_fn):
+        """As :meth:`_Stacked.settle`, once a device."""
+        p_leaves, spec = pytree.tree_flatten(params)
+        n_p = len(p_leaves)
+        mesh, dims = self.mesh, self.dims
+
+        def region(*flat):
+            axis = MeshAxis(mesh, dims, flat[0].device)
+            return tuple(leaf_fn(axis, *(flat[j * n_p + k]
+                                         for j in range(len(trees))))
+                         for k in range(n_p))
+
+        stack_pl = [self._placed(p, True) for p in p_leaves]
+        out = self._run(region,
+                        [t for tr in trees for t in pytree.tree_leaves(tr)],
+                        stack_pl * len(trees),
+                        [self._placed(p, False) for p in p_leaves])
+        return self._laid(pytree.tree_unflatten(list(out), spec), params)
+
+    def identity(self, params, merge_fn) -> PyTree:
+        """The merge's identity as a global ``[dp, ...]`` stack of each
+        parameter, ``Shard(0)`` over the merge dims (each device makes its
+        ``[1, ...]`` slice: the other dims have size 1)."""
+        from torch.distributed.tensor import DTensor
+
+        def make(p):
+            shape = (self.dp,) + tuple(p.shape)
+            t = merge_fn.identity((1,) + tuple(p.shape), p.dtype,
+                                  device=p.to_local().device)
+            return DTensor.from_local(
+                t, self.mesh, self._placed(p, True), run_check=False,
+                shape=torch.Size(shape),
+                stride=torch.empty(shape, device="meta").stride())
+        return pytree.tree_map(make, params)
+
+    def reset(self, tree, merge_fn) -> PyTree:
+        from torch.distributed.tensor import DTensor
+
+        def make(x):
+            t = merge_fn.identity(tuple(x.to_local().shape), x.dtype,
+                                  device=x.to_local().device)
+            return DTensor.from_local(t, x.device_mesh, x.placements,
+                                      run_check=False, shape=x.shape,
+                                      stride=x.stride())
+        return pytree.tree_map(make, tree)
+
+
 def make_train_step(model, cfg, optimizer, num_microbatches: int = 1, *,
-                    dp: Optional[int] = None,
+                    dp: Optional[int] = None, mesh=None,
                     merge_topology: Optional[Topology] = None,
                     merge_compress: bool = False,
                     defer_schedule: Optional[DeferSchedule] = None,
@@ -178,6 +427,13 @@ def make_train_step(model, cfg, optimizer, num_microbatches: int = 1, *,
     merged gradients, and an overlapped schedule steps the optimizer one
     step stale. Without a schedule, ``defer`` plans are refused: the
     optimizer would silently train on partially merged gradients.
+
+    With a ``mesh`` too, the step runs over DTensors on it, one rank a
+    device (:class:`_OnMesh`; module doc): the parameters gathered whole
+    over the merge dims for the region (whatever their layout; the
+    optimizer steps them, and its state, in their own), the batch
+    ``Shard(0)`` over them, ``dp`` their product; a mesh with another dim
+    of size > 1 raises ``NotImplementedError``, as JAX's does.
     """
 
     grads_of = grads_fn(model, num_microbatches)
@@ -209,28 +465,31 @@ def make_train_step(model, cfg, optimizer, num_microbatches: int = 1, *,
     if defer_schedule is not None and not has_deferred:
         raise ValueError("defer_schedule given but the merge plan has "
                          "no :defer levels")
+    if mesh is not None:
+        dims = _mesh_merge_dims(mesh, merge_topology)
+        dp = merge_ranks(mesh, dims)
     n_ranks = merge_axes_for(merge_topology, dp)
+    runner = (_Stacked(grads_of, n_ranks) if mesh is None
+              else _OnMesh(grads_of, mesh, dims))
     grad_merge_fn = int8_compressed_add() if merge_compress else ADD
 
     if defer_schedule is not None:
         return _make_deferred_train_step(
             grads_of, optimizer, merge_topology, merge_compress,
-            defer_schedule, n_ranks, grad_merge_fn, donate)
+            defer_schedule, n_ranks, grad_merge_fn, donate, runner=runner)
+
+    def merged(axis, g):
+        return [], _rank0(merge_gradients(
+            g, axis, merge_fn=grad_merge_fn, topology=merge_topology,
+            compress=merge_compress))
 
     def train_step(state, batch):
-        params = state["params"]
-        axis = StackedAxis(n_ranks, _device_of(params))
-        loss, stack = rank_grads(grads_of, params,
-                                 to_device(batch, axis.device), n_ranks)
-        with torch.profiler.record_function("train.merge"):
-            merged, spec = _leafwise(
-                lambda g: _rank0(merge_gradients(
-                    g, axis, merge_fn=grad_merge_fn, topology=merge_topology,
-                    compress=merge_compress)), stack, consume=True)
-        with torch.profiler.record_function("train.optimizer"):
-            params, opt_state, stats = optimizer.step(
-                params, pytree.tree_unflatten(merged, spec), state["opt"],
-                donate=donate)
+        with runner.replicating():
+            loss, _, grads = runner.grads_step(state["params"], batch, [],
+                                               merged, 0, True)
+            with torch.profiler.record_function("train.optimizer"):
+                params, opt_state, stats = optimizer.step(
+                    state["params"], grads, state["opt"], donate=donate)
         return {"params": params, "opt": opt_state}, {"loss": loss, **stats}
 
     train_step.donates = donate
@@ -353,8 +612,8 @@ class DeferredTrainStep:
 
 def _make_deferred_train_step(grads_of, optimizer, plan, merge_compress: bool,
                               schedule: DeferSchedule, dp: int,
-                              grad_merge_fn, donate: bool = False
-                              ) -> DeferredTrainStep:
+                              grad_merge_fn, donate: bool = False,
+                              runner=None) -> DeferredTrainStep:
     """The merge-on-evict train step family over ``defer_cascade``.
 
     Gradients are contributions to an ADD merge, so the pending cascade IS
@@ -368,7 +627,12 @@ def _make_deferred_train_step(grads_of, optimizer, plan, merge_compress: bool,
     aggregate -> ``inflight``), and every variant has a land twin that
     runs the top-level exchange on ``inflight`` and steps the optimizer on
     the landed cycle one step stale.
+
+    ``runner`` holds the ranks: stacked on one device (the default,
+    :class:`_Stacked`) or one a device of a mesh (:class:`_OnMesh`); the
+    cascade is the same code over either's axis.
     """
+    runner = runner or _Stacked(grads_of, dp)
     deferred = ccache.deferred_stages_of(plan, dp, merge_fn=grad_merge_fn)
     if not deferred:
         raise ValueError("the merge plan's :defer levels all compile away "
@@ -407,32 +671,6 @@ def _make_deferred_train_step(grads_of, optimizer, plan, merge_compress: bool,
             lambda g: g * torch.tensor(s, dtype=g.dtype), settled)
         return optimizer.step(params, grads, opt_state, donate=donate)
 
-    def _cascade(stack, d, due, land, axis):
-        """One step's cascade over the gradient stack (consumed), leaf by
-        leaf -> (pendings, inflight or None, rank 0's settled cycle or
-        None)."""
-        if overlap:
-            out, spec = _leafwise(
-                lambda g, inf, *p: ccache.overlap_cascade(
-                    g, list(p), inf, due, land, axis, grad_merge_fn, plan,
-                    compress=merge_compress),
-                stack, d["inflight"], *d["pending"], consume=True)
-            inflight = pytree.tree_unflatten([o[1] for o in out], spec)
-            settled = [_rank0(o[2]) for o in out]
-        else:
-            out, spec = _leafwise(
-                lambda g, *p: ccache.defer_cascade(
-                    g, list(p), due, axis, grad_merge_fn, plan,
-                    compress=merge_compress),
-                stack, *d["pending"], consume=True)
-            inflight = None
-            settled = [_rank0(o[1]) for o in out]
-        pending = tuple(pytree.tree_unflatten([o[0][j] for o in out], spec)
-                        for j in range(n_def))
-        if settled[0] is None:
-            return pending, inflight, None
-        return pending, inflight, pytree.tree_unflatten(settled, spec)
-
     def _zero_metrics(loss):
         return {"loss": loss, "grad_norm": torch.zeros((), dtype=torch.float32),
                 "lr": torch.zeros((), dtype=torch.float32)}
@@ -442,25 +680,38 @@ def _make_deferred_train_step(grads_of, optimizer, plan, merge_compress: bool,
         # cycle on a serialized full-commit step or an overlapped land step.
         commits = land if overlap else due == n_def
 
+        def cascade(axis, g, *bufs):
+            """One leaf's cascade -> (its new buffers, inflight first when
+            overlapped; rank 0's settled cycle or None)."""
+            if overlap:
+                inf, *p = bufs
+                new_p, new_inf, landed = ccache.overlap_cascade(
+                    g, list(p), inf, due, land, axis, grad_merge_fn, plan,
+                    compress=merge_compress)
+                return [new_inf] + list(new_p), _rank0(landed)
+            new_p, settled = ccache.defer_cascade(
+                g, list(bufs), due, axis, grad_merge_fn, plan,
+                compress=merge_compress)
+            return list(new_p), _rank0(settled)
+
         def step(state, batch):
             params = state["params"]
             d = state["defer"]
-            axis = StackedAxis(dp, _device_of(params))
-            loss, stack = rank_grads(grads_of, params,
-                                     to_device(batch, axis.device), dp)
-            with torch.profiler.record_function("train.merge"):
-                pending, inflight, settled = _cascade(stack, d, due, land,
-                                                      axis)
-            if commits:
-                params, opt_state, stats = _opt_step(
-                    params, state["opt"], settled, scale)
-                metrics = {"loss": loss, **stats}
-            else:
-                opt_state = state["opt"]
-                metrics = _zero_metrics(loss)
-            new_defer = {"t": d["t"] + 1, "pending": pending}
+            bufs = ([d["inflight"]] if overlap else []) + list(d["pending"])
+            with runner.replicating():
+                loss, new, settled = runner.grads_step(
+                    params, batch, bufs, cascade, len(bufs), commits)
+                if commits:
+                    params, opt_state, stats = _opt_step(
+                        params, state["opt"], settled, scale)
+                    metrics = {"loss": loss, **stats}
+                else:
+                    opt_state = state["opt"]
+                    metrics = _zero_metrics(loss)
+            new_defer = {"t": d["t"] + 1}
             if overlap:
-                new_defer["inflight"] = inflight
+                new_defer["inflight"], new = new[0], new[1:]
+            new_defer["pending"] = tuple(new)
             return ({"params": params, "opt": opt_state,
                      "defer": new_defer}, metrics)
 
@@ -469,9 +720,7 @@ def _make_deferred_train_step(grads_of, optimizer, plan, merge_compress: bool,
     def init_defer_state(params):
         # the buffers start as the merge's identity; nothing writes them in
         # place, so they share one tree
-        zeros = pytree.tree_map(
-            lambda p: grad_merge_fn.identity((dp,) + tuple(p.shape), p.dtype,
-                                             device=p.device), params)
+        zeros = runner.identity(params, grad_merge_fn)
         state = {"t": torch.zeros((), dtype=torch.int32),
                  "pending": (zeros,) * n_def}
         if overlap:
@@ -482,39 +731,41 @@ def _make_deferred_train_step(grads_of, optimizer, plan, merge_compress: bool,
         d = state["defer"]
         t = int(d["t"])
         params, opt_state = state["params"], state["opt"]
-        axis = StackedAxis(dp, _device_of(params))
         metrics = None
         new_defer = dict(d)
         # A drained buffer is the merge's identity. Every consumer makes new
         # tensors from it and none writes it, so the drained buffers share
         # one tree of zeros.
-        zeros = grad_merge_fn.tree_identity(d["pending"][0])
-        if overlap and t >= 1 and schedule.due_count(t) == n_def:
-            # The last step launched a cycle that never landed.
-            landed, spec = _leafwise(
-                lambda x: _rank0(ccache.settle_inflight(
-                    x, axis, grad_merge_fn, plan, compress=merge_compress)),
-                d["inflight"])
-            params, opt_state, stats = _opt_step(
-                params, opt_state, pytree.tree_unflatten(landed, spec), scale)
-            new_defer["inflight"] = zeros
-            metrics = {"flushed_inflight": True, **stats}
-        m = t % period
-        if m > 0:
-            # Trailing partial cycle: settle every deferred level on the
-            # outstanding pendings (zero delta — no new gradient) and step
-            # the optimizer on the mean over the m accumulated steps.
-            settled, spec = _leafwise(
-                lambda z, *p: _rank0(ccache.defer_cascade(
-                    z, list(p), n_def, axis, grad_merge_fn, plan,
-                    compress=merge_compress)[1]),
-                zeros, *d["pending"])
-            pscale = 1.0 / (dp * m) if mean else 1.0
-            params, opt_state, stats = _opt_step(
-                params, opt_state, pytree.tree_unflatten(settled, spec),
-                pscale)
-            new_defer["pending"] = (zeros,) * n_def
-            metrics = {**(metrics or {}), "flushed_steps": m, **stats}
+        zeros = runner.reset(d["pending"][0], grad_merge_fn)
+        with runner.replicating():
+            if overlap and t >= 1 and schedule.due_count(t) == n_def:
+                # The last step launched a cycle that never landed.
+                landed = runner.settle(
+                    params, [d["inflight"]],
+                    lambda axis, x: _rank0(ccache.settle_inflight(
+                        x, axis, grad_merge_fn, plan,
+                        compress=merge_compress)))
+                params, opt_state, stats = _opt_step(params, opt_state,
+                                                     landed, scale)
+                new_defer["inflight"] = zeros
+                metrics = {"flushed_inflight": True, **stats}
+            m = t % period
+            if m > 0:
+                # Trailing partial cycle: settle every deferred level on
+                # the outstanding pendings (zero delta — no new gradient)
+                # and step the optimizer on the mean over the m accumulated
+                # steps.
+                settled = runner.settle(
+                    params, list(d["pending"]),
+                    lambda axis, *p: _rank0(ccache.defer_cascade(
+                        grad_merge_fn.tree_identity(p[0]), list(p), n_def,
+                        axis, grad_merge_fn, plan,
+                        compress=merge_compress)[1]))
+                pscale = 1.0 / (dp * m) if mean else 1.0
+                params, opt_state, stats = _opt_step(params, opt_state,
+                                                     settled, pscale)
+                new_defer["pending"] = (zeros,) * n_def
+                metrics = {**(metrics or {}), "flushed_steps": m, **stats}
         if metrics is None:
             return state, None
         return {"params": params, "opt": opt_state,
@@ -627,14 +878,36 @@ class StepPlan:
 
     :meth:`trace` builds each input as a meta DTensor laid out by its axes
     (nothing is allocated), runs the step under the rules and the op-level
-    walk, and returns the walk's counts."""
+    walk, and returns the walk's counts.
 
-    def __init__(self, fn, in_specs, in_axes, rules: dict, mesh):
+    A train plan with an explicit merge (JAX's ``LoweredPlan`` of
+    ``plan_train(merge_plan=...)``) also holds the plan's ``levels`` (its
+    sizes and names, innermost first: the walk's levels by default), and,
+    for a deferred plan, ``defer_step``, the :class:`DeferredTrainStep`
+    with every commit variant; ``fn`` is then the superset program (the
+    full commit, or its land twin when overlapped), :attr:`noncommit_fn`
+    the due-0 variant, and :meth:`trace_variant` traces any variant
+    against the plan's specs (JAX's ``lower_variant``)."""
+
+    def __init__(self, fn, in_specs, in_axes, rules: dict, mesh,
+                 defer_step: Optional["DeferredTrainStep"] = None,
+                 levels: Optional[tuple] = None):
         self.fn = fn
         self.in_specs = in_specs
         self.in_axes = in_axes
         self.rules = rules
         self.mesh = mesh
+        self.defer_step = defer_step
+        self.levels = levels
+
+    @property
+    def noncommit_fn(self):
+        """The zero-commit (due = 0) step, what a deferred plan runs between
+        commits; None without deferred levels. Its walk moves nothing on
+        the deferred levels (CC020)."""
+        if self.defer_step is None:
+            return None
+        return self.defer_step.variants[0]
 
     def shardings(self) -> PyTree:
         """The inputs' partition specs."""
@@ -725,11 +998,23 @@ class StepPlan:
     def trace(self, level_sizes=None, level_names=None) -> dict:
         """Run the step once on meta DTensors under :class:`OpWalk`; -> the
         walk's result."""
+        return self.trace_variant(self.fn, level_sizes, level_names)
+
+    def trace_variant(self, fn, level_sizes=None, level_names=None) -> dict:
+        """:meth:`trace` of ``fn``, another step of the same inputs (a
+        variant of ``defer_step``). An explicit merge's walk takes the
+        plan's levels unless others are given, and its mesh stays as it is
+        (the step's ``local_map`` is over its dims)."""
         from torch.distributed.tensor.experimental import implicit_replication
         from repro_torch.launch.op_cost import OpWalk
         from repro_torch.sharding.partition import sharding_rules
-        mesh, rules = self.merged()
-        plan = StepPlan(self.fn, self.in_specs, self.in_axes, rules, mesh)
+        if self.levels is not None:
+            mesh, rules = self.mesh, self.rules
+            if level_sizes is None:
+                level_sizes, level_names = self.levels
+        else:
+            mesh, rules = self.merged()
+        plan = StepPlan(fn, self.in_specs, self.in_axes, rules, mesh)
         walk = OpWalk(mesh, level_sizes, level_names, device="meta")
         # a tensor the model makes (positions, RoPE tables, masks) is the
         # same on every device: DTensor takes it as replicated
@@ -737,7 +1022,7 @@ class StepPlan:
             args = plan.inputs()
             walk.add_inputs(args)
             with walk:
-                out = self.fn(*args)
+                out = fn(*args)
             walk.add_outputs(out)
             del out, args
         return walk.result()
@@ -823,24 +1108,80 @@ def _planned_train_step(model, optimizer, num_microbatches: int):
     return step
 
 
+# The logical axis of a pending stack's leading dim: the rules map it to
+# the merge dims.
+MERGE_RANKS = "merge_ranks"
+
+
 def plan_train(cfg, shape_cfg, mesh, num_microbatches: Optional[int] = None,
-               extra_rules: Optional[dict] = None) -> StepPlan:
-    """The implicit production train plan (no explicit merge plan)."""
-    from repro_torch.models.layout import param_axes, param_specs
+               extra_rules: Optional[dict] = None,
+               merge_plan: Optional[Topology] = None,
+               merge_compress: bool = False,
+               defer_schedule: Optional[DeferSchedule] = None) -> StepPlan:
+    """The production train plan: the implicit step (each gradient
+    reduced onto its parameter's layout by DTensor), or with ``merge_plan``
+    the data-parallel gradient reduction routed through the CCache engine
+    (:func:`make_train_step` over the mesh) under the same rules: the
+    parameters and the optimizer's state keep their layout (FSDP over
+    ``data``), and the step gathers the parameters over the merge dims,
+    as JAX's ``shard_map`` does. A plan with ``:defer`` levels also takes a
+    ``defer_schedule``: the state then carries the pending cascade,
+    ``state["defer"]`` (each buffer a ``[dp, ...]`` stack whose leading
+    dim, logical axis :data:`MERGE_RANKS`, the rules map to the merge
+    dims), and the plan's ``defer_step`` holds every commit variant. As in
+    JAX, every non-merge mesh dim must have size 1 (``NotImplementedError``
+    otherwise)."""
+    from repro_torch.models.layout import Spec, param_axes, param_specs
     from repro_torch.optim import make_optimizer, warmup_cosine
     model = _abstract_model(cfg)
     rules = lowering_rules(cfg, shape_cfg, mesh)
-    rules.update(extra_rules or {})
     nmb = (num_microbatches if num_microbatches is not None
            else cfg.microbatches.get(shape_cfg.name, 1))
     p_specs, p_axes = param_specs(cfg), param_axes(cfg)
     o_specs = opt_state_specs(cfg, p_specs)
     optimizer = make_optimizer(cfg, warmup_cosine(3e-4, 100, 10_000))
-    step = _planned_train_step(model, optimizer, nmb)
     specs = ({"params": p_specs, "opt": o_specs}, model.input_specs(shape_cfg))
     axes = ({"params": p_axes, "opt": opt_state_axes(o_specs, p_axes)},
             model.input_axes(shape_cfg))
-    return StepPlan(step, specs, axes, rules, mesh)
+    if merge_plan is None:
+        if defer_schedule is not None:
+            raise ValueError("defer_schedule needs a merge_topology with "
+                             ":defer levels")
+        rules.update(extra_rules or {})
+        step = _planned_train_step(model, optimizer, nmb)
+        return StepPlan(step, specs, axes, rules, mesh)
+
+    dims = _mesh_merge_dims(mesh, merge_plan)
+    rules[MERGE_RANKS] = dims if len(dims) > 1 else dims[0]
+    rules.update(extra_rules or {})
+    step = make_train_step(model, cfg, optimizer, nmb, mesh=mesh,
+                           merge_topology=merge_plan,
+                           merge_compress=merge_compress,
+                           defer_schedule=defer_schedule)
+    dp = merge_ranks(mesh, dims)
+    plan = (merge_plan if isinstance(merge_plan, MergePlan)
+            else merge_plan.to_plan(dp, compress=merge_compress))
+    levels = (tuple(lv.size for lv in plan.levels), plan.level_names())
+    if not isinstance(step, DeferredTrainStep):
+        return StepPlan(step, specs, axes, rules, mesh, levels=levels)
+    # The walk's superset program: the full commit, or its land twin when
+    # overlapped (the top level's exchange lands there).
+    fn = (step.land_variants[-1] if step.land_variants is not None
+          else step.variants[-1])
+    is_spec = lambda x: isinstance(x, Spec)
+    stack = pytree.tree_map(lambda p: Spec((dp,) + tuple(p.shape), p.dtype),
+                            p_specs, is_leaf=is_spec)
+    # JAX's P(axis): the leading dim over the merge dims, the rest whole
+    stack_axes = pytree.tree_map(lambda a: (MERGE_RANKS,) + (None,) * len(a),
+                                 p_axes, is_leaf=_is_axes)
+    n_def = len(step.deferred_names)
+    d_specs = {"t": Spec((), torch.int32), "pending": (stack,) * n_def}
+    d_axes = {"t": (), "pending": (stack_axes,) * n_def}
+    if step.overlap:
+        d_specs["inflight"], d_axes["inflight"] = stack, stack_axes
+    specs[0]["defer"], axes[0]["defer"] = d_specs, d_axes
+    return StepPlan(fn, specs, axes, rules, mesh, defer_step=step,
+                    levels=levels)
 
 
 def plan_prefill(cfg, shape_cfg, mesh,

@@ -25,6 +25,13 @@ differ; a pair's bytes land on the level where its two ranks first share a
 block (level 0 = the innermost). Every level of the plan gets an entry,
 size-1 levels included (they move nothing). ``defer`` flags are ignored:
 the vector is the eager twin's, as the solver wants it.
+
+A compressed level (a merge with a wire format) is sized when the
+payload's ``dtype`` is given: its exchange rounds move the codec's wire
+(``merge_fn.encode`` of the payload, or of a lane's chunk: the int8 merge's
+int8 values and f32 scale), its broadcast or all-gather the decoded
+payload, which stays in the decode's dtype for the stages after it, as
+the engine's rounds carry it (``core/ccache._codec_butterfly``).
 """
 
 from __future__ import annotations
@@ -84,51 +91,80 @@ def _cross_unit(vec, perms, fanout: int, nbytes: float, bounds) -> None:
         _permute(vec, perm, nbytes, bounds)
 
 
+def _codec(merge_fn: MergeFn, shape: Sequence[int], dtype
+           ) -> tuple[float, object]:
+    """(bytes a rank's wire of a ``shape`` payload of ``dtype`` carries,
+    the dtype a fold of two decoded wires gives), by encoding a meta
+    payload as the engine does, rank by rank."""
+    import torch
+    from torch.utils import _pytree as pytree
+    x = torch.empty((1,) + tuple(int(n) for n in shape), dtype=dtype,
+                    device="meta")
+    wire = torch.func.vmap(merge_fn.encode)(x)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in pytree.tree_leaves(wire))
+    dec = torch.func.vmap(merge_fn.decode)(wire)
+    return float(nbytes), merge_fn.combine(dec, dec).dtype
+
+
 def wire_bytes_by_level(plan: MergePlan, axis_size: int,
                         payload_shape: Sequence[int], itemsize: int,
                         merge_fn: Optional[MergeFn] = None,
-                        levels: Optional[Collection[int]] = None
-                        ) -> list[float]:
+                        levels: Optional[Collection[int]] = None,
+                        dtype=None) -> list[float]:
     """Machine-wide bytes each level of ``plan`` carries in one synchronized
     merge of a ``payload_shape`` tensor of ``itemsize``-byte elements on
     every one of ``axis_size`` ranks (a KV store's tick: ``(R, D)``).
     ``levels`` keeps only the stages of those plan level indices (the
-    stages a deferred tick runs: its manifest's)."""
+    stages a deferred tick runs: its manifest's). A compressed level needs
+    the payload's ``dtype`` (a ``torch.dtype`` of ``itemsize`` bytes), to
+    size its codec's wire (module doc)."""
     bounds = _bounds(plan)
     vec = [0.0] * len(plan.levels)
     elems = 1
     for n in payload_shape:
         elems *= int(n)
-    payload = float(elems * itemsize)
     atom = merge_fn.wire_atom if merge_fn is not None else 1
     rows = elems // atom if atom > 1 and elems % atom == 0 else elems
-    row_bytes = itemsize * (elems // rows)
     S = axis_size
     for st, m in zip(compile_plan(plan, S, merge_fn=merge_fn),
                      collective_manifest(plan, S, merge_fn=merge_fn)):
-        if levels is not None and st.index not in levels:
-            continue
+        lanes = -(-rows // st.stride)          # a lane's rows
+        payload = float(elems * itemsize)
+        chunk = lanes * itemsize * (elems // rows)
+        # the exchange's bytes a round: the payload (a lane's chunk), or
+        # the codec's wire of it
+        wire, lane_wire = payload, chunk
         if (st.compress and merge_fn is not None
                 and merge_fn.encode is not None):
-            raise ValueError(
-                f"level {st.name!r} is compressed: its wire carries the "
-                f"codec's format, which this cost model does not size")
+            if dtype is None:
+                raise ValueError(
+                    f"level {st.name!r} is compressed: its wire carries the "
+                    f"codec's format, which this cost model sizes only "
+                    f"given the payload's dtype")
+            lane_wire, _ = _codec(merge_fn, (lanes, elems // rows)
+                                  if elems // rows > 1 else (lanes,), dtype)
+            wire, dtype = _codec(merge_fn, tuple(payload_shape), dtype)
+            itemsize = dtype.itemsize
+            payload = float(elems * itemsize)
+            chunk = lanes * itemsize * (elems // rows)
+        if levels is not None and st.index not in levels:
+            continue
         if st.stride == 1:
             if m.kind == "fused":
                 _all_reduce(vec, S, st.fanout, payload, bounds)
             elif permutes.is_pow2(st.fanout):
                 for i in range(st.fanout.bit_length() - 1):
                     _permute(vec, permutes.butterfly_perms(S, 1 << i),
-                             payload, bounds)
+                             wire, bounds)
             else:
                 for _ in range(st.fanout - 1):
-                    _permute(vec, permutes.ring_perm(S, st.fanout), payload,
+                    _permute(vec, permutes.ring_perm(S, st.fanout), wire,
                              bounds)
         elif st.lane_parallel:
-            chunk = -(-rows // st.stride) * row_bytes
             _cross_unit(vec, permutes.lane_exchange_perms(S, st.stride,
                                                           st.fanout),
-                        st.fanout, chunk, bounds)
+                        st.fanout, lane_wire, bounds)
             if permutes.is_pow2(st.stride):
                 for k, perm in enumerate(
                         permutes.lane_gather_doubling_perms(S, st.stride)):
@@ -140,7 +176,23 @@ def wire_bytes_by_level(plan: MergePlan, axis_size: int,
         else:
             _cross_unit(vec, permutes.rep_exchange_perms(S, st.stride,
                                                          st.fanout),
-                        st.fanout, payload, bounds)
+                        st.fanout, wire, bounds)
             for _, perm in permutes.binomial_broadcast_perms(S, st.stride):
                 _permute(vec, perm, payload, bounds)
+    return vec
+
+
+def tree_wire_bytes_by_level(plan: MergePlan, axis_size: int, leaves,
+                             merge_fn: Optional[MergeFn] = None,
+                             levels: Optional[Collection[int]] = None
+                             ) -> list[float]:
+    """:func:`wire_bytes_by_level` summed over ``leaves`` (anything with a
+    ``shape`` and a ``dtype``: a gradient tree's tensors, the parameters'
+    specs), each merged on its own, as a train step merges leaf by leaf."""
+    vec = [0.0] * len(plan.levels)
+    for leaf in leaves:
+        for i, b in enumerate(wire_bytes_by_level(
+                plan, axis_size, tuple(leaf.shape), leaf.dtype.itemsize,
+                merge_fn=merge_fn, levels=levels, dtype=leaf.dtype)):
+            vec[i] += b
     return vec
