@@ -106,7 +106,21 @@ smoke config) — and:
    ``cscatter`` launches held to the schedule, ``run_app`` at its defaults;
    then times ``cscatter`` at each app's shapes against its plain version,
    one library call and the bound, with its two passes split by a
-   ``torch.profiler`` trace;
+   ``torch.profiler`` trace; then (``phase_mesh``) runs the store and BFS
+   over a process group, one process a shard (``apps/sharded.mesh_spmd``,
+   this script run as ``--mesh-worker``): (a) 8 processes on gloo sharing
+   the card (their exchanges staged through the host) serve the
+   privatized K = 8, the partitioned overlapped and the blocked stores on
+   the stream of 4: each process's flushed table equal to the numpy oracle
+   and to the stacked store's (by digest), its ``resident_state_bytes``
+   the stacked store's, the blocked counters the LRU model's, its
+   ``cscatter`` and ``cmerge`` launches the prediction above
+   ``MESH_STORES``, the commit tick's recorded walk ``wire_cost``'s; the
+   privatized store again with its collectives timed (the exchange's
+   share); BFS on the apps' graph, every shard bitwise a numpy BFS; (b)
+   the privatized store on NCCL, one card a process, only on a host with
+   2 or more cards (else one line says why); updates/s beside the stacked
+   stores', ms of commit and other ticks;
 11. trains qwen1.5-0.5b at full width, 12 of its 24 layers (bf16, remat
    "dots", random weights from the seed) through ``launch/train.py`` on the
    data pipeline's Zipf stream, batch 16 x 512 over 8 stacked ranks: 4 eager
@@ -272,6 +286,7 @@ beside it, it exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -529,6 +544,22 @@ PIPE_STAGES, PIPE_MICRO, PIPE_MB = 4, 8, 4
 # LAUNCHES_PER_CALL) and 8 in the apps sweep, cmerge 520 in the blocked
 # stores' ticks
 LINT_LAUNCHES = {"cscatter": 48, "cmerge": 520}
+
+# The store and the apps over a process group (phase_mesh), one process a
+# shard, the serving geometry and stream of phase_stores. Run (a): S
+# processes on gloo sharing the one card (their exchanges and gathers staged
+# through pinned host buffers), the stores MESH_STORES and BFS at
+# phase_apps' graph. Run (b), only on a host with 2 or more cards: the
+# privatized store on NCCL, one card a process, S the card count rounded
+# down to a power of two (at most 8). The prediction, written before the
+# first run on the card: each process launches for its own [1, ...] slice
+# what the stacked store launches for all of them, so per process the
+# one-device counts: cscatter TICKS calls (privatized), TICKS // K + 1
+# (partitioned overlapped: the commits' ring scatters and the flush's), 0
+# (blocked); cmerge BLOCKED_TICKS * B + BLOCKED_TICKS // K + 1 (blocked: one
+# an access, one a flush); BFS one cscatter call a superstep
+MESH_STORES = ("privatized_k8", "partitioned_overlap_k8", "blocked_k8")
+MESH_TIMEOUT = 240                  # seconds, every process of a spawn
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1058,6 +1089,13 @@ def phase_cmerge_times() -> list[dict]:
     return out
 
 
+def _sha(table: np.ndarray) -> str:
+    """The SHA-256 of a table's bytes: two tables are bitwise equal when
+    their digests are."""
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(table).tobytes()).hexdigest()
+
+
 def _oracle(keys: np.ndarray, vals: np.ndarray) -> np.ndarray:
     """The serial replay of a stream in int64; padding keys (< 0) drop."""
     ref = np.zeros((R, D), np.int64)
@@ -1092,7 +1130,7 @@ def phase_stores(keys: np.ndarray, vals: np.ndarray) -> dict:
     }
     keys_dev = torch.as_tensor(keys, device="cuda")
     vals_dev = torch.as_tensor(vals, device="cuda")
-    launches = 0
+    launches, seen = 0, {}
     for name, (make, calls) in stores.items():
         predicted = calls * LAUNCHES_PER_CALL
         kv = make()
@@ -1118,10 +1156,13 @@ def phase_stores(keys: np.ndarray, vals: np.ndarray) -> dict:
         launches += n
         require(n == predicted, f"{name}: cscatter launched {n} times, the "
                                 f"schedule predicts {predicted}")
-        got = kv.table().astype(np.int64)
+        table = kv.table()
+        got = table.astype(np.int64)
         require(np.array_equal(got, want),
                 f"{name}: flushed table differs from the numpy oracle")
         ups = S * B * TICKS / wall
+        seen[name] = {"ups": ups, "sha": _sha(table),
+                      "rsb": kv.resident_state_bytes()}
         print(f"store {name}: table == oracle bitwise; cscatter launches "
               f"{n} (predicted {predicted}); {ups:.1f} updates/s over "
               f"{TICKS} ticks ({wall:.6f} s); resident_state_bytes "
@@ -1134,7 +1175,7 @@ def phase_stores(keys: np.ndarray, vals: np.ndarray) -> dict:
               f"{max(tick_ms):.6f} ms at tick {tick_ms.index(max(tick_ms))})")
         del kv
         torch.cuda.empty_cache()
-    return {"launches": launches}
+    return {"launches": launches, "stores": seen}
 
 
 def _drive(kv, keys, vals) -> float:
@@ -1491,6 +1532,7 @@ def phase_blocked_stores(keys: np.ndarray, vals: np.ndarray) -> dict:
     keys_dev = torch.as_tensor(keys, device="cuda")
     vals_dev = torch.as_tensor(vals, device="cuda")
     launches = {"cmerge": 0, "cscatter": 0}
+    seen = {}
     for name, (cfg, predicted, slots) in stores.items():
         kv = ShardedKV(cfg, S, commit_every=K)
         marks = [torch.cuda.Event(enable_timing=True)
@@ -1515,7 +1557,8 @@ def phase_blocked_stores(keys: np.ndarray, vals: np.ndarray) -> dict:
                                 f"schedule predicts {predicted}")
         require(n_scatter == 0, f"{name}: cscatter launched {n_scatter} "
                                 f"times, the blocked path predicts 0")
-        got = kv.table().astype(np.int64)
+        table = kv.table()
+        got = table.astype(np.int64)
         require(np.array_equal(got, want),
                 f"{name}: flushed table differs from the numpy oracle")
         model = lru_model(keys, slots)
@@ -1523,6 +1566,8 @@ def phase_blocked_stores(keys: np.ndarray, vals: np.ndarray) -> dict:
         require(counters == model, f"{name}: counters {counters} != the LRU "
                                    f"model's {model}")
         ups = S * B * BLOCKED_TICKS / wall
+        seen[name] = {"ups": ups, "sha": _sha(table), "counters": model,
+                      "rsb": kv.resident_state_bytes()}
         print(f"store {name}: table == oracle bitwise; counters == LRU model "
               f"{counters}; cmerge launches {n} (predicted {predicted}); "
               f"{ups:.1f} updates/s over {BLOCKED_TICKS} ticks "
@@ -1536,7 +1581,7 @@ def phase_blocked_stores(keys: np.ndarray, vals: np.ndarray) -> dict:
               f"{max(tick_ms):.6f} ms at tick {tick_ms.index(max(tick_ms))})")
         del kv
         torch.cuda.empty_cache()
-    return launches
+    return {**launches, "stores": seen}
 
 
 def _attn_rand(g, dtype, *shapes):
@@ -5664,6 +5709,421 @@ def phase_dryrun(card: str) -> dict:
     return out
 
 
+def mesh_predicted(name: str) -> dict:
+    """Each process's launches for one of MESH_STORES (the prediction
+    above MESH_STORES)."""
+    from repro_torch.kernels.cscatter import LAUNCHES_PER_CALL
+    calls = {"privatized_k8": TICKS, "partitioned_overlap_k8": TICKS // K + 1,
+             "blocked_k8": 0}[name]
+    merges = (BLOCKED_TICKS * B + BLOCKED_TICKS // K + 1
+              if name == "blocked_k8" else 0)
+    return {"cscatter": calls * LAUNCHES_PER_CALL, "cmerge": merges}
+
+
+def _mesh_store(name: str, s: int, spmd):
+    """One of MESH_STORES over ``s`` shards on the executor ``spmd``."""
+    from repro_torch.core.defer_schedule import DeferSchedule
+    from repro_torch.core.merge_functions import ADD
+    from repro_torch.core.merge_plan import compile_plan
+    from repro_torch.serve import KVConfig, ShardedKV, serving_plan
+    if name == "privatized_k8":
+        return ShardedKV(KVConfig(n_keys=R, cols=D), s, spmd=spmd,
+                         commit_every=K)
+    if name == "partitioned_overlap_k8":
+        names = tuple(st.name for st in compile_plan(
+            serving_plan(s), s, merge_fn=ADD) if st.defer)
+        return ShardedKV(KVConfig(n_keys=R, cols=D, partitioned=True), s,
+                         spmd=spmd,
+                         schedule=DeferSchedule.fixed(K, names, overlap=True))
+    return ShardedKV(KVConfig(n_keys=R, cols=D, engine="blocked", ways=WAYS,
+                              block_rows=BR), s, spmd=spmd, commit_every=K)
+
+
+class _ExchangeClock:
+    """A listener that sums the host-clock seconds of the merge's
+    collectives, the card synchronized at both ends of each."""
+
+    def __init__(self):
+        self.seconds, self.calls, self._t0 = 0.0, 0, 0.0
+
+    def __call__(self, event: str, *args) -> None:
+        import torch
+        if event == "collective":
+            torch.cuda.synchronize()
+            self._t0 = time.perf_counter()
+        elif event == "collective_end":
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - self._t0
+            self.calls += 1
+
+
+def mesh_worker(backend: str, rank: int, world: int, work: str) -> None:
+    """One process of phase_mesh's spawn: one shard of each store of the
+    run's ``meta.json`` on its card, over the group's ``backend``; then
+    (run (a)) BFS at phase_apps' graph once the parent has written it.
+    Writes ``rank{r}.json``: each store's launches, flushed table digest,
+    rate, tick times, footprint and counters, the commit tick's recorded
+    walk, the exchange share, BFS's result."""
+    import torch
+    from repro_torch import hooks
+    from repro_torch.analysis.placement import walk_of
+    from repro_torch.analysis.trace import record
+    from repro_torch.apps import run_bfs
+    from repro_torch.apps.bfs import INF
+    from repro_torch.apps.common import default_plan
+    from repro_torch.apps.sharded import mesh_spmd
+    from repro_torch.core import ccache
+    from repro_torch.core.merge_functions import ADD
+    from repro_torch.launch import mesh as pmesh
+    from repro_torch.serve import serving_plan
+
+    t_start = time.perf_counter()
+    work = Path(work)
+    mesh = pmesh.init_shards(backend, "cuda",
+                             init_method=f"file://{work / 'init'}",
+                             rank=rank, world_size=world)
+    spmd = mesh_spmd(mesh)
+    meta = json.loads((work / "meta.json").read_text())
+    data = np.load(work / "stream.npz")
+    keys, vals = data["keys"], data["vals"]
+    keys_dev = torch.as_tensor(keys, device=spmd.device)
+    vals_dev = torch.as_tensor(vals, device=spmd.device)
+    # the plan's process groups are made at their first use, by every
+    # process: made here, on a small payload, outside the timed runs
+    ccache.hierarchical_merge(
+        torch.ones((1, 8, D), dtype=torch.int32, device=spmd.device),
+        spmd.axis, ADD, serving_plan(world))
+    spmd.barrier()
+    out = {"rank": rank, "device": str(spmd.device),
+           "backend": spmd.backend, "init_s": time.perf_counter() - t_start,
+           "stores": {}, "total": dict.fromkeys(_counts(), 0)}
+
+    def counted() -> dict:
+        """The launches since the last zeroing, added to the total."""
+        got = _counts()
+        for k, v in got.items():
+            out["total"][k] += v
+        return got
+
+    def drive(kv, ticks: int, walk_at=None, clock=None) -> dict:
+        """``ticks`` ticks of the stream, timed, then the flush; the
+        commit tick ``walk_at`` recorded; ``clock`` hears the ticks'
+        collectives (not the flush's)."""
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(ticks + 1)]
+        torch.cuda.synchronize()
+        spmd.barrier()
+        _zero_counts()
+        calls = None
+        t0 = time.perf_counter()
+        marks[0].record()
+        with (hooks.listening(clock) if clock is not None
+              else contextlib.nullcontext()):
+            for t in range(ticks):
+                if t == walk_at:
+                    _, calls = record(kv.tick, keys_dev[t], vals_dev[t])
+                else:
+                    kv.tick(keys_dev[t], vals_dev[t])
+                marks[t + 1].record()
+        torch.cuda.synchronize()
+        spmd.barrier()
+        wall = time.perf_counter() - t0
+        kv.flush()
+        torch.cuda.synchronize()
+        got = counted()
+        res = {"launches": {k: got[k] for k in ("cscatter", "cmerge")},
+               "wall": wall, "ups": world * B * ticks / wall,
+               "tick_ms": [a.elapsed_time(b)
+                           for a, b in zip(marks, marks[1:])]}
+        if calls is not None:
+            res["walk"] = walk_of(calls, [lv.size for lv in kv.plan.levels]
+                                  )["wire_bytes_by_level_total"]
+        return res
+
+    for name in meta["stores"]:
+        kv = _mesh_store(name, world, spmd)
+        ticks = BLOCKED_TICKS if name == "blocked_k8" else TICKS
+        res = drive(kv, ticks, walk_at=K - 1 if name == "privatized_k8"
+                    else None)
+        table = kv.table()
+        res.update(sha=_sha(table), rsb=kv.resident_state_bytes(),
+                   counters={k: v for k, v in kv.counters().items()
+                             if k != "schedule"})
+        if rank == 0:
+            res["oracle"] = bool(np.array_equal(
+                table.astype(np.int64), _oracle(keys[:ticks], vals[:ticks])))
+        out["stores"][name] = res
+        print(f"rank {rank}: {name} {res['wall']:.3f} s", flush=True)
+        del kv, table
+        torch.cuda.empty_cache()
+
+    # the share of the privatized store's ticks in the merge's collectives,
+    # from a second run with each exchange timed
+    clock = _ExchangeClock()
+    kv = _mesh_store("privatized_k8", world, spmd)
+    res = drive(kv, TICKS, clock=clock)
+    out["exchange"] = {"seconds": clock.seconds, "calls": clock.calls,
+                       "wall": res["wall"],
+                       "share": clock.seconds / res["wall"],
+                       "launches": res["launches"]}
+    del kv
+    torch.cuda.empty_cache()
+
+    if meta.get("bfs"):
+        ready = work / "graph.ready"
+        deadline = time.monotonic() + MESH_TIMEOUT
+        while not ready.exists():
+            require(time.monotonic() < deadline, "the graph never came")
+            time.sleep(0.1)
+        g = json.loads(ready.read_text())
+        src = np.load(work / "src_sh.npy", mmap_mode="c")
+        dst = np.load(work / "dst_sh.npy", mmap_mode="c")
+        dist0 = np.full((world, g["n"]), INF, np.int32)
+        dist0[:, g["root"]] = 0
+        steps = g["depth"] + 1
+        torch.cuda.synchronize()
+        spmd.barrier()
+        _zero_counts()
+        t0 = time.perf_counter()
+        dist = run_bfs(dist0, src, dst, default_plan(world),
+                       supersteps=steps, spmd=spmd)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = counted()
+        want = torch.as_tensor(np.load(work / "bfs_want.npy"),
+                               device=dist.device)
+        out["bfs"] = {"supersteps": steps, "s": secs,
+                      "launches": got["cscatter"],
+                      "bitwise": bool((dist == want).all()),
+                      "sha": _sha(dist.cpu().numpy())}
+    (work / f"rank{rank}.json").write_text(json.dumps(out))
+    spmd.barrier()
+    pmesh.shutdown()
+
+
+def _mesh_run(backend: str, world: int, work: Path, during=None):
+    """Run ``world`` processes of this script (``--mesh-worker``) and
+    return every worker's results, with the value of ``during()``, which
+    runs here while they do. A worker that fails or outlives MESH_TIMEOUT
+    fails the phase with its log's tail (the others are stopped)."""
+    from repro_torch.launch.mesh import spawn_shards
+    got = spawn_shards(
+        lambda r: [sys.executable, str(ROOT / "chip_smoke.py"),
+                   "--mesh-worker", backend, str(r), str(world), str(work)],
+        world, work, MESH_TIMEOUT, during=during)
+    return [json.loads((work / f"rank{r}.json").read_text())
+            for r in range(world)], got
+
+
+def numpy_bfs(src: np.ndarray, dst: np.ndarray, n: int,
+              root: int) -> np.ndarray:
+    """Level-synchronous BFS in numpy over the directed edges (src, dst):
+    int32 distances, INT32_MAX where unreachable."""
+    inf = np.iinfo(np.int32).max
+    order = np.argsort(src, kind="stable")
+    nbr = dst[order]
+    starts = np.concatenate([[0], np.cumsum(np.bincount(src, minlength=n))])
+    dist = np.full(n, inf, np.int32)
+    dist[root] = 0
+    frontier, level = np.array([root]), 0
+    while frontier.size:
+        level += 1
+        lo, cnt = starts[frontier], starts[frontier + 1] - starts[frontier]
+        idx = np.repeat(lo - np.cumsum(cnt) + cnt, cnt) + np.arange(cnt.sum())
+        cand = np.unique(nbr[idx])
+        frontier = cand[dist[cand] == inf]
+        dist[frontier] = level
+    return dist
+
+
+def _mesh_graph(work: Path) -> dict:
+    """phase_apps' graph (Kronecker SCALE 20, edgefactor 16, its root),
+    sharded over S for the workers, and its numpy BFS, written under
+    ``work``; ``graph.ready`` last."""
+    from repro_torch.apps.common import shard_edges
+    t0 = time.perf_counter()
+    n = 1 << GRAPH_SCALE
+    src_t, dst_t = kronecker_edges(GRAPH_SCALE, EDGEFACTOR, SEED)
+    src, dst = src_t.cpu().numpy(), dst_t.cpu().numpy()
+    del src_t, dst_t
+    deg = np.bincount(src, minlength=n)
+    root = int(np.random.default_rng(SEED).choice(np.flatnonzero(deg)))
+    want = numpy_bfs(src, dst, n, root)
+    depth = int(want[want < np.iinfo(np.int32).max].max())
+    for name, x in zip(("src_sh", "dst_sh"), shard_edges(src, dst, S)):
+        np.save(work / f"{name}.npy", x)
+    np.save(work / "bfs_want.npy", want)
+    g = {"n": n, "root": root, "depth": depth, "edges": int(len(src)),
+         "s": time.perf_counter() - t0}
+    (work / "graph.ready").write_text(json.dumps(g))
+    return g
+
+
+def _mesh_check(label: str, ranks: list, backend: str, world: int,
+                stacked: dict, smi: str) -> dict:
+    """Hold every process of a run to the checks and print the run."""
+    from repro_torch.core.merge_functions import ADD
+    from repro_torch.launch.wire_cost import wire_bytes_by_level
+    from repro_torch.serve import serving_plan
+    for res in ranks:
+        require(res["backend"] == backend,
+                f"{label}: rank {res['rank']} ran on {res['backend']}")
+    want_walk = wire_bytes_by_level(serving_plan(world), world, (R, D), 4,
+                                    ADD)
+    rows = {}
+    for name, ref in stacked.items():
+        got = [res["stores"][name] for res in ranks]
+        predicted = mesh_predicted(name)
+        for r, g in enumerate(got):
+            require(g["launches"] == predicted,
+                    f"{label} {name}: rank {r} launched {g['launches']}, "
+                    f"the prediction is {predicted}")
+            require(g["sha"] == ref["sha"],
+                    f"{label} {name}: rank {r}'s flushed table differs from "
+                    f"the stacked store's")
+            require(g["rsb"] == ref["rsb"],
+                    f"{label} {name}: rank {r}'s resident_state_bytes "
+                    f"{g['rsb']} != the stacked store's {ref['rsb']}")
+            if "counters" in ref:
+                c = {k: v for k, v in g["counters"].items()
+                     if k in ref["counters"]}
+                require(c == ref["counters"],
+                        f"{label} {name}: rank {r}'s counters {c} != the "
+                        f"LRU model's {ref['counters']}")
+            if "walk" in g:
+                require(g["walk"] == want_walk,
+                        f"{label} {name}: rank {r}'s commit tick walked "
+                        f"{g['walk']}, wire_cost says {want_walk}")
+        require(got[0]["oracle"], f"{label} {name}: the flushed table "
+                                  f"differs from the numpy oracle")
+        tick_ms = got[0]["tick_ms"]
+        commit = [t for t in range(len(tick_ms)) if (t + 1) % K == 0]
+        rows[name] = {"ups": got[0]["ups"], "wall": got[0]["wall"],
+                      "stacked_ups": ref["ups"],
+                      "launches": got[0]["launches"],
+                      "commit_ms": sum(tick_ms[t] for t in commit),
+                      "other_ms": sum(tick_ms) - sum(tick_ms[t]
+                                                     for t in commit),
+                      "median_tick_ms": statistics.median(tick_ms),
+                      "rsb": got[0]["rsb"]}
+        print(f"mesh {label} {name}: table == oracle == the stacked store's "
+              f"bitwise on all {world} processes; launches "
+              f"{got[0]['launches']} a process (predicted {predicted}); "
+              f"{got[0]['ups']:.1f} updates/s over {len(tick_ms)} ticks "
+              f"({got[0]['wall']:.6f} s; stacked on one card "
+              f"{ref['ups']:.1f}); commit ticks {commit} take "
+              f"{rows[name]['commit_ms']:.6f} ms, the other "
+              f"{len(tick_ms) - len(commit)} {rows[name]['other_ms']:.6f} "
+              f"ms (median {rows[name]['median_tick_ms']:.6f} ms); "
+              f"resident_state_bytes {got[0]['rsb']} per shard (= stacked)"
+              + ("; counters == LRU model" if "counters" in ref else "")
+              + ("; commit tick walk == wire_cost "
+                 f"{want_walk} on every process" if "walk" in got[0]
+                 else ""))
+    ex = ranks[0]["exchange"]
+    print(f"mesh {label} exchange: privatized_k8's {TICKS} ticks "
+          f"again with each of their {ex['calls']} collectives timed (card "
+          f"synchronized at both ends): {ex['seconds']:.6f} s of "
+          f"{ex['wall']:.6f} s, share {ex['share']:.6f} (rank 0); {smi}")
+    return {"backend": backend, "processes": world, "stores": rows,
+            "exchange": ex, "init_s": max(r["init_s"] for r in ranks)}
+
+
+def phase_mesh(smi: str, stores: dict) -> dict:
+    """The KV store and BFS over a process group, one process a shard
+    (run (a): gloo, S processes sharing the card; run (b): NCCL, one card
+    a process, where there are 2 or more cards), each process's tables,
+    counters, launches and commit walk held to the stacked stores of
+    ``stores`` (phase_stores' and phase_blocked_stores', by table digest),
+    the numpy oracle, the LRU model, the prediction and ``wire_cost``;
+    BFS bitwise against a numpy BFS. Every process is handed the whole
+    stream and takes its row. Returns each run's numbers and the launches
+    of run (a)'s rank 0."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    stream, vals = main_stream()
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_mesh_") as tmp:
+        work = Path(tmp) / "a"
+        work.mkdir()
+        np.savez(work / "stream.npz", keys=stream.reshape(TICKS, S, B),
+                 vals=vals)
+        (work / "meta.json").write_text(json.dumps(
+            {"stores": MESH_STORES, "bfs": True}))
+        ranks, graph = _mesh_run("gloo", S, work,
+                                 during=lambda: _mesh_graph(work))
+        print(f"mesh (a): gloo, {S} processes sharing {smi}; spawned and "
+              f"joined in {max(r['init_s'] for r in ranks):.3f} s; graph "
+              f"and numpy BFS in {graph['s']:.3f} s (root {graph['root']}, "
+              f"depth {graph['depth']})")
+        out["a"] = _mesh_check("(a)", ranks, "gloo", S,
+                               {k: stores[k] for k in MESH_STORES}, smi)
+        bfs = [r["bfs"] for r in ranks]
+        from repro_torch.kernels.cscatter import LAUNCHES_PER_CALL
+        predicted = LAUNCHES_PER_CALL * (graph["depth"] + 1)
+        for r, b in enumerate(bfs):
+            require(b["bitwise"], f"mesh (a) bfs: rank {r}'s distances "
+                                  f"differ from the numpy BFS")
+            require(b["launches"] == predicted,
+                    f"mesh (a) bfs: rank {r} launched {b['launches']}, "
+                    f"the prediction is {predicted}")
+        print(f"mesh (a) bfs: {bfs[0]['supersteps']} supersteps, every "
+              f"shard of every process == numpy BFS bitwise; cscatter "
+              f"launches {bfs[0]['launches']} a process (predicted "
+              f"{predicted}); {bfs[0]['s']:.6f} s, "
+              f"{graph['edges'] // 2 / bfs[0]['s']:.1f} input edges/s")
+        out["a"]["bfs"] = bfs[0]
+        # rank 0's launches of every kernel over run (a): the stores, the
+        # exchange-timing run and BFS
+        out["launches"] = ranks[0]["total"]
+        for name in ("flash_attention", "decode_attention", "selective_scan"):
+            require(ranks[0]["total"][name] == 0,
+                    f"mesh (a) launched {name}, which is not on its path")
+        cards = torch.cuda.device_count()
+        if cards < 2:
+            print(f"mesh (b): NCCL not run: this host has {cards} card; "
+                  f"NCCL takes one card a process and a mesh needs 2")
+            out["b"] = {"ran": False, "cards": cards}
+            return out
+        world = 1 << (min(cards, 8).bit_length() - 1)
+        keys_b = stream[:TICKS * world * B].reshape(TICKS, world, B)
+        vals_b = np.ascontiguousarray(vals[:, :world])
+        stacked_b = _stacked_privatized(keys_b, vals_b, world)
+        work = Path(tmp) / "b"
+        work.mkdir()
+        np.savez(work / "stream.npz", keys=keys_b, vals=vals_b)
+        (work / "meta.json").write_text(json.dumps(
+            {"stores": ["privatized_k8"], "bfs": False}))
+        ranks, _ = _mesh_run("nccl", world, work)
+        devices = sorted(r["device"] for r in ranks)
+        require(devices == [f"cuda:{i}" for i in range(world)],
+                f"mesh (b): the processes ran on {devices}")
+        print(f"mesh (b): nccl, {world} processes on {world} cards")
+        out["b"] = _mesh_check("(b)", ranks, "nccl", world,
+                               {"privatized_k8": stacked_b}, smi)
+    return out
+
+
+def _stacked_privatized(keys: np.ndarray, vals: np.ndarray,
+                        world: int) -> dict:
+    """The stacked privatized K = 8 store over ``world`` shards of the
+    stream: its rate, flushed table digest and footprint (the table held
+    to the oracle)."""
+    import torch
+    from repro_torch.serve import KVConfig, ShardedKV
+    kv = ShardedKV(KVConfig(n_keys=R, cols=D), world, commit_every=K)
+    wall = _drive(kv, torch.as_tensor(keys, device="cuda"),
+                  torch.as_tensor(vals, device="cuda"))
+    kv.flush()
+    table = kv.table()
+    require(np.array_equal(table.astype(np.int64), _oracle(keys, vals)),
+            f"stacked privatized store over {world} shards differs from "
+            f"the numpy oracle")
+    return {"ups": world * B * TICKS / wall, "sha": _sha(table),
+            "rsb": kv.resident_state_bytes()}
+
+
 def main_stream() -> tuple[np.ndarray, np.ndarray]:
     """The main path's stream from the seed: ``TICKS * S * B`` Pareto keys
     (flat) and their values ``[TICKS, S, B, D]``."""
@@ -5689,6 +6149,11 @@ def main() -> None:
     if sys.argv[1:2] == ["--train-crash-child"]:    # phase_elastic's child
         sys.path.insert(0, str(ROOT / "src"))
         train_crash_child(sys.argv[2])
+    if sys.argv[1:2] == ["--mesh-worker"]:          # phase_mesh's processes
+        sys.path.insert(0, str(ROOT / "src"))
+        mesh_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
+                    sys.argv[5])
+        return
     kind, smi = phase_card()
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -5711,6 +6176,8 @@ def main() -> None:
     scan_rows = timed("scan", phase_scan)
     serve = timed("serve", phase_serve, smi)
     apps = timed("apps", phase_apps, smi)
+    mesh = timed("mesh", phase_mesh, smi, {**main_path["stores"],
+                                           **blocked_path["stores"]})
     trained = timed("train", phase_train, smi)
     elastic = timed("elastic", phase_elastic, smi)
     families = timed("families", phase_families, smi)
@@ -5729,6 +6196,7 @@ def main() -> None:
         "source": "src/repro_torch/csrc/cscatter.cu",
         "replaces": REPLACES,
         "launches": main_path["launches"],
+        "launches_mesh": mesh["launches"]["cscatter"],
         "max_abs_err": worst["int"],
         "max_abs_err_float": worst["float"],
         "matched": True,
@@ -5766,6 +6234,7 @@ def main() -> None:
         "source": "src/repro_torch/csrc/cmerge.cu",
         "replaces": REPLACES_CMERGE,
         "launches": blocked_path["cmerge"],
+        "launches_mesh": mesh["launches"]["cmerge"],
         "launches_lint": lint["launches"]["cmerge"],
         "launches_dryrun": _dry_launches(dry, "cmerge"),
         "launches_dryrun_other": {
@@ -5787,6 +6256,7 @@ def main() -> None:
         "source": f"src/repro_torch/csrc/{name}.cu",
         "replaces": replaces,
         "launches": serve["launches"][name],
+        "launches_mesh": mesh["launches"][name],
         "launches_families": {k: families[k]["launches"][name]
                               for k in ("hymba", "gelu")},
         "launches_encdec": families["encdec"]["launches"][name],
@@ -5824,6 +6294,7 @@ def main() -> None:
         "source": "src/repro_torch/csrc/selective_scan.cu",
         "replaces": REPLACES_SCAN, "pallas_original": False,
         "launches": families["hymba"]["launches"]["selective_scan"],
+        "launches_mesh": mesh["launches"]["selective_scan"],
         "launches_by_path": {
             "hymba_prefill": families["hymba"]["launches"]["selective_scan"],
             **{f"hymba_train_{k}": v for k, v in
@@ -5848,7 +6319,7 @@ def main() -> None:
         "variants": [{k: v for k, v in r.items() if k != "ptxas"}
                      for r in scan_rows]}], "serve": serve,
         "apps": {k: v for k, v in apps.items() if k != "kernel_rows"},
-        "schedules": schedules, "durability": durability,
+        "schedules": schedules, "durability": durability, "mesh": mesh,
         "train": trained, "elastic": elastic, "pipeline": pipeline,
         "lint": lint, "dryrun": dry,
         "families": {k: {x: y for x, y in v.items() if x != "profile"}

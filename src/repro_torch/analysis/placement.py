@@ -54,7 +54,7 @@ from torch.utils import _pytree as pytree
 from repro_torch import hooks
 from repro_torch.analysis.diagnostics import Diagnostic
 from repro_torch.analysis.trace import CollectiveCall, _Taint, clone_tree
-from repro_torch.core.stacked import stacked_spmd
+from repro_torch.core.stacked import StackedSPMD
 from repro_torch.launch import wire_cost
 
 _KIND = {"ppermute": "collective-permute", "psum": "all-reduce",
@@ -317,7 +317,7 @@ class _CopyWatch(_Taint):
 
 def check_donation(fn: Callable, args: Sequence, donate: Sequence[int],
                    site: str) -> list[Diagnostic]:
-    """CC022: run ``fn`` on a copy of ``args`` through ``stacked_spmd``
+    """CC022: run ``fn`` on a copy of ``args`` through ``StackedSPMD``
     with ``donate``; no donated tensor may be copied whole on the way.
     Reports the flat argument leaf numbers that were, with the copying
     op."""
@@ -329,9 +329,11 @@ def check_donation(fn: Callable, args: Sequence, donate: Sequence[int],
             if i in donate and isinstance(leaf, torch.Tensor):
                 donated.append((n, leaf))
             n += 1
+    lead = _leaves(args)[0]
+    spmd = StackedSPMD(lead.shape[0], lead.device)
     watch = _CopyWatch(donated)
     with hooks.listening(watch.on), watch:
-        stacked_spmd(fn, *args, donate=tuple(donate))
+        spmd(fn, *args, donate=tuple(donate))
     if not watch.copies:
         return []
     return [Diagnostic(

@@ -9,7 +9,11 @@ it does:
 * :class:`CollectiveRecorder` / :func:`check_noncommit_region` — every
   ``StackedAxis.ppermute/psum/pmax/pmin`` call, with its kind, group,
   permutation and bytes a rank, heard as ``"collective"`` events
-  (``repro_torch/hooks.py``); any call
+  (``repro_torch/hooks.py``); a ``MeshAxis`` tells the same events in each
+  process, so a store's tick on a mesh of processes records, in every
+  process, the stacked store's walk (the rank-isolation probe and the
+  taint check below stay on the stacked layout, every rank in one
+  process); any call
   inside a non-commit region is CC010 (the recorded walk of
   ``analysis/placement.py`` is built from the same calls);
 * :func:`out_deps` / :func:`check_kv_tick_taint` — input -> output

@@ -1,11 +1,13 @@
-"""The paper's applications as sharded MergePlan programs on the stacked
-layout.
+"""The paper's applications as sharded MergePlan programs, on the stacked
+executor (every shard on one device) or on a mesh of processes, one a
+shard (``spmd=``: ``sharded.mesh_spmd``).
 
 BFS (MIN merge), PageRank (ADD merge with deferred commits across
 supersteps), and k-means (a defer/overlap client) — each a scatter phase
-for all shards at once (the CUDA ``cscatter`` kernel on the card, its plain
-version on the CPU) followed by a cross-shard merge through the
-hierarchical engine. ``sharded.run_app`` runs one against its reference.
+for the executor's shards at once (the CUDA ``cscatter`` kernel on the
+card, its plain version on the CPU) followed by a cross-shard merge through
+the hierarchical engine. ``sharded.run_app`` runs one against its
+reference.
 """
 
 from repro_torch.apps.common import default_plan, scatter  # noqa: F401

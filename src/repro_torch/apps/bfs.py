@@ -10,9 +10,11 @@ commute under ``min``, and a superstep is one privatize-and-merge round:
 
 On the stacked layout ``dist`` is ``[S, n]``, the edges ``[S, E/S]``, and a
 superstep's scatter is one ``cscatter`` call for all shards, into an
-``[S, n, 1]`` table. The MIN algebra is idempotent, so the top plan level
-may be ``:defer``-ed (commits every K supersteps; a deferred commit settles
-by *re-apply* — re-joining already-seen candidates is harmless). Distances
+``[S, n, 1]`` table; on a mesh executor each process holds its ``[1, ...]``
+rows and scatters into its own ``[1, n, 1]`` table. The MIN algebra is
+idempotent, so the top plan level may be ``:defer``-ed (commits every K
+supersteps; a deferred commit settles by *re-apply* — re-joining
+already-seen candidates is harmless). Distances
 converge to the same fixpoint in more supersteps, bitwise equal to the
 single-device reference (integer distances, lattice join).
 """
@@ -25,7 +27,7 @@ import torch
 from repro_torch.apps.common import scatter
 from repro_torch.core import ccache
 from repro_torch.core.merge_functions import MIN
-from repro_torch.core.stacked import StackedAxis, stacked_spmd
+from repro_torch.core.stacked import StackedSPMD
 
 INF = torch.iinfo(torch.int32).max
 
@@ -49,11 +51,12 @@ def bfs_reference(n: int, src, dst, source: int) -> np.ndarray:
 
 def bfs_superstep(dist: torch.Tensor, src_ids: torch.Tensor,
                   dst_ids: torch.Tensor) -> torch.Tensor:
-    """Every shard's scatter phase: propose dist[src]+1 to every dst.
+    """Every local shard's scatter phase: propose dist[src]+1 to every dst.
 
-    ``dist [S, n]`` int32, ``src_ids``/``dst_ids [S, E]`` int32. Returns
-    each shard's candidate table ``[S, n]`` (MIN identity where no edge
-    lands). Padded edges (id -1) are dropped by the scatter."""
+    ``dist [s, n]`` int32, ``src_ids``/``dst_ids [s, E]`` int32 (``s`` the
+    executor's local rows). Returns each shard's candidate table ``[s, n]``
+    (MIN identity where no edge lands). Padded edges (id -1) are dropped by
+    the scatter."""
     s, n = dist.shape
     ok = src_ids >= 0
     d_src = dist.gather(1, torch.where(ok, src_ids, 0).long())
@@ -65,22 +68,29 @@ def bfs_superstep(dist: torch.Tensor, src_ids: torch.Tensor,
 
 
 def run_bfs(dist0: torch.Tensor, src_sh: torch.Tensor, dst_sh: torch.Tensor,
-            plan, *, supersteps: int,
-            defer_k: int | None = None) -> torch.Tensor:
-    """Drive BFS supersteps over sharded edges on their device.
+            plan, *, supersteps: int, defer_k: int | None = None,
+            spmd=None) -> torch.Tensor:
+    """Drive BFS supersteps over sharded edges on the executor ``spmd``
+    (the stacked one on the edges' device by default; a mesh executor,
+    one process a shard, as JAX's apps take ``spmd``).
 
     ``dist0 [S, n]`` and ``src_sh``/``dst_sh [S, E]`` are shard-major,
-    int32; each superstep runs under ``stacked_spmd`` with the distances
-    (and the pending) donated. ``defer_k`` routes the plan's deferred
-    levels through a pending committed every ``defer_k`` supersteps; the
-    trailing partial cycle is flushed after the loop. Returns the final
-    shard-major distances (``dist0`` is left as it was).
+    int32 (tensors or numpy arrays), every process handed all of them
+    (each takes its rows); each
+    superstep runs under the executor with the distances (and the pending)
+    donated. ``defer_k`` routes the plan's deferred levels through a
+    pending committed every ``defer_k`` supersteps; the trailing partial
+    cycle is flushed after the loop. Returns the final shard-major
+    distances ``[S, n]``, gathered on a mesh (``dist0`` is left as it was).
     """
-    axis = StackedAxis(dist0.shape[0], dist0.device)
+    spmd = spmd or StackedSPMD(dist0.shape[0], dist0.device)
+    axis = spmd.axis
     n_def = len(ccache.deferred_stages_of(plan, axis.size, merge_fn=MIN))
     if defer_k is not None and n_def == 0:
         raise ValueError("defer_k given but the plan has no deferred levels")
-    dist = dist0.clone()
+    dist, src_sh, dst_sh = (torch.as_tensor(spmd.local(x), device=spmd.device)
+                            for x in (dist0, src_sh, dst_sh))
+    dist = dist.clone()
 
     if defer_k is None:
         def step(dist, src_ids, dst_ids):
@@ -89,8 +99,8 @@ def run_bfs(dist0: torch.Tensor, src_sh: torch.Tensor, dst_sh: torch.Tensor,
             return torch.minimum(dist, merged, out=dist)
 
         for _ in range(supersteps):
-            dist = stacked_spmd(step, dist, src_sh, dst_sh, donate=(0,))
-        return dist
+            dist = spmd(step, dist, src_sh, dst_sh, donate=(0,))
+        return spmd.gather(dist)
 
     # Idempotent merge-on-evict: each superstep's eager-scope join is
     # consumed at once (the frontier keeps advancing within the pod) AND
@@ -112,13 +122,13 @@ def run_bfs(dist0: torch.Tensor, src_sh: torch.Tensor, dst_sh: torch.Tensor,
         return step
 
     steps = {False: make_step(False), True: make_step(True)}
-    pending = torch.full_like(dist0, INF)
+    pending = torch.full_like(dist, INF)
     for t in range(1, supersteps + 1):
-        dist, pending = stacked_spmd(steps[t % defer_k == 0], dist, pending,
-                                     src_sh, dst_sh, donate=(0, 1))
+        dist, pending = spmd(steps[t % defer_k == 0], dist, pending,
+                             src_sh, dst_sh, donate=(0, 1))
     if supersteps % defer_k != 0:
         def flush(dist, pending):
             settled = ccache.settle_deferred(pending, axis, MIN, plan)
             return torch.minimum(dist, settled, out=dist)
-        dist = stacked_spmd(flush, dist, pending, donate=(0, 1))
-    return dist
+        dist = spmd(flush, dist, pending, donate=(0, 1))
+    return spmd.gather(dist)

@@ -25,7 +25,7 @@ import torch
 from repro_torch.apps.common import scatter
 from repro_torch.core import ccache
 from repro_torch.core.merge_functions import ADD
-from repro_torch.core.stacked import StackedAxis, stacked_spmd
+from repro_torch.core.stacked import StackedSPMD
 
 
 def _assign(points: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
@@ -103,11 +103,14 @@ def kmeans_reference(points_by_step, centroids0, *, commit_k: int,
 
 
 def run_kmeans(points_sh: torch.Tensor, centroids0: torch.Tensor, plan, *,
-               commit_k: int, overlap: bool = False) -> torch.Tensor:
-    """Drive sharded minibatch k-means on the points' device; returns
-    shard-major centroids ``[S, k, d]``.
+               commit_k: int, overlap: bool = False,
+               spmd=None) -> torch.Tensor:
+    """Drive sharded minibatch k-means on the executor ``spmd`` (the
+    stacked one on the points' device by default, or a mesh executor);
+    returns shard-major centroids ``[S, k, d]``, gathered on a mesh.
 
-    ``points_sh`` is ``[S, T, B, d]`` (per-shard minibatch stream). The
+    ``points_sh`` is ``[S, T, B, d]`` (per-shard minibatch stream; every
+    process is handed all of it and takes its rows). The
     commit schedule routes through ``defer_cascade`` (or ``overlap_cascade``
     with ``overlap`` — commits land one step stale, the final launch
     flushed via ``settle_inflight``). The plan must carry the ``:defer``
@@ -116,7 +119,9 @@ def run_kmeans(points_sh: torch.Tensor, centroids0: torch.Tensor, plan, *,
     """
     n_shards, t_total, _, d = points_sh.shape
     k = centroids0.shape[0]
-    axis = StackedAxis(n_shards, points_sh.device)
+    spmd = spmd or StackedSPMD(n_shards, points_sh.device)
+    axis, rows, device = spmd.axis, spmd.stack, spmd.device
+    points_sh = torch.as_tensor(spmd.local(points_sh), device=device)
     n_def = len(ccache.deferred_stages_of(plan, n_shards, merge_fn=ADD))
     if n_def == 0:
         raise ValueError("run_kmeans needs a plan with :defer levels (the "
@@ -126,10 +131,10 @@ def run_kmeans(points_sh: torch.Tensor, centroids0: torch.Tensor, plan, *,
                          f"commit_k ({commit_k})")
 
     def zeros() -> dict[str, torch.Tensor]:
-        return {"sum": torch.zeros((n_shards, k, d), dtype=torch.float32,
-                                   device=points_sh.device),
-                "count": torch.zeros((n_shards, k, 1), dtype=torch.float32,
-                                     device=points_sh.device)}
+        return {"sum": torch.zeros((rows, k, d), dtype=torch.float32,
+                                   device=device),
+                "count": torch.zeros((rows, k, 1), dtype=torch.float32,
+                                     device=device)}
 
     def make_step(due: int, land: bool):
         def step(points, centroids, inflight, *pends):
@@ -147,8 +152,8 @@ def run_kmeans(points_sh: torch.Tensor, centroids0: torch.Tensor, plan, *,
         return step
 
     steps = {}
-    centroids = centroids0.to(device=points_sh.device, dtype=torch.float32
-                              ).expand(n_shards, k, d).clone()
+    centroids = centroids0.to(device=device, dtype=torch.float32
+                              ).expand(rows, k, d).clone()
     inflight = zeros()
     pendings = tuple(zeros() for _ in range(n_def))
     for t in range(1, t_total + 1):
@@ -156,14 +161,13 @@ def run_kmeans(points_sh: torch.Tensor, centroids0: torch.Tensor, plan, *,
         land = overlap and t > 1 and (t - 1) % commit_k == 0
         if (due, land) not in steps:
             steps[due, land] = make_step(due, land)
-        out = stacked_spmd(steps[due, land], points_sh[:, t - 1], centroids,
-                           inflight, *pendings,
-                           donate=tuple(range(1, 3 + n_def)))
+        out = spmd(steps[due, land], points_sh[:, t - 1], centroids,
+                   inflight, *pendings, donate=tuple(range(1, 3 + n_def)))
         centroids, inflight = out[0], out[1]
         pendings = tuple(out[2:])
     if overlap:
         def flush(centroids, inflight):
             landed = ccache.settle_inflight(inflight, axis, ADD, plan)
             return _move(centroids, landed)
-        centroids = stacked_spmd(flush, centroids, inflight, donate=(0, 1))
-    return centroids
+        centroids = spmd(flush, centroids, inflight, donate=(0, 1))
+    return spmd.gather(centroids)

@@ -27,7 +27,7 @@ import torch
 from repro_torch.apps.common import scatter
 from repro_torch.core import ccache
 from repro_torch.core.merge_functions import ADD
-from repro_torch.core.stacked import StackedAxis, stacked_spmd
+from repro_torch.core.stacked import StackedAxis, StackedSPMD
 
 
 def pagerank_reference(n: int, src, dst, *, alpha: float = 0.85,
@@ -50,7 +50,8 @@ def pagerank_reference(n: int, src, dst, *, alpha: float = 0.85,
 
 def _out_degree(n: int, src_ids: torch.Tensor, axis: StackedAxis,
                 plan) -> torch.Tensor:
-    """Every vertex's out-degree ``[S, n]`` f32, merged over all shards."""
+    """Every vertex's out-degree ``[s, n]`` f32 (``s`` local rows), merged
+    over all shards."""
     ones = (src_ids >= 0).to(torch.float32)
     table = torch.zeros((src_ids.shape[0], n, 1), dtype=torch.float32,
                         device=src_ids.device)
@@ -63,7 +64,7 @@ def pagerank_superstep(r: torch.Tensor, src_ids: torch.Tensor,
                        alpha: float) -> torch.Tensor:
     """Every shard's scatter phase: push alpha * r[src]/deg[src] to dst.
 
-    Returns each shard's partial contribution table ``[S, n]``."""
+    Returns each local shard's partial contribution table ``[s, n]``."""
     s, n = r.shape
     ok = src_ids >= 0
     safe = torch.where(ok, src_ids, 0).long()
@@ -77,9 +78,11 @@ def pagerank_superstep(r: torch.Tensor, src_ids: torch.Tensor,
 
 def run_pagerank(n: int, src_sh: torch.Tensor, dst_sh: torch.Tensor, plan,
                  *, alpha: float = 0.85, supersteps: int = 60,
-                 defer_k: int | None = None) -> torch.Tensor:
-    """Drive sharded PageRank supersteps on the edges' device; returns
-    shard-major ranks ``[S, n]`` f32.
+                 defer_k: int | None = None, spmd=None) -> torch.Tensor:
+    """Drive sharded PageRank supersteps on the executor ``spmd`` (the
+    stacked one on the edges' device by default, or a mesh executor; every
+    process is handed all of ``src_sh``/``dst_sh [S, E]`` and takes its
+    rows); returns shard-major ranks ``[S, n]`` f32, gathered on a mesh.
 
     ``defer_k`` defers the plan's ``:defer`` levels to every K-th superstep
     (asynchronous iteration with a stale remote term between commits). The
@@ -87,18 +90,19 @@ def run_pagerank(n: int, src_sh: torch.Tensor, dst_sh: torch.Tensor, plan,
     fully-merged view. The ranks and the remote term are donated to each
     superstep.
     """
-    n_shards = src_sh.shape[0]
-    axis = StackedAxis(n_shards, src_sh.device)
+    spmd = spmd or StackedSPMD(src_sh.shape[0], src_sh.device)
+    axis = spmd.axis
     ADD.check_deferrable("run_pagerank")  # trivially true; documents intent
-    n_def = len(ccache.deferred_stages_of(plan, n_shards, merge_fn=ADD))
+    n_def = len(ccache.deferred_stages_of(plan, axis.size, merge_fn=ADD))
     if defer_k is not None and n_def == 0:
         raise ValueError("defer_k given but the plan has no deferred levels")
+    src_sh, dst_sh = (torch.as_tensor(spmd.local(x), device=spmd.device)
+                      for x in (src_sh, dst_sh))
 
-    deg = stacked_spmd(lambda src_ids: _out_degree(n, src_ids, axis, plan),
-                       src_sh)
+    deg = spmd(lambda src_ids: _out_degree(n, src_ids, axis, plan), src_sh)
     base = (1.0 - alpha) / n
-    r = torch.full((n_shards, n), 1.0 / n, dtype=torch.float32,
-                   device=src_sh.device)
+    r = torch.full((spmd.stack, n), 1.0 / n, dtype=torch.float32,
+                   device=spmd.device)
 
     if defer_k is None:
         def step(r, src_ids, dst_ids, deg):
@@ -107,8 +111,8 @@ def run_pagerank(n: int, src_sh: torch.Tensor, dst_sh: torch.Tensor, plan,
             return base + ccache.hierarchical_merge(contrib, axis, ADD, plan)
 
         for _ in range(supersteps):
-            r = stacked_spmd(step, r, src_sh, dst_sh, deg, donate=(0,))
-        return r
+            r = spmd(step, r, src_sh, dst_sh, deg, donate=(0,))
+        return spmd.gather(r)
 
     # Deferred supersteps: r_view = base + (eager-scope aggregate u) + (stale
     # remote term R). At a commit, the full-scope aggregate is settled and
@@ -127,9 +131,9 @@ def run_pagerank(n: int, src_sh: torch.Tensor, dst_sh: torch.Tensor, plan,
         return step
 
     steps = {False: make_step(False), True: make_step(True)}
-    remote = torch.zeros((n_shards, n), dtype=torch.float32,
-                         device=src_sh.device)
+    remote = torch.zeros((spmd.stack, n), dtype=torch.float32,
+                         device=spmd.device)
     for t in range(1, total + 1):
-        r, remote = stacked_spmd(steps[t % defer_k == 0], r, remote, src_sh,
-                                 dst_sh, deg, donate=(0, 1))
-    return r
+        r, remote = spmd(steps[t % defer_k == 0], r, remote, src_sh,
+                         dst_sh, deg, donate=(0, 1))
+    return spmd.gather(r)

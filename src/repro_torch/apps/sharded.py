@@ -1,10 +1,14 @@
-"""``run_app``: one app end to end on the stacked layout, against its
+"""The apps' executors, and ``run_app``: one app end to end against its
 reference.
 
 The JAX package runs its apps on a device mesh (``build_mesh`` /
-``mesh_spmd``: one device a shard, ``shard_map``). Here every shard lives on
-one device as dim 0, and the apps drive their supersteps through the
-stacked executor ``core/stacked.stacked_spmd``; the scatter phase runs the
+``mesh_spmd``: one device a shard, ``shard_map``). The port runs them on
+either executor: the stacked one (``core/stacked.StackedSPMD``, every shard
+on one device as dim 0; the default), or the mesh one that
+:func:`build_mesh` and :func:`mesh_spmd` make here
+(``core/mesh_axis.MeshSPMD``, one process a shard, each with its ``[1,
+...]`` slice, the merges ``torch.distributed`` calls over a gloo or NCCL
+group that ``launch/mesh.init_shards`` makes). The scatter phase runs the
 CUDA ``cscatter`` kernel on the card and its plain version on the CPU.
 """
 
@@ -13,7 +17,39 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.mesh_axis import MeshSPMD
 from repro_torch.serve.kv import resolve_device
+
+
+def build_mesh(n_devices: int, axis_name: str = "shards",
+               device_type: str = "cuda"):
+    """The 1-D mesh of ``n_devices`` shards over this process group's
+    ranks, one process a shard (``launch/mesh.init_shards`` makes the group
+    and this mesh): the counterpart of JAX's ``build_mesh``. Its device
+    type is the card's unless the caller passes ``cpu`` (gloo only; gloo on
+    the card stages through the host). The group must have ``n_devices``
+    ranks: every rank of it takes part in the mesh's collectives."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    if not dist.is_initialized():
+        raise RuntimeError("build_mesh needs a process group: "
+                           "launch/mesh.init_shards makes one")
+    world = dist.get_world_size()
+    if world != n_devices:
+        raise RuntimeError(f"a mesh of {n_devices} shards needs a group of "
+                           f"{n_devices} processes, this one has {world}")
+    resolve_device(device_type)
+    return DeviceMesh(device_type, torch.arange(n_devices),
+                      mesh_dim_names=(axis_name,))
+
+
+def mesh_spmd(mesh, axis_name: str = "shards") -> MeshSPMD:
+    """The executor over ``mesh``: ``spmd(fn, *args, donate=())`` on this
+    process's ``[1, ...]`` slice of shard-major args, its ``.axis`` the
+    ``MeshAxis`` of ``axis_name`` (the counterpart of JAX's ``mesh_spmd``,
+    ``shard_map`` over the axis; the executor contract of
+    ``core/stacked.py``)."""
+    return MeshSPMD(mesh, axis_name)
 
 
 def _graph(n: int, e: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
@@ -25,9 +61,11 @@ def _graph(n: int, e: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
 
 def run_app(app: str, n_shards: int, *, defer_k: int = 4, seed: int = 0,
             n_vertices: int = 48, n_edges: int = 160,
-            device="cuda") -> dict:
-    """Run one app sharded over ``n_shards`` stacked shards on ``device``
-    (the card unless the caller asks for the CPU) against its reference.
+            device="cuda", spmd=None) -> dict:
+    """Run one app sharded over ``n_shards`` shards against its reference:
+    stacked on ``device`` (the card unless the caller asks for the CPU),
+    or on the executor ``spmd`` (a mesh of ``n_shards`` processes, every
+    one of which calls this and gets the record).
 
     Returns a record with ``max_err`` (0.0 expected for the bitwise MIN
     app) for both the all-eager plan and the deferred/overlapped commit
@@ -39,6 +77,11 @@ def run_app(app: str, n_shards: int, *, defer_k: int = 4, seed: int = 0,
     from repro_torch.apps.bfs import INF
     from repro_torch.apps.common import default_plan, shard_edges
 
+    if spmd is not None:
+        if spmd.n_shards != n_shards:
+            raise ValueError(f"the executor has {spmd.n_shards} shards, "
+                             f"run_app {n_shards}")
+        device = spmd.device
     device = resolve_device(device)
     plan = default_plan(n_shards)
     plan_d = default_plan(n_shards, defer_top=True)
@@ -55,9 +98,11 @@ def run_app(app: str, n_shards: int, *, defer_k: int = 4, seed: int = 0,
         dist0 = torch.full((n_shards, n_vertices), INF, dtype=torch.int32,
                            device=device)
         dist0[:, 0] = 0
-        eager = run_bfs(dist0, src_sh, dst_sh, plan, supersteps=n_vertices)
+        eager = run_bfs(dist0, src_sh, dst_sh, plan, supersteps=n_vertices,
+                        spmd=spmd)
         defer = run_bfs(dist0, src_sh, dst_sh, plan_d,
-                        supersteps=defer_k * n_vertices, defer_k=defer_k)
+                        supersteps=defer_k * n_vertices, defer_k=defer_k,
+                        spmd=spmd)
         out["eager_max_err"] = float(
             np.abs(eager[0].cpu().numpy().astype(np.int64) - ref).max())
         out["defer_max_err"] = float(
@@ -70,9 +115,9 @@ def run_app(app: str, n_shards: int, *, defer_k: int = 4, seed: int = 0,
                                  iters=iters)
         src_sh, dst_sh = edges(src, dst)
         eager = run_pagerank(n_vertices, src_sh, dst_sh, plan, alpha=alpha,
-                             supersteps=iters)
+                             supersteps=iters, spmd=spmd)
         defer = run_pagerank(n_vertices, src_sh, dst_sh, plan_d, alpha=alpha,
-                             supersteps=iters, defer_k=defer_k)
+                             supersteps=iters, defer_k=defer_k, spmd=spmd)
         out["eager_max_err"] = float(
             np.abs(eager[0].cpu().numpy().astype(np.float64) - ref).max())
         out["defer_max_err"] = float(
@@ -90,7 +135,7 @@ def run_app(app: str, n_shards: int, *, defer_k: int = 4, seed: int = 0,
                                    overlap=overlap)
             got = run_kmeans(torch.from_numpy(pts).to(device),
                              torch.from_numpy(c0).to(device), plan_d,
-                             commit_k=defer_k, overlap=overlap)
+                             commit_k=defer_k, overlap=overlap, spmd=spmd)
             errs[f"{label}_max_err"] = float(
                 np.abs(got[0].cpu().numpy().astype(np.float64)
                        - ref.astype(np.float64)).max())

@@ -47,7 +47,7 @@ CMERGE_KINDS = {ADD.name: "add", MAX.name: "max", MIN.name: "min",
 
 
 def _register(cls):
-    """A dataclass of tensors as a pytree, so that ``stacked_spmd`` guards
+    """A dataclass of tensors as a pytree, so that ``StackedSPMD`` guards
     its leaves like any other argument's."""
     names = [f.name for f in dataclasses.fields(cls)]
     pytree.register_pytree_node(

@@ -20,7 +20,10 @@ holds its local slice of a stack that is ``Shard(0)`` over those dims: a
   consecutive ranks (the whole axis by default), every member getting the
   group's reduction;
 * ``pmean`` — the mean over every rank, for the step's loss: not one of
-  the merge's collectives, so no listener hears it (below).
+  the merge's collectives, so no listener hears it (below);
+* ``all_gather`` — the whole stack ``[size, ...]`` from every rank's
+  slice, for a store's or an app's whole result (JAX's global arrays):
+  not one of the merge's collectives either.
 
 The exchanges are ``torch.distributed`` calls among the processes of the
 mesh's group: point-to-point sends and receives for ``ppermute``, the
@@ -29,6 +32,21 @@ for the reductions, so the axis runs on a real process group (gloo, NCCL)
 as on the planner's fake one. On the planner's meta tensors a ``ppermute``
 moves no data (there is none): each device's received value is a fresh
 tensor of its shape.
+
+The group's backend decides how a tensor on the card travels. NCCL takes
+it as it is. Gloo's sends and receives take host tensors only (its
+all-reduce takes the card's), so on a gloo group ``ppermute`` and
+``all_gather`` stage each leaf on the card through a pinned host buffer;
+the staging is chosen from the backend, never as a recovery from a failed
+call. NCCL asks that a group's first batched send and receive involve
+every rank of the group, and the binomial broadcast and the representative
+stages have rounds in which a rank neither sends nor receives: so every
+group's first call is a one-element all-reduce that all of its ranks join
+(``_warm``), made when the group is made and, for the default group that
+carries the point-to-point calls, in the first exchange (every rank of the
+mesh enters every ``ppermute``). NCCL refuses two ranks on one card: a
+mesh with more processes than the host has cards raises on NCCL before
+any work.
 
 Every collective is told to ``repro_torch/hooks.py``'s listeners as
 ``emit("collective", axis, kind, x, group, perm)`` before it runs, as
@@ -48,18 +66,44 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch import hooks
-from repro_torch.core.stacked import StackedAxis
+from repro_torch.core.stacked import StackedAxis, run_guarded
 
 PyTree = Any
 
 # (mesh, merge dims, group) -> the process group of this device's group
 _GROUPS: dict = {}
+# the process groups whose first call has been made (id of the group; the
+# default group as None)
+_WARMED: set = set()
 
 
 def clear_groups() -> None:
-    """Forget the process groups made for merge axes (their process group
-    is being destroyed)."""
+    """Forget the process groups made for merge axes and which groups
+    have made their first call (their process group is being
+    destroyed)."""
     _GROUPS.clear()
+    _WARMED.clear()
+
+
+def backend_of(group=None) -> str:
+    """The backend of ``group`` (the default group when None): ``gloo``,
+    ``nccl`` or ``fake``."""
+    import torch.distributed as dist
+    return str(dist.get_backend(group)).lower()
+
+
+def check_cards(backend: str, processes: int) -> None:
+    """On NCCL, one card a process: raise before any work when this host
+    has fewer cards than ``processes``."""
+    if backend != "nccl":
+        return
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if processes > cards:
+        raise RuntimeError(
+            f"NCCL needs one card a process: {processes} processes on a "
+            f"host with {cards} card(s) (NCCL refuses two ranks on one "
+            f"card); use the gloo backend, which stages through the host, "
+            f"or fewer processes")
 
 
 class MeshAxis:
@@ -94,6 +138,31 @@ class MeshAxis:
                       mesh.mesh.permute(others + merge).reshape(-1).tolist()]
         self.size = len(self.ranks)
         self.rank = self.ranks.index(int(mesh.get_rank()))
+        if self.device.type == "cuda" and self.device.index is not None:
+            torch.cuda.set_device(self.device)
+
+    @property
+    def backend(self) -> str:
+        """The backend of the mesh's process group."""
+        return backend_of()
+
+    def _staged(self, t: torch.Tensor) -> bool:
+        """Whether ``t`` travels through a pinned host buffer: a tensor on
+        the card over gloo, whose sends, receives and gathers take host
+        tensors."""
+        return t.is_cuda and self.backend == "gloo"
+
+    def _warm(self, pg) -> None:
+        """Make ``pg``'s first call one that all of its ranks join: an
+        all-reduce of one element (NCCL's rule for a group whose first
+        batched send and receive leaves ranks out). ``pg`` None is the
+        default group."""
+        if id(pg) in _WARMED or self.backend == "fake" or \
+                self.device.type == "meta":
+            return
+        import torch.distributed as dist
+        dist.all_reduce(torch.zeros(1, device=self.device), group=pg)
+        _WARMED.add(id(pg))
 
     where = StackedAxis.where
 
@@ -113,6 +182,7 @@ class MeshAxis:
                              torch.tensor(self.ranks).reshape(-1, group),
                              mesh_dim_names=("merge_block", "merge_group"))
             _GROUPS[key] = sub.get_group("merge_group")
+            self._warm(_GROUPS[key])
         return _GROUPS[key]
 
     # -- collectives ---------------------------------------------------------
@@ -146,16 +216,25 @@ class MeshAxis:
                else torch.empty_like(t) for t in leaves]
         if all(t.is_meta for t in leaves):      # the planner's: no data
             return out
-        ops = []
+        self._warm(None)                # the point-to-point calls' group
+        ops, landing = [], []
         for t, o in zip(leaves, out):
+            staged = self._staged(t)
             if dst is not None and dst != me:
-                ops.append(dist.P2POp(dist.isend, t.contiguous(),
-                                      self.ranks[dst]))
+                t = (torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     .copy_(t) if staged else t.contiguous())
+                ops.append(dist.P2POp(dist.isend, t, self.ranks[dst]))
             if src is not None and src != me:
+                if staged:
+                    h = torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                    landing.append((o, h))
+                    o = h
                 ops.append(dist.P2POp(dist.irecv, o, self.ranks[src]))
         if ops:
             for work in dist.batch_isend_irecv(ops):
                 work.wait()
+        for o, h in landing:
+            o.copy_(h)
         return out
 
     def _reduce(self, kind: str, op: str, x: PyTree, group) -> PyTree:
@@ -199,6 +278,98 @@ class MeshAxis:
         import torch.distributed._functional_collectives as funcol
         r = funcol.all_reduce(x / self.size, "sum", self._group(self.size))
         return r.wait() if isinstance(r, funcol.AsyncCollectiveTensor) else r
+
+    def all_gather(self, x: PyTree) -> PyTree:
+        """Every leaf's whole stack ``[size, ...]``, merge rank ``i``'s
+        slice at row ``i``, from this rank's ``[1, ...]`` slice, on every
+        rank: a store's or an app's whole result, as JAX's global arrays
+        give it. Not one of the merge's collectives: it is told to no
+        listener, as :meth:`pmean` is not."""
+        import torch.distributed as dist
+        if self.size == 1:
+            return pytree.tree_map(torch.clone, x)
+        pg = self._group(self.size)
+        # the group's ranks in merge-rank order
+        order = [dist.get_group_rank(pg, r) for r in self.ranks]
+
+        def gather(t):
+            h = t.cpu() if self._staged(t) else t.contiguous()
+            parts = [torch.empty_like(h) for _ in range(self.size)]
+            dist.all_gather(parts, h, group=pg)
+            return torch.cat([parts[i] for i in order]).to(t.device)
+        return pytree.tree_map(gather, x)
+
+    def barrier(self) -> None:
+        """Wait until every rank of the axis gets here (a one-element
+        all-reduce on the axis's device, on any backend)."""
+        import torch.distributed as dist
+        if self.size > 1:
+            dist.all_reduce(torch.zeros(1, device=self.device),
+                            group=self._group(self.size))
+
+
+class MeshSPMD:
+    """The executor over a 1-D mesh of shards, one process a shard: the
+    counterpart of the JAX package's ``apps.sharded.mesh_spmd``
+    (``shard_map`` over the ``"shards"`` axis), with
+    ``core/stacked.StackedSPMD``'s contract on this process's ``[1, ...]``
+    slice of every state tensor.
+
+    * ``spmd(fn, *args, donate=())`` runs ``fn`` on this process's slices
+      (``fn``'s collectives go over :attr:`axis`, a :class:`MeshAxis`),
+      with ``StackedSPMD``'s guard: an argument not donated that ``fn``
+      writes in place raises;
+    * host inputs are replicated, as in JAX's multi-controller
+      discipline: every process is handed the same ``[S, ...]`` value, and
+      :meth:`local` takes this process's row;
+    * :meth:`gather` gives every process the whole ``[S, ...]`` value of
+      a ``[1, ...]`` slice (``MeshAxis.all_gather``);
+    * :meth:`barrier`, and :attr:`rank` (rank 0 alone writes what the
+      replicated processes would all write, a journal or a snapshot).
+    """
+
+    def __init__(self, mesh, axis_name: str = "shards"):
+        if mesh.ndim != 1:
+            raise ValueError(f"mesh_spmd takes a 1-D mesh of shards, got "
+                             f"dims {mesh.mesh_dim_names}")
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if mesh.device_type == "cuda" else
+                  torch.device(mesh.device_type))
+        self.axis = MeshAxis(mesh, (axis_name,), device)
+        self.device = self.axis.device
+
+    @property
+    def n_shards(self) -> int:
+        return self.axis.size
+
+    @property
+    def stack(self) -> int:
+        return self.axis.stack
+
+    @property
+    def rank(self) -> int:
+        return self.axis.rank
+
+    @property
+    def backend(self) -> str:
+        return self.axis.backend
+
+    def __call__(self, fn, *args, donate: Sequence[int] = ()):
+        return run_guarded(fn, args, donate, "mesh_spmd")
+
+    def local(self, x):
+        """This process's ``[1, ...]`` row of a replicated ``[S, ...]``
+        host input (a tensor or a numpy array)."""
+        if x.shape[0] != self.n_shards:
+            raise ValueError(f"a replicated input needs leading dim "
+                             f"{self.n_shards}, got {tuple(x.shape)}")
+        return x[self.rank:self.rank + 1]
+
+    def gather(self, x: PyTree) -> PyTree:
+        return self.axis.all_gather(x)
+
+    def barrier(self) -> None:
+        self.axis.barrier()
 
 
 def merge_ranks(mesh, dims: Sequence[str]) -> int:

@@ -23,6 +23,15 @@ pytrees of them) and see all shards at once; a per-rank predicate is an
 Every collective is emitted as a ``"collective"`` event
 (``repro_torch/hooks.py``) before it runs, so that
 ``repro_torch.analysis.trace`` can record a program's collectives.
+
+An *executor* runs a program on the shards: :class:`StackedSPMD` here (all
+shards on one device, with a ``StackedAxis``), or
+``core/mesh_axis.MeshSPMD`` over a mesh of processes, one a shard (with a
+``MeshAxis``, the same contract on each process's ``[1, ...]`` slice). The
+KV store and the apps take either; both have ``axis``, ``n_shards``,
+``stack`` (the rows a local state tensor holds), ``device``, ``rank``,
+``local`` (this executor's rows of a replicated host input), ``gather``
+(the whole ``[S, ...]`` value of local rows) and ``barrier``.
 """
 
 from __future__ import annotations
@@ -122,17 +131,10 @@ class StackedAxis:
             lambda t: self._grouped(t, group, lambda g: g.amin(1)), x)
 
 
-def stacked_spmd(fn: Callable, *args, donate: Sequence[int] = ()):
-    """Run ``fn`` on stacked (shard-major) args: the stacked counterpart of
-    the JAX package's ``mesh_spmd`` / vmap executor contract.
-
-    ``fn`` sees every shard at once and uses a :class:`StackedAxis` for
-    its collectives. ``donate`` names the argument positions whose tensors
-    ``fn`` may update in place (the state the caller rebinds from the
-    result, as the reference donates buffers to XLA); any other argument
-    that ``fn`` writes to raises, so an in-place update can never leak into
-    a value the caller still holds.
-    """
+def run_guarded(fn: Callable, args: Sequence, donate: Sequence[int],
+                who: str):
+    """``fn(*args)``, raising if ``fn`` wrote in place to an argument whose
+    position ``donate`` does not name (``who`` names the executor)."""
     guarded = [(i, t, t._version)
                for i, a in enumerate(args) if i not in donate
                for t in pytree.tree_leaves(a) if isinstance(t, torch.Tensor)]
@@ -140,6 +142,49 @@ def stacked_spmd(fn: Callable, *args, donate: Sequence[int] = ()):
     for i, t, version in guarded:
         if t._version != version:
             raise RuntimeError(
-                f"stacked_spmd: {getattr(fn, '__name__', fn)} wrote argument "
+                f"{who}: {getattr(fn, '__name__', fn)} wrote argument "
                 f"{i} in place but it was not donated")
     return out
+
+
+class StackedSPMD:
+    """The stacked executor, with its :class:`StackedAxis` of ``n_shards``
+    ranks on ``device``: the stacked counterpart of the JAX package's
+    ``mesh_spmd`` / vmap executor contract (the module doc's). Every shard
+    is local: ``local`` and ``gather`` give their argument back, and there
+    is one process.
+
+    ``spmd(fn, *args, donate=())`` runs ``fn`` on stacked (shard-major)
+    args; ``fn`` sees every shard at once and uses :attr:`axis` for its
+    collectives. ``donate`` names the argument positions whose tensors
+    ``fn`` may update in place (the state the caller rebinds from the
+    result, as the reference donates buffers to XLA); any other argument
+    that ``fn`` writes to raises, so an in-place update can never leak into
+    a value the caller still holds."""
+
+    rank = 0
+    backend = "stacked"
+
+    def __init__(self, n_shards: int, device):
+        self.axis = StackedAxis(n_shards, device)
+        self.device = self.axis.device
+
+    @property
+    def n_shards(self) -> int:
+        return self.axis.size
+
+    @property
+    def stack(self) -> int:
+        return self.axis.stack
+
+    def __call__(self, fn: Callable, *args, donate: Sequence[int] = ()):
+        return run_guarded(fn, args, donate, "StackedSPMD")
+
+    def local(self, x):
+        return x
+
+    def gather(self, x: PyTree) -> PyTree:
+        return x
+
+    def barrier(self) -> None:
+        pass

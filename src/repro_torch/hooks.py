@@ -8,7 +8,9 @@ These kinds are emitted, each before or where the work happens:
   every ``MeshAxis`` one (``core/mesh_axis.py``), which
   ``analysis.trace.CollectiveRecorder`` records; a ``MeshAxis`` ends each
   with ``emit("collective_end", axis)``, so that the op-level walk counts
-  the exchange once and not the ``torch.distributed`` calls that carry it;
+  the exchange once and not the ``torch.distributed`` calls that carry it
+  (its ``pmean``, ``all_gather`` and ``barrier`` are not the merge's and
+  are told to no listener);
 * ``emit("kernel_begin", name, args, kwargs)`` and ``emit("kernel_end",
   name, result)`` — around every concrete call of a hand-written kernel's
   wrapper (``kernels/custom_ops.kernel_call``), whichever route runs it:

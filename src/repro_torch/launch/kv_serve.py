@@ -1,4 +1,4 @@
-"""Sharded commutative KV serving driver, on one GPU.
+"""Sharded commutative KV serving driver, on one GPU or over processes.
 
     PYTHONPATH=src python -m repro_torch.launch.kv_serve --shards 8 \\
         --keys 65536 --ticks 64 --batch 512 --dist pareto --defer 8
@@ -7,6 +7,17 @@ Runs the :mod:`repro_torch.serve` tier with every shard stacked on one
 device (``--device``, default ``cuda``; ``--device cpu`` runs the kernels'
 plain versions on the CPU). Prints the ingest rate and checks the flushed
 table's mass against the stream.
+
+``--procs N`` runs the store over a process group instead, one process a
+shard (``--shards`` must equal ``N``; the JAX CLI's store on its device
+mesh): this command spawns the ``N`` processes, every one of which builds
+the same store on the mesh executor (``apps/sharded.mesh_spmd``) and is
+handed the same stream; rank 0 alone prints. ``--backend`` is the group's,
+the caller's choice: ``nccl`` (the default on ``--device cuda``: one card a
+process, refused on a host with fewer cards) or ``gloo`` (the default on
+``--device cpu``; on the card it stages its exchanges through the host, so
+several processes may share a card). ``nccl`` with ``--device cpu`` is
+refused.
 
 ``--defer`` picks the commit policy:
 
@@ -36,6 +47,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -79,7 +91,32 @@ def _parse_args(argv=None):
                    help="blocked engine: cache ways")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default) or cpu")
-    return p.parse_args(argv)
+    p.add_argument("--procs", type=int, default=None,
+                   help="run over this many processes, one a shard "
+                        "(--shards must equal it)")
+    p.add_argument("--backend", default=None, choices=["gloo", "nccl"],
+                   help="with --procs: the process group's backend (nccl "
+                        "on --device cuda, gloo on --device cpu by default)")
+    # one spawned process of --procs: its rank and the group's file init
+    p.add_argument("--worker", nargs=2, metavar=("RANK", "INIT"),
+                   help=argparse.SUPPRESS)
+    args = p.parse_args(argv)
+    if args.procs is None:
+        if args.backend is not None:
+            p.error("--backend is the process group's: add --procs N")
+        return args
+    if args.procs < 2:
+        p.error("--procs needs at least 2 processes")
+    if args.shards != args.procs:
+        p.error(f"--procs {args.procs} runs one process a shard: --shards "
+                f"must equal it (got {args.shards})")
+    device_type = torch.device(args.device).type
+    if args.backend is None:
+        args.backend = "nccl" if device_type == "cuda" else "gloo"
+    if args.backend == "nccl" and device_type != "cuda":
+        p.error("--backend nccl runs on the card: it takes --device cuda "
+                "(gloo runs on the CPU)")
+    return args
 
 
 def key_stream(n: int, n_keys: int, dist: str = "uniform",
@@ -102,8 +139,10 @@ def key_stream(n: int, n_keys: int, dist: str = "uniform",
 
 
 def measure_schedule_inputs(cfg, n_shards: int, batch: int, plan,
-                            device, runs: int = 5) -> dict:
-    """What ``--defer auto|adaptive`` solves from, measured on ``device``.
+                            device, runs: int = 5, spmd=None) -> dict:
+    """What ``--defer auto|adaptive`` solves from, measured on ``device``
+    over the executor ``spmd``'s wire (the stacked axis by default; a
+    mesh executor's process group, ``backend`` naming it).
 
     * ``wire``: machine-wide bytes each level of ``plan`` moves in one
       synchronized tick (``wire_cost.wire_bytes_by_level`` of the
@@ -114,25 +153,33 @@ def measure_schedule_inputs(cfg, n_shards: int, batch: int, plan,
     * ``tick_s``: a deferred tick that never commits, on the replicated
       store (a partitioned probe that never commits would overflow its
       ring), the mean of 4 ticks synchronized at both ends.
+
+    Over a mesh every process measures, and every one solves from the
+    largest of each time over the processes (gathered), so that all of
+    them serve the same schedule.
     """
     from repro_torch.launch.wire_cost import wire_bytes_by_level
     from repro_torch.serve import ShardedKV
 
-    device = torch.device(device)
+    from repro_torch.core.stacked import StackedSPMD
+
+    if spmd is None:
+        spmd = StackedSPMD(n_shards, device)
+    device = spmd.device
     S, R, D = n_shards, cfg.n_keys, cfg.cols
     itemsize = torch.empty((), dtype=cfg.dtype).element_size()
     names = tuple(lv.name for lv in plan.levels)
     wire = wire_bytes_by_level(plan, S, (R, D), itemsize, cfg.merge)
 
     state_dtype = torch.int32 if cfg.dtype == torch.uint32 else cfg.dtype
-    payload = torch.ones((S, R, D), dtype=state_dtype, device=device)
-    level_s = time_level_merges(plan, payload, cfg.merge, runs)
+    payload = torch.ones((spmd.stack, R, D), dtype=state_dtype,
+                         device=device)
+    level_s = time_level_merges(plan, payload, cfg.merge, runs,
+                                axis=spmd.axis)
     del payload
-    rates = [b / t if b > 0 else float("inf")
-             for b, t in zip(wire, level_s)]
 
     probe_cfg = dataclasses.replace(cfg, partitioned=False)
-    timer = ShardedKV(probe_cfg, S, device=device, plan=plan,
+    timer = ShardedKV(probe_cfg, S, spmd=spmd, plan=plan,
                       commit_every=1 << 20)       # never commits
     k0 = torch.zeros((S, batch), dtype=torch.int32, device=device)
     v0 = torch.ones((S, batch, D), dtype=cfg.dtype, device=device)
@@ -146,9 +193,17 @@ def measure_schedule_inputs(cfg, n_shards: int, batch: int, plan,
     del timer, k0, v0
     if device.type == "cuda":
         torch.cuda.empty_cache()   # the probe held S replicated tables
+    # every process solves from the same (the slowest process's) times
+    times = spmd.gather(torch.tensor([level_s + [tick_s]],
+                                     dtype=torch.float64, device=device))
+    *level_s, tick_s = times.amax(0).tolist()
+    rates = [b / t if b > 0 else float("inf")
+             for b, t in zip(wire, level_s)]
+    backend = (f"{spmd.backend} ({S} processes)"
+               if spmd.backend != "stacked" else "the stacked axis")
     return {"names": names, "wire": wire, "level_s": level_s,
             "rates": rates, "tick_s": tick_s,
-            "device": device_name(device)}
+            "device": device_name(device), "backend": backend}
 
 
 def schedule_from(mode: str, plan, inputs: dict, merge, n_shards: int,
@@ -182,14 +237,15 @@ def schedule_from(mode: str, plan, inputs: dict, merge, n_shards: int,
     return schedule
 
 
-def build_store(args):
-    """The store the flags describe; ``auto`` and ``adaptive`` print the
-    measured inputs and the solved schedule."""
+def build_store(args, spmd=None, say=print):
+    """The store the flags describe, on the executor ``spmd`` (the
+    stacked one on ``--device`` by default); ``auto`` and ``adaptive``
+    print (through ``say``) the measured inputs and the solved schedule."""
     from repro_torch.core.defer_schedule import DeferSchedule
     from repro_torch.serve import KVConfig, ShardedKV, serving_plan
 
     S, R = args.shards, args.keys
-    device = resolve_device(args.device)
+    device = spmd.device if spmd is not None else resolve_device(args.device)
     sync_mode = args.defer == "sync"
     if args.partitioned and sync_mode:
         raise SystemExit("--partitioned needs deferred commits; pick "
@@ -207,14 +263,15 @@ def build_store(args):
     plan = serving_plan(S, "none" if sync_mode else "all")
     schedule = commit_every = None
     if args.defer in ("auto", "adaptive"):
-        inputs = measure_schedule_inputs(cfg, S, args.batch, plan, device)
+        inputs = measure_schedule_inputs(cfg, S, args.batch, plan, device,
+                                         spmd=spmd)
         schedule = schedule_from(args.defer, plan, inputs, cfg.merge, S,
                                  args.batch, overlap=args.overlap,
                                  partitioned=args.partitioned)
         for line in describe_inputs(inputs):
-            print(line)
-        print("solved schedule:")
-        print(schedule.describe())
+            say(line)
+        say("solved schedule:")
+        say(schedule.describe())
     elif not sync_mode:
         try:
             commit_every = int(args.defer)
@@ -228,14 +285,67 @@ def build_store(args):
             schedule = DeferSchedule.fixed(commit_every, deferred,
                                            overlap=True)
             commit_every = None
-    return ShardedKV(cfg, S, device=device, plan=plan,
+    return ShardedKV(cfg, S, device=device, spmd=spmd, plan=plan,
                      schedule=schedule, commit_every=commit_every)
 
 
+def _spawn(argv: list, procs: int) -> None:
+    """Run this command as ``procs`` processes, one a shard, on a group
+    with a file init under a fresh temporary directory: rank 0 writes to
+    this process's output, every other rank to a log file there. A
+    process that fails stops the others and fails the command with its
+    log's tail."""
+    import os
+    import sys
+    import tempfile
+    from repro_torch.launch.mesh import spawn_shards
+
+    with tempfile.TemporaryDirectory(prefix="kv_serve_") as work:
+        init = os.path.join(work, "init")
+        src = str(Path(__file__).resolve().parents[2])
+        path = os.environ.get("PYTHONPATH")
+        env = dict(os.environ,
+                   PYTHONPATH=src + (os.pathsep + path if path else ""))
+        try:
+            spawn_shards(lambda r: [sys.executable, "-m",
+                                    "repro_torch.launch.kv_serve", *argv,
+                                    "--worker", str(r), f"file://{init}"],
+                         procs, work, None, env=env, rank0_to_stdout=True)
+        except RuntimeError as e:
+            raise SystemExit(str(e)) from None
+
+
 def main(argv=None) -> None:
+    import sys
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = _parse_args(argv)
+    if args.procs is not None and args.worker is None:
+        return _spawn(argv, args.procs)
+    spmd, say = None, print
+    if args.worker is not None:
+        from repro_torch.apps.sharded import mesh_spmd
+        from repro_torch.launch import mesh as pmesh
+        rank = int(args.worker[0])
+        torch.set_num_threads(1)
+        mesh = pmesh.init_shards(args.backend, torch.device(args.device).type,
+                                 init_method=args.worker[1], rank=rank,
+                                 world_size=args.procs)
+        spmd = mesh_spmd(mesh)
+        if rank:
+            def say(*a, **k):
+                pass
+    try:
+        _serve(args, spmd, say)
+    finally:
+        if spmd is not None:
+            pmesh.shutdown()
+
+
+def _serve(args, spmd, say) -> None:
+    """The store the flags describe, fed the stream: the ingest rate, the
+    settled-mass check and the counters, printed through ``say``."""
     S, R, D, B = args.shards, args.keys, args.cols, args.batch
-    kv = build_store(args)
+    kv = build_store(args, spmd, say)
     keys = key_stream(args.ticks * S * B, R, args.dist, n_users=args.users,
                       seed=args.seed).reshape(args.ticks, S, B)
     vals = torch.ones((S, B, D), dtype=torch.int32, device=kv.device)
@@ -243,10 +353,12 @@ def main(argv=None) -> None:
 
     kv.tick(keys_dev[0], vals)  # warm-up: builds the kernel on the card
     sync_device(kv.device)
+    kv.spmd.barrier()           # over processes: every rank starts at once
     t0 = time.perf_counter()
     for t in range(1, args.ticks):
         kv.tick(keys_dev[t], vals)
     sync_device(kv.device)
+    kv.spmd.barrier()
     wall = time.perf_counter() - t0
     ups = S * B * (args.ticks - 1) / max(wall, 1e-12)
 
@@ -254,16 +366,18 @@ def main(argv=None) -> None:
     tbl = kv.table()
     total = int(tbl[:, 0].astype(np.int64).sum())
     name = device_name(kv.device)
-    print(f"{args.dist} stream: {args.ticks} ticks x {S} shards x {B} "
-          f"updates, engine={args.engine}, defer={args.defer}, "
-          f"device={name}")
-    print(f"ingest: {wall:.6f}s  ({ups:,.0f} updates/s, "
-          f"{ups / 1e9:.6f} GUPS)")
-    print(f"settled mass col0: {total} "
-          f"(= {S * B * args.ticks} updates ingested)")
+    over = (f", {args.procs} processes over {args.backend}"
+            if spmd is not None else "")
+    say(f"{args.dist} stream: {args.ticks} ticks x {S} shards x {B} "
+        f"updates, engine={args.engine}, defer={args.defer}, "
+        f"device={name}{over}")
+    say(f"ingest: {wall:.6f}s  ({ups:,.0f} updates/s, "
+        f"{ups / 1e9:.6f} GUPS)")
+    say(f"settled mass col0: {total} "
+        f"(= {S * B * args.ticks} updates ingested)")
     for k, v in kv.counters().items():
         if k != "schedule":
-            print(f"  {k}: {v}")
+            say(f"  {k}: {v}")
     if total != S * B * args.ticks:
         raise SystemExit("settled mass does not match the ingested stream")
 

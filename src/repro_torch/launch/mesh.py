@@ -19,17 +19,27 @@ another backend is refused. ``FakeStore`` is internal to PyTorch: this is
 the one module that imports it (``tests/test_torch_partition.py`` fails
 clearly if it moves).
 
-Every mesh has the one device type :data:`DEVICE_TYPE`, that of the cards
-the plan is for: the planner's tensors are meta tensors and nothing is
-allocated on any device, so planning needs no card, and a plan made on a
-card's host is the plan made anywhere else. Rank order is row-major over the mesh
-axes, model innermost, so consecutive ranks share a model group as they
-share an NVLink node.
+:func:`init_shards` is the other kind of group: a real one (gloo or NCCL),
+one process a shard of the KV store or an app, from the environment that
+``torchrun`` sets or a file init, with its 1-D ``"shards"`` mesh
+(``apps/sharded.build_mesh``); :func:`shutdown` destroys it too.
+:func:`spawn_shards` starts the processes of such a group on one host.
+
+Every planning mesh has the one device type :data:`DEVICE_TYPE`, that of
+the cards the plan is for: the planner's tensors are meta tensors and
+nothing is allocated on any device, so planning needs no card, and a plan
+made on a card's host is the plan made anywhere else. Rank order is
+row-major over the mesh axes, model innermost, so consecutive ranks share
+a model group as they share an NVLink node.
 """
 
 from __future__ import annotations
 
 import math
+import os
+import time
+from pathlib import Path
+from typing import Callable
 
 import torch
 
@@ -60,8 +70,107 @@ def fake_world(ranks: int = WORLD) -> int:
     return world
 
 
+def init_shards(backend: str, device_type: str = "cuda",
+                init_method: str | None = None, rank: int | None = None,
+                world_size: int | None = None):
+    """Join the process group of a mesh of shards, one process a shard,
+    and return its 1-D ``"shards"`` mesh.
+
+    ``backend`` is ``gloo`` or ``nccl``, the caller's choice. The rank and
+    world size come from the arguments or from the environment that
+    ``torchrun`` sets (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``LOCAL_WORLD_SIZE``); ``init_method`` defaults to ``env://`` (pass
+    ``file://...`` for a file init). The process is placed on its device
+    first: ``cuda:{local_rank % device_count}`` (the default; it raises
+    when there is no card), or the CPU when ``device_type`` is ``cpu``,
+    which only gloo takes. On NCCL a host with fewer cards than its
+    processes (``LOCAL_WORLD_SIZE``) is refused before any work."""
+    import torch.distributed as dist
+    from repro_torch.apps.sharded import build_mesh
+    from repro_torch.core.mesh_axis import check_cards
+    from repro_torch.serve.kv import resolve_device
+    if backend not in ("gloo", "nccl"):
+        raise ValueError(f"backend must be gloo or nccl, got {backend!r}")
+    if backend == "nccl" and device_type != "cuda":
+        raise ValueError("the nccl backend runs on the card: "
+                         "device_type must be cuda")
+    if dist.is_initialized():
+        raise RuntimeError(f"a {dist.get_backend()!r} process group is "
+                           f"already initialised in this process")
+    rank = int(os.environ["RANK"]) if rank is None else rank
+    world_size = (int(os.environ["WORLD_SIZE"]) if world_size is None
+                  else world_size)
+    local_rank = int(os.environ.get("LOCAL_RANK", rank))
+    check_cards(backend, int(os.environ.get("LOCAL_WORLD_SIZE",
+                                            world_size)))
+    if resolve_device(device_type).type == "cuda":
+        torch.cuda.set_device(local_rank % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method=init_method or "env://",
+                            rank=rank, world_size=world_size)
+    return build_mesh(world_size, "shards", device_type)
+
+
+def spawn_shards(cmd: Callable[[int], list], n: int, work,
+                 timeout: float | None, *, env: dict | None = None,
+                 during: Callable | None = None,
+                 rank0_to_stdout: bool = False):
+    """Run ``cmd(rank)`` as ``n`` processes on this host, one a shard of a
+    group with a file init, and wait for them all.
+
+    Each process writes its output to ``work/rank{r}.log`` (a full pipe
+    cannot stall it in a collective), rank 0 to this process's output with
+    ``rank0_to_stdout``; each has ``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE``
+    set over ``env`` (this process's environment by default).
+    ``during()`` runs in this process while they do, and its value is
+    returned. A process that fails, or that still runs ``timeout`` seconds
+    after the spawn, stops the others and raises with its log's tail."""
+    import subprocess
+    work = Path(work)
+    env = dict(os.environ if env is None else env, LOCAL_WORLD_SIZE=str(n))
+    deadline = None if timeout is None else time.monotonic() + timeout
+    procs, failed, result = [], None, None
+    try:
+        for r in range(n):
+            if r == 0 and rank0_to_stdout:
+                procs.append(subprocess.Popen(
+                    cmd(r), env=dict(env, LOCAL_RANK=str(r))))
+                continue
+            with open(work / f"rank{r}.log", "w") as log:
+                procs.append(subprocess.Popen(
+                    cmd(r), env=dict(env, LOCAL_RANK=str(r)), stdout=log,
+                    stderr=subprocess.STDOUT))
+        if during is not None:
+            result = during()
+        while failed is None and any(p.poll() is None for p in procs):
+            failed = next(((r, f"exit code {p.returncode}")
+                           for r, p in enumerate(procs)
+                           if p.poll() not in (None, 0)), None)
+            if failed is None and deadline is not None \
+                    and time.monotonic() > deadline:
+                failed = next((r, f"still running after {timeout} s")
+                              for r, p in enumerate(procs)
+                              if p.poll() is None)
+            time.sleep(0.05)
+        if failed is None:
+            failed = next(((r, f"exit code {p.returncode}")
+                           for r, p in enumerate(procs)
+                           if p.returncode != 0), None)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    if failed is not None:
+        r, why = failed
+        log = work / f"rank{r}.log"
+        tail = log.read_text()[-3000:] if log.exists() else ""
+        raise RuntimeError(f"process {r} of {n} failed ({why})"
+                           + (f":\n{tail}" if tail else ""))
+    return result
+
+
 def shutdown() -> None:
-    """Destroy the fake process group (and every mesh's groups), and
+    """Destroy the process group, fake or real (and every mesh's groups), and
     DTensor's caches of sharding decisions: a mesh made later over the
     same ranks equals one of the old meshes, so a cached decision would
     hand it the old mesh, whose groups are gone."""

@@ -46,15 +46,19 @@ def median_seconds(fn, device: torch.device, runs: int) -> float:
 
 
 def time_level_merges(plan, payload: torch.Tensor, merge,
-                      runs: int = 5) -> list[float]:
+                      runs: int = 5, axis=None) -> list[float]:
     """Seconds of each level's merge alone (``ccache.merge_stage``) over
-    the stacked ``payload`` ``[S, ...]``, median of ``runs``, by plan level
-    (0 for a level that compiles away)."""
+    ``payload``, median of ``runs``, by plan level (0 for a level that
+    compiles away). The merge runs over ``axis``, the wire the caller
+    really uses (a KV store's ``MeshAxis`` over a process group, the
+    payload this process's ``[1, ...]`` slice); by default a
+    ``StackedAxis`` over the payload's ``[S, ...]`` dim 0."""
     from repro_torch.core import ccache
     from repro_torch.core.merge_plan import compile_plan
     from repro_torch.core.stacked import StackedAxis
 
-    axis = StackedAxis(payload.shape[0], payload.device)
+    if axis is None:
+        axis = StackedAxis(payload.shape[0], payload.device)
     level_s = [0.0] * len(plan.levels)
     for st in compile_plan(plan, axis.size, merge_fn=merge):
         level_s[st.index] = median_seconds(
@@ -69,10 +73,11 @@ def describe_inputs(inputs: dict, label: str = "deferred tick",
     ``inputs[key]`` is the time of the work a commit is amortized over,
     printed as ``label``."""
     names = inputs["names"]
+    over = f" over {inputs['backend']}" if "backend" in inputs else ""
     return [
         "wire vector (bytes a synchronized tick, machine-wide): "
         + ", ".join(f"{n} {b:.0f}" for n, b in zip(names, inputs["wire"])),
         f"level merges on {inputs['device']} (median of 5): "
         + ", ".join(f"{n} {1e3 * t:.6f} ms ({r:.6g} B/s)" for n, t, r in
-                    zip(names, inputs["level_s"], inputs["rates"])),
+                    zip(names, inputs["level_s"], inputs["rates"])) + over,
         f"{label} on {inputs['device']}: {1e3 * inputs[key]:.6f} ms"]

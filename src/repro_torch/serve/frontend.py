@@ -1,5 +1,9 @@
 """Batched request front end for :class:`~repro_torch.serve.kv.ShardedKV`.
 
+Over a mesh of processes (the store's ``spmd=``), every process runs the
+same front end on the same request stream: the store takes each process's
+row of the batch, and its reads give every process every answer.
+
 The store is driven with ONE fixed request-batch shape ``[n_shards,
 slots_per_shard]`` every tick; the host side only queues, pads, and
 unpads.  Requests are routed to shards **by key** (``key % n_shards``),

@@ -1,9 +1,17 @@
 """A sharded commutative KV store: the paper's headline app as a serving tier.
 
-The PyTorch counterpart of the JAX package's ``repro/serve/kv.py``. All
-``S`` shards live on one device, stacked along dim 0 of every state tensor
-(``repro_torch.core.stacked``); the collectives of the merge cascade are
-tensor ops over that dim.
+The PyTorch counterpart of the JAX package's ``repro/serve/kv.py``. The
+store runs on an executor (``spmd=``), as JAX's runs on its ``spmd``: by
+default the stacked one (``core/stacked.StackedSPMD``), every shard on one
+device along dim 0 of every state tensor and the merge cascade's
+collectives tensor ops over that dim; or the mesh one
+(``core/mesh_axis.MeshSPMD``, ``apps.sharded.mesh_spmd``), one process a
+shard, each holding its ``[1, ...]`` slice of every state tensor, the
+cascade's collectives ``torch.distributed`` calls between the processes.
+Every process of a mesh store is handed the same batches (host inputs are
+replicated, JAX's multi-controller discipline) and takes its own row;
+``table``, ``read``, ``counters`` and ``state_arrays`` give every process
+the whole store's value, gathered, as JAX's global arrays do.
 
 By default the table lives replicated per shard (every shard answers any
 read from its *settled* copy); the **update stream** is what shards — each
@@ -51,8 +59,8 @@ converted where they enter (``tick``, ``load_state``) and leave (``read``,
 ``table``, ``state_arrays``).
 
 State tensors are updated in place where the reference donates their
-buffers (the ``donate=`` of :meth:`ShardedKV._run`); ``stacked_spmd``
-refuses an in-place write to anything not donated.
+buffers (the ``donate=`` of :meth:`ShardedKV._run`); the executor refuses
+an in-place write to anything not donated.
 
 Durability: :meth:`ShardedKV.attach_journal` writes every acknowledged
 batch ahead of the tick's device work (``serve.journal``), as the caller
@@ -61,7 +69,10 @@ the state holds); :meth:`ShardedKV.snapshot` saves a flush-consistent
 global table (``checkpoint.save``) and truncates the journal;
 :meth:`ShardedKV.recover` reloads it into any shard count, engine and
 layout and replays the journal since. Journals and snapshots are the JAX
-package's formats, so either package recovers the other's.
+package's formats, so either package recovers the other's. On a mesh, rank
+0 alone journals and writes the snapshot (the batches are replicated);
+every process recovers from the same files into its own slice, so a mesh
+store's snapshot recovers into a stacked store and the reverse.
 """
 
 from __future__ import annotations
@@ -81,7 +92,7 @@ from repro_torch.core.defer_schedule import (AdaptiveDeferSchedule,
                                              DeferSchedule)
 from repro_torch.core.merge_functions import ADD, MergeFn
 from repro_torch.core.merge_plan import MergePlan, compile_plan
-from repro_torch.core.stacked import StackedAxis, stacked_spmd
+from repro_torch.core.stacked import StackedSPMD
 from repro_torch.serve.journal import UpdateJournal
 
 _CONSISTENCY = ("eventual", "read_your_writes")
@@ -105,6 +116,13 @@ def sync_device(device: torch.device) -> None:
     """Wait for ``device``'s queued work (nothing to wait for on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    """``x`` as a numpy array of its own: on the CPU too, where
+    ``.numpy()`` would share the store's live state, which later ticks
+    update in place."""
+    return x.to("cpu", copy=True).numpy()
 
 
 def resolve_device(device) -> torch.device:
@@ -224,11 +242,13 @@ def _rechunk_records(records, S: int, batch: Optional[int] = None):
 
 
 class ShardedKV:
-    """The store: a host-side driver around per-tick programs on stacked
-    state (leading shard dim, one device)."""
+    """The store: a host-side driver around per-tick programs on the
+    executor's state (``spmd=``: the stacked one on ``device`` by default,
+    every shard along dim 0 of one device; or a mesh executor, one process
+    a shard, each with its ``[1, ...]`` slice)."""
 
     def __init__(self, config: KVConfig, n_shards: int, *,
-                 device="cuda", plan: Optional[MergePlan] = None,
+                 device=None, spmd=None, plan: Optional[MergePlan] = None,
                  schedule: Optional[DeferSchedule] = None,
                  commit_every: Optional[int] = None):
         if n_shards < 2:
@@ -236,8 +256,21 @@ class ShardedKV:
                              "has nothing to reconcile)")
         self.config = config
         self.n_shards = n_shards
-        self.device = resolve_device(device)
-        self.axis = StackedAxis(n_shards, self.device)
+        if spmd is None:
+            spmd = StackedSPMD(n_shards, resolve_device(
+                "cuda" if device is None else device))
+        elif spmd.n_shards != n_shards:
+            raise ValueError(f"the executor has {spmd.n_shards} shards, the "
+                             f"store {n_shards}")
+        elif device is not None and \
+                torch.device(device).type != spmd.device.type:
+            raise ValueError(f"device {device} is not the executor's "
+                             f"{spmd.device}")
+        self.spmd = spmd
+        self.device = spmd.device
+        self.axis = spmd.axis
+        # the rows of shards a state tensor holds here: S stacked, or one
+        self._stack = self.axis.stack
         # uint32 values live as int32 bits (module doc)
         self._u32 = config.dtype == torch.uint32
         self._dtype = torch.int32 if self._u32 else config.dtype
@@ -381,35 +414,36 @@ class ShardedKV:
         spill)``: identity tables (the settled rows home-sharded when
         partitioned, no pending tables then) and, for the blocked engine, a
         cold cache and (partitioned) an empty spill buffer, else None. Real
-        ``[S, ...]`` tensors, never broadcast views: the kernels write the
-        pendings in place."""
-        cfg, S = self.config, self.n_shards
+        ``[stack, ...]`` tensors (every shard's rows, or this process's),
+        never broadcast views: the kernels write the pendings in place."""
+        cfg, S, L = self.config, self.n_shards, self._stack
         R, D = cfg.n_keys, cfg.cols
         if cfg.partitioned:
-            settled, pendings = self._identity((S, R // S, D)), ()
+            settled, pendings = self._identity((L, R // S, D)), ()
         else:
-            settled = self._identity((S, R, D))
-            pendings = tuple(self._identity((S, R, D))
+            settled = self._identity((L, R, D))
+            pendings = tuple(self._identity((L, R, D))
                              for _ in range(self.n_deferred))
         cache = spill = None
         if cfg.engine == "blocked":
-            cache = blocked.init_cache(S, cfg.ways, cfg.block_rows, D,
+            cache = blocked.init_cache(L, cfg.ways, cfg.block_rows, D,
                                        self._dtype, self.device)
             if cfg.partitioned:
-                spill = blocked.init_spill(S, cfg.spill_blocks,
+                spill = blocked.init_spill(L, cfg.spill_blocks,
                                            cfg.block_rows, D, self._dtype,
                                            cfg.merge, self.device)
         return settled, pendings, cache, spill
 
     def _fresh_ring(self, batch: int) -> tuple:
         """An empty pending ring of the partitioned kernel store for ticks
-        of ``batch`` updates a shard: keys ``[S, C]`` (-1), values ``[S, C,
-        D]`` (identity) and the cursor 0, ``C = max_period * batch``. Every
-        shard appends the same batch a tick, so one cursor serves all."""
+        of ``batch`` updates a shard: keys ``[stack, C]`` (-1), values
+        ``[stack, C, D]`` (identity) and the cursor 0, ``C = max_period *
+        batch``. Every shard appends the same batch a tick, so one cursor
+        serves all."""
         C = self.schedule.max_period * batch
-        return (torch.full((self.n_shards, C), -1, dtype=torch.int32,
+        return (torch.full((self._stack, C), -1, dtype=torch.int32,
                            device=self.device),
-                self._identity((self.n_shards, C, self.config.cols)), 0)
+                self._identity((self._stack, C, self.config.cols)), 0)
 
     def _encode(self, x: torch.Tensor) -> torch.Tensor:
         """Values of the table's dtype as the state holds them."""
@@ -421,7 +455,12 @@ class ShardedKV:
 
     def _identity_table(self) -> torch.Tensor:
         cfg = self.config
-        return self._identity((self.n_shards, cfg.n_keys, cfg.cols))
+        return self._identity((self._stack, cfg.n_keys, cfg.cols))
+
+    def _rows(self) -> torch.Tensor:
+        """The local rows of a state tensor, ``arange(stack)``: the index
+        into dim 0, where ``axis.index()`` is each row's global rank."""
+        return torch.arange(self._stack, device=self.device)
 
     def _scatter_into(self, table: torch.Tensor, keys: torch.Tensor,
                       vals: torch.Tensor) -> torch.Tensor:
@@ -524,14 +563,14 @@ class ShardedKV:
     # -- partitioned-mode builders ---------------------------------------
 
     def _home_rows(self, agg: torch.Tensor) -> torch.Tensor:
-        """Each shard's home rows of a stacked ``[S, n_keys, cols]``
-        aggregate: global row ``r`` lives on shard ``r % S`` at local index
-        ``r // S`` — a diagonal gather ``agg[s, :, s, :]`` of the
-        ``[S, R/S, S, D]`` view."""
+        """Each shard's home rows of a ``[stack, n_keys, cols]`` aggregate:
+        global row ``r`` lives on shard ``r % S`` at local index ``r //
+        S`` — a diagonal gather ``agg[i, :, rank(i), :]`` of the ``[stack,
+        R/S, S, D]`` view, local row ``i`` holding global rank ``rank(i)``."""
         S = self.n_shards
-        ranks = self.axis.index()
-        return agg.reshape(S, self.config.n_keys // S, S,
-                           self.config.cols)[ranks, :, ranks]
+        return agg.reshape(self._stack, self.config.n_keys // S, S,
+                           self.config.cols)[self._rows(), :,
+                                             self.axis.index()]
 
     def _ring_append(self, ring, keys, vals):
         rk, rv, cur = ring
@@ -635,7 +674,7 @@ class ShardedKV:
         cfg = self.config
         merge = cfg.merge
         S, R, D = self.n_shards, cfg.n_keys, cfg.cols
-        ranks = self.axis.index()
+        ranks, rows = self.axis.index(), self._rows()
 
         def base_gather(settled, keys):
             # routed reads: only keys homed on a shard answer there; off-home
@@ -643,8 +682,8 @@ class ShardedKV:
             # BatchedFrontend, which shards traffic by key % n_shards)
             ok = (keys >= 0) & (keys < R) & (keys % S == ranks[:, None])
             local = torch.where(ok, keys // S, 0).long()
-            rows = settled[ranks[:, None], local]
-            return torch.where(ok[..., None], rows,
+            got = settled[rows[:, None], local]
+            return torch.where(ok[..., None], got,
                                self._identity((D,))), ok
 
         if kind == "plain":
@@ -655,10 +694,10 @@ class ShardedKV:
         def ring_overlay(ring, keys, ok):
             # each shard's own buffered updates for each key, folded with
             # the merge's combine; chunked over the reads to bound the
-            # [S, reads, C, D] match tensor
+            # [stack, reads, C, D] match tensor
             rk, rv, _ = ring
             out = self._identity(tuple(keys.shape) + (D,))
-            step = max(1, _OVERLAY_ELEMS // (S * rk.shape[1] * D))
+            step = max(1, _OVERLAY_ELEMS // (rk.numel() * D))
             for lo in range(0, keys.shape[1], step):
                 k, o = keys[:, lo:lo + step], ok[:, lo:lo + step]
                 match = ((rk[:, None, :] == k[:, :, None]) & o[:, :, None]
@@ -678,8 +717,8 @@ class ShardedKV:
             # launched-but-unlanded mass: includes this shard's own writes
             # (plus inner-group peers' — fresher, still monotone)
             safe = torch.where(ok, keys, 0).long()
-            rows = inflight[ranks[:, None], safe]
-            return merge.apply(base, torch.where(ok[..., None], rows,
+            got = inflight[rows[:, None], safe]
+            return merge.apply(base, torch.where(ok[..., None], got,
                                                  self._identity((D,))))
 
         if cfg.engine == "blocked":
@@ -710,10 +749,10 @@ class ShardedKV:
         cfg = self.config
         merge = cfg.merge
         ryw = cfg.consistency == "read_your_writes" and not self.synchronized
-        ranks = self.axis.index()
+        rows = self._rows()
 
         def rows_of(table, keys, ok):
-            return table[ranks[:, None], torch.where(ok, keys, 0).long()]
+            return table[rows[:, None], torch.where(ok, keys, 0).long()]
 
         def masked(rows, ok):
             return torch.where(ok[..., None], rows,
@@ -755,7 +794,13 @@ class ShardedKV:
     # ------------------------------------------------------------------
 
     def _run(self, fn, *args, donate=()):
-        return stacked_spmd(fn, *args, donate=donate)
+        return self.spmd(fn, *args, donate=donate)
+
+    def _gathered(self, state):
+        """A blocked state (``BlockedCache`` / ``SpillBuffer``) with every
+        leaf the whole store's ``[S, ...]``."""
+        return type(state)(**{f.name: self.spmd.gather(getattr(state, f.name))
+                              for f in dataclasses.fields(state)})
 
     def _checked_keys(self, keys) -> torch.Tensor:
         """``keys`` as an int32 tensor where the caller holds it."""
@@ -766,7 +811,10 @@ class ShardedKV:
         return keys
 
     def _keys(self, keys) -> torch.Tensor:
-        return self._checked_keys(keys).to(self.device).contiguous()
+        """This executor's rows of a replicated ``[S, B]`` batch of keys,
+        on the store's device."""
+        return self.spmd.local(self._checked_keys(keys)).to(
+            self.device).contiguous()
 
     def tick(self, keys, vals) -> None:
         """Ingest one fixed-shape batch of updates: ``keys`` [S, B] int32
@@ -789,8 +837,10 @@ class ShardedKV:
             # a crash at any later point in this tick is recoverable —
             # tick() returning is the acknowledgement point
             self._journal.append(keys.cpu().numpy(), vals.cpu().numpy())
-        keys = keys.to(self.device).contiguous()
-        vals = self._encode(vals.to(self.device)).contiguous()
+        # every process is handed the whole batch and takes its own rows
+        keys = self.spmd.local(keys).to(self.device).contiguous()
+        vals = self._encode(self.spmd.local(vals).to(self.device)
+                            ).contiguous()
         if self.synchronized:
             self.settled = self._run(self._tick_fns["sync"], self.settled,
                                      keys, vals, donate=(0,))
@@ -820,7 +870,7 @@ class ShardedKV:
                 f"ring was sized for batch {self._ring_batch}, got {B}")
 
     def _check_spill_overflow(self) -> None:
-        n = int(self.spill.n_overflow.sum())
+        n = int(self.spmd.gather(self.spill.n_overflow).sum())
         if n:
             raise RuntimeError(
                 f"spill buffer overflowed {n} eviction(s) — pending mass "
@@ -869,7 +919,8 @@ class ShardedKV:
 
     def read(self, keys) -> torch.Tensor:
         """Serve one fixed-shape batch of gets: ``keys`` [S, B] -> [S, B,
-        cols] on the store's device.  Zero collectives either way:
+        cols] on the store's device (on a mesh, every process gets every
+        shard's answers, gathered).  Zero merge collectives either way:
         ``eventual`` reads the last settled table; ``read_your_writes``
         overlays the shard's own unmerged pendings (+ resident cache and
         spill, blocked engine)."""
@@ -883,7 +934,7 @@ class ShardedKV:
         else:
             out = self._run(self._read_fn, self.settled, self.pendings,
                             self.cache, keys)
-        return self._decode(out)
+        return self._decode(self.spmd.gather(out))
 
     def _read_partitioned(self, keys) -> torch.Tensor:
         ryw = self.config.consistency == "read_your_writes"
@@ -935,12 +986,14 @@ class ShardedKV:
             self._check_spill_overflow()
 
     def table(self) -> np.ndarray:
-        """The settled table on the host.  Replicated mode returns shard 0's
-        copy; partitioned mode reassembles the home-sharded rows
-        (``out[s::S] = shard s``)."""
+        """The settled table on the host (an array of its own), on every
+        process.  Replicated mode returns this process's first copy (every
+        shard holds the same); partitioned mode gathers and reassembles
+        the home-sharded rows (``out[s::S] = shard s``)."""
         if not self.partitioned:
-            return self._decode(self.settled[0]).cpu().numpy()
-        parts = self._decode(self.settled).cpu().numpy()  # (S, R // S, D)
+            return _host(self._decode(self.settled[0]))
+        # (S, R // S, D)
+        parts = _host(self._decode(self.spmd.gather(self.settled)))
         out = np.empty((self.config.n_keys, self.config.cols), parts.dtype)
         for s in range(self.n_shards):
             out[s::self.n_shards] = parts[s]
@@ -951,24 +1004,27 @@ class ShardedKV:
     # ------------------------------------------------------------------
 
     def state_arrays(self) -> dict[str, np.ndarray]:
-        """The store's state as numpy arrays, with the JAX store's shapes:
-        ``settled``, ``pending_{i}``, ``ring_keys``/``ring_vals``/
-        ``ring_cursor`` once the ring exists, the blocked engine's
-        ``cache_<field>`` and ``spill_<field>`` leaves (the fields of
-        ``BlockedCache`` and ``SpillBuffer``), ``inflight`` while a launch
-        is in flight, ``t`` and ``land_pending``."""
+        """The store's state as numpy arrays of their own, with the JAX
+        store's shapes: ``settled``, ``pending_{i}``, ``ring_keys``/
+        ``ring_vals``/``ring_cursor`` once the ring exists, the blocked
+        engine's ``cache_<field>`` and ``spill_<field>`` leaves (the fields
+        of ``BlockedCache`` and ``SpillBuffer``), ``inflight`` while a
+        launch is in flight, ``t`` and ``land_pending``; every leaf the
+        whole store's, gathered on a mesh."""
+        gather = self.spmd.gather
+
         def values(x):
-            return self._decode(x).cpu().numpy()
+            return _host(self._decode(gather(x)))
 
         out = {"settled": values(self.settled)}
         for i, p in enumerate(self.pendings):
             out[f"pending_{i}"] = values(p)
         for name, leaf in self._blocked_leaves():
             out[name] = (values(leaf) if name in _VALUE_LEAVES
-                         else leaf.cpu().numpy())
+                         else _host(gather(leaf)))
         if self.ring is not None:
             rk, rv, cur = self.ring
-            out["ring_keys"] = rk.cpu().numpy()
+            out["ring_keys"] = _host(gather(rk))
             out["ring_vals"] = values(rv)
             out["ring_cursor"] = np.full((self.n_shards,), cur, np.int32)
         if self.inflight is not None:
@@ -980,13 +1036,16 @@ class ShardedKV:
     def load_state(self, arrays: dict[str, np.ndarray]) -> None:
         """Install state read off a store of the same configuration (this
         port's :meth:`state_arrays`, or the JAX store's arrays under the
-        same keys). Shapes are checked against this store's."""
+        same keys): the whole store's arrays, of which each process keeps
+        its rows. Shapes are checked against the whole store's."""
         def put(name, like: torch.Tensor, values: bool = False
                 ) -> torch.Tensor:
-            a = np.array(arrays[name])    # a private, writable copy
-            if a.shape != tuple(like.shape):
+            a = np.asarray(arrays[name])
+            whole = (self.n_shards,) + tuple(like.shape[1:])
+            if a.shape != whole:
                 raise ValueError(f"load_state: {name} has shape {a.shape}, "
-                                 f"this store needs {tuple(like.shape)}")
+                                 f"this store needs {whole}")
+            a = np.array(self.spmd.local(a))    # a private, writable copy
             if values and self._u32:
                 a = a.astype(np.uint32).view(np.int32) ^ np.int32(self._bias)
             return torch.as_tensor(a, device=self.device).to(like.dtype)
@@ -1025,8 +1084,7 @@ class ShardedKV:
         self.inflight = None
         if self._land_pending:
             cfg = self.config
-            self.inflight = put("inflight", self._identity(
-                (self.n_shards, cfg.n_keys, cfg.cols)), True)
+            self.inflight = put("inflight", self._identity_table(), True)
         self._t = int(np.asarray(arrays.get("t", 0)))
 
     # ------------------------------------------------------------------
@@ -1039,9 +1097,11 @@ class ShardedKV:
         record). Call before serving traffic; :meth:`snapshot` and
         :meth:`recover` then lose no acknowledged mass to a crash. A tick
         handed tensors on the card pays a device-to-host copy of its batch
-        for the journal."""
+        for the journal. On a mesh rank 0 alone journals: every process is
+        handed the same batches."""
         self._dur_root = root
-        self._journal = UpdateJournal(root, sync=sync)
+        self._journal = (UpdateJournal(root, sync=sync)
+                         if self.spmd.rank == 0 else None)
 
     def durable_manifest(self) -> dict:
         """Identity of the durable state (the snapshot's extras), as the JAX
@@ -1083,9 +1143,10 @@ class ShardedKV:
                                          dtype=cfg.dtype).to(self.device))
         if self.partitioned:
             # global row r lives on shard r % S at local row r // S
-            t = t.reshape(cfg.n_keys // S, S, cfg.cols).transpose(0, 1)
+            t = self.spmd.local(
+                t.reshape(cfg.n_keys // S, S, cfg.cols).transpose(0, 1))
         else:
-            t = t.unsqueeze(0).expand(S, cfg.n_keys, cfg.cols)
+            t = t.unsqueeze(0).expand(self._stack, cfg.n_keys, cfg.cols)
         self.settled = t.contiguous()
 
     def snapshot(self) -> str:
@@ -1098,8 +1159,10 @@ class ShardedKV:
         Crash-safe at every point: until the snapshot commits, the old
         snapshot and the full journal still reconstruct everything.
         ``last_snapshot_seconds`` keeps the host-clock seconds of its
-        flush, of the table's copy to the host and of the write."""
-        if self._journal is None:
+        flush, of the table's copy to the host and of the write. On a mesh
+        every process gathers the table, rank 0 writes it, and every
+        process waits for the write (the returned path is the same)."""
+        if self._dur_root is None:
             raise ValueError("snapshot() needs attach_journal(root) first — "
                              "without the journal, ticks after the snapshot "
                              "would be unrecoverable")
@@ -1109,14 +1172,17 @@ class ShardedKV:
         t1 = time.perf_counter()
         table = self.table()
         t2 = time.perf_counter()
-        seq = self._journal.segment
-        next_seg = self._journal.rotate()
-        path = checkpoint.save(os.path.join(self._dur_root, "snaps"), seq,
-                               {"settled_global": table},
-                               extras={"kv": self.durable_manifest(),
-                                       "segment": next_seg,
-                                       "ticks": int(self._t)})
-        self._journal.gc(next_seg)
+        snaps = os.path.join(self._dur_root, "snaps")
+        if self._journal is not None:
+            seq = self._journal.segment
+            next_seg = self._journal.rotate()
+            checkpoint.save(snaps, seq, {"settled_global": table},
+                            extras={"kv": self.durable_manifest(),
+                                    "segment": next_seg,
+                                    "ticks": int(self._t)})
+            self._journal.gc(next_seg)
+        self.spmd.barrier()
+        path = os.path.join(snaps, f"step_{checkpoint.latest_step(snaps):08d}")
         self.last_snapshot_seconds = {"flush": t1 - t0, "copy": t2 - t1,
                                       "write": time.perf_counter() - t2}
         return path
@@ -1168,6 +1234,9 @@ class ShardedKV:
         sync_device(self.device)
         report["seconds"] = {"load": t1 - t0, "install": t2 - t1,
                              "replay": time.perf_counter() - t2}
+        # every process has read the journal before rank 0 opens its next
+        # segment
+        self.spmd.barrier()
         self.attach_journal(root, sync=sync)
         return report
 
@@ -1190,7 +1259,9 @@ class ShardedKV:
         the pending machinery (dense pendings, ring, cache, spill, an
         in-flight launched aggregate). Excludes the transient dense delta a
         commit tick materializes and frees within the tick. The ring cursor
-        counts as one int32 per shard, as in the reference."""
+        counts as one int32 per shard, as in the reference. The same on
+        either executor: the local tensors' bytes over the shards they
+        stack."""
         tensors = [self.settled, *self.pendings]
         tensors += [leaf for _, leaf in self._blocked_leaves()]
         if self.ring is not None:
@@ -1199,8 +1270,8 @@ class ShardedKV:
             tensors.append(self.inflight)
         nbytes = sum(t.numel() * t.element_size() for t in tensors)
         if self.ring is not None:
-            nbytes += 4 * self.n_shards
-        return nbytes // self.n_shards
+            nbytes += 4 * self._stack
+        return nbytes // self._stack
 
     def counters(self) -> dict:
         out = {"ticks": self._t, "engine": self.config.engine,
@@ -1215,10 +1286,11 @@ class ShardedKV:
                 out["overlap"] = True
                 out["land_pending"] = self._land_pending
         if self.spill is not None:
-            out["spills"] = int(self.spill.n_spills.sum())
-            out["spill_overflow"] = int(self.spill.n_overflow.sum())
+            spill = self._gathered(self.spill)
+            out["spills"] = int(spill.n_spills.sum())
+            out["spill_overflow"] = int(spill.n_overflow.sum())
         if self.cache is not None:
-            out.update(blocked.stats(self.cache))
+            out.update(blocked.stats(self._gathered(self.cache)))
         return out
 
     # ------------------------------------------------------------------
@@ -1244,11 +1316,11 @@ class ShardedKV:
 
     def raw_tick_fn(self, due: Optional[int] = None,
                     land: bool = False) -> Callable:
-        """The tick program :meth:`tick` runs, on stacked arguments (the
-        order :meth:`tick_args` gives). ``due=None`` on a synchronized store
-        is the sync tick, on a partitioned one the full commit;
-        ``land=True`` is the overlapped store's landing variant (the tick
-        that settles the in-flight aggregate)."""
+        """The tick program :meth:`tick` runs, on the executor's local
+        arguments (the order :meth:`tick_args` gives). ``due=None`` on a
+        synchronized store is the sync tick, on a partitioned one the full
+        commit; ``land=True`` is the overlapped store's landing variant
+        (the tick that settles the in-flight aggregate)."""
         self._check_land(land)
         if self.synchronized:
             return self._tick_fns["sync"]
@@ -1272,19 +1344,21 @@ class ShardedKV:
 
     def tick_args(self, batch: int, land: bool = False,
                   seed: int = 0) -> tuple:
-        """Example stacked arguments of :meth:`raw_tick_fn` for a tick of
+        """Example local arguments of :meth:`raw_tick_fn` for a tick of
         ``batch`` updates a shard: the state a new store holds
         (:meth:`_fresh_state`; the partitioned kernel store's ring sized
         for ``batch``; an identity in-flight aggregate when ``land``) and
-        keys and values drawn from ``seed``. The store's own state is not
-        touched."""
+        this executor's rows of keys and values drawn from ``seed``. The
+        store's own state is not touched."""
         self._check_land(land)
         cfg, S = self.config, self.n_shards
         rng = np.random.default_rng(seed)
-        keys = torch.as_tensor(rng.integers(0, cfg.n_keys, (S, batch)),
-                               dtype=torch.int32, device=self.device)
-        vals = torch.as_tensor(rng.integers(1, 9, (S, batch, cfg.cols)),
-                               dtype=self._dtype, device=self.device)
+        keys = torch.as_tensor(self.spmd.local(
+            rng.integers(0, cfg.n_keys, (S, batch))),
+            dtype=torch.int32, device=self.device)
+        vals = torch.as_tensor(self.spmd.local(
+            rng.integers(1, 9, (S, batch, cfg.cols))),
+            dtype=self._dtype, device=self.device)
         settled, pendings, cache, spill = self._fresh_state()
         if self.synchronized:
             return (settled, keys, vals)

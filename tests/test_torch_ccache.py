@@ -22,7 +22,7 @@ from repro.core import merge_plan as jmp
 from repro_torch.core import ccache
 from repro_torch.core import merge_functions as mf
 from repro_torch.core import merge_plan as mp
-from repro_torch.core.stacked import StackedAxis, stacked_spmd
+from repro_torch.core.stacked import StackedAxis, StackedSPMD
 
 AX = "ranks"
 MERGES = {"add": (mf.ADD, jmf.ADD), "max": (mf.MAX, jmf.MAX),
@@ -194,6 +194,7 @@ def test_stacked_spmd_refuses_writes_to_arguments_not_donated():
         return a + b
 
     a, b = torch.zeros(2, 3), torch.ones(2, 3)
+    stacked_spmd = StackedSPMD(2, "cpu")
     assert torch.equal(stacked_spmd(bump, a, b, donate=(0,)),
                        torch.full((2, 3), 2.0))
     with pytest.raises(RuntimeError, match="not donated"):
@@ -442,7 +443,7 @@ def test_keyed_merge_applies_one_draw_on_every_rank():
 
 
 def test_views_and_pending_updates_are_pytrees():
-    """``stacked_spmd`` guards every tensor inside a CView or a
+    """``StackedSPMD`` guards every tensor inside a CView or a
     PendingUpdate it was not given to write."""
     view = ccache.privatize(torch.zeros(2, 3))
     pend = ccache.PendingUpdate(update={"x": torch.zeros(2, 3)})
@@ -451,6 +452,7 @@ def test_views_and_pending_updates_are_pytrees():
         p.update["x"].add_(1)
         return v
 
+    stacked_spmd = StackedSPMD(2, "cpu")
     with pytest.raises(RuntimeError, match="not donated"):
         stacked_spmd(bump, view, pend)
     stacked_spmd(bump, view, pend, donate=(1,))

@@ -1543,3 +1543,98 @@ def test_prefill_counts_on_the_card_equal_the_traced_ones(cuda):
     assert real["hbm_bytes"] == fake["hbm_bytes"]
     assert real["boundary_bytes"] == fake["boundary_bytes"] > 0
     assert real["kernels"]["flash_attention"]["calls"] == cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# MeshAxis on the card: 2 processes, gloo (sharing a card, staged through
+# the host) and, with 2 cards, NCCL (one card a process)
+# ---------------------------------------------------------------------------
+
+MESH_PERMS = {"swap": [(0, 1), (1, 0)], "lone": [(1, 0)], "self": [(0, 0)]}
+
+
+def _mesh_input() -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(4).integers(
+        -2**20, 2**20, (2, 33, 5)).astype(np.int32))
+
+
+def _mesh_axis_worker(backend: str, rank: int, init: str, work: str) -> None:
+    """One process of the 2-process group: every collective of its
+    ``MeshAxis`` on its row of :func:`_mesh_input` on the card, gathered."""
+    from pathlib import Path
+    from repro_torch.apps.sharded import mesh_spmd
+    from repro_torch.launch import mesh as pmesh
+    mesh = pmesh.init_shards(backend, "cuda", init_method=f"file://{init}",
+                             rank=rank, world_size=2)
+    spmd = mesh_spmd(mesh)
+    axis = spmd.axis
+    mine = spmd.local(_mesh_input()).cuda()
+    out = {"device": np.asarray(mine.device.index),
+           "backend": np.asarray(axis.backend)}
+    for name, perm in MESH_PERMS.items():
+        out[f"ppermute/{name}"] = spmd.gather(axis.ppermute(mine, perm))
+    for kind in ("psum", "pmax", "pmin"):
+        out[kind] = spmd.gather(getattr(axis, kind)(mine))
+    out["gather"] = spmd.gather(mine)
+    np.savez(Path(work, f"rank{rank}.npz"),
+             **{k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+                for k, v in out.items()})
+    spmd.barrier()
+    pmesh.shutdown()
+
+
+def _mesh_axis_run(backend: str, work) -> list:
+    import os
+    import sys
+    from pathlib import Path
+    from repro_torch.launch.mesh import spawn_shards
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    spawn_shards(lambda r: [sys.executable, __file__, "--mesh-axis-worker",
+                            backend, str(r), str(work / "init"), str(work)],
+                 2, work, 240, env=env)
+    return [dict(np.load(work / f"rank{r}.npz")) for r in range(2)]
+
+
+def _mesh_axis_check(ranks: list, backend: str) -> None:
+    from repro_torch.core.stacked import StackedAxis
+    axis = StackedAxis(2, "cuda")
+    x = _mesh_input().cuda()
+    for res in ranks:
+        assert str(res["backend"]) == backend
+        for name, perm in MESH_PERMS.items():
+            np.testing.assert_array_equal(res[f"ppermute/{name}"],
+                                          axis.ppermute(x, perm).cpu())
+        for kind in ("psum", "pmax", "pmin"):
+            np.testing.assert_array_equal(res[kind],
+                                          getattr(axis, kind)(x).cpu())
+        np.testing.assert_array_equal(res["gather"], x.cpu())
+
+
+def test_mesh_axis_on_gloo_with_card_tensors_equals_the_stacked_axis(
+        cuda, tmp_path):
+    """Two processes on a gloo group with their tensors on the card (one
+    card shared: the exchanges and the gather staged through pinned host
+    buffers): ppermute (a swap, a round in which rank 0 only receives and
+    rank 1 only sends, a self pair), psum, pmax, pmin and the gather,
+    bitwise the stacked axis's on the card."""
+    ranks = _mesh_axis_run("gloo", tmp_path)
+    _mesh_axis_check(ranks, "gloo")
+
+
+def test_mesh_axis_on_nccl_equals_the_stacked_axis(cuda, tmp_path):
+    """The same over NCCL, one card a process (every group's first call
+    joined by all of its ranks, then rounds that leave a rank idle)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("NCCL needs one card a process: this host has "
+                    f"{torch.cuda.device_count()} card(s)")
+    ranks = _mesh_axis_run("nccl", tmp_path)
+    assert [int(r["device"]) for r in ranks] == [0, 1]
+    _mesh_axis_check(ranks, "nccl")
+
+
+if __name__ == "__main__":
+    import sys
+    if sys.argv[1:2] == ["--mesh-axis-worker"]:
+        _mesh_axis_worker(sys.argv[2], int(sys.argv[3]), sys.argv[4],
+                          sys.argv[5])

@@ -44,7 +44,8 @@ def test_the_port_has_files_to_scan():
             "chaos.py", "mlp.py", "ssm.py", "xlstm.py", "xlstm_lm.py",
             "hymba.py", "xlstm_125m.py", "hymba_1_5b.py",
             "granite_34b.py", "encdec.py", "seamless_m4t_medium.py",
-            "selective_scan.py"} <= names
+            "selective_scan.py", "mesh_axis.py", "stacked.py",
+            "mesh.py"} <= names
     dirs = {p.parent.name for p in PORT_FILES}
     assert {"data", "optim", "runtime", "launch", "checkpoint"} <= dirs
     for kernel in ("cscatter.cu", "cmerge.cu", "flash_attention.cu",
@@ -66,6 +67,24 @@ def test_importing_every_port_module_loads_no_jax():
         for p in PORT_FILES if p.name != "chip_smoke.py")
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=ROOT, timeout=120)
+
+
+# test files whose processes run the port alone (``--worker``): the module
+# those processes import must load no JAX
+WORKER_FILES = ["test_torch_kv_mesh.py", "test_torch_plan_merge_gloo.py"]
+
+
+@pytest.mark.parametrize("name", WORKER_FILES)
+def test_mesh_worker_modules_load_no_jax(name):
+    code = ("import sys\n"
+            f"sys.path[:0] = [{str(ROOT / 'tests')!r}]\n"
+            f"import {name.removesuffix('.py')}\n"
             "bad = sorted(m for m in sys.modules\n"
             f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
             "assert not bad, bad\n")

@@ -29,9 +29,7 @@ tail.
 import dataclasses
 import json
 import os
-import subprocess
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
@@ -231,37 +229,14 @@ def _spawn(work: Path) -> None:
     log file (a full pipe cannot stall a worker in a collective); a worker
     that fails or outlives :data:`WORKER_TIMEOUT` fails the spawn with its
     log's tail."""
+    from repro_torch.launch.mesh import spawn_shards
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                OMP_NUM_THREADS="1")
     env.pop("JAX_PLATFORMS", None)
     init = work / "init"
-    logs = [work / f"rank{r}.log" for r in range(WORLD)]
-    procs = []
-    for r in range(WORLD):
-        with open(logs[r], "w") as f:
-            procs.append(subprocess.Popen(
-                [sys.executable, __file__, "--worker", str(r), str(init),
-                 str(work)], env=env, stdout=f, stderr=subprocess.STDOUT))
-    failed = []
-    deadline = time.monotonic() + WORKER_TIMEOUT
-    try:
-        for r, p in enumerate(procs):
-            try:
-                p.wait(timeout=max(1.0, deadline - time.monotonic()))
-            except subprocess.TimeoutExpired:
-                p.kill()
-                p.wait()
-                failed.append((r, "timed out"))
-                continue
-            if p.returncode != 0:
-                failed.append((r, p.returncode))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    assert not failed, [(r, why, logs[r].read_text()[-2000:])
-                        for r, why in failed]
+    spawn_shards(lambda r: [sys.executable, __file__, "--worker", str(r),
+                            str(init), str(work)],
+                 WORLD, work, WORKER_TIMEOUT, env=env)
 
 
 @pytest.fixture(scope="module")
