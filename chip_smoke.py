@@ -138,7 +138,7 @@ smoke config) — and:
    [256256, 1024], N = 1024, bf16 and f32) beside ``index_add_``;
 12. runs the chaos harness and elastic restore on the card: the integer
    toy's preempt and kill sweeps over every boundary of 6 steps (``[8,
-   2^20]`` int32 pendings, without and with overlap) bitwise against the
+   2^18]`` int32 pendings, without and with overlap) bitwise against the
    uninterrupted run, and resolves of overlapped toy checkpoints at t = 4
    and 5 onto another plan bitwise against a verbatim restore flushed;
    then kills the deferred qwen1.5-0.5b run of 11 (full width, 6 of its 24
@@ -153,7 +153,16 @@ smoke config) — and:
    the mu bound, and two more steps at ``rescale_hyperparams``' lr with
    the predicted ``cscatter`` launches; prints the checkpoint's bytes, the
    save's ms, each resume's ms and peak device memory by part, and the
-   free disk before the save;
+   free disk before the save; then (``phase_train_procs``) runs the train
+   CLI over 4 gloo processes sharing the card (``--procs 4 --backend
+   gloo``; qwen1.5-0.5b at full width, 4 of its 24 layers, 8 x 512,
+   chip:2,host:2:defer with K = 2, 4 steps): the stacked CLI run of the
+   same flags, the command with rank 1's worker alone sent SIGTERM (every
+   process saves step 1 mid-cycle and exits 0), the command again
+   (resumed at 1, saving step 4): losses within 1e-2 of the stacked run's,
+   every parameter within ``_param_errs``' bound, ``cscatter`` 2 launches
+   a step a process; prints the processes' start, each save's bytes and
+   seconds, the steps' ms and each process's peak device bytes;
 13. (``phase_families``) serves hymba-1.5b at full width (bf16, batch 8,
    prompts of 2048, 64 tokens: 32 ``flash_attention`` launches at prefill,
    29 with the window of 1024, 32 ``selective_scan`` calls, and a
@@ -517,14 +526,16 @@ VLM, VLM_LAYERS, VLM_PATCHES, VLM_TEXT, VLM_GEN = (
 # expert ids; at full width one MoE layer alone is 33.8 GB of experts
 KIMI, KIMI_PROMPT, KIMI_GEN, KIMI_TOL = "kimi-k2-1t", 64, 16, 1e-4
 # Elastic restore. (a) the chaos harness's integer toy on the card: a
-# [8, 2^20] int32 pending a level over TRAIN_DEFER_PLAN with intervals
-# (1, 2), swept over every boundary of 6 steps, and resolved onto
+# [8, 2^18] int32 pending a level over TRAIN_DEFER_PLAN with intervals
+# (1, 2), swept over every boundary of 6 steps (a checkpoint every step:
+# the width sets the sweeps' file traffic; 2^20 before the train-over-
+# processes phase took its time), and resolved onto
 # ELASTIC_PLAN with K = 3. (b) the deferred qwen1.5-0.5b run of phase_train
 # (K = TRAIN_K over TRAIN_DP ranks, a RESUME_STEPS-step schedule) killed by
 # SIGKILL during step RESUME_KILL_AT after its checkpoint at RESUME_CKPT,
 # then resumed on the same topology and on RESUME_PLAN (a pod left: 4
 # ranks) with K = RESUME_K
-TOY_WIDTH, TOY_STEPS, TOY_INTERVALS = 1 << 20, 6, (1, 2)
+TOY_WIDTH, TOY_STEPS, TOY_INTERVALS = 1 << 18, 6, (1, 2)
 ELASTIC_PLAN, ELASTIC_K = "chip:4,pod:2:defer", 3
 RESUME_STEPS, RESUME_CKPT, RESUME_KILL_AT = 12, 6, 7
 RESUME_PLAN, RESUME_K, RESUME_RANKS = "chip:2,host:2:defer", 2, 4
@@ -535,6 +546,18 @@ KILL_DELAY_S = 1.0                  # into step RESUME_KILL_AT (~3 s a step)
 # the 0.31 GB embedding with its moments and two levels of [8, ...]
 # pendings stays
 ELASTIC_LAYERS = 6
+# Training over processes (phase_train_procs): the train CLI's `--procs
+# PROCS --backend gloo`, PROCS processes sharing the card, one a data rank
+# of the train mesh: ARCH at full width, PROCS_LAYERS of its 24 layers,
+# bf16, batch PROCS_BATCH x TRAIN_SEQ (2 rows a process), PROCS_PLAN
+# deferred with K = PROCS_K, PROCS_STEPS steps of warmup_cosine(TRAIN_LR,
+# TRAIN_WARMUP, PROCS_STEPS), a checkpoint every PROCS_STEPS steps. Rank 1
+# alone is sent SIGTERM during step 0: every process saves step 1 (mid
+# cycle) and exits 0; the same command resumes there and saves step
+# PROCS_STEPS. Held to the stacked CLI run of the same flags.
+PROCS, PROCS_LAYERS, PROCS_BATCH, PROCS_STEPS = 4, 4, 8, 4
+PROCS_PLAN, PROCS_K = "chip:2,host:2:defer", 2
+PROCS_TIMEOUT = 300                 # seconds, each command
 # The pipeline schedule: PIPE_STAGES consecutive decoder layers of ARCH at
 # full width, one a stage, over PIPE_MICRO microbatches of PIPE_MB x
 # PROMPT tokens
@@ -5094,6 +5117,228 @@ def phase_elastic(card: str) -> dict:
     return out
 
 
+def _procs_argv(ckpt_dir: str, log: str) -> list[str]:
+    return ["--arch", ARCH, "--layers", str(PROCS_LAYERS), "--steps",
+            str(PROCS_STEPS), "--batch", str(PROCS_BATCH), "--seq",
+            str(TRAIN_SEQ), "--lr", str(TRAIN_LR), "--warmup",
+            str(TRAIN_WARMUP), "--seed", str(SEED), "--merge-topology",
+            PROCS_PLAN, "--merge-defer", str(PROCS_K), "--ckpt-every",
+            str(PROCS_STEPS), "--device", "cuda", "--ckpt-dir", ckpt_dir,
+            "--log", log]
+
+
+def _rank_logs(log: str) -> list[list]:
+    """Every process's driver events (rank r's log is ``log.rank{r}``)."""
+    out = []
+    for r in range(PROCS):
+        with open(log + (f".rank{r}" if r else "")) as f:
+            out.append([json.loads(ln) for ln in f])
+    return out
+
+
+def _preempt_rank1(proc, log: str) -> float:
+    """Once rank 1's driver has started (its ``run_start`` record names its
+    process), send that process alone SIGTERM -> seconds from the command's
+    start to every process's ``run_start``."""
+    t0 = time.perf_counter()
+    path = log + ".rank1"
+    while True:
+        require(proc.poll() is None and time.perf_counter() - t0 <
+                PROCS_TIMEOUT, "train procs: rank 1 never started its run")
+        if os.path.exists(path):
+            with open(path) as f:
+                starts = [json.loads(ln) for ln in f
+                          if '"run_start"' in ln]
+            if starts:
+                os.kill(starts[0]["pid"], signal.SIGTERM)
+                break
+        time.sleep(0.005)
+    return time.perf_counter() - t0
+
+
+def _save_stats(logs: list, root: str, step: int) -> dict:
+    """Rank 0's save of ``step``: seconds (its log: from ``defer_save`` to
+    ``checkpoint``, the gathers and the write) and bytes on disk."""
+    at = {e["event"]: e["t"] for e in logs[0] if e.get("step") == step
+          and e["event"] in ("defer_save", "checkpoint")}
+    path = os.path.join(root, f"step_{step:08d}")
+    nbytes = sum(os.path.getsize(os.path.join(path, f))
+                 for f in os.listdir(path))
+    s = at["checkpoint"] - at["defer_save"]
+    return {"bytes": nbytes, "s": s, "gb_per_s": nbytes / s / 1e9}
+
+
+def _members(root: str, prefix: str) -> tuple[dict, dict]:
+    """The last checkpoint's leaves under ``root`` whose keys start with
+    ``prefix``, read alone (``restore`` of a ``like`` of just those keys),
+    and its extras."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+    step = ckpt.latest_step(root)
+    with open(os.path.join(root, f"step_{step:08d}", "manifest.json")) as f:
+        keys = [e["key"] for e in json.load(f)["keys"]]
+    like: dict = {}
+    for key in keys:
+        if key.startswith(prefix):
+            *head, last = key.split("/")
+            d = like
+            for h in head:
+                d = d.setdefault(h, {})
+            d[last] = np.zeros(())
+    tree, extras = ckpt.restore(root, like)
+    return dict(_flatten_with_paths(tree)), extras
+
+
+def phase_train_procs(card: str) -> dict:
+    """The train CLI over PROCS gloo processes sharing the card (the
+    constants above PROCS): the stacked CLI run of the same flags in this
+    process, then ``python -m repro_torch.launch.train ... --procs PROCS
+    --backend gloo`` with rank 1 alone preempted during step 0, then the
+    same command again. Checks: every process saved step 1 (mid cycle)
+    and exited 0 on the preemption; the second run resumed at 1; the
+    losses finite and within 1e-2 relative of the stacked run's, step for
+    step; every parameter of the final checkpoint within ``_param_errs``'
+    bound of the stacked run's (bit for bit printed, not required); the
+    ``cscatter`` launches a process == LAUNCHES_PER_CALL a step it ran."""
+    import torch
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.cscatter import LAUNCHES_PER_CALL
+    from repro_torch.launch import train
+    from repro_torch.optim import warmup_cosine
+    gc.collect()
+    torch.cuda.empty_cache()
+    out: dict = {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_procs_")
+    try:
+        root, log = os.path.join(work, "ck"), os.path.join(work, "log.jsonl")
+        argv = _procs_argv(root, log)
+        p = dataclasses.replace(get_config(ARCH),
+                                n_layers=PROCS_LAYERS).n_params()
+        need = 2 * p * (2 + 8 + 2 * PROCS)   # two saves: bf16 params, f32
+        free = shutil.disk_usage(work).free  # moments, a [PROCS, ...] pending
+        out["disk_free_before"] = free
+        print(f"train procs: {free} bytes free for the checkpoints; two "
+              f"saves need about {need}")
+        require(free >= 1.05 * need, f"train procs: {free} bytes free, the "
+                                     f"checkpoints need about {need}")
+        # 1. the stacked CLI run of the same flags, in this process
+        t0 = time.perf_counter()
+        stacked = argv[:argv.index("--ckpt-every")] + [
+            "--ckpt-every", str(1 << 30), "--device", "cuda", "--ckpt-dir",
+            os.path.join(work, "stacked")]
+        res = train.main(stacked)
+        want_losses = [e["loss"] for e in res.events if e["event"] == "step"]
+        want = {k: x.detach().cpu()
+                for k, x in _flatten_with_paths(res.state["params"])}
+        count = int(res.state["opt"].step)
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["stacked_s"] = time.perf_counter() - t0
+        # 2. the command, rank 1 alone preempted during step 0
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", *argv,
+               "--procs", str(PROCS), "--backend", "gloo"]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        first = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+        start_s = _preempt_rank1(first, log)
+        so, se = first.communicate(timeout=PROCS_TIMEOUT)
+        out["first_s"] = time.perf_counter() - t0
+        require(first.returncode == 0, f"train procs: the preempted command "
+                                       f"returned {first.returncode}: "
+                                       f"{se[-3000:]}")
+        logs = _rank_logs(log)
+        for r, ev in enumerate(logs):
+            kinds = [(e["event"], e.get("step")) for e in ev]
+            require(("checkpoint", 1) in kinds and ("preempted_exit", 1)
+                    in kinds and [e["step"] for e in ev
+                                  if e["event"] == "step"] == [0],
+                    f"train procs: rank {r} on the preemption: {kinds}")
+        pend, extras = _members(root, "defer/pending/")
+        require(extras["defer_t"] == 1 and any(
+            bool(torch.as_tensor(v).float().abs().max() > 0)
+            for v in pend.values()),
+            f"train procs: the step-1 checkpoint holds no live pending "
+            f"({extras})")
+        del pend
+        save1 = _save_stats(logs, root, 1)
+        # 3. the same command again
+        t0 = time.perf_counter()
+        second = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                                timeout=PROCS_TIMEOUT)
+        out["second_s"] = time.perf_counter() - t0
+        require(second.returncode == 0 and "resumed from checkpoint step 1 "
+                "-> start 1" in second.stdout,
+                f"train procs: the resumed command returned "
+                f"{second.returncode}: {second.stdout[-2000:]}"
+                f"{second.stderr[-3000:]}")
+        logs2 = [ev[len(first_ev):] for ev, first_ev in
+                 zip(_rank_logs(log), logs)]
+        save4 = _save_stats(logs2, root, PROCS_STEPS)
+        steps_ = [e for e in logs[0] + logs2[0] if e["event"] == "step"]
+        losses = [e["loss"] for e in steps_]
+        require([e["step"] for e in steps_] == list(range(PROCS_STEPS)),
+                f"train procs: steps {[e['step'] for e in steps_]}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, want_losses)]
+        require(all(np.isfinite(losses)) and max(rel) <= 1e-2,
+                f"train procs: losses {losses} against the stacked "
+                f"{want_losses}")
+        raw, _ = _members(root, "params/")
+        lr = warmup_cosine(TRAIN_LR, TRAIN_WARMUP, PROCS_STEPS)
+        lr_sum = sum(float(lr(torch.tensor(t))) for t in range(1, count + 1))
+        require(sorted(f"params/{k}" for k in want) == sorted(
+            k for k in raw if k.startswith("params/")),
+            "train procs: the checkpoint's parameters are not the stacked "
+            "run's")
+        got = {k: torch.as_tensor(raw[f"params/{k}"]) for k in want}
+        del raw
+        errs = _param_errs(got, want, lr_sum)
+        bitwise = all(torch.equal(got[k], want[k]) for k in want)
+        ends = [[e for e in ev if e["event"] == "run_end"] for ev in
+                [a + b for a, b in zip(logs, logs2)]]
+        launches = [sum(e["launches"]["cscatter"] for e in en) for en in ends]
+        peaks = [max(e["peak_device_bytes"] for e in en) for en in ends]
+        predicted = LAUNCHES_PER_CALL * PROCS_STEPS
+        dts = [1e3 * e["dt"] for e in steps_]
+        out.update(launches=launches[0], launches_by_rank=launches,
+                   predicted_launches=predicted, losses=losses,
+                   stacked_losses=want_losses, loss_rel_err=max(rel),
+                   params=errs, bitwise=bitwise, step_ms=dts,
+                   peak_device_bytes=peaks, start_s=start_s,
+                   saves={"1": save1, str(PROCS_STEPS): save4},
+                   optimizer_steps=count)
+        print(f"train procs: {PROCS} gloo processes sharing {card}, "
+              f"{ARCH} at {PROCS_LAYERS} of 24 layers, {PROCS_BATCH} x "
+              f"{TRAIN_SEQ}, {PROCS_PLAN} K={PROCS_K}; stacked run "
+              f"{out['stacked_s']:.3f} s; processes started in "
+              f"{start_s:.3f} s (command to rank 1's run_start); rank 1 "
+              f"preempted in step 0: every process saved step 1 and exited "
+              f"0 ({out['first_s']:.3f} s); resumed at 1 and saved "
+              f"{PROCS_STEPS} ({out['second_s']:.3f} s)")
+        print(f"train procs: saves (rank 0: gathers and write) step 1 "
+              f"{save1['bytes']} bytes in {save1['s']:.3f} s "
+              f"({save1['gb_per_s']:.3f} GB/s), step {PROCS_STEPS} "
+              f"{save4['bytes']} bytes in {save4['s']:.3f} s "
+              f"({save4['gb_per_s']:.3f} GB/s); steps {dts} ms (rank 0); "
+              f"peak device bytes by process {peaks}")
+        print(f"train procs: losses {losses} against the stacked "
+              f"{want_losses} (max rel err {max(rel):.3e}, tol 1e-2); "
+              f"params vs the stacked run's: max |err| "
+              f"{errs['max_abs_err']} (bound {errs['bound']}), bit for bit "
+              f"{bitwise}; cscatter launches by process {launches} "
+              f"(predicted {predicted})")
+        require(errs["ok"], f"train procs: params stray from the stacked "
+                            f"run's: {errs}")
+        require(launches == [predicted] * PROCS,
+                f"train procs: cscatter launched {launches} a process, the "
+                f"path predicts {predicted}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def phase_pipeline(card: str) -> dict:
     """The GPipe schedule on the card (module doc, item 14). The stage
     function runs each stage's layer on that stage's own slice of the
@@ -5317,13 +5562,8 @@ def _dispatch_us(calls: int = 400) -> dict:
 
 def _counts() -> dict:
     """Every kernel's launch count, by name."""
-    from repro_torch.kernels import cmerge, cscatter, decode_attention
-    from repro_torch.kernels import flash_attention, selective_scan
-    return {"cscatter": cscatter.cscatter.launches,
-            "cmerge": cmerge.cmerge.launches,
-            "flash_attention": flash_attention.flash_attention.launches,
-            "decode_attention": decode_attention.decode_attention.launches,
-            "selective_scan": selective_scan.selective_scan.launches}
+    from repro_torch.kernels import launch_counts
+    return launch_counts()
 
 
 def _zero_counts() -> None:
@@ -6156,6 +6396,14 @@ def main() -> None:
         return
     kind, smi = phase_card()
     sys.path.insert(0, str(ROOT / "src"))
+    # This process and every process it starts share one bytecode cache in
+    # the checkout's build/: on a host that writes none
+    # (PYTHONDONTWRITEBYTECODE), each process would compile PyTorch's
+    # sources anew, several seconds a start
+    cache = str(ROOT / "build" / "pycache")
+    os.environ["PYTHONPYCACHEPREFIX"] = cache
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.pycache_prefix, sys.dont_write_bytecode = cache, False
     import torch
 
     timed("build", phase_build)
@@ -6180,6 +6428,7 @@ def main() -> None:
                                            **blocked_path["stores"]})
     trained = timed("train", phase_train, smi)
     elastic = timed("elastic", phase_elastic, smi)
+    train_procs = timed("train_procs", phase_train_procs, smi)
     families = timed("families", phase_families, smi)
     pipeline = timed("pipeline", phase_pipeline, smi)
     lint = timed("lint", phase_lint)
@@ -6214,6 +6463,7 @@ def main() -> None:
         "launches_durability": durability["launches"],
         "launches_train": trained["launches"],
         "launches_elastic": elastic["launches"],
+        "launches_train_procs": train_procs["launches"],
         "launches_families": families["chaos"]["cscatter_launches"],
         "launches_encdec_train": families["encdec_train"][
             "cscatter_launches"],
@@ -6320,7 +6570,8 @@ def main() -> None:
                      for r in scan_rows]}], "serve": serve,
         "apps": {k: v for k, v in apps.items() if k != "kernel_rows"},
         "schedules": schedules, "durability": durability, "mesh": mesh,
-        "train": trained, "elastic": elastic, "pipeline": pipeline,
+        "train": trained, "elastic": elastic, "train_procs": train_procs,
+        "pipeline": pipeline,
         "lint": lint, "dryrun": dry,
         "families": {k: {x: y for x, y in v.items() if x != "profile"}
                      for k, v in families.items()}}))

@@ -11,7 +11,22 @@ checkpoint written by either package loads in the other):
       LATEST                   text file, written last (commit point)
 
 A partially written checkpoint is never visible: ``LATEST`` only ever
-names a fully renamed directory. A tree is a dict, list, tuple or
+names a fully renamed directory.
+
+A tree whose leaves are DTensors (state split over the processes of a
+group: FSDP parameters and moments, ``Shard(0)`` pendings) is saved by
+every process of the group together: each leaf's global array is gathered
+to rank 0 in turn and written there while the next one is gathered (no
+more than two leaves are alive at once), rank 0 alone writes the files,
+and a barrier follows, so that no
+process returns, or reads ``LATEST``, before the commit. The file is the
+one a single process writes, so a checkpoint written over processes loads
+anywhere, and the reverse. :func:`restore`, :func:`restore_resharded` and
+:func:`from_raw` place a leaf onto a DTensor layout, given by a ``like``
+DTensor or by a ``(DeviceMesh, placements)`` target: each process reads
+the file and keeps its own shard, so no collective runs.
+
+A tree is a dict, list, tuple or
 NamedTuple nesting of leaves (``torch.Tensor``, numpy arrays and scalars);
 dict keys flatten in sorted order, NamedTuple fields by name (JAX's
 ``GetAttrKey``: an ``OptState``'s ``step``, ``mu``, ``nu``), other
@@ -23,9 +38,12 @@ return them as torch tensors.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import shutil
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Optional
 
 import numpy as np
@@ -40,10 +58,12 @@ _RAW_BITS = {"bfloat16": torch.bfloat16, "float8_e4m3fn": torch.float8_e4m3fn,
 _SIGNED = {1: torch.int8, 2: torch.int16}
 
 
-def _flatten_with_paths(tree: PyTree, prefix: tuple = ()
+def _flatten_with_paths(tree: PyTree, prefix: tuple = (), is_leaf=None
                         ) -> list[tuple[str, Any]]:
     if tree is None:
         return []
+    if is_leaf is not None and is_leaf(tree):
+        return [(SEP.join(prefix), tree)]
     if isinstance(tree, dict):
         items = [(str(k), tree[k]) for k in sorted(tree)]
     elif hasattr(tree, "_fields"):
@@ -54,7 +74,7 @@ def _flatten_with_paths(tree: PyTree, prefix: tuple = ()
         return [(SEP.join(prefix), tree)]
     out = []
     for k, sub in items:
-        out += _flatten_with_paths(sub, prefix + (k,))
+        out += _flatten_with_paths(sub, prefix + (k,), is_leaf)
     return out
 
 
@@ -62,6 +82,30 @@ def tree_keys(tree: PyTree) -> list[str]:
     """The flattened ``"/"``-joined leaf paths of ``tree`` — the key space
     a checkpoint of it stores under."""
     return [k for k, _ in _flatten_with_paths(tree)]
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _group_rank(tree: PyTree) -> Optional[int]:
+    """This process's rank in the group when ``tree`` holds DTensors
+    (every process saves it together), else None."""
+    if not any(_is_dtensor(x) for _, x in _flatten_with_paths(tree)):
+        return None
+    import torch.distributed as dist
+    return dist.get_rank()
+
+
+def _whole(leaf):
+    """A leaf's global array for the process that writes (rank 0): a
+    DTensor gathered over its mesh onto rank 0's host (on host copies
+    where the group's backend needs it); None on the other processes."""
+    if not _is_dtensor(leaf):
+        return leaf
+    from repro_torch.core.mesh_axis import whole_on_host
+    return whole_on_host(leaf.detach())
 
 
 def _to_numpy(leaf) -> tuple[np.ndarray, str]:
@@ -78,6 +122,61 @@ def _to_numpy(leaf) -> tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
+class _Stored:
+    """The arrays of an ``arrays.npz`` by key (``np.load``'s interface:
+    ``files``, ``[key]``, a context manager), each member read straight
+    from the file into a new array (``np.fromfile`` past the member's
+    headers, where ``np.load`` copies it through Python buffers) and its
+    bytes held to the member's CRC, as ``zipfile`` holds them. Both
+    packages write ``np.savez``'s layout, uncompressed ``.npy`` members of
+    version 1 or 2; any other member raises."""
+
+    def __init__(self, path: str):
+        import zipfile
+        self._path = path
+        self._zip = zipfile.ZipFile(path)
+        self._file = open(path, "rb")
+        self._info = {i.filename[:-4]: i for i in self._zip.infolist()
+                      if i.filename.endswith(".npy")}
+        self.files = list(self._info)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._file.close()
+        self._zip.close()
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        import struct
+        import zipfile
+        import zlib
+        fmt = np.lib.format
+        info, f = self._info[key], self._file
+        f.seek(info.header_offset + 26)
+        name_len, extra_len = struct.unpack("<HH", f.read(4))
+        start = info.header_offset + 30 + name_len + extra_len
+        f.seek(start)
+        version = fmt.read_magic(f)
+        read = {(1, 0): fmt.read_array_header_1_0,
+                (2, 0): fmt.read_array_header_2_0}.get(version)
+        if info.compress_type != zipfile.ZIP_STORED or read is None:
+            raise ValueError(f"{self._path}: member {key!r} is not an "
+                             f"uncompressed .npy of version 1 or 2")
+        shape, fortran, dtype = read(f)
+        if dtype.hasobject:
+            raise ValueError(f"{self._path}: member {key!r} holds objects")
+        header = f.tell() - start
+        f.seek(start)
+        crc = zlib.crc32(f.read(header))
+        arr = np.fromfile(f, dtype=dtype, count=math.prod(shape))
+        if zlib.crc32(arr, crc) != info.CRC or \
+                header + arr.nbytes != info.file_size:
+            raise ValueError(f"{self._path}: member {key!r} fails its "
+                             f"CRC: the file is damaged")
+        return arr.reshape(shape[::-1]).T if fortran else arr.reshape(shape)
+
+
 def load_raw(ckpt_dir: str, step: Optional[int] = None
              ) -> tuple[dict, dict]:
     """Load a checkpoint without a structure to load it into.
@@ -88,7 +187,7 @@ def load_raw(ckpt_dir: str, step: Optional[int] = None
     """
     path, manifest = _manifest_path(ckpt_dir, step)
     dtypes = {e["key"]: e["dtype"] for e in manifest["keys"]}
-    with np.load(os.path.join(path, "arrays.npz")) as data:
+    with _Stored(os.path.join(path, "arrays.npz")) as data:
         leaves = {k: _true_dtype(data[k], dtypes.get(k)) for k in data.files}
     return leaves, manifest
 
@@ -117,23 +216,82 @@ def _manifest_path(ckpt_dir: str, step: Optional[int]) -> tuple[str, dict]:
 
 def save(ckpt_dir: str, step: int, tree: PyTree,
          extras: Optional[dict] = None) -> str:
-    """Two-phase-commit save. Returns the final checkpoint path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Two-phase-commit save. Returns the final checkpoint path.
+
+    A tree of DTensors is saved by every process of its group together
+    (module doc): each leaf gathered in turn, rank 0 writing, a barrier
+    after the commit."""
+    import zipfile
+    rank = _group_rank(tree)
     name = f"step_{step:08d}"
     tmp = os.path.join(ckpt_dir, name + ".tmp")
     final = os.path.join(ckpt_dir, name)
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
+    writes = not rank
+    if writes:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
 
-    arrays = {}
     manifest = {"step": step, "keys": [], "extras": extras or {}}
-    for key, leaf in _flatten_with_paths(tree):
-        arr, true_dtype = _to_numpy(leaf)
-        arrays[key] = arr
-        manifest["keys"].append(
-            {"key": key, "shape": list(arr.shape), "dtype": true_dtype})
-    np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+
+    def write(key, whole) -> dict:
+        arr, true_dtype = _to_numpy(whole)
+        del whole
+        with zf.open(key + ".npy", "w", force_zip64=True) as f:
+            _write_array(f, np.asanyarray(arr))
+        return {"key": key, "shape": list(arr.shape), "dtype": true_dtype}
+
+    # np.savez's layout (an uncompressed zip of .npy members), written a
+    # leaf at a time by one thread while the next leaf is gathered: at
+    # most two leaves are alive at once
+    with contextlib.ExitStack() as stack:
+        if writes:
+            zf = stack.enter_context(zipfile.ZipFile(
+                os.path.join(tmp, "arrays.npz"), "w", zipfile.ZIP_STORED,
+                allowZip64=True))
+            pool = stack.enter_context(ThreadPoolExecutor(1))
+        written = None
+        for key, leaf in _flatten_with_paths(tree):
+            whole = _whole(leaf)
+            if not writes:
+                continue
+            if written is not None:
+                manifest["keys"].append(written.result())
+            written = pool.submit(write, key, whole)
+            del whole
+        if written is not None:
+            manifest["keys"].append(written.result())
+    if writes:
+        _commit(ckpt_dir, name, tmp, final, manifest)
+    if rank is not None:
+        import torch.distributed as dist
+        dist.barrier()
+    return final
+
+
+def _write_array(f, arr: np.ndarray) -> None:
+    """``np.lib.format.write_array``'s bytes: a C-ordered array's data is
+    handed to the member straight from the array's memory, a chunk at a
+    time (``write_array`` copies each chunk out first); any other array
+    takes ``write_array``."""
+    fmt = np.lib.format
+    if arr.flags.c_contiguous and not arr.dtype.hasobject:
+        try:
+            fmt.write_array_header_1_0(f, fmt.header_data_from_array_1_0(arr))
+        except ValueError:      # a header past version 1.0's
+            pass
+        else:
+            data = memoryview(arr.reshape(-1)).cast("B")
+            for i in range(0, len(data), 1 << 26):
+                f.write(data[i:i + (1 << 26)])
+            return
+    fmt.write_array(f, arr, allow_pickle=False)
+
+
+def _commit(ckpt_dir: str, name: str, tmp: str, final: str,
+            manifest: dict) -> None:
+    """Phase 2: the manifest, the atomic rename and ``LATEST``."""
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1)
 
@@ -144,7 +302,6 @@ def save(ckpt_dir: str, step: int, tree: PyTree,
     with open(latest + ".tmp", "w") as f:
         f.write(name)
     os.replace(latest + ".tmp", latest)        # commit point
-    return final
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -174,38 +331,84 @@ def _rebuild(like: PyTree, load, prefix: tuple = ()) -> PyTree:
     return load(SEP.join(prefix), like)
 
 
+def _is_layout(x) -> bool:
+    """A DTensor target: ``(DeviceMesh, placements)``."""
+    from torch.distributed.device_mesh import DeviceMesh
+    return (isinstance(x, tuple) and len(x) == 2
+            and isinstance(x[0], DeviceMesh))
+
+
 def _targets(like: PyTree, device) -> dict:
-    """Each leaf key of ``like`` -> its target device: ``device`` is one
-    device (or its name) for every leaf, or a tree of them shaped like
-    ``like``."""
+    """Each leaf key of ``like`` -> its target: a device, or a
+    ``(DeviceMesh, placements)`` layout. ``device`` is one device (or its
+    name) for every leaf, or a tree of devices or layouts shaped like
+    ``like``; without ``device`` a DTensor leaf of ``like`` names its own
+    layout and any other leaf None (its own device, as :func:`restore`)."""
+    keys = tree_keys(like)
+    if device is None:
+        return {k: ((x.device_mesh, tuple(x.placements)) if _is_dtensor(x)
+                    else None) for k, x in _flatten_with_paths(like)}
     if isinstance(device, (str, torch.device)):
-        return {k: torch.device(device) for k in tree_keys(like)}
-    by_key = dict(_flatten_with_paths(device))
-    missing = [k for k in tree_keys(like) if k not in by_key]
+        return {k: torch.device(device) for k in keys}
+    by_key = dict(_flatten_with_paths(device, is_leaf=_is_layout))
+    missing = [k for k in keys if k not in by_key]
     if missing:
         raise ValueError(f"no target device for leaves {missing[:5]}...")
-    return {k: torch.device(by_key[k]) for k in tree_keys(like)}
+    return {k: by_key[k] if _is_layout(by_key[k]) else torch.device(by_key[k])
+            for k in keys}
+
+
+def _on_layout(key: str, arr, like, layout):
+    """This process's shard of the stored global array ``arr`` under
+    ``layout`` ``(mesh, placements)``, as a DTensor: a slice taken on the
+    host, then copied to the mesh's device (no collective)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh, placements = layout
+    arr = torch.as_tensor(arr)
+    want = tuple(getattr(like, "shape", arr.shape))
+    if tuple(arr.shape) != want:
+        raise ValueError(
+            f"checkpoint leaf {key!r} has global shape {tuple(arr.shape)}, "
+            f"its target {want}: the checkpoint was written under another "
+            f"layout (a pending cascade of another rank count?); restore it "
+            f"through runtime.TrainDriver.resume, which settles a changed "
+            f"plan's pendings")
+    shape, offset = compute_local_shape_and_global_offset(
+        arr.shape, mesh, list(placements))
+    local = arr[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+    if mesh.device_type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    else:
+        device = torch.device(mesh.device_type)
+    return DTensor.from_local(local.contiguous().to(device), mesh,
+                              list(placements), run_check=False,
+                              shape=arr.shape, stride=arr.stride())
 
 
 def _place(like: PyTree, get, have, device=None) -> PyTree:
     """``like``'s structure with each leaf ``get(key)`` (an array in its
-    true dtype). Without ``device`` a leaf whose ``like`` is a tensor comes
-    back as a tensor on that tensor's device, any other as it was loaded;
-    with ``device`` every leaf comes back as a tensor on its target. Raises
-    ``KeyError`` if ``have`` lacks a leaf of ``like``."""
+    true dtype). Without ``device`` a leaf whose ``like`` is a DTensor
+    comes back on that DTensor's layout, a tensor as a tensor on that
+    tensor's device, any other as it was loaded; with ``device`` every
+    leaf comes back as a tensor on its target, a device or a layout.
+    Raises ``KeyError`` if ``have`` lacks a leaf of ``like``, and
+    ``ValueError`` if a layout's global shape is not the stored one."""
     missing = [k for k in tree_keys(like) if k not in have]
     if missing:
         raise KeyError(f"checkpoint missing keys: {missing[:5]}...")
-    if device is None:
-        def load(key, leaf):
+    targets = _targets(like, device)
+
+    def load(key, leaf):
+        target = targets[key]
+        if target is None:
             if isinstance(leaf, torch.Tensor):
                 return torch.as_tensor(get(key)).to(leaf.device)
             return get(key)
-    else:
-        targets = _targets(like, device)
-
-        def load(key, leaf):
-            return torch.as_tensor(get(key)).to(targets[key])
+        if _is_layout(target):
+            return _on_layout(key, get(key), leaf, target)
+        return torch.as_tensor(get(key)).to(target)
     return _rebuild(like, load)
 
 
@@ -213,7 +416,7 @@ def _restore(ckpt_dir: str, like: PyTree, step: Optional[int], device
              ) -> tuple[PyTree, dict]:
     path, manifest = _manifest_path(ckpt_dir, step)
     dtypes = {e["key"]: e["dtype"] for e in manifest["keys"]}
-    with np.load(os.path.join(path, "arrays.npz")) as data:
+    with _Stored(os.path.join(path, "arrays.npz")) as data:
         tree = _place(like, lambda k: _true_dtype(data[k], dtypes.get(k)),
                       set(data.files), device)
     return tree, manifest["extras"]
@@ -224,22 +427,29 @@ def restore(ckpt_dir: str, like: PyTree, step: Optional[int] = None
     """Restore into the structure of ``like``; returns (tree, extras).
 
     Each leaf keeps the dtype it was saved with; a leaf whose ``like`` is a
-    tensor comes back as a tensor on that tensor's device, any other as
-    numpy (bf16 and float8 always as tensors). Raises ``KeyError`` if the
-    checkpoint lacks a leaf of ``like``.
+    DTensor comes back as this process's shard on its layout (its global
+    shape must be the stored one, else ``ValueError``), a tensor as a
+    tensor on that tensor's device, any other as numpy (bf16 and float8
+    always as tensors). Raises ``KeyError`` if the checkpoint lacks a leaf
+    of ``like``.
     """
     return _restore(ckpt_dir, like, step, None)
 
 
 def restore_resharded(ckpt_dir: str, like: PyTree, device,
                       step: Optional[int] = None) -> tuple[PyTree, dict]:
-    """Restore with each leaf placed on a target device: ``device`` is one
-    ``torch.device`` (or its name) or a tree of them shaped like ``like``.
+    """Restore with each leaf placed on a target: ``device`` is one
+    ``torch.device`` (or its name), or a tree shaped like ``like`` of
+    devices and ``(DeviceMesh, placements)`` layouts.
 
     The counterpart of the JAX package's ``restore_resharded``, which places
-    each leaf with a target sharding on any mesh: on one card the target is
-    a device, so a checkpoint that a CPU run wrote restores onto the card.
-    Every leaf comes back as a tensor in the dtype it was saved with.
+    each leaf with a target sharding on any mesh: a checkpoint that a CPU
+    run wrote restores onto the card, and one written by a single process
+    onto the shards of a process group (each process keeping its slice of
+    the global array). Every leaf comes back as a tensor in the dtype it
+    was saved with. For a layout, ``like``'s leaf gives the global shape
+    (a DTensor's, or a meta tensor's as JAX's ``ShapeDtypeStruct``), and a
+    stored array of another shape raises ``ValueError``.
     """
     return _restore(ckpt_dir, like, step, device)
 

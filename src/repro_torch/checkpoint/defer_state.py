@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 from typing import Any, Optional, Sequence
 
 import torch
@@ -91,19 +92,36 @@ def defer_manifest(plan, schedule, dp: int, merge_fn,
 
 
 def defer_state_spec(params_spec: PyTree, n_levels: int, dp: int,
-                     overlap: bool) -> dict:
+                     overlap: bool, mesh=None,
+                     merge_dims: Sequence[str] = ("data",)) -> dict:
     """``state["defer"]`` of a deferred train step as meta tensors (shape
     and dtype, no storage: the counterpart of JAX's ``ShapeDtypeStruct``):
     the step counter, one ``(dp,)``-leading pending per deferred level, and
     the overlap in-flight buffer. It mirrors
-    ``DeferredTrainStep.init_defer_state`` (``launch/steps.py``)."""
+    ``DeferredTrainStep.init_defer_state`` (``launch/steps.py``). With a
+    ``mesh`` (a step over a process group) each pending is a meta DTensor
+    of that global shape, ``Shard(0)`` over ``merge_dims`` (JAX's
+    ``P(axis)``), this process holding a ``[1, ...]`` slice."""
     if n_levels < 1:
         raise ValueError(f"n_levels must be >= 1, got {n_levels}")
 
+    def stack(p):
+        shape = (dp,) + tuple(p.shape)
+        if mesh is None:
+            return torch.empty(shape, dtype=p.dtype, device="meta")
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        names = list(mesh.mesh_dim_names)
+        split = [n for n in merge_dims if n in names]
+        local = (dp // max(1, math.prod(mesh.size(names.index(n))
+                                        for n in split)),) + shape[1:]
+        return DTensor.from_local(
+            torch.empty(local, dtype=p.dtype, device="meta"), mesh,
+            [Shard(0) if n in split else Replicate() for n in names],
+            run_check=False, shape=torch.Size(shape),
+            stride=torch.empty(shape, device="meta").stride())
+
     def pending_like():
-        return pytree.tree_map(
-            lambda p: torch.empty((dp,) + tuple(p.shape), dtype=p.dtype,
-                                  device="meta"), params_spec)
+        return pytree.tree_map(stack, params_spec)
 
     spec = {"t": torch.empty((), dtype=torch.int32, device="meta"),
             "pending": tuple(pending_like() for _ in range(n_levels))}

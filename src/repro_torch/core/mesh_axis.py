@@ -77,12 +77,94 @@ _GROUPS: dict = {}
 _WARMED: set = set()
 
 
+# a mesh -> the same ranks' mesh of device type "cpu", for gathers staged
+# through the host (:func:`redistribute`)
+_HOST_MESHES: dict = {}
+
+
 def clear_groups() -> None:
     """Forget the process groups made for merge axes and which groups
     have made their first call (their process group is being
     destroyed)."""
     _GROUPS.clear()
     _WARMED.clear()
+    _HOST_MESHES.clear()
+
+
+def _gathers(src, dst) -> bool:
+    """Whether going from placements ``src`` to ``dst`` gathers a split
+    dim (a mesh dim that leaves a ``Shard`` for anything else)."""
+    from torch.distributed.tensor import Shard
+    return any(isinstance(a, Shard) and a != b for a, b in zip(src, dst))
+
+
+def redistribute(x, placements):
+    """``x.redistribute(x.device_mesh, placements)`` for a DTensor ``x``,
+    on any backend. Gloo's all-gather of a card's tensor fails in
+    DTensor's functional collectives (the process dies), where its
+    all-reduce and reduce-scatter take the card's tensors: so a gather of
+    a tensor on the card over gloo runs on a host copy over the same
+    ranks' CPU mesh and is copied back, chosen from the backend, never as a
+    recovery from a failed call. Outside autograd (the gathers of a
+    step's parameters and of a checkpoint's leaves)."""
+    from torch.distributed.tensor import DTensor
+    mesh, placements = x.device_mesh, tuple(placements)
+    if not _staged_gather(x, placements):
+        return x.redistribute(mesh, placements)
+    out = _on_host(x, placements).to(x.to_local().device)
+    return DTensor.from_local(out, mesh, placements, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+def whole_on_host(x):
+    """The global array of DTensor ``x`` on the host of the group's rank 0,
+    None on every other process: a checkpoint's leaf, which rank 0 writes.
+    On gloo a tensor split evenly over one mesh dim is gathered to rank 0
+    alone (``dist.gather`` of the host copies: the others send their
+    shard); any other is redistributed whole over its mesh (a card's
+    tensor over gloo on a host copy, as :func:`redistribute` does)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, me = x.device_mesh, dist.get_rank()
+    split = [i for i, p in enumerate(x.placements) if not p.is_replicate()]
+    if (backend_of() == "gloo" and len(split) == 1
+            and isinstance(x.placements[split[0]], Shard)
+            and x.shape[x.placements[split[0]].dim]
+            % mesh.size(split[0]) == 0):
+        group = mesh.get_group(split[0])
+        mine = x.to_local().cpu().contiguous()
+        first = dist.get_global_rank(group, 0)
+        parts = ([torch.empty_like(mine) for _ in range(mesh.size(split[0]))]
+                 if me == first else None)
+        dist.gather(mine, parts, dst=first, group=group)
+        if me != 0:
+            return None
+        return torch.cat(parts, dim=x.placements[split[0]].dim)
+    whole = (Replicate(),) * mesh.ndim
+    out = (_on_host(x, whole) if _staged_gather(x, whole)
+           else x.redistribute(mesh, whole).to_local().cpu())
+    return out if me == 0 else None
+
+
+def _staged_gather(x, placements) -> bool:
+    return (x.to_local().is_cuda and _gathers(x.placements, placements)
+            and backend_of() == "gloo")
+
+
+def _on_host(x, placements) -> torch.Tensor:
+    """This process's local result of redistributing ``x`` to
+    ``placements``, computed on a host copy over the same ranks' CPU
+    mesh, on the host."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor
+    mesh = x.device_mesh
+    if mesh not in _HOST_MESHES:
+        _HOST_MESHES[mesh] = DeviceMesh("cpu", mesh.mesh,
+                                        mesh_dim_names=mesh.mesh_dim_names)
+    host = _HOST_MESHES[mesh]
+    h = DTensor.from_local(x.to_local().cpu(), host, x.placements,
+                           run_check=False, shape=x.shape, stride=x.stride())
+    return h.redistribute(host, tuple(placements)).to_local()
 
 
 def backend_of(group=None) -> str:

@@ -47,7 +47,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -289,38 +288,13 @@ def build_store(args, spmd=None, say=print):
                      schedule=schedule, commit_every=commit_every)
 
 
-def _spawn(argv: list, procs: int) -> None:
-    """Run this command as ``procs`` processes, one a shard, on a group
-    with a file init under a fresh temporary directory: rank 0 writes to
-    this process's output, every other rank to a log file there. A
-    process that fails stops the others and fails the command with its
-    log's tail."""
-    import os
-    import sys
-    import tempfile
-    from repro_torch.launch.mesh import spawn_shards
-
-    with tempfile.TemporaryDirectory(prefix="kv_serve_") as work:
-        init = os.path.join(work, "init")
-        src = str(Path(__file__).resolve().parents[2])
-        path = os.environ.get("PYTHONPATH")
-        env = dict(os.environ,
-                   PYTHONPATH=src + (os.pathsep + path if path else ""))
-        try:
-            spawn_shards(lambda r: [sys.executable, "-m",
-                                    "repro_torch.launch.kv_serve", *argv,
-                                    "--worker", str(r), f"file://{init}"],
-                         procs, work, None, env=env, rank0_to_stdout=True)
-        except RuntimeError as e:
-            raise SystemExit(str(e)) from None
-
-
 def main(argv=None) -> None:
     import sys
     argv = sys.argv[1:] if argv is None else list(argv)
     args = _parse_args(argv)
     if args.procs is not None and args.worker is None:
-        return _spawn(argv, args.procs)
+        from repro_torch.launch.mesh import spawn_command
+        return spawn_command("repro_torch.launch.kv_serve", argv, args.procs)
     spmd, say = None, print
     if args.worker is not None:
         from repro_torch.apps.sharded import mesh_spmd

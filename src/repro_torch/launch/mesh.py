@@ -22,8 +22,12 @@ clearly if it moves).
 :func:`init_shards` is the other kind of group: a real one (gloo or NCCL),
 one process a shard of the KV store or an app, from the environment that
 ``torchrun`` sets or a file init, with its 1-D ``"shards"`` mesh
-(``apps/sharded.build_mesh``); :func:`shutdown` destroys it too.
-:func:`spawn_shards` starts the processes of such a group on one host.
+(``apps/sharded.build_mesh``); :func:`init_train_mesh` joins one the same
+way for training, one process a data rank of a ``("data", "model")`` mesh
+of shape ``(N, 1)``; :func:`shutdown` destroys either.
+:func:`spawn_shards` starts the processes of such a group on one host, and
+:func:`spawn_command` a CLI's workers through it (``kv_serve --procs``,
+``train --procs``).
 
 Every planning mesh has the one device type :data:`DEVICE_TYPE`, that of
 the cards the plan is for: the planner's tensors are meta tensors and
@@ -70,23 +74,11 @@ def fake_world(ranks: int = WORLD) -> int:
     return world
 
 
-def init_shards(backend: str, device_type: str = "cuda",
-                init_method: str | None = None, rank: int | None = None,
-                world_size: int | None = None):
-    """Join the process group of a mesh of shards, one process a shard,
-    and return its 1-D ``"shards"`` mesh.
-
-    ``backend`` is ``gloo`` or ``nccl``, the caller's choice. The rank and
-    world size come from the arguments or from the environment that
-    ``torchrun`` sets (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
-    ``LOCAL_WORLD_SIZE``); ``init_method`` defaults to ``env://`` (pass
-    ``file://...`` for a file init). The process is placed on its device
-    first: ``cuda:{local_rank % device_count}`` (the default; it raises
-    when there is no card), or the CPU when ``device_type`` is ``cpu``,
-    which only gloo takes. On NCCL a host with fewer cards than its
-    processes (``LOCAL_WORLD_SIZE``) is refused before any work."""
+def _join(backend: str, device_type: str, init_method: str | None,
+          rank: int | None, world_size: int | None) -> int:
+    """Join a real process group (gloo or NCCL) after placing this process
+    on its device -> the world size. See :func:`init_shards`."""
     import torch.distributed as dist
-    from repro_torch.apps.sharded import build_mesh
     from repro_torch.core.mesh_axis import check_cards
     from repro_torch.serve.kv import resolve_device
     if backend not in ("gloo", "nccl"):
@@ -107,7 +99,42 @@ def init_shards(backend: str, device_type: str = "cuda",
         torch.cuda.set_device(local_rank % torch.cuda.device_count())
     dist.init_process_group(backend, init_method=init_method or "env://",
                             rank=rank, world_size=world_size)
-    return build_mesh(world_size, "shards", device_type)
+    return world_size
+
+
+def init_shards(backend: str, device_type: str = "cuda",
+                init_method: str | None = None, rank: int | None = None,
+                world_size: int | None = None):
+    """Join the process group of a mesh of shards, one process a shard,
+    and return its 1-D ``"shards"`` mesh.
+
+    ``backend`` is ``gloo`` or ``nccl``, the caller's choice. The rank and
+    world size come from the arguments or from the environment that
+    ``torchrun`` sets (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``LOCAL_WORLD_SIZE``); ``init_method`` defaults to ``env://`` (pass
+    ``file://...`` for a file init). The process is placed on its device
+    first: ``cuda:{local_rank % device_count}`` (the default; it raises
+    when there is no card), or the CPU when ``device_type`` is ``cpu``,
+    which only gloo takes. On NCCL a host with fewer cards than its
+    processes (``LOCAL_WORLD_SIZE``) is refused before any work."""
+    from repro_torch.apps.sharded import build_mesh
+    world = _join(backend, device_type, init_method, rank, world_size)
+    return build_mesh(world, "shards", device_type)
+
+
+def init_train_mesh(backend: str, device_type: str = "cuda",
+                    init_method: str | None = None, rank: int | None = None,
+                    world_size: int | None = None):
+    """Join a real process group as :func:`init_shards` does and return the
+    train mesh over it: ``("data", "model")`` of shape ``(world, 1)``, one
+    process a data rank, the counterpart of the JAX CLI's
+    ``make_host_mesh(data=jax.device_count(), model=1)``."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.kernels import custom_ops
+    custom_ops.register_shardings()
+    world = _join(backend, device_type, init_method, rank, world_size)
+    return DeviceMesh(device_type, torch.arange(world).reshape(world, 1),
+                      mesh_dim_names=("data", "model"))
 
 
 def spawn_shards(cmd: Callable[[int], list], n: int, work,
@@ -123,12 +150,27 @@ def spawn_shards(cmd: Callable[[int], list], n: int, work,
     set over ``env`` (this process's environment by default).
     ``during()`` runs in this process while they do, and its value is
     returned. A process that fails, or that still runs ``timeout`` seconds
-    after the spawn, stops the others and raises with its log's tail."""
+    after the spawn, stops the others and raises with its log's tail.
+    A SIGTERM or SIGINT to this process (from its main thread) is passed
+    on to every process still running, which is left to finish (a train
+    worker saves and exits)."""
+    import signal
     import subprocess
     work = Path(work)
     env = dict(os.environ if env is None else env, LOCAL_WORLD_SIZE=str(n))
     deadline = None if timeout is None else time.monotonic() + timeout
     procs, failed, result = [], None, None
+
+    def forward(signum, frame):
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signum)
+    handlers = {}
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            handlers[sig] = signal.signal(sig, forward)
+        except ValueError:          # not the main thread
+            pass
     try:
         for r in range(n):
             if r == 0 and rank0_to_stdout:
@@ -156,6 +198,8 @@ def spawn_shards(cmd: Callable[[int], list], n: int, work,
                            for r, p in enumerate(procs)
                            if p.returncode != 0), None)
     finally:
+        for sig, h in handlers.items():
+            signal.signal(sig, h)
         for p in procs:
             if p.poll() is None:
                 p.kill()
@@ -167,6 +211,31 @@ def spawn_shards(cmd: Callable[[int], list], n: int, work,
         raise RuntimeError(f"process {r} of {n} failed ({why})"
                            + (f":\n{tail}" if tail else ""))
     return result
+
+
+def spawn_command(module: str, argv: list, procs: int) -> None:
+    """Run ``python -m module argv`` as ``procs`` workers, each with
+    ``--worker RANK INIT`` appended, on a group with a file init under a
+    fresh temporary directory (:func:`spawn_shards`: rank 0 writes to this
+    process's output, every other rank to a log file there; a signal to
+    this process reaches every worker). A worker that fails stops the
+    others and fails the command with its log's tail."""
+    import sys
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix=module.rsplit(".", 1)[-1]
+                                     + "_") as work:
+        init = os.path.join(work, "init")
+        src = str(Path(__file__).resolve().parents[2])
+        path = os.environ.get("PYTHONPATH")
+        env = dict(os.environ,
+                   PYTHONPATH=src + (os.pathsep + path if path else ""))
+        try:
+            spawn_shards(lambda r: [sys.executable, "-m", module, *argv,
+                                    "--worker", str(r), f"file://{init}"],
+                         procs, work, None, env=env, rank0_to_stdout=True)
+        except RuntimeError as e:
+            raise SystemExit(str(e)) from None
 
 
 def shutdown() -> None:

@@ -26,7 +26,15 @@ the ``dp`` ranks are the leading dim of a stack on one device
   step's, bit for bit.
 
 :func:`make_train_step` without a topology is the implicit step (one rank,
-the whole batch). With a ``mesh`` (a ``DeviceMesh``) and a topology the
+the whole batch); with a ``mesh`` and no topology it is the implicit step
+on concrete DTensors over a real process group, one process a data rank
+(the train CLI's ``--procs``): the parameters gathered whole, the loss and
+its backward on each process's rows, each gradient reduced onto its
+parameter's layout. :func:`lay_out_state` lays a seeded state out on such
+a mesh by JAX's rules and :func:`shard_batch` a global batch. A gather of
+a card's tensor over gloo goes through the host
+(``core/mesh_axis.redistribute``): gloo's all-gather of card tensors fails
+in DTensor's collectives. With a ``mesh`` (a ``DeviceMesh``) and a topology the
 step is JAX's explicit branch over DTensors: it runs once a device in a
 ``local_map`` manual over the merge dims (:func:`merge_axes_on_mesh`), the
 parameters gathered whole over them and the batch ``Shard(0)``, the loss's
@@ -71,7 +79,7 @@ from repro_torch.core.grad_merge import (merge_gradients,
                                          value_and_grad)
 from repro_torch.core.merge_functions import ADD, int8_compressed_add
 from repro_torch.core.merge_plan import MergePlan
-from repro_torch.core.mesh_axis import MeshAxis, merge_ranks
+from repro_torch.core.mesh_axis import MeshAxis, merge_ranks, redistribute
 from repro_torch.core.stacked import StackedAxis
 from repro_torch.sharding import partition
 
@@ -135,8 +143,89 @@ def _device_of(params: PyTree) -> torch.device:
 
 
 def to_device(batch: PyTree, device: torch.device) -> PyTree:
-    """A numpy (or tensor) batch on ``device``."""
-    return pytree.tree_map(lambda x: torch.as_tensor(x, device=device), batch)
+    """A numpy (or tensor) batch on ``device``; a DTensor stays as it is
+    (its shards are where its mesh put them)."""
+    return pytree.tree_map(lambda x: x if partition.is_dtensor(x)
+                           else torch.as_tensor(x, device=device), batch)
+
+
+def mesh_device(mesh) -> torch.device:
+    """The device this process's shards of ``mesh`` live on: its current
+    card, or the CPU."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def replicated(mesh) -> list:
+    """``Replicate()`` on every dim of ``mesh``."""
+    from torch.distributed.tensor import Replicate
+    return [Replicate()] * mesh.ndim
+
+
+def shard_batch(batch: PyTree, mesh, dims: tuple = ("data",)) -> PyTree:
+    """A global numpy (or tensor) batch as DTensors ``Shard(0)`` over
+    ``dims`` of ``mesh``, replicated over the others: every process is
+    handed the whole batch (it computes it from the step index, JAX's
+    multi-controller discipline) and keeps its own rows. No data moves."""
+    from torch.distributed.tensor import DTensor, Shard
+    names = list(mesh.mesh_dim_names)
+    placements = [Shard(0) if n in dims else p
+                  for n, p in zip(names, replicated(mesh))]
+    device = mesh_device(mesh)
+
+    def make(x):
+        if partition.is_dtensor(x):
+            return x
+        x = torch.as_tensor(x)
+        _, n, first = partition.dim_shards(mesh, placements, 0, x.shape[0])
+        rows = x[first:first + n].to(device)
+        return DTensor.from_local(rows, mesh, placements, run_check=False,
+                                  shape=x.shape, stride=x.stride())
+    return pytree.tree_map(make, batch)
+
+
+def lay_out_state(state: PyTree, cfg, shape_cfg, mesh,
+                  merge_dims: tuple = ("data",)) -> PyTree:
+    """A concrete train state laid out on ``mesh`` by JAX's rules
+    (:func:`lowering_rules` through :func:`axes_to_shardings`), each
+    process keeping its slice of the same seeded tensors (no data moves):
+    ``"params"`` by ``models/layout.param_axes`` and ``"opt"`` by
+    :func:`opt_state_axes` (so the FSDP rule, ``embed`` over ``data``,
+    splits the parameters and the moments), the step count replicated;
+    a concrete ``"defer"`` (a stacked ``[dp, ...]`` pending cascade) with
+    each pending ``Shard(0)`` over ``merge_dims`` and its counter
+    replicated. A leaf already a DTensor stays as it is."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models.layout import param_axes
+    rules = lowering_rules(cfg, shape_cfg, mesh)
+    rules[MERGE_RANKS] = (merge_dims if len(merge_dims) > 1
+                          else merge_dims[0])
+    device = mesh_device(mesh)
+    p_axes = param_axes(cfg)
+    axes = {"params": p_axes, "opt": opt_state_axes(state["opt"], p_axes)}
+    if "defer" in state:
+        stack = pytree.tree_map(lambda a: (MERGE_RANKS,) + (None,) * len(a),
+                                p_axes, is_leaf=_is_axes)
+        d = state["defer"]
+        axes["defer"] = {"t": (), "pending": (stack,) * len(d["pending"])}
+        if "inflight" in d:
+            axes["defer"]["inflight"] = stack
+    parts = axes_to_shardings(axes, state, mesh, rules)
+    flat_part, spec = pytree.tree_flatten(parts, is_leaf=_is_axes)
+    leaves = spec.flatten_up_to(state)
+
+    def lay(x, part):
+        if x is None or partition.is_dtensor(x):
+            return x
+        x = torch.as_tensor(x).to(device)
+        whole = DTensor.from_local(x, mesh, replicated(mesh),
+                                   run_check=False)
+        # replicated -> split is a local slice: no collective
+        return whole.redistribute(mesh,
+                                  partition.placements_for(part, mesh))
+    return pytree.tree_unflatten([lay(x, pt) for x, pt in
+                                  zip(leaves, flat_part)], spec)
 
 
 def grads_fn(model, num_microbatches: int = 1):
@@ -295,9 +384,8 @@ class _OnMesh:
 
     def _laid(self, tree, params) -> PyTree:
         """Settled gradients onto their parameters' placements."""
-        return pytree.tree_map(
-            lambda g, p: g.redistribute(p.device_mesh, p.placements),
-            tree, params)
+        return pytree.tree_map(lambda g, p: redistribute(g, p.placements),
+                               tree, params)
 
     def _batch_placements(self) -> list:
         from torch.distributed.tensor import Replicate, Shard
@@ -351,7 +439,10 @@ class _OnMesh:
                  + stack_pl * len(bufs))
         out_pl = ([[Replicate()] * mesh.ndim] + stack_pl * n_out
                   + (param_pl if settles else []))
-        out = self._run(region, p_leaves + b_leaves
+        # the parameters gathered whole over the merge dims before the
+        # region (staged through the host where the backend needs it)
+        whole = [redistribute(p, pl) for p, pl in zip(p_leaves, param_pl)]
+        out = self._run(region, whole + b_leaves
                         + [t for row in buf_leaves for t in row], in_pl,
                         out_pl)
         new = [pytree.tree_unflatten(list(out[1 + j * n_p:1 + (j + 1) * n_p]),
@@ -433,13 +524,18 @@ def make_train_step(model, cfg, optimizer, num_microbatches: int = 1, *,
     over the merge dims for the region (whatever their layout; the
     optimizer steps them, and its state, in their own), the batch
     ``Shard(0)`` over them, ``dp`` their product; a mesh with another dim
-    of size > 1 raises ``NotImplementedError``, as JAX's does.
+    of size > 1 raises ``NotImplementedError``, as JAX's does. A ``mesh``
+    without a topology gives the implicit step over the mesh's DTensors
+    (:func:`_implicit_step`).
     """
 
     grads_of = grads_fn(model, num_microbatches)
     if merge_topology is None and defer_schedule is not None:
         raise ValueError("defer_schedule needs a merge_topology with :defer "
                          "levels")
+    if merge_topology is None and mesh is not None:
+        return _implicit_step(model, optimizer, num_microbatches,
+                              whole=True, donate=donate)
     if merge_topology is None:
         def train_step(state, batch):
             params = state["params"]
@@ -523,8 +619,13 @@ class DeferredTrainStep:
                  deferred_names: tuple, land_variants=None, flush_fn=None,
                  topology=None, merge_fn=None, merge_compress: bool = False,
                  optimizer=None, strides: Optional[tuple] = None,
-                 settle_mode: Optional[str] = None, donates: bool = False):
+                 settle_mode: Optional[str] = None, donates: bool = False,
+                 mesh=None, merge_dims: tuple = ("data",)):
         self.variants = variants
+        # the mesh the step runs over (None: stacked ranks) and its
+        # merge dims: where the pendings live
+        self.mesh = mesh
+        self.merge_dims = merge_dims
         self.land_variants = land_variants
         self.schedule = schedule
         self._init_fn = init_fn
@@ -600,7 +701,8 @@ class DeferredTrainStep:
         a durable checkpoint of this step must cover."""
         from repro_torch.checkpoint.defer_state import defer_state_spec
         return defer_state_spec(params_like, len(self.deferred_names),
-                                self.dp, self.overlap)
+                                self.dp, self.overlap, mesh=self.mesh,
+                                merge_dims=self.merge_dims)
 
     def flush(self, state) -> tuple[dict, Optional[dict]]:
         """Final flush: land an in-flight launched cycle (overlap), then
@@ -780,7 +882,9 @@ def _make_deferred_train_step(grads_of, optimizer, plan, merge_compress: bool,
                              merge_compress=merge_compress,
                              optimizer=optimizer,
                              strides=tuple(s.stride for s in deferred),
-                             settle_mode=settle_mode, donates=donate)
+                             settle_mode=settle_mode, donates=donate,
+                             mesh=getattr(runner, "mesh", None),
+                             merge_dims=getattr(runner, "dims", ("data",)))
 
 
 # ---------------------------------------------------------------------------
@@ -1066,46 +1170,67 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.gather(idx, 0, best.argmax(0)[None])[0]
 
 
+def _sharded_microbatches(vg, params, batch, n: int):
+    """``vg(params, batch)`` summed over ``n`` microbatches and averaged,
+    each device's rows ``i::n`` of its shard in microbatch ``i`` (so the
+    batch stays sharded) -> (loss, grads)."""
+    if n == 1:
+        return vg(params, batch)
+    micro = pytree.tree_map(
+        lambda x: x.reshape((x.shape[0] // n, n) + tuple(x.shape[1:])), batch)
+    loss, grads = None, None
+    for i in range(n):
+        l, g = vg(params, pytree.tree_map(lambda x: x[:, i], micro))
+        loss = l if loss is None else loss + l
+        grads = g if grads is None else pytree.tree_map(torch.add, grads, g)
+        del g
+    return loss / n, pytree.tree_map(lambda g: g / n, grads)
+
+
+def _implicit_step(model, optimizer, num_microbatches: int, *,
+                   whole: bool = False, donate: bool = False):
+    """The implicit step over DTensors (JAX's default step on a mesh): the
+    loss and its backward (summed over ``num_microbatches``, each device's
+    rows ``i::n`` of its shard, so the batch stays sharded), each gradient
+    reduced onto its parameter's layout (the data axes' reduce-scatter, as
+    the jitted step's out_shardings ask), the global-norm clip and the
+    optimizer on the parameters' layout.
+
+    With ``whole`` (the step on a real group's train mesh, whose model
+    axis is 1) the parameters are gathered whole first, through the host
+    where the backend needs it (DTensor's own gathers of a card's tensors
+    fail on gloo: module doc), and the loss leaves replicated. Without it
+    (the planner's, over fake meshes whose model axis may split the
+    parameters) DTensor gathers each parameter where an op needs it, as
+    GSPMD does, so a tensor-parallel parameter stays split."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    vg = value_and_grad(lambda p, b: model.loss(p, b)[0])
+
+    def train_step(state, batch):
+        params = state["params"]
+        with implicit_replication():
+            use = (pytree.tree_map(
+                lambda p: redistribute(p, replicated(p.device_mesh)), params)
+                if whole else params)
+            loss, grads = _sharded_microbatches(vg, use, batch,
+                                                num_microbatches)
+            del use
+            grads = pytree.tree_map(lambda g, p: redistribute(g, p.placements),
+                                    grads, params)
+            if whole:
+                loss = redistribute(loss, replicated(loss.device_mesh))
+            with torch.profiler.record_function("train.optimizer"):
+                params, opt_state, stats = optimizer.step(
+                    params, grads, state["opt"], donate=donate)
+        return {"params": params, "opt": opt_state}, {"loss": loss, **stats}
+
+    train_step.donates = donate
+    return train_step
+
+
 def _abstract_model(cfg):
     from repro_torch.models.registry import abstract_model
     return abstract_model(cfg)
-
-
-def _planned_train_step(model, optimizer, num_microbatches: int):
-    """The implicit step over DTensors: the loss and its backward (summed
-    over ``num_microbatches``, each device's rows ``i::n`` of its shard, so
-    the batch stays sharded), each gradient reduced onto its parameter's
-    placements, the global-norm clip and the optimizer."""
-    vg = value_and_grad(lambda p, b: model.loss(p, b)[0])
-    n = num_microbatches
-
-    def step(state, batch):
-        params = state["params"]
-        if n == 1:
-            loss, grads = vg(params, batch)
-        else:
-            micro = pytree.tree_map(
-                lambda x: x.reshape((x.shape[0] // n, n) + tuple(x.shape[1:])),
-                batch)
-            loss, grads = None, None
-            for i in range(n):
-                l, g = vg(params, pytree.tree_map(lambda x: x[:, i], micro))
-                loss = l if loss is None else loss + l
-                grads = g if grads is None else pytree.tree_map(
-                    torch.add, grads, g)
-                del g
-            loss = loss / n
-            grads = pytree.tree_map(lambda g: g / n, grads)
-        # each gradient reduced onto its parameter's layout (the data
-        # axes' reduce-scatter), as the jitted step's out_shardings ask
-        grads = pytree.tree_map(
-            lambda g, p: g.redistribute(p.device_mesh, p.placements),
-            grads, params)
-        params, opt_state, stats = optimizer.step(params, grads,
-                                                  state["opt"])
-        return {"params": params, "opt": opt_state}, {"loss": loss, **stats}
-
-    return step
 
 
 # The logical axis of a pending stack's leading dim: the rules map it to
@@ -1148,7 +1273,7 @@ def plan_train(cfg, shape_cfg, mesh, num_microbatches: Optional[int] = None,
             raise ValueError("defer_schedule needs a merge_topology with "
                              ":defer levels")
         rules.update(extra_rules or {})
-        step = _planned_train_step(model, optimizer, nmb)
+        step = _implicit_step(model, optimizer, nmb)
         return StepPlan(step, specs, axes, rules, mesh)
 
     dims = _mesh_merge_dims(mesh, merge_plan)

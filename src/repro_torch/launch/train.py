@@ -35,6 +35,24 @@ what this device measures, where the JAX CLI walks the compiled step's HLO
 against a TPU pod's link rates: the wire vector of ``launch/wire_cost.py``
 over the gradient tree's bytes, each level's merge timed on the device,
 and a probe of the step's own per-rank forward and backward.
+
+``--procs N [--backend gloo|nccl]`` runs the CLI over a real process
+group, one process a data rank, as the JAX CLI runs over its host mesh
+(``make_host_mesh(data=N, model=1)``): the command spawns N workers of
+itself (``launch/mesh.spawn_command``, rank 0 to this output, each other's
+output to a file) and runs nothing on the card itself. Each worker joins
+the train mesh (``launch/mesh.init_train_mesh``), lays the seeded state
+out by JAX's rules (``steps.lay_out_state``: FSDP parameters and moments,
+``Shard(0)`` pendings), computes every batch whole from the step index and
+keeps its rows (``steps.shard_batch``), and steps ``make_train_step(mesh=)``.
+``dp`` is the mesh's ``data`` size, N. Checkpoints are written by rank 0
+from each leaf gathered in turn, in the one on-disk layout, so a run
+resumes over another process count or stacked, and the reverse. The
+backend is NCCL on ``--device cuda`` (one card a process) and gloo on
+``--device cpu`` by default; gloo on the card shares it among the
+processes. A SIGTERM or SIGINT to the command reaches every worker, which
+agree on it and save the same step. The model axis over processes
+(``--model-ranks`` above 1) is refused: the train mesh has ``model=1``.
 """
 
 from __future__ import annotations
@@ -66,7 +84,12 @@ def measure_defer_inputs(trainer: "Trainer", runs: int = 5) -> dict:
     summed over its leaves), ``level_s`` (each level's merge alone over a
     ``[dp, n]`` payload of the tree's element count and dtype, median of
     ``runs``), ``rates`` (``wire / level_s``), and ``step_s`` (the per-rank
-    forward and backward of step 0's batch, after a warm-up)."""
+    forward and backward of step 0's batch, after a warm-up). Over a
+    process group each level's merge runs over the step's own
+    ``MeshAxis`` on this process's ``[1, n]`` slice, the probe on its own
+    rows, and every process takes each time's largest over the processes
+    (gathered), so that all of them step one schedule; ``backend`` names
+    the group's."""
     from repro_torch.launch.schedule_inputs import (device_name,
                                                     time_level_merges)
     from repro_torch.launch.wire_cost import wire_bytes_by_level
@@ -82,21 +105,44 @@ def measure_defer_inputs(trainer: "Trainer", runs: int = 5) -> dict:
                 plan, dp, tuple(p.shape), p.element_size(), merge)):
             wire[i] += b
     n = sum(p.numel() for p in leaves)
-    payload = torch.ones((dp, n), dtype=leaves[0].dtype, device=device)
-    level_s = time_level_merges(plan, payload, merge, runs)
+    mesh, axis = trainer.mesh, None
+    if mesh is not None:
+        from repro_torch.core.mesh_axis import MeshAxis, redistribute
+        axis = MeshAxis(mesh, ("data",), device)
+    payload = torch.ones((dp if axis is None else 1, n),
+                         dtype=leaves[0].dtype, device=device)
+    level_s = time_level_merges(plan, payload, merge, runs, axis=axis)
     del payload
-    rates = [b / t if b > 0 else float("inf") for b, t in zip(wire, level_s)]
-
-    batch = steps.to_device(batch_at(trainer.dcfg, 0), device)
     grads_of = steps.grads_fn(trainer.model, trainer.microbatches)
-    steps.rank_grads(grads_of, params, batch, dp)        # warm-up
+    batch = batch_at(trainer.dcfg, 0)
+    if mesh is None:
+        batch = steps.to_device(batch, device)
+        probe = lambda: steps.rank_grads(grads_of, params, batch, dp)
+    else:
+        # this process's rank: its rows against the parameters whole
+        whole = pytree.tree_map(lambda p: redistribute(
+            p, steps.replicated(mesh)).to_local(), params)
+        rows = pytree.tree_map(lambda x: x.to_local(),
+                               steps.shard_batch(batch, mesh))
+        probe = lambda: grads_of(whole, rows)
+    probe()                                             # warm-up
     sync_device(device)
     t0 = time.perf_counter()
-    steps.rank_grads(grads_of, params, batch, dp)
+    probe()
     sync_device(device)
+    step_s = time.perf_counter() - t0
+    backend = {}
+    if axis is not None:
+        # every process solves from the same (the slowest process's) times
+        times = axis.all_gather(torch.tensor([level_s + [step_s]],
+                                             dtype=torch.float64,
+                                             device=device))
+        *level_s, step_s = times.amax(0).tolist()
+        backend = {"backend": f"{axis.backend} ({dp} processes)"}
+    rates = [b / t if b > 0 else float("inf") for b, t in zip(wire, level_s)]
     return {"names": names, "wire": wire, "level_s": level_s,
-            "rates": rates, "step_s": time.perf_counter() - t0,
-            "device": device_name(device)}
+            "rates": rates, "step_s": step_s,
+            "device": device_name(device), **backend}
 
 
 def solve_defer_for_cli(merge_defer: str, trainer: "Trainer",
@@ -173,6 +219,7 @@ class Trainer:
     topology: Any = None
     merge_fn: Any = None
     schedule: Any = None
+    mesh: Any = None            # the train mesh over processes, or None
 
     @property
     def deferred(self) -> Optional[steps.DeferredTrainStep]:
@@ -238,13 +285,49 @@ def parse_args(argv=None):
     p.add_argument("--log", default=None)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
-    return p.parse_args(argv)
+    p.add_argument("--procs", type=int, default=None,
+                   help="run over this many processes, one a data rank "
+                        "(the train mesh's 'data' axis)")
+    p.add_argument("--backend", default=None, choices=["gloo", "nccl"],
+                   help="with --procs: the process group's backend (nccl "
+                        "on --device cuda, gloo on --device cpu by default)")
+    # one spawned process of --procs: its rank and the group's file init
+    p.add_argument("--worker", nargs=2, metavar=("RANK", "INIT"),
+                   help=argparse.SUPPRESS)
+    args = p.parse_args(argv)
+    if args.procs is None:
+        if args.backend is not None:
+            p.error("--backend is the process group's: add --procs N")
+        return args
+    if args.procs < 2:
+        p.error("--procs needs at least 2 processes")
+    device_type = torch.device(args.device).type
+    if args.backend is None:
+        args.backend = "nccl" if device_type == "cuda" else "gloo"
+    if args.backend == "nccl" and device_type != "cuda":
+        p.error("--backend nccl runs on the card: it takes --device cuda "
+                "(gloo runs on the CPU)")
+    return args
 
 
-def build(args) -> Trainer:
-    """The model, optimizer, step and initial state the flags describe,
-    with the JAX CLI's refusals of bad flag combinations."""
-    device = resolve_device(args.device)
+@dataclasses.dataclass
+class Flags:
+    """What the flags decide before anything is built: the config, the
+    merge topology, the data-parallel rank count and whether the plan
+    defers."""
+
+    cfg: Any
+    model_ranks: Optional[int]
+    topology: Any
+    dp: int
+    has_deferred: bool
+
+
+def check_flags(args) -> Flags:
+    """The JAX CLI's refusals of bad flag combinations, made before any
+    model is built or process started. ``dp`` is ``--procs`` (the train
+    mesh's ``data`` size, as the JAX CLI reads its mesh), else the merge
+    plan's rank count stacked on the device, or 1."""
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch))
     if args.layers is not None:
@@ -253,10 +336,14 @@ def build(args) -> Trainer:
                              f"{cfg.n_layers} layers, "
                              f"{cfg.first_dense_layers} of them dense")
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    procs = getattr(args, "procs", None)
+    if procs is not None and (args.model_ranks or 1) > 1:
+        raise SystemExit(
+            f"--model-ranks {args.model_ranks} with --procs: the model axis "
+            f"over processes is not run (the train mesh is JAX's host mesh, "
+            f"model=1); stack the model ranks on one device without "
+            f"--procs")
     model_ranks = model_ranks_for(cfg, args.model_ranks)
-    shape_cfg = ShapeConfig("cli", args.seq, args.batch, "train")
-    optimizer = make_optimizer(
-        cfg, warmup_cosine(args.lr, args.warmup, args.steps))
     if args.merge_group_size and args.merge_topology:
         raise SystemExit("--merge-group-size and --merge-topology are "
                          "mutually exclusive")
@@ -266,7 +353,7 @@ def build(args) -> Trainer:
                          "--merge-topology")
     if args.merge_lane_parallel and not args.merge_topology:
         raise SystemExit("--merge-lane-parallel requires --merge-topology")
-    topology, dp = None, 1
+    topology, dp = None, procs or 1
     if args.merge_group_size:
         from repro_torch.core.ccache import MergeTopology
         if dp % args.merge_group_size != 0:
@@ -281,12 +368,23 @@ def build(args) -> Trainer:
                                        lane_parallel=args.merge_lane_parallel)
         except ValueError as e:
             raise SystemExit(f"--merge-topology: {e}")
-        dp = topology.num_ranks
+        if procs is None:
+            dp = topology.num_ranks
+        else:
+            try:
+                topology.validate(dp)
+            except ValueError as e:
+                raise SystemExit(f"--merge-topology: {e} (data-parallel "
+                                 f"axes ('data',))")
         if args.batch % dp != 0:
             raise SystemExit(
                 f"--batch {args.batch} must be divisible by the merge "
                 f"topology's {dp} ranks (each rank takes an equal batch "
                 f"shard)")
+    if args.batch % dp != 0:
+        raise SystemExit(
+            f"--batch {args.batch} must be divisible by --procs {dp} (each "
+            f"process takes an equal batch shard)")
     if (args.batch // dp) % args.microbatches != 0:
         raise SystemExit(
             f"--batch {args.batch} over {dp} rank(s) gives {args.batch // dp}"
@@ -307,18 +405,35 @@ def build(args) -> Trainer:
             "auto|K to schedule the commits (the optimizer steps once "
             "per commit on the K-step mean gradient), or drop the "
             ":defer flags for an eager merge every step")
+    return Flags(cfg, model_ranks, topology, dp, has_deferred)
 
+
+def build(args, mesh=None) -> Trainer:
+    """The model, optimizer, step and initial state the flags describe,
+    with the JAX CLI's refusals of bad flag combinations. With ``mesh``
+    (the train mesh over processes) the state is laid out on it and the
+    step runs over it."""
+    device = (steps.mesh_device(mesh) if mesh is not None
+              else resolve_device(args.device))
+    flags = check_flags(args)
+    cfg, topology, dp = flags.cfg, flags.topology, flags.dp
+    shape_cfg = ShapeConfig("cli", args.seq, args.batch, "train")
+    optimizer = make_optimizer(
+        cfg, warmup_cosine(args.lr, args.warmup, args.steps))
     model = build_model(cfg, device=device, seed=args.seed,
-                        model_ranks=model_ranks)
+                        model_ranks=flags.model_ranks)
     params = model.params()
+    state = {"params": params, "opt": optimizer.init(params)}
+    if mesh is not None:
+        state = steps.lay_out_state(state, cfg, shape_cfg, mesh)
+        params = state["params"]
     merge_fn = int8_compressed_add() if args.merge_compress else ADD
     trainer = Trainer(
         cfg=cfg, model=model, optimizer=optimizer, step_fn=None,
-        state={"params": params, "opt": optimizer.init(params)},
-        dcfg=data_config_for(cfg, shape_cfg, seed=args.seed),
+        state=state, dcfg=data_config_for(cfg, shape_cfg, seed=args.seed),
         device=device, dp=dp, microbatches=args.microbatches,
-        topology=topology, merge_fn=merge_fn)
-    if has_deferred:
+        topology=topology, merge_fn=merge_fn, mesh=mesh)
+    if flags.has_deferred:
         trainer.schedule = solve_defer_for_cli(args.merge_defer, trainer,
                                                overlap=args.merge_overlap)
         print("merge-defer schedule:", trainer.schedule.describe())
@@ -327,7 +442,8 @@ def build(args) -> Trainer:
                   f"commit period {trainer.schedule.period}; the trailing "
                   f"partial cycle is settled by the final flush")
     trainer.step_fn = steps.make_train_step(
-        model, cfg, optimizer, args.microbatches, dp=dp,
+        model, cfg, optimizer, args.microbatches,
+        dp=dp if mesh is None else None, mesh=mesh,
         merge_topology=topology, merge_compress=args.merge_compress,
         defer_schedule=trainer.schedule, donate=args.donate)
     if trainer.schedule is not None:
@@ -344,9 +460,36 @@ class TrainResult:
     flushed: Optional[dict]
 
 
-def main(argv=None) -> TrainResult:
+def main(argv=None) -> Optional[TrainResult]:
+    import sys
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
-    trainer = build(args)
+    if args.procs is not None and args.worker is None:
+        # refuse before any process starts (a missing card too)
+        check_flags(args)
+        resolve_device(args.device)
+        from repro_torch.launch.mesh import spawn_command
+        return spawn_command("repro_torch.launch.train", argv, args.procs)
+    mesh = None
+    if args.worker is not None:
+        from repro_torch.launch import mesh as pmesh
+        torch.set_num_threads(1)
+        mesh = pmesh.init_train_mesh(
+            args.backend, torch.device(args.device).type,
+            init_method=args.worker[1], rank=int(args.worker[0]),
+            world_size=args.procs)
+    try:
+        return _train(args, mesh)
+    finally:
+        if mesh is not None:
+            pmesh.shutdown()
+
+
+def _train(args, mesh) -> TrainResult:
+    """The run the flags describe, on one device or, over ``mesh``, as one
+    process of the group (every process prints; the command shows rank
+    0's output)."""
+    trainer = build(args, mesh)
     # the run holds the only reference: the initial buffers go as it moves
     state, trainer.state = trainer.state, None
     device = trainer.device
@@ -362,6 +505,8 @@ def main(argv=None) -> TrainResult:
     prefetch = Prefetcher(trainer.dcfg, start_step=start)
 
     def step_fn(s, b):
+        if mesh is not None:
+            b = steps.shard_batch(b, mesh)
         out = trainer.step_fn(s, b)
         sync_device(device)        # the driver's dt is the step's own time
         return out
@@ -375,6 +520,9 @@ def main(argv=None) -> TrainResult:
         # deferred runs record the durability manifest next to each
         # boundary save
         defer_step=trainer.deferred)
+    if trainer.schedule is not None:
+        driver._log({"event": "defer_schedule",
+                     "schedule": trainer.schedule.describe()})
     try:
         state, end = driver.run(state, start, args.steps - start)
     finally:
@@ -393,6 +541,12 @@ def main(argv=None) -> TrainResult:
                 parts.append(f"settled a {fmetrics['flushed_steps']}-step"
                              f" partial cycle")
             print("final flush:", ", ".join(parts))
+    # what the run launched and held on the card, in this process's log
+    from repro_torch.kernels import launch_counts
+    driver._log({"event": "run_end", "step": end,
+                 "launches": launch_counts(),
+                 "peak_device_bytes": (torch.cuda.max_memory_allocated(device)
+                                       if device.type == "cuda" else 0)})
     losses = [e for e in driver.events if e.get("event") == "step"]
     if losses:
         print(f"steps {start}..{end}: loss {losses[0]['loss']:.4f} -> "

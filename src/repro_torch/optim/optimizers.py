@@ -17,6 +17,11 @@ copy of the state is alive. It runs the same operations in the same order
 as the functional form (the same bits); the caller must not read its
 arguments again, as with a donated argument. The step counter is a 0-dim
 int32 tensor on the CPU, as the schedule's learning rate is.
+
+The same code steps DTensors: the shards of a state split over a process
+group (FSDP parameters and moments, a replicated step count), each process
+updating its own; the global norm's sum of squares is reduced over the
+group, and the donating form writes each process's shards in place.
 """
 
 from __future__ import annotations

@@ -10,13 +10,29 @@ function with the operational machinery a long run needs:
   a skip-batch policy — sound because the data stream is a pure function of
   the step index, and commutative merges make skip-and-continue order-free
 * straggler detection: per-step wall times vs. a rolling median; outliers
-  (> k x median) are logged with the host id (0: one process drives the
-  card) so a scheduler can reassign — any host can recompute any shard
-  (data/pipeline.py)
+  (> k x median) are logged with the host id (the process's rank in its
+  group, 0 without one) so a scheduler can reassign — any host can
+  recompute any shard (data/pipeline.py)
 * retry-with-backoff around transient step failures
 * elastic resume (``TrainDriver.resume``, through ``runtime/elastic``): the
   pending cascade verbatim on the same plan and schedule, settled into the
   parameters and the optimizer on another one
+
+Over a process group (gloo or NCCL; every process of a data-parallel run
+drives its own driver on its shards of the state) three things differ
+from the JAX driver, whose one controller needs none of them:
+
+* preemption is agreed: at each step boundary the processes take the MAX
+  of their flags (a one-element all-reduce), so a signal that reached only
+  some of them still makes every process save the same step and exit —
+  the save gathers each leaf over the group, and a process that left alone
+  would hang the others;
+* a step that raises is not retried: one process's retry would
+  desynchronise the group's collectives, so the error ends the process
+  (the spawner stops the group) and the next run resumes from the
+  checkpoint;
+* rank r > 0 logs its events to ``log_path`` with ``.rank{r}`` appended,
+  and only rank 0 removes old checkpoints.
 """
 
 from __future__ import annotations
@@ -70,6 +86,18 @@ class DriverConfig:
                              f"got {self.defer_save!r}")
 
 
+def _group_rank() -> Optional[int]:
+    """This process's rank in a real process group of more than one
+    process (gloo or NCCL), else None."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    if dist.get_backend() not in ("gloo", "nccl") or \
+            dist.get_world_size() < 2:
+        return None
+    return dist.get_rank()
+
+
 class TrainDriver:
     """step_fn(state, batch) -> (state, metrics); state is a pytree that
     includes everything needed to resume (params, opt state, step count).
@@ -83,6 +111,12 @@ class TrainDriver:
         self.donates = bool(getattr(step_fn, "donates", False))
         if self.donates and not cfg.restore_on_nan:
             cfg = dataclasses.replace(cfg, restore_on_nan=True)
+        # this process's rank in a real group (gloo or NCCL) of more than
+        # one process, else None
+        self.rank = _group_rank()
+        if self.rank and cfg.log_path:
+            cfg = dataclasses.replace(cfg, log_path=f"{cfg.log_path}"
+                                                    f".rank{self.rank}")
         self.cfg = cfg
         self.step_fn = step_fn
         self.batch_fn = batch_fn
@@ -121,7 +155,21 @@ class TrainDriver:
             with open(self.cfg.log_path, "a") as f:
                 f.write(json.dumps(rec, default=float) + "\n")
 
+    def _agreed(self, flag: bool) -> bool:
+        """``flag`` made true on every process of the group when it is
+        true on any (a one-element MAX all-reduce); as it is without a
+        group."""
+        if self.rank is None:
+            return flag
+        import torch.distributed as dist
+        device = ("cuda" if dist.get_backend() == "nccl" else "cpu")
+        x = torch.tensor([int(flag)], dtype=torch.int32, device=device)
+        dist.all_reduce(x, op=dist.ReduceOp.MAX)
+        return bool(x.item())
+
     def _gc_checkpoints(self):
+        if self.rank:           # rank 0 keeps the directory
+            return
         import shutil
         steps = sorted(
             int(d.split("_")[1]) for d in os.listdir(self.cfg.ckpt_dir)
@@ -191,10 +239,12 @@ class TrainDriver:
         when no checkpoint exists. Restore goes through
         :func:`repro_torch.runtime.elastic.elastic_restore`: matching
         plan/schedule fingerprints restore the pending cascade verbatim
-        (onto ``device`` if given: one device or a tree of them shaped like
-        ``state_like``); a changed topology settles the outstanding mass
-        into params/opt and re-initializes fresh defer state for the new
-        one."""
+        (onto ``device`` if given: one device, or a tree shaped like
+        ``state_like`` of devices and ``(DeviceMesh, placements)``
+        layouts; else onto ``state_like``'s own, a DTensor's layout
+        included); a changed topology settles the outstanding mass into
+        params/opt and re-initializes fresh defer state for the new one.
+        Over a process group every process calls it."""
         if ckpt.latest_step(self.cfg.ckpt_dir) is None:
             return state_like, 0, None
         state, extras, report = elastic.elastic_restore(
@@ -213,6 +263,9 @@ class TrainDriver:
             save_extras: Optional[Callable[[int], dict]] = None) -> Any:
         cfg = self.cfg
         self._install_signals()
+        # the process to signal for a preemption: from here on it saves
+        self._log({"event": "run_start", "step": start_step,
+                   "pid": os.getpid()})
         os.makedirs(cfg.ckpt_dir, exist_ok=True)
         step = start_step
         skipped = 0
@@ -230,7 +283,9 @@ class TrainDriver:
                         attempt += 1
                         self._log({"event": "step_error", "step": step,
                                    "error": repr(e), "attempt": attempt})
-                        if attempt > cfg.max_retries:
+                        # over a group a retry would desynchronise the
+                        # collectives: the error ends the run
+                        if attempt > cfg.max_retries or self.rank is not None:
                             raise
                         time.sleep(cfg.retry_backoff_s * attempt)
                 dt = time.time() - t0
@@ -264,17 +319,20 @@ class TrainDriver:
                 state = new_state
                 if self._is_straggler(dt):
                     self._log({"event": "straggler", "step": step,
-                               "dt": dt, "host": 0})
+                               "dt": dt, "host": self.rank or 0})
                 self._step_times.append(dt)
                 self._log({"event": "step", "step": step, "loss": loss,
                            "dt": dt})
                 step += 1
 
-                boundary = (step % cfg.ckpt_every == 0) or self._preempted
-                if boundary:
+                # the agreed flag, read once: a signal that arrives after
+                # the agreement (during the save) waits for the next one,
+                # so every process saves and stops at the same step
+                stop = self._agreed(self._preempted)
+                if step % cfg.ckpt_every == 0 or stop:
                     state = self._save_checkpoint(state, step, save_extras)
                     last_good = step
-                if self._preempted:
+                if stop:
                     self._log({"event": "preempted_exit", "step": step})
                     break
         finally:

@@ -8,8 +8,9 @@ schedule and the rank count that produced it
 (``repro_torch.checkpoint.defer_state``). This module restores in both
 worlds:
 
-* fingerprints match -> restore verbatim (onto ``device`` if given: the
-  counterpart of JAX's ``restore_resharded`` onto a new mesh);
+* fingerprints match -> restore verbatim (onto ``device`` if given, or
+  onto ``state_like``'s DTensor layouts: the counterpart of JAX's
+  ``restore_resharded`` onto a new mesh);
 * fingerprints differ (a pod joined or left, K re-solved, the plan's
   geometry changed) -> **settle** the restored pendings into the params and
   the optimizer exactly as ``DeferredTrainStep.flush`` would have, then hand
@@ -197,11 +198,24 @@ class _Parts:
 
 def _opt_fold(params, opt_state, settled: dict, scale, optimizer):
     """One optimizer step on the settled leaves (keyed by their path in the
-    params tree), each scaled in its own dtype."""
-    grads = _rebuild(params, lambda key, leaf: (
-        settled[key] * torch.tensor(scale, dtype=settled[key].dtype)
-        if scale != 1.0 else settled[key]))
-    return optimizer.step(params, grads, opt_state)
+    params tree), each scaled in its own dtype. A DTensor parameter takes
+    its slice of the settled leaf on its own layout (no collective)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    def grad(key, leaf):
+        g = settled[key]
+        if scale != 1.0:
+            g = g * torch.tensor(scale, dtype=g.dtype)
+        if not isinstance(leaf, DTensor):
+            return g
+        mesh = leaf.device_mesh
+        return DTensor.from_local(g, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False).redistribute(
+                                      mesh, leaf.placements)
+    grads = _rebuild(params, grad)
+    with implicit_replication():
+        return optimizer.step(params, grads, opt_state)
 
 
 def elastic_restore(ckpt_dir: str, state_like: PyTree, *,
@@ -221,10 +235,15 @@ def elastic_restore(ckpt_dir: str, state_like: PyTree, *,
     semantics (manifest-recorded), so pass the optimizer whose
     hyperparameters match the checkpoint — rescale afterwards with
     :func:`rescale_hyperparams`. ``device`` places the restored leaves, as
-    :func:`~repro_torch.checkpoint.restore_resharded` does (one device or a
-    tree of them shaped like ``state_like``); without it each leaf goes
-    where its ``state_like`` tensor lives. The settle runs on the device of
-    each restored parameter.
+    :func:`~repro_torch.checkpoint.restore_resharded` does (one device, or
+    a tree shaped like ``state_like`` of devices and ``(DeviceMesh,
+    placements)`` layouts); without it each leaf goes where its
+    ``state_like`` tensor lives, a DTensor onto its layout (the
+    counterpart of JAX's ``shardings=``). The settle runs on the device of
+    each restored parameter: over a process group every process settles
+    the same whole leaves from the same file (deterministic), and the fold
+    steps each process's FSDP shards of the parameters and AdamW; the
+    fresh defer state is laid out on the new mesh by ``defer_step``.
 
     Returns ``(state, extras, report)``; raises ``FileNotFoundError`` when
     no committed checkpoint exists (callers start fresh).

@@ -1633,6 +1633,66 @@ def test_mesh_axis_on_nccl_equals_the_stacked_axis(cuda, tmp_path):
     _mesh_axis_check(ranks, "nccl")
 
 
+# ---------------------------------------------------------------------------
+# the train CLI over processes on the card: gloo sharing it (its gathers
+# staged through the host), NCCL one card a process
+# ---------------------------------------------------------------------------
+
+
+def _train_cli(tmp_path, *flags):
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "qwen1-5-0-5b", "--smoke", "--batch", "8", "--seq", "64", "--steps",
+         "3", "--ckpt-every", "3", "--lr", "1e-3", "--warmup", "2", *flags],
+        env=env, capture_output=True, text=True, timeout=300)
+
+
+@pytest.mark.parametrize("plan", [[], ["--merge-topology", "chip:2"],
+                                  ["--merge-topology", "chip:2:defer",
+                                   "--merge-defer", "2"]],
+                         ids=["implicit", "eager", "deferred"])
+def test_train_cli_over_gloo_processes_sharing_the_card(cuda, tmp_path,
+                                                         plan):
+    """``--procs 2 --backend gloo`` on one card (the FSDP gathers, the
+    checkpoint's gathers staged through the host; the gradient
+    reductions on the card) against the stacked run of the same flags:
+    every parameter within a bf16 rounding plus 2 lr a step."""
+    from repro_torch import checkpoint as ckpt
+    procs = _train_cli(tmp_path, *plan, "--procs", "2", "--backend", "gloo",
+                       "--ckpt-dir", str(tmp_path / "procs"))
+    assert procs.returncode == 0, procs.stderr[-3000:]
+    assert "steps 0..3: loss" in procs.stdout
+    stacked = _train_cli(tmp_path, *plan, "--ckpt-dir",
+                         str(tmp_path / "stacked"))
+    assert stacked.returncode == 0, stacked.stderr[-3000:]
+    got, _ = ckpt.load_raw(str(tmp_path / "procs"))
+    want, _ = ckpt.load_raw(str(tmp_path / "stacked"))
+    keys = [k for k in want if k.startswith("params/")]
+    assert keys and sorted(got) == sorted(want)
+    for k in keys:
+        g = torch.as_tensor(got[k]).float()
+        w = torch.as_tensor(want[k]).float()
+        assert bool(((g - w).abs() <= 2 ** -7 * w.abs() + 6e-3).all()), k
+
+
+def test_train_mesh_on_nccl_with_more_processes_than_cards_raises(cuda):
+    """The train mesh on NCCL with more processes than the host has
+    cards raises before it makes a process group."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as pmesh
+    with pytest.raises(RuntimeError, match="one card a process"):
+        pmesh.init_train_mesh("nccl", rank=0,
+                              world_size=torch.cuda.device_count() + 1,
+                              init_method="file:///nonexistent")
+    assert not dist.is_initialized()
+
+
 if __name__ == "__main__":
     import sys
     if sys.argv[1:2] == ["--mesh-axis-worker"]:
