@@ -19,7 +19,8 @@ through the selective scan's CUDA kernels), the encoder-decoder
 (seamless-m4t-medium served and trained) and the MoE and VLM families
 (qwen3-moe-235b and llava-next-34b served at full width, qwen3-moe-235b
 trained at full width through the expert-parallel MoE layer, kimi-k2-1t's
-smoke config) — and:
+smoke config), and the repository's examples through their PyTorch twins
+— and:
 
 1. prints the card (``nvidia-smi`` name and power limit, torch's name);
 2. builds every CUDA kernel of the paths from ``src/repro_torch/csrc``, all
@@ -141,9 +142,9 @@ smoke config) — and:
    2^18]`` int32 pendings, without and with overlap) bitwise against the
    uninterrupted run, and resolves of overlapped toy checkpoints at t = 4
    and 5 onto another plan bitwise against a verbatim restore flushed;
-   then kills the deferred qwen1.5-0.5b run of 11 (full width, 6 of its 24
+   then kills the deferred qwen1.5-0.5b run of 11 (full width, 2 of its 24
    layers, K = 4 over 8 ranks) by SIGKILL in a child process (this script
-   with ``--train-crash-child``) after its checkpoint of step 6 (about 10
+   with ``--train-crash-child``) after its checkpoint of step 6 (about 7.6
    GB),
    resumes it through ``TrainDriver.resume`` verbatim (every leaf bit for
    bit, then flushed: the oracle) and onto 4 ranks with K = 2 (the two
@@ -187,7 +188,8 @@ smoke config) — and:
    5 steps of batch 8 x 32 over 8 stacked ranks, an overlapped K = 2
    commit, a checkpoint every step):
    the twin twice, bitwise equal to itself in every leaf, a kill before
-   step 2 resumed and flushed bitwise equal to the twin, a control with
+   step 2 (a checkpoint every 2 steps) resumed and flushed bitwise equal
+   to the twin, a control with
    fresh defer state that must differ, ``cscatter`` launches = 2 x 8 x
    steps;
    then serves seamless-m4t-medium at full width (bf16, batch 8, prompts
@@ -284,9 +286,21 @@ smoke config) — and:
    the two walks' bytes by level equal each other and the cost model's,
    and the stacked step's ``cscatter`` calls 8 x the planned step's per
    device;
-17. prints every kernel's registers and spills (``ptxas -v``),
+17. (``phase_examples``, after ``phase_families``) runs the examples'
+   twins in-process on the card at their defaults (``examples/*_torch.py``:
+   the KV store demo, the quickstart, batched serving of hymba-1.5b's smoke
+   config, train_e2e twice on one checkpoint directory (E2E_STEPS), the
+   fault-tolerance demo and its ``--chaos --quick`` suite), every
+   kernel's launches zeroed before each and held to
+   ``examples_predicted()``, and each example's own checks (the KV demo's
+   counters against its CPU run bit for bit, the saturating cap, z[0], the
+   kept share's binomial band; the restore bitwise; the served logits
+   and greedy tokens against the plain path, at a limit from the logits'
+   spread; the quickstart's embedding backward against the plain scatter;
+   the resume; ``CHAOS_SUITE_OK``);
+18. prints every kernel's registers and spills (``ptxas -v``),
    one ``{"kernels": [...]}`` line and the card's name and power limit;
-18. ends with ``{"ok": true, "device": {...}}``.
+19. ends with ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds. Nothing is caught: any failure exits
 non-zero before the last line. Without a card, or without the repository
@@ -367,8 +381,13 @@ XLSTM_PROMPT, XLSTM_GEN = 256, 257
 # HBM3, 700.00 W); the CPU tests kill before each of steps 1-4 of 5. Its
 # depth: 4 of the 12 layers (three mLSTM blocks and the sLSTM block that
 # ends each group of four), cut when a whole run took 938 s on a slow host:
-# every layer adds to the checkpoint saved and loaded at each step
+# every layer adds to the checkpoint saved and loaded at each step. A
+# checkpoint every CHAOS_CKPT_EVERY = 2 steps, where the example saves every
+# step: the kill before step 2 resumes from the same step-2 checkpoint, and
+# each run saves at steps 2 and 4 only (3.45 GB, 3.9-6.0 s a save on an
+# NVIDIA H100 80GB HBM3, 700.00 W), to make room for phase_examples
 CHAOS_STEPS, CHAOS_KILLS, CHAOS_LAYERS = 4, (2,), 4
+CHAOS_CKPT_EVERY = 2
 ATTN_BF16_ROW = 1e-2
 # phase_dryrun: four production cells planned on the card's host (nothing
 # allocated; ``launch/dryrun.py``), then the count checks for real and on a
@@ -540,12 +559,13 @@ ELASTIC_PLAN, ELASTIC_K = "chip:4,pod:2:defer", 3
 RESUME_STEPS, RESUME_CKPT, RESUME_KILL_AT = 12, 6, 7
 RESUME_PLAN, RESUME_K, RESUME_RANKS = "chip:2,host:2:defer", 2, 4
 KILL_DELAY_S = 1.0                  # into step RESUME_KILL_AT (~3 s a step)
-# the killed run's depth: 6 of qwen1.5-0.5b's 24 layers at full width (an
+# the killed run's depth: 2 of qwen1.5-0.5b's 24 layers at full width (an
 # earlier path run at a smaller depth, to keep the script inside its time):
-# the step-6 checkpoint ~10 GB, where all 24 layers wrote 19.5 GB, since
-# the 0.31 GB embedding with its moments and two levels of [8, ...]
-# pendings stays
-ELASTIC_LAYERS = 6
+# the step-6 checkpoint ~7.6 GB, where 6 layers (PRs 24-31) wrote 9.8 GB and
+# all 24 layers 19.5 GB, since the 0.31 GB embedding with its moments and
+# two levels of [8, ...] pendings stays; cut from 6 to make room for
+# phase_examples: the checkpoint is written once and read four times
+ELASTIC_LAYERS = 2
 # Training over processes (phase_train_procs): the train CLI's `--procs
 # PROCS --backend gloo`, PROCS processes sharing the card, one a data rank
 # of the train mesh: ARCH at full width, PROCS_LAYERS of its 24 layers,
@@ -567,6 +587,15 @@ PIPE_STAGES, PIPE_MICRO, PIPE_MB = 4, 8, 4
 # LAUNCHES_PER_CALL) and 8 in the apps sweep, cmerge 520 in the blocked
 # stores' ticks
 LINT_LAUNCHES = {"cscatter": 48, "cmerge": 520}
+
+# The examples' twins (phase_examples), in-process at their defaults:
+# train_e2e_torch runs twice on one checkpoint directory, --steps 10 then
+# --steps 15 with --ckpt-every 10 (the first run saves at its end and the
+# second resumes there: 15 steps in all, where the example's default is
+# 60); the KV demo's kept share must lie within EXAMPLE_BAND_SIGMAS binomial
+# deviations of 1/2
+E2E_STEPS, E2E_CKPT_EVERY = (10, 15), 10
+EXAMPLE_BAND_SIGMAS = 5
 
 # The store and the apps over a process group (phase_mesh), one process a
 # shard, the serving geometry and stream of phase_stores. Run (a): S
@@ -2221,7 +2250,7 @@ def _teacher_forced(model, batch: dict, res, prompt: int) -> list:
     frames = (batch["frames"],) if "frames" in batch else ()
     extra = {"embeds": batch["embeds"]} if "embeds" in batch else {}
     logits, caches = model.prefill(
-        torch.as_tensor(batch["tokens"], device="cuda"),
+        torch.as_tensor(batch["tokens"], device=res.tokens.device),
         prompt + len(res.logits), *frames, **extra)
     out = [logits]
     for i in range(1, len(res.logits)):
@@ -2897,7 +2926,8 @@ def _real_model_chaos(card: str) -> dict:
     ``runtime/chaos.real_model_run`` on the card, CHAOS_STEPS steps of
     batch 8 x 32 (one row a rank) over the 8 stacked ranks. The twin runs
     twice and must equal itself in every leaf (params, AdamW, the flushed
-    defer state); kills before ``CHAOS_KILLS`` resume to parameters equal
+    defer state); the killed runs checkpoint every CHAOS_CKPT_EVERY steps;
+    kills before ``CHAOS_KILLS`` resume to parameters equal
     to the twin's bit for bit; the control (fresh defer state on resume)
     must differ. ``cscatter`` (the embedding backward) launches 2 a rank a
     step."""
@@ -2941,7 +2971,8 @@ def _real_model_chaos(card: str) -> dict:
             out = chaos.real_model_run(cfg, CHAOS_STEPS, d,
                                        kill or CHAOS_KILLS[-1],
                                        device="cuda",
-                                       fresh_defer=kill is None)
+                                       fresh_defer=kill is None,
+                                       ckpt_every=CHAOS_CKPT_EVERY)
         steps += CHAOS_STEPS
         same = chaos.trees_bitwise_equal(out["state"]["params"],
                                          twin["params"])
@@ -3636,6 +3667,250 @@ def phase_families(card: str) -> dict:
         out[name] = fn(card)
         out[name]["phase_s"] = time.perf_counter() - t0
         print(f"phase families/{name}: {out[name]['phase_s']:.3f} s")
+    return out
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` of the checkout as a module (its ``main``
+    not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_predicted() -> dict:
+    """Each twin's kernel launches on the card at phase_examples' arguments,
+    worked out from the code: the KV demo's blocked walker merges once an
+    access (UPDATES a core, all cores in one ``cmerge``) and once at the
+    flush, and its section 3 is one ``cscatter`` call; the train steps
+    scatter the embedding's gradient once a microbatch (the real-model
+    chaos once a rank: the twin's run and, for each kill, the killed run
+    and its resumed rest); the chaos suite's privatized store scatters
+    every tick, the recovered partitioned store at each commit of its
+    replay and at the flush; a prefill launches one ``flash_attention`` a
+    layer (and hymba one ``selective_scan`` call a layer), a decode step
+    one ``decode_attention`` call a layer."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.core.merge_plan import MergePlan
+    from repro_torch.kernels.cscatter import LAUNCHES_PER_CALL as CS
+    from repro_torch.kernels.decode_attention import LAUNCHES_PER_CALL as DA
+    from repro_torch.kernels.selective_scan import LAUNCHES_PER_CALL as SC
+    from repro_torch.runtime.chaos import REAL_PLAN
+    kv = load_example("kv_store_ccache_torch")
+    qs = load_example("quickstart_torch")
+    sb = load_example("serve_batched_torch")
+    ft = load_example("fault_tolerant_train_torch")
+    zero = dict.fromkeys(("cscatter", "cmerge", "flash_attention",
+                          "decode_attention", "selective_scan"), 0)
+    qwen = get_smoke_config(qs.ARCH).n_layers
+    hymba = get_smoke_config("hymba_1_5b").n_layers
+    ranks = MergePlan.parse(REAL_PLAN).num_ranks
+    kills = ft.REAL_KILLS[0]                        # the chaos suite --quick
+    ticks = ft.SERVE_TICKS[0]                       # its serving part
+    replayed = ticks - ticks // 2                   # after the snapshot
+    demo = (ft.DEMO_STEPS + ft.DEMO_PREEMPT_AFTER + 1  # the save's step
+            + ft.DEMO_RESUME_STEPS)
+    return {
+        "kv_store_ccache": {**zero, "cmerge": kv.UPDATES + 1, "cscatter": CS},
+        "quickstart": {**zero,
+                       "cscatter": CS * qs.STEPS * qs.MICROBATCHES,
+                       "flash_attention": qwen,
+                       "decode_attention": DA * (qs.GEN - 1) * qwen},
+        "serve_batched": {**zero, "flash_attention": hymba,
+                          "selective_scan": SC["forward"] * hymba,
+                          "decode_attention": DA * (sb.GEN - 1) * hymba},
+        "train_e2e": {**zero, "cscatter": CS * E2E_STEPS[1]},
+        "fault_tolerant_demo": {**zero, "cscatter": CS * demo},
+        "fault_tolerant_chaos": {**zero, "cscatter": CS * (
+            ranks * ft.REAL_STEPS * (1 + len(kills))
+            + ticks + replayed // ft.SERVE_COMMIT + 1)},
+    }
+
+
+def _examples_plain_check(label: str, model, batch: dict, served,
+                          prompt: int) -> dict:
+    """Every step of a twin's greedy serve (``served``, logits kept) held
+    to the same tokens teacher-forced through the same weights on the plain
+    path (``impl="plain"``), at a limit set by the logits' own scale: each
+    step's largest error within ``TOL["bfloat16"]`` times the RMS of the
+    plain step's logits about each row's mean (their spread, which greedy
+    decoding and the softmax see), and the greedy tokens equal wherever
+    the plain top-2 margin exceeds twice that limit. phase_serve's fixed
+    LOGIT_TOL is as large as a typical logit of these smoke models (d 64,
+    tables drawn at 0.02). A limit from the largest logit, or from the RMS
+    about zero, lets a wrong kernel through in the trained quickstart,
+    whose logits all sit far below zero
+    (``scripts/examples_mutations_torch.py``)."""
+    import torch
+    model.impl = "plain"
+    try:
+        ref = _teacher_forced(model, batch, served, prompt)
+    finally:
+        model.impl = "kernel"
+    out = {"max_logit_err": 0.0, "max_err_over_spread": 0.0,
+           "logit_spread": [], "rel_tol": TOL["bfloat16"], "sure_tokens": 0,
+           "same_tokens": 0, "tokens": 0}
+    for i, (got, want) in enumerate(zip(served.logits, ref)):
+        require(bool(torch.isfinite(got).all()),
+                f"{label} step {i}: non-finite logits")
+        w = want.float()
+        spread = float((w - w.mean(-1, keepdim=True)).square().mean()
+                       .sqrt())
+        limit = TOL["bfloat16"] * spread
+        err = float((got - want).abs().max())
+        out["max_logit_err"] = max(out["max_logit_err"], err)
+        out["max_err_over_spread"] = max(out["max_err_over_spread"],
+                                         err / spread)
+        out["logit_spread"].append(spread)
+        require(err <= limit, f"{label} step {i}: kernel logits differ from "
+                              f"the plain path's by {err} > {limit} "
+                              f"({TOL['bfloat16']} x their spread {spread})")
+        s, e = _greedy_check(got, want, 2 * limit, f"{label} step {i}")
+        out["sure_tokens"] += s
+        out["same_tokens"] += e
+        out["tokens"] += got.shape[0]
+    out["logit_spread"] = [min(out["logit_spread"]),
+                           max(out["logit_spread"])]
+    return out
+
+
+def phase_examples(card: str) -> dict:
+    """The examples' twins (``examples/*_torch.py``) in-process on the card
+    at their defaults, each with every kernel's count zeroed just before
+    and read just after, held to ``examples_predicted()``; then each
+    example's own checks: the KV demo's counters equal to its CPU run of
+    the same inputs bit for bit, its tables within the f32 TOL of
+    serialization, the saturating max at most 3, z[0] within 1e-5 of
+    (1+0.2i)(1+0.1i)^8, the kept share within EXAMPLE_BAND_SIGMAS binomial
+    deviations of 1/2; the quickstart's losses finite, its restore
+    bitwise, its greedy serve (and serve_batched's) held to the plain path
+    (``_examples_plain_check``) and its embedding backward's ``cscatter``
+    held to the plain scatter on one microbatch
+    (``_embedding_backward_check``); train_e2e run twice on one checkpoint
+    directory, E2E_STEPS steps, the second resuming at the first's end;
+    the fault-tolerance demo's steps (8 reached, 1 skipped, a checkpoint
+    at 11, resumed 11 -> 16) and the chaos suite's ``--quick`` run to
+    ``CHAOS_SUITE_OK``."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    predicted = examples_predicted()
+    out = {"launches": {}, "seconds": {}}
+
+    def run(name: str, fn):
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - t0
+        got = _counts()
+        out["launches"][name] = got
+        print(f"examples/{name}: {out['seconds'][name]:.3f} s; launches "
+              f"{got} (predicted {predicted[name]})")
+        require(got == predicted[name], f"examples/{name}: launches {got}, "
+                                        f"the code predicts {predicted[name]}")
+        return res
+
+    kv = load_example("kv_store_ccache_torch")
+    got = run("kv_store_ccache", lambda: kv.main(["--device", "cuda"]))
+    cpu = kv.main(["--device", "cpu"])
+    rows, vals = kv.draw_inputs()
+    gold = np.zeros((kv.KEYS, kv.COLS))
+    np.add.at(gold, rows.numpy().reshape(-1), vals.numpy().reshape(
+        -1, kv.COLS))
+    z = complex(*got["z0"])
+    require((got["evict_merges"], got["flush_merges"])
+            == (cpu["evict_merges"], cpu["flush_merges"]),
+            f"examples/kv: the card's counters {got['evict_merges']} "
+            f"{got['flush_merges']} differ from the CPU run's")
+    require(max(got["blocked_err"], got["cscatter_err"])
+            <= TOL["float32"] * np.abs(gold).max(),
+            f"examples/kv: errors {got['blocked_err']} {got['cscatter_err']}")
+    require(got["sat_max"] <= 3.0, f"examples/kv: saturating max "
+                                   f"{got['sat_max']}")
+    require(abs(z - (1 + 0.2j) * (1 + 0.1j) ** 8) <= 1e-5,
+            f"examples/kv: z[0] = {z}")
+    require(abs(got["kept"] - 0.5) <= EXAMPLE_BAND_SIGMAS * got["kept_sigma"],
+            f"examples/kv: kept {got['kept']}, sigma {got['kept_sigma']}")
+    out["kv_store_ccache"] = {k: got[k] for k in (
+        "evict_merges", "flush_merges", "blocked_err", "cscatter_err",
+        "sat_max", "kept", "kept_sigma", "z0")}
+
+    qs = load_example("quickstart_torch")
+    got = run("quickstart", lambda: qs.main(["--device", "cuda"]))
+    require(all(np.isfinite(x) for x in got["losses"].values())
+            and got["restore_bitwise"],
+            f"examples/quickstart: losses {got['losses']}, restore bitwise "
+            f"{got['restore_bitwise']}")
+    plain = _examples_plain_check("examples/quickstart", got["model"],
+                                  {"tokens": got["prompt"]}, got["served"],
+                                  qs.PROMPT)
+    print(f"examples/quickstart vs the plain path: {plain}")
+    # the embedding backward's cscatter at the smoke vocab and width, on
+    # the trained weights and the first step's first microbatch
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data.pipeline import batch_at, data_config_for
+    from repro_torch.launch import steps
+    dcfg = data_config_for(get_smoke_config(qs.ARCH), qs.SHAPE, seed=0)
+    embedding_backward = _embedding_backward_check(
+        steps.grads_fn(got["model"]), got["model"].params(),
+        steps.to_device(batch_at(dcfg, 0), "cuda"),
+        rows=qs.SHAPE.global_batch // qs.MICROBATCHES)
+    out["quickstart"] = {"losses": got["losses"], "gnorms": got["gnorms"],
+                         "greedy": got["greedy"], "plain": plain,
+                         "embedding_backward": embedding_backward}
+    del got
+
+    sb = load_example("serve_batched_torch")
+    got = run("serve_batched", lambda: sb.main(["--device", "cuda"]))
+    prompt = len(got["batch"]["tokens"][0])
+    plain = _examples_plain_check("examples/serve_batched", got["model"],
+                                  got["batch"], got["served"], prompt)
+    out["serve_batched"] = {k: got[k] for k in (
+        "prefill_ms", "tok_s", "ms_per_step", "sample_ids")}
+    out["serve_batched"]["plain"] = plain
+    print(f"examples/serve_batched vs the plain path: {plain}")
+    del got
+
+    e2e = load_example("train_e2e_torch")
+    with tempfile.TemporaryDirectory(prefix="chip_e2e_") as ck:
+        def twice():
+            return [e2e.main(["--device", "cuda", "--ckpt-dir", ck,
+                              "--ckpt-every", str(E2E_CKPT_EVERY),
+                              "--steps", str(n)]) for n in E2E_STEPS]
+        first, second = run("train_e2e", twice)
+    require((first["start"], first["end"], second["start"], second["end"])
+            == (0, E2E_STEPS[0], E2E_STEPS[0], E2E_STEPS[1])
+            and all(np.isfinite(first["loss"] + second["loss"])),
+            f"examples/train_e2e: runs {first['start']}..{first['end']} and "
+            f"{second['start']}..{second['end']}, losses {first['loss']} "
+            f"{second['loss']}")
+    out["train_e2e"] = {"runs": [(r["start"], r["end"], r["loss"])
+                                 for r in (first, second)]}
+
+    ft = load_example("fault_tolerant_train_torch")
+    got = run("fault_tolerant_demo", lambda: ft.main(["--device", "cuda"]))
+    demo = got["demo"]
+    require((demo["reached"], demo["skipped"], demo["preempted_at"],
+             demo["resumed"]) == (8, 1, 11, (11, 16))
+            and np.isfinite(demo["final_loss"]),
+            f"examples/fault_tolerant demo: {demo}")
+    out["fault_tolerant_demo"] = demo
+    got = run("fault_tolerant_chaos",
+              lambda: ft.main(["--device", "cuda", "--chaos", "--quick"]))
+    require(got["lines"][-1] == "CHAOS_SUITE_OK"
+            and got["real"] == {2: "verbatim"}
+            and got["spec"]["leaves"] == 4
+            and got["elastic"]["k_new"] == 3
+            and got["serve"] == {"snapshot_step": 0, "replayed_ticks": 6},
+            f"examples/fault_tolerant chaos: {got}")
+    out["fault_tolerant_chaos"] = {k: got[k] for k in (
+        "toy", "spec", "elastic", "serve", "real")}
+    torch.cuda.empty_cache()
     return out
 
 
@@ -5018,13 +5293,14 @@ def _elastic_lm(card: str, work: str) -> dict:
 
     # 4. the mass
     settled = _settled_check(raw, extras["defer"], RESUME_CKPT % TRAIN_K)
-    del raw
-    gc.collect()
     params = _param_errs(state["params"], oracle["params"], float(lr(count[1])))
     mu = _mu_err(state["opt"].mu, oracle["opt"].mu)
     nu = _mu_err(state["opt"].nu, oracle["opt"].nu)
-    base, _ = ckpt.restore_resharded(
-        root, {"params": state["params"], "opt": state["opt"]}, "cuda")
+    # the control's params and AdamW from the leaves already read
+    base = ckpt.from_raw(raw, {"params": state["params"],
+                               "opt": state["opt"]}, "cuda")
+    del raw
+    gc.collect()
     control = {"mu": _mu_err(base["opt"].mu, oracle["opt"].mu),
                "nu": _mu_err(base["opt"].nu, oracle["opt"].nu),
                "params": _param_errs(base["params"], oracle["params"],
@@ -6430,6 +6706,7 @@ def main() -> None:
     elastic = timed("elastic", phase_elastic, smi)
     train_procs = timed("train_procs", phase_train_procs, smi)
     families = timed("families", phase_families, smi)
+    examples = timed("examples", phase_examples, smi)
     pipeline = timed("pipeline", phase_pipeline, smi)
     lint = timed("lint", phase_lint)
     dry = timed("dryrun", phase_dryrun, smi)
@@ -6465,6 +6742,8 @@ def main() -> None:
         "launches_elastic": elastic["launches"],
         "launches_train_procs": train_procs["launches"],
         "launches_families": families["chaos"]["cscatter_launches"],
+        "launches_examples": {k: v["cscatter"]
+                              for k, v in examples["launches"].items()},
         "launches_encdec_train": families["encdec_train"][
             "cscatter_launches"],
         "launches_moe": families["moe"]["launches"]["cscatter"],
@@ -6485,6 +6764,8 @@ def main() -> None:
         "replaces": REPLACES_CMERGE,
         "launches": blocked_path["cmerge"],
         "launches_mesh": mesh["launches"]["cmerge"],
+        "launches_examples": {k: v["cmerge"]
+                              for k, v in examples["launches"].items()},
         "launches_lint": lint["launches"]["cmerge"],
         "launches_dryrun": _dry_launches(dry, "cmerge"),
         "launches_dryrun_other": {
@@ -6507,6 +6788,8 @@ def main() -> None:
         "replaces": replaces,
         "launches": serve["launches"][name],
         "launches_mesh": mesh["launches"][name],
+        "launches_examples": {k: v[name]
+                              for k, v in examples["launches"].items()},
         "launches_families": {k: families[k]["launches"][name]
                               for k in ("hymba", "gelu")},
         "launches_encdec": families["encdec"]["launches"][name],
@@ -6545,6 +6828,8 @@ def main() -> None:
         "replaces": REPLACES_SCAN, "pallas_original": False,
         "launches": families["hymba"]["launches"]["selective_scan"],
         "launches_mesh": mesh["launches"]["selective_scan"],
+        "launches_examples": {k: v["selective_scan"]
+                              for k, v in examples["launches"].items()},
         "launches_by_path": {
             "hymba_prefill": families["hymba"]["launches"]["selective_scan"],
             **{f"hymba_train_{k}": v for k, v in
@@ -6571,6 +6856,7 @@ def main() -> None:
         "apps": {k: v for k, v in apps.items() if k != "kernel_rows"},
         "schedules": schedules, "durability": durability, "mesh": mesh,
         "train": trained, "elastic": elastic, "train_procs": train_procs,
+        "examples": examples,
         "pipeline": pipeline,
         "lint": lint, "dryrun": dry,
         "families": {k: {x: y for x, y in v.items() if x != "profile"}

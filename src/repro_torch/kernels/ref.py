@@ -86,6 +86,18 @@ def _apply(kind: str, mem: torch.Tensor, u: torch.Tensor, sat_min: float,
     raise ValueError(f"kind {kind!r} needs an integer table")
 
 
+def _select(mask: torch.Tensor, a: torch.Tensor,
+            b: torch.Tensor) -> torch.Tensor:
+    """``torch.where(mask, a, b)`` for every dtype: an unsigned one through
+    the signed view of its bits (PyTorch 2.11's CPU ``where`` has no
+    uint32)."""
+    signed = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+              torch.uint64: torch.int64}.get(a.dtype)
+    if signed is None:
+        return torch.where(mask, a, b)
+    return torch.where(mask, a.view(signed), b.view(signed)).view(a.dtype)
+
+
 def _f32(x: float) -> float:
     return float(torch.tensor(x, dtype=torch.float32))
 
@@ -115,7 +127,7 @@ def ref_cscatter(table: torch.Tensor, ids: torch.Tensor, vals: torch.Tensor,
     touched = torch.zeros(r, dtype=torch.bool, device=table.device)
     touched[safe[valid]] = True
     merged = _apply(kind, table, u, _f32(sat_min), _f32(sat_max))
-    return torch.where(touched[:, None], merged, table)
+    return _select(touched[:, None], merged, table)
 
 
 def ref_cscatter_serial(table: torch.Tensor, ids: torch.Tensor,
@@ -133,7 +145,7 @@ def ref_cscatter_serial(table: torch.Tensor, ids: torch.Tensor,
             u[i] = _combine(kind, u[i], val)
             touched[i] = True
     merged = _apply(kind, table, u, _f32(sat_min), _f32(sat_max))
-    return torch.where(touched[:, None], merged, table)
+    return _select(touched[:, None], merged, table)
 
 
 # ------------------------------------------------------------------ cmerge

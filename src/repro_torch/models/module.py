@@ -45,8 +45,26 @@ def dense(gen: torch.Generator, d_in: int, d_out: int, dtype,
 def apply_dense(p, x: Tensor) -> Tensor:
     y = x @ p["w"]
     if "b" in p:
-        y = y + p["b"]
+        y = _bias_layout(y, p["b"]) + p["b"]
     return y
+
+
+def _bias_layout(y, b):
+    """The planner's product ``y`` reduce-scattered onto the bias's split
+    on every mesh dim where ``y`` is a partial sum and the bias ``b`` is
+    split. PyTorch 2.13's sharding propagation picks this layout for the
+    add in every planned cell; 2.11's turns the bias into a partial sum
+    instead, a redistribution its DTensor cannot make. A plain tensor is
+    returned as it is."""
+    from repro_torch.sharding.partition import is_dtensor
+    if not (is_dtensor(y) and is_dtensor(b)):
+        return y
+    from torch.distributed.tensor import Partial, Shard
+    pl = [Shard(y.ndim - b.ndim + bp.dim)
+          if isinstance(yp, Partial) and isinstance(bp, Shard) else yp
+          for yp, bp in zip(y.placements, b.placements)]
+    return y if pl == list(y.placements) else y.redistribute(
+        y.device_mesh, pl)
 
 
 def dense_halves(p, x: Tensor, axes: tuple) -> tuple[Tensor, Tensor]:

@@ -511,10 +511,12 @@ def _tree_bytes(path: str) -> int:
 
 
 def real_model_run(cfg, n_steps: int, ckpt_dir: str, kill_at: int, *,
-                   device="cuda", seed: int = 0,
-                   fresh_defer: bool = False) -> dict:
-    """One killed real-model run: a driver checkpointing every step runs
-    until ``crashing`` kills it before step ``kill_at``; a second
+                   device="cuda", seed: int = 0, fresh_defer: bool = False,
+                   ckpt_every: int = 1) -> dict:
+    """One killed real-model run: a driver checkpointing every
+    ``ckpt_every`` steps (the example's every step) runs until
+    ``crashing`` kills it before step ``kill_at``, which must be a
+    checkpoint's step; a second
     incarnation (new model, step and optimizer objects) resumes from the
     last checkpoint, runs the remaining steps and flushes. With
     ``fresh_defer`` the resumed defer state is replaced by fresh zeros (the
@@ -527,8 +529,11 @@ def real_model_run(cfg, n_steps: int, ckpt_dir: str, kill_at: int, *,
 
     if not 0 < kill_at < n_steps:
         raise ValueError(f"kill_at {kill_at} outside (0, {n_steps})")
+    if kill_at % ckpt_every:
+        raise ValueError(f"kill_at {kill_at} is no checkpoint's step "
+                         f"(ckpt_every {ckpt_every})")
     factory = _real_model_factory(cfg, device=device, seed=seed)
-    dcfg = DriverConfig(ckpt_dir=ckpt_dir, ckpt_every=1,
+    dcfg = DriverConfig(ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
                         retry_backoff_s=0.0)
     step, batch_fn, state0 = factory()
     drv = TrainDriver(dcfg, step, crashing(batch_fn, kill_at),

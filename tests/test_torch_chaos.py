@@ -293,6 +293,23 @@ def test_real_model_kill_resumes_to_the_twin_bitwise(xlstm_twin, tmp_path,
     assert len(out["step_s"]) == 5 and out["ckpt_bytes"] > 0
 
 
+def test_real_model_kill_checkpointing_every_two_steps_resumes_bitwise(
+        xlstm_twin, tmp_path, one_thread):
+    """``ckpt_every=2`` (``chip_smoke.py``'s, to halve the saves of its
+    full-width run) resumes from the same step-2 checkpoint as the
+    example's every step, to the same bits; a kill at a step with no
+    checkpoint is refused."""
+    cfg, twin = xlstm_twin
+    out = chaos.real_model_run(cfg, 5, str(tmp_path), 2, device="cpu",
+                               ckpt_every=2)
+    assert (out["report"].action, out["report"].step) == ("verbatim", 2)
+    assert chaos.trees_bitwise_equal(out["state"]["params"], twin["params"])
+    assert len(out["save_s"]) == 2          # steps 2 and 4
+    with pytest.raises(ValueError, match="no checkpoint's step"):
+        chaos.real_model_run(cfg, 5, str(tmp_path), 3, device="cpu",
+                             ckpt_every=2)
+
+
 def test_real_model_resume_without_the_defer_state_differs(xlstm_twin,
                                                            tmp_path,
                                                            one_thread):

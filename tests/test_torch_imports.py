@@ -1,6 +1,7 @@
 """Import hygiene of the PyTorch port: nothing under ``src/repro_torch/``,
-nor ``chip_smoke.py``, imports ``jax``, the JAX package ``repro`` or
-``ml_dtypes`` (absent where the card is)."""
+nor ``chip_smoke.py``, the examples' twins (``examples/*_torch.py``) or
+the port's scripts (``scripts/*_torch.py``), imports ``jax``, the JAX
+package ``repro`` or ``ml_dtypes`` (absent where the card is)."""
 
 import ast
 import os
@@ -11,8 +12,11 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PACKAGE_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+# files run by path, outside the package
+SCRIPT_FILES = (sorted((ROOT / "examples").glob("*_torch.py"))
+                + sorted((ROOT / "scripts").glob("*_torch.py")))
+PORT_FILES = PACKAGE_FILES + [ROOT / "chip_smoke.py"] + SCRIPT_FILES
 FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
@@ -46,6 +50,9 @@ def test_the_port_has_files_to_scan():
             "granite_34b.py", "encdec.py", "seamless_m4t_medium.py",
             "selective_scan.py", "mesh_axis.py", "stacked.py",
             "mesh.py"} <= names
+    assert {"kv_store_ccache_torch.py", "quickstart_torch.py",
+            "serve_batched_torch.py", "train_e2e_torch.py",
+            "fault_tolerant_train_torch.py", "lint_plans_torch.py"} <= names
     dirs = {p.parent.name for p in PORT_FILES}
     assert {"data", "optim", "runtime", "launch", "checkpoint"} <= dirs
     for kernel in ("cscatter.cu", "cmerge.cu", "flash_attention.cu",
@@ -64,9 +71,14 @@ def test_importing_every_port_module_loads_no_jax():
     mods = sorted(
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
         .removesuffix(".__init__")
-        for p in PORT_FILES if p.name != "chip_smoke.py")
-    code = ("import importlib, sys\n"
+        for p in PACKAGE_FILES)
+    paths = [str(p) for p in SCRIPT_FILES]
+    code = ("import importlib, importlib.util, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
+            f"for i, p in enumerate({paths!r}):\n"
+            "    spec = importlib.util.spec_from_file_location(f's{i}', p)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec("
+            "spec))\n"
             "bad = sorted(m for m in sys.modules\n"
             f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
             "assert not bad, bad\n")
@@ -91,3 +103,15 @@ def test_mesh_worker_modules_load_no_jax(name):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    cwd=ROOT, timeout=120)
+
+
+def test_ci_script_runs_only_the_port_s_entry_points():
+    """``scripts/ci_torch.sh`` runs the port's lint and examples, never the
+    JAX package's (its stage 1 runs the parity tests, which import JAX)."""
+    import re
+    text = (ROOT / "scripts" / "ci_torch.sh").read_text()
+    code = "\n".join(line for line in text.splitlines()
+                     if not line.lstrip().startswith("#"))
+    run = re.findall(r"(?:scripts|examples)/\w+\.py", code)
+    assert run and all(p.endswith("_torch.py") for p in run), run
+    assert not re.search(r"-m\s+(repro|benchmarks)\b", code)
