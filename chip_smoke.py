@@ -156,14 +156,31 @@ smoke config), and the repository's examples through their PyTorch twins
    save's ms, each resume's ms and peak device memory by part, and the
    free disk before the save; then (``phase_train_procs``) runs the train
    CLI over 4 gloo processes sharing the card (``--procs 4 --backend
-   gloo``; qwen1.5-0.5b at full width, 4 of its 24 layers, 8 x 512,
+   gloo``; qwen1.5-0.5b at full width, 2 of its 24 layers, 8 x 512,
    chip:2,host:2:defer with K = 2, 4 steps): the stacked CLI run of the
    same flags, the command with rank 1's worker alone sent SIGTERM (every
    process saves step 1 mid-cycle and exits 0), the command again
    (resumed at 1, saving step 4): losses within 1e-2 of the stacked run's,
    every parameter within ``_param_errs``' bound, ``cscatter`` 2 launches
    a step a process; prints the processes' start, each save's bytes and
-   seconds, the steps' ms and each process's peak device bytes;
+   seconds, the steps' ms and each process's peak device bytes; then
+   (``phase_model_procs``) the same CLI over the model axis, ``--procs 4
+   --model-ranks 2 --backend gloo``, the processes sharing the card as
+   JAX's ``(data 2, model 2)`` mesh (qwen3-moe-235b at full width, 1 of
+   94 layers, ``moe_impl="ep"``, 2 x 2048, ``--donate``, 2 steps, a
+   checkpoint at the last): the stacked CLI run over the same data ranks
+   (``--merge-topology chip:2``), losses within 1e-2 of its, every
+   parameter within ``_param_errs``' bound, AdamW's first moment on
+   every process's slice of every leaf within MU_SLICE_BOUND of the
+   stacked run's (relative, in the 2-norm), the checkpoint (~37 GB) read
+   back whole holding every process's final slice of every leaf bit for
+   bit (the digests each worker takes of its state, this script run as
+   ``--model-procs-worker``), ``cscatter`` 12 launches a process (the
+   vocab-parallel embedding's gradient once a step, the expert-parallel
+   combine twice: remat's recompute), the processes' peak device bytes
+   summed under the card's; prints the start, the steps, the save, the
+   read; then ``cscatter`` at the path's two shapes, held to its plain
+   version there and timed;
 13. (``phase_families``) serves hymba-1.5b at full width (bf16, batch 8,
    prompts of 2048, 64 tokens: 32 ``flash_attention`` launches at prefill,
    29 with the window of 1024, 32 ``selective_scan`` calls, and a
@@ -434,9 +451,11 @@ KM_TOL = 1e-3                       # atol = rtol against the numpy mirror
 # 16 x 512 over 8 stacked data-parallel ranks (2 rows a rank); eager over
 # TRAIN_PLAN, deferred over TRAIN_DEFER_PLAN with K = TRAIN_K on both
 # deferred levels. The step is host-bound (~50k launches at 24 layers,
-# 2.7-5.5 s a step on NVIDIA H100 80GB HBM3, 700.00 W machines), and half
-# the depth keeps the script inside its time
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_DP, TRAIN_LAYERS = 16, 512, 8, 12
+# 2.7-5.5 s a step on NVIDIA H100 80GB HBM3, 700.00 W machines), and a
+# third of the depth keeps the script inside its time (8 layers since
+# phase_model_procs came, 12 before: an earlier path at a smaller depth,
+# every check kept)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_DP, TRAIN_LAYERS = 16, 512, 8, 8
 TRAIN_PLAN = "chip:2,host:2,pod:2"
 TRAIN_DEFER_PLAN = "chip:2,host:2:defer,pod:2:defer"
 TRAIN_K, TRAIN_LR, TRAIN_WARMUP = 4, 3e-4, 2
@@ -574,10 +593,36 @@ ELASTIC_LAYERS = 2
 # TRAIN_WARMUP, PROCS_STEPS), a checkpoint every PROCS_STEPS steps. Rank 1
 # alone is sent SIGTERM during step 0: every process saves step 1 (mid
 # cycle) and exits 0; the same command resumes there and saves step
-# PROCS_STEPS. Held to the stacked CLI run of the same flags.
-PROCS, PROCS_LAYERS, PROCS_BATCH, PROCS_STEPS = 4, 4, 8, 4
+# PROCS_STEPS. Held to the stacked CLI run of the same flags. The depth is
+# 2 of 24 layers since phase_model_procs came (4 before: an earlier path at
+# a smaller depth, every check kept)
+PROCS, PROCS_LAYERS, PROCS_BATCH, PROCS_STEPS = 4, 2, 8, 4
 PROCS_PLAN, PROCS_K = "chip:2,host:2:defer", 2
 PROCS_TIMEOUT = 300                 # seconds, each command
+# The model axis over processes (phase_model_procs): the train CLI's
+# `--procs MODEL_PROCS --model-ranks MODEL_RANKS --backend gloo`, the
+# processes sharing the card as JAX's (data, model) mesh of shape (2, 2):
+# MOE at full width, MOE_TRAIN_LAYERS of its 94 layers (bf16, remat
+# "full", moe_impl "ep"), batch MOE_TRAIN_BATCH x MOE_TRAIN_SEQ (a row a
+# data rank), MODEL_STEPS eager implicit steps of AdamW
+# warmup_cosine(TRAIN_LR, TRAIN_WARMUP, MODEL_STEPS), --donate, one
+# checkpoint at the last step. Held to the stacked CLI run of the same
+# flags with the data ranks stacked (--merge-topology chip:2, --model-ranks
+# MODEL_RANKS). The prediction, written before the first run on the card:
+# a process launches cscatter LAUNCHES_PER_CALL times a call, MODEL_CALLS
+# calls a step: its slice of the vocab-parallel embedding's gradient, and a
+# MoE layer's combine of its model rank's rows, again in remat's recompute:
+# 2 x MODEL_STEPS x (1 + 2 x MOE_TRAIN_LAYERS) = 12 launches
+MODEL_PROCS, MODEL_RANKS, MODEL_STEPS = 4, 2, 2
+MODEL_CALLS = {"embedding": 1, "combine": 2}
+MODEL_TIMEOUT = 600                 # seconds, the command
+# AdamW's first moment after MODEL_STEPS = 2 steps is 0.09 g0 + 0.1 g1
+# (f32). On each process's slice of each leaf the model-split run's moment
+# is held to the stacked run's within this error relative to the stacked
+# one's 2-norm: a gradient dropped, doubled or of the wrong sign there at
+# every step errs by 1 or more. The two runs differ by bf16 roundings and
+# by the tokens whose routing these flip
+MU_SLICE_BOUND = 0.5
 # The pipeline schedule: PIPE_STAGES consecutive decoder layers of ARCH at
 # full width, one a stage, over PIPE_MICRO microbatches of PIPE_MB x
 # PROMPT tokens
@@ -686,16 +731,19 @@ def rotating(fn, sets: list):
 def scatter_bound_ms(ids, d: int, itemsize: int,
                      r: int = R) -> tuple[float, str]:
     """The least time the card needs for one scatter of these inputs into
-    ``r`` rows: ids and vals read once, each touched row read and written
-    once (bytes), or one combine per update element (operations), whichever
-    is larger. Padding ids (< 0) touch nothing but are read."""
+    ``r`` rows: every id read once, the vals of the ids in ``[0, r)`` read
+    once, each touched row read and written once (bytes), or one combine
+    per element of those updates (operations), whichever is larger. An id
+    outside ``[0, r)`` (padding, or a row of another process's slice)
+    touches nothing and needs only its own 4 bytes."""
     import torch
     s, n = ids.shape
     ok = (ids >= 0) & (ids < r)
+    used = int(ok.sum())
     gid = (ids.long() + r * torch.arange(s, device=ids.device)[:, None])[ok]
     touched = int(torch.unique(gid).numel())
-    nbytes = s * n * 4 + s * n * d * itemsize + 2 * touched * d * itemsize
-    ops = s * n * d
+    nbytes = s * n * 4 + used * d * itemsize + 2 * touched * d * itemsize
+    ops = used * d
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return (1e3 * max(by_bytes, by_ops),
             "bytes" if by_bytes >= by_ops else "operations")
@@ -5615,6 +5663,307 @@ def phase_train_procs(card: str) -> dict:
     return out
 
 
+def _model_procs_argv(root: str, log: str) -> list[str]:
+    return ["--arch", MOE, "--layers", str(MOE_TRAIN_LAYERS), "--steps",
+            str(MODEL_STEPS), "--batch", str(MOE_TRAIN_BATCH), "--seq",
+            str(MOE_TRAIN_SEQ), "--lr", str(TRAIN_LR), "--warmup",
+            str(TRAIN_WARMUP), "--seed", str(SEED), "--model-ranks",
+            str(MODEL_RANKS), "--donate", "--device", "cuda", "--ckpt-every",
+            str(MODEL_STEPS), "--ckpt-dir", root, "--log", log]
+
+
+def _model_procs_kernel_times(ids: np.ndarray) -> list[dict]:
+    """``cscatter`` at this path's shapes, held to its plain version on
+    the same inputs (``_compare``: the error printed and kept as
+    ``max_abs_err``), then timed as the other rows (kernel: a CUDA graph;
+    a call; the plain version; ``index_add_`` on the ids in range; the
+    bound): model rank 1's slice of the vocab-parallel embedding's
+    gradient (f32, the data rank's ``ids`` less the slice's first row: the
+    ids of the other slice fall out of range and are dropped; random
+    vals), and one model rank's expert-parallel combine (its assignments
+    nonzero, the rest zeros). Launches here are comparisons and are not
+    counted."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.cscatter import (cscatter, cscatter_plain,
+                                              cscatter_plain_)
+    cfg = get_config(MOE)
+    rows, d = cfg.padded_vocab // MODEL_RANKS, cfg.d_model
+    emb_ids = (torch.as_tensor(ids, device="cuda") - rows).to(torch.int32)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    t = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ // (MODEL_PROCS // MODEL_RANKS)
+    c_ids, c_vals = _combine_inputs(MODEL_RANKS, t, d, cfg.top_k, g)
+    n = t * cfg.top_k
+    cases = (("embedding_backward", torch.zeros((rows, d), device="cuda"),
+              emb_ids, torch.randn((emb_ids.numel(), d), device="cuda",
+                                   generator=g)),
+             ("moe_combine", _combine_table(t, d), c_ids[:n], c_vals[:n]))
+    out = []
+    for what, table, tid, vals in cases:
+        want = cscatter_plain(table, tid, vals)
+        got = cscatter(table.clone(), tid, vals)
+        torch.cuda.synchronize()
+        err = _compare(got, want)
+        print(f"check cscatter add {str(table.dtype)[6:]} "
+              f"{list(table.shape)} N={tid.numel()} ({MOE} {what} over the "
+              f"model axis): ok (max abs err {err})")
+        del want, got
+        ok = (tid >= 0) & (tid < table.shape[0])
+        lids, lvals = tid[ok].long(), vals[ok]
+        bound, bound_by = scatter_bound_ms(tid[None], d,
+                                           table.element_size(),
+                                           r=table.shape[0])
+
+        def kernel():
+            cscatter(table, tid, vals)
+
+        def lib():
+            table.index_add_(0, lids, lvals)
+        row = {"kind": "add", "what": what, "arch": MOE, "path": "model_procs",
+               "dtype": str(table.dtype)[6:], "shape": list(table.shape),
+               "n": tid.numel(), "in_range": int(ok.sum()),
+               "max_abs_err": err, "ms": graph_ms(kernel), "call_ms": time_ms(kernel),
+               "plain_ms": time_ms(lambda: cscatter_plain_(table, tid, vals)),
+               "library_ms": graph_ms(lib), "library_call_ms": time_ms(lib),
+               "bound_ms": bound, "bound_by": bound_by}
+        print(f"time cscatter add {row['dtype']} {row['shape']} "
+              f"N={row['n']} ({row['in_range']} in range; {MOE} {what} over "
+              f"the model axis): kernel {row['ms']:.6f} ms (a call "
+              f"{row['call_ms']:.6f} ms), plain {row['plain_ms']:.6f} ms, "
+              f"index_add_ {row['library_ms']:.6f} ms (a call "
+              f"{row['library_call_ms']:.6f} ms), bound {bound:.6f} ms "
+              f"({bound_by})")
+        out.append(row)
+    return out
+
+
+def model_procs_worker(record: str, argv: list) -> None:
+    """One process of phase_model_procs: the train CLI's worker
+    (``train.main(argv)``, ``argv`` ending in ``--worker RANK INIT``, as
+    the CLI's ``--procs`` spawns it), then the digest of each of its
+    slices of the final state (``checkpoint.shard_digests``), taken before
+    the group goes, into ``record.rank{RANK}.json``: what the checkpoint
+    must hold there."""
+    from repro_torch.checkpoint.checkpoint import shard_digests
+    from repro_torch.launch import train
+    run, rank = train._train, argv[argv.index("--worker") + 1]
+
+    def _train(args, mesh):
+        res = run(args, mesh)
+        Path(f"{record}.rank{rank}.json").write_text(
+            json.dumps(shard_digests(res.state)))
+        return res
+    train._train = _train
+    train.main(argv)
+
+
+def _mu_slice_errs(whole, want, slices) -> float:
+    """The largest, over ``slices`` (each process's ``offset`` and
+    ``shape`` of the leaf), of the 2-norm of ``whole - want`` on the slice
+    over that of ``want`` there (of ``whole`` where ``want`` is 0)."""
+    worst = 0.0
+    for d in slices:
+        at = tuple(slice(o, o + n) for o, n in zip(d["offset"], d["shape"]))
+        g, w = whole[at].float(), want[at].float()
+        scale = float(w.norm()) or 1.0
+        worst = max(worst, float((g - w).norm()) / scale)
+    return worst
+
+
+def phase_model_procs(card: str) -> dict:
+    """The train CLI over the model axis of gloo processes sharing the card
+    (the constants above MODEL_PROCS): the stacked CLI run of the same
+    flags in this process (the data ranks stacked, ``--merge-topology
+    chip:2``), then the CLI's MODEL_PROCS workers of ``... --procs
+    MODEL_PROCS --model-ranks MODEL_RANKS --backend gloo``, each this
+    script as ``--model-procs-worker`` (``model_procs_worker``: the CLI's
+    worker, then the digests of its final state). Checks: the losses
+    finite and within 1e-2 relative of the stacked run's, step for step;
+    every parameter of the checkpoint within ``_param_errs``' bound of the
+    stacked run's; AdamW's first moment (``opt/mu``) on every process's
+    slice of every leaf within MU_SLICE_BOUND of the stacked run's; the
+    checkpoint, read back whole in this process (the stacked layout),
+    holds every process's final slice of every leaf bit for bit (its
+    digests); ``cscatter`` launches a process == the prediction
+    (``run_end``); the processes' peak device bytes summed under the
+    card's memory. Then ``cscatter`` at this path's shapes, held to its
+    plain version and timed."""
+    import torch
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths, digest
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.kernels.cscatter import LAUNCHES_PER_CALL
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import spawn_shards
+    from repro_torch.optim import warmup_cosine
+    gc.collect()
+    torch.cuda.empty_cache()
+    out: dict = {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_model_")
+    try:
+        root, log = os.path.join(work, "ck"), os.path.join(work, "log.jsonl")
+        argv = _model_procs_argv(root, log)
+        n_params = dataclasses.replace(
+            get_config(MOE), n_layers=MOE_TRAIN_LAYERS).n_params()
+        need = n_params * (2 + 8)          # bf16 params, f32 AdamW moments
+        free = shutil.disk_usage(work).free
+        print(f"model procs: {free} bytes free for the checkpoint; it needs "
+              f"about {need}")
+        require(free >= 1.05 * need, f"model procs: {free} bytes free, the "
+                                     f"checkpoint needs about {need}")
+        # 1. the stacked CLI run of the same flags, in this process
+        t0 = time.perf_counter()
+        stacked = argv[:argv.index("--ckpt-every")] + [
+            "--ckpt-every", str(1 << 30), "--ckpt-dir",
+            os.path.join(work, "stacked"), "--merge-topology", "chip:2"]
+        res = train.main(stacked)
+        want_losses = [e["loss"] for e in res.events if e["event"] == "step"]
+        want = {k: x.detach().cpu()
+                for k, x in _flatten_with_paths(res.state["params"])}
+        want_mu = {k: x.detach().cpu()
+                   for k, x in _flatten_with_paths(res.state["opt"].mu)}
+        count = int(res.state["opt"].step)
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["stacked_s"] = time.perf_counter() - t0
+        # 2. the CLI's workers over the (data, model) mesh
+        init, record = os.path.join(work, "init"), os.path.join(work, "dig")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t_start, t0 = time.time(), time.perf_counter()
+        spawn_shards(lambda r: [sys.executable, str(ROOT / "chip_smoke.py"),
+                                "--model-procs-worker", record, *argv,
+                                "--procs", str(MODEL_PROCS), "--backend",
+                                "gloo", "--worker", str(r),
+                                f"file://{init}"],
+                     MODEL_PROCS, work, MODEL_TIMEOUT, env=env)
+        out["command_s"] = time.perf_counter() - t0
+        digests = []
+        for r in range(MODEL_PROCS):
+            with open(f"{record}.rank{r}.json") as f:
+                digests.append(json.load(f))
+        logs = []
+        for r in range(MODEL_PROCS):
+            with open(log + (f".rank{r}" if r else "")) as f:
+                logs.append([json.loads(ln) for ln in f])
+        steps_ = [e for e in logs[0] if e["event"] == "step"]
+        losses = [e["loss"] for e in steps_]
+        require([e["step"] for e in steps_] == list(range(MODEL_STEPS)),
+                f"model procs: steps {[e['step'] for e in steps_]}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, want_losses)]
+        require(all(np.isfinite(losses)) and max(rel) <= 1e-2,
+                f"model procs: losses {losses} against the stacked "
+                f"{want_losses}")
+        ends = [[e for e in ev if e["event"] == "run_end"][0] for ev in logs]
+        launches = [e["launches"]["cscatter"] for e in ends]
+        peaks = [e["peak_device_bytes"] for e in ends]
+        predicted = LAUNCHES_PER_CALL * MODEL_STEPS * (
+            MODEL_CALLS["embedding"]
+            + MODEL_CALLS["combine"] * MOE_TRAIN_LAYERS)
+        starts = [next(e["t"] for e in ev if e["event"] == "run_start")
+                  - t_start for ev in logs]
+        last = next(e["t"] for e in logs[0] if e["event"] == "step"
+                    and e["step"] == MODEL_STEPS - 1)
+        saved = next(e["t"] for e in logs[0] if e["event"] == "checkpoint")
+        # 3. the checkpoint read back whole: the stacked layout
+        t0 = time.perf_counter()
+        raw, _ = ckpt.load_raw(root)
+        out["read_s"] = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(dp, f))
+                     for dp, _, fs in os.walk(root) for f in fs)
+        t0 = time.perf_counter()
+        for r, dig in enumerate(digests):
+            require(set(dig) == set(raw),
+                    f"model procs: rank {r}'s state is not the checkpoint's")
+        require(sorted(f"opt/mu/{k}" for k in want_mu) == sorted(
+            k for k in raw if k.startswith("opt/mu/")),
+            "model procs: the checkpoint's first moments are not the "
+            "stacked run's")
+        # each leaf on the card once: every process's slice of it digested
+        # there, the parameters kept for the comparison, the first moment
+        # held to the stacked run's on every process's slice
+        mismatched, got, mu_errs = [], {}, {}
+        for key in sorted(raw):
+            whole = torch.as_tensor(raw.pop(key)).to("cuda")
+            for r, dig in enumerate(digests):
+                d = dig[key]
+                if digest(whole[tuple(slice(o, o + n) for o, n in zip(
+                        d["offset"], d["shape"]))]) != d["digest"]:
+                    mismatched.append((r, key))
+            if key.startswith("params/"):
+                got[key[len("params/"):]] = whole
+            elif key.startswith("opt/mu/"):
+                mu_errs[key] = _mu_slice_errs(
+                    whole, want_mu.pop(key[len("opt/mu/"):]).to("cuda"),
+                    [dig[key] for dig in digests])
+            del whole
+        out["digest_s"] = time.perf_counter() - t0
+        del raw, want_mu
+        worst_mu = max(mu_errs, key=mu_errs.get)
+        lr = warmup_cosine(TRAIN_LR, TRAIN_WARMUP, MODEL_STEPS)
+        lr_sum = sum(float(lr(torch.tensor(t))) for t in range(1, count + 1))
+        require(sorted(got) == sorted(want), "model procs: the checkpoint's "
+                "parameters are not the stacked run's")
+        errs = _param_errs({k: got.pop(k) for k in sorted(want)},
+                           {k: want[k].to("cuda") for k in sorted(want)},
+                           lr_sum)
+        del got, want
+        torch.cuda.empty_cache()
+        gc.collect()
+        total = torch.cuda.get_device_properties(0).total_memory
+        dts = [1e3 * e["dt"] for e in steps_]
+        ids = batch_at(train.data_config_for(
+            dataclasses.replace(get_config(MOE), n_layers=MOE_TRAIN_LAYERS),
+            train.ShapeConfig("cli", MOE_TRAIN_SEQ, MOE_TRAIN_BATCH,
+                              "train"), seed=SEED), 0)["tokens"][0]
+        out.update(launches=launches[0], launches_by_rank=launches,
+                   predicted_launches=predicted, losses=losses,
+                   stacked_losses=want_losses, loss_rel_err=max(rel),
+                   params=errs, step_ms=dts, peak_device_bytes=peaks,
+                   mu_slice_err={"max": mu_errs[worst_mu], "leaf": worst_mu,
+                                 "bound": MU_SLICE_BOUND},
+                   start_s=starts, save_s=saved - last,
+                   checkpoint_bytes=nbytes, optimizer_steps=count,
+                   digest_mismatches=len(mismatched),
+                   mesh={"data": MODEL_PROCS // MODEL_RANKS,
+                         "model": MODEL_RANKS})
+        print(f"model procs: {MODEL_PROCS} gloo processes sharing {card} as "
+              f"(data {MODEL_PROCS // MODEL_RANKS}, model {MODEL_RANKS}), "
+              f"{MOE} at {MOE_TRAIN_LAYERS} of 94 layers, "
+              f"{MOE_TRAIN_BATCH} x {MOE_TRAIN_SEQ}, {MODEL_STEPS} steps; "
+              f"stacked run {out['stacked_s']:.3f} s; the command "
+              f"{out['command_s']:.3f} s (run_start at {starts} s); steps "
+              f"{dts} ms (rank 0); save {out['save_s']:.3f} s of "
+              f"{nbytes} bytes; read back {out['read_s']:.3f} s, digests "
+              f"{out['digest_s']:.3f} s")
+        print(f"model procs: losses {losses} against the stacked "
+              f"{want_losses} (max rel err {max(rel):.3e}, tol 1e-2); "
+              f"params vs the stacked run's: max |err| {errs['max_abs_err']} "
+              f"(bound {errs['bound']}); first moments on every process's "
+              f"slices: worst relative 2-norm error {mu_errs[worst_mu]} "
+              f"({worst_mu}; bound {MU_SLICE_BOUND}); every process's slices "
+              f"in the checkpoint bit for bit: {not mismatched}; cscatter "
+              f"launches by process {launches} (predicted {predicted}); peak "
+              f"device bytes by process {peaks}, {sum(peaks)} of {total}")
+        require(errs["ok"], f"model procs: params stray from the stacked "
+                            f"run's: {errs}")
+        require(mu_errs[worst_mu] <= MU_SLICE_BOUND,
+                f"model procs: the first moment strays from the stacked "
+                f"run's at {worst_mu}: {mu_errs[worst_mu]}")
+        require(not mismatched, f"model procs: the checkpoint differs from "
+                                f"the processes' state at {mismatched[:5]}")
+        require(launches == [predicted] * MODEL_PROCS,
+                f"model procs: cscatter launched {launches} a process, the "
+                f"path predicts {predicted}")
+        require(sum(peaks) < total, f"model procs: the processes' peaks "
+                                    f"{peaks} sum past the card's {total}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["kernel_rows"] = _model_procs_kernel_times(ids.reshape(-1))
+    return out
+
+
 def phase_pipeline(card: str) -> dict:
     """The GPipe schedule on the card (module doc, item 14). The stage
     function runs each stage's layer on that stage's own slice of the
@@ -6665,6 +7014,10 @@ def main() -> None:
     if sys.argv[1:2] == ["--train-crash-child"]:    # phase_elastic's child
         sys.path.insert(0, str(ROOT / "src"))
         train_crash_child(sys.argv[2])
+    if sys.argv[1:2] == ["--model-procs-worker"]:   # phase_model_procs'
+        sys.path.insert(0, str(ROOT / "src"))
+        model_procs_worker(sys.argv[2], sys.argv[3:])
+        return
     if sys.argv[1:2] == ["--mesh-worker"]:          # phase_mesh's processes
         sys.path.insert(0, str(ROOT / "src"))
         mesh_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
@@ -6705,6 +7058,7 @@ def main() -> None:
     trained = timed("train", phase_train, smi)
     elastic = timed("elastic", phase_elastic, smi)
     train_procs = timed("train_procs", phase_train_procs, smi)
+    model_procs = timed("model_procs", phase_model_procs, smi)
     families = timed("families", phase_families, smi)
     examples = timed("examples", phase_examples, smi)
     pipeline = timed("pipeline", phase_pipeline, smi)
@@ -6741,6 +7095,8 @@ def main() -> None:
         "launches_train": trained["launches"],
         "launches_elastic": elastic["launches"],
         "launches_train_procs": train_procs["launches"],
+        "launches_model_procs": model_procs["launches"],
+        "model_procs_rows": model_procs["kernel_rows"],
         "launches_families": families["chaos"]["cscatter_launches"],
         "launches_examples": {k: v["cscatter"]
                               for k, v in examples["launches"].items()},
@@ -6856,6 +7212,8 @@ def main() -> None:
         "apps": {k: v for k, v in apps.items() if k != "kernel_rows"},
         "schedules": schedules, "durability": durability, "mesh": mesh,
         "train": trained, "elastic": elastic, "train_procs": train_procs,
+        "model_procs": {k: v for k, v in model_procs.items()
+                        if k != "kernel_rows"},
         "examples": examples,
         "pipeline": pipeline,
         "lint": lint, "dryrun": dry,

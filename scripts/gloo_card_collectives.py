@@ -20,7 +20,9 @@ import tempfile
 OPS = ["all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
        "reduce_scatter_tensor", "funcol_all_gather", "funcol_reduce_scatter",
        "funcol_all_reduce", "dtensor_shard_to_replicate",
-       "dtensor_partial_to_shard", "dtensor_partial_to_replicate"]
+       "dtensor_partial_to_shard", "dtensor_partial_to_replicate",
+       "all_to_all_single", "funcol_all_to_all_single",
+       "dtensor_shard_to_shard", "gather"]
 
 
 def _worker(op: str, rank: int, init: str, out: str) -> None:
@@ -63,6 +65,21 @@ def _worker(op: str, rank: int, init: str, out: str) -> None:
             return wait(funcol.reduce_scatter_tensor(x, "sum", 0, mesh))
         if op == "funcol_all_reduce":
             return wait(funcol.all_reduce(x, "sum", mesh))
+        if op == "all_to_all_single":
+            y = torch.empty_like(x)
+            dist.all_to_all_single(y, x)
+            return y
+        if op == "funcol_all_to_all_single":
+            return wait(funcol.all_to_all_single(x, None, None, mesh))
+        if op == "dtensor_shard_to_shard":
+            return DTensor.from_local(x.reshape(2, 2), mesh, [Shard(0)]
+                                      ).redistribute(mesh, [Shard(1)]
+                                                     ).to_local()
+        if op == "gather":
+            parts = ([torch.empty_like(x) for _ in range(2)] if rank == 0
+                     else None)
+            dist.gather(x, parts, dst=0)
+            return torch.cat(parts) if rank == 0 else x
         if op == "dtensor_shard_to_replicate":
             return DTensor.from_local(x, mesh, [Shard(0)]).redistribute(
                 mesh, [Replicate()]).to_local()

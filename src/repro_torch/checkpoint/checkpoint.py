@@ -78,6 +78,48 @@ def _flatten_with_paths(tree: PyTree, prefix: tuple = (), is_leaf=None
     return out
 
 
+_BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def digest(t: torch.Tensor) -> int:
+    """A digest of ``t``'s bits, on its device: each element's bit pattern
+    as an integer of its width, times its flat index mod 65521 plus one,
+    summed mod 2^64 (in any order: integer addition wraps alike). Equal
+    tensors give equal digests; a changed bit, or an element moved, changes
+    it."""
+    bits = t.detach().contiguous().reshape(-1)
+    bits = bits.view(_BITS[bits.element_size()])
+    total, step = 0, 1 << 24
+    for start in range(0, bits.numel(), step):
+        chunk = bits[start:start + step].to(torch.int64)
+        weight = torch.arange(start, start + chunk.numel(),
+                              device=chunk.device) % 65521 + 1
+        total = (total + int((chunk * weight).sum())) % (1 << 64)
+    return total
+
+
+def shard_digests(tree: PyTree) -> dict:
+    """Each leaf key of ``tree`` -> this process's slice of it (its global
+    ``offset`` and ``shape``: a DTensor's local shard, else the whole) and
+    its :func:`digest`: what a checkpoint of ``tree`` must hold there, bit
+    for bit."""
+    out = {}
+    for key, x in _flatten_with_paths(tree):
+        if not isinstance(x, torch.Tensor):
+            continue
+        if _is_dtensor(x):
+            from torch.distributed.tensor._utils import (
+                compute_local_shape_and_global_offset)
+            shape, offset = compute_local_shape_and_global_offset(
+                x.shape, x.device_mesh, list(x.placements))
+            x = x.to_local()
+        else:
+            shape, offset = tuple(x.shape), (0,) * x.dim()
+        out[key] = {"offset": list(offset), "shape": list(shape),
+                    "digest": digest(x)}
+    return out
+
+
 def tree_keys(tree: PyTree) -> list[str]:
     """The flattened ``"/"``-joined leaf paths of ``tree`` — the key space
     a checkpoint of it stores under."""

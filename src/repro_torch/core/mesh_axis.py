@@ -93,22 +93,43 @@ def clear_groups() -> None:
 
 def _gathers(src, dst) -> bool:
     """Whether going from placements ``src`` to ``dst`` gathers a split
-    dim (a mesh dim that leaves a ``Shard`` for anything else)."""
+    dim (a mesh dim that leaves a ``Shard`` for one that is not: a move
+    between two split dims is an all-to-all, which gloo takes on the
+    card)."""
     from torch.distributed.tensor import Shard
-    return any(isinstance(a, Shard) and a != b for a, b in zip(src, dst))
+    return any(isinstance(a, Shard) and not isinstance(b, Shard)
+               for a, b in zip(src, dst))
 
 
 def redistribute(x, placements):
     """``x.redistribute(x.device_mesh, placements)`` for a DTensor ``x``,
-    on any backend. Gloo's all-gather of a card's tensor fails in
-    DTensor's functional collectives (the process dies), where its
-    all-reduce and reduce-scatter take the card's tensors: so a gather of
-    a tensor on the card over gloo runs on a host copy over the same
-    ranks' CPU mesh and is copied back, chosen from the backend, never as a
-    recovery from a failed call. Outside autograd (the gathers of a
-    step's parameters and of a checkpoint's leaves)."""
+    on any backend, inside autograd or outside it. Gloo's all-gather of a
+    card's tensor fails in DTensor's functional collectives (the process
+    dies), where its all-reduce and reduce-scatter take the card's
+    tensors: so a gather of a tensor on the card over gloo runs on a host
+    copy over the same ranks' CPU mesh and is copied back, chosen from the
+    backend (:func:`_staged_gather`), never as a recovery from a failed
+    call. Where such a gather may happen (a card's tensor on gloo) and
+    ``x`` takes part in autograd, the move is :class:`_Redistribute`,
+    whose backward moves the gradient back by the same rule: a gather's
+    gradient is sliced (a replicated one) or reduce-scattered (a partial
+    sum) onto ``x``'s placements, and a split's gradient, which DTensor's
+    own backward would all-gather, is gathered through the host."""
+    placements = tuple(placements)
+    if tuple(x.placements) == placements:
+        return x
+    if not _stages(x):
+        return x.redistribute(x.device_mesh, placements)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Redistribute.apply(x, placements)
+    return _moved(x, placements)
+
+
+def _moved(x, placements):
+    """:func:`redistribute` of ``x`` without a graph (outside autograd,
+    or inside :class:`_Redistribute`)."""
     from torch.distributed.tensor import DTensor
-    mesh, placements = x.device_mesh, tuple(placements)
+    mesh = x.device_mesh
     if not _staged_gather(x, placements):
         return x.redistribute(mesh, placements)
     out = _on_host(x, placements).to(x.to_local().device)
@@ -116,39 +137,112 @@ def redistribute(x, placements):
                               shape=x.shape, stride=x.stride())
 
 
+def _grad_placements(placements) -> tuple:
+    """Where the gradient of a DTensor laid out by ``placements`` goes: a
+    partial sum's gradient is replicated (DTensor's own rule)."""
+    from torch.distributed.tensor import Replicate
+    return tuple(Replicate() if p.is_partial() else p for p in placements)
+
+
+class _Redistribute(torch.autograd.Function):
+    """:func:`redistribute` as an autograd Function: forward moves ``x`` to
+    ``placements`` (a gather through the host, :func:`_moved`), backward
+    moves the gradient back onto ``x``'s placements by the same rule."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = _grad_placements(x.placements)
+        return _moved(x, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _moved(g, ctx.placements), None
+
+
 def whole_on_host(x):
     """The global array of DTensor ``x`` on the host of the group's rank 0,
     None on every other process: a checkpoint's leaf, which rank 0 writes.
-    On gloo a tensor split evenly over one mesh dim is gathered to rank 0
-    alone (``dist.gather`` of the host copies: the others send their
-    shard); any other is redistributed whole over its mesh (a card's
+    On gloo a tensor split evenly (over one mesh dim or several, none a
+    partial sum) is gathered to rank 0 alone: ``dist.gather`` of the host
+    copies over the split dims' group (the mesh's whole group when it
+    splits over several), rank 0 placing each process's shard at its
+    offset; any other is redistributed whole over its mesh (a card's
     tensor over gloo on a host copy, as :func:`redistribute` does)."""
     import torch.distributed as dist
-    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import Replicate
     mesh, me = x.device_mesh, dist.get_rank()
     split = [i for i, p in enumerate(x.placements) if not p.is_replicate()]
-    if (backend_of() == "gloo" and len(split) == 1
-            and isinstance(x.placements[split[0]], Shard)
-            and x.shape[x.placements[split[0]].dim]
-            % mesh.size(split[0]) == 0):
-        group = mesh.get_group(split[0])
+    if backend_of() == "gloo" and split and _even(x, split) and (
+            len(split) == 1 or mesh.mesh.numel() == dist.get_world_size()):
+        group = mesh.get_group(split[0]) if len(split) == 1 else None
         mine = x.to_local().cpu().contiguous()
-        first = dist.get_global_rank(group, 0)
-        parts = ([torch.empty_like(mine) for _ in range(mesh.size(split[0]))]
+        ranks = (dist.get_process_group_ranks(group) if group is not None
+                 else list(range(dist.get_world_size())))
+        first = ranks[0]
+        parts = ([torch.empty_like(mine) for _ in ranks]
                  if me == first else None)
         dist.gather(mine, parts, dst=first, group=group)
         if me != 0:
             return None
-        return torch.cat(parts, dim=x.placements[split[0]].dim)
+        return _assemble(x, dict(zip(ranks, parts)))
     whole = (Replicate(),) * mesh.ndim
     out = (_on_host(x, whole) if _staged_gather(x, whole)
            else x.redistribute(mesh, whole).to_local().cpu())
     return out if me == 0 else None
 
 
+def _even(x, split) -> bool:
+    """Whether every mesh dim of ``split`` is a ``Shard`` of a tensor dim
+    that its shards divide evenly (none a partial sum)."""
+    from torch.distributed.tensor import Shard
+    mesh = x.device_mesh
+    for i in split:
+        p = x.placements[i]
+        if type(p) is not Shard:
+            return False
+    by_dim: dict = {}
+    for i in split:
+        by_dim[x.placements[i].dim] = by_dim.get(
+            x.placements[i].dim, 1) * mesh.size(i)
+    return all(x.shape[d] % n == 0 for d, n in by_dim.items())
+
+
+def _assemble(x, parts: dict) -> torch.Tensor:
+    """The global array of ``x`` from its shards by global rank (a
+    replicated dim's copies are all there: the first is taken), each at
+    its offset under ``x``'s placements."""
+    one = next(iter(parts.values()))
+    out = torch.empty(tuple(x.shape), dtype=one.dtype)
+    grid = x.device_mesh.mesh
+    for rank, part in parts.items():
+        coord = [int(c) for c in (grid == rank).nonzero()[0]]
+        shape, offset = _local_shape_at(x, coord)
+        out[tuple(slice(o, o + n) for o, n in zip(offset, shape))] = part
+    return out
+
+
+def _local_shape_at(x, coord) -> tuple:
+    """(local shape, global offset) of the shard of ``x`` at mesh
+    coordinate ``coord`` (DTensor splits a dim over mesh dims major to
+    minor)."""
+    from torch.distributed.tensor import Shard
+    mesh = x.device_mesh
+    shape, offset = list(x.shape), [0] * len(x.shape)
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard):
+            shape[p.dim] //= mesh.size(i)
+            offset[p.dim] += coord[i] * shape[p.dim]
+    return shape, offset
+
+
+def _stages(x) -> bool:
+    """Whether a move of ``x`` that gathers goes through the host: a card's
+    tensor over gloo."""
+    return x.to_local().is_cuda and backend_of() == "gloo"
+
+
 def _staged_gather(x, placements) -> bool:
-    return (x.to_local().is_cuda and _gathers(x.placements, placements)
-            and backend_of() == "gloo")
+    return _gathers(x.placements, placements) and _stages(x)
 
 
 def _on_host(x, placements) -> torch.Tensor:

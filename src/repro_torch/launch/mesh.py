@@ -23,8 +23,8 @@ clearly if it moves).
 one process a shard of the KV store or an app, from the environment that
 ``torchrun`` sets or a file init, with its 1-D ``"shards"`` mesh
 (``apps/sharded.build_mesh``); :func:`init_train_mesh` joins one the same
-way for training, one process a data rank of a ``("data", "model")`` mesh
-of shape ``(N, 1)``; :func:`shutdown` destroys either.
+way for training, one process a device of a ``("data", "model")`` mesh
+of shape ``(N / M, M)``; :func:`shutdown` destroys either.
 :func:`spawn_shards` starts the processes of such a group on one host, and
 :func:`spawn_command` a CLI's workers through it (``kv_serve --procs``,
 ``train --procs``).
@@ -124,16 +124,24 @@ def init_shards(backend: str, device_type: str = "cuda",
 
 def init_train_mesh(backend: str, device_type: str = "cuda",
                     init_method: str | None = None, rank: int | None = None,
-                    world_size: int | None = None):
+                    world_size: int | None = None, model: int = 1):
     """Join a real process group as :func:`init_shards` does and return the
-    train mesh over it: ``("data", "model")`` of shape ``(world, 1)``, one
-    process a data rank, the counterpart of the JAX CLI's
-    ``make_host_mesh(data=jax.device_count(), model=1)``."""
+    train mesh over it: ``("data", "model")`` of shape ``(world // model,
+    model)``, one process a device of JAX's layout, the counterpart of
+    :func:`make_host_mesh` ``(data, model)`` (JAX's ``make_host_mesh``;
+    ``model=1`` is the JAX CLI's ``--mesh host``, and ``make_production_mesh``
+    has ``model=16``). Ranks are laid out as ``jax.make_mesh`` lays out
+    ``("data", "model")``: row-major, model minor, so consecutive ranks
+    share a model group. ``model`` must divide the world size."""
     from torch.distributed.device_mesh import DeviceMesh
     from repro_torch.kernels import custom_ops
     custom_ops.register_shardings()
     world = _join(backend, device_type, init_method, rank, world_size)
-    return DeviceMesh(device_type, torch.arange(world).reshape(world, 1),
+    if model < 1 or world % model:
+        raise ValueError(f"model={model} does not divide the {world} "
+                         f"processes of the group")
+    return DeviceMesh(device_type,
+                      torch.arange(world).reshape(world // model, model),
                       mesh_dim_names=("data", "model"))
 
 

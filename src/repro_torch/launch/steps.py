@@ -27,12 +27,15 @@ the ``dp`` ranks are the leading dim of a stack on one device
 
 :func:`make_train_step` without a topology is the implicit step (one rank,
 the whole batch); with a ``mesh`` and no topology it is the implicit step
-on concrete DTensors over a real process group, one process a data rank
-(the train CLI's ``--procs``): the parameters gathered whole, the loss and
-its backward on each process's rows, each gradient reduced onto its
+on concrete DTensors over a real process group, one process a device of a
+``("data", "model")`` mesh (the train CLI's ``--procs N --model-ranks
+M``): under JAX's rules, each parameter gathered over the data dims where
+the model uses it and kept split over ``"model"`` (tensor-parallel
+blocks, the vocab-parallel embedding, the expert-parallel MoE), the loss
+and its backward on each process's rows, each gradient reduced onto its
 parameter's layout. :func:`lay_out_state` lays a seeded state out on such
 a mesh by JAX's rules and :func:`shard_batch` a global batch. A gather of
-a card's tensor over gloo goes through the host
+a card's tensor over gloo goes through the host, inside autograd too
 (``core/mesh_axis.redistribute``): gloo's all-gather of card tensors fails
 in DTensor's collectives. With a ``mesh`` (a ``DeviceMesh``) and a topology the
 step is JAX's explicit branch over DTensors: it runs once a device in a
@@ -192,10 +195,15 @@ def lay_out_state(state: PyTree, cfg, shape_cfg, mesh,
     process keeping its slice of the same seeded tensors (no data moves):
     ``"params"`` by ``models/layout.param_axes`` and ``"opt"`` by
     :func:`opt_state_axes` (so the FSDP rule, ``embed`` over ``data``,
-    splits the parameters and the moments), the step count replicated;
-    a concrete ``"defer"`` (a stacked ``[dp, ...]`` pending cascade) with
-    each pending ``Shard(0)`` over ``merge_dims`` and its counter
-    replicated. A leaf already a DTensor stays as it is."""
+    splits the parameters and the moments, and on a mesh whose ``"model"``
+    dim is above 1 the heads, ``mlp``, ``vocab`` and the experts split
+    over it too), the step count replicated; a concrete ``"defer"`` (a
+    stacked ``[dp, ...]`` pending cascade) with each pending ``Shard(0)``
+    over ``merge_dims`` and its counter replicated. A leaf already a
+    DTensor stays as it is. Each process keeps a copy of its slice, not a
+    view of the whole; a meta leaf stands for zeros (the optimizer's
+    fresh moments, ``optimizer.init`` of meta parameters) and is made as
+    zeros of its slice's shape, so that no process holds the whole."""
     from torch.distributed.tensor import DTensor
     from repro_torch.models.layout import param_axes
     rules = lowering_rules(cfg, shape_cfg, mesh)
@@ -218,12 +226,18 @@ def lay_out_state(state: PyTree, cfg, shape_cfg, mesh,
     def lay(x, part):
         if x is None or partition.is_dtensor(x):
             return x
-        x = torch.as_tensor(x).to(device)
-        whole = DTensor.from_local(x, mesh, replicated(mesh),
+        placements = partition.placements_for(part, mesh)
+        x = torch.as_tensor(x)
+        if x.is_meta:
+            return partition.zeros(tuple(x.shape), x.dtype, mesh,
+                                   placements, device=device)
+        whole = DTensor.from_local(x.to(device), mesh, replicated(mesh),
                                    run_check=False)
         # replicated -> split is a local slice: no collective
-        return whole.redistribute(mesh,
-                                  partition.placements_for(part, mesh))
+        out = whole.redistribute(mesh, placements)
+        return DTensor.from_local(out.to_local().clone(), mesh, placements,
+                                  run_check=False, shape=out.shape,
+                                  stride=out.stride())
     return pytree.tree_unflatten([lay(x, pt) for x, pt in
                                   zip(leaves, flat_part)], spec)
 
@@ -526,7 +540,9 @@ def make_train_step(model, cfg, optimizer, num_microbatches: int = 1, *,
     ``Shard(0)`` over them, ``dp`` their product; a mesh with another dim
     of size > 1 raises ``NotImplementedError``, as JAX's does. A ``mesh``
     without a topology gives the implicit step over the mesh's DTensors
-    (:func:`_implicit_step`).
+    (:func:`_implicit_step`): each parameter gathered over the data dims
+    alone, leaf by leaf where the model uses it (the tree once a step
+    where the ``"model"`` dim is 1).
     """
 
     grads_of = grads_fn(model, num_microbatches)
@@ -535,7 +551,7 @@ def make_train_step(model, cfg, optimizer, num_microbatches: int = 1, *,
                          "levels")
     if merge_topology is None and mesh is not None:
         return _implicit_step(model, optimizer, num_microbatches,
-                              whole=True, donate=donate)
+                              split_cfg=cfg, donate=donate)
     if merge_topology is None:
         def train_step(state, batch):
             params = state["params"]
@@ -1188,7 +1204,7 @@ def _sharded_microbatches(vg, params, batch, n: int):
 
 
 def _implicit_step(model, optimizer, num_microbatches: int, *,
-                   whole: bool = False, donate: bool = False):
+                   split_cfg=None, donate: bool = False):
     """The implicit step over DTensors (JAX's default step on a mesh): the
     loss and its backward (summed over ``num_microbatches``, each device's
     rows ``i::n`` of its shard, so the batch stays sharded), each gradient
@@ -1196,28 +1212,62 @@ def _implicit_step(model, optimizer, num_microbatches: int, *,
     the jitted step's out_shardings ask), the global-norm clip and the
     optimizer on the parameters' layout.
 
-    With ``whole`` (the step on a real group's train mesh, whose model
-    axis is 1) the parameters are gathered whole first, through the host
-    where the backend needs it (DTensor's own gathers of a card's tensors
-    fail on gloo: module doc), and the loss leaves replicated. Without it
-    (the planner's, over fake meshes whose model axis may split the
-    parameters) DTensor gathers each parameter where an op needs it, as
-    GSPMD does, so a tensor-parallel parameter stays split."""
+    Two forms. The planner's (no ``split_cfg``), over fake meshes whose
+    model axis may split the parameters: DTensor gathers each parameter
+    where an op needs it, as GSPMD does, so a tensor-parallel parameter
+    stays split (the planner installs its rules). With ``split_cfg`` (the
+    config: the step on a real group's train mesh, one process a device)
+    the step installs JAX's rules for its batch's shape
+    (:func:`lowering_rules`, so that the blocks' constraints and the MoE's
+    expert-parallel form see the mesh, as JAX's ``_moe`` sees its mesh)
+    and gathers each parameter over the data dims alone, leaf by leaf
+    where the model uses it (``partition.gather_at_use``): it stays split
+    over ``"model"``, and no step holds the tree whole at once for its own
+    sake. Where the ``"model"`` dim is 1 a parameter so gathered is whole,
+    so the tree is gathered once at the top of the step instead, outside
+    autograd, and the uses' gathers move nothing (nor do remat's
+    recomputes). Every gather of a card's tensor
+    over gloo goes through the host, its gradient back by the matching
+    reduce-scatter (``core/mesh_axis.redistribute``; DTensor's own
+    gathers of a card's tensors fail on gloo: module doc), and the loss
+    leaves replicated."""
     from torch.distributed.tensor.experimental import implicit_replication
     vg = value_and_grad(lambda p, b: model.loss(p, b)[0])
+
+    def rules_for(params, batch):
+        if split_cfg is None:
+            return contextlib.nullcontext()
+        from repro_torch.configs.base import ShapeConfig
+        mesh = pytree.tree_leaves(params)[0].device_mesh
+        b, s = pytree.tree_leaves(batch)[0].shape[:2]
+        rules = lowering_rules(split_cfg, ShapeConfig("step", s, b, "train"),
+                               mesh)
+        stack = contextlib.ExitStack()
+        stack.enter_context(partition.sharding_rules(mesh, rules))
+        stack.enter_context(partition.gather_at_use(
+            tuple(d for d in mesh.mesh_dim_names if d != "model")))
+        return stack
+
+    def whole_at_top(params) -> bool:
+        if split_cfg is None:
+            return False
+        mesh = pytree.tree_leaves(params)[0].device_mesh
+        names = mesh.mesh_dim_names
+        return "model" not in names or mesh.size(names.index("model")) == 1
 
     def train_step(state, batch):
         params = state["params"]
         with implicit_replication():
             use = (pytree.tree_map(
                 lambda p: redistribute(p, replicated(p.device_mesh)), params)
-                if whole else params)
-            loss, grads = _sharded_microbatches(vg, use, batch,
-                                                num_microbatches)
+                if whole_at_top(params) else params)
+            with rules_for(params, batch):
+                loss, grads = _sharded_microbatches(vg, use, batch,
+                                                    num_microbatches)
             del use
             grads = pytree.tree_map(lambda g, p: redistribute(g, p.placements),
                                     grads, params)
-            if whole:
+            if split_cfg is not None:
                 loss = redistribute(loss, replicated(loss.device_mesh))
             with torch.profiler.record_function("train.optimizer"):
                 params, opt_state, stats = optimizer.step(

@@ -36,23 +36,32 @@ against a TPU pod's link rates: the wire vector of ``launch/wire_cost.py``
 over the gradient tree's bytes, each level's merge timed on the device,
 and a probe of the step's own per-rank forward and backward.
 
-``--procs N [--backend gloo|nccl]`` runs the CLI over a real process
-group, one process a data rank, as the JAX CLI runs over its host mesh
-(``make_host_mesh(data=N, model=1)``): the command spawns N workers of
-itself (``launch/mesh.spawn_command``, rank 0 to this output, each other's
-output to a file) and runs nothing on the card itself. Each worker joins
-the train mesh (``launch/mesh.init_train_mesh``), lays the seeded state
-out by JAX's rules (``steps.lay_out_state``: FSDP parameters and moments,
+``--procs N [--model-ranks M] [--backend gloo|nccl]`` runs the CLI over a
+real process group, one process a device of JAX's ``("data", "model")``
+mesh of shape ``(N / M, M)`` (``make_host_mesh(data, model)``; ``M`` is 1
+by default, as ``--mesh host``; ``--mesh prod`` has ``model=16``): the
+command spawns N workers of itself (``launch/mesh.spawn_command``, rank 0
+to this output, each other's output to a file) and runs nothing on the
+card itself. Each worker joins the train mesh
+(``launch/mesh.init_train_mesh``), lays the seeded state out by JAX's
+rules (``steps.lay_out_state``: the heads, ``mlp``, ``vocab`` and the
+experts over ``"model"``, FSDP over ``"data"``, the moments alike,
 ``Shard(0)`` pendings), computes every batch whole from the step index and
-keeps its rows (``steps.shard_batch``), and steps ``make_train_step(mesh=)``.
-``dp`` is the mesh's ``data`` size, N. Checkpoints are written by rank 0
+keeps its data rank's rows (``steps.shard_batch``), and steps
+``make_train_step(mesh=)``: tensor-parallel blocks, the vocab-parallel
+embedding (its gradient through ``cscatter`` into each process's rows of
+the table) and, for an ``"ep"`` config, the expert-parallel MoE
+(``moe_ep.apply_ep_mesh``, its combine through ``cscatter``). ``dp`` is
+the mesh's ``data`` size. ``--model-ranks`` must divide N and split an MoE
+config's experts; with an explicit merge it is refused, as JAX refuses a
+non-merge mesh axis above 1; without ``--procs`` only an MoE config takes
+it (its stacked model ranks, above). Checkpoints are written by rank 0
 from each leaf gathered in turn, in the one on-disk layout, so a run
-resumes over another process count or stacked, and the reverse. The
-backend is NCCL on ``--device cuda`` (one card a process) and gloo on
-``--device cpu`` by default; gloo on the card shares it among the
-processes. A SIGTERM or SIGINT to the command reaches every worker, which
-agree on it and save the same step. The model axis over processes
-(``--model-ranks`` above 1) is refused: the train mesh has ``model=1``.
+resumes over another mesh or stacked, and the reverse. The backend is NCCL
+on ``--device cuda`` (one card a process) and gloo on ``--device cpu`` by
+default; gloo on the card shares it among the processes. A SIGTERM or
+SIGINT to the command reaches every worker, which agree on it and save the
+same step.
 """
 
 from __future__ import annotations
@@ -187,14 +196,27 @@ def solve_defer_for_cli(merge_defer: str, trainer: "Trainer",
         bandwidths=inputs["rates"])
 
 
-def model_ranks_for(cfg, ranks: Optional[int]) -> Optional[int]:
+def model_ranks_for(cfg, ranks: Optional[int],
+                    procs: Optional[int] = None) -> Optional[int]:
     """``--model-ranks``: the size of the model axis ``cfg``'s MoE layers
     run over, 1 for an ``"ep"`` config when not given (the JAX host
-    mesh's), ``None`` (no model axis) for any other config."""
+    mesh's), ``None`` (no model axis) for any other config. With
+    ``procs`` (the train mesh over processes) it is the mesh's ``"model"``
+    size, which a dense config takes too (JAX's ``--mesh prod`` layout:
+    heads, ``mlp``, ``vocab`` and the experts over ``"model"``); it must
+    divide the processes."""
     if ranks is None:
         return 1 if cfg.moe_impl == "ep" else None
-    if cfg.family != "moe":
-        raise SystemExit(f"--model-ranks: {cfg.name} has no MoE layers")
+    if procs is not None:
+        if ranks < 1 or procs % ranks:
+            raise SystemExit(f"--model-ranks {ranks} does not divide "
+                             f"--procs {procs} (the mesh is (data, model) "
+                             f"= (procs / model-ranks, model-ranks))")
+        if cfg.family != "moe":
+            return ranks
+    elif cfg.family != "moe":
+        raise SystemExit(f"--model-ranks: {cfg.name} has no MoE layers "
+                         f"(with --procs it is the mesh's model axis)")
     if ranks < 1 or cfg.n_experts % ranks:
         raise SystemExit(f"--model-ranks {ranks} does not split "
                          f"{cfg.name}'s {cfg.n_experts} experts")
@@ -269,9 +291,11 @@ def parse_args(argv=None):
     p.add_argument("--layers", type=int, default=None,
                    help="cut the config's depth to this many layers")
     p.add_argument("--model-ranks", type=int, default=None,
-                   help="model ranks an expert-parallel MoE config's layers "
-                        "run over, stacked on the device (the JAX mesh's "
-                        "'model' axis; default 1 for an 'ep' config)")
+                   help="the JAX mesh's 'model' axis: with --procs N the "
+                        "mesh is (N / M, M), one process a device; without "
+                        "it, the model ranks an expert-parallel MoE "
+                        "config's layers run over, stacked on the device "
+                        "(default 1 for an 'ep' config)")
     p.add_argument("--donate", action="store_true",
                    help="update the parameters and the optimizer's moments "
                         "in place (buffer donation); a poisoned step then "
@@ -286,8 +310,8 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--procs", type=int, default=None,
-                   help="run over this many processes, one a data rank "
-                        "(the train mesh's 'data' axis)")
+                   help="run over this many processes, one a device of "
+                        "the train mesh (data, model)")
     p.add_argument("--backend", default=None, choices=["gloo", "nccl"],
                    help="with --procs: the process group's backend (nccl "
                         "on --device cuda, gloo on --device cpu by default)")
@@ -321,13 +345,15 @@ class Flags:
     topology: Any
     dp: int
     has_deferred: bool
+    model: int = 1             # the train mesh's "model" size (--procs)
 
 
 def check_flags(args) -> Flags:
     """The JAX CLI's refusals of bad flag combinations, made before any
-    model is built or process started. ``dp`` is ``--procs`` (the train
-    mesh's ``data`` size, as the JAX CLI reads its mesh), else the merge
-    plan's rank count stacked on the device, or 1."""
+    model is built or process started. ``dp`` is the train mesh's
+    ``data`` size over ``--procs`` (``--procs / --model-ranks``, as the
+    JAX CLI reads its mesh), else the merge plan's rank count stacked on
+    the device, or 1."""
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch))
     if args.layers is not None:
@@ -337,13 +363,20 @@ def check_flags(args) -> Flags:
                              f"{cfg.first_dense_layers} of them dense")
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     procs = getattr(args, "procs", None)
-    if procs is not None and (args.model_ranks or 1) > 1:
+    model_ranks = model_ranks_for(cfg, args.model_ranks, procs)
+    # over processes the mesh is (data, model): the data axis is the rest
+    model = (model_ranks or 1) if procs is not None else 1
+    if model > 1 and cfg.family not in ("dense", "moe", "vlm"):
+        raise SystemExit(f"--model-ranks {model} with --procs: the model "
+                         f"axis over processes runs the decoder families "
+                         f"(dense, moe, vlm), not {cfg.family!r}")
+    if model > 1 and (args.merge_group_size or args.merge_topology):
         raise SystemExit(
-            f"--model-ranks {args.model_ranks} with --procs: the model axis "
-            f"over processes is not run (the train mesh is JAX's host mesh, "
-            f"model=1); stack the model ranks on one device without "
-            f"--procs")
-    model_ranks = model_ranks_for(cfg, args.model_ranks)
+            f"--model-ranks {model} with an explicit merge: explicit "
+            f"hierarchical gradient merge needs the non-merge mesh axes to "
+            f"be trivial, but ['model'] have size > 1 (JAX's "
+            f"NotImplementedError); use the implicit reduction (no merge "
+            f"flag) for the model axis over processes")
     if args.merge_group_size and args.merge_topology:
         raise SystemExit("--merge-group-size and --merge-topology are "
                          "mutually exclusive")
@@ -353,7 +386,7 @@ def check_flags(args) -> Flags:
                          "--merge-topology")
     if args.merge_lane_parallel and not args.merge_topology:
         raise SystemExit("--merge-lane-parallel requires --merge-topology")
-    topology, dp = None, procs or 1
+    topology, dp = None, (procs // model if procs else 1)
     if args.merge_group_size:
         from repro_torch.core.ccache import MergeTopology
         if dp % args.merge_group_size != 0:
@@ -384,7 +417,9 @@ def check_flags(args) -> Flags:
     if args.batch % dp != 0:
         raise SystemExit(
             f"--batch {args.batch} must be divisible by --procs {dp} (each "
-            f"process takes an equal batch shard)")
+            f"process takes an equal batch shard)" if model == 1 else
+            f"--batch {args.batch} must be divisible by the mesh's {dp} data"
+            f" ranks (--procs {procs} / --model-ranks {model})")
     if (args.batch // dp) % args.microbatches != 0:
         raise SystemExit(
             f"--batch {args.batch} over {dp} rank(s) gives {args.batch // dp}"
@@ -405,7 +440,7 @@ def check_flags(args) -> Flags:
             "auto|K to schedule the commits (the optimizer steps once "
             "per commit on the K-step mean gradient), or drop the "
             ":defer flags for an eager merge every step")
-    return Flags(cfg, model_ranks, topology, dp, has_deferred)
+    return Flags(cfg, model_ranks, topology, dp, has_deferred, model)
 
 
 def build(args, mesh=None) -> Trainer:
@@ -423,10 +458,17 @@ def build(args, mesh=None) -> Trainer:
     model = build_model(cfg, device=device, seed=args.seed,
                         model_ranks=flags.model_ranks)
     params = model.params()
-    state = {"params": params, "opt": optimizer.init(params)}
-    if mesh is not None:
-        state = steps.lay_out_state(state, cfg, shape_cfg, mesh)
+    if mesh is None:
+        state = {"params": params, "opt": optimizer.init(params)}
+    else:
+        # each process keeps its slices: the moments are made split, and
+        # the module's whole parameters are let go once laid out
+        meta = pytree.tree_map(lambda p: p.to("meta"), params)
+        state = steps.lay_out_state(
+            {"params": params, "opt": optimizer.init(meta)}, cfg, shape_cfg,
+            mesh)
         params = state["params"]
+        model.to("meta")
     merge_fn = int8_compressed_add() if args.merge_compress else ADD
     trainer = Trainer(
         cfg=cfg, model=model, optimizer=optimizer, step_fn=None,
@@ -477,7 +519,7 @@ def main(argv=None) -> Optional[TrainResult]:
         mesh = pmesh.init_train_mesh(
             args.backend, torch.device(args.device).type,
             init_method=args.worker[1], rank=int(args.worker[0]),
-            world_size=args.procs)
+            world_size=args.procs, model=check_flags(args).model)
     try:
         return _train(args, mesh)
     finally:

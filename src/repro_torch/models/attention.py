@@ -58,8 +58,9 @@ from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.models import module as nn
 from repro_torch.models.rope import apply_rope
+from repro_torch.core.mesh_axis import redistribute
 from repro_torch.sharding.partition import (dim_shards, is_dtensor,
-                                            partial_grad)
+                                            local_inputs, partial_grad)
 from repro_torch.sharding.partition import logical_constraint as lc
 
 Tensor = torch.Tensor
@@ -104,9 +105,8 @@ def _split_heads(x: Tensor, n: int) -> Tensor:
         split = [i for i, p in enumerate(x.placements)
                  if isinstance(p, Shard) and p.dim == last]
         if n % math.prod(x.device_mesh.size(i) for i in split):
-            x = x.redistribute(x.device_mesh, [
-                Replicate() if i in split else p
-                for i, p in enumerate(x.placements)])
+            x = redistribute(x, [Replicate() if i in split else p
+                                 for i, p in enumerate(x.placements)])
     return x.reshape(x.shape[:-1] + (n, x.shape[-1] // n))
 
 
@@ -196,7 +196,8 @@ def _on_head_shards(fn, q, k, v):
     k, v = partial_grad(k, sliced), partial_grad(v, sliced)
     return local_map(local, out_placements=out,
                      in_placements=(q_in, kv_in, kv_in),
-                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+                     device_mesh=mesh)(*local_inputs(
+                         (q, k, v), (q_in, kv_in, kv_in)))
 
 
 def _masked_softmax(scores: Tensor, mask: Tensor, dtype) -> Tensor:

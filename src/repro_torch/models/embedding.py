@@ -26,7 +26,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.sharding.partition import dim_shards
+from repro_torch.core.mesh_axis import redistribute
+from repro_torch.sharding.partition import dim_shards, local_inputs
 
 Tensor = torch.Tensor
 
@@ -55,8 +56,8 @@ def _sharded_grad(grad_out, tokens, placements, vocab: int, dtype):
     rows, dims, n_rows, first = _batch_and_rows(mesh, placements, tokens,
                                                 vocab)
     # flattening [B, S] needs each device's whole sequences
-    ids = tokens.redistribute(mesh, rows).reshape(-1)
-    g = grad_out.redistribute(mesh, rows).reshape(-1, grad_out.shape[-1])
+    ids = redistribute(tokens, rows).reshape(-1)
+    g = redistribute(grad_out, rows).reshape(-1, grad_out.shape[-1])
     out = [Shard(0) if i in dims else Partial() if p == Shard(0)
            else Replicate() for i, p in enumerate(rows)]
 
@@ -69,7 +70,7 @@ def _sharded_grad(grad_out, tokens, placements, vocab: int, dtype):
 
     grad = local_map(local, out_placements=out, in_placements=(rows, rows),
                      device_mesh=mesh, redistribute_inputs=True)(g, ids)
-    return grad.redistribute(mesh, placements).to(dtype)
+    return redistribute(grad, placements).to(dtype)
 
 
 def sharded_lookup(table, tokens):
@@ -94,8 +95,8 @@ def sharded_lookup(table, tokens):
         return rows * hit[..., None].to(rows.dtype)
 
     return local_map(local, out_placements=out, in_placements=(t_in, ids_in),
-                     device_mesh=mesh, redistribute_inputs=True)(table,
-                                                                 tokens)
+                     device_mesh=mesh)(*local_inputs((table, tokens),
+                                                     (t_in, ids_in)))
 
 
 class _Embed(torch.autograd.Function):

@@ -56,6 +56,7 @@ def _bias_layout(y, b):
     add in every planned cell; 2.11's turns the bias into a partial sum
     instead, a redistribution its DTensor cannot make. A plain tensor is
     returned as it is."""
+    from repro_torch.core.mesh_axis import redistribute
     from repro_torch.sharding.partition import is_dtensor
     if not (is_dtensor(y) and is_dtensor(b)):
         return y
@@ -63,8 +64,7 @@ def _bias_layout(y, b):
     pl = [Shard(y.ndim - b.ndim + bp.dim)
           if isinstance(yp, Partial) and isinstance(bp, Shard) else yp
           for yp, bp in zip(y.placements, b.placements)]
-    return y if pl == list(y.placements) else y.redistribute(
-        y.device_mesh, pl)
+    return redistribute(y, pl)
 
 
 def dense_halves(p, x: Tensor, axes: tuple) -> tuple[Tensor, Tensor]:
@@ -75,6 +75,7 @@ def dense_halves(p, x: Tensor, axes: tuple) -> tuple[Tensor, Tensor]:
     weight (a ``local_map``): a split of the product itself would leave a
     device's slice of one half on other devices, and gathering the product
     moves far more bytes than the weight. Elsewhere the product is cut."""
+    from repro_torch.core.mesh_axis import redistribute
     from repro_torch.sharding.partition import (dim_shards, is_dtensor,
                                                 partial_grad, placements_of)
     w = p["w"]
@@ -95,8 +96,8 @@ def dense_halves(p, x: Tensor, axes: tuple) -> tuple[Tensor, Tensor]:
             for q in out_pl]
     split = [i for i, q in enumerate(out_pl) if isinstance(q, Shard)]
     rep = [Replicate()] * mesh.ndim
-    xin = partial_grad(x.redistribute(mesh, x_pl), chan)
-    win = partial_grad(w.redistribute(mesh, rep), split)
+    xin = partial_grad(redistribute(x, x_pl), chan)
+    win = partial_grad(redistribute(w, rep), split)
 
     def local(xl, wl):
         return (xl @ wl[:, first:first + n_loc],

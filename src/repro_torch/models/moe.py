@@ -204,6 +204,7 @@ def _replicated(p, x, top_k: int, capacity_factor: float, token_chunk: int):
     from torch.distributed.tensor import Replicate
     from torch.distributed.tensor.experimental import local_map
     from torch.utils import _pytree as pytree
+    from repro_torch.sharding.partition import local_inputs
     mesh = x.device_mesh
     rep = [Replicate()] * mesh.ndim
     leaves, spec = pytree.tree_flatten(p)
@@ -214,10 +215,10 @@ def _replicated(p, x, top_k: int, capacity_factor: float, token_chunk: int):
                              top_k, capacity_factor, token_chunk)
         return (out,) + tuple(metrics[k] for k in keys)
 
+    args = local_inputs((x, *leaves), (rep,) * (1 + len(leaves)))
     out, *metrics = local_map(
         local, out_placements=(rep,) * (1 + len(keys)),
-        in_placements=(rep,) * (1 + len(leaves)), device_mesh=mesh,
-        redistribute_inputs=True)(x, *leaves)
+        in_placements=(rep,) * (1 + len(leaves)), device_mesh=mesh)(*args)
     return out, dict(zip(keys, metrics))
 
 

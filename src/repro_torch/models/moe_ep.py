@@ -46,7 +46,8 @@ import torch
 
 from repro_torch.models import moe as moe_base
 from repro_torch.models.mlp import swiglu
-from repro_torch.sharding.partition import partial_grad
+from repro_torch.core.mesh_axis import redistribute
+from repro_torch.sharding.partition import mean_grad, partial_grad
 
 Tensor = torch.Tensor
 
@@ -154,11 +155,10 @@ def apply_ep_mesh(p, x: Tensor, top_k: int, capacity_factor: float, mesh
                 else R for i in range(mesh.ndim)]
 
     batch = layout(R, True)                 # x: batch split, whole on model
-    xin = partial_grad(x.redistribute(mesh, batch), [m])
+    xin = partial_grad(redistribute(x, batch), [m])
 
     def weights(w, model_pl):
-        return partial_grad(w.redistribute(mesh, layout(model_pl, False)),
-                            dp)
+        return partial_grad(redistribute(w, layout(model_pl, False)), dp)
 
     router = weights(p["router"]["w"], Shard(1))
     logits = local_map(
@@ -167,7 +167,7 @@ def apply_ep_mesh(p, x: Tensor, top_k: int, capacity_factor: float, mesh
         in_placements=(batch, layout(Shard(1), False)),
         device_mesh=mesh)(xin, router)
     # JAX's all_gather of the logit slices over the model axis
-    logits = partial_grad(logits.redistribute(mesh, batch), [m])
+    logits = partial_grad(redistribute(logits, batch), [m])
     e_start = mesh.get_coordinate()[m] * e_loc
     experts = [weights(p[k], Shard(0)) for k in ("wi_gate", "wi_up", "wo")]
     keys = ("aux_loss", "router_z", "drop_frac", "expert_load")
@@ -185,4 +185,6 @@ def apply_ep_mesh(p, x: Tensor, top_k: int, capacity_factor: float, mesh
         device_mesh=mesh)(xin, logits, *experts)
     if "shared" in p:
         out = out + swiglu(p["shared"], x)
-    return out, dict(zip(keys, metrics))
+    # pmean's gradient: each device's share of the mean
+    n = mesh.size()
+    return out, {k: mean_grad(v, n) for k, v in zip(keys, metrics)}

@@ -78,7 +78,9 @@ from repro_torch.models.layout import Spec
 from repro_torch.models.mlp import (gelu_mlp, gelu_mlp_init, swiglu,
                                    swiglu_init)
 from repro_torch.serve.kv import resolve_device
-from repro_torch.sharding.partition import active_mesh, dim_shards, is_dtensor
+from repro_torch.sharding.partition import (active_mesh, dim_shards,
+                                            gathered, is_dtensor,
+                                            local_inputs)
 from repro_torch.sharding.partition import logical_constraint as lc
 
 Tensor = torch.Tensor
@@ -186,8 +188,11 @@ def _sharded_lse_gold(logits: Tensor, labels: Tensor):
 
     m, se, gold = local_map(local, out_placements=(out, out, out),
                             in_placements=(lg_in, lab_in),
-                            device_mesh=mesh, redistribute_inputs=True)(logits, labels)
-    top = m.amax(0)
+                            device_mesh=mesh)(*local_inputs(
+                                (logits, labels), (lg_in, lab_in)))
+    # the max only steadies the sum (its gradient cancels), as
+    # ``jax.nn.logsumexp`` stops it
+    top = m.amax(0).detach()
     lse = top + torch.log((se * torch.exp(m - top)).sum(0))
     return lse, gold.sum(0)
 
@@ -332,8 +337,9 @@ class DecoderLM(tnn.Module):
         """The MoE layer -> (out, metrics), chosen by JAX's condition: the
         expert-parallel form for an ``"ep"`` config whose experts the model
         axis splits, else ``moe.apply``. The model axis is ``model_ranks``
-        stacked ranks on one card, or the ``"model"`` dim of the planner's
-        mesh (``partition.active_mesh``) for DTensors."""
+        stacked ranks on one card, or for DTensors the ``"model"`` dim of
+        the installed rules' mesh (``partition.active_mesh``): the
+        planner's, or the real mesh of the process's group."""
         cfg = self.cfg
         if is_dtensor(x):
             mesh = active_mesh()
@@ -447,6 +453,7 @@ class DecoderLM(tnn.Module):
         """One block of the train path -> (h, the MoE layer's metrics or
         ``{}``)."""
         cfg = self.cfg
+        p = gathered(p)
         h = lc(h, _RESID)
         a = attn.attend_full(p["attn"], lc(nn.rmsnorm(p["ln1"], h), _ACT),
                              positions, cfg.n_heads, cfg.n_kv_heads,
@@ -474,7 +481,7 @@ class DecoderLM(tnn.Module):
             h, metrics = block(p, h)
             for k, v in metrics.items():
                 totals[k] = totals[k] + v.sum() if k in totals else v.sum()
-        return nn.rmsnorm(params["ln_f"], lc(h, _RESID)), totals
+        return nn.rmsnorm(gathered(params["ln_f"]), lc(h, _RESID)), totals
 
     def _input(self, table: Tensor, tokens, embeds) -> Tensor:
         """The first hidden state: ``embeds`` (VLM) cast to the parameters'
@@ -491,14 +498,14 @@ class DecoderLM(tnn.Module):
         ``params``, plus the MoE router's aux and z losses over
         ``cfg.n_layers`` -> (loss, metrics)."""
         cfg = self.cfg
-        h = self._input(params["embed"]["table"], batch.get("tokens"),
-                        batch.get("embeds"))
+        table = gathered(params["embed"]["table"])
+        h = self._input(table, batch.get("tokens"), batch.get("embeds"))
         positions = torch.arange(h.shape[1], dtype=torch.int32,
                                  device=h.device)
         h, moe_metrics = self.forward(params, h, positions)
         h = lc(h, ("batch", "seq", "embed_act"))
-        w = (params["embed"]["table"].t() if cfg.tie_embeddings
-             else params["unembed"]["w"])
+        w = (table.t() if cfg.tie_embeddings
+             else gathered(params["unembed"]["w"]))
         loss, metrics = cross_entropy(_matmul_f32(h, w), batch["labels"])
         if moe_metrics:
             loss = loss + 0.01 * moe_metrics["aux_loss"] / cfg.n_layers \

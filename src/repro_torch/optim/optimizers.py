@@ -159,8 +159,8 @@ def adafactor(schedule, decay=0.8, eps=1e-30, weight_decay=0.0,
                 row = ema(nu["row"], g2.mean(-1))
                 col = ema(nu["col"], g2.mean(-2))
                 nu_new = {"row": row, "col": col}
-                r = row / torch.clamp(row.mean(-1, keepdim=True), min=eps)
-                v = r[..., None] * col[..., None, :]
+                v = _factored_moment(row, torch.clamp(row.mean(-1, keepdim=True),
+                                               min=eps), col, g)
                 u = torch.div(g, v.sqrt_().add_(1e-12))
             # update clipping (RMS <= 1), as Adafactor
             rms = torch.sqrt(torch.mean(u * u) + 1e-12)
@@ -180,6 +180,35 @@ def adafactor(schedule, decay=0.8, eps=1e-30, weight_decay=0.0,
                 {"grad_norm": gn, "lr": lr})
 
     return Optimizer(init=init, step=step)
+
+
+def _factored_moment(row: torch.Tensor, den: torch.Tensor,
+                     col: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``(row / den)[..., None] * col[..., None, :]``, the factored
+    moment, laid out as ``like`` (the gradient). For DTensors each process
+    divides its rows of ``row`` and multiplies them by its columns of
+    ``col``, each first moved where ``like``'s slice needs it (through
+    ``core/mesh_axis.redistribute``): DTensor's own broadcasting ops would
+    gather them through its collectives."""
+    if not hasattr(like, "placements"):
+        return (row / den)[..., None] * col[..., None, :]
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.core.mesh_axis import redistribute
+    last = like.dim() - 1
+    rows = [Shard(p.dim) if isinstance(p, Shard) and p.dim < last
+            else Replicate() for p in like.placements]
+    cols = [Shard(p.dim - 1 if p.dim == last else p.dim)
+            if isinstance(p, Shard) and p.dim != last - 1 else Replicate()
+            for p in like.placements]
+    # den keeps one entry where row has its last dim
+    dens = [Replicate() if isinstance(p, Shard) and p.dim == last - 1
+            else p for p in rows]
+    r = (redistribute(row, rows).to_local()
+         / redistribute(den, dens).to_local())
+    out = r[..., None] * redistribute(col, cols).to_local()[..., None, :]
+    return DTensor.from_local(out, like.device_mesh, like.placements,
+                              run_check=False, shape=like.shape,
+                              stride=like.stride())
 
 
 def _is_moment(x) -> bool:

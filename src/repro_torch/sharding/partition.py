@@ -26,6 +26,15 @@ placement and raises.
 its spec's placements inside a :func:`sharding_rules` context; outside one, and for a
 tensor that is not a DTensor, it is the identity, so the card's paths run
 as they always did.
+
+The same model code runs on a real group's mesh, one process a device
+(the train step over ``--procs N --model-ranks M``): the step installs the
+rules for its mesh, and :func:`gather_at_use` makes :func:`gathered`
+gather each parameter over the data dims where the model uses it. Every
+explicit move of the models goes through ``core/mesh_axis.redistribute``
+(a gather of a card's tensor over gloo runs through the host, inside
+autograd too), and a ``local_map``'s inputs are moved by
+:func:`local_inputs` before it, not by its own ``redistribute_inputs``.
 """
 
 from __future__ import annotations
@@ -66,6 +75,7 @@ class _Ctx:
         self.rules: Optional[dict] = None
         self.mesh = None
         self.manual: frozenset = frozenset()
+        self.gather: tuple = ()
 
 
 _CTX = _Ctx()
@@ -92,7 +102,56 @@ def sharding_rules(mesh, rules: Optional[dict] = None):
 
 
 def active_mesh():
+    """The mesh of the installed rules (:func:`sharding_rules`), or None:
+    the planner's fake mesh, or a real group's train mesh (one process a
+    device)."""
     return _CTX.mesh
+
+
+def local_inputs(args, placements) -> list:
+    """Each DTensor of ``args`` moved to its ``placements`` by
+    ``core/mesh_axis.redistribute``, before a ``local_map`` whose inputs
+    must arrive there (its own ``redistribute_inputs`` would move them
+    through DTensor's collectives)."""
+    from repro_torch.core.mesh_axis import redistribute
+    return [redistribute(a, pl) if is_dtensor(a) else a
+            for a, pl in zip(args, placements)]
+
+
+@contextlib.contextmanager
+def gather_at_use(dims: tuple):
+    """Gather the parameters split over the mesh ``dims`` (FSDP's
+    ``data``) where the model uses them (:func:`gathered`), as XLA's
+    partitioner gathers each weight at its use: the train step over a
+    real mesh whose model axis splits the parameters."""
+    prev = _CTX.gather
+    _CTX.gather = tuple(dims)
+    try:
+        yield
+    finally:
+        _CTX.gather = prev
+
+
+def gathered(tree: Any) -> Any:
+    """Each DTensor of ``tree`` gathered over the mesh dims of
+    :func:`gather_at_use` (whole there, split elsewhere as it was), through
+    ``core/mesh_axis.redistribute`` (a card's tensor over gloo through the
+    host, its gradient reduce-scattered back); the identity outside such a
+    context, as in the planner, where DTensor gathers a weight where an op
+    needs it."""
+    if not _CTX.gather:
+        return tree
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.core.mesh_axis import redistribute
+
+    def one(x):
+        if not is_dtensor(x):
+            return x
+        names = x.device_mesh.mesh_dim_names
+        return redistribute(x, [
+            Replicate() if names[i] in _CTX.gather and isinstance(p, Shard)
+            else p for i, p in enumerate(x.placements)])
+    return pytree.tree_map(one, tree)
 
 
 def spec_for(shape: tuple[int, ...], axes: tuple, mesh,
@@ -218,14 +277,15 @@ class _Constrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, mesh, placements, grad_placements):
-        ctx.mesh, ctx.placements = mesh, grad_placements
-        return x.redistribute(mesh, placements)
+        from repro_torch.core.mesh_axis import redistribute
+        ctx.placements = grad_placements
+        out = redistribute(x, placements)
+        return out.view_as(out) if out is x else out
 
     @staticmethod
     def backward(ctx, g):
-        if tuple(g.placements) != tuple(ctx.placements):
-            g = g.redistribute(ctx.mesh, ctx.placements)
-        return g, None, None, None
+        from repro_torch.core.mesh_axis import redistribute
+        return redistribute(g, ctx.placements), None, None, None
 
 
 def logical_constraint(x: torch.Tensor, axes: tuple,
@@ -273,6 +333,28 @@ class _PartialGrad(torch.autograd.Function):
                                   stride=g.stride()), None
 
 
+class _MeanGrad(torch.autograd.Function):
+    """Identity forward; the backward scales the gradient by ``1 / n``."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def mean_grad(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x``, a ``Partial("avg")`` mean of ``n`` devices' values (a
+    ``local_map``'s output, JAX's ``pmean``), whose gradient reaches each
+    device as its share, ``1 / n`` of the mean's: DTensor hands a partial
+    value's gradient to every device whole, which is right for a sum and
+    ``n`` times too large for a mean. The identity for ``n`` of 1."""
+    return _MeanGrad.apply(x, n) if n > 1 else x
+
+
 def partial_grad(x: torch.Tensor, dims) -> torch.Tensor:
     """``x`` whose gradient is summed over the mesh dims ``dims``: for a
     replicated input of a ``local_map`` whose local gradient is one share of
@@ -292,17 +374,20 @@ def placements_of(shape: tuple, axes: tuple, mesh) -> list:
                           mesh)
 
 
-def zeros(shape: tuple, dtype, like, placements) -> torch.Tensor:
+def zeros(shape: tuple, dtype, like, placements, device=None
+          ) -> torch.Tensor:
     """A DTensor of zeros of global ``shape`` laid out by ``placements``
-    over ``like``'s mesh, each device's shard made on ``like``'s local
-    device (the planner's meta tensors: nothing allocated)."""
+    over ``like``'s mesh (or the mesh ``like`` itself), each device's shard
+    made on ``like``'s local device or ``device`` (the planner's meta
+    tensors: nothing allocated)."""
     from torch.distributed.tensor import DTensor, Shard
-    mesh = like.device_mesh
+    mesh = like.device_mesh if is_dtensor(like) else like
+    device = like.to_local().device if device is None else device
     local = list(shape)
     for i, p in enumerate(placements):
         if isinstance(p, Shard):
             local[p.dim] //= mesh.size(i)
-    t = torch.zeros(local, dtype=dtype, device=like.to_local().device)
+    t = torch.zeros(local, dtype=dtype, device=device)
     return DTensor.from_local(t, mesh, placements, run_check=False,
                               shape=torch.Size(shape),
                               stride=torch.empty(shape, device="meta")

@@ -1681,6 +1681,106 @@ def test_train_cli_over_gloo_processes_sharing_the_card(cuda, tmp_path,
         assert bool(((g - w).abs() <= 2 ** -7 * w.abs() + 6e-3).all()), k
 
 
+def test_train_cli_over_a_model_axis_of_gloo_processes(cuda, tmp_path):
+    """``--procs 4 --model-ranks 2 --backend gloo`` on one card, the
+    ``(2, 2)`` mesh (heads, ``mlp`` and ``vocab`` split over ``"model"``,
+    the FSDP gathers at each use staged through the host) against the
+    stacked run over the same two data ranks: every parameter within a
+    bf16 rounding plus 2 lr a step."""
+    from repro_torch import checkpoint as ckpt
+    procs = _train_cli(tmp_path, "--procs", "4", "--model-ranks", "2",
+                       "--backend", "gloo", "--ckpt-dir",
+                       str(tmp_path / "procs"))
+    assert procs.returncode == 0, procs.stderr[-3000:]
+    assert "steps 0..3: loss" in procs.stdout
+    stacked = _train_cli(tmp_path, "--merge-topology", "chip:2",
+                         "--ckpt-dir", str(tmp_path / "stacked"))
+    assert stacked.returncode == 0, stacked.stderr[-3000:]
+    got, _ = ckpt.load_raw(str(tmp_path / "procs"))
+    want, _ = ckpt.load_raw(str(tmp_path / "stacked"))
+    keys = [k for k in want if k.startswith("params/")]
+    assert keys and sorted(got) == sorted(want)
+    for k in keys:
+        g = torch.as_tensor(got[k]).float()
+        w = torch.as_tensor(want[k]).float()
+        assert bool(((g - w).abs() <= 2 ** -7 * w.abs() + 6e-3).all()), k
+
+
+def _staged_autograd_worker(rank: int, init: str, work: str,
+                            device: str = "cuda") -> None:
+    """One process of a ``(2, 2)`` gloo mesh on the card: gathers of a
+    DTensor through ``core/mesh_axis.redistribute`` inside autograd (over
+    both dims, over ``"model"`` alone, and a partial sum made whole), the
+    outputs and the input's gradient of each, on the card and again on
+    the same ranks' CPU mesh."""
+    from pathlib import Path
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                          Shard)
+    from repro_torch.core import mesh_axis
+    from repro_torch.launch import mesh as pmesh
+    card = pmesh.init_train_mesh("gloo", device,
+                                 init_method=f"file://{init}", rank=rank,
+                                 world_size=4, model=2)
+    host = DeviceMesh("cpu", card.mesh, mesh_dim_names=("data", "model"))
+    g = torch.Generator().manual_seed(0)
+    x0, w0 = torch.randn(8, 6, generator=g), torch.randn(8, 6, generator=g)
+    cases = {"whole": ([Shard(0), Shard(1)], [Replicate(), Replicate()]),
+             "model": ([Shard(0), Shard(1)], [Shard(0), Replicate()]),
+             "partial": ([Partial(), Shard(0)], [Replicate(), Replicate()])}
+    out = {"staged": np.asarray(0)}
+    calls = []
+    on_host = mesh_axis._on_host
+    mesh_axis._on_host = lambda *a: calls.append(1) or on_host(*a)
+    for name, (src, dst) in cases.items():
+        for label, mesh in (("card", card), ("cpu", host)):
+            on = device if label == "card" else "cpu"
+            whole = DTensor.from_local(x0.to(on), mesh,
+                                       [Replicate(), Replicate()])
+            x = (whole.redistribute(mesh, src) if name != "partial" else
+                 DTensor.from_local(whole.redistribute(
+                     mesh, [Replicate(), Shard(0)]).to_local() / 2, mesh,
+                     src, run_check=False, shape=whole.shape,
+                     stride=whole.stride()))
+            x = x.detach().requires_grad_(True)
+            y = mesh_axis.redistribute(x, dst)
+            w = DTensor.from_local(w0.to(on), mesh,
+                                   [Replicate(), Replicate()]
+                                   ).redistribute(mesh, dst)
+            (y * w).sum().backward()
+            out[f"{name}/{label}/y"] = y.to_local().detach().cpu().numpy()
+            out[f"{name}/{label}/grad"] = x.grad.to_local().cpu().numpy()
+    out["staged"] = np.asarray(len(calls))
+    np.savez(Path(work, f"rank{rank}.npz"), **out)
+    pmesh.shutdown()
+
+
+def test_a_staged_gather_inside_autograd_on_gloo_with_card_tensors(
+        cuda, tmp_path):
+    """A gather of a card tensor over gloo (DTensor's own all-gather of a
+    card tensor kills the process there) runs through the host inside
+    autograd: forward and backward on four processes sharing the card
+    equal the same moves on the CPU, bit for bit, and each gathers of the
+    card's went through the host."""
+    import os
+    import sys
+    from pathlib import Path
+    from repro_torch.launch.mesh import spawn_shards
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    spawn_shards(lambda r: [sys.executable, __file__, "--staged-worker",
+                            str(r), str(tmp_path / "init"), str(tmp_path)],
+                 4, tmp_path, 240, env=env)
+    for r in range(4):
+        got = dict(np.load(tmp_path / f"rank{r}.npz"))
+        assert int(got["staged"]) >= 3, got["staged"]
+        for name in ("whole", "model", "partial"):
+            for part in ("y", "grad"):
+                np.testing.assert_array_equal(
+                    got[f"{name}/card/{part}"], got[f"{name}/cpu/{part}"],
+                    err_msg=f"{r} {name} {part}")
+
+
 def test_train_mesh_on_nccl_with_more_processes_than_cards_raises(cuda):
     """The train mesh on NCCL with more processes than the host has
     cards raises before it makes a process group."""
@@ -1695,6 +1795,8 @@ def test_train_mesh_on_nccl_with_more_processes_than_cards_raises(cuda):
 
 if __name__ == "__main__":
     import sys
+    if sys.argv[1:2] == ["--staged-worker"]:
+        _staged_autograd_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     if sys.argv[1:2] == ["--mesh-axis-worker"]:
         _mesh_axis_worker(sys.argv[2], int(sys.argv[3]), sys.argv[4],
                           sys.argv[5])

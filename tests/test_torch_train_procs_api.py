@@ -509,8 +509,16 @@ def test_parse_refusals(extra, msg, capsys):
 
 
 @pytest.mark.parametrize("extra,msg", [
-    (["--model-ranks", "2", "--procs", "2"],
-     "--model-ranks 2 with --procs: the model axis over processes"),
+    (["--model-ranks", "3", "--procs", "4"],
+     "--model-ranks 3 does not divide --procs 4"),
+    (["--model-ranks", "2", "--procs", "4", "--merge-topology", "chip:2"],
+     "explicit hierarchical gradient merge needs the non-merge mesh axes "
+     "to be trivial, but ['model'] have size > 1"),
+    (["--arch", "qwen3-moe-235b", "--model-ranks", "3", "--procs", "6"],
+     "--model-ranks 3 does not split qwen3-moe-235b-smoke's 4 experts"),
+    (["--model-ranks", "2"], "has no MoE layers"),
+    (["--arch", "xlstm-125m", "--model-ranks", "2", "--procs", "4"],
+     "the model axis over processes runs the decoder families"),
     (["--merge-group-size", "3", "--procs", "4"],
      "--merge-group-size 3 does not divide the data axis (4 devices)"),
     (["--batch", "6", "--procs", "4"],
@@ -521,8 +529,9 @@ def test_parse_refusals(extra, msg, capsys):
      "which --microbatches 4 does not divide"),
     (["--merge-group-size", "2"],
      "--merge-group-size 2 does not divide the data axis (1 devices)"),
-], ids=["model-ranks", "group-size", "batch", "topology", "microbatches",
-        "group-size-stacked"])
+], ids=["model-ranks", "model-ranks-merge", "model-ranks-experts",
+        "model-ranks-dense", "model-ranks-family", "group-size", "batch", "topology",
+        "microbatches", "group-size-stacked"])
 def test_flag_refusals(extra, msg):
     from repro_torch.launch import train
     with pytest.raises(SystemExit) as e:
